@@ -1,0 +1,109 @@
+"""horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu.
+
+A second package beside the JAX one, with the same user-facing contract on
+an NVIDIA GPU: Horovod's five-line recipe ::
+
+    import horovod_tpu_torch as hvd
+
+    hvd.init()                                     # one process per GPU
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters(), 3e-4))
+    step = hvd.DistributedTrainStep(loss_fn, opt)
+    model, opt = step.init(model)                  # broadcast from rank 0
+    model, opt, loss = step(model, opt, step.shard_batch(batch))
+    hvd.checkpoint.Checkpointer(path).save(n, {"model": model.state_dict()})
+
+The port imports torch, numpy and the standard library only, never JAX or
+``horovod_tpu``.  Its kernels are CUDA C++ for Hopper (``ops/csrc``),
+built on first use; on CPU tensors each kernel's plain PyTorch version
+runs instead.
+"""
+
+from __future__ import annotations
+
+from horovod_tpu_torch import checkpoint  # noqa: F401
+from horovod_tpu_torch.exceptions import (  # noqa: F401
+    HorovodInternalError,
+    HostsUpdatedInterrupt,
+)
+from horovod_tpu_torch.functions import (  # noqa: F401
+    broadcast_object,
+    broadcast_optimizer_state,
+    broadcast_parameters,
+    broadcast_variables,
+)
+from horovod_tpu_torch.ops import (  # noqa: F401
+    Adasum,
+    Average,
+    Compression,
+    ReduceOp,
+    Sum,
+    allgather,
+    allreduce,
+    barrier,
+    broadcast,
+    grouped_allreduce,
+)
+from horovod_tpu_torch.optim import (  # noqa: F401
+    DistributedOptimizer,
+    DistributedTrainStep,
+)
+from horovod_tpu_torch.runtime import state as _state
+
+__version__ = "0.1.0"
+
+
+def init(device=None, config=None):
+    """Initialize the runtime (reference ``HorovodBasics.init``).  Runs on
+    the card (``cuda:<local_rank>``, NCCL); raises when CUDA is absent
+    unless ``device="cpu"`` (gloo), as the tests pass."""
+    _state.init(device=device, config=config)
+    return True
+
+
+def shutdown():
+    _state.shutdown()
+
+
+def is_initialized() -> bool:
+    return _state.is_initialized()
+
+
+def rank() -> int:
+    return _state.global_state().rank
+
+
+def size() -> int:
+    return _state.global_state().size
+
+
+def local_rank() -> int:
+    return _state.global_state().local_rank
+
+
+def local_size() -> int:
+    return _state.global_state().local_size
+
+
+def cross_rank() -> int:
+    return _state.global_state().cross_rank
+
+
+def cross_size() -> int:
+    return _state.global_state().cross_size
+
+
+def device():
+    """The ``torch.device`` this process runs on."""
+    return _state.global_state().device
+
+
+__all__ = [
+    "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
+    "local_size", "cross_rank", "cross_size", "device",
+    "allreduce", "grouped_allreduce", "allgather", "broadcast", "barrier",
+    "Average", "Sum", "Adasum", "ReduceOp", "Compression",
+    "HorovodInternalError", "HostsUpdatedInterrupt",
+    "broadcast_variables", "broadcast_parameters", "broadcast_object",
+    "broadcast_optimizer_state",
+    "DistributedOptimizer", "DistributedTrainStep", "checkpoint",
+]

@@ -1,0 +1,528 @@
+// Flash attention for Hopper: forward, dQ and dK/dV, in FlashAttention-2's
+// split, deterministic (no atomics).
+//
+// Replaces, in horovod_tpu/ops/pallas_kernels.py:
+//   hvd_flash_fwd     <- _flash_fwd / _flash_fwd_kernel
+//   hvd_flash_bwd_dq  <- _flash_bwd / _flash_bwd_dq_kernel
+//   hvd_flash_bwd_dkv <- _flash_bwd / _flash_bwd_dkv_kernel
+// with the same arithmetic: scores in fp32 from bf16 products, the finite
+// sentinel NEG_INF = -0.7 * FLT_MAX for masked scores, masked probabilities
+// forced to 0, l clamped at 1e-30, and the per-row fp32 logsumexp
+// lse = m + log(l) as the forward's residual.  The causal limits are the
+// Pallas kernels' own: the forward and dQ stop at the block that holds the
+// diagonal (ceil-divide), dK/dV starts at the first Q block that reaches it.
+//
+// Layout: q, k, v, o, dO, dq, dk, dv are contiguous (b, t, h, d) bf16, the
+// JAX package's layout, read in place (row stride h*d) with no transpose.
+// lse and delta are (b*h, t) fp32.  Rows and keys at or past t are masked, so
+// any t works; the caller keeps fit_flash_block's dispatch rule.
+//
+// Bound: at the model's shapes (b6 h16 t1024 d128, causal) the forward does
+// 25.8 GFLOP on 101 MB, close to the H100's ridge point; the backward does
+// 3.5x the products on about the same bytes, so it is bound by operations.
+// Design (simple first): one block of 4 warps per (b*h, 64-row tile); each
+// warp owns 16 rows.  Tiles of 64 rows stream through shared memory (rows
+// padded by 8 bf16 against bank conflicts); products run on the tensor cores
+// through mma.sync m16n8k16 bf16 with fp32 accumulators in registers, and the
+// online softmax runs on the accumulator fragments.  The dK/dV kernel walks
+// each 64-row Q tile in two 32-column halves to keep its two D-wide
+// accumulators in registers.  No TMA, wgmma or software pipelining yet.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int THREADS = 128;
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment of the 16x16 block at p (row-major, leading dimension ld)
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* p, int ld, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  a[0] = ld_u32(p + g * ld + t4 * 2);
+  a[1] = ld_u32(p + (g + 8) * ld + t4 * 2);
+  a[2] = ld_u32(p + g * ld + t4 * 2 + 8);
+  a[3] = ld_u32(p + (g + 8) * ld + t4 * 2 + 8);
+}
+
+// B fragment with B[k][n] = M[n][k]: M row-major, 8 rows (n) x 16 columns (k)
+__device__ __forceinline__ void load_b_nk(uint32_t b[2], const bf16* p, int ld, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  b[0] = ld_u32(p + g * ld + t4 * 2);
+  b[1] = ld_u32(p + g * ld + t4 * 2 + 8);
+}
+
+// B fragment with B[k][n] = M[k][n]: M row-major, 16 rows (k) x 8 columns (n)
+__device__ __forceinline__ void load_b_kn(uint32_t b[2], const bf16* p, int ld, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  b[0] = pack_bf16(p[(t4 * 2) * ld + g], p[(t4 * 2 + 1) * ld + g]);
+  b[1] = pack_bf16(p[(t4 * 2 + 8) * ld + g], p[(t4 * 2 + 9) * ld + g]);
+}
+
+// A fragment (16x16) from two 16x8 fp32 accumulator tiles, rounded to bf16
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4], const float c1[4]) {
+  a[0] = pack_f32(c0[0], c0[1]);
+  a[1] = pack_f32(c0[2], c0[3]);
+  a[2] = pack_f32(c1[0], c1[1]);
+  a[3] = pack_f32(c1[2], c1[3]);
+}
+
+// ROWS x D tile of rows [row0, row0 + ROWS) from a (t, row stride rs) matrix
+// into shared memory with leading dimension D + 8; rows >= t become zeros.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, size_t rs, int row0, int t,
+                                          int tid) {
+  constexpr int LD = D + 8;
+  constexpr int CHUNKS = D / 8;
+  for (int i = tid; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row0 + r < t) val = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * rs + c);
+    *reinterpret_cast<uint4*>(s + r * LD + c) = val;
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffff, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffff, x, 1);
+  return x + __shfl_xor_sync(0xffffffff, x, 2);
+}
+
+__device__ __forceinline__ bool visible(int row, int col, int t, int causal) {
+  return row < t && col < t && (!causal || row >= col);
+}
+
+// Number of K blocks a Q tile reads: all of them, or under the causal mask
+// up to the block holding the tile's last diagonal entry.
+__device__ __forceinline__ int live_k_blocks(int q0, int t, int causal) {
+  int n = (t + BK - 1) / BK;
+  if (causal) n = min(n, max((q0 + BQ + BK - 1) / BK, 1));
+  return n;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int t, int h, float scale, int causal) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + BQ * LD;
+  bf16* sV = sK + BK * LD;
+
+  const int bh = blockIdx.x, b = bh / h, hh = bh % h;
+  const int q0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t rs = (size_t)h * D;
+  const size_t off = ((size_t)b * t * h + hh) * D;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
+  load_tile<BQ, D>(sQ, q + off, rs, q0, t, tid);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  const int num_k = live_k_blocks(q0, t, causal);
+  for (int kb = 0; kb < num_k; ++kb) {
+    __syncthreads();
+    load_tile<BK, D>(sK, k + off, rs, kb * BK, t, tid);
+    load_tile<BK, D>(sV, v + off, rs, kb * BK, t, tid);
+    __syncthreads();
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      load_a(a, sQ + warp * 16 * LD + kk * 16, LD, lane);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        uint32_t bb[2];
+        load_b_nk(bb, sK + j * 8 * LD + kk * 16, LD, lane);
+        mma16816(s[j], a, bb);
+      }
+    }
+
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = kb * BK + j * 8 + t4 * 2 + (e & 1);
+        const float x = visible(rows[e >> 1], col, t, causal) ? s[j][e] * scale : NEG_INF;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = kb * BK + j * 8 + t4 * 2 + (e & 1);
+        const float p = visible(rows[e >> 1], col, t, causal) ? expf(s[j][e] - m[e >> 1]) : 0.f;
+        s[j][e] = p;
+        ls[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(ls[i]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+    // O += P V, P rounded to bf16 as the Pallas kernel rounds it to v's type
+#pragma unroll
+    for (int js = 0; js < BK / 16; ++js) {
+      uint32_t a[4];
+      acc_to_a(a, s[2 * js], s[2 * js + 1]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t bb[2];
+        load_b_kn(bb, sV + js * 16 * LD + n * 8, LD, lane);
+        mma16816(acc[n], a, bb);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= t) continue;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / l_safe;
+    bf16* orow = o + off + (size_t)rows[i] * rs;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + t4 * 2) =
+          pack_f32(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    if (t4 == 0) lse[(size_t)bh * t + rows[i]] = m[i] + logf(l_safe);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int t, int h, float scale, int causal) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + BQ * LD;
+  bf16* sK = sdO + BQ * LD;
+  bf16* sV = sK + BK * LD;
+
+  const int bh = blockIdx.x, b = bh / h, hh = bh % h;
+  const int q0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t rs = (size_t)h * D;
+  const size_t off = ((size_t)b * t * h + hh) * D;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row_lse[i] = rows[i] < t ? lse[(size_t)bh * t + rows[i]] : 0.f;
+    row_delta[i] = rows[i] < t ? delta[(size_t)bh * t + rows[i]] : 0.f;
+  }
+
+  load_tile<BQ, D>(sQ, q + off, rs, q0, t, tid);
+  load_tile<BQ, D>(sdO, dout + off, rs, q0, t, tid);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int num_k = live_k_blocks(q0, t, causal);
+  for (int kb = 0; kb < num_k; ++kb) {
+    __syncthreads();
+    load_tile<BK, D>(sK, k + off, rs, kb * BK, t, tid);
+    load_tile<BK, D>(sV, v + off, rs, kb * BK, t, tid);
+    __syncthreads();
+
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4], ad[4];
+      load_a(a, sQ + warp * 16 * LD + kk * 16, LD, lane);
+      load_a(ad, sdO + warp * 16 * LD + kk * 16, LD, lane);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        uint32_t bb[2];
+        load_b_nk(bb, sK + j * 8 * LD + kk * 16, LD, lane);
+        mma16816(s[j], a, bb);
+        load_b_nk(bb, sV + j * 8 * LD + kk * 16, LD, lane);
+        mma16816(dp[j], ad, bb);
+      }
+    }
+    // dS = P o (dP - delta), P = exp(s - lse) rebuilt from the forward's lse
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int col = kb * BK + j * 8 + t4 * 2 + (e & 1);
+        const float p = visible(rows[i], col, t, causal) ? expf(s[j][e] * scale - row_lse[i]) : 0.f;
+        s[j][e] = p * (dp[j][e] - row_delta[i]);
+      }
+    // dQ += dS K
+#pragma unroll
+    for (int js = 0; js < BK / 16; ++js) {
+      uint32_t a[4];
+      acc_to_a(a, s[2 * js], s[2 * js + 1]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t bb[2];
+        load_b_kn(bb, sK + js * 16 * LD + n * 8, LD, lane);
+        mma16816(acc[n], a, bb);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= t) continue;
+    bf16* row = dq + off + (size_t)rows[i] * rs;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(row + n * 8 + t4 * 2) =
+          pack_f32(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int h, float scale,
+                     int causal) {
+  constexpr int LD = D + 8;
+  constexpr int HALF = BQ / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + BK * LD;
+  bf16* sQ = sV + BK * LD;
+  bf16* sdO = sQ + BQ * LD;
+  float* sL = reinterpret_cast<float*>(sdO + BQ * LD);
+  float* sD = sL + BQ;
+
+  const int bh = blockIdx.x, b = bh / h, hh = bh % h;
+  const int k0 = blockIdx.y * BK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t rs = (size_t)h * D;
+  const size_t off = ((size_t)b * t * h + hh) * D;
+  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+
+  load_tile<BK, D>(sK, k + off, rs, k0, t, tid);
+  load_tile<BK, D>(sV, v + off, rs, k0, t, tid);
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  const int num_q = (t + BQ - 1) / BQ;
+  const int start = causal ? k0 / BQ : 0;
+  for (int qb = start; qb < num_q; ++qb) {
+    const int q0 = qb * BQ;
+    __syncthreads();
+    load_tile<BQ, D>(sQ, q + off, rs, q0, t, tid);
+    load_tile<BQ, D>(sdO, dout + off, rs, q0, t, tid);
+    if (tid < BQ) {
+      const bool ok = q0 + tid < t;
+      sL[tid] = ok ? lse[(size_t)bh * t + q0 + tid] : 0.f;
+      sD[tid] = ok ? delta[(size_t)bh * t + q0 + tid] : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 32 queries
+      float p[HALF / 8][4], dp[HALF / 8][4];
+#pragma unroll
+      for (int j = 0; j < HALF / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        load_a(ak, sK + warp * 16 * LD + kk * 16, LD, lane);
+        load_a(av, sV + warp * 16 * LD + kk * 16, LD, lane);
+#pragma unroll
+        for (int j = 0; j < HALF / 8; ++j) {
+          uint32_t bb[2];
+          load_b_nk(bb, sQ + (c * HALF + j * 8) * LD + kk * 16, LD, lane);
+          mma16816(p[j], ak, bb);
+          load_b_nk(bb, sdO + (c * HALF + j * 8) * LD + kk * 16, LD, lane);
+          mma16816(dp[j], av, bb);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < HALF / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = c * HALF + j * 8 + t4 * 2 + (e & 1);
+          const bool ok = visible(q0 + ql, keys[e >> 1], t, causal);
+          const float pe = ok ? expf(p[j][e] * scale - sL[ql]) : 0.f;
+          p[j][e] = pe;
+          dp[j][e] = pe * (dp[j][e] - sD[ql]);
+        }
+      // dV += P^T dO and dK += dS^T Q over these 32 queries
+#pragma unroll
+      for (int js = 0; js < HALF / 16; ++js) {
+        uint32_t ap[4], as[4];
+        acc_to_a(ap, p[2 * js], p[2 * js + 1]);
+        acc_to_a(as, dp[2 * js], dp[2 * js + 1]);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          uint32_t bb[2];
+          load_b_kn(bb, sdO + (c * HALF + js * 16) * LD + n * 8, LD, lane);
+          mma16816(acc_v[n], ap, bb);
+          load_b_kn(bb, sQ + (c * HALF + js * 16) * LD + n * 8, LD, lane);
+          mma16816(acc_k[n], as, bb);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (keys[i] >= t) continue;
+    bf16* krow = dk + off + (size_t)keys[i] * rs;
+    bf16* vrow = dv + off + (size_t)keys[i] * rs;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(krow + n * 8 + t4 * 2) =
+          pack_f32(acc_k[n][2 * i] * scale, acc_k[n][2 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(vrow + n * 8 + t4 * 2) =
+          pack_f32(acc_v[n][2 * i], acc_v[n][2 * i + 1]);
+    }
+  }
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+template <int D>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b, int t, int h,
+        float scale, int causal, cudaStream_t s) {
+  const size_t smem = (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(bf16);
+  int rc = prepare(flash_fwd_kernel<D>, smem);
+  if (rc) return rc;
+  dim3 grid(b * h, (t + BQ - 1) / BQ);
+  flash_fwd_kernel<D><<<grid, THREADS, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, t, h, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq, int b, int t, int h, float scale, int causal,
+           cudaStream_t s) {
+  const size_t smem = (size_t)(2 * BQ + 2 * BK) * (D + 8) * sizeof(bf16);
+  int rc = prepare(flash_bwd_dq_kernel<D>, smem);
+  if (rc) return rc;
+  dim3 grid(b * h, (t + BQ - 1) / BQ);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dq, t, h, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, void* dk, void* dv, int b, int t, int h, float scale, int causal,
+            cudaStream_t s) {
+  const size_t smem = (size_t)(2 * BQ + 2 * BK) * (D + 8) * sizeof(bf16) + 2 * BQ * sizeof(float);
+  int rc = prepare(flash_bwd_dkv_kernel<D>, smem);
+  if (rc) return rc;
+  dim3 grid(b * h, (t + BK - 1) / BK);
+  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dk, (bf16*)dv, t, h, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Each entry returns cudaGetLastError() after its launch (0 on success), or
+// -1 for a head_dim other than 64 or 128.
+extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int b, int t, int h, int d, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) return fwd<64>(q, k, v, o, lse, b, t, h, scale, causal, s);
+  if (d == 128) return fwd<128>(q, k, v, o, lse, b, t, h, scale, causal, s);
+  return -1;
+}
+
+extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                const void* lse, const void* delta, void* dq, int b, int t, int h,
+                                int d, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) return bwd_dq<64>(q, k, v, dout, lse, delta, dq, b, t, h, scale, causal, s);
+  if (d == 128) return bwd_dq<128>(q, k, v, dout, lse, delta, dq, b, t, h, scale, causal, s);
+  return -1;
+}
+
+extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dk, void* dv, int b,
+                                 int t, int h, int d, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) return bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, b, t, h, scale, causal, s);
+  if (d == 128)
+    return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, t, h, scale, causal, s);
+  return -1;
+}

@@ -1,0 +1,336 @@
+"""The port's hand-written Hopper kernels, their wrappers and plain versions.
+
+Counterpart of ``horovod_tpu/ops/pallas_kernels.py``.  Each kernel has:
+
+* a wrapper that launches the CUDA kernel (``csrc/*.cu``, built on first
+  use by :mod:`.build`) for a CUDA tensor and counts its launches in a
+  plain integer attribute, ``<wrapper>.launches``;
+* a plain PyTorch version with the Pallas kernel's exact semantics, which
+  the wrapper takes only for a tensor on the CPU.  For any other device
+  the wrapper launches the kernel or raises; nothing falls back.
+
+Kernels (TPU source → CUDA source):
+
+* :func:`fused_scale` (``pallas_kernels.fused_scale``) →
+  ``csrc/fused_scale.cu``: the exchange's pre/postscale and wire cast.
+* :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`
+  (``pallas_kernels._flash_fwd`` / ``_flash_bwd``) →
+  ``csrc/flash_attention.cu``, glued by :func:`flash_attention`'s
+  ``torch.autograd.Function``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+#: the Pallas kernels' finite masking sentinel (pallas_kernels.py _NEG_INF)
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+#: head_dims the CUDA flash kernels are instantiated for
+FLASH_HEAD_DIMS = (64, 128)
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _cuda_library(x: torch.Tensor):
+    """(library, stream handle) for a launch on ``x``'s device."""
+    if not x.is_cuda:
+        raise ValueError(
+            f"the CUDA kernels take CUDA tensors, got one on {x.device}")
+    from horovod_tpu_torch.ops.build import load_library
+
+    return load_library(), torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x
+
+
+# ---------------------------------------------------------------------------
+# fused scale (+ cast)
+# ---------------------------------------------------------------------------
+
+def fused_scale_plain(x: torch.Tensor, factor: float,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """``(x.f32 * factor).astype(out_dtype)`` — ``_scale_kernel``."""
+    return (x.float() * factor).to(out_dtype)
+
+
+def fused_scale(x: torch.Tensor, factor: float,
+                out_dtype: Optional[torch.dtype] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x * factor`` in fp32, cast to ``out_dtype``, in one pass over any
+    shape (no padding).  ``out`` (contiguous, ``x``'s shape, ``out_dtype``)
+    receives the result; it may be ``x`` itself when the dtype is
+    unchanged, which the exchange uses to scale a bucket in place."""
+    out_dtype = out_dtype or x.dtype
+    if out is not None and (out.dtype != out_dtype or out.shape != x.shape
+                            or not out.is_contiguous()):
+        raise ValueError("out must be contiguous with x's shape and "
+                         "out_dtype")
+    if x.device.type == "cpu":
+        y = fused_scale_plain(x, factor, out_dtype)
+        return y if out is None else out.copy_(y)
+    if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_scale supports {list(_DTYPE_CODES)}, got "
+                        f"{x.dtype} -> {out_dtype}")
+    lib, stream = _cuda_library(x)
+    # the kernel takes 16-byte aligned pointers; a misaligned out is
+    # written through an aligned temporary
+    dst = out if out is not None and out.data_ptr() % 16 == 0 else \
+        torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    src = x if x is dst else _aligned(x)
+    if src.numel():
+        _check(lib.hvd_fused_scale(src.data_ptr(), dst.data_ptr(),
+                                   src.numel(), float(factor),
+                                   _DTYPE_CODES[src.dtype],
+                                   _DTYPE_CODES[out_dtype], stream),
+               "fused_scale")
+        fused_scale.launches += 1
+    if out is None or out is dst:
+        return dst
+    return out.copy_(dst)
+
+
+fused_scale.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash attention: plain versions
+# ---------------------------------------------------------------------------
+
+def _visible(t: int, causal: bool, device) -> Optional[torch.Tensor]:
+    if not causal:
+        return None
+    pos = torch.arange(t, device=device)
+    return pos[:, None] >= pos[None, :]
+
+
+def _scores(q, k, scale, mask):
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return s if mask is None else s.masked_fill(~mask, NEG_INF)
+
+
+def flash_fwd_plain(q, k, v, causal: bool, scale: float):
+    """Forward of ``_flash_fwd_kernel``: O in q's dtype and the per-row
+    fp32 logsumexp as ``(b*h, t)``.  Probabilities are rounded to v's
+    dtype for the PV product, as the kernel does for the MXU."""
+    b, t, h, d = q.shape
+    mask = _visible(t, causal, q.device)
+    s = _scores(q, k, scale, mask)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    l_safe = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    o = o / l_safe.permute(0, 2, 1, 3)
+    lse = (m + torch.log(l_safe)).reshape(b * h, t)
+    return o.to(q.dtype), lse
+
+
+def _bwd_parts(q, k, v, do, lse, delta, causal, scale):
+    b, t, h, d = q.shape
+    mask = _visible(t, causal, q.device)
+    p = torch.exp(_scores(q, k, scale, mask) - lse.reshape(b, h, t, 1))
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta.reshape(b, h, t, 1))).to(k.dtype)
+    return p, ds
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """dQ of ``_flash_bwd_dq_kernel``: dS = P∘(dP − delta) in k's dtype,
+    dQ = dS·K·scale."""
+    _, ds = _bwd_parts(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.float(), k.float()) * scale
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
+                        scale: float):
+    """dK/dV of ``_flash_bwd_dkv_kernel``: dV = Pᵀ·dO, dK = dSᵀ·Q·scale."""
+    p, ds = _bwd_parts(q, k, v, do, lse, delta, causal, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.float(), q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO ∘ O) as ``(b*h, t)`` fp32 — a plain elementwise
+    pass in the JAX package too (``_flash_bwd``), not a Pallas call."""
+    b, t, h, _ = out.shape
+    delta = (do.float() * out.float()).sum(-1)          # (b, t, h)
+    return delta.transpose(1, 2).reshape(b * h, t).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# flash attention: kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(*xs: torch.Tensor):
+    """Validate bf16 (b, t, h, d) inputs of one shape for the CUDA kernels
+    and return them contiguous and 16-byte aligned."""
+    shape = xs[0].shape
+    for x in xs:
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"the flash kernels take bfloat16, got {x.dtype}")
+        if x.dim() != 4 or x.shape != shape or x.device != xs[0].device:
+            raise ValueError("flash inputs must share one (b, t, h, d) shape "
+                             "and device")
+    if shape[-1] not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the flash kernels support head_dim "
+                         f"{FLASH_HEAD_DIMS}, got {shape[-1]}")
+    return [_aligned(x) for x in xs]
+
+
+def _rows(x: torch.Tensor, b: int, h: int, t: int) -> torch.Tensor:
+    if x.shape != (b * h, t) or x.dtype != torch.float32:
+        raise ValueError(f"expected fp32 ({b * h}, {t}), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    return _aligned(x)
+
+
+def flash_fwd(q, k, v, causal: bool, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """O and lse ``(b*h, t)`` of causal or full attention over
+    ``(b, t, h, d)`` inputs (``_flash_fwd``)."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal, scale)
+    q, k, v = _flash_inputs(q, k, v)
+    lib, stream = _cuda_library(q)
+    b, t, h, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    _check(lib.hvd_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), lse.data_ptr(), b, t, h, d,
+                             float(scale), int(causal), stream), "flash_fwd")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """dQ from the forward's lse and delta (``_flash_bwd_dq_kernel``)."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    q, k, v, do = _flash_inputs(q, k, v, do)
+    b, t, h, d = q.shape
+    lse, delta = _rows(lse, b, h, t), _rows(delta, b, h, t)
+    lib, stream = _cuda_library(q)
+    dq = torch.empty_like(q)
+    _check(lib.hvd_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                do.data_ptr(), lse.data_ptr(),
+                                delta.data_ptr(), dq.data_ptr(), b, t, h, d,
+                                float(scale), int(causal), stream),
+           "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """dK and dV from the forward's lse and delta
+    (``_flash_bwd_dkv_kernel``)."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    q, k, v, do = _flash_inputs(q, k, v, do)
+    b, t, h, d = q.shape
+    lse, delta = _rows(lse, b, h, t), _rows(delta, b, h, t)
+    lib, stream = _cuda_library(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _check(lib.hvd_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 do.data_ptr(), lse.data_ptr(),
+                                 delta.data_ptr(), dk.data_ptr(),
+                                 dv.data_ptr(), b, t, h, d, float(scale),
+                                 int(causal), stream), "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+#: every kernel wrapper, by the name chip_smoke.py and PERF.md use
+WRAPPERS = {"fused_scale": fused_scale, "flash_fwd": flash_fwd,
+            "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+# ---------------------------------------------------------------------------
+# flash attention: dispatch and autograd
+# ---------------------------------------------------------------------------
+
+def fit_flash_block(t: int, requested: int) -> Optional[int]:
+    """Largest flash block ≤ ``requested`` that divides ``t``; sequences
+    shorter than one tile run as one block; other non-128-multiples return
+    ``None`` (the caller computes reference attention).  A copy of
+    ``pallas_kernels.fit_flash_block``: the port keeps its dispatch rule,
+    while the CUDA kernels tile by 64 rows and mask the ragged edge."""
+    if t <= 128:
+        b = min(requested, t)
+        if t % b == 0:
+            return b
+        return t if t % 8 == 0 else None
+    for cand in (requested, 512, 256, 128):
+        if cand <= t and t % cand == 0:
+            return cand
+    return None
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward saves O and lse; backward runs the dQ and dK/dV kernels
+    (``flash_attention``'s ``custom_vjp`` in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = flash_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = flash_delta(out, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
+                               ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, scale: Optional[float] = None,
+                    block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """Blocked attention over ``(batch, seq, heads, head_dim)`` inputs,
+    differentiable through the FlashAttention-2 backward kernels.  A
+    sequence that :func:`fit_flash_block` cannot tile computes
+    :func:`~horovod_tpu_torch.parallel.ring_attention.reference_attention`,
+    as the JAX package does; ``block_q``/``block_k`` only decide that."""
+    t, d = q.shape[1], q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    if fit_flash_block(t, block_q) is None or \
+            fit_flash_block(t, block_k) is None:
+        from horovod_tpu_torch.parallel.ring_attention import \
+            reference_attention
+
+        return reference_attention(q, k, v, causal=causal, scale=scale)
+    return _FlashAttention.apply(q, k, v, causal, scale)

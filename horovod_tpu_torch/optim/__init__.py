@@ -1,0 +1,7 @@
+"""Optimizer layer of the PyTorch port."""
+
+from horovod_tpu_torch.optim.optimizer import (  # noqa: F401
+    DistributedOptimizer,
+    distributed_gradients,
+)
+from horovod_tpu_torch.optim.train_step import DistributedTrainStep  # noqa: F401

@@ -1,0 +1,79 @@
+"""Runtime configuration from the ``HOROVOD_*`` environment contract.
+
+The part of ``horovod_tpu/runtime/config.py`` the PyTorch port reads: the
+launcher's identity knobs, the coordinator address and the fusion
+threshold, under the same ``HOROVOD_*`` names and with the same defaults,
+so one environment drives both packages.  A knob joins ``KNOWN_KNOBS``
+and ``Config`` in the slice that ports the subsystem reading it.  The JAX
+package's jsrun/PMIx identity fallback is not copied: the port's launcher
+contract is the ``HOROVOD_*`` variables alone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+
+# The HOROVOD_* variables the port reads (reference knob table
+# common.h:64-90); every other one the JAX package knows is ignored here.
+KNOWN_KNOBS = frozenset({
+    # -- process identity (set by the launcher)
+    "HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+    "HOROVOD_LOCAL_SIZE", "HOROVOD_CROSS_RANK", "HOROVOD_CROSS_SIZE",
+    "HOROVOD_COORDINATOR_ADDR",
+    # -- fusion
+    "HOROVOD_FUSION_THRESHOLD",
+})
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer, got {v!r}")
+
+
+@dataclasses.dataclass
+class Config:
+    """The port's runtime knobs, resolved once at ``init()`` time.
+
+    Mirrors the env contract in the reference (``common.h:64-90``,
+    ``gloo_context.cc:47-55``).
+    """
+
+    # -- process identity (set by the launcher; reference gloo_context.cc:47-55)
+    rank: Optional[int] = None
+    size: Optional[int] = None
+    local_rank: Optional[int] = None
+    local_size: Optional[int] = None
+    cross_rank: Optional[int] = None
+    cross_size: Optional[int] = None
+
+    # -- rendezvous of the torch.distributed process group (host:port)
+    coordinator_addr: Optional[str] = None
+
+    # -- fusion / bucketing (reference: 64 MiB default, operations.cc:432)
+    fusion_threshold_bytes: int = 64 * 1024 * 1024
+
+    @staticmethod
+    def from_env() -> "Config":
+        def opt_int(name: str) -> Optional[int]:
+            v = os.environ.get(name)
+            return int(v) if v not in (None, "") else None
+
+        return Config(
+            rank=opt_int("HOROVOD_RANK"),
+            size=opt_int("HOROVOD_SIZE"),
+            local_rank=opt_int("HOROVOD_LOCAL_RANK"),
+            local_size=opt_int("HOROVOD_LOCAL_SIZE"),
+            cross_rank=opt_int("HOROVOD_CROSS_RANK"),
+            cross_size=opt_int("HOROVOD_CROSS_SIZE"),
+            coordinator_addr=os.environ.get("HOROVOD_COORDINATOR_ADDR"),
+            fusion_threshold_bytes=_env_int(
+                "HOROVOD_FUSION_THRESHOLD", 64 * 1024 * 1024),
+        )

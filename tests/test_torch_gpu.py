@@ -1,0 +1,150 @@
+"""Each CUDA kernel of horovod_tpu_torch against its plain PyTorch version,
+on the card.  Marked ``gpu``; without CUDA every test skips.  Run on a GPU
+machine with::
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+With two or more cards, ``TestNcclWorld`` also runs the exchange and the
+training step over NCCL, one process per card.  Imports torch, numpy and
+the port only.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import kernels as K
+
+from torch_port_workers import EXCHANGE_CASES, check_exchange, \
+    exchange_inputs, spawn_world
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run `python -m pytest -m gpu "
+                    "tests/test_torch_gpu.py` on the GPU machine")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+class TestOnCard:
+    @pytest.mark.parametrize("n", [1, 7, 1000, 1 << 20, (1 << 20) + 3])
+    @pytest.mark.parametrize("dtypes", [
+        (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+        (torch.float32, torch.float16), (torch.bfloat16, torch.float32),
+        (torch.float16, torch.float16)])
+    def test_fused_scale(self, cuda, n, dtypes):
+        src, dst = dtypes
+        x = torch.randn(n, device=cuda).to(src)
+        before = K.fused_scale.launches
+        got = K.fused_scale(x, 0.37, dst)
+        assert K.fused_scale.launches == before + 1
+        want = K.fused_scale_plain(x, 0.37, dst)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("n", [7, 1000, (1 << 20) + 3])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+    def test_fused_scale_in_place(self, cuda, n, dtype):
+        """The exchange scales each bucket in place (out=x)."""
+        x = torch.randn(n, device=cuda).to(dtype)
+        want = K.fused_scale_plain(x, 0.37, dtype)
+        got = K.fused_scale(x, 0.37, out=x)
+        assert got.data_ptr() == x.data_ptr()
+        torch.testing.assert_close(x, want, rtol=0, atol=0)
+
+    def test_fused_scale_misaligned(self, cuda):
+        """Views 4 bytes past a 16-byte boundary go through aligned
+        copies; in place the result still lands in the view."""
+        base = torch.randn(1001, device=cuda)
+        want = K.fused_scale_plain(base[1:], 0.37, torch.float32)
+        torch.testing.assert_close(K.fused_scale(base[1:], 0.37), want,
+                                   rtol=0, atol=0)
+        view = base[1:]
+        K.fused_scale(view, 0.37, out=view)
+        torch.testing.assert_close(view, want, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("shape,causal", [
+        ((2, 128, 2, 64), True), ((2, 128, 2, 128), False),
+        ((1, 200, 3, 128), True), ((1, 24, 2, 64), True),
+        ((6, 1024, 16, 128), True)])
+    def test_flash(self, cuda, shape, causal):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = shape[-1] ** -0.5
+        o, lse = K.flash_fwd(q, k, v, causal, scale)
+        o_ref, lse_ref = K.flash_fwd_plain(q, k, v, causal, scale)
+        delta = K.flash_delta(o_ref, do)
+        dq = K.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale)
+        dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, scale)
+        refs = (o_ref, lse_ref,
+                K.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal,
+                                     scale),
+                *K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal,
+                                       scale))
+        # bf16 outputs: one rounding (up to one ulp, 2^-7 relative), fp32
+        # sums in another order, and bf16 P and dS that may round one ulp
+        # apart.  Each output is held normwise (1e-2) and elementwise to
+        # 2e-2 of its own size plus 1e-1 of its rms, so small entries are
+        # not judged against the largest one; lse (fp32, log domain) to
+        # 1e-3 absolute.  As chip_smoke.py's flash check.
+        for name, got, want in zip(("O", "lse", "dQ", "dK", "dV"),
+                                   (o, lse, dq, dk, dv), refs):
+            diff = (got.float() - want.float()).abs()
+            w = want.float()
+            if name == "lse":
+                assert float(diff.max()) <= 1e-3, name
+                continue
+            assert float(diff.norm() / w.norm()) <= 1e-2, name
+            rms = w.pow(2).mean().sqrt()
+            assert bool((diff <= 2e-2 * w.abs() + 1e-1 * rms).all()), name
+
+    def test_flash_rejects_other_head_dims(self, cuda):
+        q = torch.zeros(1, 64, 1, 96, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            K.flash_fwd(q, q, q, True, 0.1)
+
+
+@pytest.fixture
+def cards():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    return 4 if n >= 4 else 2
+
+
+@pytest.mark.gpu
+class TestNcclWorld:
+    def test_exchange(self, cards):
+        """grouped_allreduce (scale passes on the card), allgather,
+        broadcast and the broadcasts over NCCL, against the numpy oracle
+        the gloo tests use."""
+        outs = spawn_world("run_exchange", world=cards, device="cuda")
+        for out in outs:
+            for i, case in enumerate(EXCHANGE_CASES):
+                check_exchange(out[i], case, world=cards)
+            np.testing.assert_array_equal(
+                out["allgather"],
+                np.concatenate([exchange_inputs(r)[0]
+                                for r in range(cards)]))
+            np.testing.assert_array_equal(out["broadcast"],
+                                          exchange_inputs(1)[1])
+            np.testing.assert_array_equal(out["broadcast_variables"][0],
+                                          exchange_inputs(0)[0])
+            assert out["broadcast_object"] == {"rank": 1}
+
+    def test_train_ranks_stay_identical(self, cards):
+        """Different initial draws per rank: init broadcasts rank 0's, and
+        after three bf16 flash steps every rank holds the same bits and
+        the loss fell."""
+        outs = spawn_world("run_train", world=cards, args=(3, 0, True),
+                           device="cuda", timeout=300)
+        losses0, params0 = outs[0]
+        assert losses0[-1] < losses0[0]
+        for losses, params in outs[1:]:
+            assert losses == losses0
+            for k in params0:
+                np.testing.assert_array_equal(params[k], params0[k],
+                                              err_msg=k)

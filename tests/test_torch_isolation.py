@@ -1,0 +1,178 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, it refuses to start without CUDA unless asked for the CPU, and a
+kernel wrapper given a non-CPU tensor launches its kernel and never its
+plain version."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import kernels as K
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "horovod_tpu_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_in_source(path):
+    """Every import statement, top-level or inside a function."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_no_forbidden_module_loaded():
+    """A fresh interpreter that imports the port, every module of it, and
+    chip_smoke's imports has no JAX or horovod_tpu module loaded."""
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in (ROOT / "horovod_tpu_torch").rglob("*.py"))
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "import torch.nn.functional\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        f"    if m.split('.')[0] in {FORBIDDEN!r})))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_init_without_cuda_raises(monkeypatch):
+    import horovod_tpu_torch as hvd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hvd.init()
+    assert not hvd.is_initialized()
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """No card: exit non-zero and print no result line."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """Copied into a directory without the package, the script fails."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+class _FakeLib:
+    """Records each C entry called, returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            return 0
+        return entry
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Non-CPU (meta) tensors reach the launch path with a recording
+    library; every plain version raises if it is reached."""
+    lib = _FakeLib()
+    monkeypatch.setattr(K, "_cuda_library", lambda x: (lib, 0))
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran for a device tensor")
+
+    for name in ("fused_scale_plain", "flash_fwd_plain",
+                 "flash_bwd_dq_plain", "flash_bwd_dkv_plain"):
+        monkeypatch.setattr(K, name, boom)
+    K.reset_launch_counts()
+    yield lib
+    K.reset_launch_counts()
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, device="meta", dtype=dtype)
+
+
+def test_device_tensors_launch_kernels(fake_card):
+    x = _meta(1000, dtype=torch.float32)
+    assert K.fused_scale(x, 0.5, torch.bfloat16).dtype == torch.bfloat16
+    q = _meta(2, 128, 4, 128)
+    rows = _meta(8, 128, dtype=torch.float32)
+    o, lse = K.flash_fwd(q, q, q, True, 0.1)
+    assert o.shape == q.shape and lse.shape == (8, 128)
+    K.flash_bwd_dq(q, q, q, q, rows, rows, True, 0.1)
+    K.flash_bwd_dkv(q, q, q, q, rows, rows, True, 0.1)
+    assert fake_card.calls == ["hvd_fused_scale", "hvd_flash_fwd",
+                               "hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"]
+    assert K.launch_counts() == {name: 1 for name in K.WRAPPERS}
+
+
+def test_autograd_on_device_uses_kernels(fake_card):
+    q = _meta(1, 64, 2, 64).requires_grad_()
+    out = K.flash_attention(q, q, q, causal=True)
+    out.backward(_meta(1, 64, 2, 64))
+    assert fake_card.calls == ["hvd_flash_fwd", "hvd_flash_bwd_dq",
+                               "hvd_flash_bwd_dkv"]
+
+
+@pytest.mark.parametrize("shape,dtype,err", [
+    ((1, 64, 2, 96), torch.bfloat16, ValueError),     # head_dim 96
+    ((1, 64, 2, 64), torch.float32, TypeError),       # fp32 inputs
+])
+def test_device_flash_raises_on_unsupported(fake_card, shape, dtype, err):
+    q = _meta(*shape, dtype=dtype)
+    with pytest.raises(err):
+        K.flash_fwd(q, q, q, True, 0.1)
+    assert fake_card.calls == []
+
+
+def test_fused_scale_device_dtype_refused(fake_card):
+    with pytest.raises(TypeError):
+        K.fused_scale(_meta(4, dtype=torch.float64), 2.0)
+    assert fake_card.calls == []
+
+
+def test_launcher_refuses_non_cuda_tensors():
+    """Without the fake card, a meta tensor reaches the real launcher,
+    which raises instead of falling back."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.fused_scale(_meta(4, dtype=torch.float32), 2.0)
