@@ -8,20 +8,29 @@ Phases, in order; any failure exits non-zero:
 1. build the CUDA kernels from ``horovod_tpu_torch/ops/csrc`` (seconds
    printed, with the compiler's register and spill report);
 2. hold each kernel against its plain PyTorch version at the shapes the
-   training path gives it: ``fused_scale`` on a 64 MiB fp32 bucket, an odd
+   training paths give it: ``fused_scale`` on a 64 MiB fp32 bucket, an odd
    length and a bf16 cast; flash forward, dQ and dK/dV at
    b6 h16 t1024 d128 bf16, causal (plus small off-grid shapes);
+   ``fused_conv_bn_relu_bwd`` at ResNet-50's fused segments,
+   128x28x28x128 and 128x14x14x256 bf16 (plus ragged shapes);
 3. time each kernel with CUDA events beside its bound (the larger of
    bytes over 3.35 TB/s and products over 989 TFLOP/s), its plain version
-   and, where one exists, a single PyTorch call computing the same function;
+   and, where one exists, a single PyTorch call computing the same function
+   (for the conv backward, autograd through the unfused segment);
 4. train the 870.9M TransformerLM (16 layers, d_model 2048, 16 heads,
    seq 1024, batch 6) through the five-line recipe on a world of one:
    ``init`` (NCCL), ``DistributedOptimizer(AdamW(3e-4, weight_decay=1e-4),
    gradient_predivide_factor=2.0)``, ``broadcast_variables``, a few steps on
-   a fixed batch (the loss must fall; every kernel's launch count must
-   grow), the same weights under dense attention for comparison, and a
+   a fixed batch (the loss must fall; every kernel of the path must be
+   launched), the same weights under dense attention for comparison, and a
    rank-0 checkpoint round trip;
-5. print the card's name and power limit, the kernels' JSON line, and last
+5. train ResNet-50 at ``bench.py``'s configuration (224 px, batch 128,
+   bf16, space-to-depth stem, ``--fused-bwd``, inference-mode BN) through
+   the same recipe with ``SGD(0.01, momentum=0.9)``, 6 steps on a fixed
+   batch (the loss must fall; the fused backward kernel must run exactly 8
+   times a step), and the same weights with ``fused_bwd=False`` for
+   comparison;
+6. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -44,6 +53,12 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 SEED = 0
 FULL = dict(batch=6, seq=1024, heads=16, head_dim=128, layers=16,
             d_model=2048, vocab=32_000)
+# bench.py's ResNet-50: batch 128 per GPU (bench.py:2712), 224 px (:2714)
+RESNET = dict(batch=128, image=224, steps=6)
+# the kernels each training path launches, read after its own run
+TRANSFORMER_KERNELS = ("fused_scale", "flash_fwd", "flash_bwd_dq",
+                       "flash_bwd_dkv")
+RESNET_KERNELS = ("fused_conv_bn_relu_bwd",)
 
 
 def log(msg: str) -> None:
@@ -117,6 +132,103 @@ def flash_agreement(torch, got, want, is_lse: bool) -> tuple:
                                           + FLASH_ATOL * rms)).max()), 1.0)]
 
 
+# Kernel 5 (fused conv3x3 + BN + relu backward), (n, h, w, cin, c): the
+# ResNet-50 segments that the dispatch rule fuses at 224 px, batch 128, with
+# their launches per step, and a ragged shape.
+CBR_MAIN = {(128, 28, 28, 128, 128): 3, (128, 14, 14, 256, 256): 5}
+CBR_RAGGED = [(3, 10, 10, 128, 128), (2, 7, 9, 256, 128)]
+# Kernel 5 tolerances, (normwise, rtol, atol as a share of rms(want)).
+# dy = bf16(dz·seff) is the same fp32 product in both versions, and both
+# multiply bf16 dy by bf16 W and bf16 a exactly; only the fp32 sums run in
+# another order.  da is bf16: one rounding of nearly equal sums, up to one
+# ulp (2^-7 relative) apart.  dW, dgamma and dbeta are fp32 sums over up to
+# 100,352 rows: relative differences of order 1e-6.
+CBR_TOL = {"da": (1e-2, 1e-2, 1e-2), "dW": (1e-4, 1e-3, 1e-3),
+           "dgamma": (1e-4, 1e-3, 1e-3), "dbeta": (1e-4, 1e-3, 1e-3)}
+CBR_OUTPUTS = ("da", "dW", "dgamma", "dbeta")
+
+
+def cbr_inputs(torch, shape, seed: int, device: str = "cuda"):
+    """``(db, b, a, w, gamma, beta, scale_eff)`` for kernel 5 at ``shape``:
+    bf16 activations with ``b`` the segment's own forward output, fp32
+    weights at lecun scale, and channel 0 at gamma 0 and beta 0.25 (exact
+    in bf16), so its relu output is 0.25 everywhere and its dgamma is
+    pinned to 0 by the kernel's guard, not left to 0/0."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    n, h, w, cin, c = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    a = torch.relu(randn(n, h, w, cin)).to(torch.bfloat16)
+    wgt = randn(3, 3, cin, c) * (9 * cin) ** -0.5
+    gamma = 1.0 + 0.1 * randn(c)
+    beta, mean = 0.1 * randn(c), 0.1 * randn(c)
+    gamma[0], beta[0] = 0.0, 0.25
+    var = 0.5 + torch.rand(c, generator=gen, device=device)
+    with torch.no_grad():
+        b = K.fused_conv_bn_relu(a, wgt, gamma, beta, mean, var).contiguous()
+    db = randn(n, h, w, c).to(torch.bfloat16)
+    return db, b, a, wgt, gamma, beta, gamma / torch.sqrt(var + 1e-5)
+
+
+def cbr_agreement(torch, name: str, got, want) -> list:
+    """(reading, limit) pairs for one output of kernel 5 against its plain
+    version: normwise ||got - want|| / ||want||, and elementwise
+    |got - want| / (rtol |want| + atol rms(want)) against 1."""
+    norm_tol, rtol, atol = CBR_TOL[name]
+    w = want.float()
+    diff = (got.float() - w).abs()
+    rms = float(w.pow(2).mean().sqrt())
+    return [("norm_rel", float(diff.norm() / w.norm()), norm_tol),
+            ("elem_ratio", float((diff / (rtol * w.abs() + atol * rms)).max()),
+             1.0)]
+
+
+def cbr_work(shape) -> tuple:
+    """(bytes, operations) of one kernel-5 call: db, b, a and da in bf16,
+    W and dW in fp32, five fp32 channel vectors; two implicit GEMMs of
+    2·rows·cin·9c operations."""
+    n, h, w, cin, c = shape
+    rows = n * h * w
+    nbytes = 2 * rows * (2 * c + 2 * cin) + 2 * 9 * cin * c * 4 + 5 * c * 4
+    return nbytes, 2 * 2 * rows * cin * 9 * c
+
+
+def check_cbr(torch, errs: dict) -> None:
+    from horovod_tpu_torch.ops import kernels as K
+
+    for shape in [*CBR_MAIN, *CBR_RAGGED]:
+        args = cbr_inputs(torch, shape, seed=SEED + 2)
+        got = K.fused_conv_bn_relu_bwd(*args)
+        want = K.fused_conv_bn_relu_bwd_plain(*args)
+        torch.cuda.synchronize()
+        failed = []
+        for name, g, w in zip(CBR_OUTPUTS, got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"conv_bn_relu_bwd {name} at {shape}: "
+                                     f"{g.dtype} {tuple(g.shape)} vs "
+                                     f"{w.dtype} {tuple(w.shape)}")
+            readings = cbr_agreement(torch, name, g, w)
+            err = max_err(torch, g, w)
+            log(f"check fused_conv_bn_relu_bwd {name} {shape}: max_abs_err "
+                f"{err:.3e} (largest entry {float(w.float().abs().max()):.3e}"
+                f"); " + ", ".join(f"{key} {val:.3e} (tol {lim:.0e})"
+                                   for key, val, lim in readings))
+            if not all(val <= lim for _, val, lim in readings):
+                failed.append(name)
+            if shape in CBR_MAIN:
+                errs["fused_conv_bn_relu_bwd"] = max(
+                    errs.get("fused_conv_bn_relu_bwd", 0.0), err)
+        if float(got[2][0]) != 0.0:
+            failed.append("dgamma of the gamma = 0 channel")
+        if failed:
+            raise AssertionError(f"conv_bn_relu_bwd {failed} disagree with "
+                                 f"plain at {shape}")
+
+
 def phase_check(torch):
     """Each kernel against its plain version; returns per-kernel errors."""
     from horovod_tpu_torch.ops import kernels as K
@@ -188,7 +300,59 @@ def phase_check(torch):
                     errs[name] = max(errs.get(name, 0.0), err)
         if failed:
             raise AssertionError(f"{failed} disagree with plain at {shape}")
+    check_cbr(torch, errs)
     return errs
+
+
+def time_cbr(torch) -> dict:
+    """Kernel 5 at each main-path shape: kernel, plain, and the yardstick,
+    autograd through the unfused segment as the ``fused_bwd=False`` model
+    runs it (cuDNN dgrad and wgrad plus the BN and relu passes; no single
+    PyTorch call computes this function, and the port never calls it).
+    Returns the launch-weighted mean per call over one training step's 8
+    launches, which is what the kernels' JSON line carries."""
+    from horovod_tpu_torch.models.resnet import BatchNorm, Conv
+    from horovod_tpu_torch.ops import kernels as K
+
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    work = [0.0, 0.0]
+    per_step = sum(CBR_MAIN.values())
+    for shape, count in CBR_MAIN.items():
+        args = cbr_inputs(torch, shape, seed=SEED + 3)
+        db, _, a, wgt, gamma, beta, _ = args
+        n, h, w, cin, c = shape
+        conv = Conv(cin, c, 3, dtype=torch.bfloat16, device="cuda")
+        norm = BatchNorm(c, dtype=torch.bfloat16, device="cuda")
+        with torch.no_grad():
+            conv.weight.copy_(wgt.permute(3, 2, 0, 1))
+            norm.scale.copy_(gamma)
+            norm.bias.copy_(beta)
+            norm.mean.normal_(0.0, 0.1)
+            norm.var.uniform_(0.5, 1.5)
+        x = a.permute(0, 3, 1, 2).detach().requires_grad_()
+        seg = torch.relu(norm(conv(x), train=False))
+        leaves = (x, conv.weight, norm.scale, norm.bias, norm.mean, norm.var)
+        dseg = db.permute(0, 3, 1, 2)
+
+        def unfused_bwd():
+            torch.autograd.grad(seg, leaves, dseg, retain_graph=True)
+
+        r = dict(ms=cuda_ms(torch, lambda: K.fused_conv_bn_relu_bwd(*args)),
+                 plain_ms=cuda_ms(torch, lambda: K.fused_conv_bn_relu_bwd_plain(
+                     *args), iters=5),
+                 library_ms=cuda_ms(torch, unfused_bwd))
+        bms, by = bound_ms(*cbr_work(shape))
+        log(f"time fused_conv_bn_relu_bwd at {shape} ({count}/step): "
+            f"{r['ms']:.4f} ms (bound {bms:.4f} ms by {by}, plain "
+            f"{r['plain_ms']:.4f} ms, unfused autograd "
+            f"{r['library_ms']:.4f} ms)")
+        for key in total:
+            total[key] += r[key] * count / per_step
+        for i, amount in enumerate(cbr_work(shape)):
+            work[i] += amount * count / per_step
+        del args, seg, x, dseg
+    total["bound_ms"], total["bound_by"] = bound_ms(*work)
+    return total
 
 
 def phase_time(torch):
@@ -262,6 +426,8 @@ def phase_time(torch):
     log(f"time flash fwd+bwd at b{b} h{h} t{t} d{d}: kernels "
         f"{cuda_ms(torch, ours_fwd_bwd):.4f} ms, "
         f"scaled_dot_product_attention {cuda_ms(torch, sdpa_fwd_bwd):.4f} ms")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg
+    out["fused_conv_bn_relu_bwd"] = time_cbr(torch)
     for name, r in out.items():
         log(f"time {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
@@ -272,6 +438,9 @@ def phase_time(torch):
 def _category(name: str) -> str:
     lowered = name.lower()
     for key, cat in (("flash_", "flash kernels"), ("scale_", "fused_scale"),
+                     ("cbr_", "conv_bn_relu_bwd kernel"),
+                     ("conv", "convolution"), ("fprop", "convolution"),
+                     ("dgrad", "convolution"), ("wgrad", "convolution"),
                      ("nccl", "nccl"), ("gemm", "matmul"), ("xmma", "matmul"),
                      ("nvjet", "matmul"), ("cutlass", "matmul"),
                      ("adam", "optimizer"), ("multi_tensor", "optimizer"),
@@ -283,9 +452,10 @@ def _category(name: str) -> str:
     return "other elementwise"
 
 
-def profile_step(torch, run) -> None:
+def profile_step(torch, run, focus: str = "") -> None:
     """One more training step under torch.profiler: device time by kernel
-    and by category, and the device's busy share of the step's wall time."""
+    and by category, and the device's busy share of the step's wall time;
+    every kernel whose name holds ``focus`` is listed too."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -305,13 +475,16 @@ def profile_step(torch, run) -> None:
             rows.append((us / 1e3, e.count, e.key))
     busy = sum(r[0] for r in rows)
     log(f"profile: step wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-        f"({100 * busy / wall_ms:.1f} %), idle {100 - 100 * busy / wall_ms:.1f} %")
+        f"({100 * busy / wall_ms:.1f} %), idle {100 - 100 * busy / wall_ms:.1f} "
+        f"%, {sum(r[1] for r in rows)} device operations")
     cats: dict = {}
     for ms, _, key in rows:
         cats[_category(key)] = cats.get(_category(key), 0.0) + ms
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         log(f"profile: {cat:18s} {ms:8.2f} ms ({100 * ms / busy:.1f} %)")
-    for ms, count, key in sorted(rows, reverse=True)[:12]:
+    ranked = sorted(rows, reverse=True)
+    for ms, count, key in ranked[:12] + [r for r in ranked[12:]
+                                         if focus and focus in r[2]]:
         log(f"profile:   {ms:8.2f} ms x{count:<4d} {key[:90]}")
 
 
@@ -371,7 +544,7 @@ def phase_train(torch):
         raise AssertionError("non-finite loss")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    missing = [k for k, c in counts.items() if c == 0]
+    missing = [k for k in TRANSFORMER_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -436,6 +609,117 @@ def phase_train(torch):
                         peak_gib=peak / 2**30, losses=losses)
 
 
+def phase_resnet(torch):
+    """ResNet-50 at bench.py's configuration through the five-line recipe;
+    returns the launch counts of its run and its summary."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.resnet import (
+        ResNet50,
+        resnet_loss,
+        unfused_state_dict,
+    )
+    from horovod_tpu_torch.ops import kernels as K
+
+    hvd.init()
+    dev = hvd.device()
+    batch_size, image = RESNET["batch"], RESNET["image"]
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                     space_to_depth=True, fused_bwd=True, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"resnet: ResNet-50 {n_params / 1e6:.3f}M params + BN statistics "
+        f"as parameters, {image} px, batch {batch_size}, bf16, "
+        f"space_to_depth, fused_bwd, train=False")
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(
+        model.parameters(), lr=0.01 * hvd.size(), momentum=0.9))
+    hvd.broadcast_variables(model, root_rank=0)
+    step = hvd.DistributedTrainStep(resnet_loss, opt)
+    cpu = torch.Generator().manual_seed(SEED)
+    images = torch.rand((batch_size, image, image, 3), generator=cpu)
+    labels = torch.randint(0, 1000, (batch_size,), generator=cpu)
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    model, opt = step.init(model)
+    batch = step.shard_batch({"x": images, "y": labels})
+    losses, times = [], []
+    for _ in range(RESNET["steps"]):
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))           # synchronises
+        times.append(time.perf_counter() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"resnet: losses {losses}")
+    log(f"resnet: launches on the main path {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite ResNet loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"ResNet loss did not fall: {losses}")
+    want = sum(CBR_MAIN.values()) * RESNET["steps"]
+    if counts["fused_conv_bn_relu_bwd"] != want:
+        raise AssertionError(f"fused_conv_bn_relu_bwd launched "
+                             f"{counts['fused_conv_bn_relu_bwd']} times, "
+                             f"want {want}")
+    steady = sorted(times[1:5])[1:3]
+    steady = sum(steady) / 2                  # median of steps 2-5
+    log(f"resnet: step {steady * 1e3:.1f} ms (median of steps 2-5; first "
+        f"{times[0] * 1e3:.1f} ms), {batch_size / steady:.0f} img/s, peak "
+        f"memory {peak / 2**30:.2f} GiB")
+
+    profile_step(torch, lambda: float(step(model, opt, batch)[2]), "cbr_")
+
+    # the same weights with fused_bwd=False, the bench default: loss and
+    # gradients of every parameter in bf16.  The two differ only inside the
+    # 13 stride-1 3x3 segments (where bf16 rounds dy and da, and the
+    # kernel's fp32 dW), so 1e-2 relative on the loss and 5e-2 relative L2
+    # over all gradients, leaving out the fused segments' mean/var, whose
+    # gradients are 0 by design.
+    unfused = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                       space_to_depth=True, fused_bwd=False, device=dev)
+    unfused.load_state_dict(unfused_state_dict(model.state_dict()))
+    segments = [n for n, _ in model.named_parameters()
+                if ".FusedConvBnRelu3x3_0." in n]
+    fused_stats = [n for n in segments if n.endswith((".mean", ".var"))]
+    zero_by_design = set(unfused_state_dict(dict.fromkeys(fused_stats)))
+    own = set(unfused_state_dict(dict.fromkeys(segments))) - zero_by_design
+    grads, parity = {}, {}
+    for name, m in (("fused", model), ("unfused", unfused)):
+        m.zero_grad(set_to_none=True)
+        loss = resnet_loss(m, batch)
+        loss.backward()
+        named = {n: p.grad for n, p in m.named_parameters()}
+        if name == "fused":
+            if any(named[n].any() for n in fused_stats):
+                raise AssertionError("a fused segment's mean/var gradient "
+                                     "is not 0")
+            named = unfused_state_dict(named)
+        parity[name] = float(loss.detach())
+        grads[name] = {n: g.float() for n, g in named.items()
+                       if n not in zero_by_design}
+    lf, lu = parity["fused"], parity["unfused"]
+    loss_rel = abs(lf - lu) / abs(lu)
+    readings = []
+    for label, names in (("all", sorted(grads["unfused"])),
+                         ("fused segments' W/scale/bias", sorted(own))):
+        gf = torch.cat([grads["fused"][n].reshape(-1) for n in names])
+        gu = torch.cat([grads["unfused"][n].reshape(-1) for n in names])
+        readings.append((label, float((gf - gu).norm() / gu.norm()),
+                         gf.numel()))
+    log(f"parity fused vs unfused backward: loss {lf:.6f} vs {lu:.6f} (rel "
+        f"{loss_rel:.3e}, tol 1e-2); " + "; ".join(
+            f"grads rel L2 {rel:.3e} over {label} ({n} values, tol 5e-2)"
+            for label, rel, n in readings))
+    if not (loss_rel <= 1e-2 and all(r <= 5e-2 for _, r, _ in readings)):
+        raise AssertionError("fused and unfused ResNet backward disagree")
+    del grads, unfused
+    model.zero_grad(set_to_none=True)
+    hvd.shutdown()
+    return counts, dict(step_ms=steady * 1e3, img_per_s=batch_size / steady,
+                        peak_gib=peak / 2**30, losses=losses,
+                        first_step_ms=times[0] * 1e3)
+
+
 def main() -> int:
     import torch
 
@@ -456,15 +740,19 @@ def main() -> int:
     timing = phase_time(torch)
     torch.cuda.empty_cache()
     counts, train = phase_train(torch)
+    torch.cuda.empty_cache()
+    resnet_counts, resnet = phase_resnet(torch)
+    for name in RESNET_KERNELS:
+        counts[name] = resnet_counts[name]
 
-    sources = {"fused_scale": ("horovod_tpu_torch/ops/csrc/fused_scale.cu",
-                               "horovod_tpu/ops/pallas_kernels.py:55"),
-               "flash_fwd": ("horovod_tpu_torch/ops/csrc/flash_attention.cu",
-                             "horovod_tpu/ops/pallas_kernels.py:84"),
-               "flash_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_attention.cu",
-                                "horovod_tpu/ops/pallas_kernels.py:213"),
-               "flash_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_attention.cu",
-                                 "horovod_tpu/ops/pallas_kernels.py:269")}
+    csrc = "horovod_tpu_torch/ops/csrc/"
+    tpu = "horovod_tpu/ops/pallas_kernels.py:"
+    sources = {"fused_scale": (csrc + "fused_scale.cu", tpu + "55"),
+               "flash_fwd": (csrc + "flash_attention.cu", tpu + "84"),
+               "flash_bwd_dq": (csrc + "flash_attention.cu", tpu + "213"),
+               "flash_bwd_dkv": (csrc + "flash_attention.cu", tpu + "269"),
+               "fused_conv_bn_relu_bwd": (csrc + "conv_bn_relu_bwd.cu",
+                                          tpu + "503")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = timing[name]
@@ -475,6 +763,7 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
     log(f"train summary: {json.dumps(train)}")
+    log(f"resnet summary: {json.dumps(resnet)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -43,6 +43,7 @@ _SIGNATURES = {
                                                           _c_void_p],
     "hvd_flash_bwd_dkv": [_c_void_p] * 8 + [_c_int] * 4 + [_c_float, _c_int,
                                                            _c_void_p],
+    "hvd_cbr_bwd": [_c_void_p] * 14 + [_c_int] * 7 + [_c_void_p],
 }
 
 

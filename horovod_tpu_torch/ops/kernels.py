@@ -17,6 +17,10 @@ Kernels (TPU source → CUDA source):
   (``pallas_kernels._flash_fwd`` / ``_flash_bwd``) →
   ``csrc/flash_attention.cu``, glued by :func:`flash_attention`'s
   ``torch.autograd.Function``.
+* :func:`fused_conv_bn_relu_bwd` (``pallas_kernels.fused_conv_bn_relu_bwd``)
+  → ``csrc/conv_bn_relu_bwd.cu``, the backward of ResNet's stride-1 3x3
+  segment, glued by :func:`fused_conv_bn_relu`'s
+  ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 #: the Pallas kernels' finite masking sentinel (pallas_kernels.py _NEG_INF)
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -261,9 +266,186 @@ flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# fused conv3x3 + inference-BN + relu backward
+# ---------------------------------------------------------------------------
+
+#: the JAX dispatch rule's cap on the fp32 dW (a TPU VMEM figure, kept so
+#: that both packages fuse the same segments)
+CBR_DW_CAP_BYTES = 2_400_000
+#: rows (pixels) of one wgrad split-K slice are a multiple of this
+CBR_ROWS_PER_STEP = 32
+#: the prologue's rows per block
+CBR_PROLOGUE_ROWS = 256
+#: wgrad blocks to aim for: two per SM of a 132-SM H100.  A figure of the
+#: shape alone, so that the scratch sizes do not depend on the device
+CBR_TARGET_BLOCKS = 264
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _oihw(w: torch.Tensor) -> torch.Tensor:
+    return w.permute(3, 2, 0, 1)
+
+
+def _cbr_bwd(db, b, a, w, gamma, beta, scale_eff, conv_dtype):
+    """The relu mask and the BN gradients by hand in fp32, ``dy =
+    dz·scale_eff`` rounded to ``a``'s dtype, and the conv gradients of
+    that dy, ``a`` and ``w`` rounded to ``a``'s dtype, computed in
+    ``conv_dtype``."""
+    dz = torch.where(b > 0, db.float(), 0.0)
+    dbeta = dz.sum((0, 1, 2))
+    gamma = gamma.float()
+    gamma_safe = torch.where(gamma.abs() < 1e-12, 1.0, gamma)
+    dgamma = (dz * ((b.float() - beta.float()) / gamma_safe)).sum((0, 1, 2))
+    dy = (dz * scale_eff.float()).to(a.dtype)
+    w_round = _oihw(w.to(a.dtype).to(conv_dtype))
+    da, dw, _ = torch.ops.aten.convolution_backward(
+        _nchw(dy.to(conv_dtype)), _nchw(a.to(conv_dtype)), w_round, None,
+        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, False])
+    return (da.permute(0, 2, 3, 1).to(a.dtype),
+            dw.permute(2, 3, 1, 0).float(), dgamma, dbeta)
+
+
+def fused_conv_bn_relu_bwd_plain(db, b, a, w, gamma, beta, scale_eff):
+    """The backward of ``relu(bn_inference(conv3x3_same(a, w)))`` as the
+    port's kernel defines it, in plain PyTorch: the conv gradients in fp32
+    from bf16-valued operands, so ``da`` is rounded once to ``a``'s dtype
+    and ``dw`` (HWIO), ``dgamma`` and ``dbeta`` come back in fp32,
+    unrounded.
+
+    Layouts are the JAX package's: ``db``, ``b`` (the relu output) and
+    ``a`` NHWC, ``w`` HWIO, the rest ``(c,)``."""
+    return _cbr_bwd(db, b, a, w, gamma, beta, scale_eff, torch.float32)
+
+
+def cbr_bwd_unfused(db, b, a, w, gamma, beta, scale_eff):
+    """``_cbr_bwd_reference``: the same backward with the conv gradients
+    as autograd of the conv in ``a``'s dtype gives them (dW rounded to
+    it).  The JAX package computes this for a shape outside its rule; in
+    fp32 it equals :func:`fused_conv_bn_relu_bwd_plain`."""
+    return _cbr_bwd(db, b, a, w, gamma, beta, scale_eff, a.dtype)
+
+
+def cbr_fusable(db, b, a, w) -> bool:
+    """The JAX dispatch rule (``pallas_kernels.py:603-615``) by shape
+    alone: a 3x3 kernel, both channel counts multiples of 128, ``db`` and
+    ``b`` of the conv output's shape, and the fp32 dW within
+    :data:`CBR_DW_CAP_BYTES`."""
+    n, hh, ww, cin = a.shape
+    c = w.shape[-1]
+    return (tuple(w.shape[:2]) == (3, 3) and w.shape[2] == cin and
+            c % 128 == 0 and cin % 128 == 0 and db.shape == b.shape and
+            tuple(db.shape) == (n, hh, ww, c) and
+            9 * cin * c * 4 <= CBR_DW_CAP_BYTES)
+
+
+def cbr_splits(rows: int, cin: int, c: int) -> int:
+    """Split-K slices of the wgrad GEMM over the rows: as many as keep the
+    9·(cin/128)·(c/128) output tiles within :data:`CBR_TARGET_BLOCKS`
+    blocks (one wave: a few blocks past it would run as a second wave
+    alone), with at least 32 row steps in a slice."""
+    tiles = 9 * (cin // 128) * (c // 128)
+    steps = -(-rows // CBR_ROWS_PER_STEP)
+    return max(1, min(CBR_TARGET_BLOCKS // tiles, steps // 32))
+
+
+def fused_conv_bn_relu_bwd(db, b, a, w, gamma, beta, scale_eff):
+    """``(da, dw, dgamma, dbeta)`` of ``relu(bn_inference(conv3x3_same(a,
+    w)))`` (``pallas_kernels.fused_conv_bn_relu_bwd``), as
+    :func:`fused_conv_bn_relu_bwd_plain` defines them.
+
+    A shape outside :func:`cbr_fusable` computes :func:`cbr_bwd_unfused`
+    on any device, as the JAX package does.  Inside it, a CPU tensor takes
+    the plain version and a CUDA tensor launches
+    ``csrc/conv_bn_relu_bwd.cu``, which takes bf16 activations (fp32 ``w``
+    and channel vectors) and raises on any other dtype."""
+    if not cbr_fusable(db, b, a, w):
+        return cbr_bwd_unfused(db, b, a, w, gamma, beta, scale_eff)
+    if a.device.type == "cpu":
+        return fused_conv_bn_relu_bwd_plain(db, b, a, w, gamma, beta,
+                                            scale_eff)
+    for x in (db, b, a):
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"the conv_bn_relu_bwd kernel takes bfloat16 "
+                            f"activations, got {x.dtype}")
+    n, hh, ww, cin = a.shape
+    c = w.shape[-1]
+    db, b, a = (_aligned(x) for x in (db, b, a))
+    vecs = [_aligned(v.float()) for v in (gamma, beta, scale_eff)]
+    # (cin, 9, c) bf16: dgrad's B operand, one row of K = (tap, c) per cin
+    wt = _aligned(w.to(torch.bfloat16).reshape(9, cin, c).permute(1, 0, 2))
+    lib, stream = _cuda_library(a)
+    rows = n * hh * ww
+    splits = cbr_splits(rows, cin, c)
+    blocks = -(-rows // CBR_PROLOGUE_ROWS)
+    dev = a.device
+    dy = torch.empty((rows, c), dtype=torch.bfloat16, device=dev)
+    part_bn = torch.empty((2, blocks, c), dtype=torch.float32, device=dev)
+    part_w = torch.empty((splits, 9 * cin * c), dtype=torch.float32,
+                         device=dev)
+    da = torch.empty_like(a)
+    dw = torch.empty((3, 3, cin, c), dtype=torch.float32, device=dev)
+    dgamma = torch.empty((c,), dtype=torch.float32, device=dev)
+    dbeta = torch.empty((c,), dtype=torch.float32, device=dev)
+    _check(lib.hvd_cbr_bwd(db.data_ptr(), b.data_ptr(), a.data_ptr(),
+                           wt.data_ptr(), vecs[0].data_ptr(),
+                           vecs[1].data_ptr(), vecs[2].data_ptr(),
+                           dy.data_ptr(), part_bn.data_ptr(),
+                           part_w.data_ptr(), da.data_ptr(), dw.data_ptr(),
+                           dgamma.data_ptr(), dbeta.data_ptr(), n, hh, ww,
+                           cin, c, splits, blocks, stream),
+           "conv_bn_relu_bwd")
+    fused_conv_bn_relu_bwd.launches += 1
+    return da, dw, dgamma, dbeta
+
+
+fused_conv_bn_relu_bwd.launches = 0
+
+
+class _FusedConvBnRelu(torch.autograd.Function):
+    """Plain forward that saves the relu output; the backward is
+    :func:`fused_conv_bn_relu_bwd` (``fused_conv_bn_relu``'s
+    ``custom_vjp``).  ``mean`` and ``var`` get zero gradients."""
+
+    @staticmethod
+    def forward(ctx, a, w, gamma, beta, mean, var, eps: float):
+        y = F.conv2d(_nchw(a), _oihw(w.to(a.dtype)), padding=1)
+        scale_eff = (gamma / torch.sqrt(var + eps)).float()
+        z = y.float() * scale_eff[:, None, None] + \
+            (beta - mean * scale_eff)[:, None, None]
+        out = torch.relu(z).to(a.dtype).permute(0, 2, 3, 1)
+        ctx.save_for_backward(a, w, out, gamma, beta, scale_eff)
+        return out
+
+    @staticmethod
+    def backward(ctx, db):
+        a, w, out, gamma, beta, scale_eff = ctx.saved_tensors
+        da, dw, dgamma, dbeta = fused_conv_bn_relu_bwd(
+            db, out, a, w, gamma.float(), beta.float(), scale_eff)
+        zeros = torch.zeros_like(gamma)
+        return (da, dw.to(w.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(beta.dtype), zeros, zeros.clone(), None)
+
+
+def fused_conv_bn_relu(a: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, mean: torch.Tensor,
+                       var: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``relu(bn_inference(conv3x3_same(a, w)))`` over NHWC ``a`` and an
+    HWIO ``w`` (``pallas_kernels.fused_conv_bn_relu``): the conv runs in
+    ``a``'s dtype, the affine in fp32, and the result comes back in ``a``'s
+    dtype.  Only the relu output is saved, so dgamma is rebuilt from it and
+    a channel whose ``gamma`` is exactly 0 gets dgamma 0."""
+    return _FusedConvBnRelu.apply(a, w, gamma, beta, mean, var, eps)
+
+
 #: every kernel wrapper, by the name chip_smoke.py and PERF.md use
 WRAPPERS = {"fused_scale": fused_scale, "flash_fwd": flash_fwd,
-            "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+            "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+            "fused_conv_bn_relu_bwd": fused_conv_bn_relu_bwd}
 
 
 def reset_launch_counts() -> None:

@@ -5,14 +5,17 @@ machine with::
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 With two or more cards, ``TestNcclWorld`` also runs the exchange and the
-training step over NCCL, one process per card.  Imports torch, numpy and
-the port only.
+training step over NCCL, one process per card.  Imports torch, numpy,
+the port and ``chip_smoke``'s kernel-5 inputs and tolerances only.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from horovod_tpu_torch.ops import kernels as K
 
 from torch_port_workers import EXCHANGE_CASES, check_exchange, \
@@ -105,6 +108,81 @@ class TestOnCard:
         q = torch.zeros(1, 64, 1, 96, device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head_dim"):
             K.flash_fwd(q, q, q, True, 0.1)
+
+    @pytest.mark.parametrize("shape", [
+        (128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
+        (3, 10, 10, 128, 128), (2, 7, 9, 256, 128), (1, 5, 3, 128, 256)])
+    def test_conv_bn_relu_bwd(self, cuda, shape):
+        """The kernel against its plain version at the ResNet-50 segments'
+        shapes (batch 128) and ragged ones, as chip_smoke.py holds it."""
+        args = chip_smoke.cbr_inputs(torch, shape, seed=3)
+        before = K.fused_conv_bn_relu_bwd.launches
+        got = K.fused_conv_bn_relu_bwd(*args)
+        assert K.fused_conv_bn_relu_bwd.launches == before + 1
+        want = K.fused_conv_bn_relu_bwd_plain(*args)
+        torch.cuda.synchronize()
+        assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+        for name, g, w in zip(("da", "dW", "dgamma", "dbeta"), got, want):
+            assert g.shape == w.shape, name
+            for key, val, lim in chip_smoke.cbr_agreement(torch, name, g, w):
+                assert val <= lim, (name, key, val, lim)
+
+    def test_conv_bn_relu_bwd_rejects_fp32(self, cuda):
+        a = torch.zeros(1, 4, 4, 128, device=cuda)
+        w = torch.zeros(3, 3, 128, 128, device=cuda)
+        v = torch.ones(128, device=cuda)
+        with pytest.raises(TypeError, match="bfloat16"):
+            K.fused_conv_bn_relu_bwd(a, a, a, w, v, v, v)
+
+    def test_resnet_fused_matches_unfused(self, cuda):
+        """A narrow bf16 ResNet (two stride-1 blocks at 128 filters, on the
+        kernel's rule) under the same weights: the fused segment's
+        gradients against autograd of the unfused one.  The two differ in
+        where bf16 rounds inside the segment (dy, da), so loss within 1e-2
+        relative and all gradients within 5e-2 relative L2, as
+        chip_smoke.py's full-width check; mean/var of the fused segment are
+        0 by design and left out."""
+        from horovod_tpu_torch.models.resnet import (
+            ResNet,
+            resnet_loss,
+            unfused_state_dict,
+        )
+
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        batch = {"x": torch.rand(8, 64, 64, 3, generator=gen, device=cuda),
+                 "y": torch.randint(0, 10, (8,), generator=gen, device=cuda)}
+        models = {fused: ResNet([2, 1], num_classes=10, num_filters=128,
+                                dtype=torch.bfloat16, space_to_depth=True,
+                                fused_bwd=fused, device=cuda,
+                                generator=torch.Generator(
+                                    device=cuda).manual_seed(1))
+                  for fused in (True, False)}
+        models[False].load_state_dict(unfused_state_dict(
+            models[True].state_dict()))
+        losses, grads = {}, {}
+        for fused, model in models.items():
+            before = K.fused_conv_bn_relu_bwd.launches
+            loss = resnet_loss(model, batch)
+            loss.backward()
+            assert K.fused_conv_bn_relu_bwd.launches - before == \
+                (2 if fused else 0)
+            losses[fused] = float(loss.detach())
+            named = {n: p.grad.float() for n, p in model.named_parameters()}
+            grads[fused] = unfused_state_dict(named) if fused else named
+        zero_by_design = set(unfused_state_dict({
+            n: None for n, _ in models[True].named_parameters()
+            if n.endswith(("FusedConvBnRelu3x3_0.mean",
+                           "FusedConvBnRelu3x3_0.var"))}))
+        assert len(zero_by_design) == 4
+        for n in zero_by_design:
+            assert not grads[True][n].any()
+        assert abs(losses[True] - losses[False]) <= 1e-2 * abs(losses[False])
+        names = [n for n in grads[False] if n not in zero_by_design]
+        assert set(names) | zero_by_design == set(grads[True])
+        diff = sum(float((grads[True][n] - grads[False][n]).pow(2).sum())
+                   for n in names)
+        ref = sum(float(grads[False][n].pow(2).sum()) for n in names)
+        assert math.sqrt(diff / ref) <= 5e-2
 
 
 @pytest.fixture

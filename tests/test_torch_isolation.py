@@ -121,7 +121,8 @@ def fake_card(monkeypatch):
         raise AssertionError("a plain version ran for a device tensor")
 
     for name in ("fused_scale_plain", "flash_fwd_plain",
-                 "flash_bwd_dq_plain", "flash_bwd_dkv_plain"):
+                 "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
+                 "fused_conv_bn_relu_bwd_plain"):
         monkeypatch.setattr(K, name, boom)
     K.reset_launch_counts()
     yield lib
@@ -141,8 +142,17 @@ def test_device_tensors_launch_kernels(fake_card):
     assert o.shape == q.shape and lse.shape == (8, 128)
     K.flash_bwd_dq(q, q, q, q, rows, rows, True, 0.1)
     K.flash_bwd_dkv(q, q, q, q, rows, rows, True, 0.1)
+    a = _meta(2, 7, 9, 128)
+    vec = _meta(256, dtype=torch.float32)
+    db = _meta(2, 7, 9, 256)
+    da, dw, dgamma, dbeta = K.fused_conv_bn_relu_bwd(
+        db, db, a, _meta(3, 3, 128, 256, dtype=torch.float32), vec, vec, vec)
+    assert da.shape == a.shape and da.dtype == torch.bfloat16
+    assert dw.shape == (3, 3, 128, 256) and dw.dtype == torch.float32
+    assert dgamma.shape == dbeta.shape == (256,)
     assert fake_card.calls == ["hvd_fused_scale", "hvd_flash_fwd",
-                               "hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"]
+                               "hvd_flash_bwd_dq", "hvd_flash_bwd_dkv",
+                               "hvd_cbr_bwd"]
     assert K.launch_counts() == {name: 1 for name in K.WRAPPERS}
 
 
@@ -152,6 +162,44 @@ def test_autograd_on_device_uses_kernels(fake_card):
     out.backward(_meta(1, 64, 2, 64))
     assert fake_card.calls == ["hvd_flash_fwd", "hvd_flash_bwd_dq",
                                "hvd_flash_bwd_dkv"]
+
+
+def test_conv_bn_relu_autograd_on_device_uses_kernel(fake_card):
+    """The fused segment's backward, inside the dispatch rule on a device
+    tensor, launches the kernel and never reaches the plain version."""
+    a = _meta(2, 6, 6, 128).requires_grad_()
+    w = _meta(3, 3, 128, 128, dtype=torch.float32).requires_grad_()
+    vecs = [_meta(128, dtype=torch.float32).requires_grad_()
+            for _ in range(4)]
+    out = K.fused_conv_bn_relu(a, w, *vecs)
+    assert out.shape == (2, 6, 6, 128) and out.dtype == torch.bfloat16
+    out.backward(_meta(2, 6, 6, 128))
+    assert fake_card.calls == ["hvd_cbr_bwd"]
+    assert K.fused_conv_bn_relu_bwd.launches == 1
+    assert w.grad.shape == w.shape and a.grad.shape == a.shape
+
+
+def test_conv_bn_relu_outside_the_rule_launches_nothing(fake_card):
+    """A 64-channel segment is outside the dispatch rule: on a device
+    tensor it computes the unfused backward, as the JAX package does,
+    and neither launches the kernel nor counts."""
+    a = _meta(2, 6, 6, 64)
+    vec = _meta(64, dtype=torch.float32)
+    da, dw, _, _ = K.fused_conv_bn_relu_bwd(
+        a, a, a, _meta(3, 3, 64, 64, dtype=torch.float32), vec, vec, vec)
+    assert da.shape == a.shape and dw.shape == (3, 3, 64, 64)
+    assert fake_card.calls == []
+    assert K.fused_conv_bn_relu_bwd.launches == 0
+
+
+def test_conv_bn_relu_device_fp32_refused(fake_card):
+    a = _meta(1, 4, 4, 128, dtype=torch.float32)
+    vec = _meta(128, dtype=torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        K.fused_conv_bn_relu_bwd(a, a, a, _meta(3, 3, 128, 128,
+                                                dtype=torch.float32),
+                                 vec, vec, vec)
+    assert fake_card.calls == []
 
 
 @pytest.mark.parametrize("shape,dtype,err", [

@@ -172,6 +172,205 @@ class TestFitFlashBlock:
             PK.fit_flash_block(t, requested)
 
 
+def _cbr_setup(n=4, h=6, w=6, cin=128, c=128, seed=0):
+    """The JAX tests' inputs (tests/test_pallas_kernels.py:172-183)."""
+    rng = np.random.RandomState(seed)
+    a = rng.randn(n, h, w, cin).astype(np.float32)
+    k = (rng.randn(3, 3, cin, c) * 0.05).astype(np.float32)
+    gamma = (rng.rand(c) + 0.5).astype(np.float32)
+    beta = (rng.randn(c) * 0.1).astype(np.float32)
+    mean = (rng.randn(c) * 0.1).astype(np.float32)
+    var = (rng.rand(c) + 0.5).astype(np.float32)
+    cot = rng.randn(n, h, w, c).astype(np.float32)
+    return a, k, gamma, beta, mean, var, cot
+
+
+def _cbr_bwd_inputs(setup, jdtype):
+    """(db, b, a, w, gamma, beta, scale_eff) as jnp arrays, with b the
+    JAX segment's own forward output in ``jdtype``."""
+    a, k, gamma, beta, mean, var, cot = setup
+    aj = jnp.asarray(a).astype(jdtype)
+    b = PK.fused_conv_bn_relu(aj, jnp.asarray(k), jnp.asarray(gamma),
+                              jnp.asarray(beta), jnp.asarray(mean),
+                              jnp.asarray(var), interpret=True)
+    s = jnp.asarray(gamma) / jnp.sqrt(jnp.asarray(var) + 1e-5)
+    return (jnp.asarray(cot).astype(jdtype), b, aj, jnp.asarray(k),
+            jnp.asarray(gamma), jnp.asarray(beta), s)
+
+
+def _to_torch(args, dtype):
+    """The same inputs as torch tensors: activations in ``dtype``."""
+    db, b, a, *rest = (torch.from_numpy(np.array(x, np.float32))
+                       for x in args)
+    return (db.to(dtype), b.to(dtype), a.to(dtype), *rest)
+
+
+def _normwise(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+CBR_NAMES = ("da", "dw", "dgamma", "dbeta")
+
+
+class TestFusedConvBnReluBwd:
+    """The port's kernel 5 on the CPU (its plain version) against the
+    Pallas kernel in interpret mode and against ``_cbr_bwd_reference``."""
+
+    @pytest.mark.parametrize("shape", [dict(), dict(n=3, h=10, w=10)],
+                             ids=["n4h6w6", "n3h10w10"])
+    def test_f32_matches_pallas_and_reference(self, shape):
+        """fp32: the JAX tests' 2e-4 (tests/test_pallas_kernels.py:218,238)
+        against both; fp32 convs in another summation order."""
+        args = _cbr_bwd_inputs(_cbr_setup(**shape), jnp.float32)
+        pallas = PK.fused_conv_bn_relu_bwd(*args, interpret=True)
+        ref = PK._cbr_bwd_reference(*args)
+        got = K.fused_conv_bn_relu_bwd(*_to_torch(args, torch.float32))
+        assert got[0].dtype == torch.float32 and got[1].dtype == torch.float32
+        for want in (pallas, ref):
+            for name, g, w in zip(CBR_NAMES, got, want):
+                assert tuple(g.shape) == w.shape, name
+                np.testing.assert_allclose(_np(g), np.asarray(w), rtol=2e-4,
+                                           atol=2e-4, err_msg=name)
+
+    @pytest.mark.parametrize("shape", [dict(), dict(n=3, h=10, w=10)],
+                             ids=["n4h6w6", "n3h10w10"])
+    def test_bf16_against_both_jax_functions(self, shape):
+        """bf16 activations.  The port rounds W to bf16 for da (as the
+        reference does, and the forward conv) and keeps dW in fp32 from
+        the bf16 products (as the Pallas kernel does).  Read normwise, the
+        port sits within 1e-2 of each (one bf16 step is 2^-8 relative; the
+        measured readings are ~2e-3 for the output that rounds
+        differently and ~1e-6 or 0 for the one that agrees), and within
+        1e-5 of the one that rounds like it: dW and the channel sums of
+        the Pallas kernel, da of the reference to one bf16 step."""
+        args = _cbr_bwd_inputs(_cbr_setup(**shape), jnp.bfloat16)
+        pallas = PK.fused_conv_bn_relu_bwd(*args, interpret=True)
+        ref = PK._cbr_bwd_reference(*args)
+        got = K.fused_conv_bn_relu_bwd(*_to_torch(args, torch.bfloat16))
+        assert got[0].dtype == torch.bfloat16
+        assert got[1].dtype == torch.float32
+        for want in (pallas, ref):
+            for name, g, w in zip(CBR_NAMES, got, want):
+                assert _normwise(_np(g), w) <= 1e-2, name
+        for name in ("dw", "dgamma", "dbeta"):
+            i = CBR_NAMES.index(name)
+            assert _normwise(_np(got[i]), pallas[i]) <= 1e-5, name
+        np.testing.assert_allclose(_np(got[0]),
+                                   np.asarray(ref[0], np.float32),
+                                   rtol=2 ** -7, atol=2 ** -7 * float(
+                                       np.abs(np.asarray(ref[0],
+                                                         np.float32)).max()))
+
+    def test_channel_64_takes_the_unfused_path(self):
+        """Outside the rule (c % 128) the JAX wrapper computes its
+        reference, and so does the port (``cbr_bwd_unfused``), on any
+        device.  fp32 at the JAX tests' 2e-4."""
+        setup = _cbr_setup(cin=64, c=64)
+        args = _cbr_bwd_inputs(setup, jnp.float32)
+        tt = _to_torch(args, torch.float32)
+        assert not K.cbr_fusable(*tt[:4])
+        want = PK.fused_conv_bn_relu_bwd(*args, interpret=True)
+        got = K.fused_conv_bn_relu_bwd(*tt)
+        for name, g, w in zip(CBR_NAMES, got, want):
+            np.testing.assert_allclose(_np(g), np.asarray(w), rtol=2e-4,
+                                       atol=2e-4, err_msg=name)
+
+    def test_channel_64_bf16_rounds_like_the_reference(self):
+        """In bf16 the unfused path rounds da and dW to bf16 as the
+        reference's conv vjp does: each within one bf16 step (2^-7
+        relative, plus 2^-7 of the largest entry for sums that cancel) of
+        ``_cbr_bwd_reference``; the fp32 channel sums to 1e-5."""
+        args = _cbr_bwd_inputs(_cbr_setup(cin=64, c=64), jnp.bfloat16)
+        want = PK._cbr_bwd_reference(*args)
+        got = K.fused_conv_bn_relu_bwd(*_to_torch(args, torch.bfloat16))
+        assert got[0].dtype == torch.bfloat16
+        assert got[1].dtype == torch.float32
+        for name, g, w in zip(CBR_NAMES, got, want):
+            w = np.asarray(w, np.float32)
+            tol = 2 ** -7 if name in ("da", "dw") else 1e-5
+            np.testing.assert_allclose(_np(g), w, rtol=tol,
+                                       atol=tol * float(np.abs(w).max()),
+                                       err_msg=name)
+        # dW is bf16-valued on this path (the kernel's path keeps fp32)
+        dw = _np(got[1])
+        np.testing.assert_array_equal(
+            dw, torch.from_numpy(dw).to(torch.bfloat16).float().numpy())
+
+    @pytest.mark.parametrize("beta0", [0.25, -0.25])
+    def test_gamma_zero_channel_pins_dgamma(self, beta0):
+        """gamma = 0 makes the channel's output relu(beta), from which the
+        normalised activation cannot be rebuilt: dgamma is pinned to 0
+        (not NaN) in both packages, while dbeta is the active lanes' sum
+        (beta > 0) or 0 (beta < 0)."""
+        setup = list(_cbr_setup())
+        setup[2] = setup[2].copy()
+        setup[3] = setup[3].copy()
+        setup[2][5], setup[3][5] = 0.0, beta0
+        args = _cbr_bwd_inputs(setup, jnp.float32)
+        want = PK.fused_conv_bn_relu_bwd(*args, interpret=True)
+        got = K.fused_conv_bn_relu_bwd(*_to_torch(args, torch.float32))
+        assert float(got[2][5]) == 0.0 == float(want[2][5])
+        expect = setup[6][..., 5].sum() if beta0 > 0 else 0.0
+        np.testing.assert_allclose(float(got[3][5]), expect, rtol=1e-5,
+                                   atol=1e-4)
+        for name, g, w in zip(CBR_NAMES, got, want):
+            assert np.isfinite(_np(g)).all(), name
+            np.testing.assert_allclose(_np(g), np.asarray(w), rtol=2e-4,
+                                       atol=2e-4, err_msg=name)
+
+    @pytest.mark.parametrize("shape,fusable", [
+        ((4, 6, 6, 128, 128), True), ((4, 6, 6, 64, 128), False),
+        ((4, 6, 6, 128, 64), False), ((2, 7, 7, 512, 512), False),
+        ((2, 14, 14, 256, 256), True), ((2, 14, 14, 256, 384), False),
+        ((2, 14, 14, 128, 384), True), ((2, 7, 7, 256, 512), False)])
+    def test_dispatch_rule_matches_jax(self, shape, fusable):
+        """cbr_fusable is the JAX rule by shape (pallas_kernels.py:610-613):
+        dW 9·cin·c·4 bytes ≤ 2.4 MB, channels multiples of 128."""
+        n, h, w, cin, c = shape
+        a = torch.empty(n, h, w, cin)
+        d = torch.empty(n, h, w, c)
+        assert K.cbr_fusable(d, d, a, torch.empty(3, 3, cin, c)) is fusable
+        assert K.cbr_fusable(d, d, a, torch.empty(1, 1, cin, c)) is False
+        assert K.cbr_fusable(d[:, :-1], d, a,
+                             torch.empty(3, 3, cin, c)) is False
+
+
+class TestFusedConvBnReluAutograd:
+    """``fused_conv_bn_relu`` through torch.autograd against jax.grad of
+    the JAX function (interpret mode), fp32 at the JAX tests' 2e-4."""
+
+    def test_grads_match_jax(self):
+        a, k, gamma, beta, mean, var, cot = _cbr_setup()
+
+        def loss_j(*xs):
+            out = PK.fused_conv_bn_relu(*xs, interpret=True)
+            return (out.astype(jnp.float32) * jnp.asarray(cot)).sum()
+
+        ins = (a, k, gamma, beta, mean, var)
+        out_j = PK.fused_conv_bn_relu(*map(jnp.asarray, ins), interpret=True)
+        grads_j = jax.grad(loss_j, argnums=tuple(range(6)))(
+            *map(jnp.asarray, ins))
+        ts = [torch.from_numpy(x.copy()).requires_grad_() for x in ins]
+        out = K.fused_conv_bn_relu(*ts)
+        np.testing.assert_allclose(_np(out), np.asarray(out_j), rtol=2e-5,
+                                   atol=2e-5)
+        (out * torch.from_numpy(cot)).sum().backward()
+        for t, want, name in zip(ts, grads_j, ("da", "dw", "dgamma", "dbeta",
+                                               "dmean", "dvar")):
+            np.testing.assert_allclose(_np(t.grad), np.asarray(want),
+                                       rtol=2e-4, atol=2e-4, err_msg=name)
+        assert not ts[4].grad.any() and not ts[5].grad.any()
+
+    def test_output_is_nhwc_in_the_input_dtype(self):
+        a, k, gamma, beta, mean, var, _ = _cbr_setup(n=2)
+        out = K.fused_conv_bn_relu(torch.from_numpy(a).to(torch.bfloat16),
+                                   *map(torch.from_numpy,
+                                        (k, gamma, beta, mean, var)))
+        assert out.dtype == torch.bfloat16 and tuple(out.shape) == a.shape
+        assert out.is_contiguous()
+
+
 class TestLaunchCounters:
     def test_cpu_calls_do_not_count(self):
         K.reset_launch_counts()
@@ -179,4 +378,7 @@ class TestLaunchCounters:
         K.fused_scale(x, 2.0)
         q = torch.ones(1, 8, 1, 64)
         K.flash_fwd(q, q, q, True, 0.125)
+        a = torch.ones(1, 4, 4, 128)
+        v = torch.ones(128)
+        K.fused_conv_bn_relu_bwd(a, a, a, torch.ones(3, 3, 128, 128), v, v, v)
         assert K.launch_counts() == {name: 0 for name in K.WRAPPERS}

@@ -235,3 +235,40 @@ def run_train(hvd, steps: int, seed: int = 0, init_rank_seed: bool = False):
         losses.append(float(loss))
     return losses, {k: v.cpu().numpy().copy() for k, v in
                     model.state_dict().items()}
+
+
+def resnet_batch(n: int, image: int, seed: int):
+    """``n`` NHWC fp32 images in [0, 1) and int64 labels of 10 classes."""
+    rng = np.random.RandomState(seed)
+    return (rng.rand(n, image, image, 3).astype(np.float32),
+            rng.randint(0, 10, (n,)).astype(np.int64))
+
+
+def run_train_resnet(hvd, steps: int):
+    """``steps`` SGD(0.01, momentum=0.9) steps of DistributedTrainStep on a
+    narrow fp32 ResNet (two stages of one block, 128 filters, s2d,
+    fused_bwd, inference-mode BN) over the global batch of 8 images of
+    32 px; each rank draws different weights, which ``init`` overwrites
+    with rank 0's.  Returns (losses, state_dict as numpy)."""
+    import torch
+
+    from horovod_tpu_torch.models.resnet import ResNet, resnet_loss
+
+    model = ResNet([1, 1], num_classes=10, num_filters=128,
+                   space_to_depth=True, fused_bwd=True,
+                   generator=torch.Generator().manual_seed(hvd.rank()))
+    with torch.no_grad():       # move BN off its init, where the last
+        for n, p in model.named_parameters():     # scale of a block is 0
+            if n.endswith((".scale", ".var")):
+                p.add_(0.25)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = hvd.DistributedTrainStep(resnet_loss, opt)
+    model, opt = step.init(model)
+    x, y = resnet_batch(8, 32, seed=9)
+    batch = step.shard_batch({"x": x, "y": y})
+    losses = []
+    for _ in range(steps):
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))
+    return losses, {k: v.cpu().numpy().copy() for k, v in
+                    model.state_dict().items()}
