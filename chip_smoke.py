@@ -13,10 +13,14 @@ Phases, in order; any failure exits non-zero:
    b6 h16 t1024 d128 bf16, causal (plus small off-grid shapes);
    ``fused_conv_bn_relu_bwd`` at ResNet-50's fused segments,
    128x28x28x128 and 128x14x14x256 bf16 (plus ragged shapes);
+   ``pallas_matmul`` at the tensor-parallel path's four projections
+   (6144 tokens by 2048-8192 features) in the three layouts of a linear
+   layer (forward, dX, dW), with bf16 and fp32 output (plus ragged shapes);
 3. time each kernel with CUDA events beside its bound (the larger of
    bytes over 3.35 TB/s and products over 989 TFLOP/s), its plain version
    and, where one exists, a single PyTorch call computing the same function
-   (for the conv backward, autograd through the unfused segment);
+   (for the conv backward, autograd through the unfused segment; for the
+   matmul, ``torch.matmul``);
 4. train the 870.9M TransformerLM (16 layers, d_model 2048, 16 heads,
    seq 1024, batch 6) through the five-line recipe on a world of one:
    ``init`` (NCCL), ``DistributedOptimizer(AdamW(3e-4, weight_decay=1e-4),
@@ -30,7 +34,13 @@ Phases, in order; any failure exits non-zero:
    batch (the loss must fall; the fused backward kernel must run exactly 8
    times a step), and the same weights with ``fused_bwd=False`` for
    comparison;
-6. print the card's name and power limit, the kernels' JSON line, and last
+6. train the same 870.9M TransformerLM through the tensor-parallel
+   execution mode, ``fused_tp_apply`` on a tp group of one, with flash
+   attention and the same recipe, 5 steps (the loss must fall; the matmul
+   kernel must run exactly 192 times a step, 4 projections x 16 layers x
+   forward, dX and dW), and the same weights through ``TransformerLM``'s
+   own forward for comparison;
+7. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -59,6 +69,18 @@ RESNET = dict(batch=128, image=224, steps=6)
 TRANSFORMER_KERNELS = ("fused_scale", "flash_fwd", "flash_bwd_dq",
                        "flash_bwd_dkv")
 RESNET_KERNELS = ("fused_conv_bn_relu_bwd",)
+TP_KERNELS = ("pallas_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# pallas_matmul at the tp path's projections, (m, k, n) of the forward
+# x (m, k) @ weightᵀ (k, n); each runs 16 times a step in each layout
+MM_MAIN = {"qkv": (6144, 2048, 6144), "proj": (6144, 2048, 2048),
+           "wi": (6144, 2048, 8192), "wo": (6144, 8192, 2048)}
+MM_LAYERS = FULL["layers"]
+MM_LAYOUTS = ("fwd", "dx", "dw")
+# ragged shapes: M edges of 8, 24 and 136 rows in the forward and dX, and a
+# 24-row M edge in dW (its n); a layout whose call falls outside the
+# dispatch rule takes the plain version and is not checked
+MM_RAGGED = [(8, 128, 128), (24, 384, 640), (136, 256, 384),
+             (256, 128, 24)]
 
 
 def log(msg: str) -> None:
@@ -229,6 +251,83 @@ def check_cbr(torch, errs: dict) -> None:
                                  f"plain at {shape}")
 
 
+def mm_operands(torch, mkn, layout: str, seed: int, device: str = "cuda"):
+    """``(a, b)`` for ``pallas_matmul(a, b)`` in one layout of a linear
+    layer y = x @ weightᵀ with x (m, k), weight (n, k), dy (m, n), all
+    bf16: ``fwd`` x @ weightᵀ (weight read transposed in place), ``dx``
+    dy @ weight, ``dw`` dyᵀ @ x (dy read transposed in place)."""
+    m, k, n = mkn
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device=device).bfloat16()
+    weight = (torch.randn(n, k, generator=gen, device=device)
+              * k ** -0.5).bfloat16()
+    dy = torch.randn(m, n, generator=gen, device=device).bfloat16()
+    return {"fwd": (x, weight.t()), "dx": (dy, weight),
+            "dw": (dy.t(), x)}[layout]
+
+
+# pallas_matmul tolerances.  Both versions multiply the same bf16 values
+# exactly and sum in fp32, in another order (the plain side is cuBLAS's
+# SGEMM, whose order its own heuristics pick): a sound kernel read up to
+# 9.2e-6 normwise with fp32 output on an H100, so MM_F32_TOL leaves 5x room
+# under a limit still far below a fault.  A bf16 result is rounded once
+# from nearly equal sums, so an entry moves by at most one bf16 step (2^-8
+# relative) and almost all by none.  A lost K step of 32 at K = 2048 moves
+# the result by sqrt(32/2048) = 1.25e-1 normwise; planted, it read 7.2e-2
+# at the smallest.
+MM_BF16_TOL = (5e-3, 1e-2, 1e-2)    # normwise, rtol, atol as a share of rms
+MM_F32_TOL = 5e-5
+
+
+def mm_agreement(torch, got, want) -> list:
+    """(reading, limit) pairs for the matmul against its plain version."""
+    w = want.float()
+    diff = (got.float() - w).abs()
+    norm_rel = float(diff.norm() / w.norm())
+    if got.dtype == torch.float32:
+        return [("norm_rel", norm_rel, MM_F32_TOL)]
+    norm_tol, rtol, atol = MM_BF16_TOL
+    rms = float(w.pow(2).mean().sqrt())
+    return [("norm_rel", norm_rel, norm_tol),
+            ("elem_ratio", float((diff / (rtol * w.abs() + atol * rms)).max()),
+             1.0)]
+
+
+def check_mm(torch, errs: dict) -> None:
+    from horovod_tpu_torch.ops import kernels as K
+
+    shapes = [(name, mkn) for name, mkn in MM_MAIN.items()] + \
+        [("ragged", mkn) for mkn in MM_RAGGED]
+    failed = []
+    for name, mkn in shapes:
+        for layout in MM_LAYOUTS:
+            a, b = mm_operands(torch, mkn, layout, seed=SEED + 4)
+            if not K.mm_fits(a.shape[0], a.shape[1], b.shape[1]):
+                continue
+            for out_dtype in (torch.bfloat16, torch.float32):
+                before = K.pallas_matmul.launches
+                got = K.pallas_matmul(a, b, out_dtype)
+                want = K.pallas_matmul_plain(a, b, out_dtype)
+                torch.cuda.synchronize()
+                if K.pallas_matmul.launches != before + 1:
+                    raise AssertionError("pallas_matmul did not launch")
+                readings = mm_agreement(torch, got, want)
+                err = max_err(torch, got, want)
+                log(f"check pallas_matmul {name} {mkn} {layout} "
+                    f"{str(out_dtype)[6:]}: max_abs_err {err:.3e} (largest "
+                    f"entry {float(want.float().abs().max()):.3e}); " +
+                    ", ".join(f"{key} {val:.3e} (tol {lim:.0e})"
+                              for key, val, lim in readings))
+                if not all(val <= lim for _, val, lim in readings):
+                    failed.append((name, mkn, layout, str(out_dtype)))
+                if name != "ragged" and out_dtype == torch.bfloat16:
+                    errs["pallas_matmul"] = max(
+                        errs.get("pallas_matmul", 0.0), err)
+                del got, want
+    if failed:
+        raise AssertionError(f"pallas_matmul disagrees with plain: {failed}")
+
+
 def phase_check(torch):
     """Each kernel against its plain version; returns per-kernel errors."""
     from horovod_tpu_torch.ops import kernels as K
@@ -301,6 +400,7 @@ def phase_check(torch):
         if failed:
             raise AssertionError(f"{failed} disagree with plain at {shape}")
     check_cbr(torch, errs)
+    check_mm(torch, errs)
     return errs
 
 
@@ -352,6 +452,45 @@ def time_cbr(torch) -> dict:
             work[i] += amount * count / per_step
         del args, seg, x, dseg
     total["bound_ms"], total["bound_by"] = bound_ms(*work)
+    return total
+
+
+def time_mm(torch) -> dict:
+    """pallas_matmul at each main-path shape and layout: kernel, plain and
+    ``torch.matmul`` (cuBLAS, the yardstick; the port never calls it for
+    these products).  Every (shape, layout) runs 16 times a step, so the
+    launch-weighted mean is the plain mean over the 12."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    work = [0.0, 0.0]
+    cells = [(name, mkn, layout) for name, mkn in MM_MAIN.items()
+             for layout in MM_LAYOUTS]
+    for name, mkn, layout in cells:
+        a, b = mm_operands(torch, mkn, layout, seed=SEED + 5)
+        (m, k), n = a.shape, b.shape[1]
+        r = dict(ms=cuda_ms(torch, lambda: K.pallas_matmul(a, b)),
+                 plain_ms=cuda_ms(torch, lambda: K.pallas_matmul_plain(
+                     a, b, torch.bfloat16), iters=5),
+                 library_ms=cuda_ms(torch, lambda: torch.matmul(a, b)))
+        nbytes, flops = 2 * (m * k + k * n + m * n), 2 * m * k * n
+        bms, by = bound_ms(nbytes, flops)
+        same = torch.equal(K.pallas_matmul(a, b), torch.matmul(a, b))
+        log(f"time pallas_matmul {name} {layout} ({m}x{k})@({k}x{n}): "
+            f"{r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.0f} TFLOP/s; bound "
+            f"{bms:.4f} ms by {by}, plain {r['plain_ms']:.4f} ms, "
+            f"torch.matmul {r['library_ms']:.4f} ms, its result bit for "
+            f"bit the kernel's: {same})")
+        for key in total:
+            total[key] += r[key] / len(cells)
+        work[0] += nbytes / len(cells)
+        work[1] += flops / len(cells)
+        del a, b
+    total["bound_ms"], total["bound_by"] = bound_ms(*work)
+    log(f"time pallas_matmul per step: {len(cells) * MM_LAYERS} launches, "
+        f"kernel {total['ms'] * len(cells) * MM_LAYERS:.2f} ms, bound "
+        f"{total['bound_ms'] * len(cells) * MM_LAYERS:.2f} ms, torch.matmul "
+        f"{total['library_ms'] * len(cells) * MM_LAYERS:.2f} ms")
     return total
 
 
@@ -428,6 +567,7 @@ def phase_time(torch):
         f"scaled_dot_product_attention {cuda_ms(torch, sdpa_fwd_bwd):.4f} ms")
     del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg
     out["fused_conv_bn_relu_bwd"] = time_cbr(torch)
+    out["pallas_matmul"] = time_mm(torch)
     for name, r in out.items():
         log(f"time {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
@@ -437,7 +577,8 @@ def phase_time(torch):
 
 def _category(name: str) -> str:
     lowered = name.lower()
-    for key, cat in (("flash_", "flash kernels"), ("scale_", "fused_scale"),
+    for key, cat in (("mm_kernel", "pallas_matmul kernel"),
+                     ("flash_", "flash kernels"), ("scale_", "fused_scale"),
                      ("cbr_", "conv_bn_relu_bwd kernel"),
                      ("conv", "convolution"), ("fprop", "convolution"),
                      ("dgrad", "convolution"), ("wgrad", "convolution"),
@@ -609,6 +750,117 @@ def phase_train(torch):
                         peak_gib=peak / 2**30, losses=losses)
 
 
+def phase_tp_train(torch):
+    """The 870.9M TransformerLM through ``fused_tp_apply`` on a tp group of
+    one, trained by the five-line recipe; returns the launch counts of its
+    run and its summary."""
+    import horovod_tpu_torch as hvd
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        fused_tp_apply,
+        lm_loss,
+    )
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.ops.fused_collectives import \
+        resolve_fused_collectives
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    hvd.init()
+    dev = hvd.device()
+    mesh = make_parallel_mesh(tp=1)
+    cfg = TransformerConfig(vocab_size=FULL["vocab"],
+                            num_layers=FULL["layers"],
+                            num_heads=FULL["heads"],
+                            d_model=FULL["d_model"],
+                            d_ff=4 * FULL["d_model"],
+                            max_seq_len=FULL["seq"], dtype=torch.bfloat16,
+                            attention_impl="flash")
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    log(f"tp: fused_tp_apply on a tp group of {mesh.shape['tp']} (dp "
+        f"{mesh.shape['dp']}), fused collectives "
+        f"{resolve_fused_collectives()}")
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        gradient_predivide_factor=2.0)
+
+    def tp_loss(m, batch):
+        logits = fused_tp_apply(m, cfg, batch[:, :-1], mesh=mesh)
+        return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                               batch[:, 1:].reshape(-1))
+
+    step = hvd.DistributedTrainStep(tp_loss, opt)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (FULL["batch"], FULL["seq"] + 1),
+                           generator=torch.Generator().manual_seed(SEED))
+    steps = 5
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    model, opt = step.init(model)
+    batch = step.shard_batch(tokens)
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))           # synchronises
+        times.append(time.perf_counter() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"tp: losses {losses}")
+    log(f"tp: launches on the tp path {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite tp loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"tp loss did not fall: {losses}")
+    want = 4 * MM_LAYERS * 3 * steps
+    if counts["pallas_matmul"] != want:
+        raise AssertionError(f"pallas_matmul launched "
+                             f"{counts['pallas_matmul']} times, want {want}")
+    missing = [k for k in TP_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the tp path: "
+                             f"{missing}")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    tokens_per_step = FULL["batch"] * FULL["seq"]
+    log(f"tp: step {steady * 1e3:.1f} ms (median of steps 2-5; first "
+        f"{times[0] * 1e3:.1f} ms), {tokens_per_step / steady:.0f} tokens/s, "
+        f"peak memory {peak / 2**30:.2f} GiB")
+
+    profile_step(torch, lambda: float(step(model, opt, batch)[2]),
+                 "mm_kernel")
+
+    # the same weights through TransformerLM's forward (cuBLAS F.linear):
+    # the two differ only in the order of the GEMMs' fp32 sums before each
+    # bf16 rounding, so 5e-3 relative on the loss and 2e-2 relative L2 over
+    # all gradients
+    grads = {}
+    for name, fn in (("tp", tp_loss), ("model", lm_loss)):
+        model.zero_grad(set_to_none=True)
+        loss = fn(model, batch)
+        loss.backward()
+        grads[name] = (float(loss.detach()), torch.cat(
+            [p.grad.float().reshape(-1) for p in model.parameters()]))
+    (lt, gt), (lm, gm) = grads["tp"], grads["model"]
+    loss_rel = abs(lt - lm) / abs(lm)
+    grad_rel = float((gt - gm).norm() / gm.norm())
+    log(f"parity fused_tp_apply vs TransformerLM: loss {lt:.6f} vs {lm:.6f} "
+        f"(rel {loss_rel:.3e}, tol 5e-3), grads rel L2 {grad_rel:.3e} "
+        f"(tol 2e-2)")
+    if not (loss_rel <= 5e-3 and grad_rel <= 2e-2):
+        raise AssertionError("fused_tp_apply and TransformerLM disagree")
+    del grads, gt, gm
+    model.zero_grad(set_to_none=True)
+    hvd.shutdown()
+    return counts, dict(step_ms=steady * 1e3,
+                        tokens_per_s=tokens_per_step / steady,
+                        peak_gib=peak / 2**30, losses=losses,
+                        first_step_ms=times[0] * 1e3,
+                        loss_rel=loss_rel, grad_rel=grad_rel)
+
+
 def phase_resnet(torch):
     """ResNet-50 at bench.py's configuration through the five-line recipe;
     returns the launch counts of its run and its summary."""
@@ -744,6 +996,9 @@ def main() -> int:
     resnet_counts, resnet = phase_resnet(torch)
     for name in RESNET_KERNELS:
         counts[name] = resnet_counts[name]
+    torch.cuda.empty_cache()
+    tp_counts, tp = phase_tp_train(torch)
+    counts["pallas_matmul"] = tp_counts["pallas_matmul"]
 
     csrc = "horovod_tpu_torch/ops/csrc/"
     tpu = "horovod_tpu/ops/pallas_kernels.py:"
@@ -752,7 +1007,8 @@ def main() -> int:
                "flash_bwd_dq": (csrc + "flash_attention.cu", tpu + "213"),
                "flash_bwd_dkv": (csrc + "flash_attention.cu", tpu + "269"),
                "fused_conv_bn_relu_bwd": (csrc + "conv_bn_relu_bwd.cu",
-                                          tpu + "503")}
+                                          tpu + "503"),
+               "pallas_matmul": (csrc + "matmul.cu", tpu + "778")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = timing[name]
@@ -764,6 +1020,7 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
     log(f"train summary: {json.dumps(train)}")
     log(f"resnet summary: {json.dumps(resnet)}")
+    log(f"tp summary: {json.dumps(tp)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,9 @@ and ``cfg.dtype`` compute.  Parameter names follow the flax tree
 (``layer_{i}/attn/qkv/kernel`` is ``layers.{i}.attn.qkv.weight``, stored
 ``(out, in)``); :func:`horovod_tpu_torch.models.convert.params_from_flax`
 maps one onto the other.  ``attention_impl`` is ``dense`` (plain
-attention) or ``flash`` (the port's flash kernels); ring, ulysses,
-tensor parallelism and remat wait for later slices.
+attention) or ``flash`` (the port's flash kernels).  :func:`fused_tp_apply`
+is the tensor-parallel execution mode over a ``tp`` process group; ring,
+ulysses and remat wait for later slices.
 """
 
 from __future__ import annotations
@@ -196,3 +197,150 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
                    positions[:-1] if positions is not None else None)
     return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                            tokens[:, 1:].reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel execution mode
+# ---------------------------------------------------------------------------
+
+def fused_tp_apply(model: TransformerLM, cfg: TransformerConfig,
+                   tokens: torch.Tensor,
+                   positions: Optional[torch.Tensor] = None,
+                   fused: Optional[bool] = None, mesh=None) -> torch.Tensor:
+    """``model``'s forward with tile-fused collectives at every
+    tensor-parallel boundary (``transformer.fused_tp_apply``): the same
+    logits as ``model(tokens)``.
+
+    Every rank of ``mesh``'s ``tp`` group calls this with the same
+    (replicated) parameters and tokens; ``mesh=None`` is a tp extent of 1.
+    The layout is Megatron's sequence parallelism: the residual stream
+    stays token-sharded between blocks (RMSNorm and the residual adds are
+    per token), each column boundary gathers tokens inside its product
+    (:func:`~horovod_tpu_torch.parallel.tensor_parallel.column_parallel_dense_ag`)
+    and each row boundary reduce-scatters them back
+    (:func:`~horovod_tpu_torch.parallel.tensor_parallel.row_parallel_dense_rs`),
+    so all four projections of a layer run the matmul kernel.  One
+    all-gather after ``ln_f`` reassembles the tokens for the tied head,
+    a plain ``torch.matmul`` as the JAX package leaves it to XLA.
+
+    Shape contract: ``seq % tp``, ``num_heads % tp`` and ``d_ff % tp`` must
+    be 0.  ``fused=None`` reads the ``HOROVOD_FUSED_COLLECTIVES`` knob
+    (:func:`~horovod_tpu_torch.ops.fused_collectives.resolve_fused_collectives`);
+    ``fused=False`` keeps the same layout with unfused boundary
+    collectives.  Gradients flow to ``model``'s parameters; at tp > 1 each
+    rank's are its partials (as under the JAX package's ``shard_map``),
+    which nothing here sums.
+    """
+    from horovod_tpu_torch.ops.fused_collectives import (
+        group_rank,
+        group_size,
+        resolve_fused_collectives,
+    )
+    from horovod_tpu_torch.parallel.mesh import AXIS_TP
+    from horovod_tpu_torch.parallel.tensor_parallel import (
+        column_parallel_dense_ag,
+        row_parallel_dense_rs,
+    )
+
+    if cfg.attention_impl not in ("dense", "flash"):
+        raise ValueError(
+            f"fused_tp_apply supports attention_impl dense|flash, got "
+            f"{cfg.attention_impl!r} (ring/ulysses already own their "
+            f"sequence axis)")
+    if fused is None:
+        fused = resolve_fused_collectives()
+    group = mesh.group(AXIS_TP) if mesh is not None else None
+    w, me = group_size(group), group_rank(group)
+    b, t = tokens.shape
+    d, heads, dt = cfg.d_model, cfg.num_heads, cfg.dtype
+    if t % w or heads % w or cfg.d_ff % w:
+        raise ValueError(
+            f"fused_tp_apply needs seq ({t}), num_heads ({heads}) and "
+            f"d_ff ({cfg.d_ff}) divisible by the tp extent {w}")
+    t_loc, d_loc, f_loc = t // w, d // w, cfg.d_ff // w
+    h_loc, hd = heads // w, cfg.head_dim
+    if positions is None:
+        positions = torch.arange(t, device=tokens.device)
+
+    def rows(x_shard):
+        """(b, t_loc, f) token shard -> (b·t_loc, f) rows in ``dt``."""
+        return x_shard.reshape(b * t_loc, x_shard.shape[-1]).to(dt)
+
+    def to_rank_major(full):
+        """(b, t, f) natural tokens -> (w·b·t_loc, f) rank-major rows, the
+        layout the reduce-scatter hands out."""
+        f = full.shape[-1]
+        return full.reshape(b, w, t_loc, f).transpose(0, 1) \
+            .reshape(w * b * t_loc, f)
+
+    def from_gathered(rows_, f):
+        """(w·b·t_loc, f) rank-major gather output -> (b, t, f) natural."""
+        return rows_.reshape(w, b, t_loc, f).transpose(0, 1).reshape(b, t, f)
+
+    def cols(weight, width):
+        """This rank's block of output features of an (out, in) weight, in
+        ``dt``, as the (in, out_local) kernel view."""
+        return weight[me * width:(me + 1) * width].to(dt).t()
+
+    def in_rows(weight, width):
+        """This rank's block of input features of an (out, in) weight, in
+        ``dt``, as the (in_local, out) kernel view."""
+        return weight[:, me * width:(me + 1) * width].to(dt).t()
+
+    emb = model.embed.embedding
+    x = F.embedding(tokens, emb).to(dt)                    # (b, t, d)
+    # token-shard the residual stream: rank r owns tokens
+    # [r·t_loc, (r+1)·t_loc) of every batch row
+    x_shard = x[:, me * t_loc:(me + 1) * t_loc]
+    for layer in model.layers:
+        # -- attention: AG⊗qkv-matmul -> core -> proj-matmul⊗RS
+        qkv_w = layer.attn.qkv.weight                        # (3d, d)
+        if w == 1:
+            wqkv = qkv_w.to(dt).t()
+        else:
+            # per-matrix column shards: a contiguous block of the fused
+            # (3d, d) weight would span only one of q/k/v at tp > 3
+            wqkv = torch.cat([qkv_w[j * d + me * d_loc:
+                                    j * d + (me + 1) * d_loc]
+                              for j in range(3)]).to(dt).t()
+        qkv = column_parallel_dense_ag(rows(layer.ln1(x_shard)), wqkv,
+                                       group=group, fused=fused)
+        q, k, v = from_gathered(qkv, 3 * d_loc).split(d_loc, dim=-1)
+        shape = (b, t, h_loc, hd)
+        q, k, v = (a.reshape(shape) for a in (q, k, v))
+        q = rotary_embedding(q, positions)
+        k = rotary_embedding(k, positions)
+        if cfg.attention_impl == "flash":
+            o = flash_attention(q, k, v, causal=cfg.causal,
+                                block_q=cfg.flash_block,
+                                block_k=cfg.flash_block)
+        else:
+            o = reference_attention(q, k, v, causal=cfg.causal)
+        y = row_parallel_dense_rs(
+            to_rank_major(o.reshape(b, t, h_loc * hd)).to(dt),
+            in_rows(layer.attn.proj.weight, d_loc), group=group, fused=fused)
+        x_shard = x_shard + y.reshape(b, t_loc, d)
+
+        # -- MLP: AG⊗wi-matmul -> gelu -> wo-matmul⊗RS.  The activation
+        # stays rank-major between the two boundaries: gelu is elementwise
+        hh = column_parallel_dense_ag(rows(layer.ln2(x_shard)),
+                                      cols(layer.mlp.wi.weight, f_loc),
+                                      group=group, fused=fused)
+        hh = F.gelu(hh, approximate="tanh")
+        y = row_parallel_dense_rs(hh.to(dt), in_rows(layer.mlp.wo.weight,
+                                                     f_loc),
+                                  group=group, fused=fused)
+        x_shard = x_shard + y.reshape(b, t_loc, d)
+
+    x_shard = model.ln_f(x_shard)
+    if w == 1:
+        x = x_shard
+    else:
+        # the one boundary-wide gather left: reassemble tokens for the tied
+        # head (rank-major chunks -> natural order)
+        import torch.distributed.nn.functional as dist_fn
+
+        chunks = dist_fn.all_gather(x_shard.contiguous(), group=group)
+        x = torch.stack(chunks).transpose(0, 1).reshape(b, t, d)
+    # tied head as flax Embed.attend: both operands in cfg.dtype
+    return x.to(dt) @ emb.to(dt).t()

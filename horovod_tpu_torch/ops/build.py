@@ -44,6 +44,7 @@ _SIGNATURES = {
     "hvd_flash_bwd_dkv": [_c_void_p] * 8 + [_c_int] * 4 + [_c_float, _c_int,
                                                            _c_void_p],
     "hvd_cbr_bwd": [_c_void_p] * 14 + [_c_int] * 7 + [_c_void_p],
+    "hvd_matmul": [_c_void_p] * 3 + [_c_int] * 6 + [_c_void_p],
 }
 
 

@@ -21,6 +21,10 @@ Kernels (TPU source → CUDA source):
   → ``csrc/conv_bn_relu_bwd.cu``, the backward of ResNet's stride-1 3x3
   segment, glued by :func:`fused_conv_bn_relu`'s
   ``torch.autograd.Function``.
+* :func:`pallas_matmul` (``pallas_kernels.pallas_matmul``) →
+  ``csrc/matmul.cu``: the blocked product with fp32 accumulation that the
+  tensor-parallel ring ops (:mod:`.fused_collectives`) compute per tile;
+  its own ``torch.autograd.Function`` runs dX and dW through it too.
 """
 
 from __future__ import annotations
@@ -442,10 +446,132 @@ def fused_conv_bn_relu(a: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     return _FusedConvBnRelu.apply(a, w, gamma, beta, mean, var, eps)
 
 
+# ---------------------------------------------------------------------------
+# blocked matmul, fp32 accumulation
+# ---------------------------------------------------------------------------
+
+def _fit_mm_block(dim: int, candidates) -> Optional[int]:
+    for c in candidates:
+        if c <= dim and dim % c == 0:
+            return c
+    return None
+
+
+def mm_fits(m: int, k: int, n: int) -> bool:
+    """The JAX dispatch rule of ``pallas_matmul`` by shape alone
+    (``pallas_kernels.py:801-804``): a row block of 512 down to 8 divides
+    ``m``, a column block of 512, 256 or 128 divides ``n``, and ``k`` is a
+    multiple of 128."""
+    return (_fit_mm_block(m, (512, 256, 128, 64, 32, 16, 8)) is not None and
+            _fit_mm_block(n, (512, 256, 128)) is not None and k % 128 == 0)
+
+
+def pallas_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                        out_dtype: torch.dtype) -> torch.Tensor:
+    """``jnp.dot(x, w, preferred_element_type=f32).astype(out_dtype)``:
+    the product in fp32, rounded once."""
+    return (x.float() @ w.float()).to(out_dtype)
+
+
+def _mm_operand(t: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """(row-major storage, transposed) of a 2-D operand: a row-major tensor
+    as it is, the transposed view of a row-major tensor as that tensor with
+    the flag set, anything else as a row-major copy."""
+    if t.is_contiguous():
+        return _aligned(t), False
+    if t.t().is_contiguous():
+        return _aligned(t.t()), True
+    return _aligned(t), False
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
+        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w`` by the dispatch rule, without autograd; ``out`` (row-major,
+    ``(m, n)``, ``out_dtype``) receives the result when given."""
+    (m, k), n = x.shape, w.shape[1]
+    if out is not None and (out.shape != (m, n) or out.dtype != out_dtype
+                            or not out.is_contiguous()):
+        raise ValueError("out must be row-major (m, n) of out_dtype")
+    if not mm_fits(m, k, n) or x.device.type == "cpu":
+        y = pallas_matmul_plain(x, w, out_dtype)
+        return y if out is None else out.copy_(y)
+    for t in (x, w):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the matmul kernel takes bfloat16 operands, got "
+                            f"{t.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the matmul kernel writes bfloat16 or float32, got "
+                        f"{out_dtype}")
+    a, a_t = _mm_operand(x)
+    b, b_t = _mm_operand(w)
+    dst = out if out is not None and out.data_ptr() % 16 == 0 else \
+        torch.empty((m, n), dtype=out_dtype, device=x.device)
+    lib, stream = _cuda_library(x)
+    _check(lib.hvd_matmul(a.data_ptr(), b.data_ptr(), dst.data_ptr(), m, n, k,
+                          int(a_t), int(b_t), int(out_dtype == torch.float32),
+                          stream), "matmul")
+    pallas_matmul.launches += 1
+    return dst if out is None or out is dst else out.copy_(dst)
+
+
+def matmul_grad_w(x: torch.Tensor, dy: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """``xᵀ·dy``, the gradient of ``w`` in ``y = x @ w``, in ``w``'s dtype.
+    When ``w`` is the transposed view of a row-major ``(n, k)`` weight, the
+    product is taken as ``dyᵀ·x`` in the weight's own layout and returned
+    transposed, so the weight's gradient comes out row-major."""
+    if not w.is_contiguous() and w.t().is_contiguous():
+        return _mm(dy.t(), x, w.dtype).t()
+    return _mm(x.t(), dy, w.dtype)
+
+
+class _PallasMatmul(torch.autograd.Function):
+    """dX = dy·wᵀ and dW = xᵀ·dy through the same kernel.  dy is taken in
+    the operands' dtype (the kernel's bf16 on the card), and each gradient
+    comes back in its operand's dtype, as autograd of a ``cfg.dtype``
+    product gives it."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        ctx.save_for_backward(x, w)
+        return _mm(x, w, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(torch.promote_types(x.dtype, w.dtype))
+        dx = _mm(dy, w.t(), x.dtype) if ctx.needs_input_grad[0] else None
+        dw = matmul_grad_w(x, dy, w) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def pallas_matmul(x: torch.Tensor, w: torch.Tensor,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ w`` with fp32 accumulation, rounded to ``out_dtype`` (default:
+    the operands' promoted dtype), differentiable
+    (``pallas_kernels.pallas_matmul``).
+
+    ``x`` is ``(m, k)``, ``w`` ``(k, n)``; either may be the transposed view
+    of a row-major tensor, which the kernel reads in place.  A shape outside
+    :func:`mm_fits` computes :func:`pallas_matmul_plain` on any device, as
+    the JAX package does.  Inside it, a CPU tensor takes the plain version
+    and a CUDA tensor launches ``csrc/matmul.cu``, which takes bfloat16
+    operands and raises on any other dtype."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"pallas_matmul takes (m, k) @ (k, n), got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    out_dtype = out_dtype or torch.promote_types(x.dtype, w.dtype)
+    return _PallasMatmul.apply(x, w, out_dtype)
+
+
+pallas_matmul.launches = 0
+
+
 #: every kernel wrapper, by the name chip_smoke.py and PERF.md use
 WRAPPERS = {"fused_scale": fused_scale, "flash_fwd": flash_fwd,
             "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
-            "fused_conv_bn_relu_bwd": fused_conv_bn_relu_bwd}
+            "fused_conv_bn_relu_bwd": fused_conv_bn_relu_bwd,
+            "pallas_matmul": pallas_matmul}
 
 
 def reset_launch_counts() -> None:

@@ -1,10 +1,10 @@
 """Runtime configuration from the ``HOROVOD_*`` environment contract.
 
 The part of ``horovod_tpu/runtime/config.py`` the PyTorch port reads: the
-launcher's identity knobs, the coordinator address and the fusion
-threshold, under the same ``HOROVOD_*`` names and with the same defaults,
-so one environment drives both packages.  A knob joins ``KNOWN_KNOBS``
-and ``Config`` in the slice that ports the subsystem reading it.  The JAX
+launcher's identity knobs, the coordinator address, the fusion threshold
+and the fused-collectives mode, under the same ``HOROVOD_*`` names and
+with the same defaults, so one environment drives both packages.  A knob
+joins ``KNOWN_KNOBS`` and ``Config`` in the slice that ports the subsystem reading it.  The JAX
 package's jsrun/PMIx identity fallback is not copied: the port's launcher
 contract is the ``HOROVOD_*`` variables alone.
 """
@@ -25,6 +25,8 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_COORDINATOR_ADDR",
     # -- fusion
     "HOROVOD_FUSION_THRESHOLD",
+    # -- tile-fused matmul⊗collective rings (ops/fused_collectives.py)
+    "HOROVOD_FUSED_COLLECTIVES",
 })
 
 
@@ -60,6 +62,10 @@ class Config:
     # -- fusion / bucketing (reference: 64 MiB default, operations.cc:432)
     fusion_threshold_bytes: int = 64 * 1024 * 1024
 
+    # -- tile-fused rings at the tensor-parallel boundaries: "auto",
+    # "on" or "off" (ops/fused_collectives.resolve_fused_collectives)
+    fused_collectives: str = "auto"
+
     @staticmethod
     def from_env() -> "Config":
         def opt_int(name: str) -> Optional[int]:
@@ -76,4 +82,6 @@ class Config:
             coordinator_addr=os.environ.get("HOROVOD_COORDINATOR_ADDR"),
             fusion_threshold_bytes=_env_int(
                 "HOROVOD_FUSION_THRESHOLD", 64 * 1024 * 1024),
+            fused_collectives=os.environ.get(
+                "HOROVOD_FUSED_COLLECTIVES", "auto").lower(),
         )

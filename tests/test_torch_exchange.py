@@ -56,7 +56,8 @@ class TestConfig:
            "HOROVOD_LOCAL_RANK": "1", "HOROVOD_LOCAL_SIZE": "2",
            "HOROVOD_CROSS_RANK": "1", "HOROVOD_CROSS_SIZE": "4",
            "HOROVOD_COORDINATOR_ADDR": "localhost:1234",
-           "HOROVOD_FUSION_THRESHOLD": "4096"}
+           "HOROVOD_FUSION_THRESHOLD": "4096",
+           "HOROVOD_FUSED_COLLECTIVES": "ON"}
 
     @pytest.mark.parametrize("set_env", [False, True])
     def test_matches_jax(self, monkeypatch, set_env):

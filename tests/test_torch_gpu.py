@@ -5,7 +5,8 @@ machine with::
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 With two or more cards, ``TestNcclWorld`` also runs the exchange and the
-training step over NCCL, one process per card.  Imports torch, numpy,
+training step over NCCL, one process per card, and with four
+``fused_tp_apply`` at tp = 4.  Imports torch, numpy,
 the port and ``chip_smoke``'s kernel-5 inputs and tolerances only.
 """
 
@@ -134,6 +135,54 @@ class TestOnCard:
         with pytest.raises(TypeError, match="bfloat16"):
             K.fused_conv_bn_relu_bwd(a, a, a, w, v, v, v)
 
+    @pytest.mark.parametrize("mkn", [*chip_smoke.MM_MAIN.values(),
+                                     *chip_smoke.MM_RAGGED],
+                             ids=lambda mkn: "x".join(map(str, mkn)))
+    @pytest.mark.parametrize("layout", chip_smoke.MM_LAYOUTS)
+    @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+    def test_matmul(self, cuda, mkn, layout, out_dtype):
+        """The kernel against its plain version in the three layouts of a
+        linear layer (forward, dX, dW), as chip_smoke.py holds it."""
+        x, w = chip_smoke.mm_operands(torch, mkn, layout, seed=5)
+        before = K.pallas_matmul.launches
+        got = K.pallas_matmul(x, w, out_dtype)
+        fits = K.mm_fits(x.shape[0], x.shape[1], w.shape[1])
+        assert K.pallas_matmul.launches == before + int(fits)
+        want = K.pallas_matmul_plain(x, w, out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == want.shape
+        for key, val, lim in chip_smoke.mm_agreement(torch, got, want):
+            assert val <= lim, (key, val, lim)
+
+    def test_matmul_rejects_fp32(self, cuda):
+        x = torch.zeros(8, 128, device=cuda)
+        with pytest.raises(TypeError, match="bfloat16"):
+            K.pallas_matmul(x, torch.zeros(128, 128, device=cuda))
+
+    def test_matmul_autograd(self, cuda):
+        """dX and dW of a bf16 x @ weightᵀ through the kernel against
+        autograd of F.linear on the same bf16 operands: one bf16 rounding
+        of fp32 sums taken in another order, normwise 5e-3."""
+        gen = torch.Generator(device=cuda).manual_seed(6)
+        x = torch.randn(256, 384, device=cuda, generator=gen).bfloat16()
+        weight = torch.randn(512, 384, device=cuda, generator=gen) / 20
+        dy = torch.randn(256, 512, device=cuda, generator=gen).bfloat16()
+        grads = []
+        for use_kernel in (True, False):
+            xg = x.clone().requires_grad_()
+            wg = weight.clone().requires_grad_()
+            before = K.pallas_matmul.launches
+            y = K.pallas_matmul(xg, wg.bfloat16().t()) if use_kernel else \
+                torch.nn.functional.linear(xg, wg.bfloat16())
+            y.backward(dy)
+            assert K.pallas_matmul.launches - before == (3 if use_kernel
+                                                          else 0)
+            assert wg.grad.is_contiguous()
+            grads.append((y.detach(), xg.grad, wg.grad))
+        for got, want in zip(*grads):
+            rel = (got.float() - want.float()).norm() / want.float().norm()
+            assert float(rel) <= 5e-3
+
     def test_resnet_fused_matches_unfused(self, cuda):
         """A narrow bf16 ResNet (two stride-1 blocks at 128 filters, on the
         kernel's rule) under the same weights: the fused segment's
@@ -226,3 +275,29 @@ class TestNcclWorld:
             for k in params0:
                 np.testing.assert_array_equal(params[k], params0[k],
                                               err_msg=k)
+
+    def test_tp_over_nccl(self, cards):
+        """fused_tp_apply at tp = 4 over NCCL against tp = 1 on the same
+        bf16 weights (normwise 1e-2: the two sum the row-parallel partials
+        in another order and round them to bf16 at other places), and both
+        ring ops fused against unfused on every rank (the same per-tile
+        kernel products; the unfused pair sums the partials in bf16 inside
+        NCCL, the ring in fp32: normwise 1e-2).  Run alone on four cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        outs = spawn_world("run_tp_nccl", world=4, device="cuda",
+                           timeout=300)
+
+        def rel(got, want):
+            return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+        for rank, out in enumerate(outs):
+            readings = [rel(out["logits_tp"], out["logits_1"])] + \
+                [rel(out[True][n], out[False][n]) for n in ("rs", "ag")] + \
+                [rel(g, w) for g, w in zip(out[True]["grads"],
+                                           out[False]["grads"])]
+            print(f"rank {rank}: normwise logits tp=4 vs tp=1, rs, ag, "
+                  f"dx, dw, dxs fused vs unfused: {readings}")
+            # 4 boundary ops a layer, each one kernel launch per ring hop
+            assert out["launches"] == 2 * 4 * 4, rank
+            assert all(r <= 1e-2 for r in readings), (rank, readings)

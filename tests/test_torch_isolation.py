@@ -15,13 +15,16 @@ import torch
 
 from horovod_tpu_torch.ops import kernels as K
 
+#: the matmul's plain version before fake_card replaces it: it is also what
+#: a shape outside the dispatch rule computes on any device
+PLAIN_MM = K.pallas_matmul_plain
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 
 
 def _port_files():
     return sorted((ROOT / "horovod_tpu_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py", ROOT / "tp_bench.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -85,6 +88,16 @@ def test_chip_smoke_refuses_without_cuda():
     assert '"ok"' not in out.stdout
 
 
+def test_tp_bench_refuses_without_cards():
+    """Fewer cards than asked for: exit non-zero before starting a rank."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "tp_bench.py"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "needs 4 CUDA cards" in out.stderr and out.stdout == ""
+
+
 def test_chip_smoke_alone_fails(tmp_path):
     """Copied into a directory without the package, the script fails."""
     (tmp_path / "chip_smoke.py").write_text(
@@ -98,14 +111,16 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 
 class _FakeLib:
-    """Records each C entry called, returns success."""
+    """Records each C entry called (and its arguments), returns success."""
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append(name)
+            self.args.append(args)
             return 0
         return entry
 
@@ -122,7 +137,7 @@ def fake_card(monkeypatch):
 
     for name in ("fused_scale_plain", "flash_fwd_plain",
                  "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
-                 "fused_conv_bn_relu_bwd_plain"):
+                 "fused_conv_bn_relu_bwd_plain", "pallas_matmul_plain"):
         monkeypatch.setattr(K, name, boom)
     K.reset_launch_counts()
     yield lib
@@ -150,9 +165,11 @@ def test_device_tensors_launch_kernels(fake_card):
     assert da.shape == a.shape and da.dtype == torch.bfloat16
     assert dw.shape == (3, 3, 128, 256) and dw.dtype == torch.float32
     assert dgamma.shape == dbeta.shape == (256,)
+    y = K.pallas_matmul(_meta(24, 128), _meta(128, 384), torch.float32)
+    assert y.shape == (24, 384) and y.dtype == torch.float32
     assert fake_card.calls == ["hvd_fused_scale", "hvd_flash_fwd",
                                "hvd_flash_bwd_dq", "hvd_flash_bwd_dkv",
-                               "hvd_cbr_bwd"]
+                               "hvd_cbr_bwd", "hvd_matmul"]
     assert K.launch_counts() == {name: 1 for name in K.WRAPPERS}
 
 
@@ -217,6 +234,53 @@ def test_fused_scale_device_dtype_refused(fake_card):
     with pytest.raises(TypeError):
         K.fused_scale(_meta(4, dtype=torch.float64), 2.0)
     assert fake_card.calls == []
+
+
+def test_matmul_autograd_on_device_uses_kernel(fake_card):
+    """A linear layer's three products run the kernel on a device tensor,
+    each operand read in place: the forward reads the weight transposed,
+    dX the weight as it is, dW dy transposed; (m, n, k, a_t, b_t, fp32)."""
+    x = _meta(384, 128).requires_grad_()
+    weight = _meta(256, 128, dtype=torch.float32).requires_grad_()
+    y = K.pallas_matmul(x, weight.bfloat16().t())
+    assert y.shape == (384, 256) and y.dtype == torch.bfloat16
+    y.backward(_meta(384, 256))
+    assert fake_card.calls == ["hvd_matmul"] * 3
+    assert [a[3:9] for a in fake_card.args] == [
+        (384, 256, 128, 0, 1, 0), (384, 128, 256, 0, 0, 0),
+        (256, 128, 384, 1, 0, 0)]
+    assert K.pallas_matmul.launches == 3
+    assert x.grad.shape == x.shape and x.grad.dtype == torch.bfloat16
+    assert weight.grad.shape == weight.shape
+    assert weight.grad.dtype == torch.float32
+
+
+def test_matmul_device_fp32_refused(fake_card):
+    with pytest.raises(TypeError, match="bfloat16"):
+        K.pallas_matmul(_meta(8, 128, dtype=torch.float32),
+                        _meta(128, 128, dtype=torch.float32))
+    assert fake_card.calls == []
+
+
+def test_matmul_outside_the_rule_launches_nothing(fake_card, monkeypatch):
+    """m % 8 != 0: the plain product on any device, as the JAX package's
+    jnp.dot fallback; no launch, no count."""
+    monkeypatch.setattr(K, "pallas_matmul_plain", PLAIN_MM)
+    y = K.pallas_matmul(_meta(7, 128), _meta(128, 128))
+    assert y.shape == (7, 128) and y.dtype == torch.bfloat16
+    assert fake_card.calls == [] and K.pallas_matmul.launches == 0
+
+
+def test_ring_ops_of_one_rank_launch_the_kernel(fake_card):
+    """A tp group of one is the bare kernel, forward and backward."""
+    from horovod_tpu_torch.ops import fused_collectives as FC
+
+    x = _meta(128, 128).requires_grad_()
+    w = _meta(128, 256).requires_grad_()
+    FC.matmul_reducescatter(x, w).backward(_meta(128, 256))
+    FC.allgather_matmul(x, w)
+    assert fake_card.calls == ["hvd_matmul"] * 4
+    assert FC.matmul_reducescatter.launches == 0
 
 
 def test_launcher_refuses_non_cuda_tensors():

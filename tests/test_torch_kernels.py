@@ -381,4 +381,132 @@ class TestLaunchCounters:
         a = torch.ones(1, 4, 4, 128)
         v = torch.ones(128)
         K.fused_conv_bn_relu_bwd(a, a, a, torch.ones(3, 3, 128, 128), v, v, v)
+        K.pallas_matmul(torch.ones(8, 128), torch.ones(128, 128))
         assert K.launch_counts() == {name: 0 for name in K.WRAPPERS}
+
+
+class TestPallasMatmul:
+    """pallas_matmul's plain version against the Pallas kernel in
+    interpret mode, at TestPallasMatmul's shapes and tolerances
+    (tests/test_pallas_kernels.py)."""
+
+    def test_tile_contract_shapes(self):
+        x, w = _rand(0, 16, 128), _rand(1, 128, 256)
+        want = PK.pallas_matmul(jnp.asarray(x), jnp.asarray(w),
+                                interpret=True)
+        got = K.pallas_matmul(torch.from_numpy(x), torch.from_numpy(w))
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+    def test_off_contract_falls_back(self):
+        x, w = _rand(2, 7, 33), _rand(3, 33, 19)
+        assert not K.mm_fits(7, 33, 19)
+        want = PK.pallas_matmul(jnp.asarray(x), jnp.asarray(w),
+                                interpret=True)
+        got = K.pallas_matmul(torch.from_numpy(x), torch.from_numpy(w))
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+    @pytest.mark.parametrize("out_dtype", [None, torch.float32])
+    def test_bf16_accumulates_fp32(self, out_dtype):
+        """bf16 operands, fp32 sums, one rounding to the output dtype: the
+        JAX test's 0.05 against the fp32 product, and within one bf16 step
+        (2^-8 relative) of the Pallas kernel, whose fp32 sums run in
+        another order."""
+        x, w = _rand(4, 8, 128), _rand(5, 128, 128)
+        xj, wj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w))
+        want = PK.pallas_matmul(xj, wj, out_dtype=_jnp_dtype(out_dtype)
+                                if out_dtype else None, interpret=True)
+        got = K.pallas_matmul(torch.from_numpy(x).bfloat16(),
+                              torch.from_numpy(w).bfloat16(), out_dtype)
+        assert got.dtype == (out_dtype or torch.bfloat16)
+        ref = np.asarray(xj, np.float32) @ np.asarray(wj, np.float32)
+        np.testing.assert_allclose(_np(got), ref, rtol=0.05, atol=0.05)
+        tol = 1e-5 if out_dtype else 2 ** -8
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol * np.abs(ref).max())
+
+    @pytest.mark.parametrize("mkn", [(8, 128, 128), (16, 128, 256),
+                                     (24, 384, 640), (7, 128, 128),
+                                     (8, 120, 128), (8, 128, 100),
+                                     (1024, 256, 512), (0, 128, 128),
+                                     (520, 1280, 384), (4, 128, 128)])
+    def test_dispatch_rule_matches_jax(self, mkn):
+        """The rule by shape alone, as pallas_kernels.py derives it from
+        _fit_mm_block."""
+        m, k, n = mkn
+        want = (PK._fit_mm_block(m, (512, 256, 128, 64, 32, 16, 8))
+                is not None and PK._fit_mm_block(n, (512, 256, 128))
+                is not None and k % 128 == 0)
+        assert K.mm_fits(m, k, n) == want
+
+    @pytest.mark.parametrize("mkn", [(16, 128, 256), (7, 33, 19)])
+    @pytest.mark.parametrize("transposed_w", [False, True])
+    def test_autograd_matches_jax_grad(self, mkn, transposed_w):
+        """dX and dW through the autograd glue against jax.grad of the JAX
+        function; with ``transposed_w`` the kernel operand is the
+        transposed view of an (n, k) weight, whose gradient comes back
+        row-major in the weight's own layout."""
+        m, k, n = mkn
+        x, w, g = _rand(6, m, k), _rand(7, k, n), _rand(8, m, n)
+
+        def loss(x, w):
+            return jnp.sum(PK.pallas_matmul(x, w) * jnp.asarray(g))
+
+        dx_j, dw_j = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
+                                                    jnp.asarray(w))
+        xt = torch.from_numpy(x).requires_grad_()
+        if transposed_w:
+            weight = torch.from_numpy(w.T.copy()).requires_grad_()
+            wt = weight.t()
+        else:
+            weight = wt = torch.from_numpy(w).requires_grad_()
+        (K.pallas_matmul(xt, wt) * torch.from_numpy(g)).sum().backward()
+        np.testing.assert_allclose(_np(xt.grad), np.asarray(dx_j),
+                                   rtol=1e-5, atol=1e-5)
+        dw = weight.grad.t() if transposed_w else weight.grad
+        assert weight.grad.is_contiguous()
+        np.testing.assert_allclose(_np(dw), np.asarray(dw_j), rtol=1e-5,
+                                   atol=1e-5)
+
+    def test_bf16_gradients_keep_operand_dtypes(self):
+        """A bf16 product of an fp32 parameter cast to bf16: dX is bf16,
+        and the parameter's gradient arrives in fp32 through the cast, as
+        autograd of a cfg.dtype product gives them."""
+        x = torch.from_numpy(_rand(9, 8, 128)).bfloat16().requires_grad_()
+        weight = torch.from_numpy(_rand(10, 256, 128)).requires_grad_()
+        y = K.pallas_matmul(x, weight.bfloat16().t())
+        assert y.dtype == torch.bfloat16
+        y.float().sum().backward()
+        assert x.grad.dtype == torch.bfloat16
+        assert weight.grad.dtype == torch.float32
+        want = torch.ones(256, 8) @ x.detach().float()
+        np.testing.assert_allclose(_np(weight.grad), _np(want), rtol=1e-2,
+                                   atol=1e-2)
+
+    def test_shape_validation(self):
+        with pytest.raises(ValueError, match="pallas_matmul"):
+            K.pallas_matmul(torch.ones(8, 128), torch.ones(64, 128))
+        with pytest.raises(ValueError, match="pallas_matmul"):
+            K.pallas_matmul(torch.ones(2, 8, 128), torch.ones(128, 128))
+
+    @pytest.mark.parametrize("mode,want", [("on", True), ("off", False),
+                                           ("auto", False)])
+    def test_resolve_modes(self, mode, want):
+        """"auto" is off in the port (the rings lost to the unfused
+        collectives on H100s), as the JAX package's auto is off without a
+        TPU."""
+        from horovod_tpu_torch.ops import fused_collectives as FC
+
+        assert FC.resolve_fused_collectives(mode) is want
+        assert PK.resolve_fused_collectives(mode) is want
+
+    def test_resolve_rejects_unknown(self, monkeypatch):
+        from horovod_tpu_torch.ops import fused_collectives as FC
+
+        with pytest.raises(ValueError, match="fused_collectives"):
+            FC.resolve_fused_collectives("maybe")
+        monkeypatch.setenv("HOROVOD_FUSED_COLLECTIVES", "maybe")
+        with pytest.raises(ValueError, match="fused_collectives"):
+            FC.resolve_fused_collectives()

@@ -272,3 +272,128 @@ def run_train_resnet(hvd, steps: int):
         losses.append(float(loss))
     return losses, {k: v.cpu().numpy().copy() for k, v in
                     model.state_dict().items()}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the ring ops and fused_tp_apply
+# ---------------------------------------------------------------------------
+
+# fp32 on the CPU: 4 heads of 16, so tp = 2 and 4 divide heads, seq and d_ff
+TP_SIZES = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=64,
+                d_ff=128, max_seq_len=16)
+
+
+def ring_inputs(world: int) -> dict:
+    """Per-rank operands of the ring ops, stacked over ranks (dim 0): the
+    row-parallel ``x`` (64, 16) and its ``w`` (16, 8), and the
+    column-parallel row shard ``xs`` (4, 16), as the JAX package's
+    TestFusedMatmulCollectives sizes them, but different on every rank so
+    that tile ownership shows."""
+    rng = np.random.RandomState(50 + world)
+    return {"x": rng.randn(world, 64, 16).astype(np.float32),
+            "w": rng.randn(world, 16, 8).astype(np.float32),
+            "xs": rng.randn(world, 4, 16).astype(np.float32)}
+
+
+def _ring_outputs(fc, x, w, xs, group, fused):
+    """Both ring ops and the gradients of ``sum(rs²) + sum(ag²)``."""
+    xg, wg, xsg = (t.detach().clone().requires_grad_() for t in (x, w, xs))
+    rs = fc.matmul_reducescatter(xg, wg, group, fused=fused)
+    ag = fc.allgather_matmul(xsg, wg, group, fused=fused)
+    (rs.float().pow(2).sum() + ag.float().pow(2).sum()).backward()
+    return {"rs": rs.detach().float().cpu().numpy(),
+            "ag": ag.detach().float().cpu().numpy(),
+            "grads": [t.grad.float().cpu().numpy() for t in (xg, wg, xsg)]}
+
+
+def run_tp(hvd, params, tokens):
+    """On a gloo world: the mesh layout, both ring ops fused and unfused
+    with their gradients on :func:`ring_inputs`, a bf16 reduce-scatter,
+    and ``fused_tp_apply``'s logits at tp = world for the flax ``params`` (as
+    numpy) in dense and flash attention, fused and unfused."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.models.convert import params_from_flax
+    from horovod_tpu_torch.ops import fused_collectives as FC
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    world, rank = hvd.size(), hvd.rank()
+    mesh = make_parallel_mesh(tp=world)
+    group = mesh.group("tp")
+    out = {"coords": mesh.coords,
+           "tp_ranks": dist.get_process_group_ranks(group)}
+    if world == 4:
+        m2 = make_parallel_mesh(tp=2)
+        out["dp2tp2"] = (m2.coords, m2.shape,
+                         dist.get_process_group_ranks(m2.group("tp")),
+                         dist.get_process_group_ranks(m2.group("dp")))
+    inp = {k: torch.from_numpy(v[rank]) for k, v in
+           ring_inputs(world).items()}
+    for fused in (True, False):
+        out[fused] = _ring_outputs(FC, inp["x"], inp["w"], inp["xs"], group,
+                                   fused)
+    out["rs_bf16"] = FC.matmul_reducescatter(
+        inp["x"].bfloat16(), inp["w"].bfloat16(), group).float().numpy()
+    out["launches"] = (FC.matmul_reducescatter.launches,
+                       FC.allgather_matmul.launches)
+    tok = torch.from_numpy(tokens).long()
+    for impl in ("dense", "flash"):
+        cfg = TT.TransformerConfig(dtype=torch.float32, attention_impl=impl,
+                                   **TP_SIZES)
+        model = TT.TransformerLM(cfg)
+        model.load_state_dict(params_from_flax(params))
+        with torch.no_grad():
+            for fused in (True, False):
+                out[("logits", impl, fused)] = TT.fused_tp_apply(
+                    model, cfg, tok, fused=fused, mesh=mesh).numpy()
+    try:
+        TT.fused_tp_apply(model, cfg, tok[:, :world + 1], mesh=mesh)
+    except ValueError as e:
+        out["divisibility_error"] = str(e)
+    return out
+
+
+# on-contract at tp = 4: d_model/4 = 128 (one head of 128 per rank),
+# d_ff/4 = 512 and 3·d_model/4 = 384 are multiples of 128
+TP_NCCL_SIZES = dict(vocab_size=512, num_layers=2, num_heads=4, d_model=512,
+                     d_ff=2048, max_seq_len=256)
+
+
+def run_tp_nccl(hvd):
+    """On a world of cards: ``fused_tp_apply`` at tp = world and at tp = 1
+    on the same bf16 weights (flash attention), and both ring ops fused and
+    unfused on on-contract bf16 operands; returns what the test compares
+    and the kernel's launches."""
+    import torch
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.ops import fused_collectives as FC
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    dev, rank = hvd.device(), hvd.rank()
+    mesh = make_parallel_mesh(tp=hvd.size())
+    group = mesh.group("tp")
+    cfg = TT.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                               **TP_NCCL_SIZES)
+    model = TT.TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=dev,
+                           generator=torch.Generator(
+                               device=dev).manual_seed(1))
+    K.reset_launch_counts()
+    with torch.no_grad():
+        tp = TT.fused_tp_apply(model, cfg, tokens, fused=True, mesh=mesh)
+        launches = K.pallas_matmul.launches
+        one = TT.fused_tp_apply(model, cfg, tokens, fused=True)
+    out = {"logits_tp": tp.float().cpu().numpy(),
+           "logits_1": one.float().cpu().numpy(), "launches": launches}
+    gen = torch.Generator(device=dev).manual_seed(10 + rank)
+    x = torch.randn(512, 256, device=dev, generator=gen).bfloat16()
+    w = (torch.randn(256, 384, device=dev, generator=gen) / 16).bfloat16()
+    xs = torch.randn(128, 256, device=dev, generator=gen).bfloat16()
+    for fused in (True, False):
+        out[fused] = _ring_outputs(FC, x, w, xs, group, fused)
+    return out
