@@ -16,11 +16,19 @@ Phases, in order; any failure exits non-zero:
    ``pallas_matmul`` at the tensor-parallel path's four projections
    (6144 tokens by 2048-8192 features) in the three layouts of a linear
    layer (forward, dX, dW), with bf16 and fp32 output (plus ragged shapes);
+   the flash kernels' global-positions variant at b6 h16 t1024 d128 bf16,
+   causal, for the sp ring's position pairs (arange; zigzag world 4, rank
+   1's queries against rank 3's block and rank 2 against its own;
+   contiguous rank 0 against rank 1's block, where every row is masked and
+   O, lse and the gradients must be exactly 0, the sentinel and 0), from
+   the plain forward's lse and delta (plus an off-grid shape);
 3. time each kernel with CUDA events beside its bound (the larger of
    bytes over 3.35 TB/s and products over 989 TFLOP/s), its plain version
    and, where one exists, a single PyTorch call computing the same function
    (for the conv backward, autograd through the unfused segment; for the
-   matmul, ``torch.matmul``);
+   matmul, ``torch.matmul``; for the positions variant, SDPA with the
+   boolean mask), and one layer's attention forward + backward through the
+   fused sp ring at sp = 1, the plain ring and ``flash_attention``;
 4. train the 870.9M TransformerLM (16 layers, d_model 2048, 16 heads,
    seq 1024, batch 6) through the five-line recipe on a world of one:
    ``init`` (NCCL), ``DistributedOptimizer(AdamW(3e-4, weight_decay=1e-4),
@@ -40,7 +48,14 @@ Phases, in order; any failure exits non-zero:
    kernel must run exactly 192 times a step, 4 projections x 16 layers x
    forward, dX and dW), and the same weights through ``TransformerLM``'s
    own forward for comparison;
-7. print the card's name and power limit, the kernels' JSON line, and last
+7. train the same 870.9M TransformerLM with ``attention_impl="ring"`` on an
+   sp group of one through ``DistributedTrainStep(plan="sp=1")``, with the
+   weights, batch and AdamW of phase 4, 5 steps (the loss must fall; each
+   step must launch each positions kernel exactly 16 times and the flash
+   kernels without positions never), and hold its first step's loss and
+   gradients against phase 4's (1e-5 relative; bit-exact expected, and
+   logged);
+8. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -70,6 +85,7 @@ TRANSFORMER_KERNELS = ("fused_scale", "flash_fwd", "flash_bwd_dq",
                        "flash_bwd_dkv")
 RESNET_KERNELS = ("fused_conv_bn_relu_bwd",)
 TP_KERNELS = ("pallas_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SP_KERNELS = ("flash_fwd_pos", "flash_bwd_dq_pos", "flash_bwd_dkv_pos")
 # pallas_matmul at the tp path's projections, (m, k, n) of the forward
 # x (m, k) @ weightᵀ (k, n); each runs 16 times a step in each layout
 MM_MAIN = {"qkv": (6144, 2048, 6144), "proj": (6144, 2048, 2048),
@@ -117,8 +133,10 @@ def phase_build():
     report = lib_path.with_suffix(".log")
     if report.exists():
         for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line.lower():
-                log("  ptxas: " + line.strip())
+            if "Function properties for" in line:
+                log("  ptxas: " + line.split("for", 1)[1].strip())
+            elif "registers" in line or "spill" in line.lower():
+                log("  ptxas:   " + line.split(":", 1)[-1].strip())
 
 
 def max_err(torch, a, b) -> float:
@@ -328,6 +346,88 @@ def check_mm(torch, errs: dict) -> None:
         raise AssertionError(f"pallas_matmul disagrees with plain: {failed}")
 
 
+def pos_pairs(torch, t: int, device: str = "cuda") -> dict:
+    """(qpos, kpos) of the sp ring's launches at a shard of ``t``: (a)
+    ``arange`` (the sp = 1 path), (b) zigzag world 4, rank 1's queries
+    against rank 3's block (some rows see no key), (c) zigzag rank 2
+    against its own block, (d) contiguous rank 0 against rank 1's block
+    (every row masked; the ring skips this launch)."""
+    from horovod_tpu_torch.ops.fused_collectives import ring_layout_positions
+
+    def pos(rank, layout):
+        return ring_layout_positions(rank, 4, t, layout, device)
+
+    return {"a": (pos(0, "contiguous"), pos(0, "contiguous")),
+            "b": (pos(1, "zigzag"), pos(3, "zigzag")),
+            "c": (pos(2, "zigzag"), pos(2, "zigzag")),
+            "d": (pos(0, "contiguous"), pos(1, "contiguous"))}
+
+
+def flash_pos_outputs(torch, q, k, v, do, qpos, kpos, scale) -> dict:
+    """The positions kernels and their plain versions on one input, the
+    backward from the plain forward's lse and delta, as the ring passes
+    its global ones: {kernel: [(label, got, want), ...]}."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    o, lse = K.flash_fwd(q, k, v, True, scale, qpos, kpos)
+    o_ref, lse_ref = K.flash_fwd_plain(q, k, v, True, scale, qpos, kpos)
+    delta = K.flash_delta(o_ref, do)
+    args = (q, k, v, do, lse_ref, delta, True, scale, qpos, kpos)
+    dq = K.flash_bwd_dq(*args)
+    dk, dv = K.flash_bwd_dkv(*args)
+    dq_ref = K.flash_bwd_dq_plain(*args)
+    dk_ref, dv_ref = K.flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    return {"flash_fwd_pos": [("O", o, o_ref), ("lse", lse, lse_ref)],
+            "flash_bwd_dq_pos": [("dQ", dq, dq_ref)],
+            "flash_bwd_dkv_pos": [("dK", dk, dk_ref), ("dV", dv, dv_ref)]}
+
+
+def check_flash_pos(torch, errs: dict, gen) -> None:
+    """The positions variant at the main shape for pairs (a)-(d) and at an
+    off-grid shape for (b), within the flash limits; pair (d) must give O =
+    0, lse = the sentinel and gradients 0 exactly."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    b, t, h, d = FULL["batch"], FULL["seq"], FULL["heads"], FULL["head_dim"]
+    sentinel = torch.tensor(K.NEG_INF, dtype=torch.float32)
+    cases = [((b, t, h, d), pair) for pair in "abcd"] + \
+        [((2, 200, 3, 64), "b")]
+    failed = []
+    for shape, pair in cases:
+        qpos, kpos = pos_pairs(torch, shape[1])[pair]
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        results = flash_pos_outputs(torch, q, k, v, do, qpos, kpos,
+                                    shape[-1] ** -0.5)
+        for name, outputs in results.items():
+            for label, got, want in outputs:
+                err = max_err(torch, got, want)
+                if pair == "d":
+                    exact = float(sentinel) if label == "lse" else 0.0
+                    ok = bool((got.float() == exact).all())
+                    log(f"check {name} {label} {shape} pair {pair}: all "
+                        f"{'the sentinel' if label == 'lse' else 'zero'}: "
+                        f"{ok}")
+                    readings = [] if ok else [("exact", 1.0, 0.0)]
+                else:
+                    readings = flash_agreement(torch, got, want,
+                                               label == "lse")
+                    log(f"check {name} {label} {shape} pair {pair}: "
+                        f"max_abs_err {err:.3e} (largest entry "
+                        f"{float(want.float().abs().max()):.3e}); " +
+                        ", ".join(f"{key} {val:.3e} (tol {lim:.0e})"
+                                  for key, val, lim in readings))
+                if not all(val <= lim for _, val, lim in readings):
+                    failed.append((name, label, shape, pair))
+                if shape[1] == t:
+                    errs[name] = max(errs.get(name, 0.0), err)
+        del results, q, k, v, do
+    if failed:
+        raise AssertionError(f"positions kernels disagree with plain: "
+                             f"{failed}")
+
+
 def phase_check(torch):
     """Each kernel against its plain version; returns per-kernel errors."""
     from horovod_tpu_torch.ops import kernels as K
@@ -399,6 +499,7 @@ def phase_check(torch):
                     errs[name] = max(errs.get(name, 0.0), err)
         if failed:
             raise AssertionError(f"{failed} disagree with plain at {shape}")
+    check_flash_pos(torch, errs, gen)
     check_cbr(torch, errs)
     check_mm(torch, errs)
     return errs
@@ -494,6 +595,103 @@ def time_mm(torch) -> dict:
     return total
 
 
+def time_flash_pos(torch) -> dict:
+    """The positions kernels at the main shape for pairs (a) and (b): each
+    beside its bound, its plain version and SDPA with the boolean mask
+    (forward, and forward + backward as a total); then one layer's attention
+    forward + backward through the fused sp ring at sp = 1, the plain ring
+    and ``flash_attention``.  The bound counts the products of the visible
+    (q, k) pairs only, the mask's share of the t x t grid (a half at both
+    pairs): that is the work the function needs, whatever tiles the kernel
+    chooses not to skip.  Returns pair (a)'s rows, the sp = 1 path's."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel.ring_attention import (
+        _PlainRing,
+        ring_attention,
+    )
+
+    b, t, h, d = FULL["batch"], FULL["seq"], FULL["heads"], FULL["head_dim"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    tile, rows, pos = b * t * h * d * 2, b * h * t * 4, 2 * t * 4
+    qt, kt, vt, dot = (a.transpose(1, 2) for a in (q, k, v, do))
+    out = {}
+    for pair in "ab":
+        qpos, kpos = pos_pairs(torch, t)[pair]
+        mask = qpos[:, None] >= kpos[None, :]
+        visible = float(mask.sum()) / (t * t)
+        prod = 2 * b * h * t * t * d * visible   # the visible pairs' product
+        o, lse = K.flash_fwd(q, k, v, True, scale, qpos, kpos)
+        delta = K.flash_delta(o, do)
+        args = (q, k, v, do, lse, delta, True, scale, qpos, kpos)
+        qg, kg, vg = (a.detach().requires_grad_() for a in (qt, kt, vt))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        def sdpa_fwd_bwd():
+            y = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+            torch.autograd.grad(y, (qg, kg, vg), dot)
+
+        def ours_fwd_bwd():
+            oo, ll = K.flash_fwd(q, k, v, True, scale, qpos, kpos)
+            dd = K.flash_delta(oo, do)
+            K.flash_bwd_dq(q, k, v, do, ll, dd, True, scale, qpos, kpos)
+            K.flash_bwd_dkv(q, k, v, do, ll, dd, True, scale, qpos, kpos)
+
+        rows_ = {
+            "flash_fwd_pos": dict(
+                ms=cuda_ms(torch, lambda: K.flash_fwd(q, k, v, True, scale,
+                                                      qpos, kpos)),
+                plain_ms=cuda_ms(torch, lambda: K.flash_fwd_plain(
+                    q, k, v, True, scale, qpos, kpos), iters=5),
+                library_ms=cuda_ms(torch, sdpa_fwd),
+                work=(4 * tile + rows + pos, 2 * prod)),
+            "flash_bwd_dq_pos": dict(
+                ms=cuda_ms(torch, lambda: K.flash_bwd_dq(*args)),
+                plain_ms=cuda_ms(torch, lambda: K.flash_bwd_dq_plain(*args),
+                                 iters=5),
+                library_ms=None, work=(5 * tile + 2 * rows + pos, 3 * prod)),
+            "flash_bwd_dkv_pos": dict(
+                ms=cuda_ms(torch, lambda: K.flash_bwd_dkv(*args)),
+                plain_ms=cuda_ms(torch, lambda: K.flash_bwd_dkv_plain(*args),
+                                 iters=5),
+                library_ms=None, work=(6 * tile + 2 * rows + pos, 4 * prod))}
+        for name, r in rows_.items():
+            r["bound_ms"], r["bound_by"] = bound_ms(*r.pop("work"))
+            log(f"time {name} pair {pair}: {r['ms']:.4f} ms (bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']} over the "
+                f"{visible:.4f} of the grid the mask shows, plain "
+                f"{r['plain_ms']:.4f} ms, SDPA with the mask "
+                f"{r['library_ms']})")
+        log(f"time flash positions fwd+bwd pair {pair}: kernels "
+            f"{cuda_ms(torch, ours_fwd_bwd):.4f} ms, SDPA with the mask "
+            f"{cuda_ms(torch, sdpa_fwd_bwd):.4f} ms")
+        if pair == "a":
+            out = rows_
+        del qg, kg, vg, o, lse, delta
+
+    # one layer's attention, forward + backward, three ways
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+    ways = {"fused sp ring at sp = 1": lambda a, b_, c: ring_attention(
+                a, b_, c, causal=True),
+            "plain ring at sp = 1": lambda a, b_, c: _PlainRing.apply(
+                a, b_, c, None, True, scale, "contiguous"),
+            "flash_attention": lambda a, b_, c: K.flash_attention(
+                a, b_, c, causal=True)}
+    for label, fn in ways.items():
+        def fwd_bwd():
+            torch.autograd.grad(fn(*leaves), leaves, do)
+
+        log(f"time one layer's attention fwd+bwd through the {label}: "
+            f"{cuda_ms(torch, fwd_bwd, iters=10):.4f} ms")
+    return out
+
+
 def phase_time(torch):
     """Kernel, plain and library times at the main path's shapes."""
     import torch.nn.functional as F
@@ -568,6 +766,7 @@ def phase_time(torch):
     del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg
     out["fused_conv_bn_relu_bwd"] = time_cbr(torch)
     out["pallas_matmul"] = time_mm(torch)
+    out.update(time_flash_pos(torch))
     for name, r in out.items():
         log(f"time {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
@@ -672,11 +871,13 @@ def phase_train(torch):
     model, opt = step.init(model)
     batch = step.shard_batch(tokens)
     losses, times = [], []
-    for _ in range(5):
+    for i in range(5):
         t0 = time.perf_counter()
         model, opt, loss = step(model, opt, batch)
         losses.append(float(loss))           # synchronises
         times.append(time.perf_counter() - t0)
+        if i == 0:      # the sp phase's reference: this step's gradients
+            first = (losses[0], flat_grads(torch, model))
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"train: losses {losses}")
@@ -747,7 +948,121 @@ def phase_train(torch):
     hvd.shutdown()
     return counts, dict(step_ms=steady * 1e3,
                         tokens_per_s=tokens_per_step / steady,
-                        peak_gib=peak / 2**30, losses=losses)
+                        peak_gib=peak / 2**30, losses=losses), first
+
+
+def flat_grads(torch, model):
+    """Every parameter's gradient as one fp32 vector in parameter order, on
+    the host, so that holding it moves no phase's peak device memory."""
+    return torch.cat([p.grad.float().reshape(-1).cpu()
+                      for p in model.parameters()])
+
+
+def phase_sp_train(torch, first):
+    """The 870.9M TransformerLM with ring attention on an sp group of one,
+    trained by the five-line recipe under ``plan="sp=1"`` with phase 4's
+    weights, batch and AdamW; ``first`` is phase 4's first-step (loss,
+    gradients).  Returns the launch counts of its run and its summary."""
+    import horovod_tpu_torch as hvd
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    hvd.init()
+    dev = hvd.device()
+    mesh = make_parallel_mesh(sp=1)
+    cfg = TransformerConfig(vocab_size=FULL["vocab"],
+                            num_layers=FULL["layers"],
+                            num_heads=FULL["heads"],
+                            d_model=FULL["d_model"],
+                            d_ff=4 * FULL["d_model"],
+                            max_seq_len=FULL["seq"], dtype=torch.bfloat16,
+                            attention_impl="ring")
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED), sp_group=mesh.group("sp"))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        gradient_predivide_factor=2.0)
+
+    def sp_loss(m, batch):
+        inputs = batch["inputs"]
+        t = inputs.shape[1]
+        positions = mesh.index("sp") * t + torch.arange(t, device=dev)
+        logits = m(inputs, positions)
+        return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                               batch["labels"].reshape(-1))
+
+    step = hvd.DistributedTrainStep(sp_loss, opt, plan="sp=1", mesh=mesh)
+    log(f"sp: ring attention on an sp group of {mesh.shape['sp']} (plan "
+        f"{step.plan.to_string()}, layout {cfg.sp_layout or 'from env'})")
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (FULL["batch"], FULL["seq"] + 1),
+                           generator=torch.Generator().manual_seed(SEED))
+    steps = 5
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    model, opt = step.init(model)
+    batch = step.shard_batch({"inputs": tokens[:, :-1],
+                              "labels": tokens[:, 1:]})
+    losses, times, per_step = [], [], []
+    for i in range(steps):
+        before = K.launch_counts()
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))           # synchronises
+        times.append(time.perf_counter() - t0)
+        after = K.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        if i == 0:
+            loss0, grads0 = losses[0], flat_grads(torch, model)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"sp: losses {losses}")
+    log(f"sp: launches on the sp path {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite sp loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"sp loss did not fall: {losses}")
+    want = FULL["layers"]
+    for i, c in enumerate(per_step):
+        if any(c[k] != want for k in SP_KERNELS) or \
+                any(c[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv")):
+            raise AssertionError(f"sp step {i + 1} launched {c}; want "
+                                 f"{want} of each positions kernel and no "
+                                 f"flash kernel without positions")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    tokens_per_step = FULL["batch"] * FULL["seq"]
+    log(f"sp: step {steady * 1e3:.1f} ms (median of steps 2-5; first "
+        f"{times[0] * 1e3:.1f} ms), {tokens_per_step / steady:.0f} tokens/s, "
+        f"peak memory {peak / 2**30:.2f} GiB")
+
+    profile_step(torch, lambda: float(step(model, opt, batch)[2]), "flash_")
+
+    # the first step against phase 4's (flash attention, same weights and
+    # batch): masked tiles add exact zeros and one partial merges into the
+    # sentinel exactly, so bit-exact is expected; the limit is 1e-5
+    loss_ref, grads_ref = first
+    loss_rel = abs(loss0 - loss_ref) / abs(loss_ref)
+    grad_rel = float((grads0 - grads_ref).norm() / grads_ref.norm())
+    bit_exact = loss0 == loss_ref and bool(torch.equal(grads0, grads_ref))
+    log(f"parity sp ring (sp = 1) vs flash, first step: loss {loss0!r} vs "
+        f"{loss_ref!r} (rel {loss_rel:.3e}, tol 1e-5), grads rel L2 "
+        f"{grad_rel:.3e} (tol 1e-5), bit-exact: {bit_exact}")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-5):
+        raise AssertionError("the sp ring at sp = 1 and flash disagree")
+    del grads0
+    hvd.shutdown()
+    return counts, dict(step_ms=steady * 1e3,
+                        tokens_per_s=tokens_per_step / steady,
+                        peak_gib=peak / 2**30, losses=losses,
+                        first_step_ms=times[0] * 1e3, loss_rel=loss_rel,
+                        grad_rel=grad_rel, bit_exact=bit_exact)
 
 
 def phase_tp_train(torch):
@@ -991,7 +1306,7 @@ def main() -> int:
     errs = phase_check(torch)
     timing = phase_time(torch)
     torch.cuda.empty_cache()
-    counts, train = phase_train(torch)
+    counts, train, first = phase_train(torch)
     torch.cuda.empty_cache()
     resnet_counts, resnet = phase_resnet(torch)
     for name in RESNET_KERNELS:
@@ -999,6 +1314,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp_counts, tp = phase_tp_train(torch)
     counts["pallas_matmul"] = tp_counts["pallas_matmul"]
+    torch.cuda.empty_cache()
+    sp_counts, sp = phase_sp_train(torch, first)
+    del first
+    for name in SP_KERNELS:
+        counts[name] = sp_counts[name]
 
     csrc = "horovod_tpu_torch/ops/csrc/"
     tpu = "horovod_tpu/ops/pallas_kernels.py:"
@@ -1008,7 +1328,12 @@ def main() -> int:
                "flash_bwd_dkv": (csrc + "flash_attention.cu", tpu + "269"),
                "fused_conv_bn_relu_bwd": (csrc + "conv_bn_relu_bwd.cu",
                                           tpu + "503"),
-               "pallas_matmul": (csrc + "matmul.cu", tpu + "778")}
+               "pallas_matmul": (csrc + "matmul.cu", tpu + "778"),
+               "flash_fwd_pos": (csrc + "flash_attention.cu", tpu + "103"),
+               "flash_bwd_dq_pos": (csrc + "flash_attention.cu",
+                                    tpu + "232"),
+               "flash_bwd_dkv_pos": (csrc + "flash_attention.cu",
+                                     tpu + "286")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = timing[name]
@@ -1021,6 +1346,7 @@ def main() -> int:
     log(f"train summary: {json.dumps(train)}")
     log(f"resnet summary: {json.dumps(resnet)}")
     log(f"tp summary: {json.dumps(tp)}")
+    log(f"sp summary: {json.dumps(sp)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,9 +7,11 @@ and ``cfg.dtype`` compute.  Parameter names follow the flax tree
 (``layer_{i}/attn/qkv/kernel`` is ``layers.{i}.attn.qkv.weight``, stored
 ``(out, in)``); :func:`horovod_tpu_torch.models.convert.params_from_flax`
 maps one onto the other.  ``attention_impl`` is ``dense`` (plain
-attention) or ``flash`` (the port's flash kernels).  :func:`fused_tp_apply`
-is the tensor-parallel execution mode over a ``tp`` process group; ring,
-ulysses and remat wait for later slices.
+attention), ``flash`` (the port's flash kernels), or one of the sequence-
+parallel formulations over the ``sp_group`` the model is built with:
+``ring`` (:func:`~horovod_tpu_torch.parallel.ring_attention.ring_attention`)
+or ``ulysses``.  :func:`fused_tp_apply` is the tensor-parallel execution
+mode over a ``tp`` process group; remat waits for a later slice.
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.ops.kernels import flash_attention
-from horovod_tpu_torch.parallel.ring_attention import reference_attention
+from horovod_tpu_torch.parallel.ring_attention import (
+    reference_attention,
+    ring_attention,
+)
+from horovod_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 @dataclasses.dataclass
@@ -34,9 +40,12 @@ class TransformerConfig:
     d_ff: int = 3072
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    attention_impl: str = "dense"       # dense | flash
+    attention_impl: str = "dense"       # dense | flash | ring | ulysses
     flash_block: int = 512              # only gates fit_flash_block
     causal: bool = True
+    # the ring's sequence layout; None reads HOROVOD_SP_LAYOUT (default
+    # "contiguous"), "zigzag" balances the causal work across ranks
+    sp_layout: Optional[str] = None
 
     @property
     def head_dim(self) -> int:
@@ -89,9 +98,10 @@ class Dense(nn.Linear):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, sp_group=None):
         super().__init__()
         self.cfg = cfg
+        self.sp_group = sp_group
         self.qkv = Dense(cfg.d_model, 3 * cfg.d_model, cfg.dtype, device)
         self.proj = Dense(cfg.d_model, cfg.d_model, cfg.dtype, device)
 
@@ -109,10 +119,15 @@ class Attention(nn.Module):
             o = flash_attention(q, k, v, causal=cfg.causal,
                                 block_q=cfg.flash_block,
                                 block_k=cfg.flash_block)
+        elif cfg.attention_impl == "ring":
+            o = ring_attention(q, k, v, self.sp_group, causal=cfg.causal,
+                               layout=cfg.sp_layout, block_q=cfg.flash_block,
+                               block_k=cfg.flash_block)
+        elif cfg.attention_impl == "ulysses":
+            o = ulysses_attention(q, k, v, self.sp_group, causal=cfg.causal)
         else:
             raise ValueError(
-                f"attention_impl {cfg.attention_impl!r} is not ported; "
-                f"dense and flash are")
+                f"unknown attention_impl {cfg.attention_impl!r}")
         return self.proj(o.reshape(b, t, cfg.d_model))
 
 
@@ -128,10 +143,10 @@ class MlpBlock(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, sp_group=None):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device=device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, sp_group)
         self.ln2 = RMSNorm(cfg.d_model, device=device)
         self.mlp = MlpBlock(cfg, device)
 
@@ -149,18 +164,25 @@ class Embed(nn.Module):
 class TransformerLM(nn.Module):
     """``model(tokens, positions=None) -> logits`` in ``cfg.dtype``.
 
-    ``tokens``: (batch, seq) int64.  Weights are drawn from ``generator``
-    (a ``torch.Generator`` on ``device``): embeddings N(0, 0.02), dense
-    kernels N(0, 1/fan_in) (flax's lecun normal, untruncated), norm
-    scales 1.
+    ``tokens``: (batch, seq_local) int64.  ``positions``: (seq_local,)
+    global positions for the rotary embedding; the default ``arange`` is
+    right without sequence parallelism, and under it each rank passes its
+    shard's global positions (for ``zigzag``, ``ring_layout_positions``,
+    with the tokens permuted by ``zigzag_sequence_indices``).  ``sp_group``
+    is the sequence-parallel process group that ``attention_impl`` ``ring``
+    and ``ulysses`` run over (``None``: a group of one).  Weights are drawn
+    from ``generator`` (a ``torch.Generator`` on ``device``): embeddings
+    N(0, 0.02), dense kernels N(0, 1/fan_in) (flax's lecun normal,
+    untruncated), norm scales 1.
     """
 
     def __init__(self, cfg: TransformerConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sp_group=None):
         super().__init__()
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, device)
-        self.layers = nn.ModuleList(Block(cfg, device)
+        self.layers = nn.ModuleList(Block(cfg, device, sp_group)
                                     for _ in range(cfg.num_layers))
         self.ln_f = RMSNorm(cfg.d_model, device=device)
         self.reset_parameters(generator)

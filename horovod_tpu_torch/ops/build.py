@@ -37,12 +37,12 @@ _c_void_p, _c_int, _c_float, _c_int64 = (ctypes.c_void_p, ctypes.c_int,
 _SIGNATURES = {
     "hvd_fused_scale": [_c_void_p, _c_void_p, _c_int64, _c_float, _c_int,
                         _c_int, _c_void_p],
-    "hvd_flash_fwd": [_c_void_p] * 5 + [_c_int] * 4 + [_c_float, _c_int,
+    "hvd_flash_fwd": [_c_void_p] * 7 + [_c_int] * 4 + [_c_float, _c_int,
                                                        _c_void_p],
-    "hvd_flash_bwd_dq": [_c_void_p] * 7 + [_c_int] * 4 + [_c_float, _c_int,
+    "hvd_flash_bwd_dq": [_c_void_p] * 9 + [_c_int] * 4 + [_c_float, _c_int,
                                                           _c_void_p],
-    "hvd_flash_bwd_dkv": [_c_void_p] * 8 + [_c_int] * 4 + [_c_float, _c_int,
-                                                           _c_void_p],
+    "hvd_flash_bwd_dkv": [_c_void_p] * 10 + [_c_int] * 4 + [_c_float, _c_int,
+                                                            _c_void_p],
     "hvd_cbr_bwd": [_c_void_p] * 14 + [_c_int] * 7 + [_c_void_p],
     "hvd_matmul": [_c_void_p] * 3 + [_c_int] * 6 + [_c_void_p],
 }

@@ -17,6 +17,17 @@
 // lse and delta are (b*h, t) fp32.  Rows and keys at or past t are masked, so
 // any t works; the caller keeps fit_flash_block's dispatch rule.
 //
+// Global positions (the sp ring's variant, the Pallas kernels' positions=True
+// branch): with qpos/kpos, (t,) int32 device vectors, the causal mask is
+// qpos[row] >= kpos[col], and no tile is skipped, because a ring shard's
+// positions need not be contiguous (zigzag).  The variant is the template
+// flag POS, so the kernels without positions keep their code.  The forward
+// and dQ stage each K tile's kpos in shared memory beside K and V; dK/dV
+// keeps its keys' kpos in registers and stages each Q tile's qpos beside lse
+// and delta.  A row that sees no key (a fully masked visiting block) keeps
+// m at the sentinel and l at 0, so O = 0, lse = NEG_INF + log(1e-30) (which
+// is NEG_INF in fp32) and its dQ/dK/dV contributions are 0, as in Pallas.
+//
 // Bound: at the model's shapes (b6 h16 t1024 d128, causal) the forward does
 // 25.8 GFLOP on 101 MB, close to the H100's ridge point; the backward does
 // 3.5x the products on about the same bytes, so it is bound by operations.
@@ -118,28 +129,40 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffff, x, 2);
 }
 
-__device__ __forceinline__ bool visible(int row, int col, int t, int causal) {
-  return row < t && col < t && (!causal || row >= col);
+// Whether key col is visible to query row: both inside t and, under the
+// causal mask, row >= col (local indices) or qp >= kp (global positions).
+template <bool POS>
+__device__ __forceinline__ bool visible(int row, int col, int t, int causal, int qp, int kp) {
+  if (row >= t || col >= t) return false;
+  return !causal || (POS ? qp >= kp : row >= col);
+}
+
+// kpos of the BK keys from k0 into shared memory (0 past t: masked anyway)
+__device__ __forceinline__ void load_pos(int* s, const int* pos, int k0, int t, int tid) {
+  if (tid < BK) s[tid] = k0 + tid < t ? pos[k0 + tid] : 0;
 }
 
 // Number of K blocks a Q tile reads: all of them, or under the causal mask
-// up to the block holding the tile's last diagonal entry.
+// without positions up to the block holding the tile's last diagonal entry.
+template <bool POS>
 __device__ __forceinline__ int live_k_blocks(int q0, int t, int causal) {
   int n = (t + BK - 1) / BK;
-  if (causal) n = min(n, max((q0 + BQ + BK - 1) / BK, 1));
+  if (causal && !POS) n = min(n, max((q0 + BQ + BK - 1) / BK, 1));
   return n;
 }
 
-template <int D>
+template <int D, bool POS>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 int t, int h, float scale, int causal) {
+                 const int* __restrict__ qpos, const int* __restrict__ kpos, int t, int h,
+                 float scale, int causal) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + BQ * LD;
   bf16* sV = sK + BK * LD;
+  int* sKp = reinterpret_cast<int*>(sV + BK * LD);  // POS only
 
   const int bh = blockIdx.x, b = bh / h, hh = bh % h;
   const int q0 = blockIdx.y * BQ;
@@ -148,6 +171,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t rs = (size_t)h * D;
   const size_t off = ((size_t)b * t * h + hh) * D;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  int qp[2] = {0, 0};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (POS && rows[i] < t) qp[i] = qpos[rows[i]];
 
   load_tile<BQ, D>(sQ, q + off, rs, q0, t, tid);
 
@@ -156,11 +183,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  const int num_k = live_k_blocks(q0, t, causal);
+  const int num_k = live_k_blocks<POS>(q0, t, causal);
   for (int kb = 0; kb < num_k; ++kb) {
     __syncthreads();
     load_tile<BK, D>(sK, k + off, rs, kb * BK, t, tid);
     load_tile<BK, D>(sV, v + off, rs, kb * BK, t, tid);
+    if (POS) load_pos(sKp, kpos, kb * BK, t, tid);
     __syncthreads();
 
     float s[BK / 8][4];
@@ -183,8 +211,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = kb * BK + j * 8 + t4 * 2 + (e & 1);
-        const float x = visible(rows[e >> 1], col, t, causal) ? s[j][e] * scale : NEG_INF;
+        const int c = j * 8 + t4 * 2 + (e & 1), col = kb * BK + c;
+        const bool ok = visible<POS>(rows[e >> 1], col, t, causal, qp[e >> 1], POS ? sKp[c] : 0);
+        const float x = ok ? s[j][e] * scale : NEG_INF;
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -200,8 +229,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = kb * BK + j * 8 + t4 * 2 + (e & 1);
-        const float p = visible(rows[e >> 1], col, t, causal) ? expf(s[j][e] - m[e >> 1]) : 0.f;
+        const int c = j * 8 + t4 * 2 + (e & 1), col = kb * BK + c;
+        const bool ok = visible<POS>(rows[e >> 1], col, t, causal, qp[e >> 1], POS ? sKp[c] : 0);
+        const float p = ok ? expf(s[j][e] - m[e >> 1]) : 0.f;
         s[j][e] = p;
         ls[e >> 1] += p;
       }
@@ -242,18 +272,20 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool POS>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int t, int h, float scale, int causal) {
+                    bf16* __restrict__ dq, const int* __restrict__ qpos,
+                    const int* __restrict__ kpos, int t, int h, float scale, int causal) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sdO = sQ + BQ * LD;
   bf16* sK = sdO + BQ * LD;
   bf16* sV = sK + BK * LD;
+  int* sKp = reinterpret_cast<int*>(sV + BK * LD);  // POS only
 
   const int bh = blockIdx.x, b = bh / h, hh = bh % h;
   const int q0 = blockIdx.y * BQ;
@@ -263,10 +295,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t off = ((size_t)b * t * h + hh) * D;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   float row_lse[2], row_delta[2];
+  int qp[2] = {0, 0};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     row_lse[i] = rows[i] < t ? lse[(size_t)bh * t + rows[i]] : 0.f;
     row_delta[i] = rows[i] < t ? delta[(size_t)bh * t + rows[i]] : 0.f;
+    if (POS && rows[i] < t) qp[i] = qpos[rows[i]];
   }
 
   load_tile<BQ, D>(sQ, q + off, rs, q0, t, tid);
@@ -276,11 +310,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  const int num_k = live_k_blocks(q0, t, causal);
+  const int num_k = live_k_blocks<POS>(q0, t, causal);
   for (int kb = 0; kb < num_k; ++kb) {
     __syncthreads();
     load_tile<BK, D>(sK, k + off, rs, kb * BK, t, tid);
     load_tile<BK, D>(sV, v + off, rs, kb * BK, t, tid);
+    if (POS) load_pos(sKp, kpos, kb * BK, t, tid);
     __syncthreads();
 
     float s[BK / 8][4], dp[BK / 8][4];
@@ -308,8 +343,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
-        const int col = kb * BK + j * 8 + t4 * 2 + (e & 1);
-        const float p = visible(rows[i], col, t, causal) ? expf(s[j][e] * scale - row_lse[i]) : 0.f;
+        const int c = j * 8 + t4 * 2 + (e & 1), col = kb * BK + c;
+        const bool ok = visible<POS>(rows[i], col, t, causal, qp[i], POS ? sKp[c] : 0);
+        const float p = ok ? expf(s[j][e] * scale - row_lse[i]) : 0.f;
         s[j][e] = p * (dp[j][e] - row_delta[i]);
       }
     // dQ += dS K
@@ -337,13 +373,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool POS>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int h, float scale,
-                     int causal) {
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ qpos,
+                     const int* __restrict__ kpos, int t, int h, float scale, int causal) {
   constexpr int LD = D + 8;
   constexpr int HALF = BQ / 2;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -353,6 +389,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sdO = sQ + BQ * LD;
   float* sL = reinterpret_cast<float*>(sdO + BQ * LD);
   float* sD = sL + BQ;
+  int* sQp = reinterpret_cast<int*>(sD + BQ);  // POS only
 
   const int bh = blockIdx.x, b = bh / h, hh = bh % h;
   const int k0 = blockIdx.y * BK;
@@ -361,6 +398,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t rs = (size_t)h * D;
   const size_t off = ((size_t)b * t * h + hh) * D;
   const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  int kp[2] = {0, 0};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (POS && keys[i] < t) kp[i] = kpos[keys[i]];
 
   load_tile<BK, D>(sK, k + off, rs, k0, t, tid);
   load_tile<BK, D>(sV, v + off, rs, k0, t, tid);
@@ -372,7 +413,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
   const int num_q = (t + BQ - 1) / BQ;
-  const int start = causal ? k0 / BQ : 0;
+  const int start = causal && !POS ? k0 / BQ : 0;
   for (int qb = start; qb < num_q; ++qb) {
     const int q0 = qb * BQ;
     __syncthreads();
@@ -382,6 +423,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bool ok = q0 + tid < t;
       sL[tid] = ok ? lse[(size_t)bh * t + q0 + tid] : 0.f;
       sD[tid] = ok ? delta[(size_t)bh * t + q0 + tid] : 0.f;
+      if (POS) sQp[tid] = ok ? qpos[q0 + tid] : 0;
     }
     __syncthreads();
 
@@ -412,7 +454,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int ql = c * HALF + j * 8 + t4 * 2 + (e & 1);
-          const bool ok = visible(q0 + ql, keys[e >> 1], t, causal);
+          const bool ok =
+              visible<POS>(q0 + ql, keys[e >> 1], t, causal, POS ? sQp[ql] : 0, kp[e >> 1]);
           const float pe = ok ? expf(p[j][e] * scale - sL[ql]) : 0.f;
           p[j][e] = pe;
           dp[j][e] = pe * (dp[j][e] - sD[ql]);
@@ -456,73 +499,92 @@ int prepare(Kernel kernel, size_t smem) {
                                    (int)smem);
 }
 
-template <int D>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b, int t, int h,
-        float scale, int causal, cudaStream_t s) {
-  const size_t smem = (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(bf16);
-  int rc = prepare(flash_fwd_kernel<D>, smem);
+template <int D, bool POS>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, const void* qpos,
+        const void* kpos, int b, int t, int h, float scale, int causal, cudaStream_t s) {
+  const size_t smem =
+      (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(bf16) + (POS ? BK * sizeof(int) : 0);
+  int rc = prepare(flash_fwd_kernel<D, POS>, smem);
   if (rc) return rc;
   dim3 grid(b * h, (t + BQ - 1) / BQ);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, t, h, scale, causal);
+  flash_fwd_kernel<D, POS><<<grid, THREADS, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, (const int*)qpos,
+      (const int*)kpos, t, h, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool POS>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* delta, void* dq, int b, int t, int h, float scale, int causal,
-           cudaStream_t s) {
-  const size_t smem = (size_t)(2 * BQ + 2 * BK) * (D + 8) * sizeof(bf16);
-  int rc = prepare(flash_bwd_dq_kernel<D>, smem);
+           const void* delta, void* dq, const void* qpos, const void* kpos, int b, int t, int h,
+           float scale, int causal, cudaStream_t s) {
+  const size_t smem =
+      (size_t)(2 * BQ + 2 * BK) * (D + 8) * sizeof(bf16) + (POS ? BK * sizeof(int) : 0);
+  int rc = prepare(flash_bwd_dq_kernel<D, POS>, smem);
   if (rc) return rc;
   dim3 grid(b * h, (t + BQ - 1) / BQ);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, s>>>(
+  flash_bwd_dq_kernel<D, POS><<<grid, THREADS, smem, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, t, h, scale, causal);
+      (const float*)delta, (bf16*)dq, (const int*)qpos, (const int*)kpos, t, h, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool POS>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-            const void* delta, void* dk, void* dv, int b, int t, int h, float scale, int causal,
-            cudaStream_t s) {
-  const size_t smem = (size_t)(2 * BQ + 2 * BK) * (D + 8) * sizeof(bf16) + 2 * BQ * sizeof(float);
-  int rc = prepare(flash_bwd_dkv_kernel<D>, smem);
+            const void* delta, void* dk, void* dv, const void* qpos, const void* kpos, int b,
+            int t, int h, float scale, int causal, cudaStream_t s) {
+  const size_t smem = (size_t)(2 * BQ + 2 * BK) * (D + 8) * sizeof(bf16) +
+                      2 * BQ * sizeof(float) + (POS ? BQ * sizeof(int) : 0);
+  int rc = prepare(flash_bwd_dkv_kernel<D, POS>, smem);
   if (rc) return rc;
   dim3 grid(b * h, (t + BK - 1) / BK);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, s>>>(
+  flash_bwd_dkv_kernel<D, POS><<<grid, THREADS, smem, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, t, h, scale, causal);
+      (const float*)delta, (bf16*)dk, (bf16*)dv, (const int*)qpos, (const int*)kpos, t, h, scale,
+      causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Each entry returns cudaGetLastError() after its launch (0 on success), or
-// -1 for a head_dim other than 64 or 128.
+// -1 for a head_dim other than 64 or 128.  qpos and kpos are both null (local
+// indices) or both (t,) int32 device vectors of global positions.
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                             int b, int t, int h, int d, float scale, int causal, void* stream) {
+                             const void* qpos, const void* kpos, int b, int t, int h, int d,
+                             float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return fwd<64>(q, k, v, o, lse, b, t, h, scale, causal, s);
-  if (d == 128) return fwd<128>(q, k, v, o, lse, b, t, h, scale, causal, s);
+  const bool pos = qpos != nullptr;
+#define HVD_FWD(D, P) fwd<D, P>(q, k, v, o, lse, qpos, kpos, b, t, h, scale, causal, s)
+  if (d == 64) return pos ? HVD_FWD(64, true) : HVD_FWD(64, false);
+  if (d == 128) return pos ? HVD_FWD(128, true) : HVD_FWD(128, false);
+#undef HVD_FWD
   return -1;
 }
 
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                const void* lse, const void* delta, void* dq, int b, int t, int h,
-                                int d, float scale, int causal, void* stream) {
+                                const void* lse, const void* delta, void* dq, const void* qpos,
+                                const void* kpos, int b, int t, int h, int d, float scale,
+                                int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return bwd_dq<64>(q, k, v, dout, lse, delta, dq, b, t, h, scale, causal, s);
-  if (d == 128) return bwd_dq<128>(q, k, v, dout, lse, delta, dq, b, t, h, scale, causal, s);
+  const bool pos = qpos != nullptr;
+#define HVD_DQ(D, P) \
+  bwd_dq<D, P>(q, k, v, dout, lse, delta, dq, qpos, kpos, b, t, h, scale, causal, s)
+  if (d == 64) return pos ? HVD_DQ(64, true) : HVD_DQ(64, false);
+  if (d == 128) return pos ? HVD_DQ(128, true) : HVD_DQ(128, false);
+#undef HVD_DQ
   return -1;
 }
 
 extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dk, void* dv, int b,
-                                 int t, int h, int d, float scale, int causal, void* stream) {
+                                 const void* lse, const void* delta, void* dk, void* dv,
+                                 const void* qpos, const void* kpos, int b, int t, int h, int d,
+                                 float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, b, t, h, scale, causal, s);
-  if (d == 128)
-    return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, t, h, scale, causal, s);
+  const bool pos = qpos != nullptr;
+#define HVD_DKV(D, P) \
+  bwd_dkv<D, P>(q, k, v, dout, lse, delta, dk, dv, qpos, kpos, b, t, h, scale, causal, s)
+  if (d == 64) return pos ? HVD_DKV(64, true) : HVD_DKV(64, false);
+  if (d == 128) return pos ? HVD_DKV(128, true) : HVD_DKV(128, false);
+#undef HVD_DKV
   return -1;
 }

@@ -1,6 +1,7 @@
-"""Tile-fused matmul⊗collective ops over ``torch.distributed``
-(``horovod_tpu/ops/pallas_kernels.py``: ``matmul_reducescatter``,
-``allgather_matmul`` and ``resolve_fused_collectives``).
+"""Tile-fused matmul⊗collective ops and the sp ring over
+``torch.distributed`` (``horovod_tpu/ops/pallas_kernels.py``:
+``matmul_reducescatter``, ``allgather_matmul``,
+``resolve_fused_collectives``, ``ring_flash_attention`` and its index math).
 
 The tensor-parallel boundary ops of the Megatron sequence-parallel layout.
 Where the JAX package streams tiles around a ``ppermute`` ring inside one
@@ -20,11 +21,15 @@ Gradients: the transpose of one ring is the other.  The dX of
 ``matmul_reducescatter`` is ``allgather_matmul(dy, wᵀ)`` and the dX of
 ``allgather_matmul`` is ``matmul_reducescatter(dy, wᵀ)``; dW is the local
 product against the gathered operand, which the ring collects as it passes.
+
+:func:`ring_flash_attention` passes K/V blocks around the sequence-parallel
+group the same way, one hop a step, and consumes each visiting block with
+the global-positions flash kernels.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -63,16 +68,17 @@ def resolve_fused_collectives(mode: Optional[str] = None) -> bool:
     return mode == "on"
 
 
-def _hop(t: torch.Tensor, group, to: int, frm: int
-         ) -> Tuple[torch.Tensor, List]:
-    """Post one ring hop: send ``t`` to group rank ``to`` and receive a
-    tensor like it from group rank ``frm``.  Returns the receive buffer and
-    the requests to wait on before reading it."""
-    buf = torch.empty_like(t)
-    ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(group, to), group),
-           dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, frm),
-                      group)]
-    return buf, dist.batch_isend_irecv(ops)
+def _hop(ts: Sequence[torch.Tensor], group, to: int, frm: int
+         ) -> Tuple[List[torch.Tensor], List]:
+    """Post one ring hop: send each of ``ts`` to group rank ``to`` and
+    receive tensors like them from group rank ``frm``.  Returns the receive
+    buffers and the requests to wait on before reading them."""
+    bufs = [torch.empty_like(t) for t in ts]
+    dst, src = dist.get_global_rank(group, to), dist.get_global_rank(group,
+                                                                     frm)
+    ops = [dist.P2POp(dist.isend, t, dst, group) for t in ts] + \
+        [dist.P2POp(dist.irecv, buf, src, group) for buf in bufs]
+    return bufs, dist.batch_isend_irecv(ops)
 
 
 def _wait(requests) -> None:
@@ -96,7 +102,8 @@ def _matmul_rs(x: torch.Tensor, w: torch.Tensor, group,
     # holds its OWN fully reduced tile; the partials are summed in fp32
     acc = K._mm(tiles[(me - 1) % world], w, torch.float32)
     for s in range(1, world):
-        got, requests = _hop(acc, group, (me + 1) % world, (me - 1) % world)
+        (got,), requests = _hop([acc], group, (me + 1) % world,
+                                (me - 1) % world)
         part = K._mm(tiles[(me - 1 - s) % world], w, torch.float32)
         _wait(requests)
         acc = got.add_(part)
@@ -124,8 +131,8 @@ def _allgather_mm(x: torch.Tensor, w: torch.Tensor, group, fused: bool
         src = (me + s) % world
         rows = slice(src * m_local, (src + 1) * m_local)
         if s < world - 1:
-            nxt, requests = _hop(cur, group, (me - 1) % world,
-                                 (me + 1) % world)
+            (nxt,), requests = _hop([cur], group, (me - 1) % world,
+                                    (me + 1) % world)
         K._mm(cur, w, out_dtype, out=out[rows])
         full[rows].copy_(cur)
         if s < world - 1:
@@ -222,3 +229,226 @@ def allgather_matmul(x: torch.Tensor, w: torch.Tensor, group=None,
 matmul_reducescatter.launches = 0
 allgather_matmul.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# the sp ring: index math (pallas_kernels.py:1039-1127) and ring-flash
+# attention (:1130-1305)
+# ---------------------------------------------------------------------------
+
+#: sequence layouts the sp ring understands (``HOROVOD_SP_LAYOUT``)
+RING_LAYOUTS = ("contiguous", "zigzag")
+
+
+def _check_layout(layout: str) -> None:
+    if layout not in RING_LAYOUTS:
+        raise ValueError(
+            f"sp layout must be one of {RING_LAYOUTS}, got {layout!r}")
+
+
+def ring_layout_positions(rank: int, world: int, seq_local: int,
+                          layout: str, device=None) -> torch.Tensor:
+    """Global sequence positions (int32) that shard ``rank`` holds.
+
+    ``contiguous``: shard r is global chunk r of ``world`` chunks.
+    ``zigzag``: shard r holds chunks ``(r, 2·world−1−r)`` of ``2·world``
+    equal chunks, pairing an early (causally light) chunk with a late one
+    so that the causal work balances across ranks and no causal ring step
+    is wholly masked."""
+    _check_layout(layout)
+    if layout == "contiguous":
+        return rank * seq_local + torch.arange(seq_local, dtype=torch.int32,
+                                               device=device)
+    if seq_local % 2:
+        raise ValueError(
+            f"zigzag layout needs an even per-shard seq, got {seq_local}")
+    half = seq_local // 2
+    ar = torch.arange(half, dtype=torch.int32, device=device)
+    return torch.cat([rank * half + ar, (2 * world - 1 - rank) * half + ar])
+
+
+def zigzag_sequence_indices(world: int, seq_global: int) -> torch.Tensor:
+    """Permutation σ with ``x_zigzag = x[:, σ]``: contiguous sharding of the
+    permuted sequence hands shard r its zigzag chunks ``(r, 2·world−1−r)``
+    (undo with ``argsort(σ)``)."""
+    if seq_global % (2 * world):
+        raise ValueError(
+            f"zigzag needs seq divisible by 2·world={2 * world}, "
+            f"got {seq_global}")
+    half = seq_global // (2 * world)
+    idx = []
+    for r in range(world):
+        idx.extend(range(r * half, (r + 1) * half))
+        idx.extend(range((2 * world - 1 - r) * half,
+                         (2 * world - r) * half))
+    return torch.tensor(idx, dtype=torch.int64)
+
+
+def _chunks(rank: int, world: int, layout: str) -> Tuple[int, ...]:
+    return (rank,) if layout == "contiguous" else (rank, 2 * world - 1 - rank)
+
+
+def ring_step_skipped(rank: int, step: int, world: int, layout: str) -> bool:
+    """Whether causal ring step ``step`` of ``rank`` visits a block wholly
+    in its future (so it launches no kernel): the exact chunk-level test
+    ``max(q chunks) < min(k/v chunks)``, decided on the host."""
+    return max(_chunks(rank, world, layout)) < \
+        min(_chunks((rank - step) % world, world, layout))
+
+
+def ring_step_schedule(world: int, causal: bool = False,
+                       layout: str = "contiguous") -> dict:
+    """Static kernel-launch schedule of the sp ring.  Under ``contiguous``
+    a causal ring skips ``world·(world−1)/2`` of the ``world²`` launches,
+    all on the low ranks; ``zigzag`` skips none."""
+    _check_layout(layout)
+    skipped = tuple(
+        sum(ring_step_skipped(r, s, world, layout) for s in range(world))
+        if causal else 0 for r in range(world))
+    total = sum(skipped)
+    return {
+        "world": world, "causal": causal, "layout": layout,
+        "steps_per_rank": world,
+        "launches": world * world - total,
+        "skipped": total,
+        "skipped_by_rank": skipped,
+    }
+
+
+def _to_o(w_row: torch.Tensor, b: int, h: int, t: int) -> torch.Tensor:
+    """A ``(b·h, t)`` row weight, broadcastable over ``(b, t, h, d)``."""
+    return w_row.reshape(b, h, t).transpose(1, 2)[..., None]
+
+
+class _RingFlash(torch.autograd.Function):
+    """Forward: K/V travel one hop a step, the next hop posted before this
+    step's kernel; the normalized partials ``(out_s, lse_s)`` merge in log
+    space from the finite sentinel.  Backward: delta and lse are the global
+    ones, dQ accumulates in fp32 here, and each block's dK/dV accumulator
+    travels with the block, home after ``world`` hops."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, scale, layout):
+        world, me = group_size(group), group_rank(group)
+        b, t, h, _ = q.shape
+        pos = [ring_layout_positions(r, world, t, layout, q.device)
+               for r in range(world)] if causal else None
+        out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.full((b * h, t), K.NEG_INF, dtype=torch.float32,
+                         device=q.device)
+        kv = [k.contiguous(), v.contiguous()]
+        for s in range(world):
+            src = (me - s) % world
+            if s < world - 1:
+                nxt, requests = _hop(kv, group, (me + 1) % world,
+                                     (me - 1) % world)
+            if not (causal and ring_step_skipped(me, s, world, layout)):
+                kw = dict(qpos=pos[me], kpos=pos[src]) if causal else {}
+                out_s, lse_s = K.flash_fwd(q, *kv, causal, scale, **kw)
+                # all finite: exp(NEG_INF - anything) is exactly 0
+                lse_new = torch.logaddexp(lse, lse_s)
+                out = out * _to_o(torch.exp(lse - lse_new), b, h, t) + \
+                    out_s.float() * _to_o(torch.exp(lse_s - lse_new), b, h, t)
+                lse = lse_new
+            if s < world - 1:
+                _wait(requests)
+                kv = nxt
+        out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.group, ctx.causal, ctx.scale, ctx.layout = group, causal, scale, \
+            layout
+        ctx.pos = pos
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        group, causal, scale, pos = ctx.group, ctx.causal, ctx.scale, ctx.pos
+        world, me = group_size(group), group_rank(group)
+        g = g.to(q.dtype).contiguous()
+        delta = K.flash_delta(out, g)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        acc = [torch.zeros(k.shape, dtype=torch.float32, device=k.device),
+               torch.zeros(v.shape, dtype=torch.float32, device=v.device)]
+        kv = [k.contiguous(), v.contiguous()]
+        to, frm = (me + 1) % world, (me - 1) % world
+        acc_requests = None
+        for s in range(world):
+            src = (me - s) % world
+            if s < world - 1:
+                nxt, requests = _hop(kv, group, to, frm)
+            live = not (causal and ring_step_skipped(me, s, world, ctx.layout))
+            if live:
+                kw = dict(qpos=pos[me], kpos=pos[src]) if causal else {}
+                dq_s = K.flash_bwd_dq(q, *kv, g, lse, delta, causal, scale,
+                                      **kw)
+                dk_s, dv_s = K.flash_bwd_dkv(q, *kv, g, lse, delta, causal,
+                                             scale, **kw)
+            if acc_requests is not None:
+                _wait(acc_requests)
+                acc = acc_in
+            if live:
+                dq += dq_s.float()
+                acc[0] += dk_s.float()
+                acc[1] += dv_s.float()
+            if world > 1:
+                # the accumulators hop with their block every step; the
+                # world-th hop is the homecoming
+                acc_in, acc_requests = _hop(acc, group, to, frm)
+            if s < world - 1:
+                _wait(requests)
+                kv = nxt
+        if acc_requests is not None:
+            _wait(acc_requests)
+            acc = acc_in
+        return (dq.to(q.dtype), acc[0].to(k.dtype), acc[1].to(v.dtype),
+                None, None, None, None)
+
+
+def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         group=None, causal: bool = False,
+                         scale: Optional[float] = None,
+                         layout: str = "contiguous", block_q: int = 512,
+                         block_k: int = 512) -> torch.Tensor:
+    """Fused sp-ring ⊗ flash attention over ``group``
+    (``pallas_kernels.ring_flash_attention``): the exact softmax attention
+    of this rank's ``(batch, seq_local, heads, head_dim)`` queries over the
+    whole group's sequence, differentiable.
+
+    Every rank of ``group`` calls this with its shard; ``group=None`` is a
+    group of this rank alone.  Each visiting K/V block runs the flash
+    kernels, under ``causal`` their global-positions variant
+    (:func:`~horovod_tpu_torch.ops.kernels.flash_fwd` with ``qpos`` and
+    ``kpos``), with positions
+    computed on the host from ``layout`` per (rank, step) rather than sent;
+    a causal step whose block lies wholly in the future is skipped on the
+    host (:func:`ring_step_skipped`).  Partials merge in log space::
+
+        lse = logaddexp(lse, lse_s)
+        out = out·exp(lse_prev − lse) + out_s·exp(lse_s − lse)
+
+    from the finite sentinel, so a fully masked partial adds exactly 0.
+
+    Raises for shards off the flash tiling contract (unequal q/k/v shapes,
+    a ``seq_local`` that :func:`~horovod_tpu_torch.ops.kernels.fit_flash_block`
+    rejects, an odd ``seq_local`` under zigzag); the dispatch in
+    ``parallel/ring_attention.py`` checks first and takes the plain ring."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"ring_flash_attention needs equal q/k/v shard shapes, got "
+            f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
+    t, d = q.shape[1], q.shape[-1]
+    if K.fit_flash_block(t, block_q) is None or \
+            K.fit_flash_block(t, block_k) is None:
+        raise ValueError(
+            f"seq_local {t} does not fit the flash tiling contract; use the "
+            f"plain ring (parallel.ring_attention) instead")
+    _check_layout(layout)
+    if layout == "zigzag" and t % 2:
+        raise ValueError(f"zigzag layout needs an even per-shard seq, got {t}")
+    scale = d ** -0.5 if scale is None else scale
+    ring_flash_attention.launches += 1
+    return _RingFlash.apply(q, k, v, group, causal, scale, layout)
+
+
+#: constructions of the fused sp ring (JAX ``hvd_pallas_fused_launches_total``)
+ring_flash_attention.launches = 0

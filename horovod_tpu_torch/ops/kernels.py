@@ -4,7 +4,8 @@ Counterpart of ``horovod_tpu/ops/pallas_kernels.py``.  Each kernel has:
 
 * a wrapper that launches the CUDA kernel (``csrc/*.cu``, built on first
   use by :mod:`.build`) for a CUDA tensor and counts its launches in a
-  plain integer attribute, ``<wrapper>.launches``;
+  plain integer attribute, ``<wrapper>.launches`` (the flash wrappers count
+  their global-positions variant apart, in ``<wrapper>.pos_launches``);
 * a plain PyTorch version with the Pallas kernel's exact semantics, which
   the wrapper takes only for a tensor on the CPU.  For any other device
   the wrapper launches the kernel or raises; nothing falls back.
@@ -16,7 +17,11 @@ Kernels (TPU source → CUDA source):
 * :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`
   (``pallas_kernels._flash_fwd`` / ``_flash_bwd``) →
   ``csrc/flash_attention.cu``, glued by :func:`flash_attention`'s
-  ``torch.autograd.Function``.
+  ``torch.autograd.Function``.  With ``qpos``/``kpos`` the same wrappers
+  launch the kernels' global-positions variant (the Pallas kernels'
+  ``positions=True``), which the sp ring
+  (:func:`~horovod_tpu_torch.ops.fused_collectives.ring_flash_attention`)
+  launches per visiting block.
 * :func:`fused_conv_bn_relu_bwd` (``pallas_kernels.fused_conv_bn_relu_bwd``)
   → ``csrc/conv_bn_relu_bwd.cu``, the backward of ResNet's stride-1 3x3
   segment, glued by :func:`fused_conv_bn_relu`'s
@@ -118,9 +123,14 @@ fused_scale.launches = 0
 # flash attention: plain versions
 # ---------------------------------------------------------------------------
 
-def _visible(t: int, causal: bool, device) -> Optional[torch.Tensor]:
+def _visible(t: int, causal: bool, device, qpos=None,
+             kpos=None) -> Optional[torch.Tensor]:
+    """The causal mask over local indices, or with ``qpos``/``kpos`` over
+    global positions (``qpos[i] >= kpos[j]``); None without ``causal``."""
     if not causal:
         return None
+    if qpos is not None:
+        return qpos[:, None] >= kpos[None, :]
     pos = torch.arange(t, device=device)
     return pos[:, None] >= pos[None, :]
 
@@ -130,12 +140,15 @@ def _scores(q, k, scale, mask):
     return s if mask is None else s.masked_fill(~mask, NEG_INF)
 
 
-def flash_fwd_plain(q, k, v, causal: bool, scale: float):
+def flash_fwd_plain(q, k, v, causal: bool, scale: float, qpos=None,
+                    kpos=None):
     """Forward of ``_flash_fwd_kernel``: O in q's dtype and the per-row
     fp32 logsumexp as ``(b*h, t)``.  Probabilities are rounded to v's
-    dtype for the PV product, as the kernel does for the MXU."""
+    dtype for the PV product, as the kernel does for the MXU.  With
+    ``qpos``/``kpos`` ((t,) global positions) the causal mask compares
+    those; a row that sees no key gets O = 0 and lse = NEG_INF."""
     b, t, h, d = q.shape
-    mask = _visible(t, causal, q.device)
+    mask = _visible(t, causal, q.device, qpos, kpos)
     s = _scores(q, k, scale, mask)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -148,9 +161,9 @@ def flash_fwd_plain(q, k, v, causal: bool, scale: float):
     return o.to(q.dtype), lse
 
 
-def _bwd_parts(q, k, v, do, lse, delta, causal, scale):
+def _bwd_parts(q, k, v, do, lse, delta, causal, scale, qpos, kpos):
     b, t, h, d = q.shape
-    mask = _visible(t, causal, q.device)
+    mask = _visible(t, causal, q.device, qpos, kpos)
     p = torch.exp(_scores(q, k, scale, mask) - lse.reshape(b, h, t, 1))
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
@@ -159,18 +172,19 @@ def _bwd_parts(q, k, v, do, lse, delta, causal, scale):
     return p, ds
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
+                       qpos=None, kpos=None):
     """dQ of ``_flash_bwd_dq_kernel``: dS = P∘(dP − delta) in k's dtype,
-    dQ = dS·K·scale."""
-    _, ds = _bwd_parts(q, k, v, do, lse, delta, causal, scale)
+    dQ = dS·K·scale.  ``lse`` and ``delta`` may be global (the sp ring's)."""
+    _, ds = _bwd_parts(q, k, v, do, lse, delta, causal, scale, qpos, kpos)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.float(), k.float()) * scale
     return dq.to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
-                        scale: float):
+                        scale: float, qpos=None, kpos=None):
     """dK/dV of ``_flash_bwd_dkv_kernel``: dV = Pᵀ·dO, dK = dSᵀ·Q·scale."""
-    p, ds = _bwd_parts(q, k, v, do, lse, delta, causal, scale)
+    p, ds = _bwd_parts(q, k, v, do, lse, delta, causal, scale, qpos, kpos)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.float(), q.float()) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -211,64 +225,104 @@ def _rows(x: torch.Tensor, b: int, h: int, t: int) -> torch.Tensor:
     return _aligned(x)
 
 
-def flash_fwd(q, k, v, causal: bool, scale: float
+def _positions(qpos, kpos, t: int, device) -> Tuple:
+    """(qpos, kpos, data pointers) for a launch: both None (local indices)
+    or both (t,) integer vectors on ``device``, as contiguous int32."""
+    if qpos is None and kpos is None:
+        return None, None, (None, None)
+    if qpos is None or kpos is None:
+        raise ValueError("pass both qpos and kpos, or neither")
+    out = []
+    for pos in (qpos, kpos):
+        if pos.shape != (t,) or pos.is_floating_point() or \
+                pos.device != device:
+            raise ValueError(f"positions must be ({t},) integers on "
+                             f"{device}, got {pos.dtype} {tuple(pos.shape)} "
+                             f"on {pos.device}")
+        out.append(_aligned(pos.to(torch.int32)))
+    return out[0], out[1], (out[0].data_ptr(), out[1].data_ptr())
+
+
+def flash_fwd(q, k, v, causal: bool, scale: float, qpos=None, kpos=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """O and lse ``(b*h, t)`` of causal or full attention over
-    ``(b, t, h, d)`` inputs (``_flash_fwd``)."""
+    ``(b, t, h, d)`` inputs (``_flash_fwd``); with ``qpos``/``kpos``
+    ((t,) integer global positions) the global-positions variant, which
+    masks by ``qpos[i] >= kpos[j]``, skips no tile and counts in
+    ``flash_fwd.pos_launches``."""
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal, scale)
+        return flash_fwd_plain(q, k, v, causal, scale, qpos, kpos)
     q, k, v = _flash_inputs(q, k, v)
-    lib, stream = _cuda_library(q)
     b, t, h, d = q.shape
+    qpos, kpos, ptrs = _positions(qpos, kpos, t, q.device)
+    lib, stream = _cuda_library(q)
     o = torch.empty_like(q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     _check(lib.hvd_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             o.data_ptr(), lse.data_ptr(), b, t, h, d,
+                             o.data_ptr(), lse.data_ptr(), *ptrs, b, t, h, d,
                              float(scale), int(causal), stream), "flash_fwd")
-    flash_fwd.launches += 1
+    if qpos is None:
+        flash_fwd.launches += 1
+    else:
+        flash_fwd.pos_launches += 1
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """dQ from the forward's lse and delta (``_flash_bwd_dq_kernel``)."""
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
+                 qpos=None, kpos=None):
+    """dQ from the forward's lse and delta (``_flash_bwd_dq_kernel``); with
+    ``qpos``/``kpos`` the global-positions variant."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
+                                  qpos, kpos)
     q, k, v, do = _flash_inputs(q, k, v, do)
     b, t, h, d = q.shape
     lse, delta = _rows(lse, b, h, t), _rows(delta, b, h, t)
+    qpos, kpos, ptrs = _positions(qpos, kpos, t, q.device)
     lib, stream = _cuda_library(q)
     dq = torch.empty_like(q)
     _check(lib.hvd_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 do.data_ptr(), lse.data_ptr(),
-                                delta.data_ptr(), dq.data_ptr(), b, t, h, d,
-                                float(scale), int(causal), stream),
+                                delta.data_ptr(), dq.data_ptr(), *ptrs, b, t,
+                                h, d, float(scale), int(causal), stream),
            "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    if qpos is None:
+        flash_bwd_dq.launches += 1
+    else:
+        flash_bwd_dq.pos_launches += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
+                  qpos=None, kpos=None):
     """dK and dV from the forward's lse and delta
-    (``_flash_bwd_dkv_kernel``)."""
+    (``_flash_bwd_dkv_kernel``); with ``qpos``/``kpos`` the
+    global-positions variant."""
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale,
+                                   qpos, kpos)
     q, k, v, do = _flash_inputs(q, k, v, do)
     b, t, h, d = q.shape
     lse, delta = _rows(lse, b, h, t), _rows(delta, b, h, t)
+    qpos, kpos, ptrs = _positions(qpos, kpos, t, q.device)
     lib, stream = _cuda_library(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _check(lib.hvd_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  do.data_ptr(), lse.data_ptr(),
                                  delta.data_ptr(), dk.data_ptr(),
-                                 dv.data_ptr(), b, t, h, d, float(scale),
-                                 int(causal), stream), "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+                                 dv.data_ptr(), *ptrs, b, t, h, d,
+                                 float(scale), int(causal), stream),
+           "flash_bwd_dkv")
+    if qpos is None:
+        flash_bwd_dkv.launches += 1
+    else:
+        flash_bwd_dkv.pos_launches += 1
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_fwd.launches = flash_fwd.pos_launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.pos_launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.pos_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -567,20 +621,26 @@ def pallas_matmul(x: torch.Tensor, w: torch.Tensor,
 pallas_matmul.launches = 0
 
 
-#: every kernel wrapper, by the name chip_smoke.py and PERF.md use
-WRAPPERS = {"fused_scale": fused_scale, "flash_fwd": flash_fwd,
-            "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
-            "fused_conv_bn_relu_bwd": fused_conv_bn_relu_bwd,
-            "pallas_matmul": pallas_matmul}
+#: every kernel's launch counter, by the name chip_smoke.py and PERF.md
+#: use: the wrapper that launches it and the attribute it counts in
+WRAPPERS = {"fused_scale": (fused_scale, "launches"),
+            "flash_fwd": (flash_fwd, "launches"),
+            "flash_bwd_dq": (flash_bwd_dq, "launches"),
+            "flash_bwd_dkv": (flash_bwd_dkv, "launches"),
+            "fused_conv_bn_relu_bwd": (fused_conv_bn_relu_bwd, "launches"),
+            "pallas_matmul": (pallas_matmul, "launches"),
+            "flash_fwd_pos": (flash_fwd, "pos_launches"),
+            "flash_bwd_dq_pos": (flash_bwd_dq, "pos_launches"),
+            "flash_bwd_dkv_pos": (flash_bwd_dkv, "pos_launches")}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    for fn, attr in WRAPPERS.values():
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in WRAPPERS.items()}
 
 
 # ---------------------------------------------------------------------------

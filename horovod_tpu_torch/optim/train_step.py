@@ -10,6 +10,16 @@
 One call is the JAX step's shard_map body: value and gradient of
 ``loss_fn`` on this rank's shard, the bucketed gradient exchange, the
 optimizer update, and the loss averaged across ranks.
+
+A parallelism plan (``plan="dp=2,sp=2"`` or ``HOROVOD_PLAN``) lays the world
+out as a mesh (``step.mesh``) and adds sequence parallelism: each rank gets
+its dp rows and its contiguous sp chunk of the tokens, and the model's
+ring or Ulysses attention runs over ``step.mesh.group("sp")``.  A zigzag
+ring masks by other positions than contiguous chunks hold, so under
+``HOROVOD_SP_LAYOUT=zigzag`` :meth:`DistributedTrainStep.shard_batch`
+refuses an sp plan rather than hand out tokens the mask does not match.  Because the
+loss is a token mean over equal chunks, sp joins the gradient and loss
+average like a data axis: the world group already spans dp × sp.
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ from horovod_tpu_torch.optim.optimizer import (
     DistributedOptimizer,
     _DistributedOptimizer,
 )
-from horovod_tpu_torch.runtime import state
+from horovod_tpu_torch.parallel.mesh import ParallelMesh, make_parallel_mesh
+from horovod_tpu_torch.parallel.plan import PLAN_AXES, ShardingPlan
+from horovod_tpu_torch.runtime import config, state
 
 
 class DistributedTrainStep:
@@ -35,10 +47,20 @@ class DistributedTrainStep:
     model's parameters, wrapped here in :func:`DistributedOptimizer` with
     ``op`` and ``compression``, or an optimizer that
     :func:`DistributedOptimizer` already wrapped (then ``op`` and
-    ``compression`` must stay at their defaults)."""
+    ``compression`` must stay at their defaults).
+
+    ``plan`` (a :class:`~horovod_tpu_torch.parallel.plan.ShardingPlan` or
+    its ``HOROVOD_PLAN`` string; unset, the knob) builds ``step.mesh`` with
+    :func:`~horovod_tpu_torch.parallel.mesh.make_parallel_mesh` unless a
+    ``mesh`` is given, which must match it (a mesh alone stands for its
+    own plan).  The step trains data plans (dp/fsdp) plus sequence
+    parallelism (sp); plans with pp, ep or tp are rejected.  Every rank
+    must construct the step with the same plan, since the mesh's groups
+    are created collectively."""
 
     def __init__(self, loss_fn: Callable, optimizer,
-                 op: ReduceOp = Average, compression=None):
+                 op: ReduceOp = Average, compression=None, plan=None,
+                 mesh: Optional[ParallelMesh] = None):
         if isinstance(optimizer, _DistributedOptimizer):
             if op != Average or compression is not None:
                 raise ValueError("op/compression belong to the "
@@ -48,6 +70,7 @@ class DistributedTrainStep:
                                              compression=compression)
         self._loss_fn = loss_fn
         self.optimizer = optimizer
+        self.plan, self.mesh = _resolve_plan(plan, mesh)
 
     def init(self, model: torch.nn.Module):
         """Broadcast rank 0's parameters and optimizer state to every
@@ -57,20 +80,50 @@ class DistributedTrainStep:
         return model, self.optimizer
 
     def shard_batch(self, batch):
-        """This rank's rows of the *global* batch (identical on every
+        """This rank's part of the *global* batch (identical on every
         rank), on the runtime's device.  Accepts a tensor, a numpy array,
-        or a dict of them; the leading dim must divide by the world size."""
+        or a dict of them.  The leading dim is split over the data ranks
+        (the world, or under a plan its dp × fsdp extent); under a plan
+        with sp > 1 dim 1, the tokens, is split into contiguous chunks
+        over the sp group (JAX ``batch_spec``), which is the ``contiguous``
+        layout; under ``HOROVOD_SP_LAYOUT=zigzag`` it raises, since the
+        ring would mask those chunks by zigzag positions."""
         st = state.global_state()
+        if self.plan is None:
+            data, data_index, sp, sp_index = st.size, st.rank, 1, 0
+        else:
+            plan, mesh = self.plan, self.mesh
+            data, data_index = 1, 0
+            for ax in plan.data_axes:          # row-major over dp, fsdp
+                extent = getattr(plan, ax)
+                data, data_index = data * extent, \
+                    data_index * extent + mesh.index(ax)
+            sp, sp_index = plan.sp, mesh.index("sp")
+            if sp > 1 and config.sp_layout() == "zigzag":
+                raise ValueError(
+                    "HOROVOD_SP_LAYOUT=zigzag: shard_batch splits the tokens "
+                    "into contiguous chunks, which a zigzag ring would mask "
+                    "by the wrong positions; leave the knob unset, permute "
+                    "the global batch with zigzag_sequence_indices before "
+                    "shard_batch, and give the model "
+                    "TransformerConfig(sp_layout='zigzag') and the positions "
+                    "of ring_layout_positions")
 
         def shard(x):
             x = torch.as_tensor(np.asarray(x)) if isinstance(x, np.ndarray) \
                 else x
-            if x.shape[0] % st.size:
+            if x.shape[0] % data:
                 raise ValueError(f"batch dim {x.shape[0]} does not divide "
-                                 f"by the world size {st.size}")
-            n = x.shape[0] // st.size
-            return x[st.rank * n:(st.rank + 1) * n].to(st.device,
-                                                      non_blocking=True)
+                                 f"by the {data} data ranks")
+            n = x.shape[0] // data
+            x = x[data_index * n:(data_index + 1) * n]
+            if sp > 1:
+                if x.dim() < 2 or x.shape[1] % sp:
+                    raise ValueError(f"sp={sp} splits dim 1 (tokens), got "
+                                     f"shape {tuple(x.shape)}")
+                c = x.shape[1] // sp
+                x = x[:, sp_index * c:(sp_index + 1) * c]
+            return x.to(st.device, non_blocking=True)
 
         if isinstance(batch, dict):
             return {k: shard(v) for k, v in batch.items()}
@@ -82,3 +135,34 @@ class DistributedTrainStep:
         loss.backward()
         optimizer.step()
         return model, optimizer, C.allreduce(loss.detach(), op=Average)
+
+
+def _resolve_plan(plan, mesh: Optional[ParallelMesh]):
+    """(resolved plan, mesh) of a step, or (None, None) without either."""
+    if isinstance(plan, str):
+        plan = ShardingPlan.from_string(plan)
+    if plan is None and mesh is None:
+        text = state.global_state().config.plan \
+            if state.is_initialized() else None
+        if not text:
+            return None, None
+        plan = ShardingPlan.from_string(text)
+    if plan is None:
+        plan = ShardingPlan(**mesh.shape)
+    plan = plan.resolve(state.global_state().size)
+    if plan.pp > 1:
+        raise ValueError(
+            f"plan {plan.to_string()} has pp>1: pipeline parallelism is not "
+            f"a plan of the training step")
+    blocked = tuple(a for a in plan.model_axes if a != "sp")
+    if blocked:
+        raise ValueError(
+            f"plan {plan.to_string()} has model axes {blocked}: the step "
+            f"trains data plans (dp/fsdp) plus sequence parallelism (sp)")
+    if mesh is None:
+        mesh = make_parallel_mesh(**{ax: getattr(plan, ax)
+                                     for ax in PLAN_AXES})
+    elif any(mesh.shape[ax] != getattr(plan, ax) for ax in PLAN_AXES):
+        raise ValueError(f"plan {plan.to_string()} does not match the given "
+                         f"mesh {mesh.shape}")
+    return plan, mesh

@@ -1,8 +1,9 @@
 """Runtime configuration from the ``HOROVOD_*`` environment contract.
 
 The part of ``horovod_tpu/runtime/config.py`` the PyTorch port reads: the
-launcher's identity knobs, the coordinator address, the fusion threshold
-and the fused-collectives mode, under the same ``HOROVOD_*`` names and
+launcher's identity knobs, the coordinator address, the fusion threshold,
+the fused-collectives mode, the sequence-parallel ring's layout and the
+parallelism plan, under the same ``HOROVOD_*`` names and
 with the same defaults, so one environment drives both packages.  A knob
 joins ``KNOWN_KNOBS`` and ``Config`` in the slice that ports the subsystem reading it.  The JAX
 package's jsrun/PMIx identity fallback is not copied: the port's launcher
@@ -27,6 +28,10 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_FUSION_THRESHOLD",
     # -- tile-fused matmul⊗collective rings (ops/fused_collectives.py)
     "HOROVOD_FUSED_COLLECTIVES",
+    # -- the sp ring's sequence layout (parallel/ring_attention.py)
+    "HOROVOD_SP_LAYOUT",
+    # -- the parallelism plan (parallel/plan.py, DistributedTrainStep)
+    "HOROVOD_PLAN",
 })
 
 
@@ -66,6 +71,10 @@ class Config:
     # "on" or "off" (ops/fused_collectives.resolve_fused_collectives)
     fused_collectives: str = "auto"
 
+    # -- the parallelism plan's HOROVOD_PLAN string (parallel/plan.py), read
+    # by DistributedTrainStep when no plan is passed
+    plan: Optional[str] = None
+
     @staticmethod
     def from_env() -> "Config":
         def opt_int(name: str) -> Optional[int]:
@@ -84,4 +93,15 @@ class Config:
                 "HOROVOD_FUSION_THRESHOLD", 64 * 1024 * 1024),
             fused_collectives=os.environ.get(
                 "HOROVOD_FUSED_COLLECTIVES", "auto").lower(),
+            plan=os.environ.get("HOROVOD_PLAN"),
         )
+
+
+# The sp ring's layout is read when the ring is dispatched, not at init(),
+# as in the JAX package (parallel/ring_attention.py), so a knob set after
+# init() still steers the next call.
+
+def sp_layout() -> str:
+    """``HOROVOD_SP_LAYOUT``: the sp ring's sequence layout, default
+    ``contiguous``."""
+    return os.environ.get("HOROVOD_SP_LAYOUT", "contiguous")

@@ -57,7 +57,9 @@ class TestConfig:
            "HOROVOD_CROSS_RANK": "1", "HOROVOD_CROSS_SIZE": "4",
            "HOROVOD_COORDINATOR_ADDR": "localhost:1234",
            "HOROVOD_FUSION_THRESHOLD": "4096",
-           "HOROVOD_FUSED_COLLECTIVES": "ON"}
+           "HOROVOD_FUSED_COLLECTIVES": "ON",
+           "HOROVOD_SP_LAYOUT": "zigzag",
+           "HOROVOD_PLAN": "dp=2,sp=4"}
 
     @pytest.mark.parametrize("set_env", [False, True])
     def test_matches_jax(self, monkeypatch, set_env):

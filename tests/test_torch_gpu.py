@@ -6,8 +6,10 @@ machine with::
 
 With two or more cards, ``TestNcclWorld`` also runs the exchange and the
 training step over NCCL, one process per card, and with four
-``fused_tp_apply`` at tp = 4.  Imports torch, numpy,
-the port and ``chip_smoke``'s kernel-5 inputs and tolerances only.
+``fused_tp_apply`` at tp = 4 and the sp ring at sp = 4 (run those two
+alone on four cards: ``-k "test_tp_over_nccl or test_sp_over_nccl"``).
+Imports torch, numpy, the port and ``chip_smoke``'s inputs and tolerances
+only.
 """
 
 import math
@@ -104,6 +106,97 @@ class TestOnCard:
             assert float(diff.norm() / w.norm()) <= 1e-2, name
             rms = w.pow(2).mean().sqrt()
             assert bool((diff <= 2e-2 * w.abs() + 1e-1 * rms).all()), name
+
+    @pytest.mark.parametrize("shape", [(6, 1024, 16, 128), (2, 200, 3, 64),
+                                       (1, 24, 2, 128)],
+                             ids=lambda s: "x".join(map(str, s)))
+    @pytest.mark.parametrize("pair", "abcd")
+    def test_flash_positions(self, cuda, shape, pair):
+        """The global-positions variant against its plain version for the
+        sp ring's position pairs (chip_smoke.pos_pairs), the backward from
+        the plain forward's lse and delta; pair (d), every row masked, must
+        give O = 0, lse = the sentinel and zero gradients exactly."""
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
+                       .to(torch.bfloat16) for _ in range(4))
+        qpos, kpos = chip_smoke.pos_pairs(torch, shape[1])[pair]
+        before = K.launch_counts()
+        results = chip_smoke.flash_pos_outputs(torch, q, k, v, do, qpos, kpos,
+                                               shape[-1] ** -0.5)
+        after = K.launch_counts()
+        assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+            == dict.fromkeys(chip_smoke.SP_KERNELS, 1)
+        sentinel = float(torch.tensor(K.NEG_INF, dtype=torch.float32))
+        for name, outputs in results.items():
+            for label, got, want in outputs:
+                assert got.dtype == want.dtype and got.shape == want.shape
+                if pair == "d":
+                    exact = sentinel if label == "lse" else 0.0
+                    assert bool((got.float() == exact).all()), (name, label)
+                    continue
+                for key, val, lim in chip_smoke.flash_agreement(
+                        torch, got, want, label == "lse"):
+                    assert val <= lim, (name, label, key, val, lim)
+
+    def test_flash_positions_never_plain(self, cuda, monkeypatch):
+        """A CUDA tensor with positions launches the variant and never its
+        plain version."""
+        def boom(*a, **k):
+            raise AssertionError("a plain version ran for a CUDA tensor")
+
+        for name in ("flash_fwd_plain", "flash_bwd_dq_plain",
+                     "flash_bwd_dkv_plain"):
+            monkeypatch.setattr(K, name, boom)
+        q = torch.randn(1, 128, 2, 64, device=cuda).to(torch.bfloat16)
+        pos = torch.arange(128, device=cuda)
+        o, lse = K.flash_fwd(q, q, q, True, 0.125, pos, pos)
+        delta = K.flash_delta(o, q)
+        K.flash_bwd_dq(q, q, q, q, lse, delta, True, 0.125, pos, pos)
+        K.flash_bwd_dkv(q, q, q, q, lse, delta, True, 0.125, pos, pos)
+        torch.cuda.synchronize()
+        with pytest.raises(ValueError, match="positions"):
+            K.flash_fwd(q, q, q, True, 0.125, pos.cpu(), pos.cpu())
+
+    def test_sp1_ring_equals_flash(self, cuda):
+        """The sp ring on a group of one, causal, bf16: output and gradients
+        equal flash_attention's bit for bit (the positions variant at
+        arange adds exact zeros; one partial merges into the sentinel
+        exactly), through the positions kernels only."""
+        from horovod_tpu_torch.parallel.ring_attention import ring_attention
+
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        q, k, v, g = (torch.randn(2, 512, 4, 128, generator=gen, device=cuda)
+                      .to(torch.bfloat16) for _ in range(4))
+        results = []
+        for fn in (lambda a, b, c: ring_attention(a, b, c, causal=True),
+                   lambda a, b, c: K.flash_attention(a, b, c, causal=True)):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            K.reset_launch_counts()
+            out = fn(*leaves)
+            out.backward(g)
+            results.append(([out.detach()] + [x.grad for x in leaves],
+                            {n: c for n, c in K.launch_counts().items() if c}))
+        (ring, ring_counts), (flash, flash_counts) = results
+        assert ring_counts == dict.fromkeys(chip_smoke.SP_KERNELS, 1)
+        assert flash_counts == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                "flash_bwd_dkv": 1}
+        for a, b in zip(ring, flash):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("knob", ["HOROVOD_FUSED_COLLECTIVES",
+                                      "HOROVOD_SP_FUSED_RING"])
+    def test_sp_ring_ignores_off_knobs(self, cuda, monkeypatch, knob):
+        """The tensor-parallel rings' knob, and the JAX package's sp one,
+        set to off leave a fitting CUDA shard on the positions kernels."""
+        from horovod_tpu_torch.parallel.ring_attention import ring_attention
+
+        monkeypatch.setenv(knob, "off")
+        q = torch.randn(1, 256, 2, 128, device=cuda).to(torch.bfloat16)
+        q.requires_grad_()
+        K.reset_launch_counts()
+        ring_attention(q, q, q, causal=True).backward(torch.ones_like(q))
+        assert {n: c for n, c in K.launch_counts().items() if c} == \
+            dict.fromkeys(chip_smoke.SP_KERNELS, 1)
 
     def test_flash_rejects_other_head_dims(self, cuda):
         q = torch.zeros(1, 64, 1, 96, device=cuda, dtype=torch.bfloat16)
@@ -301,3 +394,32 @@ class TestNcclWorld:
             # 4 boundary ops a layer, each one kernel launch per ring hop
             assert out["launches"] == 2 * 4 * 4, rank
             assert all(r <= 1e-2 for r in readings), (rank, readings)
+
+    def test_sp_over_nccl(self, cards):
+        """The sp ring at sp = 4 over NCCL, both layouts, causal: each rank's
+        output and q/k/v gradients against flash_attention on the whole
+        sequence (normwise 1e-2: bf16 partials merged in fp32 against one
+        pass), finite, through the positions kernels (contiguous skips 6 of
+        16 launches, zigzag none: per rank rank + 1 and 4 forward
+        launches); then 3 SGD steps of the ring TransformerLM under
+        ``plan="sp=4"`` against the same model trained alone on the whole
+        sequence through flash (losses 5e-3 relative, parameter updates
+        2e-2 normwise).  Run alone on four cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        outs = spawn_world("run_sp_nccl", world=4, device="cuda",
+                           timeout=600)
+        for rank, out in enumerate(outs):
+            print(f"rank {rank}: {out}")
+            for layout, r in out["attention"].items():
+                assert r["finite"], (rank, layout)
+                assert all(x <= 1e-2 for x in r["normwise"]), (rank, layout,
+                                                               r)
+                want = rank + 1 if layout == "contiguous" else 4
+                assert r["launches"]["flash_fwd_pos"] == want, (rank, r)
+                assert r["launches"]["flash_fwd"] == 0
+            for layout, r in out["train"].items():
+                rel = [abs(a - b) / abs(b) for a, b in
+                       zip(r["losses"], r["ref_losses"])]
+                assert max(rel) <= 5e-3, (rank, layout, r)
+                assert r["updates_normwise"] <= 2e-2, (rank, layout, r)

@@ -24,7 +24,16 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 
 def _port_files():
     return sorted((ROOT / "horovod_tpu_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py", ROOT / "tp_bench.py"]
+        [ROOT / "chip_smoke.py", ROOT / "tp_bench.py", ROOT / "sp_bench.py"]
+
+
+def test_port_files_cover_the_sp_slice():
+    """The import checks below cover the sequence-parallel slice's modules."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/parallel/plan.py",
+            "horovod_tpu_torch/parallel/ulysses.py",
+            "horovod_tpu_torch/parallel/ring_attention.py",
+            "sp_bench.py"} <= names
 
 
 def _forbidden(module: str) -> bool:
@@ -93,6 +102,16 @@ def test_tp_bench_refuses_without_cards():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
     out = subprocess.run([sys.executable, "tp_bench.py"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "needs 4 CUDA cards" in out.stderr and out.stdout == ""
+
+
+def test_sp_bench_refuses_without_cards():
+    """Fewer cards than asked for: exit non-zero before starting a rank."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "sp_bench.py"], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert "needs 4 CUDA cards" in out.stderr and out.stdout == ""
@@ -167,10 +186,53 @@ def test_device_tensors_launch_kernels(fake_card):
     assert dgamma.shape == dbeta.shape == (256,)
     y = K.pallas_matmul(_meta(24, 128), _meta(128, 384), torch.float32)
     assert y.shape == (24, 384) and y.dtype == torch.float32
+    pos = torch.empty(128, device="meta", dtype=torch.int64)
+    K.flash_fwd(q, q, q, True, 0.1, pos, pos)
+    K.flash_bwd_dq(q, q, q, q, rows, rows, True, 0.1, pos, pos)
+    K.flash_bwd_dkv(q, q, q, q, rows, rows, True, 0.1, pos, pos)
     assert fake_card.calls == ["hvd_fused_scale", "hvd_flash_fwd",
                                "hvd_flash_bwd_dq", "hvd_flash_bwd_dkv",
-                               "hvd_cbr_bwd", "hvd_matmul"]
+                               "hvd_cbr_bwd", "hvd_matmul", "hvd_flash_fwd",
+                               "hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"]
     assert K.launch_counts() == {name: 1 for name in K.WRAPPERS}
+
+
+def test_device_positions_launch_the_variant(fake_card):
+    """A device tensor with positions launches the positions variant (both
+    pointers set), counts it apart from the kernel without positions, and
+    never reaches a plain version; without positions both pointers are
+    null."""
+    q = _meta(1, 64, 2, 64)
+    rows = _meta(2, 64, dtype=torch.float32)
+    pos = torch.empty(64, device="meta", dtype=torch.int32)
+    K.flash_fwd(q, q, q, True, 0.1)
+    K.flash_fwd(q, q, q, True, 0.1, pos, pos)
+    K.flash_bwd_dq(q, q, q, q, rows, rows, True, 0.1, pos, pos)
+    K.flash_bwd_dkv(q, q, q, q, rows, rows, True, 0.1, pos, pos)
+    assert [a[5:7] for a in fake_card.args[:2]] == [(None, None),
+                                                    (pos.data_ptr(),) * 2]
+    assert fake_card.args[2][7] is not None and \
+        fake_card.args[3][8] is not None
+    counts = K.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_fwd_pos"],
+            counts["flash_bwd_dq_pos"], counts["flash_bwd_dkv_pos"],
+            counts["flash_bwd_dq"]) == (1, 1, 1, 1, 0)
+    with pytest.raises(ValueError, match="positions"):
+        K.flash_fwd(q, q, q, True, 0.1, pos[:32], pos[:32])
+
+
+def test_sp_ring_of_one_on_device_launches_the_variant(fake_card):
+    """The sp ring on a group of one, causal, forward and backward: one
+    launch of each positions kernel and none of the others."""
+    from horovod_tpu_torch.ops import fused_collectives as FC
+
+    q = _meta(1, 64, 2, 64).requires_grad_()
+    out = FC.ring_flash_attention(q, q, q, causal=True)
+    out.backward(_meta(1, 64, 2, 64))
+    assert fake_card.calls == ["hvd_flash_fwd", "hvd_flash_bwd_dq",
+                               "hvd_flash_bwd_dkv"]
+    assert {k: v for k, v in K.launch_counts().items() if v} == {
+        "flash_fwd_pos": 1, "flash_bwd_dq_pos": 1, "flash_bwd_dkv_pos": 1}
 
 
 def test_autograd_on_device_uses_kernels(fake_card):

@@ -397,3 +397,330 @@ def run_tp_nccl(hvd):
     for fused in (True, False):
         out[fused] = _ring_outputs(FC, x, w, xs, group, fused)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the sp ring, Ulysses and sp as a plan axis
+# ---------------------------------------------------------------------------
+
+#: (sp, global seq, causal, layout) of the fused ring's cases: the JAX
+#: package's TestRingFlashParity grid, the tile-straddling shard lengths 8
+#: and 40, and single-query shards (TestRingNaNGuard)
+FUSED_RING_CASES = [(sp, t, causal, layout)
+                    for sp, t in ((2, 64), (4, 128), (4, 96))
+                    for causal in (False, True)
+                    for layout in ("contiguous", "zigzag")] + \
+    [(2, 16, True, "contiguous"), (2, 80, True, "contiguous"),
+     (4, 4, True, "contiguous")]
+#: the plain ring's cases, against the JAX jnp ring
+PLAIN_RING_CASES = [(4, 64, False, "contiguous"), (4, 64, True, "contiguous"),
+                    (4, 64, True, "zigzag"), (2, 64, True, "contiguous"),
+                    (4, 4, True, "contiguous")]
+#: Ulysses at sequences off the tile grid over 4 shards (t_local 6 and 34)
+ULYSSES_CASES = [(4, t, causal) for t in (24, 136) for causal in (False, True)]
+#: the sp TransformerLM: (sp, attention_impl, layout)
+SP_LM_CASES = [(2, "ring", "contiguous"), (2, "ring", "zigzag"),
+               (4, "ring", "contiguous"), (4, "ring", "zigzag"),
+               (4, "ulysses", "contiguous")]
+
+
+def sp_qkv(t: int, seed: int = 0, b: int = 2, h: int = 4, d: int = 16):
+    """Global fp32 ``(b, t, h, d)`` q, k, v and an output cotangent g."""
+    rng = np.random.RandomState(seed + t)
+    return [rng.randn(b, t, h, d).astype(np.float32) for _ in range(4)]
+
+
+def sp_order(world: int, t: int, layout: str) -> np.ndarray:
+    """The global sequence order whose contiguous sharding gives each rank
+    its ``layout`` shard."""
+    if layout == "contiguous":
+        return np.arange(t)
+    from horovod_tpu_torch.ops.fused_collectives import \
+        zigzag_sequence_indices
+
+    return zigzag_sequence_indices(world, t).numpy()
+
+
+def sp_shard(x: np.ndarray, world: int, rank: int, layout: str):
+    """Rank ``rank``'s shard (dim 1) of the global ``x`` under ``layout``."""
+    t = x.shape[1]
+    x = x[:, sp_order(world, t, layout)]
+    n = t // world
+    return np.ascontiguousarray(x[:, rank * n:(rank + 1) * n])
+
+
+def _attn_grads(fn, q, k, v, g):
+    """``fn``'s output and the q, k, v gradients for the cotangent g."""
+    import torch
+
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = fn(*leaves)
+    out.backward(torch.from_numpy(g))
+    return [out.detach().numpy()] + [a.grad.numpy() for a in leaves]
+
+
+SP_TRAIN_SIZES = dict(vocab_size=64, num_layers=1, num_heads=4, d_model=32,
+                      d_ff=128, max_seq_len=32)
+
+
+def sp_train_rows():
+    """4 sequences of 33 tokens: the global batch of the sp train step."""
+    return np.random.RandomState(0).randint(0, 64, (4, 33)).astype(np.int64)
+
+
+def _sp_train(hvd, plan, impl, rows, mesh=None):
+    """3 AdamW steps of DistributedTrainStep under ``plan`` (and ``mesh``)
+    on ``{"inputs", "labels"}`` of ``rows``; the model runs over the
+    mesh's sp group.  Returns (losses, state_dict as numpy)."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import transformer as TT
+
+    cfg = TT.TransformerConfig(dtype=torch.float32, attention_impl=impl,
+                               **SP_TRAIN_SIZES)
+    model = TT.TransformerLM(
+        cfg, generator=torch.Generator().manual_seed(0),
+        sp_group=mesh.group("sp") if mesh is not None else None)
+
+    def loss_fn(m, batch):
+        inputs = batch["inputs"]
+        t = inputs.shape[1]
+        positions = step.mesh.index("sp") * t + torch.arange(t)
+        logits = m(inputs, positions)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               batch["labels"].reshape(-1))
+
+    step = hvd.DistributedTrainStep(
+        loss_fn, torch.optim.AdamW(model.parameters(), lr=1e-2), plan=plan,
+        mesh=mesh)
+    model, opt = step.init(model)
+    batch = step.shard_batch({"inputs": rows[:, :-1], "labels": rows[:, 1:]})
+    losses = []
+    for _ in range(3):
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))
+    return losses, {k: v.numpy().copy() for k, v in model.state_dict().items()}
+
+
+def run_sp(hvd, params, tokens):
+    """On a gloo world: the fused ring, the plain ring and Ulysses on their
+    cases of this world's size (outputs and q/k/v gradients of this rank's
+    shard), the sp TransformerLM's logits, loss and averaged gradients for
+    the flax ``params`` on ``tokens``, and at a world of 4 the train step
+    under ``plan="dp=2,sp=2"`` beside its dp-only dense twin and the plans
+    the step rejects."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.models.convert import params_from_flax
+    from horovod_tpu_torch.ops import fused_collectives as FC
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+    from horovod_tpu_torch.parallel.ring_attention import (
+        _PlainRing,
+        ring_attention,
+    )
+    from horovod_tpu_torch.parallel.ulysses import ulysses_attention
+
+    # one intra-op thread a rank: the ranks' thread pools would otherwise
+    # oversubscribe the host's cores (21.7 s against 2.5 s at a world of 4)
+    torch.set_num_threads(1)
+    world, rank = hvd.size(), hvd.rank()
+    group = make_parallel_mesh(sp=world).group("sp")
+    out = {}
+
+    def shards(case_t, layout):
+        return [sp_shard(a, world, rank, layout) for a in sp_qkv(case_t)]
+
+    for case in FUSED_RING_CASES:
+        sp, t, causal, layout = case
+        if sp == world:
+            before = FC.ring_flash_attention.launches
+            out[("fused",) + case] = _attn_grads(
+                lambda q, k, v: ring_attention(q, k, v, group, causal=causal,
+                                               layout=layout),
+                *shards(t, layout))
+            out[("fused_launches",) + case] = \
+                FC.ring_flash_attention.launches - before
+    for case in PLAIN_RING_CASES:
+        sp, t, causal, layout = case
+        if sp == world:
+            before = FC.ring_flash_attention.launches
+            out[("plain",) + case] = _attn_grads(
+                lambda q, k, v: _PlainRing.apply(q, k, v, group, causal,
+                                                 q.shape[-1] ** -0.5, layout),
+                *shards(t, layout))
+            assert FC.ring_flash_attention.launches == before
+    for case in ULYSSES_CASES:
+        sp, t, causal = case
+        if sp == world:
+            out[("ulysses",) + case] = _attn_grads(
+                lambda q, k, v: ulysses_attention(q, k, v, group,
+                                                  causal=causal),
+                *shards(t, "contiguous"))
+
+    state = params_from_flax(params)
+    for case in SP_LM_CASES:
+        sp, impl, layout = case
+        if sp != world:
+            continue
+        cfg = TT.TransformerConfig(dtype=torch.float32, attention_impl=impl,
+                                   sp_layout=layout, **TP_SIZES)
+        model = TT.TransformerLM(cfg, sp_group=group)
+        model.load_state_dict(state)
+        inputs = torch.from_numpy(sp_shard(tokens[:, :-1], world, rank,
+                                           layout))
+        labels = torch.from_numpy(sp_shard(tokens[:, 1:], world, rank,
+                                           layout))
+        t_local = inputs.shape[1]
+        positions = FC.ring_layout_positions(rank, world, t_local, layout)
+        logits = model(inputs.long(), positions)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.long().reshape(-1))
+        loss.backward()
+        grads = {}
+        for name, p in model.named_parameters():
+            dist.all_reduce(p.grad, group=group)
+            grads[name] = (p.grad / world).numpy()
+        total = loss.detach().clone()
+        dist.all_reduce(total, group=group)
+        out[("lm",) + case] = (logits.detach().numpy(),
+                               float(total) / world, grads)
+
+    if world == 4:
+        rows = sp_train_rows()
+        mesh = make_parallel_mesh(dp=2, sp=2)
+        out["train_sp"] = _sp_train(hvd, "dp=2,sp=2", "ring", rows, mesh)
+        step = hvd.DistributedTrainStep(lambda m, b: m, torch.optim.SGD(
+            [torch.zeros(1, requires_grad=True)], lr=0.1), mesh=mesh)
+        os.environ["HOROVOD_SP_LAYOUT"] = "zigzag"
+        try:
+            step.shard_batch(rows)
+        except ValueError as e:
+            out["zigzag_error"] = str(e)
+        finally:
+            del os.environ["HOROVOD_SP_LAYOUT"]
+        out["train_dense"] = _sp_train(hvd, "dp=4", "dense",
+                                       np.tile(rows, (2, 1)))
+        errors = {}
+        for plan in ("dp=2,tp=2", "pp=2", "ep=2,sp=2"):
+            try:
+                hvd.DistributedTrainStep(lambda m, b: m, torch.optim.SGD(
+                    [torch.zeros(1, requires_grad=True)], lr=0.1), plan=plan)
+            except ValueError as e:
+                errors[plan] = str(e)
+        out["plan_errors"] = errors
+    return out
+
+
+# the NCCL sp case: 2 layers, d_model 512, 4 heads of 128, seq 4096 (1024 a
+# rank at sp = 4), batch 2, bf16
+SP_NCCL_SIZES = dict(vocab_size=512, num_layers=2, num_heads=4, d_model=512,
+                     d_ff=2048, max_seq_len=4096)
+
+
+def _normwise(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def run_sp_nccl(hvd):
+    """On a world of cards (sp = world): ``ring_flash_attention`` in both
+    layouts, causal, against ``flash_attention`` on the full sequence on
+    this rank (output and q/k/v gradients of this rank's shard, normwise),
+    and 3 SGD steps of the ring TransformerLM under ``plan="sp=<world>"``
+    in both layouts against the same model trained here alone on the full
+    sequence through flash attention (losses and parameter updates)."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.ops import fused_collectives as FC
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    dev, rank, world = hvd.device(), hvd.rank(), hvd.size()
+    mesh = make_parallel_mesh(sp=world)
+    group = mesh.group("sp")
+    b, t, h, d = 2, SP_NCCL_SIZES["max_seq_len"], 4, 128
+    n = t // world
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                  .bfloat16() for _ in range(4))
+    out = {"attention": {}, "train": {}}
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    full = K.flash_attention(*leaves, causal=True)
+    full.backward(g)
+    want = [full.detach()] + [x.grad for x in leaves]
+    for layout in FC.RING_LAYOUTS:
+        order = torch.arange(t) if layout == "contiguous" else \
+            FC.zigzag_sequence_indices(world, t)
+        mine = order[rank * n:(rank + 1) * n].to(dev)
+        shard = [x[:, mine].contiguous().requires_grad_() for x in (q, k, v)]
+        K.reset_launch_counts()
+        o = FC.ring_flash_attention(*shard, group, causal=True,
+                                    layout=layout)
+        o.backward(g[:, mine].contiguous())
+        got = [o.detach()] + [x.grad for x in shard]
+        out["attention"][layout] = {
+            "normwise": [_normwise(a, w[:, mine]) for a, w in zip(got, want)],
+            "finite": bool(torch.isfinite(got[0]).all()),
+            "launches": K.launch_counts()}
+
+    tokens = torch.randint(0, SP_NCCL_SIZES["vocab_size"], (b, t + 1),
+                           generator=torch.Generator().manual_seed(1))
+
+    def train(impl, layout, step_plan):
+        cfg = TT.TransformerConfig(dtype=torch.bfloat16, attention_impl=impl,
+                                   sp_layout=layout, **SP_NCCL_SIZES)
+        model = TT.TransformerLM(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(2),
+            sp_group=group if step_plan else None)
+        init = {k_: p.detach().clone() for k_, p in model.named_parameters()}
+        opt = torch.optim.SGD(model.parameters(), lr=0.5)
+        order = torch.arange(t) if layout != "zigzag" else \
+            FC.zigzag_sequence_indices(world, t)
+        inputs, labels = tokens[:, :-1][:, order], tokens[:, 1:][:, order]
+        t_local = t // world if step_plan else t
+        me = rank if step_plan else 0
+        positions = FC.ring_layout_positions(
+            me, world if step_plan else 1, t_local, layout or "contiguous",
+            dev).long()
+
+        def loss_fn(m, batch):
+            logits = m(batch["inputs"], positions)
+            return F.cross_entropy(
+                logits.float().reshape(-1, logits.shape[-1]),
+                batch["labels"].reshape(-1))
+
+        losses = []
+        if step_plan:
+            step = hvd.DistributedTrainStep(loss_fn, opt, plan=step_plan,
+                                            mesh=mesh)
+            model, opt = step.init(model)
+            batch = step.shard_batch({"inputs": inputs, "labels": labels})
+            for _ in range(3):
+                model, opt, loss = step(model, opt, batch)
+                losses.append(float(loss))
+        else:
+            batch = {"inputs": inputs.to(dev), "labels": labels.to(dev)}
+            for _ in range(3):
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(model, batch)
+                loss.backward()
+                opt.step()
+                losses.append(float(loss.detach()))
+        return losses, {k_: p.detach() - init[k_]
+                        for k_, p in model.named_parameters()}
+
+    ref_losses, ref_updates = train("flash", None, None)
+    for layout in FC.RING_LAYOUTS:
+        losses, updates = train("ring", layout, f"sp={world}")
+        out["train"][layout] = {
+            "losses": losses, "ref_losses": ref_losses,
+            "updates_normwise": _normwise(
+                torch.cat([u.reshape(-1) for u in updates.values()]),
+                torch.cat([ref_updates[k_].reshape(-1)
+                           for k_ in updates]))}
+    return out
