@@ -9,11 +9,14 @@ Phases, in order; any failure exits non-zero:
    printed, with the compiler's register and spill report);
 2. hold each kernel against its plain PyTorch version at the shapes the
    training paths give it: ``fused_scale`` on a 64 MiB fp32 bucket, an odd
-   length and a bf16 cast; flash forward, dQ and dK/dV at
-   b6 h16 t1024 d128 bf16, causal (plus small off-grid shapes);
+   length and a bf16 cast; flash forward (a warp-specialised TMA +
+   ``wgmma`` design), dQ and dK/dV (``mma.sync``) at b6 h16 t1024 d128
+   bf16, causal (plus small off-grid shapes and the forward's 128-row tile
+   edges, ``FLASH_EDGES``);
    ``fused_conv_bn_relu_bwd`` at ResNet-50's fused segments,
    128x28x28x128 and 128x14x14x256 bf16 (plus ragged shapes);
-   ``pallas_matmul`` at the tensor-parallel path's four projections
+   ``pallas_matmul`` (a warp-specialised TMA + ``wgmma`` design) at the
+   tensor-parallel path's four projections
    (6144 tokens by 2048-8192 features) in the three layouts of a linear
    layer (forward, dX, dW), with bf16 and fp32 output (plus ragged shapes);
    the flash kernels' global-positions variant at b6 h16 t1024 d128 bf16,
@@ -23,7 +26,9 @@ Phases, in order; any failure exits non-zero:
    O, lse and the gradients must be exactly 0, the sentinel and 0), from
    the plain forward's lse and delta (plus an off-grid shape);
 3. time each kernel with CUDA events beside its bound (the larger of
-   bytes over 3.35 TB/s and products over 989 TFLOP/s), its plain version
+   bytes over 3.35 TB/s and products over 989 TFLOP/s; for the flash
+   forward, its positions variant and the matmul also the kernel/library
+   ratio, achieved TFLOP/s and share of bound), its plain version
    and, where one exists, a single PyTorch call computing the same function
    (for the conv backward, autograd through the unfused segment; for the
    matmul, ``torch.matmul``; for the positions variant, SDPA with the
@@ -92,6 +97,10 @@ MM_MAIN = {"qkv": (6144, 2048, 6144), "proj": (6144, 2048, 2048),
            "wi": (6144, 2048, 8192), "wo": (6144, 8192, 2048)}
 MM_LAYERS = FULL["layers"]
 MM_LAYOUTS = ("fwd", "dx", "dw")
+# the forward's 128-row tiles at their edges: a t that straddles a tile,
+# the d64 template over a long non-causal t, and two whole tiles of one head
+FLASH_EDGES = [((1, 136, 2, 128), True), ((2, 1000, 4, 64), False),
+               ((1, 256, 1, 128), True)]
 # ragged shapes: M edges of 8, 24 and 136 rows in the forward and dX, and a
 # 24-row M edge in dW (its n); a layout whose call falls outside the
 # dispatch rule takes the plain version and is not checked
@@ -108,6 +117,16 @@ def bound_ms(nbytes: float, flops: float,
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def efficiency(r: dict, flops: float) -> str:
+    """A timed row's kernel/library ratio, achieved TFLOP/s and share of
+    its bound."""
+    lib = r.get("library_ms")
+    ratio = f"{r['ms'] / lib:.2f}x its library call" if lib else \
+        "no library call"
+    return (f"{ratio}, {flops / r['ms'] / 1e9:.0f} TFLOP/s, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of bound")
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -465,7 +484,8 @@ def phase_check(torch):
     # flash at the main path's shapes, then small off-grid ones
     b, t, h, d = FULL["batch"], FULL["seq"], FULL["heads"], FULL["head_dim"]
     shapes = [((b, t, h, d), True, True), ((2, 256, 4, 128), False, False),
-              ((2, 200, 3, 64), True, False), ((1, 24, 2, 64), True, False)]
+              ((2, 200, 3, 64), True, False), ((1, 24, 2, 64), True, False),
+              *[(shape, causal, False) for shape, causal in FLASH_EDGES]]
     for shape, causal, main in shapes:
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
                        .to(torch.bfloat16) for _ in range(4))
@@ -578,8 +598,8 @@ def time_mm(torch) -> dict:
         bms, by = bound_ms(nbytes, flops)
         same = torch.equal(K.pallas_matmul(a, b), torch.matmul(a, b))
         log(f"time pallas_matmul {name} {layout} ({m}x{k})@({k}x{n}): "
-            f"{r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.0f} TFLOP/s; bound "
-            f"{bms:.4f} ms by {by}, plain {r['plain_ms']:.4f} ms, "
+            f"{r['ms']:.4f} ms ({efficiency(dict(r, bound_ms=bms), flops)}; "
+            f"bound {bms:.4f} ms by {by}, plain {r['plain_ms']:.4f} ms, "
             f"torch.matmul {r['library_ms']:.4f} ms, its result bit for "
             f"bit the kernel's: {same})")
         for key in total:
@@ -588,6 +608,8 @@ def time_mm(torch) -> dict:
         work[1] += flops / len(cells)
         del a, b
     total["bound_ms"], total["bound_by"] = bound_ms(*work)
+    log(f"time pallas_matmul, launch-weighted mean: {total['ms']:.4f} ms "
+        f"({efficiency(total, work[1])})")
     log(f"time pallas_matmul per step: {len(cells) * MM_LAYERS} launches, "
         f"kernel {total['ms'] * len(cells) * MM_LAYERS:.2f} ms, bound "
         f"{total['bound_ms'] * len(cells) * MM_LAYERS:.2f} ms, torch.matmul "
@@ -663,6 +685,10 @@ def time_flash_pos(torch) -> dict:
                 library_ms=None, work=(6 * tile + 2 * rows + pos, 4 * prod))}
         for name, r in rows_.items():
             r["bound_ms"], r["bound_by"] = bound_ms(*r.pop("work"))
+            if name == "flash_fwd_pos":
+                log(f"time flash_fwd_pos pair {pair}: {r['ms']:.4f} ms "
+                    f"({efficiency(r, 2 * prod)}; SDPA with the mask "
+                    f"{r['library_ms']:.4f} ms)")
             log(f"time {name} pair {pair}: {r['ms']:.4f} ms (bound "
                 f"{r['bound_ms']:.4f} ms by {r['bound_by']} over the "
                 f"{visible:.4f} of the grid the mask shows, plain "
@@ -731,6 +757,8 @@ def phase_time(torch):
                    q, k, v, True, scale), iters=5),
                library_ms=cuda_ms(torch, sdpa_fwd))
     fwd["bound_ms"], fwd["bound_by"] = bound_ms(4 * tile + rows, 2 * prod)
+    log(f"time flash_fwd: {fwd['ms']:.4f} ms ({efficiency(fwd, 2 * prod)}; "
+        f"SDPA causal {fwd['library_ms']:.4f} ms)")
     dq = dict(ms=cuda_ms(torch, lambda: K.flash_bwd_dq(
         q, k, v, do, lse, delta, True, scale)),
         plain_ms=cuda_ms(torch, lambda: K.flash_bwd_dq_plain(

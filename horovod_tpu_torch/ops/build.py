@@ -2,10 +2,13 @@
 
 Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
 started together, into an object file; one link step then makes a single
-shared library with a plain C interface.  The library's name carries a
-hash of the sources and flags, so an edited source builds anew and an
-unchanged one is loaded from ``<repo>/build/`` without compiling.  Nothing
-here runs at import time: the CPU tests import every module of the port.
+shared library with a plain C interface (the TMA kernels look the CUDA
+driver's ``cuTensorMapEncodeTiled`` up at run time, so nothing beyond the
+CUDA runtime is linked).  The library's name carries a hash of the flags
+and of every source and header in ``csrc/`` (``*.cu`` and ``*.cuh``), so an
+edited source or header builds anew and an unchanged tree is loaded from
+``<repo>/build/`` without compiling.  Nothing here runs at import time: the
+CPU tests import every module of the port.
 """
 
 from __future__ import annotations
@@ -60,12 +63,14 @@ def _nvcc() -> str:
 
 
 def _sources():
+    """The compile units, ``csrc/*.cu``; headers are only included."""
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(sources) -> str:
+def _digest() -> str:
+    """Hash of the flags and of every ``csrc/*.cu`` and ``*.cuh``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -76,7 +81,7 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     path.  Raises with the compiler's output when a build fails."""
     global build_seconds
     sources = _sources()
-    lib_path = build_dir / f"libhvd_torch_kernels_{_digest(sources)}.so"
+    lib_path = build_dir / f"libhvd_torch_kernels_{_digest()}.so"
     if lib_path.exists():
         return lib_path
     build_dir.mkdir(parents=True, exist_ok=True)

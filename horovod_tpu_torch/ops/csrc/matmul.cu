@@ -12,214 +12,269 @@
 // row-major.  With those two flags one kernel serves the three products of a
 // linear layer without copying an operand: the forward x * W^T (b_t), dX =
 // dy * W, and dW = dy^T * x (a_t).  M, N and K are multiples of 8 (one 16-byte
-// vector of bf16); every edge is masked, so any such shape runs.
+// vector of bf16, which a tensor map's row stride needs); any such shape runs.
 //
 // Bound: at the tensor-parallel transformer's shapes (m = 6144 tokens,
 // k and n 2048-8192) a call moves 59-159 MB and does 52-206 GFLOP, so it is
-// bound by operations on an H100 (0.05-0.21 ms at 989 TFLOP/s), not by
-// bytes (0.02-0.05 ms at 3.35 TB/s).
+// bound by operations on an H100 (0.05-0.21 ms at 989 TFLOP/s, 0.1563 ms on
+// the mean of the path's 12 products), not by bytes (0.02-0.05 ms at
+// 3.35 TB/s).  Only wgmma reaches the tensor cores' full rate, and it must be
+// fed from shared memory without the issuing warps copying.
 //
-// Design (simple first): one 128x128 output tile per block of 8 warps, each
-// warp 64 (M) x 32 (N); the K loop in steps of 32 through a 4-stage cp.async
-// ring; mma.sync m16n8k16 bf16 with fp32 accumulators, operands through
-// ldmatrix -- .trans where an operand's tile is stored K-major (A with a_t,
-// B without b_t).  The TPU kernel held a whole (bm, k) x (k, bn) strip in
-// VMEM and made one dot of it; here the strip streams through shared memory.
-// wgmma, TMA and a persistent schedule are later work.
+// Design: warp-specialised TMA + wgmma (sm90.cuh).  A block of three
+// warpgroups computes 128 x 256 tiles of C, one block per SM walking the
+// tiles (a persistent schedule: the ring runs on from one tile to the
+// next, so the first loads of a tile overlap the last one's epilogue, and
+// no block waits for another's launch).  The producer warpgroup gives up
+// its registers (setmaxnreg) and one of its threads starts the TMA loads of
+// each K step's A (128 x 64) and B (256 x 64) boxes, 48 KB, into a ring of 4
+// stages guarded by full/empty mbarrier pairs.  The two consumer warpgroups
+// take 232 registers each and compute 64 x 256 each with wgmma.m64n256k16
+// straight from shared memory, keeping one wgmma group in flight and freeing
+// a stage once the group that read it has retired.  The tensor maps write
+// the 128-byte swizzle; each operand's layout is set in its descriptor and
+// the wgmma transpose bit, so the three layouts read their operands in place:
+// A (M, K) and a (N, K) B are K-major boxes of 64 K columns; a transposed A
+// or a (K, N) B are MN-major, loaded as 64-column boxes of 64 K rows.  TMA
+// fills zeros past every edge, so ragged M, N and K need no masking in the
+// main loop.  The epilogue writes each warpgroup's fp32 accumulators (as
+// bf16 or fp32) into two swizzled 8 KB shared buffers, 128 bytes of each
+// row at a time, and a TMA store takes each box out, dropping what lies
+// past M and N; the stores drain while the next tile's products run
+// (stores straight from registers would hold the tensor cores idle).  The
+// tiles are walked in groups of 8 row tiles for L2 reuse.  The TPU kernel
+// held a whole (bm, k) x (k, bn) strip in VMEM and made one dot of it;
+// here the strip streams through the ring.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using namespace sm90;
 
-constexpr int THREADS = 256;  // 8 warps
 constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
+constexpr int BN = 256;
+constexpr int BK = 64;  // one 128-byte swizzle row of bf16
 constexpr int STAGES = 4;
-constexpr int LDS = BK + 8;  // a tile stored [128][32 + 8]: rows M or N, K contiguous
-constexpr int LDT = BM + 8;  // a tile stored [32][128 + 8]: rows K, M or N contiguous
-constexpr int TILE = BM * LDS > BK * LDT ? BM * LDS : BK * LDT;  // elements per tile slot
+constexpr int CONSUMERS = 2;  // warpgroups of 64 rows
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int GROUP_M = 8;
+constexpr int A_BYTES = BM * BK * 2;  // 16 KB
+constexpr int B_BYTES = BN * BK * 2;  // 32 KB
+constexpr int BOX_BYTES = 64 * 64 * 2;  // an MN-major box: 64 K rows of 64
+constexpr int C_BOX_BYTES = 64 * 128;   // a C box: 64 rows of 128 bytes
+constexpr size_t SMEM = 1024 + (size_t)STAGES * (A_BYTES + B_BYTES) +
+                        (size_t)CONSUMERS * 2 * C_BOX_BYTES + 2 * STAGES * 8;
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !valid
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-__device__ __forceinline__ void cp_async_wait_stages() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-}
-
-// One operand tile of one K step into shared memory, two 16-byte chunks a
-// thread.  kmajor: the operand is stored with K as its rows (ld = outer
-// extent), so the tile is [32 k][128] with ld LDT; otherwise it is stored with
-// K contiguous (ld = K) and the tile is [128][32 k] with ld LDS.  outer0 is the
-// tile's first row of M (or N), k0 its first K index.
-template <bool KMAJOR>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int outer0, int outer, int k0,
-                                          int K, int tid) {
+// Box q of a warpgroup's 64 x 256 accumulators (128 bytes of each row: 64
+// bf16 or 32 fp32 columns) into `box`, 128-byte swizzled as the C tensor
+// map reads it: 16-byte chunk c of row r at chunk c ^ (r % 8), which also
+// keeps a warp's stores free of bank conflicts.
+template <typename OutT, int Q>
+__device__ __forceinline__ void write_box(unsigned char* box, const float (&acc)[128], int warp,
+                                          int lane) {
+  constexpr int J = 128 / sizeof(OutT) / 8;  // 8-column accumulator blocks a box
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (KMAJOR) {
-      const int r = (tid >> 4) + j * 16, c = (tid & 15) * 8;
-      const int k = k0 + r, o = outer0 + c;
-      const bool ok = k < K && o < outer;
-      cp_async16(s + r * LDT + c, ok ? g + (size_t)k * outer + o : g, ok);
-    } else {
-      const int r = (tid >> 2) + j * 64, c = (tid & 3) * 8;
-      const int o = outer0 + r, k = k0 + c;
-      const bool ok = o < outer && k < K;
-      cp_async16(s + r * LDS + c, ok ? g + (size_t)o * K + k : g, ok);
+  for (int half = 0; half < 2; ++half) {
+    const int r = warp * 16 + lane / 4 + 8 * half;
+    unsigned char* row = box + r * 128;
+#pragma unroll
+    for (int jj = 0; jj < J; ++jj) {
+      const float lo = acc[4 * (Q * J + jj) + 2 * half], hi = acc[4 * (Q * J + jj) + 2 * half + 1];
+      if (sizeof(OutT) == 2) {  // 8 columns are one 16-byte chunk
+        *reinterpret_cast<__nv_bfloat162*>(row + ((jj ^ (r & 7)) << 4) + 4 * (lane % 4)) =
+            __floats2bfloat162_rn(lo, hi);
+      } else {  // 8 columns are two
+        const int chunk = 2 * jj + (lane % 4) / 2;
+        *reinterpret_cast<float2*>(row + ((chunk ^ (r & 7)) << 4) + 8 * (lane % 2)) =
+            make_float2(lo, hi);
+      }
     }
   }
 }
 
-template <typename OutT>
-__device__ __forceinline__ void store_pair(OutT* p, float lo, float hi);
-
-template <>
-__device__ __forceinline__ void store_pair<bf16>(bf16* p, float lo, float hi) {
-  *reinterpret_cast<uint32_t*>(p) = pack_f32(lo, hi);
+template <typename OutT, int Q>
+__device__ __forceinline__ void store_boxes(const CUtensorMap* map_c, unsigned char* bufs,
+                                            const float (&acc)[128], int m0, int n0, int wg,
+                                            int warp, int lane, bool leader) {
+  if constexpr (Q < BN * (int)sizeof(OutT) / 128) {
+    unsigned char* box = bufs + (Q % 2) * C_BOX_BYTES;
+    // the store that last read this buffer, two boxes ago, is done with it
+    if (leader) bulk_wait_read<1>();
+    named_bar_sync(1 + wg, 128);
+    write_box<OutT, Q>(box, acc, warp, lane);
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+    if (leader) {
+      tma_store_2d(map_c, box, n0 + Q * 128 / (int)sizeof(OutT), m0 + wg * 64);
+      bulk_commit();
+    }
+    store_boxes<OutT, Q + 1>(map_c, bufs, acc, m0, n0, wg, warp, lane, leader);
+  }
 }
 
-template <>
-__device__ __forceinline__ void store_pair<float>(float* p, float lo, float hi) {
-  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+// Tile `tile` of C in the grouped order: GROUP_M row tiles share each
+// column tile in turn, so blocks running together reuse A and B in L2.
+__device__ __forceinline__ void tile_origin(int tile, int M, int N, int& m0, int& n0) {
+  const int num_m = (M + BM - 1) / BM, num_n = (N + BN - 1) / BN;
+  const int per_group = GROUP_M * num_n;
+  const int first_m = (tile / per_group) * GROUP_M;
+  const int rows_in_group = min(num_m - first_m, GROUP_M);
+  const int in_group = tile % per_group;
+  m0 = (first_m + in_group % rows_in_group) * BM;
+  n0 = (in_group / rows_in_group) * BN;
 }
 
-// grid (ceil(M / 128), ceil(N / 128))
+// grid: at most one block per SM, each walking tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...; the ring runs on across tiles, so the
+// producer loads a tile's first stages while the consumers store the last.
 template <bool AT, bool BT, typename OutT>
-__global__ void __launch_bounds__(THREADS)
-mm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, OutT* __restrict__ C, int M,
-          int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // [STAGES][TILE]
-  bf16* sB = sA + STAGES * TILE;             // [STAGES][TILE]
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
+__global__ void __launch_bounds__(THREADS, 1)
+mm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+          const __grid_constant__ CUtensorMap map_c, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* sA = smem;                     // [STAGES][A_BYTES]
+  unsigned char* sB = smem + STAGES * A_BYTES;  // [STAGES][B_BYTES]
+  unsigned char* sC = sB + STAGES * B_BYTES;     // [CONSUMERS][2][C_BOX_BYTES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sC + CONSUMERS * 2 * C_BOX_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int ksteps = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-  auto load = [&](int stage, int kt) {
-    // A is K-major when stored transposed; B is K-major when stored (K, N)
-    load_tile<AT>(sA + stage * TILE, A, m0, M, kt * BK, K, tid);
-    load_tile<!BT>(sB + stage * TILE, B, n0, N, kt * BK, K, tid);
-  };
-
-  // acc[mi][ni]: rows wm*64 + mi*16 + {g, g+8}, columns wn*32 + ni*8 + 2*t4 + {0,1}
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ksteps) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ksteps; ++kt) {
-    cp_async_wait_stages();
-    __syncthreads();
-    const int next = kt + STAGES - 1;
-    if (next < ksteps) load(next % STAGES, next);
-    cp_async_commit();
-    const bf16* sa = sA + (kt % STAGES) * TILE;
-    const bf16* sb = sB + (kt % STAGES) * TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        if (AT)
-          ldsm_x4_trans(af[mi], sa + (kk + (lane & 7) + ((lane >> 4) << 3)) * LDT + wm * 64 +
-                                    mi * 16 + ((lane >> 3) & 1) * 8);
-        else
-          ldsm_x4(af[mi], sa + (wm * 64 + mi * 16 + (lane & 15)) * LDS + kk + (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        if (BT)
-          ldsm_x4(r, sb + (wn * 32 + nj * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk +
-                         ((lane >> 3) & 1) * 8);
-        else
-          ldsm_x4_trans(r, sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT + wn * 32 +
-                               nj * 16 + (lane >> 4) * 8);
-        bfr[2 * nj][0] = r[0];
-        bfr[2 * nj][1] = r[1];
-        bfr[2 * nj + 1][0] = r[2];
-        bfr[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma16816(acc[mi][ni], af[mi], bfr[ni]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
+    fence_mbar_init();
   }
+  __syncthreads();
 
-  const int g = lane >> 2, t4 = lane & 3;
+  if (wg == CONSUMERS) {
+    // producer: one thread keeps the ring full
+    reg_dealloc<40>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      tma_prefetch(&map_a);
+      tma_prefetch(&map_b);
+      tma_prefetch(&map_c);
+      int s = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int m0, n0;
+        tile_origin(tile, M, N, m0, n0);
+        for (int kt = 0; kt < ksteps; ++kt) {
+          mbar_wait(&empty[s], phase ^ 1);
+          mbar_arrive_expect_tx(&full[s], A_BYTES + B_BYTES);
+          unsigned char* a = sA + s * A_BYTES;
+          unsigned char* b = sB + s * B_BYTES;
+          const int k0 = kt * BK;
+          if (AT) {  // (K, M) storage: two boxes of 64 M columns
+            tma_load_2d(a, &map_a, &full[s], m0, k0);
+            tma_load_2d(a + BOX_BYTES, &map_a, &full[s], m0 + 64, k0);
+          } else {  // (M, K) storage: one box of 128 rows
+            tma_load_2d(a, &map_a, &full[s], k0, m0);
+          }
+          if (BT) {  // (N, K) storage: one box of 256 rows
+            tma_load_2d(b, &map_b, &full[s], k0, n0);
+          } else {  // (K, N) storage: four boxes of 64 N columns
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 64 + mi * 16 + g + half * 8;
-      if (m >= M) continue;
-      OutT* row = C + (size_t)m * N;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        // N is a multiple of 8, so a column pair is in or out as a whole
-        const int n = n0 + wn * 32 + ni * 8 + t4 * 2;
-        if (n < N) store_pair<OutT>(row + n, acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load_2d(b + j * BOX_BYTES, &map_b, &full[s], n0 + 64 * j, k0);
+          }
+          if (++s == STAGES) s = 0, phase ^= 1;
+        }
       }
     }
+  } else {
+    reg_alloc<232>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    int s = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0;
+      tile_origin(tile, M, N, m0, n0);
+      float acc[128];
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      int prev = 0;
+      for (int kt = 0; kt < ksteps; ++kt) {
+        mbar_wait(&full[s], phase);
+        // this warpgroup's 64 rows of A: rows 64*wg.. of a K-major box, or
+        // the wg-th 64-column box of an MN-major A; both 8 KB in
+        const unsigned char* a = sA + s * A_BYTES + wg * (A_BYTES / 2);
+        const unsigned char* b = sB + s * B_BYTES;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t da = AT ? desc_sw128(a + kk * 2048, BOX_BYTES, 1024)
+                                 : desc_sw128(a + kk * 32, 16, 1024);
+          const uint64_t db = BT ? desc_sw128(b + kk * 32, 16, 1024)
+                                 : desc_sw128(b + kk * 2048, BOX_BYTES, 1024);
+          wgmma_m64n256k16_ss<AT ? 1 : 0, BT ? 0 : 1>(acc, da, db, 1);
+        }
+        wgmma_commit();
+        fence_regs(acc);
+        // the group committed one step ago has read its stage: free it
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == STAGES) s = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[prev]);
+
+      // C leaves through shared memory by TMA, a 64-row box at a time in
+      // two buffers, so the stores drain while the next tile computes
+      store_boxes<OutT, 0>(&map_c, sC + wg * 2 * C_BOX_BYTES, acc, m0, n0, wg, warp, lane,
+                           threadIdx.x % 128 == 0);
+    }
+    if (threadIdx.x % 128 == 0) bulk_wait<0>();
+  }
+}
+
+// The tensor map of a `rows` x `cols` row-major matrix moved in boxes of
+// box_rows rows by 128 bytes (64 bf16 or 32 fp32 columns).
+template <typename T>
+bool matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)cols * sizeof(T)};
+  const uint32_t box[2] = {128 / sizeof(T), (uint32_t)box_rows};
+  return encode_tensor_map(map, base, 2, dims, strides, box,
+                           sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 template <bool AT, bool BT, typename OutT>
 int launch(const void* a, const void* b, void* c, int m, int n, int k, cudaStream_t s) {
-  const size_t smem = (size_t)2 * STAGES * TILE * sizeof(bf16);
+  // first a runtime call, which makes the device's context current in this
+  // thread: the encoder needs one, and a thread PyTorch's autograd runs a
+  // backward on may not have it yet
   int rc = (int)cudaFuncSetAttribute(mm_kernel<AT, BT, OutT>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (rc) return rc;
-  mm_kernel<AT, BT, OutT><<<dim3((m + BM - 1) / BM, (n + BN - 1) / BN), THREADS, smem, s>>>(
-      (const bf16*)a, (const bf16*)b, (OutT*)c, m, n, k);
+  CUtensorMap map_a, map_b, map_c;
+  const bool ok =
+      (AT ? matrix_map<bf16>(&map_a, a, k, m, 64) : matrix_map<bf16>(&map_a, a, m, k, BM)) &&
+      (BT ? matrix_map<bf16>(&map_b, b, n, k, BN) : matrix_map<bf16>(&map_b, b, k, n, 64)) &&
+      matrix_map<OutT>(&map_c, c, m, n, 64);
+  if (!ok) return -2;
+  const int tiles = ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  int device, sms;
+  if ((rc = (int)cudaGetDevice(&device)) ||
+      (rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)))
+    return rc;
+  mm_kernel<AT, BT, OutT><<<tiles < sms ? tiles : sms, THREADS, SMEM, s>>>(map_a, map_b, map_c, m,
+                                                                         n, k);
   return (int)cudaGetLastError();
 }
 
@@ -236,9 +291,10 @@ int dispatch(const void* a, const void* b, void* c, int m, int n, int k, int a_t
 
 }  // namespace
 
-// Returns 0, the CUDA error of the launch, or -1 when a dimension is not a
-// positive multiple of 8.  a, b and c are 16-byte aligned; c is (m, n) bf16,
-// or fp32 with out_f32.
+// Returns 0, the CUDA error of the launch, -1 when a dimension is not a
+// positive multiple of 8, or -2 when the CUDA driver refuses an operand's tensor
+// map.  a, b and c are 16-byte aligned; c is (m, n) bf16, or fp32 with
+// out_f32.
 extern "C" int hvd_matmul(const void* a, const void* b, void* c, int m, int n, int k, int a_t,
                           int b_t, int out_f32, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || m % 8 || n % 8 || k % 8) return -1;

@@ -248,8 +248,8 @@ def flash_fwd(q, k, v, causal: bool, scale: float, qpos=None, kpos=None
     """O and lse ``(b*h, t)`` of causal or full attention over
     ``(b, t, h, d)`` inputs (``_flash_fwd``); with ``qpos``/``kpos``
     ((t,) integer global positions) the global-positions variant, which
-    masks by ``qpos[i] >= kpos[j]``, skips no tile and counts in
-    ``flash_fwd.pos_launches``."""
+    masks by ``qpos[i] >= kpos[j]``, skips only the tiles those hide and
+    counts in ``flash_fwd.pos_launches``."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, scale, qpos, kpos)
     q, k, v = _flash_inputs(q, k, v)
@@ -652,7 +652,8 @@ def fit_flash_block(t: int, requested: int) -> Optional[int]:
     shorter than one tile run as one block; other non-128-multiples return
     ``None`` (the caller computes reference attention).  A copy of
     ``pallas_kernels.fit_flash_block``: the port keeps its dispatch rule,
-    while the CUDA kernels tile by 64 rows and mask the ragged edge."""
+    while the CUDA kernels tile by 128 (forward) or 64 rows (backward)
+    and mask the ragged edge."""
     if t <= 128:
         b = min(requested, t)
         if t % b == 0:

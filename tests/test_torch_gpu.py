@@ -74,7 +74,7 @@ class TestOnCard:
     @pytest.mark.parametrize("shape,causal", [
         ((2, 128, 2, 64), True), ((2, 128, 2, 128), False),
         ((1, 200, 3, 128), True), ((1, 24, 2, 64), True),
-        ((6, 1024, 16, 128), True)])
+        ((6, 1024, 16, 128), True), *chip_smoke.FLASH_EDGES])
     def test_flash(self, cuda, shape, causal):
         gen = torch.Generator(device=cuda).manual_seed(0)
         q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
@@ -245,6 +245,93 @@ class TestOnCard:
         torch.cuda.synchronize()
         assert got.dtype == out_dtype and got.shape == want.shape
         for key, val, lim in chip_smoke.mm_agreement(torch, got, want):
+            assert val <= lim, (key, val, lim)
+
+    @pytest.mark.parametrize("a_t", [0, 1])
+    @pytest.mark.parametrize("b_t", [0, 1])
+    def test_matmul_library_ragged_k_and_n(self, cuda, a_t, b_t):
+        """hvd_matmul called through the library at a K and an N that the
+        dispatch rule never sends, (m, k, n) = (136, 136, 24): the tensor
+        maps' zero fill past K (136 = 2 x 64 + 8) and past N (24 < one
+        64-column box) must add nothing.  fp32 output, as the matmul check
+        holds it."""
+        from horovod_tpu_torch.ops.build import load_library
+
+        m, k, n = 136, 136, 24
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        x = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+        w = torch.randn(k, n, generator=gen, device=cuda).bfloat16()
+        a = x.t().contiguous() if a_t else x
+        b = w.t().contiguous() if b_t else w
+        got = torch.full((m, n), float("nan"), device=cuda)
+        rc = load_library().hvd_matmul(
+            a.data_ptr(), b.data_ptr(), got.data_ptr(), m, n, k, a_t, b_t, 1,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 0
+        want = K.pallas_matmul_plain(x, w, torch.float32)
+        for key, val, lim in chip_smoke.mm_agreement(torch, got, want):
+            assert val <= lim, (key, val, lim)
+
+    @pytest.mark.parametrize("layout", chip_smoke.MM_LAYOUTS)
+    def test_matmul_operand_16_bytes_into_storage(self, cuda, layout):
+        """An operand whose data starts 16 bytes (not 128) into its
+        storage: the tensor map's base needs 16-byte alignment only."""
+        x, w = chip_smoke.mm_operands(torch, (256, 384, 512), layout, seed=8)
+        store = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda)
+        shifted = store[8:].view(x.t().shape if layout == "dw" else x.shape)
+        shifted.copy_(x.t() if layout == "dw" else x)
+        x16 = shifted.t() if layout == "dw" else shifted
+        assert x16.data_ptr() % 128 == (store.data_ptr() + 16) % 128 != 0
+        before = K.pallas_matmul.launches
+        got = K.pallas_matmul(x16, w, torch.float32)
+        assert K.pallas_matmul.launches == before + 1
+        want = K.pallas_matmul_plain(x, w, torch.float32)
+        torch.cuda.synchronize()
+        for key, val, lim in chip_smoke.mm_agreement(torch, got, want):
+            assert val <= lim, (key, val, lim)
+
+    @pytest.mark.parametrize("kernel", ["flash_fwd", "pallas_matmul"])
+    def test_tma_kernels_launch_from_a_fresh_thread(self, cuda, kernel):
+        """The TMA kernels encode their tensor maps on the calling thread,
+        which needs the CUDA context current there; a thread that has made
+        no CUDA runtime call yet (as an autograd worker may be) has none."""
+        import threading
+
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        if kernel == "flash_fwd":
+            q, k, v = (torch.randn((1, 256, 2, 128), generator=gen,
+                                   device=cuda).bfloat16() for _ in range(3))
+
+            def run():
+                return K.flash_fwd(q, k, v, True, 128 ** -0.5)[0]
+
+            want = K.flash_fwd_plain(q, k, v, True, 128 ** -0.5)[0]
+        else:
+            x = torch.randn(256, 512, generator=gen, device=cuda).bfloat16()
+            w = torch.randn(512, 384, generator=gen, device=cuda).bfloat16()
+
+            def run():
+                return K.pallas_matmul(x, w)
+
+            want = K.pallas_matmul_plain(x, w, torch.bfloat16)
+        out = {}
+
+        def worker():
+            try:
+                out["got"] = run()
+                torch.cuda.synchronize()
+            except Exception as e:  # reported below, on the test's thread
+                out["error"] = e
+
+        thread = threading.Thread(target=worker)
+        thread.start()
+        thread.join()
+        assert "error" not in out, out.get("error")
+        readings = chip_smoke.flash_agreement(torch, out["got"], want, False) \
+            if kernel == "flash_fwd" else \
+            chip_smoke.mm_agreement(torch, out["got"], want)
+        for key, val, lim in readings:
             assert val <= lim, (key, val, lim)
 
     def test_matmul_rejects_fp32(self, cuda):
