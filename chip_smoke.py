@@ -6,13 +6,16 @@
 Phases, in order; any failure exits non-zero:
 
 1. build the CUDA kernels from ``horovod_tpu_torch/ops/csrc`` (seconds
-   printed, with the compiler's register and spill report);
+   printed, with the compiler's register and spill report and, from the
+   SASS, what the warp-specialised kernels' code uses);
 2. hold each kernel against its plain PyTorch version at the shapes the
    training paths give it: ``fused_scale`` on a 64 MiB fp32 bucket, an odd
    length and a bf16 cast; flash forward (a warp-specialised TMA +
-   ``wgmma`` design), dQ and dK/dV (``mma.sync``) at b6 h16 t1024 d128
-   bf16, causal (plus small off-grid shapes and the forward's 128-row tile
-   edges, ``FLASH_EDGES``);
+   ``wgmma`` design), dQ and dK/dV (TMA + ``wgmma``, one warpgroup a
+   block; dQ also computes delta from O, held against ``flash_delta``)
+   at b6 h16 t1024 d128 bf16, causal (plus small off-grid
+   shapes, the forward's 128-row tile edges, ``FLASH_EDGES``, and the
+   backward's 64-row ones, ``BWD_EDGES``);
    ``fused_conv_bn_relu_bwd`` at ResNet-50's fused segments,
    128x28x28x128 and 128x14x14x256 bf16 (plus ragged shapes);
    ``pallas_matmul`` (a warp-specialised TMA + ``wgmma`` design) at the
@@ -24,23 +27,27 @@ Phases, in order; any failure exits non-zero:
    1's queries against rank 3's block and rank 2 against its own;
    contiguous rank 0 against rank 1's block, where every row is masked and
    O, lse and the gradients must be exactly 0, the sentinel and 0), from
-   the plain forward's lse and delta (plus an off-grid shape);
+   the plain forward's lse (plus an off-grid shape and the backward's edges);
 3. time each kernel with CUDA events beside its bound (the larger of
    bytes over 3.35 TB/s and products over 989 TFLOP/s; for the flash
-   forward, its positions variant and the matmul also the kernel/library
-   ratio, achieved TFLOP/s and share of bound), its plain version
-   and, where one exists, a single PyTorch call computing the same function
-   (for the conv backward, autograd through the unfused segment; for the
-   matmul, ``torch.matmul``; for the positions variant, SDPA with the
-   boolean mask), and one layer's attention forward + backward through the
-   fused sp ring at sp = 1, the plain ring and ``flash_attention``;
+   kernels, with and without positions, and the matmul also the
+   kernel/library ratio, achieved TFLOP/s and share of bound), its plain
+   version and, where one exists, a single PyTorch call computing the same
+   function (for the conv backward, autograd through the unfused segment;
+   for the matmul, ``torch.matmul``; for the flash forward, SDPA; for dQ
+   and dK/dV, SDPA's backward alone, which computes the pair's dQ, dK and
+   dV in one call, with the pair's ratio to it; for the positions variant,
+   SDPA with the boolean mask), and one layer's attention forward +
+   backward through the fused sp ring at sp = 1, the plain ring and
+   ``flash_attention``;
 4. train the 870.9M TransformerLM (16 layers, d_model 2048, 16 heads,
    seq 1024, batch 6) through the five-line recipe on a world of one:
    ``init`` (NCCL), ``DistributedOptimizer(AdamW(3e-4, weight_decay=1e-4),
    gradient_predivide_factor=2.0)``, ``broadcast_variables``, a few steps on
    a fixed batch (the loss must fall; every kernel of the path must be
-   launched), the same weights under dense attention for comparison, and a
-   rank-0 checkpoint round trip;
+   launched, each flash kernel exactly 16 times a step), the same weights
+   under dense attention for comparison, and a rank-0 checkpoint round
+   trip;
 5. train ResNet-50 at ``bench.py``'s configuration (224 px, batch 128,
    bf16, space-to-depth stem, ``--fused-bwd``, inference-mode BN) through
    the same recipe with ``SGD(0.01, momentum=0.9)``, 6 steps on a fixed
@@ -51,8 +58,8 @@ Phases, in order; any failure exits non-zero:
    execution mode, ``fused_tp_apply`` on a tp group of one, with flash
    attention and the same recipe, 5 steps (the loss must fall; the matmul
    kernel must run exactly 192 times a step, 4 projections x 16 layers x
-   forward, dX and dW), and the same weights through ``TransformerLM``'s
-   own forward for comparison;
+   forward, dX and dW, and each flash kernel 16 times), and the same
+   weights through ``TransformerLM``'s own forward for comparison;
 7. train the same 870.9M TransformerLM with ``attention_impl="ring"`` on an
    sp group of one through ``DistributedTrainStep(plan="sp=1")``, with the
    weights, batch and AdamW of phase 4, 5 steps (the loss must fall; each
@@ -91,6 +98,8 @@ TRANSFORMER_KERNELS = ("fused_scale", "flash_fwd", "flash_bwd_dq",
 RESNET_KERNELS = ("fused_conv_bn_relu_bwd",)
 TP_KERNELS = ("pallas_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SP_KERNELS = ("flash_fwd_pos", "flash_bwd_dq_pos", "flash_bwd_dkv_pos")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
 # pallas_matmul at the tp path's projections, (m, k, n) of the forward
 # x (m, k) @ weightᵀ (k, n); each runs 16 times a step in each layout
 MM_MAIN = {"qkv": (6144, 2048, 6144), "proj": (6144, 2048, 2048),
@@ -101,11 +110,26 @@ MM_LAYOUTS = ("fwd", "dx", "dw")
 # the d64 template over a long non-causal t, and two whole tiles of one head
 FLASH_EDGES = [((1, 136, 2, 128), True), ((2, 1000, 4, 64), False),
                ((1, 256, 1, 128), True)]
+# the backward's 64-row tiles at their edges: one row past a tile, a block
+# whose second 64-row half is past t (136 = 128 + 8), a t under one tile,
+# both head_dims; the even ones also carry the positions pairs
+BWD_EDGES = [((1, 65, 2, 128), True), ((2, 136, 3, 64), True),
+             ((1, 40, 2, 128), True), ((1, 40, 2, 64), False)]
 # ragged shapes: M edges of 8, 24 and 136 rows in the forward and dX, and a
 # 24-row M edge in dW (its n); a layout whose call falls outside the
 # dispatch rule takes the plain version and is not checked
 MM_RAGGED = [(8, 128, 128), (24, 384, 640), (136, 256, 384),
              (256, 128, 24)]
+
+
+def check_flash_launches(counts: dict, steps: int, path: str) -> None:
+    """Each flash kernel without positions launched once a layer a step,
+    and no positions variant."""
+    want = dict.fromkeys(FLASH_KERNELS, FULL["layers"] * steps)
+    want.update(dict.fromkeys(SP_KERNELS, 0))
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{path}: flash launches {got}, want {want}")
 
 
 def log(msg: str) -> None:
@@ -143,6 +167,74 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_bwd_dq_kernel<128, pos>`` and the like from a mangled name."""
+    m = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)ELb(\d))?", mangled)
+    if not m:
+        return mangled[:60]
+    if m[2] is None:
+        return m[1]
+    return f"{m[1]}<{m[2]}{', pos' if m[3] == '1' else ''}>"
+
+
+def sass_report(lib_path) -> None:
+    """For each warp-specialised kernel of the library, from its SASS
+    (``cuobjdump -sass``): the highest register its code names, its
+    setmaxnreg instructions and its local-memory (spill) accesses.  ptxas
+    reports 168 registers for every 384-thread kernel whatever setmaxnreg
+    asks; the SASS shows what the consumer warpgroups use."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+    except OSError as e:
+        log(f"  sass: not read ({e})")
+        return
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = chunk.split("\n", 1)
+        if "USETMAXREG" not in body:
+            continue
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
+        setmaxnreg = sorted({" ".join(i.split()) for i in
+                             re.findall(r"USETMAXREG[^;]*", body)})
+        log(f"  sass: {kernel_name(name)}: highest register R{max(regs)}, "
+            f"{setmaxnreg}, {len(re.findall(r'\bSTL', body))} STL / "
+            f"{len(re.findall(r'\bLDL', body))} LDL")
+
+
+def device_rows(prof) -> list:
+    """(device ms, count, name) of each kernel a torch.profiler run saw;
+    annotations such as "Optimizer.step#AdamW.step" carry the device time
+    of the kernels under them and would count twice (kernel names may hold
+    "#" too: "{lambda()#1}")."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0 and not re.fullmatch(r"[\w.]+#[\w.]+", e.key) and \
+                str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((us / 1e3, e.count, e.key))
+    return rows
+
+
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """The device time of one call of ``fn``: its kernels' own time under
+    torch.profiler over ``iters`` calls.  For a call whose host work
+    between kernels can outlast them (autograd's backward of SDPA), CUDA
+    events around a loop would time the host instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for ms, _, _ in device_rows(prof)) / iters
+
+
 def phase_build():
     from horovod_tpu_torch.ops import build
 
@@ -153,9 +245,11 @@ def phase_build():
     if report.exists():
         for line in report.read_text().splitlines():
             if "Function properties for" in line:
-                log("  ptxas: " + line.split("for", 1)[1].strip())
-            elif "registers" in line or "spill" in line.lower():
+                log("  ptxas: " + kernel_name(line.split("for", 1)[1]))
+            elif "registers" in line or "spill" in line.lower() or \
+                    "warning" in line:
                 log("  ptxas:   " + line.split(":", 1)[-1].strip())
+    sass_report(lib_path)
 
 
 def max_err(torch, a, b) -> float:
@@ -176,6 +270,26 @@ FLASH_NORM_TOL = 1e-2
 FLASH_RTOL = 2e-2
 FLASH_ATOL = 1e-1
 LSE_ATOL = 1e-3
+
+
+# delta = rowsum(dO∘O) is an fp32 sum of d products in both versions, in
+# another order (the kernel: four quarter sums of fused multiply-adds, then
+# the quad's butterfly).  Each order is within d·2^-24 of the exact sum
+# relative to the sum of the terms' magnitudes, so at d <= 128 the two agree
+# within DELTA_TOL · Σ|dO∘O| of each row (2·128·2^-24 = 1.5e-5).
+DELTA_TOL = 2e-5
+
+
+def delta_agreement(torch, got, out, do) -> list:
+    """(reading, limit) for the delta the dQ kernel computed from ``out``
+    against ``flash_delta``: the worst row's |got - want| / (DELTA_TOL ·
+    Σ|dO∘O|), a row of zeros held to exact zero."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    diff = (got - K.flash_delta(out, do)).abs()
+    mag = K.flash_delta(out.abs(), do.abs())
+    return [("delta_ratio",
+             float((diff / (DELTA_TOL * mag).clamp_min(1e-30)).max()), 1.0)]
 
 
 def flash_agreement(torch, got, want, is_lse: bool) -> tuple:
@@ -382,24 +496,41 @@ def pos_pairs(torch, t: int, device: str = "cuda") -> dict:
             "d": (pos(0, "contiguous"), pos(1, "contiguous"))}
 
 
-def flash_pos_outputs(torch, q, k, v, do, qpos, kpos, scale) -> dict:
-    """The positions kernels and their plain versions on one input, the
-    backward from the plain forward's lse and delta, as the ring passes
-    its global ones: {kernel: [(label, got, want), ...]}."""
+def flash_outputs(torch, q, k, v, do, causal, scale, qpos=None,
+                  kpos=None) -> dict:
+    """The flash kernels and their plain versions on one input: the
+    backward from the plain forward's O and lse as the autograd glue and
+    the ring pass theirs, dQ computing delta from O, dK/dV reading it;
+    the plain versions from ``flash_delta``.  {kernel: [(label, got, want),
+    ...]}, the kernels named as the launch counters name them; "delta" is
+    held by :func:`delta_agreement`."""
     from horovod_tpu_torch.ops import kernels as K
 
-    o, lse = K.flash_fwd(q, k, v, True, scale, qpos, kpos)
-    o_ref, lse_ref = K.flash_fwd_plain(q, k, v, True, scale, qpos, kpos)
-    delta = K.flash_delta(o_ref, do)
-    args = (q, k, v, do, lse_ref, delta, True, scale, qpos, kpos)
-    dq = K.flash_bwd_dq(*args)
-    dk, dv = K.flash_bwd_dkv(*args)
+    suffix = "" if qpos is None else "_pos"
+    pos = (qpos, kpos)
+    o, lse = K.flash_fwd(q, k, v, causal, scale, *pos)
+    o_ref, lse_ref = K.flash_fwd_plain(q, k, v, causal, scale, *pos)
+    dq, delta = K.flash_bwd_dq(q, k, v, do, lse_ref, None, causal, scale,
+                               *pos, out=o_ref)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, scale,
+                             *pos)
+    args = (q, k, v, do, lse_ref, K.flash_delta(o_ref, do), causal, scale,
+            *pos)
     dq_ref = K.flash_bwd_dq_plain(*args)
     dk_ref, dv_ref = K.flash_bwd_dkv_plain(*args)
     torch.cuda.synchronize()
-    return {"flash_fwd_pos": [("O", o, o_ref), ("lse", lse, lse_ref)],
-            "flash_bwd_dq_pos": [("dQ", dq, dq_ref)],
-            "flash_bwd_dkv_pos": [("dK", dk, dk_ref), ("dV", dv, dv_ref)]}
+    return {"flash_fwd" + suffix: [("O", o, o_ref), ("lse", lse, lse_ref)],
+            "flash_bwd_dq" + suffix: [("dQ", dq, dq_ref),
+                                      ("delta", delta, (o_ref, do))],
+            "flash_bwd_dkv" + suffix: [("dK", dk, dk_ref),
+                                       ("dV", dv, dv_ref)]}
+
+
+def flash_readings(torch, label, got, want) -> list:
+    """(reading, limit) pairs of one output of :func:`flash_outputs`."""
+    if label == "delta":
+        return delta_agreement(torch, got, *want)
+    return flash_agreement(torch, got, want, label == "lse")
 
 
 def check_flash_pos(torch, errs: dict, gen) -> None:
@@ -411,16 +542,26 @@ def check_flash_pos(torch, errs: dict, gen) -> None:
     b, t, h, d = FULL["batch"], FULL["seq"], FULL["heads"], FULL["head_dim"]
     sentinel = torch.tensor(K.NEG_INF, dtype=torch.float32)
     cases = [((b, t, h, d), pair) for pair in "abcd"] + \
-        [((2, 200, 3, 64), "b")]
+        [((2, 200, 3, 64), "b")] + \
+        [(shape, pair) for shape, _ in BWD_EDGES if shape[1] % 2 == 0
+         for pair in "bd"]
     failed = []
     for shape, pair in cases:
         qpos, kpos = pos_pairs(torch, shape[1])[pair]
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        .to(torch.bfloat16) for _ in range(4))
-        results = flash_pos_outputs(torch, q, k, v, do, qpos, kpos,
-                                    shape[-1] ** -0.5)
+        results = flash_outputs(torch, q, k, v, do, True, shape[-1] ** -0.5,
+                                qpos, kpos)
         for name, outputs in results.items():
             for label, got, want in outputs:
+                if label == "delta":
+                    readings = flash_readings(torch, label, got, want)
+                    log(f"check {name} delta {shape} pair {pair}: " +
+                        ", ".join(f"{key} {val:.3e} (tol {lim:.0e})"
+                                  for key, val, lim in readings))
+                    if not all(val <= lim for _, val, lim in readings):
+                        failed.append((name, label, shape, pair))
+                    continue
                 err = max_err(torch, got, want)
                 if pair == "d":
                     exact = float(sentinel) if label == "lse" else 0.0
@@ -481,42 +622,34 @@ def phase_check(torch):
         worst = max(worst, err)
     errs["fused_scale"] = worst
 
-    # flash at the main path's shapes, then small off-grid ones
+    # flash at the main path's shapes, then small off-grid ones and the
+    # tile edges
     b, t, h, d = FULL["batch"], FULL["seq"], FULL["heads"], FULL["head_dim"]
     shapes = [((b, t, h, d), True, True), ((2, 256, 4, 128), False, False),
               ((2, 200, 3, 64), True, False), ((1, 24, 2, 64), True, False),
-              *[(shape, causal, False) for shape, causal in FLASH_EDGES]]
+              *[(shape, causal, False)
+                for shape, causal in FLASH_EDGES + BWD_EDGES]]
     for shape, causal, main in shapes:
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
                        .to(torch.bfloat16) for _ in range(4))
-        scale = shape[-1] ** -0.5
-        o, lse = K.flash_fwd(q, k, v, causal, scale)
-        o_ref, lse_ref = K.flash_fwd_plain(q, k, v, causal, scale)
-        delta = K.flash_delta(o_ref, do)
-        dq = K.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale)
-        dq_ref = K.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal,
-                                      scale)
-        dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, scale)
-        dk_ref, dv_ref = K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta,
-                                               causal, scale)
-        torch.cuda.synchronize()
-        results = {"flash_fwd": [("O", o, o_ref), ("lse", lse, lse_ref)],
-                   "flash_bwd_dq": [("dQ", dq, dq_ref)],
-                   "flash_bwd_dkv": [("dK", dk, dk_ref), ("dV", dv, dv_ref)]}
+        results = flash_outputs(torch, q, k, v, do, causal,
+                                shape[-1] ** -0.5)
         failed = []
         for name, outputs in results.items():
             for label, got, want in outputs:
-                readings = flash_agreement(torch, got, want, label == "lse")
-                err = max_err(torch, got, want)
+                readings = flash_readings(torch, label, got, want)
+                detail = "" if label == "delta" else (
+                    f"max_abs_err {max_err(torch, got, want):.3e} (largest "
+                    f"entry {float(want.float().abs().max()):.3e}); ")
                 log(f"check {name} {label} {shape} causal={causal}: "
-                    f"max_abs_err {err:.3e} (largest entry "
-                    f"{float(want.float().abs().max()):.3e}); " + ", ".join(
+                    f"{detail}" + ", ".join(
                         f"{key} {val:.3e} (tol {lim:.0e})"
                         for key, val, lim in readings))
                 if not all(val <= lim for _, val, lim in readings):
                     failed.append(f"{name} {label}")
-                if main:
-                    errs[name] = max(errs.get(name, 0.0), err)
+                if main and label != "delta":
+                    errs[name] = max(errs.get(name, 0.0),
+                                     max_err(torch, got, want))
         if failed:
             raise AssertionError(f"{failed} disagree with plain at {shape}")
     check_flash_pos(torch, errs, gen)
@@ -617,15 +750,88 @@ def time_mm(torch) -> dict:
     return total
 
 
+def time_flash(torch, q, k, v, do, scale, qpos=None, kpos=None) -> dict:
+    """The three flash kernels (with ``qpos``/``kpos`` their positions
+    variant), causal, at one input: kernel, plain and library ms beside the
+    bound.  The library call is SDPA (causal, or with the boolean mask the
+    positions give) for the forward and, for dQ and dK/dV, SDPA's backward
+    alone (``torch.autograd.grad`` on a retained graph, its device time:
+    :func:`device_ms`), which computes the pair's dQ, dK and dV in one
+    call; dQ is timed as the autograd glue runs it, computing delta from
+    O.  The bound counts the products of the
+    visible (q, k) pairs only: that is the work the function needs,
+    whatever tiles a kernel chooses not to skip.  Prints each row's
+    kernel/library ratio, TFLOP/s and share of bound, and the pair's."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import kernels as K
+
+    b, t, h, d = q.shape
+    suffix, pos = ("", ()) if qpos is None else ("_pos", (qpos, kpos))
+    mask = qpos[:, None] >= kpos[None, :] if pos else torch.ones(
+        t, t, dtype=torch.bool, device=q.device).tril()
+    visible = float(mask.sum()) / (t * t)
+    prod = 2 * b * h * t * t * d * visible      # one visible t x t x d product
+    tile, rows, nbytes_pos = b * t * h * d * 2, b * h * t * 4, 4 * len(pos) * t
+    o, lse = K.flash_fwd(q, k, v, True, scale, *pos)
+    qt, kt, vt, dot = (a.transpose(1, 2) for a in (q, k, v, do))
+    how = dict(attn_mask=mask) if pos else dict(is_causal=True)
+    qg, kg, vg = (a.detach().requires_grad_() for a in (qt, kt, vt))
+    y = F.scaled_dot_product_attention(qg, kg, vg, **how)
+
+    def sdpa_bwd():
+        torch.autograd.grad(y, (qg, kg, vg), dot, retain_graph=True)
+
+    sdpa_bwd_ms = device_ms(torch, sdpa_bwd)
+    _, delta = K.flash_bwd_dq(q, k, v, do, lse, None, True, scale, *pos,
+                              out=o)
+    args = (q, k, v, do, lse, delta, True, scale, *pos)
+    r = {"flash_fwd" + suffix: dict(
+             ms=cuda_ms(torch, lambda: K.flash_fwd(q, k, v, True, scale,
+                                                   *pos)),
+             plain_ms=cuda_ms(torch, lambda: K.flash_fwd_plain(
+                 q, k, v, True, scale, *pos), iters=5),
+             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, **how)),
+             work=(4 * tile + rows + nbytes_pos, 2 * prod)),
+         "flash_bwd_dq" + suffix: dict(
+             ms=cuda_ms(torch, lambda: K.flash_bwd_dq(
+                 q, k, v, do, lse, None, True, scale, *pos, out=o)),
+             plain_ms=cuda_ms(torch, lambda: K.flash_bwd_dq_plain(
+                 q, k, v, do, lse, K.flash_delta(o, do), True, scale, *pos),
+                 iters=5),
+             library_ms=sdpa_bwd_ms,
+             work=(6 * tile + 2 * rows + nbytes_pos, 3 * prod)),
+         "flash_bwd_dkv" + suffix: dict(
+             ms=cuda_ms(torch, lambda: K.flash_bwd_dkv(*args)),
+             plain_ms=cuda_ms(torch, lambda: K.flash_bwd_dkv_plain(*args),
+                              iters=5),
+             library_ms=sdpa_bwd_ms,
+             work=(6 * tile + 2 * rows + nbytes_pos, 4 * prod))}
+    for name, row in r.items():
+        nbytes, flops = row.pop("work")
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        log(f"time {name}: {row['ms']:.4f} ms ({efficiency(row, flops)}; "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} over the "
+            f"{visible:.4f} of the grid the mask shows, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms)")
+    dq, dkv = r["flash_bwd_dq" + suffix], r["flash_bwd_dkv" + suffix]
+    pair = dict(ms=dq["ms"] + dkv["ms"], library_ms=sdpa_bwd_ms,
+                bound_ms=dq["bound_ms"] + dkv["bound_ms"])
+    log(f"time flash backward pair{suffix} (dQ + dK/dV): {pair['ms']:.4f} ms "
+        f"({efficiency(pair, 7 * prod)}; SDPA's backward alone "
+        f"{sdpa_bwd_ms:.4f} ms of device time, "
+        f"{cuda_ms(torch, sdpa_bwd):.4f} ms between CUDA events)")
+    del y, qg, kg, vg
+    return r
+
+
 def time_flash_pos(torch) -> dict:
-    """The positions kernels at the main shape for pairs (a) and (b): each
-    beside its bound, its plain version and SDPA with the boolean mask
-    (forward, and forward + backward as a total); then one layer's attention
-    forward + backward through the fused sp ring at sp = 1, the plain ring
-    and ``flash_attention``.  The bound counts the products of the visible
-    (q, k) pairs only, the mask's share of the t x t grid (a half at both
-    pairs): that is the work the function needs, whatever tiles the kernel
-    chooses not to skip.  Returns pair (a)'s rows, the sp = 1 path's."""
+    """The positions kernels at the main shape for pairs (a) and (b)
+    (:func:`time_flash`), with the kernels' and SDPA's forward + backward as
+    a total; then one layer's attention forward + backward through the
+    fused sp ring at sp = 1, the plain ring and ``flash_attention``.
+    Returns pair (a)'s rows, the sp = 1 path's."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import kernels as K
@@ -639,21 +845,14 @@ def time_flash_pos(torch) -> dict:
     q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
     scale = d ** -0.5
-    tile, rows, pos = b * t * h * d * 2, b * h * t * 4, 2 * t * 4
     qt, kt, vt, dot = (a.transpose(1, 2) for a in (q, k, v, do))
     out = {}
     for pair in "ab":
         qpos, kpos = pos_pairs(torch, t)[pair]
         mask = qpos[:, None] >= kpos[None, :]
-        visible = float(mask.sum()) / (t * t)
-        prod = 2 * b * h * t * t * d * visible   # the visible pairs' product
-        o, lse = K.flash_fwd(q, k, v, True, scale, qpos, kpos)
-        delta = K.flash_delta(o, do)
-        args = (q, k, v, do, lse, delta, True, scale, qpos, kpos)
+        log(f"time flash positions pair {pair}:")
+        rows_ = time_flash(torch, q, k, v, do, scale, qpos, kpos)
         qg, kg, vg = (a.detach().requires_grad_() for a in (qt, kt, vt))
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
         def sdpa_fwd_bwd():
             y = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
@@ -661,45 +860,16 @@ def time_flash_pos(torch) -> dict:
 
         def ours_fwd_bwd():
             oo, ll = K.flash_fwd(q, k, v, True, scale, qpos, kpos)
-            dd = K.flash_delta(oo, do)
-            K.flash_bwd_dq(q, k, v, do, ll, dd, True, scale, qpos, kpos)
+            _, dd = K.flash_bwd_dq(q, k, v, do, ll, None, True, scale, qpos,
+                                   kpos, out=oo)
             K.flash_bwd_dkv(q, k, v, do, ll, dd, True, scale, qpos, kpos)
 
-        rows_ = {
-            "flash_fwd_pos": dict(
-                ms=cuda_ms(torch, lambda: K.flash_fwd(q, k, v, True, scale,
-                                                      qpos, kpos)),
-                plain_ms=cuda_ms(torch, lambda: K.flash_fwd_plain(
-                    q, k, v, True, scale, qpos, kpos), iters=5),
-                library_ms=cuda_ms(torch, sdpa_fwd),
-                work=(4 * tile + rows + pos, 2 * prod)),
-            "flash_bwd_dq_pos": dict(
-                ms=cuda_ms(torch, lambda: K.flash_bwd_dq(*args)),
-                plain_ms=cuda_ms(torch, lambda: K.flash_bwd_dq_plain(*args),
-                                 iters=5),
-                library_ms=None, work=(5 * tile + 2 * rows + pos, 3 * prod)),
-            "flash_bwd_dkv_pos": dict(
-                ms=cuda_ms(torch, lambda: K.flash_bwd_dkv(*args)),
-                plain_ms=cuda_ms(torch, lambda: K.flash_bwd_dkv_plain(*args),
-                                 iters=5),
-                library_ms=None, work=(6 * tile + 2 * rows + pos, 4 * prod))}
-        for name, r in rows_.items():
-            r["bound_ms"], r["bound_by"] = bound_ms(*r.pop("work"))
-            if name == "flash_fwd_pos":
-                log(f"time flash_fwd_pos pair {pair}: {r['ms']:.4f} ms "
-                    f"({efficiency(r, 2 * prod)}; SDPA with the mask "
-                    f"{r['library_ms']:.4f} ms)")
-            log(f"time {name} pair {pair}: {r['ms']:.4f} ms (bound "
-                f"{r['bound_ms']:.4f} ms by {r['bound_by']} over the "
-                f"{visible:.4f} of the grid the mask shows, plain "
-                f"{r['plain_ms']:.4f} ms, SDPA with the mask "
-                f"{r['library_ms']})")
-        log(f"time flash positions fwd+bwd pair {pair}: kernels "
-            f"{cuda_ms(torch, ours_fwd_bwd):.4f} ms, SDPA with the mask "
-            f"{cuda_ms(torch, sdpa_fwd_bwd):.4f} ms")
+        log(f"time flash positions fwd+bwd pair {pair}, device time: kernels "
+            f"{device_ms(torch, ours_fwd_bwd):.4f} ms, SDPA with the mask "
+            f"{device_ms(torch, sdpa_fwd_bwd):.4f} ms")
         if pair == "a":
             out = rows_
-        del qg, kg, vg, o, lse, delta
+        del qg, kg, vg
 
     # one layer's attention, forward + backward, three ways
     leaves = [a.detach().requires_grad_() for a in (q, k, v)]
@@ -742,41 +912,9 @@ def phase_time(torch):
     q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(4))
     scale = d ** -0.5
-    o, lse = K.flash_fwd(q, k, v, True, scale)
-    delta = K.flash_delta(o, do)
-    tile = b * t * h * d * 2                     # one bf16 (b, t, h, d)
-    rows = b * h * t * 4                         # one fp32 (b*h, t)
-    prod = 2 * b * h * t * t * d / 2             # one causal t x t x d product
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-    fwd = dict(ms=cuda_ms(torch, lambda: K.flash_fwd(q, k, v, True, scale)),
-               plain_ms=cuda_ms(torch, lambda: K.flash_fwd_plain(
-                   q, k, v, True, scale), iters=5),
-               library_ms=cuda_ms(torch, sdpa_fwd))
-    fwd["bound_ms"], fwd["bound_by"] = bound_ms(4 * tile + rows, 2 * prod)
-    log(f"time flash_fwd: {fwd['ms']:.4f} ms ({efficiency(fwd, 2 * prod)}; "
-        f"SDPA causal {fwd['library_ms']:.4f} ms)")
-    dq = dict(ms=cuda_ms(torch, lambda: K.flash_bwd_dq(
-        q, k, v, do, lse, delta, True, scale)),
-        plain_ms=cuda_ms(torch, lambda: K.flash_bwd_dq_plain(
-            q, k, v, do, lse, delta, True, scale), iters=5),
-        library_ms=None)
-    dq["bound_ms"], dq["bound_by"] = bound_ms(5 * tile + 2 * rows, 3 * prod)
-    dkv = dict(ms=cuda_ms(torch, lambda: K.flash_bwd_dkv(
-        q, k, v, do, lse, delta, True, scale)),
-        plain_ms=cuda_ms(torch, lambda: K.flash_bwd_dkv_plain(
-            q, k, v, do, lse, delta, True, scale), iters=5),
-        library_ms=None)
-    dkv["bound_ms"], dkv["bound_by"] = bound_ms(6 * tile + 2 * rows,
-                                                4 * prod)
-    out.update(flash_fwd=fwd, flash_bwd_dq=dq, flash_bwd_dkv=dkv)
-
-    # SDPA's backward computes dQ, dK and dV in one call: no single
-    # PyTorch call matches dQ or dK/dV alone, so it is printed as a total
-    qg, kg, vg = (a.detach().requires_grad_() for a in (qt, kt, vt))
+    out.update(time_flash(torch, q, k, v, do, scale))
+    qg, kg, vg = (a.detach().transpose(1, 2).requires_grad_()
+                  for a in (q, k, v))
 
     def sdpa_fwd_bwd():
         y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
@@ -784,14 +922,14 @@ def phase_time(torch):
 
     def ours_fwd_bwd():
         oo, ll = K.flash_fwd(q, k, v, True, scale)
-        dd = K.flash_delta(oo, do)
-        K.flash_bwd_dq(q, k, v, do, ll, dd, True, scale)
+        _, dd = K.flash_bwd_dq(q, k, v, do, ll, None, True, scale, out=oo)
         K.flash_bwd_dkv(q, k, v, do, ll, dd, True, scale)
 
-    log(f"time flash fwd+bwd at b{b} h{h} t{t} d{d}: kernels "
-        f"{cuda_ms(torch, ours_fwd_bwd):.4f} ms, "
-        f"scaled_dot_product_attention {cuda_ms(torch, sdpa_fwd_bwd):.4f} ms")
-    del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg
+    log(f"time flash fwd+bwd at b{b} h{h} t{t} d{d}, device time: kernels "
+        f"{device_ms(torch, ours_fwd_bwd):.4f} ms, "
+        f"scaled_dot_product_attention {device_ms(torch, sdpa_fwd_bwd):.4f} "
+        f"ms")
+    del q, k, v, do, qg, kg, vg
     out["fused_conv_bn_relu_bwd"] = time_cbr(torch)
     out["pallas_matmul"] = time_mm(torch)
     out.update(time_flash_pos(torch))
@@ -831,16 +969,7 @@ def profile_step(torch, run, focus: str = "") -> None:
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        # device rows only; annotations such as "Optimizer.step#AdamW.step"
-        # carry the device time of the kernels under them and would count
-        # twice (kernel names may hold "#" too: "{lambda()#1}")
-        if us > 0 and not re.fullmatch(r"[\w.]+#[\w.]+", e.key) and \
-                str(getattr(e, "device_type", "")).endswith("CUDA"):
-            rows.append((us / 1e3, e.count, e.key))
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     log(f"profile: step wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f} %), idle {100 - 100 * busy / wall_ms:.1f} "
@@ -918,6 +1047,7 @@ def phase_train(torch):
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    check_flash_launches(counts, len(losses), "train")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     tokens_per_step = FULL["batch"] * FULL["seq"]
     log(f"train: step {steady * 1e3:.1f} ms (median of steps 2-5; first "
@@ -1059,8 +1189,7 @@ def phase_sp_train(torch, first):
     want = FULL["layers"]
     for i, c in enumerate(per_step):
         if any(c[k] != want for k in SP_KERNELS) or \
-                any(c[k] for k in ("flash_fwd", "flash_bwd_dq",
-                                   "flash_bwd_dkv")):
+                any(c[k] for k in FLASH_KERNELS):
             raise AssertionError(f"sp step {i + 1} launched {c}; want "
                                  f"{want} of each positions kernel and no "
                                  f"flash kernel without positions")
@@ -1166,6 +1295,7 @@ def phase_tp_train(torch):
     if missing:
         raise AssertionError(f"kernels not launched on the tp path: "
                              f"{missing}")
+    check_flash_launches(counts, steps, "tp")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     tokens_per_step = FULL["batch"] * FULL["seq"]
     log(f"tp: step {steady * 1e3:.1f} ms (median of steps 2-5; first "

@@ -42,8 +42,8 @@ _SIGNATURES = {
                         _c_int, _c_void_p],
     "hvd_flash_fwd": [_c_void_p] * 7 + [_c_int] * 4 + [_c_float, _c_int,
                                                        _c_void_p],
-    "hvd_flash_bwd_dq": [_c_void_p] * 9 + [_c_int] * 4 + [_c_float, _c_int,
-                                                          _c_void_p],
+    "hvd_flash_bwd_dq": [_c_void_p] * 10 + [_c_int] * 4 + [_c_float, _c_int,
+                                                           _c_void_p],
     "hvd_flash_bwd_dkv": [_c_void_p] * 10 + [_c_int] * 4 + [_c_float, _c_int,
                                                             _c_void_p],
     "hvd_cbr_bwd": [_c_void_p] * 14 + [_c_int] * 7 + [_c_void_p],

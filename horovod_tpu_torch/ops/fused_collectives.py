@@ -323,8 +323,9 @@ class _RingFlash(torch.autograd.Function):
     """Forward: K/V travel one hop a step, the next hop posted before this
     step's kernel; the normalized partials ``(out_s, lse_s)`` merge in log
     space from the finite sentinel.  Backward: delta and lse are the global
-    ones, dQ accumulates in fp32 here, and each block's dK/dV accumulator
-    travels with the block, home after ``world`` hops."""
+    ones (the first step's dQ kernel computes delta from the merged O), dQ
+    accumulates in fp32 here, and each block's dK/dV accumulator travels
+    with the block, home after ``world`` hops."""
 
     @staticmethod
     def forward(ctx, q, k, v, group, causal, scale, layout):
@@ -365,7 +366,7 @@ class _RingFlash(torch.autograd.Function):
         group, causal, scale, pos = ctx.group, ctx.causal, ctx.scale, ctx.pos
         world, me = group_size(group), group_rank(group)
         g = g.to(q.dtype).contiguous()
-        delta = K.flash_delta(out, g)
+        delta = None         # the first step's dQ kernel computes it from out
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         acc = [torch.zeros(k.shape, dtype=torch.float32, device=k.device),
                torch.zeros(v.shape, dtype=torch.float32, device=v.device)]
@@ -379,8 +380,10 @@ class _RingFlash(torch.autograd.Function):
             live = not (causal and ring_step_skipped(me, s, world, ctx.layout))
             if live:
                 kw = dict(qpos=pos[me], kpos=pos[src]) if causal else {}
-                dq_s = K.flash_bwd_dq(q, *kv, g, lse, delta, causal, scale,
-                                      **kw)
+                # step 0 visits this rank's own block, which is always live
+                dq_s, delta = K.flash_bwd_dq(
+                    q, *kv, g, lse, delta, causal, scale,
+                    out=out if delta is None else None, **kw)
                 dk_s, dv_s = K.flash_bwd_dkv(q, *kv, g, lse, delta, causal,
                                              scale, **kw)
             if acc_requests is not None:

@@ -192,7 +192,9 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
 
 def flash_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO ∘ O) as ``(b*h, t)`` fp32 — a plain elementwise
-    pass in the JAX package too (``_flash_bwd``), not a Pallas call."""
+    pass in the JAX package (``_flash_bwd``), not a Pallas call; on a card
+    the dQ kernel computes it in its prologue (:func:`flash_bwd_dq` with
+    ``out``)."""
     b, t, h, _ = out.shape
     delta = (do.float() * out.float()).sum(-1)          # (b, t, h)
     return delta.transpose(1, 2).reshape(b * h, t).contiguous()
@@ -201,6 +203,19 @@ def flash_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # flash attention: kernel wrappers
 # ---------------------------------------------------------------------------
+
+def flash_kernels_take(*xs: torch.Tensor) -> bool:
+    """Whether the flash wrappers compute these inputs: on the CPU their
+    plain versions take any float dtype and head_dim; on a card the CUDA
+    kernels take bfloat16 with a head_dim in :data:`FLASH_HEAD_DIMS`.  The
+    dispatch (:func:`flash_attention`, ``ring_attention``) reads this by
+    dtype and shape before any launch and sends what the kernels refuse to
+    the plain path, as it sends a t that :func:`fit_flash_block` refuses;
+    the JAX package computes both cases."""
+    return xs[0].device.type == "cpu" or (
+        xs[0].shape[-1] in FLASH_HEAD_DIMS
+        and all(x.dtype == torch.bfloat16 for x in xs))
+
 
 def _flash_inputs(*xs: torch.Tensor):
     """Validate bf16 (b, t, h, d) inputs of one shape for the CUDA kernels
@@ -269,35 +284,49 @@ def flash_fwd(q, k, v, causal: bool, scale: float, qpos=None, kpos=None
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
-                 qpos=None, kpos=None):
-    """dQ from the forward's lse and delta (``_flash_bwd_dq_kernel``); with
-    ``qpos``/``kpos`` the global-positions variant."""
+                 qpos=None, kpos=None, out=None):
+    """dQ from the forward's lse and delta (``_flash_bwd_dq_kernel``);
+    with ``qpos``/``kpos`` the global-positions variant.  Returns ``(dq,
+    delta)``.  Pass ``delta=None`` and the forward's O as ``out`` to have
+    delta = rowsum(dO∘O) computed here (on a card in the kernel's
+    prologue, which writes it out for the dK/dV kernel), or a ``(b*h,
+    t)`` fp32 ``delta`` (the sp ring's later steps), not both."""
+    if (delta is None) == (out is None):
+        raise ValueError("pass delta, or out to compute it from, not both")
     if q.device.type == "cpu":
+        if delta is None:
+            delta = flash_delta(out, do)
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
-                                  qpos, kpos)
-    q, k, v, do = _flash_inputs(q, k, v, do)
+                                  qpos, kpos), delta
+    q, k, v, do, *o = _flash_inputs(q, k, v, do, *([] if out is None
+                                                    else [out]))
     b, t, h, d = q.shape
-    lse, delta = _rows(lse, b, h, t), _rows(delta, b, h, t)
+    lse = _rows(lse, b, h, t)
+    if delta is None:
+        delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+        o_ptr = o[0].data_ptr()
+    else:
+        delta, o_ptr = _rows(delta, b, h, t), None
     qpos, kpos, ptrs = _positions(qpos, kpos, t, q.device)
     lib, stream = _cuda_library(q)
     dq = torch.empty_like(q)
     _check(lib.hvd_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 do.data_ptr(), lse.data_ptr(),
-                                delta.data_ptr(), dq.data_ptr(), *ptrs, b, t,
-                                h, d, float(scale), int(causal), stream),
-           "flash_bwd_dq")
+                                delta.data_ptr(), dq.data_ptr(), *ptrs, o_ptr,
+                                b, t, h, d, float(scale), int(causal),
+                                stream), "flash_bwd_dq")
     if qpos is None:
         flash_bwd_dq.launches += 1
     else:
         flash_bwd_dq.pos_launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
                   qpos=None, kpos=None):
     """dK and dV from the forward's lse and delta
-    (``_flash_bwd_dkv_kernel``); with ``qpos``/``kpos`` the
-    global-positions variant."""
+    (``_flash_bwd_dkv_kernel``), delta as :func:`flash_bwd_dq` returns it;
+    with ``qpos``/``kpos`` the global-positions variant."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale,
                                    qpos, kpos)
@@ -520,6 +549,16 @@ def mm_fits(m: int, k: int, n: int) -> bool:
             _fit_mm_block(n, (512, 256, 128)) is not None and k % 128 == 0)
 
 
+def mm_kernel_takes(x: torch.Tensor, w: torch.Tensor,
+                    out_dtype: torch.dtype) -> bool:
+    """Whether ``csrc/matmul.cu`` computes this product: CUDA operands in
+    bfloat16 and a bfloat16 or float32 result.  The dispatch reads this
+    before any launch; anything else computes :func:`pallas_matmul_plain`
+    (on the CPU always), as the JAX package computes every dtype."""
+    return (x.device.type != "cpu" and x.dtype == w.dtype == torch.bfloat16
+            and out_dtype in (torch.bfloat16, torch.float32))
+
+
 def pallas_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                         out_dtype: torch.dtype) -> torch.Tensor:
     """``jnp.dot(x, w, preferred_element_type=f32).astype(out_dtype)``:
@@ -546,16 +585,9 @@ def _mm(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
     if out is not None and (out.shape != (m, n) or out.dtype != out_dtype
                             or not out.is_contiguous()):
         raise ValueError("out must be row-major (m, n) of out_dtype")
-    if not mm_fits(m, k, n) or x.device.type == "cpu":
+    if not mm_fits(m, k, n) or not mm_kernel_takes(x, w, out_dtype):
         y = pallas_matmul_plain(x, w, out_dtype)
         return y if out is None else out.copy_(y)
-    for t in (x, w):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the matmul kernel takes bfloat16 operands, got "
-                            f"{t.dtype}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the matmul kernel writes bfloat16 or float32, got "
-                        f"{out_dtype}")
     a, a_t = _mm_operand(x)
     b, b_t = _mm_operand(w)
     dst = out if out is not None and out.data_ptr() % 16 == 0 else \
@@ -608,9 +640,10 @@ def pallas_matmul(x: torch.Tensor, w: torch.Tensor,
     ``x`` is ``(m, k)``, ``w`` ``(k, n)``; either may be the transposed view
     of a row-major tensor, which the kernel reads in place.  A shape outside
     :func:`mm_fits` computes :func:`pallas_matmul_plain` on any device, as
-    the JAX package does.  Inside it, a CPU tensor takes the plain version
-    and a CUDA tensor launches ``csrc/matmul.cu``, which takes bfloat16
-    operands and raises on any other dtype."""
+    the JAX package does, and so do operands the kernel does not take
+    (:func:`mm_kernel_takes`: a dtype other than bfloat16, or a result
+    other than bfloat16 or float32).  Otherwise a CUDA tensor launches
+    ``csrc/matmul.cu``."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"pallas_matmul takes (m, k) @ (k, n), got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
@@ -666,8 +699,9 @@ def fit_flash_block(t: int, requested: int) -> Optional[int]:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward saves O and lse; backward runs the dQ and dK/dV kernels
-    (``flash_attention``'s ``custom_vjp`` in the JAX package)."""
+    """Forward saves O and lse; backward runs the dQ kernel, which also
+    computes delta from O, then the dK/dV kernel (``flash_attention``'s
+    ``custom_vjp`` in the JAX package)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
@@ -679,8 +713,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        delta = flash_delta(out, do)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        do = do.contiguous()
+        dq, delta = flash_bwd_dq(q, k, v, do, lse, None, ctx.causal,
+                                 ctx.scale, out=out)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
                                ctx.scale)
         return dq, dk, dv, None, None
@@ -693,11 +728,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiable through the FlashAttention-2 backward kernels.  A
     sequence that :func:`fit_flash_block` cannot tile computes
     :func:`~horovod_tpu_torch.parallel.ring_attention.reference_attention`,
-    as the JAX package does; ``block_q``/``block_k`` only decide that."""
+    as the JAX package does, and so do inputs the kernels do not take
+    (:func:`flash_kernels_take`: on a card, a dtype other than bfloat16 or
+    a head_dim outside :data:`FLASH_HEAD_DIMS`); ``block_q``/``block_k``
+    only decide the first."""
     t, d = q.shape[1], q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     if fit_flash_block(t, block_q) is None or \
-            fit_flash_block(t, block_k) is None:
+            fit_flash_block(t, block_k) is None or \
+            not flash_kernels_take(q, k, v):
         from horovod_tpu_torch.parallel.ring_attention import \
             reference_attention
 

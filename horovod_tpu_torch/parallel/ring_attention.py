@@ -29,7 +29,11 @@ from typing import Optional
 import torch
 
 from horovod_tpu_torch.ops import fused_collectives as FC
-from horovod_tpu_torch.ops.kernels import NEG_INF, fit_flash_block
+from horovod_tpu_torch.ops.kernels import (
+    NEG_INF,
+    fit_flash_block,
+    flash_kernels_take,
+)
 from horovod_tpu_torch.runtime import config
 
 
@@ -46,8 +50,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`~horovod_tpu_torch.ops.fused_collectives.ring_layout_positions`).
     ``causal`` masks by global positions.  The fused ring runs where the
     shards fit its contract (equal shapes, a ``seq_local`` that
-    ``fit_flash_block`` takes, an even one under zigzag); otherwise the
-    plain ring runs, with the same numerics and the same hops.
+    ``fit_flash_block`` takes, an even one under zigzag, and on a card the
+    flash kernels' bfloat16 and head_dims, ``flash_kernels_take``);
+    otherwise the plain ring runs, with the same numerics and the same
+    hops.
     ``layout=None`` reads ``HOROVOD_SP_LAYOUT``.  Returns this rank's output
     block."""
     layout = config.sp_layout() if layout is None else layout
@@ -57,7 +63,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fits = (k.shape == q.shape and v.shape == q.shape
             and fit_flash_block(tq, block_q) is not None
             and fit_flash_block(tq, block_k) is not None
-            and not (layout == "zigzag" and tq % 2))
+            and not (layout == "zigzag" and tq % 2)
+            and flash_kernels_take(q, k, v))
     if fits:
         return FC.ring_flash_attention(q, k, v, group, causal=causal,
                                        scale=scale, layout=layout,

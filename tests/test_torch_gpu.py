@@ -74,68 +74,66 @@ class TestOnCard:
     @pytest.mark.parametrize("shape,causal", [
         ((2, 128, 2, 64), True), ((2, 128, 2, 128), False),
         ((1, 200, 3, 128), True), ((1, 24, 2, 64), True),
-        ((6, 1024, 16, 128), True), *chip_smoke.FLASH_EDGES])
+        ((6, 1024, 16, 128), True), *chip_smoke.FLASH_EDGES,
+        *chip_smoke.BWD_EDGES])
     def test_flash(self, cuda, shape, causal):
+        """Forward, dQ (computing delta from O) and dK/dV against their
+        plain versions, one launch each.  bf16 outputs: one rounding (up to
+        one ulp, 2^-7 relative), fp32 sums in another order, and bf16 P and
+        dS that may round one ulp apart; each output is held normwise
+        (1e-2) and elementwise to 2e-2 of its own size plus 1e-1 of its
+        rms, so small entries are not judged against the largest one; lse
+        (fp32, log domain) to 1e-3 absolute; delta within 2e-5 of each
+        row's sum of magnitudes.  As chip_smoke.py's flash check."""
         gen = torch.Generator(device=cuda).manual_seed(0)
         q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
                        .to(torch.bfloat16) for _ in range(4))
-        scale = shape[-1] ** -0.5
-        o, lse = K.flash_fwd(q, k, v, causal, scale)
-        o_ref, lse_ref = K.flash_fwd_plain(q, k, v, causal, scale)
-        delta = K.flash_delta(o_ref, do)
-        dq = K.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale)
-        dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, scale)
-        refs = (o_ref, lse_ref,
-                K.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal,
-                                     scale),
-                *K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal,
-                                       scale))
-        # bf16 outputs: one rounding (up to one ulp, 2^-7 relative), fp32
-        # sums in another order, and bf16 P and dS that may round one ulp
-        # apart.  Each output is held normwise (1e-2) and elementwise to
-        # 2e-2 of its own size plus 1e-1 of its rms, so small entries are
-        # not judged against the largest one; lse (fp32, log domain) to
-        # 1e-3 absolute.  As chip_smoke.py's flash check.
-        for name, got, want in zip(("O", "lse", "dQ", "dK", "dV"),
-                                   (o, lse, dq, dk, dv), refs):
-            diff = (got.float() - want.float()).abs()
-            w = want.float()
-            if name == "lse":
-                assert float(diff.max()) <= 1e-3, name
-                continue
-            assert float(diff.norm() / w.norm()) <= 1e-2, name
-            rms = w.pow(2).mean().sqrt()
-            assert bool((diff <= 2e-2 * w.abs() + 1e-1 * rms).all()), name
+        before = K.launch_counts()
+        results = chip_smoke.flash_outputs(torch, q, k, v, do, causal,
+                                           shape[-1] ** -0.5)
+        after = K.launch_counts()
+        assert {n: after[n] - before[n] for n in after
+                if after[n] != before[n]} == \
+            dict.fromkeys(chip_smoke.FLASH_KERNELS, 1)
+        for name, outputs in results.items():
+            for label, got, want in outputs:
+                for key, val, lim in chip_smoke.flash_readings(
+                        torch, label, got, want):
+                    assert val <= lim, (name, label, key, val, lim)
 
     @pytest.mark.parametrize("shape", [(6, 1024, 16, 128), (2, 200, 3, 64),
-                                       (1, 24, 2, 128)],
+                                       (1, 24, 2, 128),
+                                       *[s for s, _ in chip_smoke.BWD_EDGES
+                                         if s[1] % 2 == 0]],
                              ids=lambda s: "x".join(map(str, s)))
     @pytest.mark.parametrize("pair", "abcd")
     def test_flash_positions(self, cuda, shape, pair):
         """The global-positions variant against its plain version for the
         sp ring's position pairs (chip_smoke.pos_pairs), the backward from
-        the plain forward's lse and delta; pair (d), every row masked, must
+        the plain forward's O and lse; pair (d), every row masked, must
         give O = 0, lse = the sentinel and zero gradients exactly."""
         gen = torch.Generator(device=cuda).manual_seed(1)
         q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
                        .to(torch.bfloat16) for _ in range(4))
         qpos, kpos = chip_smoke.pos_pairs(torch, shape[1])[pair]
         before = K.launch_counts()
-        results = chip_smoke.flash_pos_outputs(torch, q, k, v, do, qpos, kpos,
-                                               shape[-1] ** -0.5)
+        results = chip_smoke.flash_outputs(torch, q, k, v, do, True,
+                                           shape[-1] ** -0.5, qpos, kpos)
         after = K.launch_counts()
         assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
             == dict.fromkeys(chip_smoke.SP_KERNELS, 1)
         sentinel = float(torch.tensor(K.NEG_INF, dtype=torch.float32))
         for name, outputs in results.items():
             for label, got, want in outputs:
-                assert got.dtype == want.dtype and got.shape == want.shape
-                if pair == "d":
+                if label != "delta":
+                    assert got.dtype == want.dtype
+                    assert got.shape == want.shape
+                if pair == "d" and label != "delta":
                     exact = sentinel if label == "lse" else 0.0
                     assert bool((got.float() == exact).all()), (name, label)
                     continue
-                for key, val, lim in chip_smoke.flash_agreement(
-                        torch, got, want, label == "lse"):
+                for key, val, lim in chip_smoke.flash_readings(
+                        torch, label, got, want):
                     assert val <= lim, (name, label, key, val, lim)
 
     def test_flash_positions_never_plain(self, cuda, monkeypatch):
@@ -150,8 +148,8 @@ class TestOnCard:
         q = torch.randn(1, 128, 2, 64, device=cuda).to(torch.bfloat16)
         pos = torch.arange(128, device=cuda)
         o, lse = K.flash_fwd(q, q, q, True, 0.125, pos, pos)
-        delta = K.flash_delta(o, q)
-        K.flash_bwd_dq(q, q, q, q, lse, delta, True, 0.125, pos, pos)
+        _, delta = K.flash_bwd_dq(q, q, q, q, lse, None, True, 0.125, pos,
+                                  pos, out=o)
         K.flash_bwd_dkv(q, q, q, q, lse, delta, True, 0.125, pos, pos)
         torch.cuda.synchronize()
         with pytest.raises(ValueError, match="positions"):
@@ -291,7 +289,8 @@ class TestOnCard:
         for key, val, lim in chip_smoke.mm_agreement(torch, got, want):
             assert val <= lim, (key, val, lim)
 
-    @pytest.mark.parametrize("kernel", ["flash_fwd", "pallas_matmul"])
+    @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv", "pallas_matmul"])
     def test_tma_kernels_launch_from_a_fresh_thread(self, cuda, kernel):
         """The TMA kernels encode their tensor maps on the calling thread,
         which needs the CUDA context current there; a thread that has made
@@ -299,14 +298,20 @@ class TestOnCard:
         import threading
 
         gen = torch.Generator(device=cuda).manual_seed(9)
-        if kernel == "flash_fwd":
-            q, k, v = (torch.randn((1, 256, 2, 128), generator=gen,
-                                   device=cuda).bfloat16() for _ in range(3))
-
-            def run():
-                return K.flash_fwd(q, k, v, True, 128 ** -0.5)[0]
-
-            want = K.flash_fwd_plain(q, k, v, True, 128 ** -0.5)[0]
+        if kernel.startswith("flash"):
+            q, k, v, do = (torch.randn((1, 256, 2, 128), generator=gen,
+                                       device=cuda).bfloat16()
+                           for _ in range(4))
+            scale = 128 ** -0.5
+            o, lse = K.flash_fwd_plain(q, k, v, True, scale)
+            delta = K.flash_delta(o, do)
+            args = (q, k, v, do, lse, delta, True, scale)
+            run, want = {
+                "flash_fwd": (lambda: K.flash_fwd(q, k, v, True, scale)[0], o),
+                "flash_bwd_dq": (lambda: K.flash_bwd_dq(*args)[0],
+                                 K.flash_bwd_dq_plain(*args)),
+                "flash_bwd_dkv": (lambda: K.flash_bwd_dkv(*args)[0],
+                                  K.flash_bwd_dkv_plain(*args)[0])}[kernel]
         else:
             x = torch.randn(256, 512, generator=gen, device=cuda).bfloat16()
             w = torch.randn(512, 384, generator=gen, device=cuda).bfloat16()
@@ -329,15 +334,54 @@ class TestOnCard:
         thread.join()
         assert "error" not in out, out.get("error")
         readings = chip_smoke.flash_agreement(torch, out["got"], want, False) \
-            if kernel == "flash_fwd" else \
+            if kernel.startswith("flash") else \
             chip_smoke.mm_agreement(torch, out["got"], want)
         for key, val, lim in readings:
             assert val <= lim, (key, val, lim)
 
     def test_matmul_rejects_fp32(self, cuda):
-        x = torch.zeros(8, 128, device=cuda)
-        with pytest.raises(TypeError, match="bfloat16"):
-            K.pallas_matmul(x, torch.zeros(128, 128, device=cuda))
+        """The kernel takes bf16 only, so fp32 operands on the card take
+        the plain product (fp32, as torch.matmul at full fp32 precision):
+        no launch, and exactly the plain version's result."""
+        gen = torch.Generator(device=cuda).manual_seed(10)
+        x = torch.randn(8, 128, generator=gen, device=cuda)
+        w = torch.randn(128, 128, generator=gen, device=cuda)
+        before = K.pallas_matmul.launches
+        got = K.pallas_matmul(x, w)
+        assert K.pallas_matmul.launches == before
+        assert torch.equal(got, K.pallas_matmul_plain(x, w, torch.float32))
+
+    @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                         (torch.bfloat16, 96)])
+    @pytest.mark.parametrize("entry", ["flash_attention", "ring_attention"])
+    def test_attention_off_kernel_inputs(self, cuda, dtype, d, entry):
+        """fp32, or a head_dim the kernels lack, through both attention
+        entries on the card: the plain path, no launch, and the output and
+        gradients of reference attention (the plain ring at sp = 1 is the
+        same fp32 softmax: normwise 1e-5 for fp32; one bf16 rounding of
+        each output, 1e-2, for bf16)."""
+        from horovod_tpu_torch.parallel.ring_attention import (
+            reference_attention,
+            ring_attention,
+        )
+
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        q, k, v, g = (torch.randn(2, 128, 2, d, generator=gen, device=cuda)
+                      .to(dtype) for _ in range(4))
+        fn = K.flash_attention if entry == "flash_attention" else \
+            ring_attention
+        results = []
+        for f in (fn, reference_attention):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            K.reset_launch_counts()
+            out = f(*leaves, causal=True)
+            out.backward(g)
+            assert not any(K.launch_counts().values())
+            results.append([out.detach()] + [x.grad for x in leaves])
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        for got, want in zip(*results):
+            rel = (got.float() - want.float()).norm() / want.float().norm()
+            assert float(rel) <= tol
 
     def test_matmul_autograd(self, cuda):
         """dX and dW of a bf16 x @ weightᵀ through the kernel against

@@ -243,6 +243,53 @@ def test_autograd_on_device_uses_kernels(fake_card):
                                "hvd_flash_bwd_dkv"]
 
 
+#: hvd_flash_bwd_dq's arguments: (q, k, v, dout, lse, delta, dq, qpos, kpos,
+#: out, b, t, h, d, scale, causal, stream); hvd_flash_bwd_dkv's have dk, dv
+#: where dq is, so its qpos comes one later
+DQ_QPOS, DQ_OUT, DKV_QPOS = 7, 9, 8
+
+
+@pytest.mark.parametrize("entry", ["flash_attention", "ring_attention"])
+def test_backward_folds_delta_into_dq(fake_card, entry):
+    """The backward on a device tensor: dQ launches first and is handed O,
+    so that its kernel computes delta; dK/dV follows; nothing else runs
+    (no eager delta pass reaches a kernel, and each launch counts once).
+    The ring passes its positions to both."""
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention
+
+    fn = K.flash_attention if entry == "flash_attention" else ring_attention
+    q = _meta(1, 64, 2, 64).requires_grad_()
+    fn(q, q, q, causal=True).backward(_meta(1, 64, 2, 64))
+    assert fake_card.calls == ["hvd_flash_fwd", "hvd_flash_bwd_dq",
+                               "hvd_flash_bwd_dkv"]
+    dq_args, dkv_args = fake_card.args[1:]
+    assert dq_args[DQ_OUT] is not None
+    pos = entry == "ring_attention"
+    assert (dq_args[DQ_QPOS] is not None) is pos
+    assert (dkv_args[DKV_QPOS] is not None) is pos
+    assert sum(K.launch_counts().values()) == 3
+
+
+def test_dq_with_out_returns_a_delta_buffer(fake_card):
+    """``out=`` gives dQ's kernel O and a fresh (b*h, t) fp32 buffer to
+    write delta into, which comes back for dK/dV; a given delta passes no
+    O pointer and comes back as it was."""
+    q = _meta(2, 64, 4, 128)
+    rows = _meta(8, 64, dtype=torch.float32)
+    dq, delta = K.flash_bwd_dq(q, q, q, q, rows, None, True, 0.1, out=q)
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16
+    assert delta.shape == (8, 64) and delta.dtype == torch.float32
+    assert delta.device == q.device and delta is not rows
+    assert fake_card.args[0][DQ_OUT] is not None
+    _, same = K.flash_bwd_dq(q, q, q, q, rows, rows, True, 0.1)
+    assert same is rows and fake_card.args[1][DQ_OUT] is None
+    with pytest.raises(ValueError, match="delta"):
+        K.flash_bwd_dq(q, q, q, q, rows, rows, True, 0.1, out=q)
+    with pytest.raises(TypeError, match="bfloat16"):
+        K.flash_bwd_dq(q, q, q, q, rows, None, True, 0.1, out=q.float())
+    assert K.flash_bwd_dq.launches == 2
+
+
 def test_conv_bn_relu_autograd_on_device_uses_kernel(fake_card):
     """The fused segment's backward, inside the dispatch rule on a device
     tensor, launches the kernel and never reaches the plain version."""
@@ -317,11 +364,96 @@ def test_matmul_autograd_on_device_uses_kernel(fake_card):
     assert weight.grad.dtype == torch.float32
 
 
-def test_matmul_device_fp32_refused(fake_card):
-    with pytest.raises(TypeError, match="bfloat16"):
-        K.pallas_matmul(_meta(8, 128, dtype=torch.float32),
+def test_matmul_device_fp32_refused(fake_card, monkeypatch):
+    """fp32 operands inside the shape rule: the kernel refuses them, so the
+    dispatch computes the plain product on the card, as the JAX package's
+    pallas_matmul computes fp32; no launch, no count."""
+    monkeypatch.setattr(K, "pallas_matmul_plain", PLAIN_MM)
+    y = K.pallas_matmul(_meta(8, 128, dtype=torch.float32),
                         _meta(128, 128, dtype=torch.float32))
+    assert y.shape == (8, 128) and y.dtype == torch.float32
+    assert fake_card.calls == [] and K.pallas_matmul.launches == 0
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32, torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.float16)],
+    ids=["fp32", "mixed", "fp16-out"])
+def test_matmul_off_kernel_dtypes_take_the_plain_path(fake_card, monkeypatch,
+                                                      dtypes):
+    """Every operand or result dtype the kernel does not take: the plain
+    product, nothing launched.  The backward's products take dy in the
+    operands' dtype, so under bf16 operands they are the kernel's."""
+    monkeypatch.setattr(K, "pallas_matmul_plain", PLAIN_MM)
+    xd, wd, out_dtype = dtypes
+    x = _meta(128, 128, dtype=xd).requires_grad_()
+    w = _meta(128, 256, dtype=wd).requires_grad_()
+    y = K.pallas_matmul(x, w, out_dtype)
+    assert y.shape == (128, 256) and y.dtype == out_dtype
+    assert fake_card.calls == [] and K.pallas_matmul.launches == 0
+    y.backward(_meta(128, 256, dtype=out_dtype))
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape
+    backward = 2 if wd == torch.bfloat16 else 0
+    assert fake_card.calls == ["hvd_matmul"] * backward
+    assert K.pallas_matmul.launches == backward
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 64, 2, 64), torch.float32), ((1, 64, 2, 96), torch.bfloat16),
+    ((1, 64, 2, 16), torch.float32)], ids=["fp32", "d96", "fp32-d16"])
+@pytest.mark.parametrize("entry", ["flash_attention", "ring_attention"])
+def test_attention_off_kernel_inputs_take_the_plain_path(fake_card, shape,
+                                                         dtype, entry):
+    """fp32 or a head_dim the flash kernels lack, through both attention
+    entries, forward and backward: the plain path (reference attention or
+    the plain ring), as the JAX package computes them; nothing launched,
+    nothing counted, no fused ring built."""
+    from horovod_tpu_torch.ops import fused_collectives as FC
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention
+
+    fn = K.flash_attention if entry == "flash_attention" else ring_attention
+    rings = FC.ring_flash_attention.launches
+    q = _meta(*shape, dtype=dtype).requires_grad_()
+    out = fn(q, q, q, causal=True)
+    assert out.shape == q.shape and out.dtype == dtype
+    out.backward(_meta(*shape, dtype=dtype))
+    assert q.grad.shape == q.shape
     assert fake_card.calls == []
+    assert not any(K.launch_counts().values())
+    assert FC.ring_flash_attention.launches == rings
+
+
+@pytest.mark.parametrize("entry", ["flash_attention", "ring_attention"])
+def test_attention_kernel_inputs_still_launch(fake_card, entry):
+    """bf16 at head_dim 64 and 128 through both entries: the kernels, one
+    launch each, as counted."""
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention
+
+    fn = K.flash_attention if entry == "flash_attention" else ring_attention
+    for d in K.FLASH_HEAD_DIMS:
+        q = _meta(1, 64, 2, d).requires_grad_()
+        fn(q, q, q, causal=True).backward(_meta(1, 64, 2, d))
+    assert fake_card.calls == ["hvd_flash_fwd", "hvd_flash_bwd_dq",
+                               "hvd_flash_bwd_dkv"] * 2
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    want = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    if entry == "ring_attention":
+        want = tuple(f"{n}_pos" for n in want)
+    assert counts == dict.fromkeys(want, 2)
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((1, 64, 2, 64), torch.bfloat16, True),
+    ((1, 64, 2, 128), torch.bfloat16, True),
+    ((1, 64, 2, 96), torch.bfloat16, False),
+    ((1, 64, 2, 64), torch.float32, False),
+    ((1, 64, 2, 128), torch.float16, False)])
+def test_flash_kernels_take_reads_dtype_and_head_dim(shape, dtype, want):
+    """The rule by dtype and shape on a card; on the CPU the plain
+    versions take everything."""
+    assert K.flash_kernels_take(_meta(*shape, dtype=dtype)) is want
+    assert K.flash_kernels_take(torch.zeros(shape, dtype=dtype)) is True
 
 
 def test_matmul_outside_the_rule_launches_nothing(fake_card, monkeypatch):

@@ -101,24 +101,60 @@ class TestFlashPlainVersusPallas:
     @pytest.mark.parametrize("causal,bq,bk", [
         (False, 8, 8), (True, 8, 8), (True, 16, 8), (True, 8, 16)])
     def test_backward_dq_dk_dv(self, causal, bq, bk):
+        """The backward as the autograd glue runs it: dQ with ``out=``,
+        which also returns delta = rowsum(dO∘O) (on a card the dQ kernel
+        computes it), then dK/dV from that delta, against ``_flash_bwd``,
+        which computes delta in its own jnp pass.  delta itself is
+        ``flash_delta``'s, bit for bit."""
+        got, want, delta, plain_delta = self._backward(causal, bq, bk,
+                                                       fold=True)
+        assert torch.equal(delta, plain_delta)
+        for got, ref, name in zip(got, want, ("dq", "dk", "dv")):
+            np.testing.assert_allclose(_np(got), np.asarray(ref),
+                                       rtol=1e-4, atol=1e-4, err_msg=name)
+
+    @pytest.mark.parametrize("causal,bq,bk", [
+        (False, 8, 8), (True, 8, 8), (True, 16, 8), (True, 8, 16)])
+    def test_backward_from_given_delta(self, causal, bq, bk):
+        """dQ from a delta the caller passes (the sp ring's later steps),
+        which it returns as it was given, at the same cases."""
+        got, want, delta, plain_delta = self._backward(causal, bq, bk,
+                                                       fold=False)
+        assert delta is plain_delta
+        for got, ref, name in zip(got, want, ("dq", "dk", "dv")):
+            np.testing.assert_allclose(_np(got), np.asarray(ref),
+                                       rtol=1e-4, atol=1e-4, err_msg=name)
+
+    @staticmethod
+    def _backward(causal, bq, bk, fold):
+        """((dq, dk, dv), ``_flash_bwd``'s, the delta dQ returned,
+        ``flash_delta``'s)."""
         q, k, v, g = _qkv(20, (2, 32, 2, 8), n=4)
         scale = 8 ** -0.5
         jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
         out_j, lse_j = PK._flash_fwd(jq, jk, jv, causal, scale, bq, bk,
                                      interpret=True)
-        dq_j, dk_j, dv_j = PK._flash_bwd(jq, jk, jv, out_j, lse_j, jg,
-                                         causal, scale, bq, bk,
-                                         interpret=True)
+        want = PK._flash_bwd(jq, jk, jv, out_j, lse_j, jg, causal, scale,
+                             bq, bk, interpret=True)
         tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
         out = torch.from_numpy(np.array(out_j))
         lse = torch.from_numpy(np.asarray(lse_j)[:, 0, :].copy())
-        delta = K.flash_delta(out, tg)
-        dq = K.flash_bwd_dq(tq, tk, tv, tg, lse, delta, causal, scale)
+        plain_delta = K.flash_delta(out, tg)
+        if fold:
+            dq, delta = K.flash_bwd_dq(tq, tk, tv, tg, lse, None, causal,
+                                       scale, out=out)
+        else:
+            dq, delta = K.flash_bwd_dq(tq, tk, tv, tg, lse, plain_delta,
+                                       causal, scale)
         dk, dv = K.flash_bwd_dkv(tq, tk, tv, tg, lse, delta, causal, scale)
-        for got, want, name in ((dq, dq_j, "dq"), (dk, dk_j, "dk"),
-                                (dv, dv_j, "dv")):
-            np.testing.assert_allclose(_np(got), np.asarray(want),
-                                       rtol=1e-4, atol=1e-4, err_msg=name)
+        return (dq, dk, dv), want, delta, plain_delta
+
+    def test_backward_takes_delta_or_out(self):
+        q = torch.zeros(1, 8, 1, 8)
+        rows = torch.zeros(1, 8)
+        for delta, out in ((None, None), (rows, q)):
+            with pytest.raises(ValueError, match="delta"):
+                K.flash_bwd_dq(q, q, q, q, rows, delta, True, 0.5, out=out)
 
     @pytest.mark.parametrize("causal", [False, True])
     def test_autograd_matches_jax_grad(self, causal):
@@ -161,6 +197,54 @@ class TestFlashPlainVersusPallas:
         # one bf16 rounding of O on each side, summed in another order
         np.testing.assert_allclose(_np(out), np.asarray(out_j, np.float32),
                                    rtol=2e-2, atol=2e-2)
+
+
+class TestOffKernelRoute:
+    """What a card computes for attention inputs the flash kernels do not
+    take (fp32 here; a head_dim outside 64/128 alike): the dispatch reads
+    :func:`flash_kernels_take` and takes reference attention or the plain
+    ring.  The rule is made to refuse on the CPU, so that the route runs
+    here, and its output and q/k/v gradients are held against the JAX
+    ``flash_attention`` in interpret mode at the JAX tests' fp32
+    tolerances (2e-5 output, 1e-4 gradients: one-pass softmax against the
+    Pallas kernels' blocked online softmax)."""
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("entry", ["flash_attention", "ring_attention"])
+    def test_matches_jax_flash(self, monkeypatch, entry, causal):
+        from horovod_tpu_torch.parallel import ring_attention as TR
+
+        calls = []
+
+        def refuse(*xs):
+            calls.append(xs[0].dtype)
+            return False
+
+        monkeypatch.setattr(K, "flash_kernels_take", refuse)
+        monkeypatch.setattr(TR, "flash_kernels_take", refuse)
+        monkeypatch.setattr(TR.FC, "ring_flash_attention", None)
+        q, k, v, g = _qkv(60, (2, 32, 2, 16), n=4)
+
+        def loss_j(q, k, v):
+            out = PK.flash_attention(q, k, v, causal=causal, block_q=16,
+                                     block_k=16, interpret=True)
+            return jnp.sum(out * jnp.asarray(g)), out
+
+        (_, out_j), grads_j = jax.value_and_grad(
+            loss_j, argnums=(0, 1, 2), has_aux=True)(
+                *map(jnp.asarray, (q, k, v)))
+        fn = K.flash_attention if entry == "flash_attention" else \
+            TR.ring_attention
+        ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        out = fn(*ts, causal=causal, block_q=16, block_k=16)
+        assert calls == [torch.float32]
+        np.testing.assert_allclose(_np(out), np.asarray(out_j), rtol=2e-5,
+                                   atol=2e-5)
+        (out * torch.from_numpy(g)).sum().backward()
+        for t, want, name in zip(ts, grads_j, "qkv"):
+            np.testing.assert_allclose(_np(t.grad), np.asarray(want),
+                                       rtol=1e-4, atol=1e-4,
+                                       err_msg=f"d{name}")
 
 
 class TestFitFlashBlock:

@@ -180,7 +180,8 @@ def test_positions_plain_match_pallas(name, qpos, kpos):
     tqp, tkp = torch.from_numpy(qpos).int(), torch.from_numpy(kpos).int()
     out, lse = K.flash_fwd(tq, tk, tv, True, scale, tqp, tkp)
     delta = K.flash_delta(out, tg)
-    dq = K.flash_bwd_dq(tq, tk, tv, tg, lse, delta, True, scale, tqp, tkp)
+    dq, _ = K.flash_bwd_dq(tq, tk, tv, tg, lse, delta, True, scale, tqp,
+                           tkp)
     dk, dv = K.flash_bwd_dkv(tq, tk, tv, tg, lse, delta, True, scale, tqp,
                              tkp)
     np.testing.assert_allclose(out.numpy(), np.asarray(out_j), **OUT_TOL)
@@ -208,9 +209,9 @@ def test_positions_arange_equal_local_indices():
     out_p, lse_p = K.flash_fwd(q, k, v, True, 0.25, pos, pos)
     delta = K.flash_delta(out, g)
     assert torch.equal(out, out_p) and torch.equal(lse, lse_p)
-    assert torch.equal(K.flash_bwd_dq(q, k, v, g, lse, delta, True, 0.25),
+    assert torch.equal(K.flash_bwd_dq(q, k, v, g, lse, delta, True, 0.25)[0],
                        K.flash_bwd_dq(q, k, v, g, lse, delta, True, 0.25,
-                                      pos, pos))
+                                      pos, pos)[0])
     for a, b in zip(K.flash_bwd_dkv(q, k, v, g, lse, delta, True, 0.25),
                     K.flash_bwd_dkv(q, k, v, g, lse, delta, True, 0.25,
                                     pos, pos)):
