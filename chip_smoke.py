@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero:
 
 1. build the CUDA kernels from ``horovod_tpu_torch/ops/csrc`` (seconds
    printed, with the compiler's register and spill report and, from the
-   SASS, what the warp-specialised kernels' code uses);
+   SASS, what the warp-specialised kernels' and kernel 5's code uses);
 2. hold each kernel against its plain PyTorch version at the shapes the
    training paths give it: ``fused_scale`` on a 64 MiB fp32 bucket, an odd
    length and a bf16 cast; flash forward (a warp-specialised TMA +
@@ -28,16 +28,21 @@ Phases, in order; any failure exits non-zero:
    contiguous rank 0 against rank 1's block, where every row is masked and
    O, lse and the gradients must be exactly 0, the sentinel and 0), from
    the plain forward's lse (plus an off-grid shape and the backward's edges);
-3. time each kernel with CUDA events beside its bound (the larger of
-   bytes over 3.35 TB/s and products over 989 TFLOP/s; for the flash
-   kernels, with and without positions, and the matmul also the
-   kernel/library ratio, achieved TFLOP/s and share of bound), its plain
-   version and, where one exists, a single PyTorch call computing the same
-   function (for the conv backward, autograd through the unfused segment;
+3. time each kernel beside its bound (the larger of bytes over 3.35 TB/s
+   and products over 989 TFLOP/s; for the flash kernels, with and without
+   positions, and the matmul also the kernel/library ratio, achieved
+   TFLOP/s and share of bound), its plain version and, where one exists, a
+   single PyTorch call computing the same function; ``fused_scale`` and
+   the conv backward as profiler device time, the others with CUDA events:
+   ``fused_scale`` on a 64 MiB fp32 bucket out of place and in place and
+   over the transformer step's own buckets (each a tensor of its own) in
+   place, launch-weighted, beside
+   ``x.float().mul(f).to(dt)``; the conv backward split by launch (each
+   GEMM's TFLOP/s) beside autograd through the unfused segment;
    for the matmul, ``torch.matmul``; for the flash forward, SDPA; for dQ
    and dK/dV, SDPA's backward alone, which computes the pair's dQ, dK and
    dV in one call, with the pair's ratio to it; for the positions variant,
-   SDPA with the boolean mask), and one layer's attention forward +
+   SDPA with the boolean mask; and one layer's attention forward +
    backward through the fused sp ring at sp = 1, the plain ring and
    ``flash_attention``;
 4. train the 870.9M TransformerLM (16 layers, d_model 2048, 16 heads,
@@ -136,6 +141,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def full_config(torch, attention_impl: str):
+    """The 870.9M TransformerLM's configuration (``FULL``) in bf16."""
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(vocab_size=FULL["vocab"],
+                             num_layers=FULL["layers"],
+                             num_heads=FULL["heads"],
+                             d_model=FULL["d_model"],
+                             d_ff=4 * FULL["d_model"],
+                             max_seq_len=FULL["seq"], dtype=torch.bfloat16,
+                             attention_impl=attention_impl)
+
+
 def bound_ms(nbytes: float, flops: float,
              peak_flops: float = PEAK_BF16_FLOPS) -> tuple:
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
@@ -168,21 +186,26 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_bwd_dq_kernel<128, pos>`` and the like from a mangled name."""
-    m = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)ELb(\d))?", mangled)
+    """``flash_bwd_dq_kernel<128, pos>``, ``cbr_dgrad`` and the like from a
+    mangled name."""
+    m = re.search(r"\d((?:flash|mm|scale|cbr)_[a-z0-9_]*?)[IE]"
+                  r"(?:Li(\d+)ELb(\d))?", mangled) or \
+        re.search(r"::((?:flash|mm|scale|cbr)_[a-z0-9_]*)"
+                  r"(?:<(\d+), (true|false)>)?", mangled)
     if not m:
         return mangled[:60]
     if m[2] is None:
         return m[1]
-    return f"{m[1]}<{m[2]}{', pos' if m[3] == '1' else ''}>"
+    return f"{m[1]}<{m[2]}{', pos' if m[3] in ('1', 'true') else ''}>"
 
 
 def sass_report(lib_path) -> None:
-    """For each warp-specialised kernel of the library, from its SASS
-    (``cuobjdump -sass``): the highest register its code names, its
-    setmaxnreg instructions and its local-memory (spill) accesses.  ptxas
-    reports 168 registers for every 384-thread kernel whatever setmaxnreg
-    asks; the SASS shows what the consumer warpgroups use."""
+    """For each warp-specialised kernel of the library and each of kernel
+    5's (``cbr_*``), from its SASS (``cuobjdump -sass``): the highest
+    register its code names, its setmaxnreg instructions and its
+    local-memory (spill) accesses.  ptxas reports 168 registers for every
+    384-thread kernel whatever setmaxnreg asks; the SASS shows what the
+    consumer warpgroups use."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([tool, "-sass", str(lib_path)],
@@ -193,7 +216,7 @@ def sass_report(lib_path) -> None:
         return
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         name, body = chunk.split("\n", 1)
-        if "USETMAXREG" not in body:
+        if "USETMAXREG" not in body and "cbr_" not in name:
             continue
         regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
         setmaxnreg = sorted({" ".join(i.split()) for i in
@@ -218,21 +241,46 @@ def device_rows(prof) -> list:
     return rows
 
 
-def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """The device time of one call of ``fn``: its kernels' own time under
-    torch.profiler over ``iters`` calls.  For a call whose host work
-    between kernels can outlast them (autograd's backward of SDPA), CUDA
-    events around a loop would time the host instead."""
+def device_split(torch, fn, iters: int = 20, warmup: int = 3,
+                 tries: int = 3) -> dict:
+    """{kernel: device ms per call of ``fn``} over ``iters`` calls under
+    torch.profiler, the port's kernels by :func:`kernel_name`.  Every
+    kernel of ``fn`` runs the same number of times each call, so a trace
+    in which one ran a number of times that is not a multiple of
+    ``iters`` has lost records (on an H100 it read 30 % of a call's
+    time): it is taken again, up to ``tries`` times, and then fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ms for ms, _, _ in device_rows(prof)) / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        if rows and all(count % iters == 0 for _, count, _ in rows):
+            break
+        log(f"  profiler: a trace lost kernel records "
+            f"{sorted({count for _, count, _ in rows})} for {iters} calls;"
+            f" taken again")
+    else:
+        raise RuntimeError(f"torch.profiler lost kernel records in "
+                           f"{tries} traces")
+    split: dict = {}
+    for ms, _, key in rows:
+        name = kernel_name(key)
+        split[name] = split.get(name, 0.0) + ms / iters
+    return split
+
+
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """The device time of one call of ``fn``: its kernels' own time under
+    torch.profiler over ``iters`` calls.  For a call whose host work
+    between kernels can outlast them (autograd's backward of SDPA), CUDA
+    events around a loop would time the host instead."""
+    return sum(device_split(torch, fn, iters, warmup).values())
 
 
 def phase_build():
@@ -659,12 +707,15 @@ def phase_check(torch):
 
 
 def time_cbr(torch) -> dict:
-    """Kernel 5 at each main-path shape: kernel, plain, and the yardstick,
-    autograd through the unfused segment as the ``fused_bwd=False`` model
-    runs it (cuDNN dgrad and wgrad plus the BN and relu passes; no single
-    PyTorch call computes this function, and the port never calls it).
-    Returns the launch-weighted mean per call over one training step's 8
-    launches, which is what the kernels' JSON line carries."""
+    """Kernel 5 at each main-path shape, as profiler device time: the
+    call split by launch (each GEMM with its TFLOP/s; the weight's cast
+    and transpose, which the wrapper runs, appear under their own names),
+    the plain version, and the yardstick, autograd through the unfused
+    segment as the ``fused_bwd=False`` model runs it (cuDNN dgrad and
+    wgrad plus the BN and relu passes; no single PyTorch call computes
+    this function, and the port never calls it).  Returns the
+    launch-weighted mean per call over one training step's 8 launches,
+    which is what the kernels' JSON line carries."""
     from horovod_tpu_torch.models.resnet import BatchNorm, Conv
     from horovod_tpu_torch.ops import kernels as K
 
@@ -691,22 +742,109 @@ def time_cbr(torch) -> dict:
         def unfused_bwd():
             torch.autograd.grad(seg, leaves, dseg, retain_graph=True)
 
-        r = dict(ms=cuda_ms(torch, lambda: K.fused_conv_bn_relu_bwd(*args)),
-                 plain_ms=cuda_ms(torch, lambda: K.fused_conv_bn_relu_bwd_plain(
+        split = device_split(torch, lambda: K.fused_conv_bn_relu_bwd(*args))
+        r = dict(ms=sum(split.values()),
+                 plain_ms=device_ms(torch, lambda: K.fused_conv_bn_relu_bwd_plain(
                      *args), iters=5),
-                 library_ms=cuda_ms(torch, unfused_bwd))
+                 library_ms=device_ms(torch, unfused_bwd))
         bms, by = bound_ms(*cbr_work(shape))
-        log(f"time fused_conv_bn_relu_bwd at {shape} ({count}/step): "
-            f"{r['ms']:.4f} ms (bound {bms:.4f} ms by {by}, plain "
-            f"{r['plain_ms']:.4f} ms, unfused autograd "
-            f"{r['library_ms']:.4f} ms)")
+        gemm_flops = cbr_work(shape)[1] / 2
+        log(f"time fused_conv_bn_relu_bwd at {shape} ({count}/step), device "
+            f"time: {r['ms']:.4f} ms ({100 * bms / r['ms']:.1f} % of bound "
+            f"{bms:.4f} ms by {by}; plain {r['plain_ms']:.4f} ms, unfused "
+            f"autograd {r['library_ms']:.4f} ms; kernel between CUDA events "
+            f"{cuda_ms(torch, lambda: K.fused_conv_bn_relu_bwd(*args)):.4f} "
+            f"ms)")
+        for name, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+            rate = f", {gemm_flops / ms / 1e9:.0f} TFLOP/s" if \
+                name.startswith(("cbr_dgrad", "cbr_wgrad")) else ""
+            log(f"time   {name[:70]}: {ms:.4f} ms{rate}")
         for key in total:
             total[key] += r[key] * count / per_step
         for i, amount in enumerate(cbr_work(shape)):
             work[i] += amount * count / per_step
         del args, seg, x, dseg
     total["bound_ms"], total["bound_by"] = bound_ms(*work)
+    log(f"time fused_conv_bn_relu_bwd, launch-weighted mean: "
+        f"{total['ms']:.4f} ms ({100 * total['bound_ms'] / total['ms']:.1f} "
+        f"% of bound), unfused autograd {total['library_ms']:.4f} ms, "
+        f"{per_step} launches a step: {total['ms'] * per_step:.2f} ms")
     return total
+
+
+def scale_buckets(torch) -> list:
+    """Element counts of the fp32 buckets that the transformer step's
+    exchange scales: ``plan_buckets`` over the 870.9M model's fp32
+    gradients (its parameters' sizes, in parameter order) at the
+    runtime's default fusion threshold.  Each is scaled twice a step, in
+    place (phase 4's ``gradient_predivide_factor``)."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.ops.bucketing import plan_buckets
+    from horovod_tpu_torch.runtime.config import Config
+
+    sizes = [p.numel() for p in TransformerLM(
+        full_config(torch, "flash"), device="meta").parameters()]
+    plan = plan_buckets([4 * n for n in sizes],
+                        Config().fusion_threshold_bytes)
+    return [sum(sizes[i] for i in bucket) for bucket in plan]
+
+
+def time_scale(torch) -> dict:
+    """``fused_scale`` as profiler device time beside its plain version
+    and its library call, ``x.float().mul(f).to(dt)`` (``x.mul_(f)`` in
+    place, which is the same function for fp32): on one 64 MiB fp32 bucket
+    out of place and in place, then over the transformer step's own
+    buckets (:func:`scale_buckets`), in place as the exchange scales them,
+    a sweep over all of them per call, so that the mean per launch is
+    launch-weighted.  Returns the step's buckets' row, which the JSON line
+    carries."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    f = 0.5
+    n = 64 * 1024 * 1024 // 4
+    x = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(
+        SEED + 1), device="cuda")
+    bms, by = bound_ms(2 * 4 * n, n, PEAK_FP32_FLOPS)
+    for label, kernel, library in (
+            ("out of place", lambda: K.fused_scale(x, f),
+             lambda: x.float().mul(f).to(x.dtype)),
+            ("in place", lambda: K.fused_scale(x, f, out=x),
+             lambda: x.mul_(f))):
+        ms, lib = device_ms(torch, kernel), device_ms(torch, library)
+        log(f"time fused_scale 64 MiB f32 {label}, device time: {ms:.4f} ms "
+            f"({100 * bms / ms:.1f} % of bound {bms:.4f} ms by {by}), library "
+            f"{lib:.4f} ms ({ms / lib:.3f}x), kernel between CUDA events "
+            f"{cuda_ms(torch, kernel):.4f} ms")
+    del x
+    sizes = scale_buckets(torch)
+    # a tensor of its own for each bucket, as the exchange packs them
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    views = [torch.randn(m, generator=gen, device="cuda") for m in sizes]
+    assert [v.numel() for v in views] == sizes
+
+    def sweep(fn):
+        def run():
+            for v in views:
+                fn(v)
+        return run
+
+    r = dict(ms=device_ms(torch, sweep(lambda v: K.fused_scale(v, f, out=v)),
+                          iters=5) / len(views),
+             plain_ms=device_ms(torch, sweep(lambda v: K.fused_scale_plain(
+                 v, f, v.dtype)), iters=5) / len(views),
+             library_ms=device_ms(torch, sweep(lambda v: v.mul_(f)),
+                                  iters=5) / len(views))
+    mean = sum(sizes) / len(sizes)
+    r["bound_ms"], r["bound_by"] = bound_ms(2 * 4 * mean, mean,
+                                            PEAK_FP32_FLOPS)
+    log(f"time fused_scale over the step's {len(sizes)} buckets ({min(sizes)}"
+        f"-{max(sizes)} fp32 values, mean {mean:.0f}), in place, device time "
+        f"per launch: {r['ms']:.4f} ms ({100 * r['bound_ms'] / r['ms']:.1f} % "
+        f"of bound {r['bound_ms']:.4f} ms), library {r['library_ms']:.4f} ms "
+        f"({r['ms'] / r['library_ms']:.3f}x), plain {r['plain_ms']:.4f} ms; "
+        f"{2 * len(sizes)} launches a step: {2 * len(sizes) * r['ms']:.2f} ms")
+    del views
+    return r
 
 
 def time_mm(torch) -> dict:
@@ -898,16 +1036,7 @@ def phase_time(torch):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     out = {}
 
-    n = 64 * 1024 * 1024 // 4
-    x = torch.randn(n, generator=gen, device=dev)
-    ms = cuda_ms(torch, lambda: K.fused_scale(x, 0.5))
-    plain = cuda_ms(torch, lambda: K.fused_scale_plain(x, 0.5, x.dtype))
-    lib = cuda_ms(torch, lambda: x.float().mul(0.5).to(x.dtype))
-    bms, by = bound_ms(2 * 4 * n, n, PEAK_FP32_FLOPS)
-    out["fused_scale"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=bms, bound_by=by)
-    del x
-
+    out["fused_scale"] = time_scale(torch)
     b, t, h, d = FULL["batch"], FULL["seq"], FULL["heads"], FULL["head_dim"]
     q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(4))
@@ -988,23 +1117,13 @@ def profile_step(torch, run, focus: str = "") -> None:
 def phase_train(torch):
     """The five-line recipe at full width; returns the launch counts."""
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.models.transformer import (
-        TransformerConfig,
-        TransformerLM,
-        lm_loss,
-    )
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
     from horovod_tpu_torch.ops import kernels as K
 
     hvd.init()
     dev = hvd.device()
     log(f"init: rank {hvd.rank()} of {hvd.size()} on {dev}")
-    cfg = TransformerConfig(vocab_size=FULL["vocab"],
-                            num_layers=FULL["layers"],
-                            num_heads=FULL["heads"],
-                            d_model=FULL["d_model"],
-                            d_ff=4 * FULL["d_model"],
-                            max_seq_len=FULL["seq"], dtype=torch.bfloat16,
-                            attention_impl="flash")
+    cfg = full_config(torch, "flash")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = TransformerLM(cfg, device=dev, generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1124,23 +1243,14 @@ def phase_sp_train(torch, first):
     import horovod_tpu_torch as hvd
     import torch.nn.functional as F
 
-    from horovod_tpu_torch.models.transformer import (
-        TransformerConfig,
-        TransformerLM,
-    )
+    from horovod_tpu_torch.models.transformer import TransformerLM
     from horovod_tpu_torch.ops import kernels as K
     from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
 
     hvd.init()
     dev = hvd.device()
     mesh = make_parallel_mesh(sp=1)
-    cfg = TransformerConfig(vocab_size=FULL["vocab"],
-                            num_layers=FULL["layers"],
-                            num_heads=FULL["heads"],
-                            d_model=FULL["d_model"],
-                            d_ff=4 * FULL["d_model"],
-                            max_seq_len=FULL["seq"], dtype=torch.bfloat16,
-                            attention_impl="ring")
+    cfg = full_config(torch, "ring")
     model = TransformerLM(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(SEED), sp_group=mesh.group("sp"))
     opt = hvd.DistributedOptimizer(
@@ -1230,7 +1340,6 @@ def phase_tp_train(torch):
     import torch.nn.functional as F
 
     from horovod_tpu_torch.models.transformer import (
-        TransformerConfig,
         TransformerLM,
         fused_tp_apply,
         lm_loss,
@@ -1243,13 +1352,7 @@ def phase_tp_train(torch):
     hvd.init()
     dev = hvd.device()
     mesh = make_parallel_mesh(tp=1)
-    cfg = TransformerConfig(vocab_size=FULL["vocab"],
-                            num_layers=FULL["layers"],
-                            num_heads=FULL["heads"],
-                            d_model=FULL["d_model"],
-                            d_ff=4 * FULL["d_model"],
-                            max_seq_len=FULL["seq"], dtype=torch.bfloat16,
-                            attention_impl="flash")
+    cfg = full_config(torch, "flash")
     model = TransformerLM(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(SEED))
     log(f"tp: fused_tp_apply on a tp group of {mesh.shape['tp']} (dp "

@@ -17,83 +17,59 @@
 // that one row of dgrad's B operand is contiguous.  Out-of-image taps are
 // masked in the loads (cp.async zero-fill), so nothing is padded in memory.
 // Outputs dW (3, 3, cin, c), dgamma and dbeta are fp32.  cin and c must be
-// multiples of 128.
+// multiples of 128, c at most 2048.
 //
 // Bound: at the model's shapes (batch 128, 28x28x128 and 14x14x256) the two
 // implicit GEMMs are 2 x 29.6 GFLOP on about 104 MB (56 MB), so the kernel is
 // bound by operations (0.060 ms at 989 TFLOP/s) and not by bytes (0.031 ms).
-// Design (simple first): four launches in one call.
+// Only wgmma reaches the tensor cores' full rate on Hopper.  Design: four
+// launches in one call.
 //   1. prologue: relu mask, dy, and per-block fp32 partials of dgamma/dbeta;
-//   2. dgrad GEMM, M = rows, N = cin, K = 9*c: 128x128 tiles, K steps of 32
-//      (one tap and 32 channels of c);
+//   2. dgrad GEMM, M = rows, N = cin, K = 9*c;
 //   3. wgrad GEMM, M = 9*cin, N = c, K = rows, split-K over the rows so that
 //      the few output tiles (9 at 128x128 channels) still fill 132 SMs; each
 //      split writes its own fp32 partial;
 //   4. a fixed-order sum of the partials into dW, dgamma and dbeta.
-// Both GEMMs run 8 warps of 64x32 on mma.sync m16n8k16 bf16 with fp32
-// accumulators, operands through ldmatrix (.trans for wgrad's k-major tiles)
-// from a 3-stage cp.async ring.  The TPU kernel's sequential grid, which
-// carried dW and the channel sums in VMEM from one batch tile to the next,
-// does not carry over: Hopper blocks run in no order, hence the partials.
-// Fusing the passes so that db, b and a cross HBM once, wgmma and TMA are
-// later work.
+// Both GEMMs are wgmma (m64n128k16, bf16 in, fp32 accumulators) from shared
+// memory, 128x128 tiles of two warpgroups, K steps of 64 through a 3-stage
+// cp.async ring that writes the 128-byte-swizzle layout itself (see the GEMM
+// block below).  Every sum runs in a fixed order and nothing is atomic, so
+// two calls on the same inputs give the same bits.  The TPU kernel's
+// sequential grid, which carried dW and the channel sums in VMEM from one
+// batch tile to the next, does not carry over: Hopper blocks run in no
+// order, hence the partials.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int STAGES = 3;
-constexpr int PROLOGUE_ROWS = 256;  // CBR_PROLOGUE_ROWS in kernels.py
-constexpr int LDS = BK + 8;         // dgrad tiles: [128][32 + 8], row-major in K
-constexpr int LDT = BM + 8;         // wgrad tiles: [32][128 + 8], K-major
+using namespace sm90;
+
+constexpr int THREADS = 256;        // prologue and finalize
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 // 16 bytes global -> shared; zero-filled (nothing read) when !valid
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void cp_async16(uint32_t dst, const bf16* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-__device__ __forceinline__ void cp_async_wait_stages() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // Pixel index -> (image, y, x)
@@ -112,13 +88,16 @@ __device__ __forceinline__ Pixel decode(int p, int hh, int ww) {
 // 1. prologue: relu mask, dy, per-block partials of dgamma and dbeta
 // ---------------------------------------------------------------------------
 // Each thread owns 8 channels (one 16-byte vector) of THREADS / (c / 8) rows in
-// flight; the block walks PROLOGUE_ROWS rows, then sums its threads' partials
+// flight; the block walks `block_rows` rows, then sums its threads' partials
 // per channel in a fixed order.  part_bn is (2, gridDim.x, c): dgamma, dbeta.
+// The wrapper sizes the blocks so that there are about three waves of them
+// (cbr_prologue_rows in kernels.py): too few leave the latency of device
+// memory uncovered, too many multiply the partials the finalize sums.
 __global__ void __launch_bounds__(THREADS)
 cbr_prologue(const bf16* __restrict__ db, const bf16* __restrict__ b,
              const float* __restrict__ gamma, const float* __restrict__ beta,
              const float* __restrict__ seff, bf16* __restrict__ dy, float* __restrict__ part_bn,
-             int rows, int c) {
+             int rows, int c, int block_rows) {
   __shared__ float sred[2][2048];  // groups * c <= 2048
   const int vec = c / 8, groups = THREADS / vec;
   const int tid = threadIdx.x, grp = tid / vec, ch0 = (tid % vec) * 8;
@@ -132,8 +111,9 @@ cbr_prologue(const bf16* __restrict__ db, const bf16* __restrict__ b,
       se[j] = seff[ch0 + j];
       gsum[j] = bsum[j] = 0.f;
     }
-    const int r1 = min((blockIdx.x + 1) * PROLOGUE_ROWS, rows);
-    for (int r = blockIdx.x * PROLOGUE_ROWS + grp; r < r1; r += groups) {
+    const int r1 = min((blockIdx.x + 1) * block_rows, rows);
+#pragma unroll 4
+    for (int r = blockIdx.x * block_rows + grp; r < r1; r += groups) {
       const size_t off = (size_t)r * c + ch0;
       const uint4 vdb = *reinterpret_cast<const uint4*>(db + off);
       const uint4 vb = *reinterpret_cast<const uint4*>(b + off);
@@ -170,223 +150,227 @@ cbr_prologue(const bf16* __restrict__ db, const bf16* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// the 128x128 block tile shared by both GEMMs: 8 warps of 64 (M) x 32 (N)
+// the GEMM block shared by dgrad and wgrad: two warpgroups, wgmma
 // ---------------------------------------------------------------------------
-// acc[mi][ni]: rows wm*64 + mi*16 + {g, g+8}, columns wn*32 + ni*8 + 2*t4 + {0,1}
-struct Acc {
-  float v[4][4][4];
-};
+// A block computes a 128 x 128 tile, warpgroup wg its rows 64 wg .. 64 wg +
+// 63, in fp32 registers (64 a thread: the m64n128 fragment of sm90.cuh).
+// K runs in steps of 64: each stage holds A and B as 16 KB tiles in the
+// 128-byte-swizzle layout that a TMA box has (16-byte chunk j of 128-byte
+// row r at chunk j ^ (r % 8), 1024-byte aligned), written by the block's
+// own cp.async loads, which gather the shifted pixels and zero-fill the
+// taps outside the image (a tiled tensor map would need tiles that stay
+// inside one image's band of rows, and 784 and 196 pixels are no multiple
+// of 64).  So wgmma reads them through the two validated descriptor
+// patterns (sm90.cuh): K-major for dgrad, MN-major for wgrad.  Three
+// stages, the loads two steps ahead; after its products a warpgroup waits
+// for them, so that one __syncthreads a step both publishes the stage that
+// landed and frees the one the next loads overwrite.  Two blocks an SM
+// (97 KB each) keep the tensor cores busy through each other's barriers.
+// On an H100 this ran faster than one block an SM with deeper rings (4-6
+// stages, one wgmma group left in flight) and than persistent
+// warp-specialised blocks (one or two producer warpgroups gathering into a
+// 6-stage ring, signalling it with cp.async.mbarrier.arrive, for two
+// consumer warpgroups).  The gathers and the products still overlap only
+// in part.
 
-__device__ __forceinline__ void zero(Acc& acc) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc.v[i][j][e] = 0.f;
+constexpr int GEMM_THREADS = 256;  // two warpgroups, no producer
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 64;             // one 128-byte swizzle row of bf16
+constexpr int STAGES = 3;
+constexpr int TILE_BYTES = 128 * 128;            // 128 rows x 128 bytes
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;      // A, then B
+constexpr int SLAB_BYTES = 64 * 128;             // an MN-major 64-column slab
+constexpr size_t GEMM_SMEM = 1024 + (size_t)STAGES * STAGE_BYTES;
+
+// byte offset of 16-byte chunk j of row r in a 128-byte-swizzled tile
+__device__ __forceinline__ uint32_t swz(int r, int j) {
+  return (uint32_t)(r * 128 + ((j ^ (r & 7)) << 4));
 }
 
-// One K step of 32 from tiles stored A row-major [m][k] (ld LDS) and B as [n][k]
-// (ld LDS): ldmatrix without transpose.
-__device__ __forceinline__ void mma_step_mk(Acc& acc, const bf16* sa, const bf16* sb, int wm,
-                                            int wn, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-      ldsm_x4(af[mi], sa + (wm * 64 + mi * 16 + (lane & 15)) * LDS + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      uint32_t r[4];
-      ldsm_x4(r, sb + (wn * 32 + nj * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk +
-                     ((lane >> 3) & 1) * 8);
-      bfr[2 * nj][0] = r[0];
-      bfr[2 * nj][1] = r[1];
-      bfr[2 * nj + 1][0] = r[2];
-      bfr[2 * nj + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma16816(acc.v[mi][ni], af[mi], bfr[ni]);
-  }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One K step of 32 from tiles stored K-major: A as [k][m], B as [k][n] (ld LDT):
-// ldmatrix with transpose.
-__device__ __forceinline__ void mma_step_km(Acc& acc, const bf16* sa, const bf16* sb, int wm,
-                                            int wn, int lane) {
+// The K steps [k0, k1) of one tile: `load(stage_base, k)` issues this
+// thread's cp.async copies of step k's A and B into a stage; MN selects
+// the MN-major descriptors (wgrad) over the K-major ones (dgrad).
+template <bool MN, typename Load>
+__device__ __forceinline__ void gemm_mainloop(float (&acc)[64], unsigned char* smem, int k0,
+                                              int k1, int wg, Load load) {
+  const int steps = k1 - k0;
 #pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-      ldsm_x4_trans(af[mi], sa + (kk + (lane & 7) + ((lane >> 4) << 3)) * LDT + wm * 64 +
-                                mi * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      uint32_t r[4];
-      ldsm_x4_trans(r, sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT + wn * 32 +
-                           nj * 16 + (lane >> 4) * 8);
-      bfr[2 * nj][0] = r[0];
-      bfr[2 * nj][1] = r[1];
-      bfr[2 * nj + 1][0] = r[2];
-      bfr[2 * nj + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma16816(acc.v[mi][ni], af[mi], bfr[ni]);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(smem + s * STAGE_BYTES, k0 + s);
+    cp_async_commit();
   }
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of step i landed
+    fence_proxy_async();          // ... and are visible to wgmma (async proxy)
+    __syncthreads();              // everyone's; and step i - 1's products are done
+    const int next = i + STAGES - 1;
+    if (next < steps) load(smem + (next % STAGES) * STAGE_BYTES, k0 + next);
+    cp_async_commit();
+    const unsigned char* a = smem + (i % STAGES) * STAGE_BYTES;
+    const unsigned char* b = a + TILE_BYTES;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if (MN) {  // K rows of 128 bytes: a K step of 16 is 16 rows
+        wgmma_m64n128k16_ss<1, 1>(acc, desc_sw128(a + wg * SLAB_BYTES + kk * 2048, SLAB_BYTES, 1024),
+                                  desc_sw128(b + kk * 2048, SLAB_BYTES, 1024), 1);
+      } else {   // M or N rows of 128 bytes: a K step of 16 is 32 bytes
+        wgmma_m64n128k16_ss<0, 0>(acc, desc_sw128(a + wg * (TILE_BYTES / 2) + kk * 32, 16, 1024),
+                                  desc_sw128(b + kk * 32, 16, 1024), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                          ~(uintptr_t)1023);
 }
 
 // ---------------------------------------------------------------------------
 // 2. dgrad: da[p][ci] = sum_{tap, co} dy[p + (1 - kh, 1 - kw)][co] * W[kh][kw][ci][co]
 // ---------------------------------------------------------------------------
-// grid (ceil(rows / 128), cin / 128).  K runs tap-major: step kt covers tap
-// kt / (c / 32) and 32 channels of c, so B's rows are wt[ci][kt * 32 ...].
-__global__ void __launch_bounds__(THREADS)
+// M = rows, N = cin, K = 9 c, tap-major: step kt is tap kt / (c / 64) and
+// 64 channels of c, so B's rows are wt[ci][kt * 64 ...].  Both operands are
+// K-major (c contiguous).  grid (ceil(rows / 128), cin / 128).
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
 cbr_dgrad(const bf16* __restrict__ dy, const bf16* __restrict__ wt, bf16* __restrict__ da, int n,
           int hh, int ww, int cin, int c) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // [STAGES][BM][LDS]
-  bf16* sB = sA + STAGES * BM * LDS;         // [STAGES][BN][LDS]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
   const int rows = n * hh * ww;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
+  const int tid = threadIdx.x, wg = tid / 128;
 
-  // this thread's two 16-byte chunks of each tile: rows tid/4 and tid/4 + 64
-  const int col = (tid & 3) * 8;
-  int lrow[2];
-  Pixel px[2];
-  bool live[2];
+  // this thread's chunk j of tile rows r, r + 32, r + 64, r + 96: their
+  // pixels (-1 past the last row) and (y << 16 | x)
+  const int j = tid & 7, r0 = tid >> 3;
+  int pix[4], yx[4];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    lrow[j] = (tid >> 2) + j * 64;
-    live[j] = m0 + lrow[j] < rows;
-    px[j] = decode(live[j] ? m0 + lrow[j] : 0, hh, ww);
+  for (int i = 0; i < 4; ++i) {
+    const int p = m0 + r0 + 32 * i;
+    const Pixel px = decode(p < rows ? p : 0, hh, ww);
+    pix[i] = p < rows ? p : -1;
+    yx[i] = px.y << 16 | px.x;
   }
-  const int kc = c / BK, ksteps = 9 * kc;
-  auto load = [&](int stage, int kt) {
-    const int tap = kt / kc, co0 = (kt - tap * kc) * BK;
+  const int kc = c / BK;
+  auto load = [&](unsigned char* st, int kt) {
+    const int tap = kt / kc, co = (kt - tap * kc) * BK + j * 8;
     const int dh = 1 - tap / 3, dw = 1 - tap % 3;
+    const uint32_t sa = smem_addr(st), sb = sa + TILE_BYTES;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int y = px[j].y + dh, x = px[j].x + dw;
-      const bool ok = live[j] && y >= 0 && y < hh && x >= 0 && x < ww;
-      const bf16* src = ok ? dy + ((size_t)(px[j].img * hh + y) * ww + x) * c + co0 + col : dy;
-      cp_async16(sA + (stage * BM + lrow[j]) * LDS + col, src, ok);
-      cp_async16(sB + (stage * BN + lrow[j]) * LDS + col,
-                 wt + (size_t)(n0 + lrow[j]) * (9 * c) + kt * BK + col, true);
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + 32 * i;
+      const int y = (yx[i] >> 16) + dh, x = (yx[i] & 0xffff) + dw;
+      const bool ok = pix[i] >= 0 && y >= 0 && y < hh && x >= 0 && x < ww;
+      const bf16* src = ok ? dy + (size_t)(pix[i] + dh * ww + dw) * c + co : dy;
+      cp_async16(sa + swz(r, j), src, ok);
+      cp_async16(sb + swz(r, j), wt + (size_t)(n0 + r) * (9 * c) + kt * BK + j * 8, true);
     }
   };
 
-  Acc acc;
-  zero(acc);
+  float acc[64];
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ksteps) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ksteps; ++kt) {
-    cp_async_wait_stages();
-    __syncthreads();
-    const int next = kt + STAGES - 1;
-    if (next < ksteps) load(next % STAGES, next);
-    cp_async_commit();
-    const int st = kt % STAGES;
-    mma_step_mk(acc, sA + st * BM * LDS, sB + st * BN * LDS, wm, wn, lane);
-  }
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  gemm_mainloop<false>(acc, smem, 0, 9 * kc, wg, load);
 
-  const int g = lane >> 2, t4 = lane & 3;
+  // fragment: acc[4q + e] is row 16 warp + lane / 4 + 8 (e / 2), column
+  // 8q + 2 (lane % 4) + e % 2 of the warpgroup's 64 x 128
+  const int warp = (tid % 128) / 32, lane = tid % 32;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + wg * 64 + warp * 16 + lane / 4 + 8 * half;
+    if (m >= rows) continue;
+    bf16* row = da + (size_t)m * cin + n0 + 2 * (lane % 4);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 64 + mi * 16 + g + half * 8;
-      if (m >= rows) continue;
-      bf16* row = da + (size_t)m * cin + n0 + wn * 32 + t4 * 2;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        *reinterpret_cast<uint32_t*>(row + ni * 8) =
-            pack_f32(acc.v[mi][ni][2 * half], acc.v[mi][ni][2 * half + 1]);
-    }
+    for (int q = 0; q < 16; ++q)
+      *reinterpret_cast<uint32_t*>(row + 8 * q) =
+          pack_f32(acc[4 * q + 2 * half], acc[4 * q + 2 * half + 1]);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // 3. wgrad: part[z][tap][ci][co] = sum_{p in split z} a[p + (kh - 1, kw - 1)][ci] * dy[p][co]
 // ---------------------------------------------------------------------------
-// grid (9 * cin / 128, c / 128, splits); split z takes row steps
-// [z * steps_per_split, (z + 1) * steps_per_split) of 32 rows and writes its
+// M = (tap, cin), N = c, K = rows, split-K: both operands are MN-major (cin
+// and c contiguous), staged as two 64-column slabs of 64 K rows each.  grid
+// (9 * cin / 128, c / 128, splits); split z takes row steps [z *
+// steps_per_split, (z + 1) * steps_per_split) of 64 rows and writes its
 // whole tile, zeros when its range is empty.
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
 cbr_wgrad(const bf16* __restrict__ a, const bf16* __restrict__ dy, float* __restrict__ part_w,
           int n, int hh, int ww, int cin, int c, int steps_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // [STAGES][BK][LDT]: a rows, cin columns
-  bf16* sB = sA + STAGES * BK * LDT;         // [STAGES][BK][LDT]: dy rows, c columns
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
   const int rows = n * hh * ww;
   const int cin_blocks = cin / BM;
   const int tap = blockIdx.x / cin_blocks, ci0 = (blockIdx.x % cin_blocks) * BM;
   const int co0 = blockIdx.y * BN;
   const int dh = tap / 3 - 1, dw = tap % 3 - 1;
   const int total = (rows + BK - 1) / BK;
-  const int s0 = blockIdx.z * steps_per_split;
+  const int s0 = min(total, (int)blockIdx.z * steps_per_split);
   const int s1 = min(total, s0 + steps_per_split);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
+  const int tid = threadIdx.x, wg = tid / 128;
 
-  // this thread's two 16-byte chunks of each tile: rows tid/16 and tid/16 + 16
-  const int col = (tid & 15) * 8;
-  auto load = [&](int stage, int step) {
+  // this thread's chunk j of slab q in K rows r, r + 16, r + 32, r + 48:
+  // their pixels' (y, x), decoded once and walked 64 pixels a step (the
+  // loads take the steps in order)
+  const int q = (tid >> 3) & 1, j = tid & 7, r0 = tid >> 4;
+  const int step_y = BK / ww, step_x = BK % ww;
+  int py[4], px[4];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = (tid >> 4) + j * 16;
+  for (int i = 0; i < 4; ++i) {
+    const Pixel pix = decode(s0 * BK + r0 + 16 * i, hh, ww);
+    py[i] = pix.y;
+    px[i] = pix.x;
+  }
+  auto load = [&](unsigned char* st, int step) {
+    const uint32_t sa = smem_addr(st), sb = sa + TILE_BYTES;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + 16 * i;
       const int p = step * BK + r;
       const bool okp = p < rows;
-      const Pixel px = decode(okp ? p : 0, hh, ww);
-      const int y = px.y + dh, x = px.x + dw;
+      const int y = py[i] + dh, x = px[i] + dw;
       const bool oka = okp && y >= 0 && y < hh && x >= 0 && x < ww;
-      const bf16* src = oka ? a + ((size_t)(px.img * hh + y) * ww + x) * cin + ci0 + col : a;
-      cp_async16(sA + (stage * BK + r) * LDT + col, src, oka);
-      cp_async16(sB + (stage * BK + r) * LDT + col, okp ? dy + (size_t)p * c + co0 + col : dy,
-                 okp);
+      const uint32_t off = q * SLAB_BYTES + swz(r, j);
+      cp_async16(sa + off, oka ? a + (size_t)(p + dh * ww + dw) * cin + ci0 + q * 64 + j * 8 : a,
+                 oka);
+      cp_async16(sb + off, okp ? dy + (size_t)p * c + co0 + q * 64 + j * 8 : dy, okp);
+      px[i] += step_x;
+      py[i] += step_y;
+      if (px[i] >= ww) px[i] -= ww, ++py[i];
+      while (py[i] >= hh) py[i] -= hh;
     }
   };
 
-  Acc acc;
-  zero(acc);
+  float acc[64];
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s0 + s < s1) load(s, s0 + s);
-    cp_async_commit();
-  }
-  for (int step = s0; step < s1; ++step) {
-    const int i = step - s0;
-    cp_async_wait_stages();
-    __syncthreads();
-    const int next = step + STAGES - 1;
-    if (next < s1) load((i + STAGES - 1) % STAGES, next);
-    cp_async_commit();
-    const int st = i % STAGES;
-    mma_step_km(acc, sA + st * BK * LDT, sB + st * BK * LDT, wm, wn, lane);
-  }
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  gemm_mainloop<true>(acc, smem, s0, s1, wg, load);
 
   float* out = part_w + (size_t)blockIdx.z * 9 * cin * c + (size_t)tap * cin * c;
-  const int g = lane >> 2, t4 = lane & 3;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int half = 0; half < 2; ++half) {
+    const int ci = ci0 + wg * 64 + warp * 16 + lane / 4 + 8 * half;
+    float* row = out + (size_t)ci * c + co0 + 2 * (lane % 4);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ci = ci0 + wm * 64 + mi * 16 + g + half * 8;
-      float* row = out + (size_t)ci * c + co0 + wn * 32 + t4 * 2;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        *reinterpret_cast<float2*>(row + ni * 8) =
-            make_float2(acc.v[mi][ni][2 * half], acc.v[mi][ni][2 * half + 1]);
-    }
+    for (int qq = 0; qq < 16; ++qq)
+      *reinterpret_cast<float2*>(row + 8 * qq) =
+          make_float2(acc[4 * qq + 2 * half], acc[4 * qq + 2 * half + 1]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -423,43 +407,49 @@ cbr_finalize(const float* __restrict__ part_w, const float* __restrict__ part_bn
   }
 }
 
+// the GEMMs' shared memory, and the carveout that fits two blocks an SM
+int gemm_attributes(const void* fn) {
+  int rc = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)GEMM_SMEM);
+  if (rc) return rc;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
+}
+
 }  // namespace
 
 // Returns 0, the first CUDA error of the four launches, or -1 when cin or c
-// is not a multiple of 128.  dy (rows, c) bf16, part_bn (2, blocks, c) fp32
-// and part_w (splits, 9 * cin * c) fp32 are the caller's scratch;
-// blocks = ceil(rows / 256).
+// is not a multiple of 128 (or c > 2048) or the split or prologue counts
+// are below 1.  The prologue's blocks take prologue_rows rows each, so there
+// are blocks = ceil(rows / prologue_rows) of them.  dy (rows, c) bf16,
+// part_bn (2, blocks, c) fp32 and part_w (splits, 9 * cin * c) fp32 are the
+// caller's scratch.
 extern "C" int hvd_cbr_bwd(const void* db, const void* b, const void* a, const void* wt,
                            const void* gamma, const void* beta, const void* seff, void* dy,
                            void* part_bn, void* part_w, void* da, void* dw, void* dgamma,
                            void* dbeta, int n, int h, int w, int cin, int c, int splits,
-                           int blocks, void* stream) {
-  if (cin % 128 || c % 128 || c > 2048 || splits < 1) return -1;
+                           int prologue_rows, void* stream) {
+  if (cin % 128 || c % 128 || c > 2048 || splits < 1 || prologue_rows < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = n * h * w;
-  if (blocks != (rows + PROLOGUE_ROWS - 1) / PROLOGUE_ROWS) return -1;
+  const int blocks = (rows + prologue_rows - 1) / prologue_rows;
   int rc;
 
   cbr_prologue<<<blocks, THREADS, 0, s>>>((const bf16*)db, (const bf16*)b, (const float*)gamma,
                                           (const float*)beta, (const float*)seff, (bf16*)dy,
-                                          (float*)part_bn, rows, c);
+                                          (float*)part_bn, rows, c, prologue_rows);
   if ((rc = (int)cudaGetLastError())) return rc;
 
-  const size_t smem_d = (size_t)STAGES * (BM + BN) * LDS * sizeof(bf16);
-  if ((rc = (int)cudaFuncSetAttribute(cbr_dgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem_d)))
+  if ((rc = gemm_attributes((const void*)cbr_dgrad)) ||
+      (rc = gemm_attributes((const void*)cbr_wgrad)))
     return rc;
-  cbr_dgrad<<<dim3((rows + BM - 1) / BM, cin / BN), THREADS, smem_d, s>>>(
+  cbr_dgrad<<<dim3((rows + BM - 1) / BM, cin / BN), GEMM_THREADS, GEMM_SMEM, s>>>(
       (const bf16*)dy, (const bf16*)wt, (bf16*)da, n, h, w, cin, c);
   if ((rc = (int)cudaGetLastError())) return rc;
 
-  const size_t smem_w = (size_t)STAGES * 2 * BK * LDT * sizeof(bf16);
-  if ((rc = (int)cudaFuncSetAttribute(cbr_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem_w)))
-    return rc;
   const int steps = (rows + BK - 1) / BK;
   const int per_split = (steps + splits - 1) / splits;
-  cbr_wgrad<<<dim3(9 * cin / BM, c / BN, splits), THREADS, smem_w, s>>>(
+  cbr_wgrad<<<dim3(9 * cin / BM, c / BN, splits), GEMM_THREADS, GEMM_SMEM, s>>>(
       (const bf16*)a, (const bf16*)dy, (float*)part_w, n, h, w, cin, c, per_split);
   if ((rc = (int)cudaGetLastError())) return rc;
 

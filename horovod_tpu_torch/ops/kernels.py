@@ -80,24 +80,46 @@ def fused_scale_plain(x: torch.Tensor, factor: float,
     return (x.float() * factor).to(out_dtype)
 
 
+def fused_scale_kernel_takes(x: torch.Tensor,
+                             out_dtype: torch.dtype) -> bool:
+    """Whether ``csrc/fused_scale.cu`` computes this pass: a CUDA tensor
+    and both dtypes among float32, bfloat16 and float16.  :func:`fused_scale`
+    reads this by dtype before any launch; anything else (float64 on a
+    card) computes :func:`fused_scale_plain`, through fp32 as the JAX
+    package's ``fused_scale`` does."""
+    return (x.device.type != "cpu" and x.dtype in _DTYPE_CODES
+            and out_dtype in _DTYPE_CODES)
+
+
 def fused_scale(x: torch.Tensor, factor: float,
                 out_dtype: Optional[torch.dtype] = None,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x * factor`` in fp32, cast to ``out_dtype``, in one pass over any
     shape (no padding).  ``out`` (contiguous, ``x``'s shape, ``out_dtype``)
     receives the result; it may be ``x`` itself when the dtype is
-    unchanged, which the exchange uses to scale a bucket in place."""
+    unchanged, which the exchange uses to scale a bucket in place.  A CPU
+    tensor, or one the kernel does not take
+    (:func:`fused_scale_kernel_takes`), computes :func:`fused_scale_plain`;
+    any other launches the kernel."""
     out_dtype = out_dtype or x.dtype
     if out is not None and (out.dtype != out_dtype or out.shape != x.shape
                             or not out.is_contiguous()):
         raise ValueError("out must be contiguous with x's shape and "
                          "out_dtype")
-    if x.device.type == "cpu":
+    if not fused_scale_kernel_takes(x, out_dtype):
         y = fused_scale_plain(x, factor, out_dtype)
         return y if out is None else out.copy_(y)
+    return _launch_fused_scale(x, factor, out_dtype, out)
+
+
+def _launch_fused_scale(x: torch.Tensor, factor: float,
+                        out_dtype: torch.dtype,
+                        out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch ``csrc/fused_scale.cu`` on ``x`` (``out`` already checked);
+    raises on a dtype the kernel does not take."""
     if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_scale supports {list(_DTYPE_CODES)}, got "
-                        f"{x.dtype} -> {out_dtype}")
+        raise TypeError(f"the fused_scale kernel takes {list(_DTYPE_CODES)}"
+                        f", got {x.dtype} -> {out_dtype}")
     lib, stream = _cuda_library(x)
     # the kernel takes 16-byte aligned pointers; a misaligned out is
     # written through an aligned temporary
@@ -362,9 +384,10 @@ flash_bwd_dkv.launches = flash_bwd_dkv.pos_launches = 0
 #: that both packages fuse the same segments)
 CBR_DW_CAP_BYTES = 2_400_000
 #: rows (pixels) of one wgrad split-K slice are a multiple of this
-CBR_ROWS_PER_STEP = 32
-#: the prologue's rows per block
-CBR_PROLOGUE_ROWS = 256
+CBR_ROWS_PER_STEP = 64
+#: the prologue's blocks to aim for: three waves of a 132-SM H100, a
+#: figure of the shape alone, as CBR_TARGET_BLOCKS
+CBR_PROLOGUE_BLOCKS = 396
 #: wgrad blocks to aim for: two per SM of a 132-SM H100.  A figure of the
 #: shape alone, so that the scratch sizes do not depend on the device
 CBR_TARGET_BLOCKS = 264
@@ -434,10 +457,27 @@ def cbr_splits(rows: int, cin: int, c: int) -> int:
     """Split-K slices of the wgrad GEMM over the rows: as many as keep the
     9·(cin/128)·(c/128) output tiles within :data:`CBR_TARGET_BLOCKS`
     blocks (one wave: a few blocks past it would run as a second wave
-    alone), with at least 32 row steps in a slice."""
+    alone), with at least 32 row steps of 64 in a slice."""
     tiles = 9 * (cin // 128) * (c // 128)
     steps = -(-rows // CBR_ROWS_PER_STEP)
     return max(1, min(CBR_TARGET_BLOCKS // tiles, steps // 32))
+
+
+def cbr_kernel_takes(db, b, a) -> bool:
+    """Whether ``csrc/conv_bn_relu_bwd.cu`` computes this segment: CUDA
+    activations in bfloat16.  :func:`fused_conv_bn_relu_bwd` reads this by
+    dtype before any launch; a fusable segment in another dtype (fp32,
+    fp16) computes :func:`fused_conv_bn_relu_bwd_plain`, as the JAX
+    package's Pallas kernel computes every dtype."""
+    return a.device.type != "cpu" and all(
+        x.dtype == torch.bfloat16 for x in (db, b, a))
+
+
+def cbr_prologue_rows(rows: int) -> int:
+    """Rows of one prologue block: a multiple of 64 that gives about
+    :data:`CBR_PROLOGUE_BLOCKS` blocks (256 at 28x28x128 and batch 128, 64
+    at 14x14x256)."""
+    return 64 * -(-rows // (64 * CBR_PROLOGUE_BLOCKS))
 
 
 def fused_conv_bn_relu_bwd(db, b, a, w, gamma, beta, scale_eff):
@@ -446,15 +486,24 @@ def fused_conv_bn_relu_bwd(db, b, a, w, gamma, beta, scale_eff):
     :func:`fused_conv_bn_relu_bwd_plain` defines them.
 
     A shape outside :func:`cbr_fusable` computes :func:`cbr_bwd_unfused`
-    on any device, as the JAX package does.  Inside it, a CPU tensor takes
-    the plain version and a CUDA tensor launches
-    ``csrc/conv_bn_relu_bwd.cu``, which takes bf16 activations (fp32 ``w``
-    and channel vectors) and raises on any other dtype."""
+    on any device, as the JAX package does.  Inside it, a CPU tensor, or
+    activations the kernel does not take (:func:`cbr_kernel_takes`: not
+    bf16), compute the plain version, and bf16 activations on a card
+    launch ``csrc/conv_bn_relu_bwd.cu`` (fp32 ``w`` and channel vectors).
+    The plain version's fp32 convolution gradients on a card run through
+    cuDNN under the process's ``torch.backends.cudnn.allow_tf32``, as any
+    PyTorch convolution does (TF32 by default)."""
     if not cbr_fusable(db, b, a, w):
         return cbr_bwd_unfused(db, b, a, w, gamma, beta, scale_eff)
-    if a.device.type == "cpu":
+    if not cbr_kernel_takes(db, b, a):
         return fused_conv_bn_relu_bwd_plain(db, b, a, w, gamma, beta,
                                             scale_eff)
+    return _launch_cbr_bwd(db, b, a, w, gamma, beta, scale_eff)
+
+
+def _launch_cbr_bwd(db, b, a, w, gamma, beta, scale_eff):
+    """Launch ``csrc/conv_bn_relu_bwd.cu`` on a fusable segment; raises on
+    activations the kernel does not take (not bf16)."""
     for x in (db, b, a):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"the conv_bn_relu_bwd kernel takes bfloat16 "
@@ -468,7 +517,8 @@ def fused_conv_bn_relu_bwd(db, b, a, w, gamma, beta, scale_eff):
     lib, stream = _cuda_library(a)
     rows = n * hh * ww
     splits = cbr_splits(rows, cin, c)
-    blocks = -(-rows // CBR_PROLOGUE_ROWS)
+    prologue_rows = cbr_prologue_rows(rows)
+    blocks = -(-rows // prologue_rows)
     dev = a.device
     dy = torch.empty((rows, c), dtype=torch.bfloat16, device=dev)
     part_bn = torch.empty((2, blocks, c), dtype=torch.float32, device=dev)
@@ -484,7 +534,7 @@ def fused_conv_bn_relu_bwd(db, b, a, w, gamma, beta, scale_eff):
                            dy.data_ptr(), part_bn.data_ptr(),
                            part_w.data_ptr(), da.data_ptr(), dw.data_ptr(),
                            dgamma.data_ptr(), dbeta.data_ptr(), n, hh, ww,
-                           cin, c, splits, blocks, stream),
+                           cin, c, splits, prologue_rows, stream),
            "conv_bn_relu_bwd")
     fused_conv_bn_relu_bwd.launches += 1
     return da, dw, dgamma, dbeta

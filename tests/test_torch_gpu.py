@@ -25,6 +25,19 @@ from torch_port_workers import EXCHANGE_CASES, check_exchange, \
     exchange_inputs, spawn_world
 
 
+#: fused_scale.cu's batch: U = 4 16-byte vectors for each of a block's 256
+#: threads
+SCALE_BATCH_VECTORS = 4 * 256
+SCALE_DTYPES = [(a, b) for a in (torch.float32, torch.bfloat16, torch.float16)
+                for b in (torch.float32, torch.bfloat16, torch.float16)]
+#: (dtype pair, bytes past a 16-byte boundary) that a view can have
+SCALE_SHIFTS = [(d, shift) for d in SCALE_DTYPES for shift in (2, 8)
+                if shift % torch.empty((), dtype=d[0]).element_size() == 0]
+#: kernel 5's 128-row tiles and 64-row steps: batch 1 with an image of one
+#: step, tiles that cross several small images, cin != c both ways
+CBR_EDGES = [(1, 8, 8, 128, 128), (2, 3, 5, 256, 128), (4, 3, 3, 128, 256)]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -70,6 +83,71 @@ class TestOnCard:
         view = base[1:]
         K.fused_scale(view, 0.37, out=view)
         torch.testing.assert_close(view, want, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("dtypes", SCALE_DTYPES,
+                             ids=lambda d: f"{str(d[0])[6:]}-{str(d[1])[6:]}")
+    def test_fused_scale_lengths(self, cuda, dtypes):
+        """Every dtype pair at the lengths where the kernel's paths meet,
+        out of place and (same dtype) in place, bit-exact: 0, 1 and 3
+        values, a batch of U 16-byte vectors for each thread of one and of
+        two blocks and one vector and one value either side, and 64 MiB +
+        4 bytes."""
+        src, dst = dtypes
+        vec = 16 // torch.empty((), dtype=src).element_size()
+        batch = vec * SCALE_BATCH_VECTORS
+        lengths = [0, 1, 3, batch - vec, batch - 1, batch, batch + 1,
+                   batch + vec, 2 * batch - 1, 2 * batch + 1,
+                   (64 * 2 ** 20 + 4) // torch.empty(
+                       (), dtype=src).element_size()]
+        gen = torch.Generator(device=cuda).manual_seed(12)
+        for n in lengths:
+            x = torch.randn(n, generator=gen, device=cuda).to(src)
+            want = K.fused_scale_plain(x, 0.37, dst)
+            torch.testing.assert_close(K.fused_scale(x, 0.37, dst), want,
+                                       rtol=0, atol=0)
+            if src == dst:
+                K.fused_scale(x, 0.37, out=x)
+                torch.testing.assert_close(x, want, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("dtypes,shift", SCALE_SHIFTS,
+                             ids=lambda v: v if isinstance(v, int) else
+                             f"{str(v[0])[6:]}-{str(v[1])[6:]}")
+    def test_fused_scale_misaligned_views(self, cuda, dtypes, shift):
+        """An input view 2 or 8 bytes past a 16-byte boundary (2 only for
+        a 2-byte input) and an output view as far off as its dtype allows,
+        out of place and, with one dtype, in place: bit-exact with the
+        plain version."""
+        src, dst = dtypes
+        size = torch.empty((), dtype=src).element_size()
+        n, off = 5003, shift // size
+        base = torch.randn(n + off, device=cuda).to(src)
+        x = base[off:]
+        assert x.data_ptr() % 16 == shift
+        want = K.fused_scale_plain(x, 0.37, dst)
+        torch.testing.assert_close(K.fused_scale(x, 0.37, dst), want,
+                                   rtol=0, atol=0)
+        out_base = torch.empty(n + shift // torch.empty(
+            (), dtype=dst).element_size(), dtype=dst, device=cuda)
+        out = out_base[out_base.numel() - n:]
+        K.fused_scale(x, 0.37, dst, out=out)
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
+        if src == dst:
+            K.fused_scale(x, 0.37, out=x)
+            torch.testing.assert_close(x, want, rtol=0, atol=0)
+
+    def test_fused_scale_float64_takes_the_plain_path(self, cuda):
+        """float64 on the card: the plain version (through fp32), in place
+        too, and no launch; the low-level launcher still refuses it."""
+        x = torch.randn(1000, device=cuda, dtype=torch.float64)
+        want = K.fused_scale_plain(x, 0.37, torch.float64)
+        before = K.fused_scale.launches
+        torch.testing.assert_close(K.fused_scale(x, 0.37), want, rtol=0,
+                                   atol=0)
+        assert K.fused_scale(x, 0.37, out=x) is x
+        torch.testing.assert_close(x, want, rtol=0, atol=0)
+        assert K.fused_scale.launches == before
+        with pytest.raises(TypeError, match="fused_scale"):
+            K._launch_fused_scale(x, 0.37, torch.float64, None)
 
     @pytest.mark.parametrize("shape,causal", [
         ((2, 128, 2, 64), True), ((2, 128, 2, 128), False),
@@ -203,10 +281,12 @@ class TestOnCard:
 
     @pytest.mark.parametrize("shape", [
         (128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
-        (3, 10, 10, 128, 128), (2, 7, 9, 256, 128), (1, 5, 3, 128, 256)])
+        (3, 10, 10, 128, 128), (2, 7, 9, 256, 128), (1, 5, 3, 128, 256),
+        *CBR_EDGES])
     def test_conv_bn_relu_bwd(self, cuda, shape):
         """The kernel against its plain version at the ResNet-50 segments'
-        shapes (batch 128) and ragged ones, as chip_smoke.py holds it."""
+        shapes (batch 128), ragged ones and the tile's edges, as
+        chip_smoke.py holds it."""
         args = chip_smoke.cbr_inputs(torch, shape, seed=3)
         before = K.fused_conv_bn_relu_bwd.launches
         got = K.fused_conv_bn_relu_bwd(*args)
@@ -219,12 +299,45 @@ class TestOnCard:
             for key, val, lim in chip_smoke.cbr_agreement(torch, name, g, w):
                 assert val <= lim, (name, key, val, lim)
 
-    def test_conv_bn_relu_bwd_rejects_fp32(self, cuda):
+    @pytest.mark.parametrize("shape", [(128, 14, 14, 256, 256),
+                                       (2, 7, 9, 256, 128)])
+    def test_conv_bn_relu_bwd_deterministic(self, cuda, shape):
+        """Two calls on the same inputs give the same bits: every sum runs
+        in a fixed order, with no atomics."""
+        args = chip_smoke.cbr_inputs(torch, shape, seed=4)
+        first = K.fused_conv_bn_relu_bwd(*args)
+        second = K.fused_conv_bn_relu_bwd(*args)
+        for name, g1, g2 in zip(("da", "dW", "dgamma", "dbeta"), first,
+                                second):
+            assert torch.equal(g1, g2), name
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+    def test_conv_bn_relu_bwd_off_kernel_dtype(self, cuda, monkeypatch,
+                                              dtype):
+        """A fusable segment in fp32 or fp16 on the card computes the plain
+        version (no launch) and gives exactly its outputs.  TF32 is off
+        for the fp32 convolutions, so they run in full fp32, and cuDNN
+        picks deterministic algorithms, so the two calls agree bit for
+        bit."""
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+        args = chip_smoke.cbr_inputs(torch, (2, 7, 9, 128, 128), seed=5)
+        args = tuple(x.to(dtype) if i < 3 else x for i, x in enumerate(args))
+        before = K.fused_conv_bn_relu_bwd.launches
+        got = K.fused_conv_bn_relu_bwd(*args)
+        assert K.fused_conv_bn_relu_bwd.launches == before
+        want = K.fused_conv_bn_relu_bwd_plain(*args)
+        assert got[0].dtype == dtype and got[1].dtype == torch.float32
+        for name, g, w in zip(("da", "dW", "dgamma", "dbeta"), got, want):
+            assert torch.equal(g, w), name
+
+    def test_conv_bn_relu_bwd_launcher_rejects_fp32(self, cuda):
+        """The low-level launcher still refuses fp32 activations."""
         a = torch.zeros(1, 4, 4, 128, device=cuda)
         w = torch.zeros(3, 3, 128, 128, device=cuda)
         v = torch.ones(128, device=cuda)
         with pytest.raises(TypeError, match="bfloat16"):
-            K.fused_conv_bn_relu_bwd(a, a, a, w, v, v, v)
+            K._launch_cbr_bwd(a, a, a, w, v, v, v)
 
     @pytest.mark.parametrize("mkn", [*chip_smoke.MM_MAIN.values(),
                                      *chip_smoke.MM_RAGGED],

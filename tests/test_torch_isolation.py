@@ -18,13 +18,18 @@ from horovod_tpu_torch.ops import kernels as K
 #: the matmul's plain version before fake_card replaces it: it is also what
 #: a shape outside the dispatch rule computes on any device
 PLAIN_MM = K.pallas_matmul_plain
+#: the plain versions that the dispatch takes on a card for dtypes the
+#: kernels refuse, before fake_card replaces them
+PLAIN_SCALE = K.fused_scale_plain
+PLAIN_CBR = K.fused_conv_bn_relu_bwd_plain
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 
 
 def _port_files():
     return sorted((ROOT / "horovod_tpu_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py", ROOT / "tp_bench.py", ROOT / "sp_bench.py"]
+        [ROOT / "chip_smoke.py", ROOT / "tp_bench.py", ROOT / "sp_bench.py",
+         ROOT / "scale_bench.py"]
 
 
 def test_port_files_cover_the_sp_slice():
@@ -115,6 +120,17 @@ def test_sp_bench_refuses_without_cards():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert "needs 4 CUDA cards" in out.stderr and out.stdout == ""
+
+
+def test_scale_bench_refuses_without_a_card():
+    """No card: exit non-zero before building anything."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "scale_bench.py"], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "needs a CUDA card" in out.stderr and out.stdout == ""
 
 
 def test_chip_smoke_alone_fails(tmp_path):
@@ -318,13 +334,84 @@ def test_conv_bn_relu_outside_the_rule_launches_nothing(fake_card):
     assert K.fused_conv_bn_relu_bwd.launches == 0
 
 
-def test_conv_bn_relu_device_fp32_refused(fake_card):
-    a = _meta(1, 4, 4, 128, dtype=torch.float32)
-    vec = _meta(128, dtype=torch.float32)
+@pytest.fixture
+def plain_runs(fake_card, monkeypatch):
+    """fake_card, with ``fused_scale_plain`` and
+    ``fused_conv_bn_relu_bwd_plain`` recording each call (its name and its
+    tensor arguments' dtypes) and computing as before; every other plain
+    version still raises."""
+    runs = []
+
+    def recording(name, fn):
+        def run(*args, **kwargs):
+            runs.append((name, tuple(a.dtype for a in args
+                                     if isinstance(a, torch.Tensor))))
+            return fn(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(K, "fused_scale_plain",
+                        recording("fused_scale_plain", PLAIN_SCALE))
+    monkeypatch.setattr(K, "fused_conv_bn_relu_bwd_plain",
+                        recording("fused_conv_bn_relu_bwd_plain", PLAIN_CBR))
+    return runs
+
+
+def _cbr_meta(dtype, cin=128, c=128):
+    a = _meta(1, 4, 4, cin, dtype=dtype)
+    db = _meta(1, 4, 4, c, dtype=dtype)
+    vec = _meta(c, dtype=torch.float32)
+    return db, db, a, _meta(3, 3, cin, c, dtype=torch.float32), vec, vec, vec
+
+
+def test_conv_bn_relu_device_fp32_refused(plain_runs, fake_card):
+    """The kernel refuses fp32 activations, so a fusable fp32 segment on a
+    card computes the plain version (as the JAX package's Pallas kernel
+    computes fp32): da in fp32, dW fp32, no launch and no count."""
+    da, dw, dgamma, dbeta = K.fused_conv_bn_relu_bwd(
+        *_cbr_meta(torch.float32))
+    assert da.dtype == dw.dtype == dgamma.dtype == torch.float32
+    assert da.shape == (1, 4, 4, 128) and dw.shape == (3, 3, 128, 128)
+    assert plain_runs == [("fused_conv_bn_relu_bwd_plain",
+                           (torch.float32,) * 7)]
+    assert fake_card.calls == [] and K.fused_conv_bn_relu_bwd.launches == 0
+
+
+def test_conv_bn_relu_device_fp16_takes_the_plain_path(plain_runs,
+                                                       fake_card):
+    """fp16 activations, cin != c: the plain version, da rounded to fp16
+    and dW in fp32, no launch and no count."""
+    da, dw, _, _ = K.fused_conv_bn_relu_bwd(
+        *_cbr_meta(torch.float16, cin=256, c=128))
+    assert da.dtype == torch.float16 and da.shape == (1, 4, 4, 256)
+    assert dw.dtype == torch.float32 and dw.shape == (3, 3, 256, 128)
+    assert plain_runs == [("fused_conv_bn_relu_bwd_plain",
+                           (torch.float16,) * 3 + (torch.float32,) * 4)]
+    assert fake_card.calls == [] and K.fused_conv_bn_relu_bwd.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_conv_bn_relu_autograd_off_kernel_dtype(plain_runs, fake_card,
+                                                dtype):
+    """The fused segment's backward in fp32 or fp16 on a card: the plain
+    version once, with the segment's dtypes, nothing launched."""
+    a = _meta(2, 6, 6, 128, dtype=dtype).requires_grad_()
+    w = _meta(3, 3, 128, 128, dtype=torch.float32).requires_grad_()
+    vecs = [_meta(128, dtype=torch.float32).requires_grad_()
+            for _ in range(4)]
+    out = K.fused_conv_bn_relu(a, w, *vecs)
+    out.backward(_meta(2, 6, 6, 128, dtype=dtype))
+    assert [name for name, _ in plain_runs] == [
+        "fused_conv_bn_relu_bwd_plain"]
+    assert plain_runs[0][1][:3] == (dtype,) * 3
+    assert a.grad.dtype == dtype and w.grad.dtype == torch.float32
+    assert fake_card.calls == [] and K.fused_conv_bn_relu_bwd.launches == 0
+
+
+def test_conv_bn_relu_launcher_still_refuses(fake_card):
+    """The low-level launcher raises on fp32 activations and calls
+    nothing: the routing is the dispatch's, not a fallback."""
     with pytest.raises(TypeError, match="bfloat16"):
-        K.fused_conv_bn_relu_bwd(a, a, a, _meta(3, 3, 128, 128,
-                                                dtype=torch.float32),
-                                 vec, vec, vec)
+        K._launch_cbr_bwd(*_cbr_meta(torch.float32))
     assert fake_card.calls == []
 
 
@@ -339,9 +426,40 @@ def test_device_flash_raises_on_unsupported(fake_card, shape, dtype, err):
     assert fake_card.calls == []
 
 
-def test_fused_scale_device_dtype_refused(fake_card):
-    with pytest.raises(TypeError):
-        K.fused_scale(_meta(4, dtype=torch.float64), 2.0)
+def test_fused_scale_device_dtype_refused(plain_runs, fake_card):
+    """The kernel refuses float64, so a float64 tensor on a card computes
+    the plain version (through fp32, as the JAX package's fused_scale
+    does), in place when asked; no launch, no count."""
+    x = _meta(4, dtype=torch.float64)
+    assert K.fused_scale(x, 2.0).dtype == torch.float64
+    assert K.fused_scale(x, 2.0, out=x) is x
+    y = K.fused_scale(x, 2.0, torch.bfloat16)
+    assert y.dtype == torch.bfloat16
+    assert plain_runs == [("fused_scale_plain", (torch.float64,))] * 3
+    assert fake_card.calls == [] and K.fused_scale.launches == 0
+
+
+def test_exchange_scale_of_a_float64_bucket(plain_runs, fake_card):
+    """The exchange's scale pass over a float64 bucket on a card (in
+    place) and its wire cast to fp16 take the plain version; an fp32
+    bucket still launches the kernel."""
+    from horovod_tpu_torch.ops import collectives as TC
+
+    x = _meta(1000, dtype=torch.float64)
+    assert TC._scale(x, 0.5) is x
+    assert TC._scale(x, 1.0, torch.float16).dtype == torch.float16
+    assert plain_runs == [("fused_scale_plain", (torch.float64,))] * 2
+    assert fake_card.calls == [] and K.fused_scale.launches == 0
+    TC._scale(_meta(1000, dtype=torch.float32), 0.5)
+    assert fake_card.calls == ["hvd_fused_scale"]
+    assert K.fused_scale.launches == 1
+
+
+def test_fused_scale_launcher_still_refuses(fake_card):
+    """The low-level launcher raises on float64 and calls nothing."""
+    x = _meta(4, dtype=torch.float64)
+    with pytest.raises(TypeError, match="fused_scale"):
+        K._launch_fused_scale(x, 2.0, torch.float64, None)
     assert fake_card.calls == []
 
 

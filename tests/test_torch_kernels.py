@@ -64,6 +64,24 @@ class TestFusedScale:
                             torch.float32)
         np.testing.assert_array_equal(_np(got), np.asarray(want))
 
+    @pytest.mark.parametrize("shape", [(300,), (3, 77), (1,)])
+    def test_float64_through_f32(self, shape):
+        """float64, which the card's kernel does not take, goes through
+        fp32 in both packages (JAX's needs its x64 mode to keep float64 at
+        all): the same fp32 product, widened back, so equal bits, in place
+        too."""
+        x = np.random.RandomState(4).randn(*shape)
+        with jax.enable_x64(True):
+            want = np.asarray(PK.fused_scale(jnp.asarray(x), 0.3,
+                                             interpret=True))
+        assert want.dtype == np.float64
+        got = K.fused_scale(torch.from_numpy(x), 0.3)
+        assert got.dtype == torch.float64 and tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.numpy(), want)
+        xt = torch.from_numpy(x.copy())
+        assert K.fused_scale(xt, 0.3, out=xt) is xt
+        np.testing.assert_array_equal(xt.numpy(), want)
+
     def test_out_in_place(self):
         x = torch.from_numpy(_rand(3, 99))
         ref = x * 0.5
@@ -345,6 +363,30 @@ class TestFusedConvBnReluBwd:
                                    rtol=2 ** -7, atol=2 ** -7 * float(
                                        np.abs(np.asarray(ref[0],
                                                          np.float32)).max()))
+
+    @pytest.mark.parametrize("shape", [dict(), dict(n=3, h=10, w=10)],
+                             ids=["n4h6w6", "n3h10w10"])
+    def test_f16_matches_pallas(self, shape):
+        """fp16 activations, which the card's kernel does not take, compute
+        the plain version there as here: dW and the channel sums in fp32
+        from the fp16 operands, as the Pallas kernel, normwise within
+        1e-5 of it (measured ~2e-7, a summation order); da rounded once to
+        fp16, within one fp16 step of the Pallas kernel's (2^-10 relative,
+        plus 2^-10 of the largest entry for sums that cancel), since the
+        port rounds W to fp16 for da and the Pallas kernel keeps it fp32."""
+        args = _cbr_bwd_inputs(_cbr_setup(**shape), jnp.float16)
+        pallas = PK.fused_conv_bn_relu_bwd(*args, interpret=True)
+        got = K.fused_conv_bn_relu_bwd(*_to_torch(args, torch.float16))
+        assert got[0].dtype == torch.float16
+        assert all(g.dtype == torch.float32 for g in got[1:])
+        for name, g, w in zip(CBR_NAMES, got, pallas):
+            assert tuple(g.shape) == w.shape, name
+        for name in ("dw", "dgamma", "dbeta"):
+            i = CBR_NAMES.index(name)
+            assert _normwise(_np(got[i]), pallas[i]) <= 1e-5, name
+        want = np.asarray(pallas[0], np.float32)
+        np.testing.assert_allclose(_np(got[0]), want, rtol=2 ** -10,
+                                   atol=2 ** -10 * float(np.abs(want).max()))
 
     def test_channel_64_takes_the_unfused_path(self):
         """Outside the rule (c % 128) the JAX wrapper computes its
