@@ -72,7 +72,18 @@ Phases, in order; any failure exits non-zero:
    kernels without positions never), and hold its first step's loss and
    gradients against phase 4's (1e-5 relative; bit-exact expected, and
    logged);
-8. print the card's name and power limit, the kernels' JSON line, and last
+8. train the same 870.9M TransformerLM through the sharded exchange,
+   ``DistributedOptimizer(AdamW, gradient_predivide_factor=2.0,
+   shard_optimizer_states=True)``, with phase 4's weights and batch, 5 steps
+   in two cases: (a) the fp32 wire in one bucket, whose losses must equal
+   phase 4's bit for bit; (b) ``Compression.int8`` with error feedback
+   and 64 MiB buckets, whose loss must fall and end within
+   ``ZERO_INT8_TOL`` of case (a)'s 5-step drop.  Each case must launch
+   ``fused_scale`` twice a group a step and each flash kernel 16 times a
+   step; each prints step time, tokens/s, peak memory and the profiled
+   step's device time split into reduce-scatter, codec passes, allgather,
+   shard AdamW and the rest;
+9. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -104,6 +115,20 @@ RESNET_KERNELS = ("fused_conv_bn_relu_bwd",)
 TP_KERNELS = ("pallas_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SP_KERNELS = ("flash_fwd_pos", "flash_bwd_dq_pos", "flash_bwd_dkv_pos")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the sharded exchange's record_function ranges (ops/collectives.py,
+# optim/optimizer.py) and the parts of a step they name
+ZERO_RANGES = {"hvd.reduce_scatter": "reduce-scatter",
+               "hvd.wire_codec": "codec passes",
+               "hvd.allgather": "allgather",
+               "hvd.shard_update": "shard AdamW"}
+# Case (b)'s last loss may lie within this share of case (a)'s 5-step loss
+# drop from case (a)'s last loss.  The CPU parity test
+# (tests/test_torch_zero.py, test_int8_wire_with_error_feedback_stays_near_
+# fp32) runs this recipe at this vocabulary and half the width (one layer,
+# d_model 1024) and holds it to 5 % (it read 1.9 %): wider tensors put more
+# of their elements under one int8 step of their shared scale, to wait in
+# the residual, so twice the width gets twice the CPU limit.
+ZERO_INT8_TOL = 1e-1
 
 # pallas_matmul at the tp path's projections, (m, k, n) of the forward
 # x (m, k) @ weightᵀ (k, n); each runs 16 times a step in each layout
@@ -228,17 +253,32 @@ def sass_report(lib_path) -> None:
 
 def device_rows(prof) -> list:
     """(device ms, count, name) of each kernel a torch.profiler run saw;
-    annotations such as "Optimizer.step#AdamW.step" carry the device time
-    of the kernels under them and would count twice (kernel names may hold
-    "#" too: "{lambda()#1}")."""
+    annotations such as "Optimizer.step#AdamW.step", and the device side
+    of a ``record_function`` range (which ``key_averages`` files under the
+    range's name), span the kernels under them and would count twice
+    (kernel names may hold "#" too: "{lambda()#1}")."""
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         if us > 0 and not re.fullmatch(r"[\w.]+#[\w.]+", e.key) and \
+                e.key not in ZERO_RANGES and \
                 str(getattr(e, "device_type", "")).endswith("CUDA"):
             rows.append((us / 1e3, e.count, e.key))
     return rows
+
+
+def range_kernels(event) -> list:
+    """(name, device us) of the kernels a host-side profiler event and its
+    children launched.  The device side of an annotation (a
+    ``record_function`` range, "Optimizer.step#AdamW.step") may be filed
+    among an event's kernels; it spans kernels counted already, so it is
+    left out (``FunctionEvent.device_time_total`` keeps it: on the
+    sharded phase it read more than the step)."""
+    own = [(k.name, k.duration) for k in event.kernels
+           if k.name not in ZERO_RANGES and
+           not re.fullmatch(r"[\w.]+#[\w.]+", k.name)]
+    return own + [k for c in event.cpu_children for k in range_kernels(c)]
 
 
 def device_split(torch, fn, iters: int = 20, warmup: int = 3,
@@ -1087,10 +1127,13 @@ def _category(name: str) -> str:
     return "other elementwise"
 
 
-def profile_step(torch, run, focus: str = "") -> None:
+def profile_step(torch, run, focus: str = "", ranges=None) -> dict:
     """One more training step under torch.profiler: device time by kernel
     and by category, and the device's busy share of the step's wall time;
-    every kernel whose name holds ``focus`` is listed too."""
+    every kernel whose name holds ``focus`` is listed too.  With
+    ``ranges`` ({record_function name: part}), also the device time of
+    the kernels launched under each range, and the rest of the busy time;
+    returns {part: ms} with "busy" and "wall"."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1112,6 +1155,34 @@ def profile_step(torch, run, focus: str = "") -> None:
     for ms, count, key in ranked[:12] + [r for r in ranked[12:]
                                          if focus and focus in r[2]]:
         log(f"profile:   {ms:8.2f} ms x{count:<4d} {key[:90]}")
+    split = {"wall": wall_ms, "busy": busy}
+    if ranges:
+        # the kernels launched under each range's host side; its device
+        # side spans them, idle gaps included, and is logged apart
+        span = dict.fromkeys(ranges.values(), 0.0)
+        top: dict = {part: {} for part in ranges.values()}
+        for part in ranges.values():
+            split[part] = 0.0
+        for e in prof.events():
+            if e.name not in ranges:
+                continue
+            part = ranges[e.name]
+            if str(e.device_type).endswith("CPU"):
+                for name, us in range_kernels(e):
+                    split[part] += us / 1e3
+                    top[part][name] = top[part].get(name, 0.0) + us / 1e3
+            else:
+                span[part] += e.time_range.elapsed_us() / 1e3
+        split["rest"] = busy - sum(split[p] for p in ranges.values())
+        log("profile split: " + ", ".join(
+            f"{part} {split[part]:.2f} ms" for part in
+            list(ranges.values()) + ["rest"]) + f" of {busy:.2f} ms busy")
+        log("profile split: device-side spans " + ", ".join(
+            f"{part} {ms:.2f} ms" for part, ms in span.items()))
+        for part, names in top.items():
+            for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:3]:
+                log(f"profile split:   {part}: {ms:8.2f} ms {name[:80]}")
+    return split
 
 
 def phase_train(torch):
@@ -1330,6 +1401,99 @@ def phase_sp_train(torch, first):
                         peak_gib=peak / 2**30, losses=losses,
                         first_step_ms=times[0] * 1e3, loss_rel=loss_rel,
                         grad_rel=grad_rel, bit_exact=bit_exact)
+
+
+def phase_zero_train(torch, ref_losses):
+    """The 870.9M TransformerLM through the sharded exchange at a world of
+    one, with phase 4's weights, batch and recipe; ``ref_losses`` are
+    phase 4's.  Returns each case's summary."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import kernels as K
+
+    hvd.init()
+    dev = hvd.device()
+    cfg = full_config(torch, "flash")
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (FULL["batch"], FULL["seq"] + 1),
+                           generator=torch.Generator().manual_seed(SEED))
+    cases = {"a": {},
+             "b": dict(compression=hvd.Compression.int8, error_feedback=True,
+                       exchange_bucket_bytes=64 << 20)}
+    steps, out = 5, {}
+    for name, kw in cases.items():
+        model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              weight_decay=1e-4),
+            gradient_predivide_factor=2.0, shard_optimizer_states=True, **kw)
+        step = hvd.DistributedTrainStep(lambda m, b: lm_loss(m, b), opt)
+        groups = len(opt.spec.groups)
+        log(f"zero ({name}): {groups} group(s), "
+            f"{sum(g.padded for g in opt.spec.groups) / 1e6:.1f}M values, "
+            f"options {sorted(kw)}")
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        model, opt = step.init(model)
+        batch = step.shard_batch(tokens)
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            model, opt, loss = step(model, opt, batch)
+            losses.append(float(loss))           # synchronises
+            times.append(time.perf_counter() - t0)
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"zero ({name}): losses {losses}")
+        log(f"zero ({name}): launches {counts}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"zero ({name}): non-finite loss")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"zero ({name}): loss did not fall: "
+                                 f"{losses}")
+        check_flash_launches(counts, steps, f"zero ({name})")
+        # a prescale of each group's buffer and a postscale of its shard
+        if counts["fused_scale"] != 2 * groups * steps:
+            raise AssertionError(
+                f"zero ({name}): {counts['fused_scale']} fused_scale "
+                f"launches, want {2 * groups * steps}")
+        steady = sorted(times[1:])[len(times[1:]) // 2]
+        tokens_per_step = FULL["batch"] * FULL["seq"]
+        log(f"zero ({name}): step {steady * 1e3:.1f} ms (median of steps "
+            f"2-5; first {times[0] * 1e3:.1f} ms), "
+            f"{tokens_per_step / steady:.0f} tokens/s, peak memory "
+            f"{peak / 2**30:.2f} GiB, fused_scale "
+            f"{counts['fused_scale'] // steps} a step")
+        split = profile_step(torch, lambda: float(step(model, opt, batch)[2]),
+                             "scale_", ZERO_RANGES)
+        out[name] = dict(step_ms=steady * 1e3,
+                         tokens_per_s=tokens_per_step / steady,
+                         peak_gib=peak / 2**30, losses=losses,
+                         first_step_ms=times[0] * 1e3, groups=groups,
+                         fused_scale_per_step=counts["fused_scale"] // steps,
+                         split_ms=split)
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+
+    a, b = out["a"]["losses"], out["b"]["losses"]
+    # (a): the same elementwise AdamW on one flat shard, on the same
+    # gradients (the scale passes and a reduce-scatter of one rank are
+    # exact), so phase 4's losses bit for bit
+    log(f"parity zero (a) vs phase 4: {a} vs {ref_losses}, bit-exact: "
+        f"{a == ref_losses}")
+    if a != ref_losses:
+        raise AssertionError("the sharded fp32 exchange and phase 4 disagree")
+    drop = a[0] - a[-1]
+    dev_b = abs(b[-1] - a[-1])
+    log(f"parity zero (b) vs (a): last loss {b[-1]!r} vs {a[-1]!r}, "
+        f"{dev_b:.3e} = {dev_b / drop:.3e} of (a)'s drop {drop:.4f} (tol "
+        f"{ZERO_INT8_TOL})")
+    if not dev_b <= ZERO_INT8_TOL * drop:
+        raise AssertionError("the int8 wire strays from the fp32 one")
+    out["b"]["drop_share"] = dev_b / drop
+    hvd.shutdown()
+    return out
 
 
 def phase_tp_train(torch):
@@ -1580,6 +1744,8 @@ def main() -> int:
     del first
     for name in SP_KERNELS:
         counts[name] = sp_counts[name]
+    torch.cuda.empty_cache()
+    zero = phase_zero_train(torch, train["losses"])
 
     csrc = "horovod_tpu_torch/ops/csrc/"
     tpu = "horovod_tpu/ops/pallas_kernels.py:"
@@ -1608,6 +1774,7 @@ def main() -> int:
     log(f"resnet summary: {json.dumps(resnet)}")
     log(f"tp summary: {json.dumps(tp)}")
     log(f"sp summary: {json.dumps(sp)}")
+    log(f"zero summary: {json.dumps(zero)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

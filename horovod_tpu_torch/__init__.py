@@ -7,6 +7,7 @@ an NVIDIA GPU: Horovod's five-line recipe ::
 
     hvd.init()                                     # one process per GPU
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters(), 3e-4))
+    # or shard_optimizer_states=True: ZeRO-style, 1/N optimizer state a rank
     step = hvd.DistributedTrainStep(loss_fn, opt)
     model, opt = step.init(model)                  # broadcast from rank 0
     model, opt, loss = step(model, opt, step.shard_batch(batch))
@@ -38,14 +39,19 @@ from horovod_tpu_torch.ops import (  # noqa: F401
     ReduceOp,
     Sum,
     allgather,
+    allgather_v,
     allreduce,
+    alltoall,
+    alltoall_v,
     barrier,
     broadcast,
     grouped_allreduce,
+    reducescatter,
 )
 from horovod_tpu_torch.optim import (  # noqa: F401
     DistributedOptimizer,
     DistributedTrainStep,
+    ShardedOptimizerState,
 )
 from horovod_tpu_torch.runtime import state as _state
 
@@ -100,10 +106,12 @@ def device():
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "cross_rank", "cross_size", "device",
-    "allreduce", "grouped_allreduce", "allgather", "broadcast", "barrier",
+    "allreduce", "grouped_allreduce", "allgather", "allgather_v",
+    "reducescatter", "alltoall", "alltoall_v", "broadcast", "barrier",
     "Average", "Sum", "Adasum", "ReduceOp", "Compression",
     "HorovodInternalError", "HostsUpdatedInterrupt",
     "broadcast_variables", "broadcast_parameters", "broadcast_object",
     "broadcast_optimizer_state",
-    "DistributedOptimizer", "DistributedTrainStep", "checkpoint",
+    "DistributedOptimizer", "DistributedTrainStep", "ShardedOptimizerState",
+    "checkpoint",
 ]

@@ -6,6 +6,9 @@ A ``Compressor`` has ``compress(tensor) -> (tensor, ctx)`` and
 :func:`~horovod_tpu_torch.ops.kernels.fused_scale` kernel, and carry their
 ``wire_dtype`` so that the exchange folds the cast into its prescale pass
 over each bucket instead of casting every gradient first.
+``Compression.int8`` is no compressor but a marker that the reduction
+layers route through the shared-scale quantized codec
+(:func:`~horovod_tpu_torch.ops.collectives.quantized_allreduce`).
 """
 
 from __future__ import annotations
@@ -51,9 +54,27 @@ class BF16Compressor(Compressor):
     wire_dtype = torch.bfloat16
 
 
+class Int8WireReduction:
+    """Marker selecting the quantized *wire reduction*
+    (``horovod_tpu/ops/compression.py`` ``Int8WireReduction``), not a
+    ``Compressor``: the reduction runs between quantizing and
+    dequantizing, after the ranks agree on a shared scale, because int8
+    payloads with per-rank scales would overflow and mis-scale when
+    summed.  ``grouped_allreduce``, ``distributed_gradients`` and the
+    sharded exchange route float groups through
+    :func:`~horovod_tpu_torch.ops.collectives.quantized_allreduce` /
+    ``quantized_reducescatter`` (int8, or fp8 e4m3 under
+    ``HOROVOD_EXCHANGE_WIRE_DTYPE``).  As in the JAX package, the sum
+    runs in int32 (int8) or fp32 (fp8), so the wire carries 4 bytes an
+    element: the codec rounds, it does not shrink the wire."""
+
+    wire_reduce_bits = 8
+
+
 class Compression:
     """Namespace matching the reference's ``Compression`` selector."""
 
     none = NoneCompressor
     fp16 = FP16Compressor
     bf16 = BF16Compressor
+    int8 = Int8WireReduction

@@ -2,6 +2,7 @@
 
 from horovod_tpu_torch.optim.optimizer import (  # noqa: F401
     DistributedOptimizer,
+    ShardedOptimizerState,
     distributed_gradients,
 )
 from horovod_tpu_torch.optim.train_step import DistributedTrainStep  # noqa: F401

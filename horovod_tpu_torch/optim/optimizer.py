@@ -7,19 +7,29 @@ packed into byte-capped fusion buckets in reverse-layer order
 :func:`~horovod_tpu_torch.ops.collectives.grouped_allreduce`, whose
 pre/postscale passes are ``fused_scale`` kernel launches.
 :func:`DistributedOptimizer` wraps a ``torch.optim.Optimizer`` so that
-``step()`` exchanges the gradients before the update.
+``step()`` exchanges the gradients before the update, or, with
+``shard_optimizer_states=True``, runs the ZeRO-style sharded exchange
+(:class:`_ShardedDistributedOptimizer`, JAX
+``sharded_distributed_update``): reduce-scatter, the update on this rank's
+1/N flat shard only, allgather.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+import inspect
+from typing import Dict, List, Optional, Sequence
 
 import torch
+from torch.profiler import record_function
 
 from horovod_tpu_torch.ops import collectives as C
 from horovod_tpu_torch.ops.bucketing import plan_buckets
 from horovod_tpu_torch.ops.collectives import Average, ReduceOp
+from horovod_tpu_torch.ops.fused_collectives import resolve_fused_collectives
 from horovod_tpu_torch.runtime import state
+from horovod_tpu_torch.runtime.topology import TOPOLOGY_MODES, \
+    resolve_topology
 
 
 def _fusion_threshold() -> int:
@@ -35,7 +45,8 @@ def distributed_gradients(grads: Sequence[torch.Tensor],
                           bucket_bytes: Optional[int] = None) -> None:
     """Reduce ``grads`` across ranks in place, one fused collective per
     bucket (and dtype).  ``bucket_bytes`` defaults to the runtime's fusion
-    threshold (64 MiB)."""
+    threshold (64 MiB).  ``Compression.int8`` sends float buckets through
+    the shared-scale quantized wire, one scale per gradient."""
     grads = list(grads)
     if bucket_bytes is None:
         bucket_bytes = _fusion_threshold()
@@ -110,6 +121,169 @@ class _DistributedOptimizer:
         return self.optimizer.step(closure)
 
 
+@dataclasses.dataclass
+class ShardedOptimizerState:
+    """State of the sharded exchange (JAX ``ShardedOptimizerState``):
+    ``inner`` is the user's optimizer class built again over ``shards``,
+    this rank's flat slice of each parameter group buffer (one tensor per
+    :class:`~horovod_tpu_torch.ops.collectives.ShardGroup`), so its state
+    is 1/N of the replicated footprint.  ``residuals`` (error feedback
+    only, else None) holds the quantized wire's rounding residual of each
+    float group, fp32 at the group's full padded length."""
+
+    inner: torch.optim.Optimizer
+    shards: Dict[str, torch.Tensor]
+    residuals: Optional[Dict[str, torch.Tensor]] = None
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) \
+            and a.shape == b.shape and bool(torch.equal(a, b))
+    return a == b
+
+
+def _hyperparameters(optimizer: torch.optim.Optimizer) -> dict:
+    """The hyperparameters every param group shares; ``ValueError`` if
+    they differ (the sharded update applies one rule to the whole flat
+    shard, as JAX applies one transform)."""
+    groups = optimizer.param_groups
+    hyper = {k: v for k, v in groups[0].items() if k != "params"}
+    for g in groups[1:]:
+        other = {k: v for k, v in g.items() if k != "params"}
+        if other.keys() != hyper.keys() or \
+                not all(_same(v, other[k]) for k, v in hyper.items()):
+            raise ValueError(
+                "shard_optimizer_states applies one update rule to the "
+                "flat shard; the optimizer's param groups have different "
+                "hyperparameters")
+    return hyper
+
+
+def _rebuild(optimizer: torch.optim.Optimizer,
+             params: List[torch.Tensor]) -> torch.optim.Optimizer:
+    """``type(optimizer)`` over ``params`` with ``optimizer``'s defaults
+    and shared group hyperparameters."""
+    accepted = inspect.signature(type(optimizer).__init__).parameters
+    kwargs = {k: v for k, v in optimizer.defaults.items() if k in accepted}
+    return type(optimizer)([dict(_hyperparameters(optimizer),
+                                 params=params)], **kwargs)
+
+
+class _ShardedDistributedOptimizer(_DistributedOptimizer):
+    """``step()`` = the sharded exchange with the update in the middle
+    (JAX ``sharded_distributed_update``, flat topology):
+
+    1. reduce-scatter the gradients in reverse-layer-order buckets
+       (:func:`~horovod_tpu_torch.ops.collectives.grouped_reducescatter`;
+       ``Compression.int8`` quantizes the wire, error feedback keeps its
+       residual);
+    2. copy this rank's slice of the parameters into its shard tensors
+       (:func:`~horovod_tpu_torch.ops.collectives.local_fusion_shards`),
+       so a broadcast or restore between steps is seen, and set their
+       ``.grad`` to the reduced shards;
+    3. step the user's optimizer class, rebuilt over the shards, with the
+       user optimizer's current hyperparameters;
+    4. all-gather the new shards and copy them into the parameters.
+
+    Equal to allreduce-then-update for elementwise optimizers (SGD,
+    momentum, Adam/AdamW, RMSProp): element i's update reads only element
+    i's history.  The padded tail of each shard stays zero.
+
+    The exchange covers the parameters that require a gradient when the
+    wrapper is built: a frozen one (``requires_grad=False``) is left out,
+    so it stays as it is, as torch.optim leaves it.  A trainable parameter
+    with no gradient at a step takes a zero one, as every leaf of the
+    parameter tree has a gradient in JAX; weight decay and momentum then
+    still move it, where the replicated path would skip it."""
+
+    def __init__(self, optimizer, op, compression, backward_passes_per_step,
+                 prescale_factor, postscale_factor, bucket_bytes,
+                 error_feedback: bool):
+        super().__init__(optimizer, op, compression,
+                         backward_passes_per_step, prescale_factor,
+                         postscale_factor)
+        self.quantized_bits = getattr(compression, "wire_reduce_bits", None)
+        self._all = [p for g in optimizer.param_groups for p in g["params"]
+                     if p.requires_grad]
+        if not self._all:
+            raise ValueError("shard_optimizer_states needs a parameter "
+                             "that requires a gradient")
+        if not all(p.is_floating_point() for p in self._all):
+            raise ValueError("shard_optimizer_states needs floating "
+                             "parameters")
+        self.spec = C.make_fusion_spec(self._all, state.global_state().size,
+                                       bucket_bytes)
+        shards = {}
+        for g in self.spec.groups:
+            first = self._all[g.indices[0]]
+            shards[g.key] = torch.zeros(g.shard, dtype=first.dtype,
+                                        device=first.device)
+        residuals = None
+        if error_feedback:
+            residuals = {g.key: torch.zeros(g.padded, dtype=torch.float32,
+                                            device=shards[g.key].device)
+                         for g in self.spec.groups}
+        self.sharded_state = ShardedOptimizerState(
+            inner=_rebuild(optimizer, list(shards.values())),
+            shards=shards, residuals=residuals)
+
+    def synchronize(self) -> None:
+        raise ValueError("the sharded exchange reduces the gradients inside "
+                         "step(), together with the update")
+
+    def state_dict(self) -> dict:
+        """This rank's shard state: the inner optimizer's and the
+        residuals (a per-rank checkpoint; sharded save/restore across
+        world sizes is ROADMAP Queue A 8)."""
+        return {"inner": self.sharded_state.inner.state_dict(),
+                "residuals": self.sharded_state.residuals}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.sharded_state.inner.load_state_dict(sd["inner"])
+        if sd.get("residuals") is not None:
+            for k, r in sd["residuals"].items():
+                self.sharded_state.residuals[k].copy_(r)
+
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        if self.backward_passes_per_step > 1 and \
+                not self._accumulate(self._params()):
+            return loss
+        self._exchange_and_update()
+        return loss
+
+    @torch.no_grad()
+    def _exchange_and_update(self) -> None:
+        st = self.sharded_state
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._all]
+        out = C.grouped_reducescatter(
+            grads, op=self.op, prescale_factor=self.prescale_factor,
+            postscale_factor=self.postscale_factor,
+            quantized_bits=self.quantized_bits, spec=self.spec,
+            residuals=st.residuals)
+        if st.residuals is not None:
+            st.residuals = out[2]
+        del grads
+        C.local_fusion_shards(self._all, self.spec, out=st.shards)
+        for key, shard in st.shards.items():
+            shard.grad = out[0][key]
+        del out
+        inner_group = st.inner.param_groups[0]
+        inner_group.update(_hyperparameters(self.optimizer))
+        with record_function("hvd.shard_update"):
+            st.inner.step()
+        for shard in st.shards.values():
+            shard.grad = None
+        for p, full in zip(self._all, C.grouped_allgather(st.shards,
+                                                           self.spec)):
+            p.copy_(full)
+
+
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters=None,
                          op: ReduceOp = Average,
@@ -117,7 +291,13 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          backward_passes_per_step: int = 1,
                          prescale_factor: Optional[float] = None,
                          postscale_factor: Optional[float] = None,
-                         gradient_predivide_factor: float = 1.0):
+                         gradient_predivide_factor: float = 1.0,
+                         shard_optimizer_states: bool = False,
+                         exchange_bucket_bytes: Optional[int] = None,
+                         hierarchy: str = "auto",
+                         fused_collectives: str = "auto",
+                         error_feedback: bool = False,
+                         reduction: Optional[str] = None):
     """Wrap ``optimizer`` so each ``step()`` uses cross-rank-reduced
     gradients (reference ``DistributedOptimizer``, ``torch/optimizer.py``).
 
@@ -127,11 +307,58 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ``step()`` a no-op for N-1 calls, accumulating each call's gradients,
     and on the Nth reduce their mean and update, as optax ``MultiSteps``
     does in the JAX package.  ``named_parameters`` is accepted for the
-    reference's signature.
+    reference's signature.  ``Compression.int8`` quantizes the wire
+    (shared-scale int8, or fp8 e4m3 under ``HOROVOD_EXCHANGE_WIRE_DTYPE``).
+
+    ``shard_optimizer_states=True`` replaces allreduce-then-update with the
+    ZeRO-style exchange (:class:`_ShardedDistributedOptimizer`): the same
+    parameters within dtype tolerance, 1/N optimizer state and update work
+    per rank.  With it: ``exchange_bucket_bytes`` splits the exchange into
+    reverse-layer-order buckets (None: one); ``hierarchy`` selects the
+    topology, of which only flat is ported (``"auto"`` resolves to it on a
+    one-level world; a two-level or tree exchange raises
+    ``NotImplementedError``); ``fused_collectives`` is checked and has no
+    effect: JAX tiles the last bucket's reduce-scatter so that XLA overlaps
+    each tile's wire with the update, and eager collectives run one after
+    another, so tiles would only add launches; ``error_feedback=True``
+    (needs ``Compression.int8``) carries the wire's rounding residual;
+    ``reduction="adasum"`` is, on the flat topology, the plain sum, bit
+    for bit, as in JAX.  The wrapped optimizer must be elementwise, with
+    one set of hyperparameters over its param groups.
     """
     del named_parameters
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
+    if exchange_bucket_bytes is not None and not shard_optimizer_states:
+        raise ValueError(
+            "exchange_bucket_bytes buckets the sharded exchange; pass "
+            "shard_optimizer_states=True to enable it")
+    if hierarchy != "auto" and not shard_optimizer_states:
+        raise ValueError(
+            "hierarchy selects the sharded exchange topology; pass "
+            "shard_optimizer_states=True to enable it")
+    if fused_collectives != "auto" and not shard_optimizer_states:
+        raise ValueError(
+            "fused_collectives schedules the sharded exchange's final "
+            "bucket; pass shard_optimizer_states=True to enable it")
+    if reduction not in (None, "sum") and not shard_optimizer_states:
+        raise ValueError(
+            "reduction selects the sharded exchange's combine operator; "
+            "pass shard_optimizer_states=True to enable it")
+    qbits = getattr(compression, "wire_reduce_bits", None)
+    if shard_optimizer_states:
+        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            raise ValueError(
+                "shard_optimizer_states supports op=Sum/Average")
+        if compression is not None and qbits is None:
+            raise ValueError(
+                "shard_optimizer_states supports only wire-reduction "
+                "compression (Compression.int8); compressor-style codecs "
+                "would decompress before the shard slicing")
+    if error_feedback and not shard_optimizer_states:
+        raise ValueError(
+            "error_feedback carries the sharded exchange's quantization "
+            "residual; pass shard_optimizer_states=True to enable it")
     if gradient_predivide_factor != 1.0:
         if op != Average:
             raise ValueError("gradient_predivide_factor requires op=Average")
@@ -141,6 +368,25 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                 "prescale/postscale factors, not both")
         prescale_factor = 1.0 / gradient_predivide_factor
         postscale_factor = gradient_predivide_factor
+    if shard_optimizer_states:
+        if hierarchy not in TOPOLOGY_MODES:
+            raise ValueError(f"hierarchy must be one of {TOPOLOGY_MODES}, "
+                             f"got {hierarchy!r}")
+        if error_feedback and qbits is None:
+            raise ValueError(
+                "error_feedback compensates the quantized wire's rounding; "
+                "pass a wire-reduction compression (Compression.int8) to "
+                "enable it")
+        # adasum combines the outermost level's partial sums; the flat
+        # topology has one level, so both operators are the plain sum
+        C._resolve_reduction(reduction)
+        resolve_fused_collectives(fused_collectives)
+        st = state.global_state()
+        resolve_topology(hierarchy, (st.cross_size, st.local_size))
+        return _ShardedDistributedOptimizer(
+            optimizer, op, compression, backward_passes_per_step,
+            prescale_factor, postscale_factor, exchange_bucket_bytes,
+            error_feedback)
     return _DistributedOptimizer(optimizer, op, compression,
                                  backward_passes_per_step, prescale_factor,
                                  postscale_factor)

@@ -35,10 +35,17 @@ from horovod_tpu_torch.ops.collectives import Average, ReduceOp
 from horovod_tpu_torch.optim.optimizer import (
     DistributedOptimizer,
     _DistributedOptimizer,
+    _ShardedDistributedOptimizer,
 )
 from horovod_tpu_torch.parallel.mesh import ParallelMesh, make_parallel_mesh
 from horovod_tpu_torch.parallel.plan import PLAN_AXES, ShardingPlan
 from horovod_tpu_torch.runtime import config, state
+
+#: the sharded exchange's options as a step leaves them unset
+_SHARDED_DEFAULTS = dict(shard_optimizer_states=False,
+                         exchange_bucket_bytes=None, hierarchy="auto",
+                         fused_collectives="auto", error_feedback=False,
+                         reduction=None)
 
 
 class DistributedTrainStep:
@@ -56,27 +63,62 @@ class DistributedTrainStep:
     own plan).  The step trains data plans (dp/fsdp) plus sequence
     parallelism (sp); plans with pp, ep or tp are rejected.  Every rank
     must construct the step with the same plan, since the mesh's groups
-    are created collectively."""
+    are created collectively.
+
+    ``shard_optimizer_states=True`` wraps the optimizer in the ZeRO-style
+    sharded exchange (:func:`DistributedOptimizer`'s argument of that
+    name), with ``exchange_bucket_bytes``, ``hierarchy``,
+    ``fused_collectives``, ``error_feedback`` and ``reduction``; unset,
+    the first four fall back to ``HOROVOD_EXCHANGE_BUCKET_BYTES``,
+    ``HOROVOD_EXCHANGE_HIERARCHY``, ``HOROVOD_FUSED_COLLECTIVES`` and
+    ``HOROVOD_EXCHANGE_REDUCTION``, as in the JAX step."""
 
     def __init__(self, loss_fn: Callable, optimizer,
                  op: ReduceOp = Average, compression=None, plan=None,
-                 mesh: Optional[ParallelMesh] = None):
+                 mesh: Optional[ParallelMesh] = None,
+                 shard_optimizer_states: bool = False,
+                 exchange_bucket_bytes: Optional[int] = None,
+                 hierarchy: str = "auto",
+                 fused_collectives: str = "auto",
+                 error_feedback: bool = False,
+                 reduction: Optional[str] = None):
+        sharded = dict(shard_optimizer_states=shard_optimizer_states,
+                       exchange_bucket_bytes=exchange_bucket_bytes,
+                       hierarchy=hierarchy,
+                       fused_collectives=fused_collectives,
+                       error_feedback=error_feedback, reduction=reduction)
         if isinstance(optimizer, _DistributedOptimizer):
-            if op != Average or compression is not None:
-                raise ValueError("op/compression belong to the "
+            if op != Average or compression is not None or \
+                    sharded != _SHARDED_DEFAULTS:
+                raise ValueError("op/compression and the sharded exchange's "
+                                 "options belong to the "
                                  "DistributedOptimizer already given")
         else:
+            if shard_optimizer_states:
+                cfg = state.global_state().config
+                if exchange_bucket_bytes is None:
+                    sharded["exchange_bucket_bytes"] = \
+                        cfg.exchange_bucket_bytes
+                if hierarchy == "auto":
+                    sharded["hierarchy"] = cfg.exchange_hierarchy
+                if fused_collectives == "auto":
+                    sharded["fused_collectives"] = cfg.fused_collectives
             optimizer = DistributedOptimizer(optimizer, op=op,
-                                             compression=compression)
+                                             compression=compression,
+                                             **sharded)
         self._loss_fn = loss_fn
         self.optimizer = optimizer
         self.plan, self.mesh = _resolve_plan(plan, mesh)
 
     def init(self, model: torch.nn.Module):
-        """Broadcast rank 0's parameters and optimizer state to every
-        rank; returns ``(model, optimizer)``."""
+        """Broadcast rank 0's parameters, and its optimizer state unless the
+        state is sharded (each rank's shard state is its own, as the JAX
+        step's ``init_fn`` builds it per rank); returns ``(model,
+        optimizer)``."""
         F.broadcast_variables(model, root_rank=0)
-        F.broadcast_optimizer_state(self.optimizer.optimizer, root_rank=0)
+        if not isinstance(self.optimizer, _ShardedDistributedOptimizer):
+            F.broadcast_optimizer_state(self.optimizer.optimizer,
+                                        root_rank=0)
         return model, self.optimizer
 
     def shard_batch(self, batch):

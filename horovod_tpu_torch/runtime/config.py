@@ -2,8 +2,9 @@
 
 The part of ``horovod_tpu/runtime/config.py`` the PyTorch port reads: the
 launcher's identity knobs, the coordinator address, the fusion threshold,
-the fused-collectives mode, the sequence-parallel ring's layout and the
-parallelism plan, under the same ``HOROVOD_*`` names and
+the sharded exchange's bucket cap, topology, wire codec and reduction
+operator, the fused-collectives mode, the sequence-parallel ring's layout
+and the parallelism plan, under the same ``HOROVOD_*`` names and
 with the same defaults, so one environment drives both packages.  A knob
 joins ``KNOWN_KNOBS`` and ``Config`` in the slice that ports the subsystem reading it.  The JAX
 package's jsrun/PMIx identity fallback is not copied: the port's launcher
@@ -26,6 +27,9 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_COORDINATOR_ADDR",
     # -- fusion
     "HOROVOD_FUSION_THRESHOLD",
+    # -- the sharded exchange (optim/optimizer.py, ops/collectives.py)
+    "HOROVOD_EXCHANGE_BUCKET_BYTES", "HOROVOD_EXCHANGE_HIERARCHY",
+    "HOROVOD_EXCHANGE_WIRE_DTYPE", "HOROVOD_EXCHANGE_REDUCTION",
     # -- tile-fused matmul⊗collective rings (ops/fused_collectives.py)
     "HOROVOD_FUSED_COLLECTIVES",
     # -- the sp ring's sequence layout (parallel/ring_attention.py)
@@ -67,6 +71,16 @@ class Config:
     # -- fusion / bucketing (reference: 64 MiB default, operations.cc:432)
     fusion_threshold_bytes: int = 64 * 1024 * 1024
 
+    # -- the sharded exchange (shard_optimizer_states=True): bucket byte
+    # cap (None: one bucket) and topology ("auto" resolves against the
+    # world's (cross, local) extents, runtime/topology.py), read by
+    # DistributedTrainStep; the wire codec of Compression.int8 ("int8" or
+    # "fp8_e4m3") and the combine operator ("sum" or "adasum")
+    exchange_bucket_bytes: Optional[int] = None
+    exchange_hierarchy: str = "auto"
+    exchange_wire_dtype: str = "int8"
+    exchange_reduction: str = "sum"
+
     # -- tile-fused rings at the tensor-parallel boundaries: "auto",
     # "on" or "off" (ops/fused_collectives.resolve_fused_collectives)
     fused_collectives: str = "auto"
@@ -91,6 +105,13 @@ class Config:
             coordinator_addr=os.environ.get("HOROVOD_COORDINATOR_ADDR"),
             fusion_threshold_bytes=_env_int(
                 "HOROVOD_FUSION_THRESHOLD", 64 * 1024 * 1024),
+            exchange_bucket_bytes=opt_int("HOROVOD_EXCHANGE_BUCKET_BYTES"),
+            exchange_hierarchy=os.environ.get(
+                "HOROVOD_EXCHANGE_HIERARCHY", "auto").lower(),
+            exchange_wire_dtype=os.environ.get(
+                "HOROVOD_EXCHANGE_WIRE_DTYPE", "int8").lower(),
+            exchange_reduction=os.environ.get(
+                "HOROVOD_EXCHANGE_REDUCTION", "sum").lower(),
             fused_collectives=os.environ.get(
                 "HOROVOD_FUSED_COLLECTIVES", "auto").lower(),
             plan=os.environ.get("HOROVOD_PLAN"),

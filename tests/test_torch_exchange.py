@@ -57,6 +57,10 @@ class TestConfig:
            "HOROVOD_CROSS_RANK": "1", "HOROVOD_CROSS_SIZE": "4",
            "HOROVOD_COORDINATOR_ADDR": "localhost:1234",
            "HOROVOD_FUSION_THRESHOLD": "4096",
+           "HOROVOD_EXCHANGE_BUCKET_BYTES": "1048576",
+           "HOROVOD_EXCHANGE_HIERARCHY": "FLAT",
+           "HOROVOD_EXCHANGE_WIRE_DTYPE": "FP8_E4M3",
+           "HOROVOD_EXCHANGE_REDUCTION": "ADASUM",
            "HOROVOD_FUSED_COLLECTIVES": "ON",
            "HOROVOD_SP_LAYOUT": "zigzag",
            "HOROVOD_PLAN": "dp=2,sp=4"}

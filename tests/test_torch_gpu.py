@@ -6,8 +6,9 @@ machine with::
 
 With two or more cards, ``TestNcclWorld`` also runs the exchange and the
 training step over NCCL, one process per card, and with four
-``fused_tp_apply`` at tp = 4 and the sp ring at sp = 4 (run those two
-alone on four cards: ``-k "test_tp_over_nccl or test_sp_over_nccl"``).
+``fused_tp_apply`` at tp = 4, the sp ring at sp = 4 and the sharded
+exchange at a world of 4 (run those alone on four cards: ``-k
+"test_tp_over_nccl or test_sp_over_nccl or test_zero_over_nccl"``).
 Imports torch, numpy, the port and ``chip_smoke``'s inputs and tolerances
 only.
 """
@@ -21,8 +22,8 @@ import torch
 import chip_smoke
 from horovod_tpu_torch.ops import kernels as K
 
-from torch_port_workers import EXCHANGE_CASES, check_exchange, \
-    exchange_inputs, spawn_world
+from torch_port_workers import EXCHANGE_CASES, assert_adam_close, \
+    check_exchange, exchange_inputs, spawn_world, zero_inputs
 
 
 #: fused_scale.cu's batch: U = 4 16-byte vectors for each of a block's 256
@@ -520,6 +521,21 @@ class TestOnCard:
             rel = (got.float() - want.float()).norm() / want.float().norm()
             assert float(rel) <= 5e-3
 
+    def test_codec_on_card_equals_cpu(self, cuda):
+        """The int8 and fp8 codec, with and without segments, with error
+        feedback, on the card (an NCCL world of one) bit for bit equal to
+        the CPU (gloo); bitwise_and/or, which sum bits over NCCL's SUM,
+        equal too."""
+        card = spawn_world("run_codec", world=1, device="cuda",
+                           timeout=300)[0]
+        cpu = spawn_world("run_codec", world=1, device="cpu")[0]
+        assert card.keys() == cpu.keys()
+        for key, want in cpu.items():
+            got = card[key]
+            for g, w in zip(*((got, want) if isinstance(want, tuple)
+                              else ((got,), (want,)))):
+                np.testing.assert_array_equal(g, w, err_msg=str(key))
+
     def test_resnet_fused_matches_unfused(self, cuda):
         """A narrow bf16 ResNet (two stride-1 blocks at 128 filters, on the
         kernel's rule) under the same weights: the fused segment's
@@ -667,3 +683,44 @@ class TestNcclWorld:
                        zip(r["losses"], r["ref_losses"])]
                 assert max(rel) <= 5e-3, (rank, layout, r)
                 assert r["updates_normwise"] <= 2e-2, (rank, layout, r)
+
+    def test_zero_over_nccl(self, cards):
+        """The sharded exchange at a world of 4 over NCCL: reducescatter,
+        alltoall and the bitwise pair against numpy; the small transformer
+        trained sharded against the replicated run (losses 1e-5 relative,
+        parameters as assert_adam_close states: the CPU limits), and each
+        rank's AdamW state exactly its shard's, a quarter of the
+        replicated bytes plus padding.  Run alone on four cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        outs = spawn_world("run_zero_nccl", world=4, device="cuda",
+                           timeout=300)
+        inp = zero_inputs(4)
+        total = inp["rs"].sum(axis=0)
+        for rank, out in enumerate(outs):
+            np.testing.assert_array_equal(out["rs"],
+                                          total[rank * 3:(rank + 1) * 3])
+            np.testing.assert_array_equal(out["a2a"], np.concatenate(
+                [inp["a2a"][j][:, rank * 3:(rank + 1) * 3]
+                 for j in range(4)], axis=2))
+            np.testing.assert_array_equal(
+                out["and"], np.bitwise_and.reduce(inp["bits64"], axis=0))
+            np.testing.assert_array_equal(
+                out["or"], np.bitwise_or.reduce(inp["bits32"], axis=0))
+            dense, sharded = out[False], out[True]
+            print(f"rank {rank}: losses replicated {dense['losses']}, "
+                  f"sharded {sharded['losses']}; state bytes "
+                  f"{dense['state_bytes']} -> {sharded['state_bytes']}")
+            np.testing.assert_allclose(sharded["losses"], dense["losses"],
+                                       rtol=1e-5)
+            assert sharded["losses"][-1] < sharded["losses"][0]
+            for k, v in sharded["params"].items():
+                assert_adam_close(v, dense["params"][k], k)
+            padded = sum(out["padded"])
+            assert 0 <= padded - out["n_params"] < 4 * len(out["padded"])
+            assert dense["state_bytes"] == 2 * 4 * out["n_params"]
+            assert sharded["state_bytes"] * 4 == 2 * 4 * padded
+        for out in outs[1:]:
+            assert out[True]["losses"] == outs[0][True]["losses"]
+            for k, v in out[True]["params"].items():
+                np.testing.assert_array_equal(v, outs[0][True]["params"][k])

@@ -41,6 +41,14 @@ def test_port_files_cover_the_sp_slice():
             "sp_bench.py"} <= names
 
 
+def test_port_files_cover_the_zero_slice():
+    """The import checks below cover the sharded exchange's modules."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/runtime/topology.py",
+            "horovod_tpu_torch/ops/collectives.py",
+            "horovod_tpu_torch/optim/optimizer.py"} <= names
+
+
 def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN
 

@@ -16,7 +16,7 @@ from horovod_tpu.models import transformer as JT
 from horovod_tpu_torch.models import transformer as TT
 from horovod_tpu_torch.models.convert import params_from_flax
 
-from torch_port_workers import run_train, spawn_world
+from torch_port_workers import assert_adam_close, run_train, spawn_world
 
 SIZES = dict(vocab_size=256, num_layers=2, num_heads=4, d_model=128,
              d_ff=512, max_seq_len=64)
@@ -69,17 +69,6 @@ def jax_run():
     finally:
         hvd.shutdown()
     return params0, losses, final
-
-
-def assert_adam_close(got, want, name, steps=3, lr=3e-4, atol=3e-6):
-    """Parameters after ``steps`` AdamW steps agree to ``atol``, except
-    elements whose gradient sits at the fp32 noise floor: Adam divides by
-    the gradient's own magnitude, so there the two sides may step
-    differently.  Those are at most 0.1% of the elements and never more
-    than the ``steps`` steps of ``lr`` apart."""
-    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
-    assert (diff > atol).mean() <= 1e-3, (name, float(diff.max()))
-    assert diff.max() <= steps * lr * 1.01, (name, float(diff.max()))
 
 
 def _port_run(hvd, params0, steps=3, **opt_kwargs):

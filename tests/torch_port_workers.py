@@ -195,6 +195,17 @@ def run_exchange(hvd):
 # the training step
 # ---------------------------------------------------------------------------
 
+def assert_adam_close(got, want, name, steps=3, lr=3e-4, atol=3e-6):
+    """Parameters after ``steps`` AdamW steps agree to ``atol``, except
+    elements whose gradient sits at the fp32 noise floor: Adam divides by
+    the gradient's own magnitude, so there the two sides may step
+    differently.  Those are at most 0.1% of the elements and never more
+    than the ``steps`` steps of ``lr`` apart."""
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert (diff > atol).mean() <= 1e-3, (name, float(diff.max()))
+    assert diff.max() <= steps * lr * 1.01, (name, float(diff.max()))
+
+
 # head_dim 64: a size the CUDA flash kernels take
 TRAIN_SIZES = dict(vocab_size=128, num_layers=2, num_heads=2, d_model=128,
                    d_ff=512, max_seq_len=32)
@@ -204,12 +215,23 @@ def train_tokens():
     return np.random.RandomState(7).randint(0, 128, (4, 33)).astype(np.int64)
 
 
-def run_train(hvd, steps: int, seed: int = 0, init_rank_seed: bool = False):
+def run_train(hvd, steps: int, seed: int = 0, init_rank_seed: bool = False,
+              sharded: bool = False):
     """``steps`` AdamW steps of DistributedTrainStep on the global batch of
     :func:`train_tokens`; returns (losses, state_dict as numpy).  With
     ``init_rank_seed`` each rank draws different weights, which the step's
-    ``init`` must overwrite with rank 0's.  fp32 on the CPU, bf16 compute
-    (the flash kernels' type) on a card."""
+    ``init`` must overwrite with rank 0's; ``sharded`` takes the sharded
+    exchange (``shard_optimizer_states=True``).  fp32 on the CPU, bf16
+    compute (the flash kernels' type) on a card."""
+    losses, params, _ = train_lm(hvd, steps, seed, init_rank_seed,
+                                 shard_optimizer_states=sharded)
+    return losses, params
+
+
+def train_lm(hvd, steps: int, seed: int = 0, init_rank_seed: bool = False,
+             **opt_kwargs):
+    """:func:`run_train` with ``opt_kwargs`` for DistributedOptimizer;
+    returns (losses, state_dict as numpy, the wrapped optimizer)."""
     import torch
 
     from horovod_tpu_torch.models.transformer import (
@@ -225,7 +247,9 @@ def run_train(hvd, steps: int, seed: int = 0, init_rank_seed: bool = False):
     gen_seed = seed + (hvd.rank() if init_rank_seed else 0)
     model = TransformerLM(cfg, generator=torch.Generator().manual_seed(
         gen_seed)).to(dev)
-    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        **opt_kwargs)
     step = hvd.DistributedTrainStep(lambda m, b: lm_loss(m, b), opt)
     model, opt = step.init(model)
     batch = step.shard_batch(train_tokens())
@@ -234,7 +258,7 @@ def run_train(hvd, steps: int, seed: int = 0, init_rank_seed: bool = False):
         model, opt, loss = step(model, opt, batch)
         losses.append(float(loss))
     return losses, {k: v.cpu().numpy().copy() for k, v in
-                    model.state_dict().items()}
+                    model.state_dict().items()}, opt
 
 
 def resnet_batch(n: int, image: int, seed: int):
@@ -723,4 +747,347 @@ def run_sp_nccl(hvd):
                 torch.cat([u.reshape(-1) for u in updates.values()]),
                 torch.cat([ref_updates[k_].reshape(-1)
                            for k_ in updates]))}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded exchange: primitives, codec, ZeRO-style optimizer
+# ---------------------------------------------------------------------------
+
+#: segment lengths of the codec's flat input per world (its length is
+#: 24 × world), the middle one scaled to 1e-3 so that a shared scale would
+#: round it to zero
+def codec_segments(world: int) -> tuple:
+    return (5, 11, 24 * world - 16)
+
+
+def zero_inputs(world: int) -> dict:
+    """Every rank's inputs of :func:`run_zero`, stacked over ranks (dim 0).
+    Floats of the exact checks are multiples of 1/8 below 8, so that every
+    sum is exact in any order."""
+    rng = np.random.RandomState(300 + world)
+
+    def eighths(*shape):
+        return (rng.randint(-64, 64, shape) / 8).astype(np.float32)
+
+    base64 = rng.randint(-2 ** 62, 2 ** 62, (16,), dtype=np.int64)
+    base64[::3] |= np.int64(-2 ** 63)            # the sign bit set
+    flips = rng.rand(world, 16, 64) < 0.05
+    weights = np.array([1 << k for k in range(63)] + [-(1 << 63)],
+                       dtype=object)
+    bits64 = np.stack([base64 ^ np.array(
+        [int((f * weights).sum()) for f in flips[r]], dtype=object)
+        .astype(np.int64) for r in range(world)])
+    codec = rng.randn(world, 24 * world).astype(np.float32)
+    codec[:, 5:16] *= 1e-3
+    return {
+        "rs": eighths(world, 3 * world, 2 * world),
+        "rs_int": rng.randint(-1000, 1000, (world, 2 * world, 3))
+        .astype(np.int32),
+        "ag": eighths(world, 3, 2),
+        "v": rng.randn(world, 5, 3).astype(np.float32),
+        "a2a": eighths(world, 2 * world, 3 * world, 2),
+        "a2av": rng.randn(world, world, 4, 2).astype(np.float32),
+        "a2av_counts": rng.randint(0, 5, (world, world)).astype(np.int32),
+        "bits32": (bits64 >> 17).astype(np.int32),
+        "bits64": bits64,
+        "bool": rng.rand(world, 16) > 0.2,
+        "codec": codec,
+        "resid": (rng.randn(world, 24 * world) * 1e-2).astype(np.float32),
+        "tail": eighths(world, 8 * world + 3),
+    }
+
+
+#: (reducescatter op, scatter dim), (alltoall split, concat) cases
+RS_CASES = [("Sum", 0), ("Average", 0), ("Sum", 1), ("Average", 1)]
+A2A_CASES = [(0, 0), (1, 0), (0, 1), (1, 2)]
+WIRES = ("int8", "fp8_e4m3")
+
+
+def mlp_params() -> dict:
+    """The JAX package's test MLP (tests/test_optimizer.py make_params) at
+    the same shapes, drawn with numpy; keys in JAX's leaf order."""
+    rng = np.random.RandomState(7)
+    return {"b1": np.zeros(16, np.float32), "b2": np.zeros(1, np.float32),
+            "w1": (rng.randn(4, 16) * 0.1).astype(np.float32),
+            "w2": (rng.randn(16, 1) * 0.1).astype(np.float32)}
+
+
+def mlp_batch(n: int = 64, seed: int = 0):
+    """tests/test_optimizer.py make_batch."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, 4).astype(np.float32)
+    y = (x.sum(axis=1, keepdims=True) > 0).astype(np.float32)
+    return x, y
+
+
+def mlp_loss(m, batch):
+    import torch
+
+    h = torch.tanh(batch["x"] @ m["w1"] + m["b1"])
+    return torch.mean((h @ m["w2"] + m["b2"] - batch["y"]) ** 2)
+
+
+#: the MLP trainings of :func:`mlp_train`: name -> (optimizer, steps, step
+#: options); "_dense" names take the replicated exchange
+MLP_CASES = {
+    "adamw_dense": ("adamw", 8, {}),
+    "adamw": ("adamw", 8, {"shard_optimizer_states": True}),
+    "adamw_b64": ("adamw", 8, {"shard_optimizer_states": True,
+                               "exchange_bucket_bytes": 64}),
+    "adamw_b64_on": ("adamw", 8, {"shard_optimizer_states": True,
+                                  "exchange_bucket_bytes": 64,
+                                  "fused_collectives": "on"}),
+    "sgdm_dense": ("sgdm", 8, {}),
+    "sgdm": ("sgdm", 8, {"shard_optimizer_states": True}),
+    "adamw3_dense": ("adamw", 3, {}),
+    "int8": ("adamw", 3, {"shard_optimizer_states": True,
+                          "compression": "int8"}),
+    "int8_ef": ("adamw", 3, {"shard_optimizer_states": True,
+                             "compression": "int8", "error_feedback": True,
+                             "exchange_bucket_bytes": 64}),
+    "fp8_ef": ("adamw", 3, {"shard_optimizer_states": True,
+                            "compression": "int8", "error_feedback": True,
+                            "wire": "fp8_e4m3"}),
+}
+
+
+def mlp_train(hvd, name: str):
+    """``MLP_CASES[name]`` through DistributedTrainStep on the global
+    batch of :func:`mlp_batch`; returns (last loss, parameters as numpy)."""
+    import torch
+
+    opt_name, steps, kw = MLP_CASES[name]
+    kw = dict(kw)
+    cfg = hvd._state.global_state().config
+    wire, cfg.exchange_wire_dtype = cfg.exchange_wire_dtype, \
+        kw.pop("wire", "int8")
+    if "compression" in kw:
+        kw["compression"] = getattr(hvd.Compression, kw["compression"])
+    try:
+        model = torch.nn.ParameterDict({
+            k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+            for k, v in mlp_params().items()})
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-2,
+                                weight_decay=1e-4) if opt_name == "adamw" \
+            else torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9)
+        step = hvd.DistributedTrainStep(mlp_loss, opt, **kw)
+        model, opt = step.init(model)
+        x, y = mlp_batch()
+        batch = step.shard_batch({"x": x, "y": y})
+        for _ in range(steps):
+            model, opt, loss = step(model, opt, batch)
+    finally:
+        cfg.exchange_wire_dtype = wire
+    return float(loss), {k: v.detach().numpy().copy()
+                         for k, v in model.items()}
+
+
+def mlp_micro_steps(hvd, sharded: bool):
+    """The plain optimizer wrapper, backward_passes_per_step=2: two
+    micro-batches of this rank's rows, then one exchange and update; two
+    such steps.  Returns the parameters as numpy."""
+    import torch
+
+    model = torch.nn.ParameterDict({
+        k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+        for k, v in mlp_params().items()})
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-2, weight_decay=1e-4),
+        backward_passes_per_step=2, shard_optimizer_states=sharded)
+    x, y = mlp_batch()
+    n = len(x) // hvd.size()
+    x, y = x[hvd.rank() * n:(hvd.rank() + 1) * n], \
+        y[hvd.rank() * n:(hvd.rank() + 1) * n]
+    for _ in range(2):
+        for half in (slice(0, n // 2), slice(n // 2, n)):
+            opt.zero_grad(set_to_none=True)
+            mlp_loss(model, {"x": torch.from_numpy(x[half]),
+                             "y": torch.from_numpy(y[half])}).backward()
+            opt.step()
+    return {k: v.detach().numpy().copy() for k, v in model.items()}
+
+
+def mlp_frozen(hvd, sharded: bool):
+    """Three AdamW steps (weight decay 0.1) through DistributedTrainStep
+    with ``w1`` frozen (``requires_grad=False``) before the optimizer is
+    built; returns (parameters as numpy, the leaves the sharded plan
+    covers or None)."""
+    import torch
+
+    model = torch.nn.ParameterDict({
+        k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+        for k, v in mlp_params().items()})
+    model["w1"].requires_grad_(False)
+    step = hvd.DistributedTrainStep(
+        mlp_loss, torch.optim.AdamW(model.parameters(), lr=1e-2,
+                                    weight_decay=0.1),
+        shard_optimizer_states=sharded)
+    model, opt = step.init(model)
+    x, y = mlp_batch()
+    batch = step.shard_batch({"x": x, "y": y})
+    for _ in range(3):
+        model, opt, _ = step(model, opt, batch)
+    return {k: v.detach().numpy().copy() for k, v in model.items()}, \
+        opt.spec.num_leaves if sharded else None
+
+
+def _init_keeps_shard_state(hvd):
+    """One sharded AdamW step, then ``init`` again: each rank's exp_avg
+    shard before and after."""
+    import torch
+
+    model = torch.nn.ParameterDict({
+        k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+        for k, v in mlp_params().items()})
+    step = hvd.DistributedTrainStep(
+        mlp_loss, torch.optim.AdamW(model.parameters(), lr=1e-2),
+        shard_optimizer_states=True)
+    model, opt = step.init(model)
+    x, y = mlp_batch()
+    model, opt, _ = step(model, opt, step.shard_batch({"x": x, "y": y}))
+    inner = opt.sharded_state.inner
+
+    def moments():
+        return [inner.state[p]["exp_avg"].clone().numpy()
+                for p in opt.sharded_state.shards.values()]
+
+    before = moments()
+    step.init(model)
+    return before, moments()
+
+
+def run_zero(hvd):
+    """On a gloo world: every primitive and codec function on
+    :func:`zero_inputs`, the replicated int8 wire, the MLP trainings of
+    :data:`MLP_CASES`, a frozen parameter, the micro-stepped wrapper, the
+    transformer trained sharded (world 2) and ``init`` on a sharded
+    state."""
+    import torch
+
+    from horovod_tpu_torch.ops import collectives as C
+
+    torch.set_num_threads(1)
+    world, rank = hvd.size(), hvd.rank()
+    inp = zero_inputs(world)
+
+    def t(k):
+        return torch.from_numpy(np.ascontiguousarray(inp[k][rank]))
+
+    def np_(x):
+        return x.numpy().copy()
+
+    out = {}
+    for op, d in RS_CASES:
+        out[("rs", op, d)] = np_(C.reducescatter(
+            t("rs"), op=C.ReduceOp[op.upper()], scatter_dimension=d))
+    out["rs_int"] = np_(C.reducescatter(t("rs_int")))
+    out["ag"] = (np_(C.allgather(t("ag"))),
+                 np_(C.allgather(t("ag"), tiled=False)))
+    gathered, counts = C.allgather_v(t("v")[:rank + 1], rank + 1, 5)
+    out["agv"] = (np_(gathered), np_(counts),
+                  np_(C.allgather_v_compact(gathered, counts)),
+                  np_(C.allgather_v_mask(counts, 5)))
+    for s, c in A2A_CASES:
+        out[("a2a", s, c)] = np_(C.alltoall(t("a2a"), s, c))
+    recv, rc = C.alltoall_v(t("a2av"), t("a2av_counts"), 4)
+    out["a2av"] = (np_(recv), np_(rc))
+    for k in ("bits32", "bits64", "bool"):
+        out[("and", k)] = np_(C.bitwise_and(t(k)))
+        out[("or", k)] = np_(C.bitwise_or(t(k)))
+    out["and_low"] = np_(C.bitwise_and(t("bits32"), nbits=12))
+    segs = codec_segments(world)
+    for wire in WIRES:
+        for sg in ((), segs):
+            out[("qar", wire, sg)] = np_(C.quantized_allreduce(
+                t("codec"), segments=sg, wire_dtype=wire))
+            out[("qrs", wire, sg)] = np_(C.quantized_reducescatter(
+                t("codec"), op=C.Sum, segments=sg, wire_dtype=wire))
+            y, r = C.ef_quantized_reducescatter(
+                t("codec"), residual=t("resid").clone(), segments=sg,
+                wire_dtype=wire)
+            y0, r0 = C.ef_quantized_reducescatter(
+                t("codec"), segments=sg, wire_dtype=wire)
+            out[("ef", wire, sg)] = (np_(y), np_(r), np_(y0), np_(r0))
+    xs = [t("codec")[:5], t("codec")[5:16], t("codec")[16:]]
+    out["gar_int8"] = [np_(v) for v in C.grouped_allreduce(
+        xs, op=C.Average, quantized_bits=8)]
+    out["gar_int8_int"] = np_(C.grouped_allreduce(
+        [t("rs_int")], op=C.Sum, compression=hvd.Compression.int8)[0])
+
+    for name in MLP_CASES:
+        out[("mlp", name)] = mlp_train(hvd, name)
+    out["micro"] = (mlp_micro_steps(hvd, True), mlp_micro_steps(hvd, False))
+    out["frozen"] = (mlp_frozen(hvd, True), mlp_frozen(hvd, False))
+    out["init"] = _init_keeps_shard_state(hvd)
+    if world == 2:
+        out["train"] = run_train(hvd, 3, 0, True, True)
+    return out
+
+
+def state_bytes(optimizer) -> int:
+    """Bytes of an optimizer's per-element state (tensors of rank >= 1;
+    AdamW's step counters are scalars)."""
+    return sum(v.numel() * v.element_size()
+               for st in optimizer.state.values() for v in st.values()
+               if hasattr(v, "dim") and v.dim() >= 1)
+
+
+def run_codec(hvd):
+    """On a world of one, on the runtime's device: every codec function on
+    :func:`zero_inputs` of one rank, and the bitwise pair (over NCCL's SUM
+    on a card); returns numpy."""
+    import torch
+
+    from horovod_tpu_torch.ops import collectives as C
+
+    dev = hvd.device()
+    inp = zero_inputs(1)
+
+    def t(k):
+        return torch.from_numpy(np.ascontiguousarray(inp[k][0])).to(dev)
+
+    out = {}
+    for wire in WIRES:
+        for sg in ((), codec_segments(1)):
+            out[("qar", wire, sg)] = C.quantized_allreduce(
+                t("codec"), segments=sg, wire_dtype=wire).cpu().numpy()
+            y, r = C.ef_quantized_reducescatter(
+                t("codec"), residual=t("resid").clone(), segments=sg,
+                wire_dtype=wire)
+            out[("ef", wire, sg)] = (y.cpu().numpy(), r.cpu().numpy())
+    for k in ("bits32", "bits64", "bool"):
+        out[("and", k)] = C.bitwise_and(t(k)).cpu().numpy()
+        out[("or", k)] = C.bitwise_or(t(k)).cpu().numpy()
+    return out
+
+
+def run_zero_nccl(hvd):
+    """On a world of cards: the primitives on :func:`zero_inputs`, and the
+    small transformer trained 3 steps replicated and sharded (bf16
+    compute), with each one's optimizer-state bytes and the sharded plan's
+    padded lengths."""
+    import torch
+
+    from horovod_tpu_torch.ops import collectives as C
+
+    world, rank, dev = hvd.size(), hvd.rank(), hvd.device()
+    inp = zero_inputs(world)
+
+    def t(k):
+        return torch.from_numpy(np.ascontiguousarray(inp[k][rank])).to(dev)
+
+    out = {"rs": C.reducescatter(t("rs")).cpu().numpy(),
+           "a2a": C.alltoall(t("a2a"), 1, 2).cpu().numpy(),
+           "and": C.bitwise_and(t("bits64")).cpu().numpy(),
+           "or": C.bitwise_or(t("bits32")).cpu().numpy()}
+    for sharded in (False, True):
+        losses, params, opt = train_lm(hvd, 3, 0, True,
+                                       shard_optimizer_states=sharded)
+        inner = opt.sharded_state.inner if sharded else opt.optimizer
+        out[sharded] = {"losses": losses, "params": params,
+                        "state_bytes": state_bytes(inner)}
+        if sharded:
+            out["padded"] = [g.padded for g in opt.spec.groups]
+            out["n_params"] = sum(p.numel() for p in opt._all)
     return out
