@@ -48,11 +48,14 @@ Phases, in order; any failure exits non-zero:
 4. train the 870.9M TransformerLM (16 layers, d_model 2048, 16 heads,
    seq 1024, batch 6) through the five-line recipe on a world of one:
    ``init`` (NCCL), ``DistributedOptimizer(AdamW(3e-4, weight_decay=1e-4),
-   gradient_predivide_factor=2.0)``, ``broadcast_variables``, a few steps on
-   a fixed batch (the loss must fall; every kernel of the path must be
-   launched, each flash kernel exactly 16 times a step), the same weights
-   under dense attention for comparison, and a rank-0 checkpoint round
-   trip;
+   gradient_predivide_factor=2.0)``, whose gradient hooks launch each
+   bucket's exchange on a side stream while backward runs,
+   ``broadcast_variables``, a few steps on a fixed batch (the loss must
+   fall; every kernel of the path must be launched, each flash kernel
+   exactly 16 times a step; every bucket must launch from a hook), the
+   profiled step's exchange kernels and the part of them that ran under
+   backward's, the same weights under dense attention for comparison, a
+   rank-0 checkpoint round trip, and then phase 9;
 5. train ResNet-50 at ``bench.py``'s configuration (224 px, batch 128,
    bf16, space-to-depth stem, ``--fused-bwd``, inference-mode BN) through
    the same recipe with ``SGD(0.01, momentum=0.9)``, 6 steps on a fixed
@@ -83,7 +86,19 @@ Phases, in order; any failure exits non-zero:
    step; each prints step time, tokens/s, peak memory and the profiled
    step's device time split into reduce-scatter, codec passes, allgather,
    shard AdamW and the rest;
-9. print the card's name and power limit, the kernels' JSON line, and last
+9. the overlapped exchange and the eager surface, on phase 4's model:
+   (a) one step's hook-exchanged gradients against
+   ``distributed_gradients`` applied to the same loss's gradients from
+   ``torch.autograd.grad``, which fires no hook, bit for bit; (b) every
+   gradient (fp32, ~3.5 GB) through ``hvd.allreduce_async(g,
+   prescale_factor=0.5, postscale_factor=2.0)`` and ``synchronize``, bit
+   for bit against ``distributed_gradients`` with the same factors, with
+   the Bucketer's groups, its ``fused_scale`` launches (two a group) and
+   the wall and device ms of both; (c) ``broadcast_async``,
+   ``alltoall_async`` with splits, ``allgather``, ``allgather_object``,
+   ``join``, ``poll`` on an in-flight handle, the duplicate-name error and
+   a CPU tensor through the host plane, each against its expected value;
+10. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -91,8 +106,10 @@ Imports nothing of JAX or of the JAX package.  Needs one card.
 
 from __future__ import annotations
 
+import bisect
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -1127,13 +1144,78 @@ def _category(name: str) -> str:
     return "other elementwise"
 
 
-def profile_step(torch, run, focus: str = "", ranges=None) -> dict:
+def stream_overlap(prof) -> dict:
+    """Device ms of the kernels and copies off the main stream (the main
+    stream runs the most device time: forward, backward and the update;
+    the others are the exchange's side stream and NCCL's), how much of
+    that ran while a main-stream kernel or copy ran, and how much ran
+    after backward's last kernel, before the update's first (exposed),
+    from the trace's records."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.unlink(path)
+    streams: dict = {}
+    for ev in events:
+        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and \
+                "dur" in ev:
+            streams.setdefault(ev.get("args", {}).get("stream"), []).append(
+                (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]),
+                 ev.get("name", "")))
+    if not streams:
+        return {}
+    main = max(streams, key=lambda k: sum(e - b for b, e, _ in streams[k]))
+    merged: list = []
+    for b, e, _ in sorted(streams[main]):
+        if merged and b <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([b, e])
+    starts = [b for b, _ in merged]
+    # the update starts with the optimizer's first kernel, after the
+    # exchange; backward ends with the main stream's last kernel before it
+    update = min((b for b, _, n in streams[main]
+                  if _category(n) == "optimizer"), default=math.inf)
+    bwd_end = max((e for _, e, _ in streams[main] if e <= update),
+                  default=-math.inf)
+    side = [k for sid, ks in streams.items() if sid != main for k in ks]
+    total = under = exposed = 0.0
+    names: dict = {}
+    for b, e, name in side:
+        total += e - b
+        names[_category(name)] = names.get(_category(name), 0.0) + e - b
+        exposed += max(0.0, min(e, update) - max(b, bwd_end))
+        i = max(bisect.bisect_right(starts, b) - 1, 0)
+        while i < len(merged) and merged[i][0] < e:
+            under += max(0.0, min(e, merged[i][1]) - max(b, merged[i][0]))
+            i += 1
+    return {"exchange_ms": total / 1e3, "under_backward_ms": under / 1e3,
+            "exposed_ms": exposed / 1e3, "streams": len(streams),
+            "exchange_split_ms": {k: v / 1e3 for k, v in names.items()}}
+
+
+def no_hook_grads(torch, model, loss) -> dict:
+    """{name: gradient} of ``loss`` by ``torch.autograd.grad``, which fires
+    no post-accumulate-grad hook: a parity check's backward stays out of
+    the DistributedOptimizer's exchange."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return {n: g for (n, _), g in zip(named, grads)}
+
+
+def profile_step(torch, run, focus: str = "", ranges=None,
+                 streams: bool = False) -> dict:
     """One more training step under torch.profiler: device time by kernel
     and by category, and the device's busy share of the step's wall time;
     every kernel whose name holds ``focus`` is listed too.  With
     ``ranges`` ({record_function name: part}), also the device time of
     the kernels launched under each range, and the rest of the busy time;
-    returns {part: ms} with "busy" and "wall"."""
+    returns {part: ms} with "busy" and "wall".  With ``streams``, also
+    :func:`stream_overlap`'s readings."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1156,6 +1238,15 @@ def profile_step(torch, run, focus: str = "", ranges=None) -> dict:
                                          if focus and focus in r[2]]:
         log(f"profile:   {ms:8.2f} ms x{count:<4d} {key[:90]}")
     split = {"wall": wall_ms, "busy": busy}
+    if streams:
+        split.update(stream_overlap(prof))
+        log(f"profile streams: {split.get('streams')} streams with kernels;"
+            f" off the main stream {split.get('exchange_ms', 0.0):.2f} ms "
+            f"of kernels, {split.get('under_backward_ms', 0.0):.2f} ms of "
+            f"it under main-stream (backward) kernels, "
+            f"{split.get('exposed_ms', 0.0):.2f} ms after backward's last "
+            f"kernel, before the update; by category "
+            f"{json.dumps(split.get('exchange_split_ms', {}))}")
     if ranges:
         # the kernels launched under each range's host side; its device
         # side spans them, idle gaps included, and is logged apart
@@ -1217,18 +1308,26 @@ def phase_train(torch):
     K.reset_launch_counts()
     model, opt = step.init(model)
     batch = step.shard_batch(tokens)
-    losses, times = [], []
+    losses, times, sources = [], [], []
     for i in range(5):
         t0 = time.perf_counter()
         model, opt, loss = step(model, opt, batch)
         losses.append(float(loss))           # synchronises
         times.append(time.perf_counter() - t0)
+        sources.append([src for _, src in opt.launches])
         if i == 0:      # the sp phase's reference: this step's gradients
             first = (losses[0], flat_grads(torch, model))
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"train: losses {losses}")
     log(f"train: launches on the main path {counts}")
+    n_buckets = len(opt._buckets)
+    hooks = [src.count("hook") for src in sources]
+    at_sync = [src.count("synchronize") for src in sources]
+    log(f"train: {n_buckets} buckets a step; launched from hooks before "
+        f"backward returned {hooks}, at synchronize() {at_sync}")
+    if hooks != [n_buckets] * len(losses) or any(at_sync):
+        raise AssertionError("a bucket did not launch from its hook")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("non-finite loss")
     if not losses[-1] < losses[0]:
@@ -1244,7 +1343,8 @@ def phase_train(torch):
         f"{times[0] * 1e3:.1f} ms), {tokens_per_step / steady:.0f} tokens/s, "
         f"peak memory {peak / 2**30:.2f} GiB")
 
-    profile_step(torch, lambda: float(step(model, opt, batch)[2]))
+    profiled = profile_step(
+        torch, lambda: float(step(model, opt, batch)[2]), streams=True)
 
     # the same weights under dense attention: loss and gradients in bf16.
     # Tolerance: the two differ only inside attention (online vs one-pass
@@ -1253,11 +1353,10 @@ def phase_train(torch):
     grads = {}
     for impl in ("flash", "dense"):
         cfg.attention_impl = impl
-        model.zero_grad(set_to_none=True)
         loss = loss_fn(model, batch)
-        loss.backward()
         grads[impl] = (float(loss.detach()), torch.cat(
-            [p.grad.float().reshape(-1) for p in model.parameters()]))
+            [g.float().reshape(-1)
+             for g in no_hook_grads(torch, model, loss).values()]))
     cfg.attention_impl = "flash"
     (lf, gf), (ld, gd) = grads["flash"], grads["dense"]
     loss_rel = abs(lf - ld) / abs(ld)
@@ -1293,10 +1392,161 @@ def phase_train(torch):
         del restored
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    eager = phase_eager(torch, hvd, model, opt, loss_fn, batch)
     hvd.shutdown()
     return counts, dict(step_ms=steady * 1e3,
                         tokens_per_s=tokens_per_step / steady,
-                        peak_gib=peak / 2**30, losses=losses), first
+                        peak_gib=peak / 2**30, losses=losses,
+                        buckets=n_buckets, hook_launches=hooks,
+                        idle_share=1 - profiled["busy"] / profiled["wall"],
+                        exchange_ms=profiled.get("exchange_ms"),
+                        exchange_under_backward_ms=profiled.get(
+                            "under_backward_ms"),
+                        exchange_exposed_ms=profiled.get("exposed_ms")), \
+        first, eager
+
+
+def phase_eager(torch, hvd, model, opt, loss_fn, batch) -> dict:
+    """Phase 9 on phase 4's model, weights and batch: (a) the hook path
+    against ``distributed_gradients``, (b) the eager plane over every
+    gradient, (c) the rest of the eager surface.  Returns its readings."""
+    from horovod_tpu_torch.exceptions import HorovodInternalError
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.ops import op_manager
+    from horovod_tpu_torch.ops.bucketing import global_bucketer
+    from horovod_tpu_torch.optim import distributed_gradients
+
+    pre, post = opt.prescale_factor, opt.postscale_factor
+    out = {}
+    # (a) one step's gradients from a backward that fires no hook, through
+    # the step-time exchange, against the hooks' exchange of the same loss
+    params = [p for p in model.parameters() if p.requires_grad]
+    ref = list(no_hook_grads(torch, model, loss_fn(model, batch)).values())
+    distributed_gradients(ref, prescale_factor=pre, postscale_factor=post)
+    opt.zero_grad(set_to_none=True)
+    loss_fn(model, batch).backward()
+    hooked = [src for _, src in opt.launches]
+    opt.synchronize()
+    exact = all(torch.equal(p.grad, r) for p, r in zip(params, ref))
+    del ref
+    log(f"eager (a): hook path vs distributed_gradients on one step: "
+        f"{hooked.count('hook')} of {len(opt._buckets)} buckets from hooks "
+        f"before backward returned, bit-exact: {exact}")
+    if not exact or hooked != ["hook"] * len(opt._buckets):
+        raise AssertionError("the hook path and the step-time exchange "
+                             "disagree")
+    out["hook_exact"] = exact
+
+    # (b) every gradient through the eager plane, against the step-time
+    # exchange with the same factors: the same fused_scale passes around a
+    # one-rank all-reduce, so bit for bit
+    grads = [p.grad for p in params]
+
+    def eager_run():
+        hs = [hvd.allreduce_async(g, name=f"grad.{i}", prescale_factor=pre,
+                                  postscale_factor=post)
+              for i, g in enumerate(grads)]
+        return [hvd.synchronize(h) for h in hs]
+
+    K.reset_launch_counts()
+    groups0 = global_bucketer().groups
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eager_run()
+    torch.cuda.synchronize()
+    wall_eager = (time.perf_counter() - t0) * 1e3
+    groups = global_bucketer().groups - groups0
+    launches = K.fused_scale.launches
+    refs = [g.clone() for g in grads]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    distributed_gradients(refs, prescale_factor=pre, postscale_factor=post)
+    torch.cuda.synchronize()
+    wall_ref = (time.perf_counter() - t0) * 1e3
+    exact = all(torch.equal(o, r) for o, r in zip(outs, refs))
+    del outs
+
+    def one_call(fn) -> float:
+        # the device time of one call, profiled alone: the median of three
+        # such readings is kept, and each call's largest kernels logged
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        log("  one call: " + ", ".join(
+            f"{kernel_name(key)[:32]} x{count} {ms:.2f} ms"
+            for ms, count, key in sorted(rows, reverse=True)[:6]))
+        return sum(ms for ms, _, _ in rows)
+
+    eager_run()
+    dev_eager = sorted(one_call(eager_run) for _ in range(3))[1]
+    ref_run = lambda: distributed_gradients(  # noqa: E731
+        refs, prescale_factor=pre, postscale_factor=post)
+    ref_run()
+    dev_ref = sorted(one_call(ref_run) for _ in range(3))[1]
+    del refs
+    n_values = sum(g.numel() for g in grads)
+    log(f"eager (b): {len(grads)} gradients, {n_values / 1e6:.1f}M fp32 "
+        f"values through allreduce_async(prescale {pre}, postscale {post}):"
+        f" {groups} Bucketer groups, {launches} fused_scale launches (want "
+        f"{2 * groups}); wall {wall_eager:.2f} ms vs distributed_gradients "
+        f"{wall_ref:.2f} ms; device {dev_eager:.2f} ms vs {dev_ref:.2f} "
+        f"ms; "
+        f"bit-exact: {exact}")
+    if not exact:
+        raise AssertionError("the eager plane and distributed_gradients "
+                             "disagree")
+    if launches != 2 * groups or groups == 0:
+        raise AssertionError(f"{launches} fused_scale launches for "
+                             f"{groups} groups")
+    out.update(groups=groups, fused_scale=launches, wall_ms=wall_eager,
+               ref_wall_ms=wall_ref, device_ms=dev_eager,
+               ref_device_ms=dev_ref, eager_exact=exact)
+    opt.zero_grad(set_to_none=True)
+    del grads
+
+    # (c) the rest of the surface, each against its expected value
+    dev = hvd.device()
+    x = torch.arange(12.0, device=dev).reshape(6, 2)
+    checks = {}
+    hb = hvd.broadcast_async(x, 0, name="p9.bc")
+    ht = hvd.alltoall_async(x, splits=[6], name="p9.a2a")
+    checks["broadcast_async"] = torch.equal(hvd.synchronize(hb), x)
+    checks["alltoall_async"] = torch.equal(hvd.synchronize(ht), x)
+    checks["allgather"] = torch.equal(hvd.allgather(x[:5], name="p9.ag"),
+                                      x[:5])
+    checks["allgather_object"] = \
+        hvd.allgather_object({"rank": 0}) == [{"rank": 0}]
+    checks["join"] = hvd.join() == 0
+    big = torch.randn(16 << 20, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    h = hvd.allreduce_async(big, name="p9.poll")   # 64 MiB: dispatched
+    t0 = time.perf_counter()
+    in_flight = hvd.poll(h)
+    poll_us = (time.perf_counter() - t0) * 1e6
+    checks["poll"] = torch.equal(hvd.synchronize(h), big) and hvd.poll(h)
+    h1 = hvd.allreduce_async(x, name="p9.dup")
+    try:
+        hvd.allreduce_async(x, name="p9.dup")
+        checks["duplicate_name"] = False
+    except HorovodInternalError as err:
+        checks["duplicate_name"] = "same name" in str(err)
+    hvd.synchronize(h1)
+    before = K.fused_scale.launches
+    cpu = torch.arange(4.0)
+    checks["cpu_host_plane"] = (
+        op_manager.current_operations(cpu) == "HOST" and
+        torch.equal(hvd.allreduce(cpu, name="p9.cpu", prescale_factor=2.0),
+                    2 * cpu) and K.fused_scale.launches == before)
+    log(f"eager (c): {checks}; poll on an in-flight 64 MiB handle returned "
+        f"{in_flight} in {poll_us:.1f} us")
+    if not all(checks.values()):
+        raise AssertionError(f"eager surface checks failed: {checks}")
+    out.update(checks=checks, poll_in_flight=in_flight, poll_us=poll_us)
+    return out
 
 
 def flat_grads(torch, model):
@@ -1578,11 +1828,10 @@ def phase_tp_train(torch):
     # all gradients
     grads = {}
     for name, fn in (("tp", tp_loss), ("model", lm_loss)):
-        model.zero_grad(set_to_none=True)
         loss = fn(model, batch)
-        loss.backward()
         grads[name] = (float(loss.detach()), torch.cat(
-            [p.grad.float().reshape(-1) for p in model.parameters()]))
+            [g.float().reshape(-1)
+             for g in no_hook_grads(torch, model, loss).values()]))
     (lt, gt), (lm, gm) = grads["tp"], grads["model"]
     loss_rel = abs(lt - lm) / abs(lm)
     grad_rel = float((gt - gm).norm() / gm.norm())
@@ -1677,10 +1926,8 @@ def phase_resnet(torch):
     own = set(unfused_state_dict(dict.fromkeys(segments))) - zero_by_design
     grads, parity = {}, {}
     for name, m in (("fused", model), ("unfused", unfused)):
-        m.zero_grad(set_to_none=True)
         loss = resnet_loss(m, batch)
-        loss.backward()
-        named = {n: p.grad for n, p in m.named_parameters()}
+        named = no_hook_grads(torch, m, loss)
         if name == "fused":
             if any(named[n].any() for n in fused_stats):
                 raise AssertionError("a fused segment's mean/var gradient "
@@ -1731,7 +1978,7 @@ def main() -> int:
     errs = phase_check(torch)
     timing = phase_time(torch)
     torch.cuda.empty_cache()
-    counts, train, first = phase_train(torch)
+    counts, train, first, eager = phase_train(torch)
     torch.cuda.empty_cache()
     resnet_counts, resnet = phase_resnet(torch)
     for name in RESNET_KERNELS:
@@ -1775,6 +2022,7 @@ def main() -> int:
     log(f"tp summary: {json.dumps(tp)}")
     log(f"sp summary: {json.dumps(sp)}")
     log(f"zero summary: {json.dumps(zero)}")
+    log(f"eager summary: {json.dumps(eager)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,11 +4,14 @@ Counterpart of ``horovod_tpu/functions.py`` and of the reference's
 ``horovod/torch/functions.py``: broadcasts from ``root_rank`` so that every
 rank starts from the same parameters and optimizer state.  Tensors are
 overwritten in place, the PyTorch idiom, and returned.
+:func:`allgather_object` gathers one object a rank through the eager
+``allgather``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import pickle
+from typing import Any, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -77,3 +80,24 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
                           root_rank)
     optimizer.load_state_dict(sd)
     return optimizer
+
+
+def allgather_object(obj: Any, name: Optional[str] = None) -> List[Any]:
+    """One Python object from each rank, in rank order (reference
+    ``tensorflow/functions.py:136``): pickled into a CPU byte tensor and
+    gathered by the eager ``allgather``, whose negotiated sizes split the
+    result."""
+    from horovod_tpu_torch.ops import eager
+
+    name = name or "allgather_object"
+    if state.global_state().size == 1:
+        return [obj]
+    payload = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                               dtype=torch.uint8)
+    gathered, sizes = eager.allgather_with_sizes(payload, name=name)
+    out, off = [], 0
+    for n in sizes.tolist():
+        # bytes this program's ranks pickled
+        out.append(pickle.loads(gathered[off:off + n].numpy().tobytes()))
+        off += n
+    return out

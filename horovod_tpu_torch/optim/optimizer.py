@@ -7,21 +7,26 @@ packed into byte-capped fusion buckets in reverse-layer order
 :func:`~horovod_tpu_torch.ops.collectives.grouped_allreduce`, whose
 pre/postscale passes are ``fused_scale`` kernel launches.
 :func:`DistributedOptimizer` wraps a ``torch.optim.Optimizer`` so that
-``step()`` exchanges the gradients before the update, or, with
-``shard_optimizer_states=True``, runs the ZeRO-style sharded exchange
-(:class:`_ShardedDistributedOptimizer`, JAX
+gradient hooks launch each bucket of that exchange while backward runs
+and ``step()`` updates once they are reduced
+(:class:`_DistributedOptimizer`), or, with
+``shard_optimizer_states=True``, runs the ZeRO-style sharded exchange in
+``step()`` (:class:`_ShardedDistributedOptimizer`, JAX
 ``sharded_distributed_update``): reduce-scatter, the update on this rank's
-1/N flat shard only, allgather.
+1/N flat shard only, allgather.  :class:`DistributedGradientTape` reduces
+what a gradient function returns through the eager plane.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Dict, List, Optional, Sequence
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from horovod_tpu_torch.ops import collectives as C
 from horovod_tpu_torch.ops.bucketing import plan_buckets
@@ -61,14 +66,62 @@ def distributed_gradients(grads: Sequence[torch.Tensor],
             g.copy_(r)
 
 
+#: reference ``torch/optimizer.py`` text for a second backward before step()
+_SECOND_BACKWARD = (
+    "Gradients were computed more than backward_passes_per_step times "
+    "before call to step(). Increase backward_passes_per_step to "
+    "accumulate gradients locally.")
+
+
+def _exchange_hook(owner: "weakref.ref", i: int):
+    """Parameter ``i``'s post-accumulate-grad hook: hands the finished
+    gradient to the wrapper that registered it, while that wrapper lives
+    and is the parameter's newest (a parameter wrapped again is exchanged
+    once, by the newer wrapper)."""
+    def hook(p: torch.Tensor) -> None:
+        opt = owner()
+        if opt is not None and getattr(p, "_hvd_exchange", None) == id(opt):
+            opt._on_grad(i, p)
+    return hook
+
+
 class _DistributedOptimizer:
-    """``step()`` = exchange the gradients, then the wrapped optimizer's
-    step.  Every other attribute is the wrapped optimizer's."""
+    """The replicated exchange, overlapped with backward (reference
+    ``torch/optimizer.py:103-200``; the JAX package's default mode lets
+    XLA overlap its in-graph bucket collectives with backward).
+
+    At wrap time the trainable parameters (``requires_grad``) are planned
+    into :func:`plan_buckets`' buckets, reverse registration order capped
+    at ``HOROVOD_FUSION_THRESHOLD``, and each gets a post-accumulate-grad
+    hook.  A hook counts its gradient into its bucket; when the bucket's
+    last gradient lands, that bucket and every complete bucket after it
+    launch in plan order (bucket k only after bucket k-1, so every rank
+    issues its collectives in the same order whatever order the hooks
+    fire in): on a card, on a side stream that first waits for the stream
+    that produced the gradients, the bucket's pack, prescale, NCCL
+    all-reduce, postscale and unpack into ``.grad``.  :meth:`synchronize`
+    launches the rest, replanned over the gradients present, and makes the
+    current stream wait for the side stream; :meth:`step` calls it unless
+    it already ran for this step.  The result is
+    :func:`distributed_gradients` over the gradients present, bit for bit:
+    the buckets launched from hooks are that plan's first buckets, and the
+    rest are planned as it plans them.  A parameter without a gradient
+    keeps ``.grad = None``; one frozen at wrap time is left out.
+
+    ``backward_passes_per_step = N > 1``: the hooks of the first N-1
+    passes add each gradient into a running sum and launch nothing; the
+    N-th pass's hooks install the mean (optax ``MultiSteps``'
+    accumulation) and launch.  A gradient that reaches ``step()`` without
+    its hook (assigned by hand) is folded in there the same way.
+
+    A launch that fails raises from the hook, and so from backward; it
+    never falls back to a step-time exchange.  Every other attribute is
+    the wrapped optimizer's."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, op: ReduceOp,
                  compression, backward_passes_per_step: int,
                  prescale_factor: Optional[float],
-                 postscale_factor: Optional[float]):
+                 postscale_factor: Optional[float], overlap: bool = True):
         self.optimizer = optimizer
         self.op = op
         self.compression = compression
@@ -76,48 +129,164 @@ class _DistributedOptimizer:
         self.prescale_factor = prescale_factor
         self.postscale_factor = postscale_factor
         self._passes = 0
-        self._accum: Optional[List[torch.Tensor]] = None
+        self._accum: Dict[int, torch.Tensor] = {}
+        self._trainable = [p for g in optimizer.param_groups
+                           for p in g["params"] if p.requires_grad]
+        self._bucket_bytes = _fusion_threshold()
+        self._buckets: List[List[int]] = []
+        self._stream = None
+        #: (parameter indices, "hook" or "synchronize") of each bucket the
+        #: current or last backward launched, in launch order
+        self.launches: List[Tuple[List[int], str]] = []
+        if overlap:
+            self._buckets = plan_buckets(
+                [p.numel() * p.element_size() for p in self._trainable],
+                self._bucket_bytes)
+            owner = weakref.ref(self)
+            for i, p in enumerate(self._trainable):
+                p._hvd_exchange = id(self)
+                p.register_post_accumulate_grad_hook(_exchange_hook(owner, i))
+        self._bucket_of = [0] * len(self._trainable)
+        for b, ids in enumerate(self._buckets):
+            for i in ids:
+                self._bucket_of[i] = b
+        self._open = False
+        self._reset_round()
 
     def __getattr__(self, name):
         if name == "optimizer":        # not set yet (e.g. mid-unpickle)
             raise AttributeError(name)
         return getattr(self.optimizer, name)
 
-    def _params(self) -> List[torch.Tensor]:
-        return [p for group in self.optimizer.param_groups
-                for p in group["params"] if p.grad is not None]
+    # -- one backward pass's exchange ---------------------------------------
+
+    def _reset_round(self) -> None:
+        self._left = [len(b) for b in self._buckets]
+        self._fired = [False] * len(self._trainable)
+        self._next = 0
+        self._synced = False
+
+    def _begin_round(self) -> None:
+        self._open = True
+        self.launches = []
+
+    def _close_round(self) -> None:
+        """End this backward's exchange; work launched that no
+        synchronize() waited for is ordered before what follows."""
+        if self._open and not self._synced and self._stream is not None:
+            torch.cuda.current_stream(self._stream.device).wait_stream(
+                self._stream)
+        self._open = False
+        self._reset_round()
+
+    def _on_grad(self, i: int, p: torch.Tensor) -> None:
+        if not self._open:
+            self._begin_round()
+        if self._fired[i]:
+            raise RuntimeError(_SECOND_BACKWARD)
+        self._fired[i] = True
+        if self.backward_passes_per_step > 1:
+            final = self._passes == self.backward_passes_per_step - 1
+            self._accumulate_grad(i, p, final)
+            if not final:
+                return
+        b = self._bucket_of[i]
+        self._left[b] -= 1
+        if self._left[b] == 0:
+            while self._next < len(self._buckets) and \
+                    self._left[self._next] == 0:
+                self._launch(self._buckets[self._next], "hook")
+                self._next += 1
 
     @torch.no_grad()
-    def _accumulate(self, params) -> bool:
-        """backward_passes_per_step > 1: keep the running sum of each
-        micro-step's gradients; on the last one install their mean (optax
-        ``MultiSteps``' accumulation) and report that the step is due."""
-        grads = [p.grad for p in params]
-        if self._accum is None:
-            self._accum = [g.clone() for g in grads]
+    def _accumulate_grad(self, i: int, p: torch.Tensor, final: bool) -> None:
+        """Add parameter ``i``'s gradient into its running sum; on the
+        step's last pass install the mean in ``.grad``."""
+        acc = self._accum.get(i)
+        if acc is None:
+            acc = self._accum[i] = p.grad.clone()
         else:
-            for a, g in zip(self._accum, grads):
-                a.add_(g)
-        self._passes += 1
-        if self._passes < self.backward_passes_per_step:
-            return False
-        for p, a in zip(params, self._accum):
-            p.grad.copy_(a.div_(self.backward_passes_per_step))
-        self._passes, self._accum = 0, None
-        return True
+            acc.add_(p.grad)
+        if final:
+            p.grad.copy_(acc.div_(self.backward_passes_per_step))
+            del self._accum[i]
+
+    def _side_stream(self, device: torch.device):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        return self._stream
+
+    @torch.no_grad()
+    def _launch(self, ids: List[int], source: str) -> None:
+        """Reduce the gradients of parameters ``ids`` as one bucket of
+        :func:`distributed_gradients`, into their ``.grad``."""
+        self.launches.append((list(ids), source))
+        grads = [self._trainable[i].grad for i in ids]
+        if not grads[0].is_cuda:
+            self._reduce(grads)
+            return
+        side = self._side_stream(grads[0].device)
+        side.wait_stream(torch.cuda.current_stream(grads[0].device))
+        with torch.cuda.stream(side):
+            for g in grads:
+                g.record_stream(side)
+            self._reduce(grads)
+
+    def _reduce(self, grads: List[torch.Tensor]) -> None:
+        outs = C.grouped_allreduce(grads, op=self.op,
+                                   prescale_factor=self.prescale_factor,
+                                   postscale_factor=self.postscale_factor,
+                                   compression=self.compression)
+        for g, r in zip(grads, outs):
+            g.copy_(r)
 
     def synchronize(self) -> None:
-        """Exchange the gradients now (reference ``optimizer.synchronize``)."""
-        distributed_gradients([p.grad for p in self._params()], op=self.op,
-                              compression=self.compression,
-                              prescale_factor=self.prescale_factor,
-                              postscale_factor=self.postscale_factor)
+        """Launch the buckets no hook launched, over the gradients present
+        and planned as :func:`distributed_gradients` plans them, and order
+        the current stream after the exchange (reference
+        ``optimizer.synchronize``).  Once a step; ``step()`` then skips
+        it."""
+        if self._synced:
+            return
+        if not self._open:
+            self._begin_round()
+        rest = [i for ids in self._buckets[self._next:] for i in ids
+                if self._trainable[i].grad is not None]
+        nbytes = [self._trainable[i].grad.numel() *
+                  self._trainable[i].grad.element_size() for i in rest]
+        for bucket in plan_buckets(nbytes, self._bucket_bytes,
+                                   reverse=False):
+            self._launch([rest[j] for j in bucket], "synchronize")
+        self._next = len(self._buckets)
+        if self._stream is not None:
+            torch.cuda.current_stream(self._stream.device).wait_stream(
+                self._stream)
+        self._synced = True
+
+    def _micro_step(self) -> bool:
+        """``backward_passes_per_step > 1``: fold the gradients no hook saw
+        into the running sums; True on the pass that completes a step."""
+        if self.backward_passes_per_step == 1:
+            return True
+        final = self._passes == self.backward_passes_per_step - 1
+        for i, p in enumerate(self._trainable):
+            if p.grad is not None and not self._fired[i]:
+                self._accumulate_grad(i, p, final)
+        self._passes = 0 if final else self._passes + 1
+        return final
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        """Close this backward's exchange (a backward that no ``step()``
+        consumed), then the wrapped optimizer's ``zero_grad``."""
+        self._close_round()
+        self.optimizer.zero_grad(set_to_none=set_to_none)
 
     def step(self, closure=None):
-        if self.backward_passes_per_step > 1 and \
-                not self._accumulate(self._params()):
+        if not self._micro_step():
+            self._close_round()
             return None
         self.synchronize()
+        self._close_round()
         return self.optimizer.step(closure)
 
 
@@ -202,21 +371,20 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
                  error_feedback: bool):
         super().__init__(optimizer, op, compression,
                          backward_passes_per_step, prescale_factor,
-                         postscale_factor)
+                         postscale_factor, overlap=False)
         self.quantized_bits = getattr(compression, "wire_reduce_bits", None)
-        self._all = [p for g in optimizer.param_groups for p in g["params"]
-                     if p.requires_grad]
-        if not self._all:
+        if not self._trainable:
             raise ValueError("shard_optimizer_states needs a parameter "
                              "that requires a gradient")
-        if not all(p.is_floating_point() for p in self._all):
+        if not all(p.is_floating_point() for p in self._trainable):
             raise ValueError("shard_optimizer_states needs floating "
                              "parameters")
-        self.spec = C.make_fusion_spec(self._all, state.global_state().size,
+        self.spec = C.make_fusion_spec(self._trainable,
+                                       state.global_state().size,
                                        bucket_bytes)
         shards = {}
         for g in self.spec.groups:
-            first = self._all[g.indices[0]]
+            first = self._trainable[g.indices[0]]
             shards[g.key] = torch.zeros(g.shard, dtype=first.dtype,
                                         device=first.device)
         residuals = None
@@ -250,8 +418,7 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        if self.backward_passes_per_step > 1 and \
-                not self._accumulate(self._params()):
+        if not self._micro_step():
             return loss
         self._exchange_and_update()
         return loss
@@ -260,7 +427,7 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
     def _exchange_and_update(self) -> None:
         st = self.sharded_state
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self._all]
+                 for p in self._trainable]
         out = C.grouped_reducescatter(
             grads, op=self.op, prescale_factor=self.prescale_factor,
             postscale_factor=self.postscale_factor,
@@ -269,7 +436,7 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
         if st.residuals is not None:
             st.residuals = out[2]
         del grads
-        C.local_fusion_shards(self._all, self.spec, out=st.shards)
+        C.local_fusion_shards(self._trainable, self.spec, out=st.shards)
         for key, shard in st.shards.items():
             shard.grad = out[0][key]
         del out
@@ -279,8 +446,8 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
             st.inner.step()
         for shard in st.shards.values():
             shard.grad = None
-        for p, full in zip(self._all, C.grouped_allgather(st.shards,
-                                                           self.spec)):
+        for p, full in zip(self._trainable,
+                           C.grouped_allgather(st.shards, self.spec)):
             p.copy_(full)
 
 
@@ -299,7 +466,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          error_feedback: bool = False,
                          reduction: Optional[str] = None):
     """Wrap ``optimizer`` so each ``step()`` uses cross-rank-reduced
-    gradients (reference ``DistributedOptimizer``, ``torch/optimizer.py``).
+    gradients (reference ``DistributedOptimizer``, ``torch/optimizer.py``),
+    exchanged bucket by bucket from gradient hooks while backward runs
+    (:class:`_DistributedOptimizer`).
 
     ``gradient_predivide_factor`` splits the averaging around the sum:
     gradients scale by ``1/f`` before it and ``f/size`` after (reference
@@ -390,3 +559,38 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     return _DistributedOptimizer(optimizer, op, compression,
                                  backward_passes_per_step, prescale_factor,
                                  postscale_factor)
+
+
+class DistributedGradientTape:
+    """Eager-style gradient wrapper (reference ``DistributedGradientTape``,
+    ``tensorflow/__init__.py:508-572``; JAX ``optim/optimizer.py:742``).
+    ``grad_fn`` returns gradients (a tensor, or a list, tuple or dict of
+    them); ``gradient`` submits each through ``allreduce_async``, so the
+    Bucketer fuses them, and returns them reduced, in the same
+    structure::
+
+        tape = hvd.DistributedGradientTape(grad_fn)
+        grads = tape.gradient(params, batch)
+    """
+
+    def __init__(self, grad_fn, op: ReduceOp = Average, compression=None,
+                 prescale_factor: Optional[float] = None,
+                 postscale_factor: Optional[float] = None):
+        self._grad_fn = grad_fn
+        self._op = op
+        self._compression = compression
+        self._prescale = prescale_factor
+        self._postscale = postscale_factor
+
+    def __call__(self, *args, **kwargs):
+        return self.gradient(*args, **kwargs)
+
+    def gradient(self, *args, **kwargs):
+        from horovod_tpu_torch.ops import eager
+
+        leaves, spec = tree_flatten(self._grad_fn(*args, **kwargs))
+        handles = [eager.allreduce_async(
+            g, op=self._op, compression=self._compression,
+            prescale_factor=self._prescale,
+            postscale_factor=self._postscale) for g in leaves]
+        return tree_unflatten([eager.synchronize(h) for h in handles], spec)

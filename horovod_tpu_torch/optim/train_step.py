@@ -29,9 +29,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
 from horovod_tpu_torch import functions as F
 from horovod_tpu_torch.ops import collectives as C
-from horovod_tpu_torch.ops.collectives import Average, ReduceOp
+from horovod_tpu_torch.ops.collectives import Average, ReduceOp, Sum
 from horovod_tpu_torch.optim.optimizer import (
     DistributedOptimizer,
     _DistributedOptimizer,
@@ -208,3 +210,22 @@ def _resolve_plan(plan, mesh: Optional[ParallelMesh]):
         raise ValueError(f"plan {plan.to_string()} does not match the given "
                          f"mesh {mesh.shape}")
     return plan, mesh
+
+
+def join_step(grads, has_data):
+    """Ragged-data gradient reduction: the in-step JoinOp (JAX
+    ``optim/train_step.py:1018``; reference ``JoinOp``,
+    ``collective_operations.h:259``).  Every rank takes part; one whose
+    ``has_data`` is False contributes zeros, and the sum is divided by the
+    number of ranks that have data (0 when none has).  ``grads`` is a
+    tensor or a list, tuple or dict of them, returned in the same
+    structure and dtypes."""
+    leaves, spec = tree_flatten(grads)
+    flag = torch.as_tensor(has_data, dtype=torch.float32,
+                           device=leaves[0].device)
+    n = C.allreduce(flag, op=Sum)
+    inv = torch.where(n > 0, 1.0 / n.clamp(min=1.0), torch.zeros_like(n))
+    masked = [torch.where(flag > 0, g, torch.zeros_like(g)) for g in leaves]
+    summed = C.grouped_allreduce(masked, op=Sum)
+    return tree_unflatten([(s.float() * inv).to(s.dtype) for s in summed],
+                          spec)

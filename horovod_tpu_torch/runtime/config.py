@@ -2,7 +2,8 @@
 
 The part of ``horovod_tpu/runtime/config.py`` the PyTorch port reads: the
 launcher's identity knobs, the coordinator address, the fusion threshold,
-the sharded exchange's bucket cap, topology, wire codec and reduction
+the eager plane's cycle time, negotiation-cache capacity and data plane, the
+sharded exchange's bucket cap, topology, wire codec and reduction
 operator, the fused-collectives mode, the sequence-parallel ring's layout
 and the parallelism plan, under the same ``HOROVOD_*`` names and
 with the same defaults, so one environment drives both packages.  A knob
@@ -27,6 +28,8 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_COORDINATOR_ADDR",
     # -- fusion
     "HOROVOD_FUSION_THRESHOLD",
+    # -- the eager plane (ops/eager.py, ops/bucketing.py, ops/op_manager.py)
+    "HOROVOD_CYCLE_TIME", "HOROVOD_CACHE_CAPACITY", "HOROVOD_TPU_OPERATIONS",
     # -- the sharded exchange (optim/optimizer.py, ops/collectives.py)
     "HOROVOD_EXCHANGE_BUCKET_BYTES", "HOROVOD_EXCHANGE_HIERARCHY",
     "HOROVOD_EXCHANGE_WIRE_DTYPE", "HOROVOD_EXCHANGE_REDUCTION",
@@ -37,6 +40,16 @@ KNOWN_KNOBS = frozenset({
     # -- the parallelism plan (parallel/plan.py, DistributedTrainStep)
     "HOROVOD_PLAN",
 })
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        raise ValueError(f"{name} must be a number, got {v!r}")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -68,8 +81,21 @@ class Config:
     # -- rendezvous of the torch.distributed process group (host:port)
     coordinator_addr: Optional[str] = None
 
+    # -- the eager plane's data plane (ops/op_manager.py): "XLA", the JAX
+    # package's name for its device plane, selects the port's (NCCL on a
+    # card, the world's gloo group on the CPU); "HOST" gathers over the
+    # host gloo group and reduces on the host
+    tpu_operations: str = "XLA"
+
     # -- fusion / bucketing (reference: 64 MiB default, operations.cc:432)
     fusion_threshold_bytes: int = 64 * 1024 * 1024
+    # advisory, as in the JAX package: the eager Bucketer has no background
+    # thread and flushes at the byte threshold and on synchronize/poll
+    cycle_time_ms: float = 5.0
+    # bounds the eager negotiation caches (reference response-cache
+    # capacity, response_cache.h); both clear together past this many
+    # validated collectives, at the same cycle on every rank
+    cache_capacity: int = 1024
 
     # -- the sharded exchange (shard_optimizer_states=True): bucket byte
     # cap (None: one bucket) and topology ("auto" resolves against the
@@ -103,8 +129,12 @@ class Config:
             cross_rank=opt_int("HOROVOD_CROSS_RANK"),
             cross_size=opt_int("HOROVOD_CROSS_SIZE"),
             coordinator_addr=os.environ.get("HOROVOD_COORDINATOR_ADDR"),
+            tpu_operations=os.environ.get("HOROVOD_TPU_OPERATIONS",
+                                          "XLA").upper(),
             fusion_threshold_bytes=_env_int(
                 "HOROVOD_FUSION_THRESHOLD", 64 * 1024 * 1024),
+            cycle_time_ms=_env_float("HOROVOD_CYCLE_TIME", 5.0),
+            cache_capacity=_env_int("HOROVOD_CACHE_CAPACITY", 1024),
             exchange_bucket_bytes=opt_int("HOROVOD_EXCHANGE_BUCKET_BYTES"),
             exchange_hierarchy=os.environ.get(
                 "HOROVOD_EXCHANGE_HIERARCHY", "auto").lower(),

@@ -7,7 +7,9 @@ launcher's environment contract is the JAX package's
 (``HOROVOD_RANK``/``HOROVOD_SIZE``/``HOROVOD_COORDINATOR_ADDR``, plus
 ``HOROVOD_LOCAL_*``/``HOROVOD_CROSS_*``); without it the world is this one
 process.  Collectives run on a ``torch.distributed`` process group: NCCL
-for the card, gloo for the CPU.
+for the card, gloo for the CPU.  Beside it every rank holds a gloo group
+over the same ranks, ``host_group``: the eager plane's negotiation and its
+host data plane run there, so they never wait on the card.
 """
 
 from __future__ import annotations
@@ -50,6 +52,14 @@ class GlobalState:
         self.cross_rank = 0
         self.cross_size = 1
         self.owns_group = False
+        # the host plane's gloo group: the world itself when it is gloo
+        self.host_group = None
+        # hits and misses of the eager negotiation cache (reference
+        # response-cache statistics)
+        self.cache_stats = {"hits": 0, "misses": 0}
+        # the eager plane's per-world state (ops/eager.py): its handles,
+        # negotiation caches and cycle counter, and its Bucketer
+        self.eager = None
 
     def initialize(self) -> None:
         cfg = self.config
@@ -71,20 +81,28 @@ class GlobalState:
         if dist.is_initialized():
             # a process group the caller made: take its identity
             self.rank, self.size = dist.get_rank(), dist.get_world_size()
-            return
-        if self.size > 1 and not cfg.coordinator_addr:
-            raise ValueError("HOROVOD_SIZE > 1 needs HOROVOD_COORDINATOR_ADDR "
-                             "(host:port of rank 0)")
-        addr = cfg.coordinator_addr or f"localhost:{_free_port()}"
-        backend = "nccl" if self.device.type == "cuda" else "gloo"
-        dist.init_process_group(backend, init_method=f"tcp://{addr}",
-                                world_size=self.size, rank=self.rank)
-        self.owns_group = True
+        else:
+            if self.size > 1 and not cfg.coordinator_addr:
+                raise ValueError("HOROVOD_SIZE > 1 needs "
+                                 "HOROVOD_COORDINATOR_ADDR (host:port of "
+                                 "rank 0)")
+            addr = cfg.coordinator_addr or f"localhost:{_free_port()}"
+            backend = "nccl" if self.device.type == "cuda" else "gloo"
+            dist.init_process_group(backend, init_method=f"tcp://{addr}",
+                                    world_size=self.size, rank=self.rank)
+            self.owns_group = True
+        # collective: every rank creates it here, in the same order
+        self.host_group = dist.group.WORLD if dist.get_backend() == "gloo" \
+            else dist.new_group(backend="gloo")
 
     def shutdown(self) -> None:
-        if self.owns_group and dist.is_initialized():
-            dist.destroy_process_group()
+        if dist.is_initialized():
+            if self.owns_group:
+                dist.destroy_process_group()
+            elif self.host_group not in (None, dist.group.WORLD):
+                dist.destroy_process_group(self.host_group)
         self.owns_group = False
+        self.host_group = None
 
 
 _state: Optional[GlobalState] = None

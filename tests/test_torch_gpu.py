@@ -7,8 +7,10 @@ machine with::
 With two or more cards, ``TestNcclWorld`` also runs the exchange and the
 training step over NCCL, one process per card, and with four
 ``fused_tp_apply`` at tp = 4, the sp ring at sp = 4 and the sharded
-exchange at a world of 4 (run those alone on four cards: ``-k
-"test_tp_over_nccl or test_sp_over_nccl or test_zero_over_nccl"``).
+exchange, the eager plane and the hook-fired exchange at a world of 4
+(run those alone on four cards: ``-k "test_tp_over_nccl or
+test_sp_over_nccl or test_zero_over_nccl or test_eager_over_nccl or
+test_overlap_over_nccl"``).
 Imports torch, numpy, the port and ``chip_smoke``'s inputs and tolerances
 only.
 """
@@ -22,8 +24,10 @@ import torch
 import chip_smoke
 from horovod_tpu_torch.ops import kernels as K
 
-from torch_port_workers import EXCHANGE_CASES, assert_adam_close, \
-    check_exchange, exchange_inputs, spawn_world, zero_inputs
+from torch_port_workers import EAGER_CASES, EAGER_CHECKS, EXCHANGE_CASES, \
+    OVERLAP_CASES, OVERLAP_THRESHOLDS, assert_adam_close, \
+    check_eager_reduction, check_exchange, check_overlap, exchange_inputs, \
+    join_step_inputs, spawn_world, zero_inputs
 
 
 #: fused_scale.cu's batch: U = 4 16-byte vectors for each of a block's 256
@@ -536,6 +540,63 @@ class TestOnCard:
                               else ((got,), (want,)))):
                 np.testing.assert_array_equal(g, w, err_msg=str(key))
 
+    def test_eager_on_card_takes_nccl_and_fused_scale(self, cuda):
+        """An eager allreduce of a CUDA tensor runs NCCL and its two
+        fused_scale passes and touches no host gather; a CPU tensor takes
+        the host plane; HOROVOD_TPU_OPERATIONS=HOST sends a CUDA tensor
+        through the host.  Values are exact at a world of one (scales 0.5
+        and 2.0); poll on an in-flight handle returns without waiting, and
+        True after synchronize."""
+        out = spawn_world("run_eager_card", world=1, device="cuda",
+                          timeout=300)[0]
+        print(out)
+        card, cpu, host = out["card"], out["cpu"], out["card_host"]
+        assert card == {"plane": "XLA", "host": [], "nccl": ["cuda"],
+                        "fused_scale": 2, "exact": True, "device": "cuda"}
+        assert cpu["plane"] == "HOST" and cpu["nccl"] == [] and \
+            cpu["host"] == ["cpu"] and cpu["exact"]
+        assert host["plane"] == "HOST" and host["nccl"] == [] and \
+            host["fused_scale"] == 0 and host["exact"] and \
+            host["device"] == "cuda"
+        assert isinstance(out["poll_in_flight"], bool)
+        assert out["big_exact"] and out["poll_done"]
+
+    def test_hook_path_on_card_equals_step_time(self, cuda):
+        """The hook-fired exchange on the card (side stream, fused_scale,
+        NCCL) equals distributed_gradients on the same gradients bit for
+        bit, in every overlap case, on the MLP and the small transformer
+        (bf16 compute); join_step on one rank with data is the identity."""
+        out = spawn_world("run_overlap", world=1, device="cuda",
+                          timeout=300)[0]
+        for name in OVERLAP_THRESHOLDS:
+            for case in OVERLAP_CASES:
+                check_overlap(out[(name, case)], name, case)
+        for k, v in join_step_inputs(0).items():
+            np.testing.assert_array_equal(out["join_step"][k], v)
+
+    def test_overlap_timing_on_card(self, cuda):
+        """chip_smoke.py's one-card paths at full width (the 870.9M model
+        through flash and through fused_tp_apply, ResNet-50 with
+        fused_bwd), each timed with the hook-fired exchange and with the
+        step-time one (distributed_gradients after backward) in turns,
+        hooks first: the median step ms of 8 steps after two, four turns a
+        mode, printed with the card's name and power limit.  Every
+        reading is a finite positive time; their order is measured, not
+        asserted."""
+        import json
+        import subprocess
+
+        out = spawn_world("run_overlap_bench", world=1, device="cuda",
+                          args=(8, 8), timeout=900)[0]
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip())
+        print(json.dumps(out))
+        for path in ("transformer", "tp", "resnet"):
+            for mode in ("hooks", "step_time"):
+                assert len(out[path][mode]) == 4
+                assert all(0 < ms < 1e4 for ms in out[path][mode])
+
     def test_resnet_fused_matches_unfused(self, cuda):
         """A narrow bf16 ResNet (two stride-1 blocks at 128 filters, on the
         kernel's rule) under the same weights: the fused segment's
@@ -724,3 +785,38 @@ class TestNcclWorld:
             assert out[True]["losses"] == outs[0][True]["losses"]
             for k, v in out[True]["params"].items():
                 np.testing.assert_array_equal(v, outs[0][True]["params"][k])
+
+    def test_eager_over_nccl(self, cards):
+        """The eager plane over NCCL with CUDA tensors, against the numpy
+        oracles of the gloo tests: every reduction on both planes, the
+        variable allgather, splits, join with uneven batches (Average over
+        the whole world), the join and mismatch errors on every rank."""
+        outs = spawn_world("run_eager", world=cards, device="cuda",
+                           timeout=300)
+        for plane in ("XLA", "HOST"):
+            for i in range(len(EAGER_CASES)):
+                check_eager_reduction(outs, cards, plane, i)
+        for check in EAGER_CHECKS.values():
+            check(outs, cards)
+
+    def test_overlap_over_nccl(self, cards):
+        """At a world of 4 over NCCL: the hook path equals the step-time
+        exchange bit for bit in every overlap case (the small transformer
+        in bf16 and the MLP); join_step against numpy (1e-6); and the step
+        of a wider LM timed with each exchange, printed.  Run alone on
+        four cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        outs = spawn_world("run_overlap_nccl", world=4, device="cuda",
+                           timeout=600)
+        ins = [join_step_inputs(r) for r in range(4)]
+        for rank, out in enumerate(outs):
+            for name in OVERLAP_THRESHOLDS:
+                for case in OVERLAP_CASES:
+                    check_overlap(out[(name, case)], name, case)
+            for k in ins[0]:
+                want = sum(ins[r][k] for r in range(4) if r != 1) / 3
+                np.testing.assert_allclose(out["join_step"][k], want,
+                                           rtol=1e-6, atol=1e-6)
+            print(f"rank {rank}: step ms (median of 10, two runs each) "
+                  f"{out['timing_ms']}")

@@ -49,6 +49,18 @@ def test_port_files_cover_the_zero_slice():
             "horovod_tpu_torch/optim/optimizer.py"} <= names
 
 
+def test_port_files_cover_the_eager_slice():
+    """The import checks below cover the eager plane's and the hook-fired
+    exchange's modules."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/ops/eager.py",
+            "horovod_tpu_torch/ops/op_manager.py",
+            "horovod_tpu_torch/ops/adasum.py",
+            "horovod_tpu_torch/ops/bucketing.py",
+            "horovod_tpu_torch/functions.py",
+            "horovod_tpu_torch/optim/train_step.py"} <= names
+
+
 def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN
 

@@ -162,6 +162,7 @@ def check_exchange(got, case, world):
 def run_exchange(hvd):
     import torch
 
+    from horovod_tpu_torch.ops import collectives as C
     from horovod_tpu_torch.ops.collectives import ReduceOp
 
     dev = hvd.device()
@@ -176,10 +177,10 @@ def run_exchange(hvd):
             compression=getattr(hvd.Compression, comp) if comp else None)
         out[i] = [(r.float() if r.is_floating_point() else r).cpu().numpy()
                   for r in red]
-    out["allgather"] = hvd.allgather(
+    out["allgather"] = C.allgather(
         torch.from_numpy(xs[0]).to(dev)).cpu().numpy()
-    out["broadcast"] = hvd.broadcast(torch.from_numpy(xs[1]).to(dev),
-                                     root_rank=1).cpu().numpy()
+    out["broadcast"] = C.broadcast(torch.from_numpy(xs[1]).to(dev),
+                                   root_rank=1).cpu().numpy()
     tree = {"w": torch.from_numpy(xs[0]).to(dev),
             "b": [torch.from_numpy(xs[1]).to(dev)]}
     hvd.broadcast_variables(tree, root_rank=0)
@@ -187,7 +188,7 @@ def run_exchange(hvd):
                                   tree["b"][0].cpu().numpy()]
     out["broadcast_object"] = hvd.broadcast_object(
         {"rank": hvd.rank()}, root_rank=1)
-    hvd.barrier()
+    C.barrier()
     return out
 
 
@@ -1089,5 +1090,725 @@ def run_zero_nccl(hvd):
                         "state_bytes": state_bytes(inner)}
         if sharded:
             out["padded"] = [g.padded for g in opt.spec.groups]
-            out["n_params"] = sum(p.numel() for p in opt._all)
+            out["n_params"] = sum(p.numel() for p in opt._trainable)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the eager plane (tests/test_torch_eager.py)
+# ---------------------------------------------------------------------------
+
+def eager_rows(rank: int) -> dict:
+    """Rank ``rank``'s tensors for the eager reductions."""
+    rng = np.random.RandomState(200 + rank)
+    return {"f32": rng.randn(5).astype(np.float32),
+            "f16": rng.randn(6).astype(np.float16),
+            "i32": rng.randint(-50, 50, (4,)).astype(np.int32),
+            "i64": rng.randint(-2**40, 2**40, (3,)).astype(np.int64),
+            "pos": (rng.rand(4) + 0.5).astype(np.float32)}
+
+
+#: (tensor, op, prescale, postscale) of the eager reductions
+EAGER_CASES = [("f32", "Sum", None, None), ("f32", "Average", None, None),
+               ("f32", "Average", 0.5, 3.0), ("f32", "Sum", 0.0, None),
+               ("f32", "Sum", None, 0.0), ("f16", "Average", None, None),
+               ("f16", "Sum", 0.5, 2.0), ("i32", "Average", None, None),
+               ("i32", "Sum", 2.5, None), ("i64", "Sum", None, None),
+               ("f32", "Min", None, None), ("f32", "Max", 2.0, None),
+               ("pos", "Product", None, None), ("f32", "Adasum", None, None)]
+
+
+def _adasum_np(rows):
+    def combine(a, b):
+        dot, an, bn = a @ b, a @ a, b @ b
+        ac = 1.0 - dot / (2.0 * an + 1e-30) if an >= 1e-30 else 1.0
+        bc = 1.0 - dot / (2.0 * bn + 1e-30) if bn >= 1e-30 else 1.0
+        return ac * a + bc * b
+
+    vals = [r.astype(np.float64) for r in rows]
+    while len(vals) > 1:
+        nxt = [combine(vals[i], vals[i + 1])
+               for i in range(0, len(vals) - 1, 2)]
+        if len(vals) % 2:
+            nxt.append(vals[-1])
+        vals = nxt
+    return vals[0]
+
+
+def eager_expected(case, world: int) -> np.ndarray:
+    """numpy oracle of an eager reduction over ``world`` ranks (float64
+    inside, the tensor's dtype out; integers truncate as the eager plane
+    casts back)."""
+    key, op, pre, post = case
+    rows = [eager_rows(r)[key] for r in range(world)]
+    dtype = rows[0].dtype
+    x = np.stack(rows).astype(np.float64) * (1.0 if pre is None else pre)
+    if op == "Adasum":
+        y = _adasum_np(list(x))
+    else:
+        y = {"Sum": np.sum, "Average": np.mean, "Min": np.min,
+             "Max": np.max, "Product": np.prod}[op](x, axis=0)
+    y = y * (1.0 if post is None else post)
+    return np.trunc(y).astype(dtype) if np.issubdtype(dtype, np.integer) \
+        else y.astype(dtype)
+
+
+def eager_tolerance(key: str, op: str) -> float:
+    """Integers exact; fp32 sums in another order (1e-6); Adasum's fp32
+    dot products (1e-5); fp16 a rounding of each partial sum (2e-3)."""
+    if key in ("i32", "i64"):
+        return 0.0
+    if key == "f16":
+        return 2e-3
+    return 1e-5 if op == "Adasum" else 1e-6
+
+
+def _splits(world: int) -> np.ndarray:
+    """Rows rank s sends rank d: (s + d) % 3, zero for some pairs."""
+    return np.array([[(s + d) % 3 for d in range(world)]
+                     for s in range(world)], np.int64)
+
+
+def _caught(fn) -> str:
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the text is the result
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
+def _eager_reductions(hvd, out: dict, plane: str) -> None:
+    import torch
+
+    from horovod_tpu_torch.ops.collectives import ReduceOp
+
+    rows = eager_rows(hvd.rank())
+    for i, (key, op, pre, post) in enumerate(EAGER_CASES):
+        y = hvd.allreduce(torch.from_numpy(rows[key]).to(hvd.device()),
+                          name=f"{plane}.r{i}", op=ReduceOp[op.upper()],
+                          prescale_factor=pre, postscale_factor=post)
+        out[(plane, i)] = (str(y.dtype), y.cpu().numpy())
+
+
+def run_eager(hvd):
+    """The eager plane's scenarios (tests/test_multiprocess.py) on this
+    rank; returns what each gave."""
+    import torch
+
+    from horovod_tpu_torch.ops.bucketing import global_bucketer
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    r, world, dev = hvd.rank(), hvd.size(), hvd.device()
+    cfg = hvd._state.global_state().config
+    out = {}
+
+    def full(shape, value):
+        return torch.full(shape, value, device=dev)
+
+    def np_(t):
+        return t.cpu().numpy()
+
+    _eager_reductions(hvd, out, "XLA")
+    # variable allgather, broadcast, alltoall with uneven and zero splits
+    out["ag"] = np_(hvd.allgather(full((r + 1, 2), float(r)), name="ag"))
+    out["ag_int"] = np_(hvd.allgather(
+        torch.arange(r + 1, dtype=torch.int32, device=dev), name="ag.int"))
+    out["bc"] = np_(hvd.broadcast(full((3,), float(r * 10)), root_rank=1,
+                                  name="bc"))
+    splits = _splits(world)[r]
+    x = torch.arange(int(splits.sum()), dtype=torch.float32,
+                     device=dev) + 100 * r
+    out["a2a"] = np_(hvd.alltoall(x, splits=splits.tolist(), name="a2a"))
+    out["a2a_int"] = np_(hvd.alltoall(x.to(torch.int64),
+                                      splits=splits.tolist(),
+                                      name="a2a.int"))
+    # the async variants give the same results
+    hg = hvd.allgather_async(full((r + 1, 2), float(r)), name="ag.a")
+    hb = hvd.broadcast_async(full((3,), float(r * 10)), root_rank=1,
+                             name="bc.a")
+    ht = hvd.alltoall_async(x, splits=splits.tolist(), name="a2a.a")
+    out["async"] = [np_(hvd.synchronize(h)) for h in (hg, hb, ht)]
+    # a bucketed allreduce interleaved with a broadcast negotiated at
+    # submission, synchronized in either order
+    ar = hvd.allreduce_async(full((2,), float(r + 1)), op=hvd.Sum,
+                             name="ilv.ar")
+    bc = hvd.broadcast_async(full((2,), float(r + 5)), root_rank=0,
+                             name="ilv.bc")
+    out["ilv"] = [np_(hvd.synchronize(ar)), np_(hvd.synchronize(bc))]
+    # many submissions fused at the byte threshold, in submission order
+    before = global_bucketer().groups
+    threshold, cfg.fusion_threshold_bytes = cfg.fusion_threshold_bytes, 40
+    handles = [hvd.allreduce_async(full((3,), float(i + r)),
+                                   name=f"g.{i}") for i in range(10)]
+    out["fused"] = [np_(hvd.synchronize(h)) for h in handles]
+    out["fused_groups"] = global_bucketer().groups - before
+    cfg.fusion_threshold_bytes = threshold
+    # the natural loop: an output fed into the next collective
+    w = torch.zeros(4, device=dev)
+    for i in range(3):
+        w = w - 0.5 * hvd.allreduce(w + (r + 1), name=f"loop.{i}")
+    out["loop"] = np_(w)
+    out["loop_bc"] = np_(hvd.broadcast(w, root_rank=0, name="loop.bc"))
+    hvd.barrier()
+    out["objects"] = hvd.allgather_object({"rank": r})
+    # a shape that differs on rank 0: every rank raises
+    out["mismatch"] = _caught(lambda: hvd.allreduce(
+        torch.ones(4 if r == 0 else 5, device=dev), name="bad"))
+    # join with uneven batches: rank r has r + 2; the last rank averages
+    # alone at the end, divided by the whole world
+    sums = []
+    for i in range(r + 2):
+        sums.append(float(hvd.allreduce(full((3,), float(r + 1)),
+                                        op=hvd.Sum, name=f"j.{i}")[0]))
+    out["join_sums"] = sums
+    if r == world - 1:
+        out["join_avg"] = float(hvd.allreduce(full((3,), 2.0),
+                                              name="j.avg")[0])
+    out["join_last"] = hvd.join()
+    # join with an allgather, then with Max: the same error on every rank
+    for kind in ("allgather", "max"):
+        if r == world - 1:
+            fn = (lambda: hvd.allgather(torch.ones(2, 2, device=dev),
+                                        name="ag.join")) \
+                if kind == "allgather" else \
+                (lambda: hvd.allreduce(torch.ones(2, device=dev),
+                                       op=hvd.ReduceOp.MAX,
+                                       name="max.join"))
+            out[f"join_{kind}"] = _caught(fn)
+            out[f"join_{kind}_last"] = hvd.join()
+        else:
+            out[f"join_{kind}"] = _caught(hvd.join)
+            out[f"join_{kind}_last"] = hvd.join()
+    out["stats"] = hvd.cache_stats()
+    # HOROVOD_TPU_OPERATIONS=HOST: the same collectives over the host group
+    cfg.tpu_operations = "HOST"
+    out["host_plane"] = hvd.current_operations()
+    _eager_reductions(hvd, out, "HOST")
+    out["host"] = [
+        np_(hvd.allgather(full((r + 1, 2), float(r)), name="h.ag")),
+        np_(hvd.broadcast(full((3,), float(r * 7)), root_rank=1,
+                          name="h.bc")),
+        np_(hvd.alltoall(x, splits=splits.tolist(), name="h.a2a"))]
+    hvd.barrier()
+    cfg.tpu_operations = "XLA"
+    out["eager_in_flight"] = len(hvd._state.global_state().eager.in_flight)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the hook-fired exchange (tests/test_torch_overlap.py)
+# ---------------------------------------------------------------------------
+
+#: DistributedOptimizer options of each overlap case
+OVERLAP_CASES = {
+    "plain": {},
+    "predivide": {"gradient_predivide_factor": 2.0},
+    "bpps2": {"backward_passes_per_step": 2},
+    "sync_then_step": {"gradient_predivide_factor": 2.0},
+    "unused_frozen": {},
+    "fp16": {"compression": "fp16"},
+    "int8": {"compression": "int8"},
+}
+#: the fusion threshold each model runs under: one bucket a parameter for
+#: the MLP (its hooks fire out of plan order), a few for the transformer
+OVERLAP_THRESHOLDS = {"mlp": 1, "lm": 64 * 1024}
+
+
+def _overlap_model(name: str, case: str):
+    """(module, loss(module, micro-batch index)) with this rank's data."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+    from horovod_tpu_torch.runtime import state
+
+    rank, dev = state.global_state().rank, state.global_state().device
+    if name == "mlp":
+        model = torch.nn.ParameterDict({
+            k: torch.nn.Parameter(torch.from_numpy(v.copy()).to(dev))
+            for k, v in mlp_params().items()})
+        if case == "unused_frozen":
+            model["w1"].requires_grad_(False)
+            model["unused"] = torch.nn.Parameter(torch.ones(3, device=dev))
+        x, y = mlp_batch(n=16, seed=rank)
+
+        def loss(m, k):
+            rows = slice(8 * k, 8 * k + 8)
+            return mlp_loss(m, {"x": torch.from_numpy(x[rows]).to(dev),
+                                "y": torch.from_numpy(y[rows]).to(dev)})
+        return model, loss
+    # fp32 on the CPU, bf16 compute (the flash kernels' type) on a card
+    model = TransformerLM(
+        TransformerConfig(dtype=torch.float32 if dev.type == "cpu"
+                          else torch.bfloat16, attention_impl="flash",
+                          **TRAIN_SIZES),
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    if case == "unused_frozen":
+        model.layers[1].ln2.scale.requires_grad_(False)
+        model.layers[0].unused = torch.nn.Parameter(torch.ones(3, device=dev))
+    tok = torch.from_numpy(
+        np.random.RandomState(rank).randint(0, 128, (4, 17))).to(dev)
+
+    def loss(m, k):
+        return lm_loss(m, tok[2 * k:2 * k + 2])
+    return model, loss
+
+
+def overlap_case(hvd, name: str, case: str) -> dict:
+    """One overlap case: the hook path's gradients against
+    ``distributed_gradients`` applied to the same gradients from a
+    wrapper-free copy of the model; returns whether they are equal bit for
+    bit, which parameters have none, the launches, the order the hooks
+    fired in, and how many bucket reductions ran."""
+    import copy
+
+    import torch
+
+    from horovod_tpu_torch.optim import optimizer as TO
+
+    cfg = hvd._state.global_state().config
+    threshold = OVERLAP_THRESHOLDS[name]
+    cfg.fusion_threshold_bytes = threshold
+    kw = dict(OVERLAP_CASES[case])
+    if "compression" in kw:
+        kw["compression"] = getattr(hvd.Compression, kw["compression"])
+    passes = kw.get("backward_passes_per_step", 1)
+    model, loss = _overlap_model(name, case)
+    ref = copy.deepcopy(model)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.0), **kw)
+    fired, calls = [], []
+    real_on_grad, real_reduce = opt._on_grad, TO.C.grouped_allreduce
+    opt._on_grad = lambda i, p: (fired.append(i), real_on_grad(i, p))
+
+    def counting(xs, **k):
+        calls.append(len(xs))
+        return real_reduce(xs, **k)
+
+    TO.C.grouped_allreduce = counting
+    try:
+        launches_after_backward = None
+        for k in range(passes):
+            opt.zero_grad(set_to_none=True)
+            loss(model, k).backward()
+            launches_after_backward = [src for _, src in opt.launches]
+            if case == "sync_then_step":
+                opt.synchronize()
+            opt.step()
+    finally:
+        TO.C.grouped_allreduce = real_reduce
+    # the reference: today's accumulation, then distributed_gradients
+    acc = None
+    for k in range(passes):
+        ref.zero_grad(set_to_none=True)
+        loss(ref, k).backward()
+        grads = [p.grad for p in ref.parameters()]
+        acc = [None if g is None else g.clone() for g in grads] \
+            if acc is None else [a if g is None else a.add_(g)
+                                 for a, g in zip(acc, grads)]
+    for p, a in zip(ref.parameters(), acc):
+        p.grad = None if a is None else a.div_(passes)
+    pre, post = kw.get("prescale_factor"), kw.get("postscale_factor")
+    if "gradient_predivide_factor" in kw:
+        pre, post = 0.5, 2.0
+    TO.distributed_gradients(
+        [p.grad for p in ref.parameters() if p.grad is not None],
+        compression=kw.get("compression"), prescale_factor=pre,
+        postscale_factor=post, bucket_bytes=threshold)
+    got = [p.grad for p in model.parameters()]
+    want = [p.grad for p in ref.parameters()]
+    exact = all((g is None and w is None) or
+                (g is not None and w is not None and torch.equal(g, w))
+                for g, w in zip(got, want))
+    buckets = opt._buckets
+    return {"exact": exact,
+            "no_grad": [i for i, g in enumerate(got) if g is None],
+            "frozen_or_unused": [
+                i for i, (n, p) in enumerate(model.named_parameters())
+                if not p.requires_grad or n.endswith("unused")],
+            "launches": [(ids, src) for ids, src in opt.launches],
+            "after_backward": launches_after_backward,
+            "buckets": buckets,
+            "fired_buckets": [opt._bucket_of[i] for i in fired],
+            "reductions": len(calls)}
+
+
+def run_overlap(hvd):
+    """Every overlap case on both models, and join_step on this rank's
+    gradients (rank 1 has no data)."""
+    import torch
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    out = {(name, case): overlap_case(hvd, name, case)
+           for name in OVERLAP_THRESHOLDS for case in OVERLAP_CASES}
+    g = join_step_inputs(hvd.rank())
+    got = hvd.join_step({k: torch.from_numpy(v).to(hvd.device())
+                         for k, v in g.items()}, hvd.rank() != 1)
+    out["join_step"] = {k: v.cpu().numpy() for k, v in got.items()}
+    return out
+
+
+def join_step_inputs(rank: int) -> dict:
+    rng = np.random.RandomState(300 + rank)
+    return {"a": rng.randn(3, 5).astype(np.float32),
+            "b": rng.randn(7).astype(np.float32)}
+
+
+def check_eager_reduction(outs, world: int, plane: str, i: int) -> None:
+    case = EAGER_CASES[i]
+    want = eager_expected(case, world)
+    tol = eager_tolerance(case[0], case[1])
+    for out in outs:
+        dtype, got = out[(plane, i)]
+        assert dtype.removeprefix("torch.") == str(want.dtype)
+        np.testing.assert_allclose(got.astype(np.float64),
+                                   want.astype(np.float64), rtol=tol,
+                                   atol=tol, err_msg=str(case))
+
+
+def _rows_to(world: int, me: int) -> np.ndarray:
+    sp = _splits(world)
+    parts = []
+    for src in range(world):
+        start = int(sp[src][:me].sum())
+        parts.append(np.arange(start, start + sp[src][me],
+                               dtype=np.float32) + 100 * src)
+    return np.concatenate(parts)
+
+
+def _check_movement(outs, world):
+    """Variable allgather, broadcast from rank 1, alltoall with uneven and
+    zero splits (float and int64), their async variants, and the same on
+    the host plane."""
+    ag = np.concatenate([np.full((r + 1, 2), float(r), np.float32)
+                         for r in range(world)])
+    for me, out in enumerate(outs):
+        np.testing.assert_array_equal(out["ag"], ag)
+        np.testing.assert_array_equal(out["ag_int"], np.concatenate(
+            [np.arange(r + 1, dtype=np.int32) for r in range(world)]))
+        np.testing.assert_array_equal(out["bc"], 10.0)
+        np.testing.assert_array_equal(out["a2a"], _rows_to(world, me))
+        np.testing.assert_array_equal(out["a2a_int"], _rows_to(world, me))
+        for got, want in zip(out["async"],
+                             (ag, np.full(3, 10.0), _rows_to(world, me))):
+            np.testing.assert_array_equal(got, want)
+        for got, want in zip(out["host"], (ag, np.full(3, 7.0),
+                                           _rows_to(world, me))):
+            np.testing.assert_array_equal(got, want)
+        assert out["host_plane"] == "HOST"
+
+
+def _check_bucketed_and_interleaved(outs, world):
+    """A bucketed allreduce interleaved with a broadcast negotiated at
+    submission; ten submissions fused at a 40-byte threshold into 3
+    groups."""
+    total = world * (world + 1) / 2
+    for out in outs:
+        np.testing.assert_array_equal(out["ilv"][0], total)
+        np.testing.assert_array_equal(out["ilv"][1], 5.0)
+        for i, got in enumerate(out["fused"]):
+            np.testing.assert_array_equal(got, i + (world - 1) / 2)
+        assert out["fused_groups"] == 3
+
+
+def _check_output_feeds_next(outs, world):
+    w = np.zeros(4)
+    mean = (world + 1) / 2
+    for _ in range(3):
+        w = w - 0.5 * (w + mean)
+    for out in outs:
+        np.testing.assert_allclose(out["loop"], w, rtol=1e-6)
+        np.testing.assert_array_equal(out["loop_bc"], outs[0]["loop"])
+
+
+def _check_objects_and_stats(outs, world):
+    for out in outs:
+        assert out["objects"] == [{"rank": r} for r in range(world)]
+        assert out["stats"]["misses"] > 0
+        assert out["eager_in_flight"] == 0
+
+
+def _check_mismatch(outs, world):
+    """A shape that differs on rank 0: HorovodInternalError on every
+    rank."""
+    for out in outs:
+        assert out["mismatch"].startswith(
+            "HorovodInternalError: Mismatched allreduce"), out["mismatch"]
+
+
+def _check_join_uneven(outs, world):
+    """Joined ranks add zeros: the sums hold only the ranks still present;
+    the last rank's Average divides by the whole world; join returns the
+    last rank to join."""
+    for r, out in enumerate(outs):
+        want = [float(sum(q + 1 for q in range(world) if q + 2 > i))
+                for i in range(r + 2)]
+        assert out["join_sums"] == want
+        assert out["join_last"] == world - 1
+    assert outs[-1]["join_avg"] == 2.0 / world
+
+
+def _check_join_errors(outs, world):
+    """An allgather, or a Max, while the others are joined: the
+    reference's error on the active rank and on every joined rank; all
+    then join again, aligned, and the last rank is returned."""
+    for kind, text in (
+            ("allgather", "HorovodInternalError: Allgather is not supported "
+                          "with Join at this time."),
+            ("max", "HorovodInternalError: Allreduce op MAX is not "
+                    "supported with Join")):
+        for out in outs:
+            assert out[f"join_{kind}"].startswith(text), out[f"join_{kind}"]
+            assert out[f"join_{kind}_last"] == world - 1
+
+
+#: the eager scenarios' checks over every rank's :func:`run_eager` result
+EAGER_CHECKS = {"movement": _check_movement,
+                "bucketed_and_interleaved": _check_bucketed_and_interleaved,
+                "output_feeds_next": _check_output_feeds_next,
+                "objects_and_stats": _check_objects_and_stats,
+                "mismatch": _check_mismatch,
+                "join_uneven": _check_join_uneven,
+                "join_errors": _check_join_errors}
+
+
+def check_overlap(res: dict, name: str, case: str) -> None:
+    """An :func:`overlap_case` result: bit for bit equal to
+    ``distributed_gradients``; with every gradient present, every bucket
+    launched from a hook before backward returned, in plan order, once
+    (no second exchange after an explicit synchronize)."""
+    assert res["exact"], (name, case)
+    n_buckets = len(res["buckets"])
+    if case == "unused_frozen":
+        # a frozen parameter (left out of the plan) and an unused one keep
+        # .grad None; the unused one's bucket never completes, so it and
+        # the buckets after it launch at synchronize, replanned
+        assert res["no_grad"] == res["frozen_or_unused"]
+        assert len(res["no_grad"]) == 2
+        assert [src for _, src in res["launches"]][-1] == "synchronize"
+        return
+    assert res["no_grad"] == []
+    assert [ids for ids, _ in res["launches"]] == res["buckets"]
+    assert res["after_backward"] == ["hook"] * n_buckets
+    assert res["reductions"] == n_buckets
+
+
+def run_eager_card(hvd):
+    """On one card (an NCCL world of one): which planes, NCCL calls, host
+    gathers and ``fused_scale`` launches each eager call takes; ``poll`` on
+    an in-flight handle."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.ops import op_manager
+
+    dev, cfg = hvd.device(), hvd._state.global_state().config
+    host, nccl = [], []
+    real_host, real_ar = op_manager._host_allgather, dist.all_reduce
+    op_manager._host_allgather = lambda x: (host.append(x.device.type),
+                                            real_host(x))[1]
+
+    def all_reduce(t, *a, **k):
+        nccl.append(t.device.type)
+        return real_ar(t, *a, **k)
+
+    dist.all_reduce = all_reduce
+    out = {}
+    x = torch.randn(1 << 20, device=dev)
+
+    def run(tag, t):
+        host.clear()
+        nccl.clear()
+        before = K.fused_scale.launches
+        y = hvd.allreduce(t, name=tag, prescale_factor=0.5,
+                          postscale_factor=2.0)
+        out[tag] = {"plane": op_manager.current_operations(t),
+                    "host": list(host), "nccl": list(nccl),
+                    "fused_scale": K.fused_scale.launches - before,
+                    "exact": bool(torch.equal(y, t)),
+                    "device": y.device.type}
+
+    run("card", x)
+    run("cpu", torch.arange(8.0))
+    cfg.tpu_operations = "HOST"
+    run("card_host", x)
+    cfg.tpu_operations = "XLA"
+    big = torch.randn(16 << 20, device=dev)      # 64 MiB: dispatched now
+    h = hvd.allreduce_async(big, name="big")
+    out["poll_in_flight"] = hvd.poll(h)
+    out["big_exact"] = bool(torch.equal(hvd.synchronize(h), big))
+    out["poll_done"] = hvd.poll(h)
+    dist.all_reduce = real_ar
+    return out
+
+
+#: a wider LM than TRAIN_SIZES for timing the exchange over NCCL
+OVERLAP_TIMING_SIZES = dict(vocab_size=8192, num_layers=4, num_heads=8,
+                            d_model=1024, d_ff=4096, max_seq_len=512)
+
+
+def run_overlap_nccl(hvd):
+    """:func:`run_overlap` on the cards, then the step of a wider LM (bf16
+    compute, AdamW) timed with the hook-fired exchange and with the
+    step-time one (``distributed_gradients`` after backward), in turns:
+    median ms of 10 steps after 3, twice each."""
+    import time
+
+    import torch
+
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+    from horovod_tpu_torch.optim import distributed_gradients
+
+    out = run_overlap(hvd)
+    dev = hvd.device()
+    tok = torch.from_numpy(np.random.RandomState(hvd.rank()).randint(
+        0, 8192, (4, 513))).to(dev)
+    timing = {"hooks": [], "step_time": []}
+    for mode in ("hooks", "step_time", "step_time", "hooks"):
+        model = TransformerLM(TransformerConfig(
+            dtype=torch.bfloat16, attention_impl="flash",
+            **OVERLAP_TIMING_SIZES),
+            generator=torch.Generator().manual_seed(0)).to(dev)
+        inner = torch.optim.AdamW(model.parameters(), lr=1e-4)
+        opt = hvd.DistributedOptimizer(inner) if mode == "hooks" else inner
+        ms = []
+        for i in range(13):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            lm_loss(model, tok).backward()
+            if mode == "step_time":
+                distributed_gradients([p.grad for p in model.parameters()
+                                       if p.grad is not None])
+            opt.step()
+            torch.cuda.synchronize()
+            if i >= 3:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        timing[mode].append(sorted(ms)[len(ms) // 2])
+        del model, opt, inner
+    out["timing_ms"] = timing
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the hook-fired exchange against the step-time one, timed on one card
+# ---------------------------------------------------------------------------
+
+def _bench_transformer(torch, hvd, tp: bool):
+    import torch.nn.functional as F
+
+    from chip_smoke import FULL, SEED, full_config
+    from horovod_tpu_torch.models.transformer import (
+        TransformerLM,
+        fused_tp_apply,
+        lm_loss,
+    )
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    dev = hvd.device()
+    cfg = full_config(torch, "flash")
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (FULL["batch"], FULL["seq"] + 1),
+                           generator=torch.Generator().manual_seed(SEED)
+                           ).to(dev)
+    if tp:
+        mesh = make_parallel_mesh(tp=1)
+
+        def loss():
+            logits = fused_tp_apply(model, cfg, tokens[:, :-1], mesh=mesh)
+            return F.cross_entropy(
+                logits.float().reshape(-1, logits.shape[-1]),
+                tokens[:, 1:].reshape(-1))
+    else:
+        def loss():
+            return lm_loss(model, tokens)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    return model, opt, loss, 2.0
+
+
+def _bench_resnet(torch, hvd):
+    from chip_smoke import RESNET, SEED
+    from horovod_tpu_torch.models.resnet import ResNet50, resnet_loss
+
+    dev = hvd.device()
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                     space_to_depth=True, fused_bwd=True, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    cpu = torch.Generator().manual_seed(SEED)
+    n, px = RESNET["batch"], RESNET["image"]
+    batch = {"x": torch.rand((n, px, px, 3), generator=cpu).to(dev),
+             "y": torch.randint(0, 1000, (n,), generator=cpu).to(dev)}
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    return model, opt, lambda: resnet_loss(model, batch), None
+
+
+def _bench_turn(torch, hvd, build, mode: str, steps: int) -> float:
+    """Median step ms of ``steps`` steps after two, from a fresh model:
+    ``hooks`` wraps the optimizer in DistributedOptimizer; ``step_time``
+    keeps it unwrapped and calls distributed_gradients (the same buckets,
+    factors and kernels) after backward, as ``step()`` ran the exchange
+    before the hooks."""
+    import time
+
+    from horovod_tpu_torch.optim import distributed_gradients
+
+    model, inner, loss, predivide = build()
+    kw = {} if predivide is None else \
+        {"gradient_predivide_factor": predivide}
+    opt = hvd.DistributedOptimizer(inner, **kw) if mode == "hooks" \
+        else inner
+    pre, post = (None, None) if predivide is None else \
+        (1.0 / predivide, predivide)
+    times = []
+    for i in range(steps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss().backward()
+        if mode == "step_time":
+            distributed_gradients(
+                [p.grad for p in model.parameters() if p.grad is not None],
+                prescale_factor=pre, postscale_factor=post)
+        opt.step()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    del model, opt, inner, loss
+    torch.cuda.empty_cache()
+    return sorted(times)[len(times) // 2]
+
+
+def run_overlap_bench(hvd, steps: int = 8, turns: int = 4):
+    """chip_smoke.py's one-card training paths at full width (the 870.9M
+    TransformerLM through flash and through ``fused_tp_apply`` at tp = 1,
+    ResNet-50 at 224 px, batch 128, ``fused_bwd``), each timed with the
+    hook-fired exchange and with the step-time one in turns (hooks,
+    step-time, step-time, hooks, ...): {path: {mode: [median ms of each
+    turn]}}, with the card's name."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paths = {"transformer": lambda: _bench_transformer(torch, hvd, False),
+             "tp": lambda: _bench_transformer(torch, hvd, True),
+             "resnet": lambda: _bench_resnet(torch, hvd)}
+    order = []
+    for t in range(turns // 2):
+        order += ["hooks", "step_time"] if t % 2 == 0 else \
+            ["step_time", "hooks"]
+    out = {"device": torch.cuda.get_device_name(0)}
+    for path, build in paths.items():
+        got = {"hooks": [], "step_time": []}
+        for mode in order:
+            got[mode].append(_bench_turn(torch, hvd, build, mode, steps))
+        out[path] = got
     return out
