@@ -98,7 +98,23 @@ Phases, in order; any failure exits non-zero:
    ``alltoall_async`` with splits, ``allgather``, ``allgather_object``,
    ``join``, ``poll`` on an in-flight handle, the duplicate-name error and
    a CPU tensor through the host plane, each against its expected value;
-10. print the card's name and power limit, the kernels' JSON line, and last
+10. the Switch-MoE LM at ``bench.py --model moe``'s defaults (12 layers,
+   d_model 1024, 8 heads, d_ff 4096, 8 experts every second block,
+   capacity factor 1.25, seq 1024, batch 16, bf16, flash; 536.2M
+   parameters): (a) 5 steps through the hook path with
+   ``gradient_predivide_factor=2.0`` (the loss, CE + 0.01·aux, must fall;
+   each flash kernel exactly 12 times a step, ``fused_scale`` twice a
+   bucket, every bucket from its hook), with the drop fractions, the
+   expert shares and a profiled step whose device time has routing as a
+   category of its own; (b) ``expert_chunk_mlp`` at one layer's dispatch
+   shape, (8, 2560, 1024) x 4096, through kernel 6 (16 launches), held
+   against the batched-einsum expert body under kernel 6's limits and
+   timed beside it; (c) the same LM with ``shard_optimizer_states=True``:
+   one step, ``save_sharded`` and ``save`` on the async writer, a second
+   step, then a fresh model and wrapper restore and repeat it, bit for bit
+   (layers cut only if the temporary directory's disk is short); every
+   number printed with the card's name and power limit;
+11. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -162,6 +178,18 @@ FLASH_EDGES = [((1, 136, 2, 128), True), ((2, 1000, 4, 64), False),
 # both head_dims; the even ones also carry the positions pairs
 BWD_EDGES = [((1, 65, 2, 128), True), ((2, 136, 3, 64), True),
              ((1, 40, 2, 128), True), ((1, 40, 2, 64), False)]
+# bench.py --model moe's defaults (bench.py:2948-2966, run_moe :1086-1099):
+# 12 layers, d_model 1024, 8 heads of 128, d_ff 4096, 8 experts, every
+# second block MoE, capacity factor 1.25, seq 1024, batch 16
+MOE = dict(batch=16, seq=1024, heads=8, layers=12, d_model=1024, d_ff=4096,
+           experts=8, moe_every=2, capacity_factor=1.25, vocab=32_000,
+           aux=0.01, steps=5)
+# phase 10 (b): expert_chunk_mlp at one MoE layer's shapes on one card:
+# every expert local, capacity ceil(1.25 * 16384 / 8)
+CHUNK = dict(e_local=8, capacity=2560, d=1024, f=4096)
+# the card's name and power limit (nvidia-smi), printed beside phase 10's
+# numbers
+CARD = ""
 # ragged shapes: M edges of 8, 24 and 136 rows in the forward and dX, and a
 # 24-row M edge in dW (its n); a layout whose call falls outside the
 # dispatch rule takes the plain version and is not checked
@@ -169,10 +197,11 @@ MM_RAGGED = [(8, 128, 128), (24, 384, 640), (136, 256, 384),
              (256, 128, 24)]
 
 
-def check_flash_launches(counts: dict, steps: int, path: str) -> None:
+def check_flash_launches(counts: dict, steps: int, path: str,
+                         layers: int = FULL["layers"]) -> None:
     """Each flash kernel without positions launched once a layer a step,
     and no positions variant."""
-    want = dict.fromkeys(FLASH_KERNELS, FULL["layers"] * steps)
+    want = dict.fromkeys(FLASH_KERNELS, layers * steps)
     want.update(dict.fromkeys(SP_KERNELS, 0))
     got = {k: counts[k] for k in want}
     if got != want:
@@ -1126,9 +1155,21 @@ def phase_time(torch):
     return out
 
 
-def _category(name: str) -> str:
+# the MoE layers' routing kernels, by name: the router's softmax over 8
+# experts (a warp softmax; the loss's over 32000 is another kernel), its
+# argmax, the slot cumsum, the gather of the gate, the dispatch scatter and
+# the combine gather, forward and backward (index_put with accumulate sorts
+# its indices; the embedding's backward sorts with the same cub kernels)
+MOE_ROUTING = (("softmax_warp", "routing"), ("argmax", "routing"),
+               ("scan", "routing"), ("scatter_gather", "routing"),
+               ("index_elementwise", "routing"),
+               ("indexing_backward", "routing"), ("index_put", "routing"),
+               ("radix", "routing"))
+
+
+def _category(name: str, extra=()) -> str:
     lowered = name.lower()
-    for key, cat in (("mm_kernel", "pallas_matmul kernel"),
+    for key, cat in tuple(extra) + (("mm_kernel", "pallas_matmul kernel"),
                      ("flash_", "flash kernels"), ("scale_", "fused_scale"),
                      ("cbr_", "conv_bn_relu_bwd kernel"),
                      ("conv", "convolution"), ("fprop", "convolution"),
@@ -1208,14 +1249,16 @@ def no_hook_grads(torch, model, loss) -> dict:
 
 
 def profile_step(torch, run, focus: str = "", ranges=None,
-                 streams: bool = False) -> dict:
+                 streams: bool = False, categories=()) -> dict:
     """One more training step under torch.profiler: device time by kernel
     and by category, and the device's busy share of the step's wall time;
     every kernel whose name holds ``focus`` is listed too.  With
     ``ranges`` ({record_function name: part}), also the device time of
     the kernels launched under each range, and the rest of the busy time;
     returns {part: ms} with "busy" and "wall".  With ``streams``, also
-    :func:`stream_overlap`'s readings."""
+    :func:`stream_overlap`'s readings.  ``categories`` are (name fragment,
+    category) pairs read before the default ones; the split by category is
+    returned under "categories"."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1230,14 +1273,15 @@ def profile_step(torch, run, focus: str = "", ranges=None,
         f"%, {sum(r[1] for r in rows)} device operations")
     cats: dict = {}
     for ms, _, key in rows:
-        cats[_category(key)] = cats.get(_category(key), 0.0) + ms
+        cat = _category(key, categories)
+        cats[cat] = cats.get(cat, 0.0) + ms
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         log(f"profile: {cat:18s} {ms:8.2f} ms ({100 * ms / busy:.1f} %)")
     ranked = sorted(rows, reverse=True)
     for ms, count, key in ranked[:12] + [r for r in ranked[12:]
                                          if focus and focus in r[2]]:
         log(f"profile:   {ms:8.2f} ms x{count:<4d} {key[:90]}")
-    split = {"wall": wall_ms, "busy": busy}
+    split = {"wall": wall_ms, "busy": busy, "categories": cats}
     if streams:
         split.update(stream_overlap(prof))
         log(f"profile streams: {split.get('streams')} streams with kernels;"
@@ -1850,6 +1894,291 @@ def phase_tp_train(torch):
                         loss_rel=loss_rel, grad_rel=grad_rel)
 
 
+def moe_config(torch, layers=None):
+    """bench.py --model moe's configuration in bf16 with flash attention
+    (``layers`` cuts the depth)."""
+    from horovod_tpu_torch.models.moe import MoEConfig
+
+    return MoEConfig(vocab_size=MOE["vocab"],
+                     num_layers=layers or MOE["layers"],
+                     num_heads=MOE["heads"], d_model=MOE["d_model"],
+                     d_ff=MOE["d_ff"], max_seq_len=MOE["seq"],
+                     dtype=torch.bfloat16, attention_impl="flash",
+                     num_experts=MOE["experts"],
+                     capacity_factor=MOE["capacity_factor"],
+                     moe_every=MOE["moe_every"])
+
+
+def moe_loss(m, batch):
+    """bench.py run_moe's loss: cross-entropy + 0.01 · the mean aux."""
+    from horovod_tpu_torch.models.moe import moe_aux_loss
+    from horovod_tpu_torch.models.transformer import lm_loss
+
+    return lm_loss(m, batch) + MOE["aux"] * moe_aux_loss(m)
+
+
+def moe_tokens(torch, vocab: int):
+    return torch.randint(0, vocab, (MOE["batch"], MOE["seq"] + 1),
+                         generator=torch.Generator().manual_seed(SEED))
+
+
+def phase_moe(torch) -> tuple:
+    """Phase 10 on one card: (a) the Switch-MoE LM at bench.py's defaults,
+    five steps through the hook path; (b) expert_chunk_mlp at one layer's
+    shapes through kernel 6; (c) a sharded checkpoint round trip.  Returns
+    (the launch counts of (a), those of (b), the summary)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.moe import MoETransformerLM, moe_layers
+    from horovod_tpu_torch.ops import kernels as K
+
+    hvd.init()
+    dev = hvd.device()
+    tag = f"moe [{CARD}]"
+    cfg = moe_config(torch)
+    model = MoETransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_expert = sum(m.w1.numel() + m.w2.numel() for m in moe_layers(model))
+    active = n_params - n_expert * (cfg.num_experts - 1) // cfg.num_experts
+    log(f"{tag}: (a) {n_params / 1e6:.1f}M params, {active / 1e6:.1f}M "
+        f"active a token, {cfg.num_layers}L/{cfg.d_model}d/"
+        f"{cfg.num_heads}h, d_ff {cfg.d_ff}, {cfg.num_experts} experts "
+        f"every {cfg.moe_every} blocks, cf {cfg.capacity_factor}, seq "
+        f"{MOE['seq']}, batch {MOE['batch']}, attention "
+        f"{cfg.attention_impl}")
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        gradient_predivide_factor=2.0)
+    step = hvd.DistributedTrainStep(moe_loss, opt)
+    tokens = moe_tokens(torch, cfg.vocab_size)
+    steps = MOE["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    model, opt = step.init(model)
+    batch = step.shard_batch(tokens)
+    losses, times, sources = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))           # synchronises
+        times.append(time.perf_counter() - t0)
+        sources.append([src for _, src in opt.launches])
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag}: (a) losses {losses}")
+    log(f"{tag}: (a) launches on the MoE path {counts}")
+    n_buckets = len(opt._buckets)
+    hooks = [src.count("hook") for src in sources]
+    if hooks != [n_buckets] * steps:
+        raise AssertionError(f"moe: buckets from hooks {hooks}, want "
+                             f"{n_buckets} a step")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("moe: non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"moe: loss did not fall: {losses}")
+    check_flash_launches(counts, steps, "moe (a)", layers=cfg.num_layers)
+    if counts["fused_scale"] != 2 * n_buckets * steps:
+        raise AssertionError(f"moe: {counts['fused_scale']} fused_scale "
+                             f"launches, want {2 * n_buckets * steps}")
+    drops = [float(m.moe_drop_fraction) for m in moe_layers(model)]
+    shares = [[round(float(v), 4) for v in m.moe_expert_fraction]
+              for m in moe_layers(model)]
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    tokens_per_step = MOE["batch"] * MOE["seq"]
+    log(f"{tag}: (a) step {steady * 1e3:.1f} ms (median of steps 2-5; "
+        f"first {times[0] * 1e3:.1f} ms), {tokens_per_step / steady:.0f} "
+        f"tokens/s, peak memory {peak / 2**30:.2f} GiB; {n_buckets} buckets "
+        f"a step, all from hooks; fused_scale {counts['fused_scale'] // steps}"
+        f" a step, each flash kernel {counts['flash_fwd'] // steps} a step")
+    log(f"{tag}: (a) after step {steps}: drop fraction by MoE layer "
+        f"{[round(d, 4) for d in drops]}, per-expert shares {shares}")
+    profiled = profile_step(torch, lambda: float(step(model, opt, batch)[2]),
+                            categories=MOE_ROUTING)
+    idle = 1 - profiled["busy"] / profiled["wall"]
+    log(f"{tag}: (a) profiled step: idle {100 * idle:.1f} %, device ms by "
+        f"category {json.dumps({k: round(v, 2) for k, v in sorted(profiled['categories'].items(), key=lambda kv: -kv[1])})}")
+    summary = dict(params_m=n_params / 1e6, active_params_m=active / 1e6,
+                   step_ms=steady * 1e3, first_step_ms=times[0] * 1e3,
+                   tokens_per_s=tokens_per_step / steady,
+                   peak_gib=peak / 2**30, losses=losses, buckets=n_buckets,
+                   idle_share=idle, drop_fraction=drops,
+                   expert_shares=shares,
+                   device_ms=profiled["categories"])
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+
+    chunk_counts, summary["chunk"] = moe_chunk(torch, tag, dev)
+    torch.cuda.empty_cache()
+    summary["checkpoint"] = moe_checkpoint(torch, hvd, tag)
+    hvd.shutdown()
+    return counts, chunk_counts, summary
+
+
+def moe_chunk(torch, tag: str, dev) -> tuple:
+    """Phase 10 (b): expert_chunk_mlp at ``CHUNK``'s shapes in bf16, its
+    launches counted from one call, held against the batched-einsum expert
+    body under kernel 6's limits, both timed.  Returns (the counts of the
+    call, the summary)."""
+    from horovod_tpu_torch.models.moe import _expert_mlp
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.ops.fused_collectives import expert_chunk_mlp
+
+    e, c, d, f = (CHUNK[k] for k in ("e_local", "capacity", "d", "f"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    chunk = torch.randn(e, c, d, generator=gen, device=dev).bfloat16()
+    w1 = (torch.randn(e, d, f, generator=gen, device=dev)
+          * (e * d) ** -0.5).bfloat16()
+    w2 = (torch.randn(e, f, d, generator=gen, device=dev)
+          * (e * f) ** -0.5).bfloat16()
+    K.reset_launch_counts()
+    got = expert_chunk_mlp(chunk, w1, w2)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if counts["pallas_matmul"] != 2 * e:
+        raise AssertionError(f"expert_chunk_mlp launched kernel 6 "
+                             f"{counts['pallas_matmul']} times, want {2 * e}")
+    want = _expert_mlp(chunk, w1, w2)
+    readings = mm_agreement(torch, got, want)
+    err = max_err(torch, got, want)
+    log(f"{tag}: (b) expert_chunk_mlp ({e}, {c}, {d}) x f {f} bf16: "
+        f"{counts['pallas_matmul']} kernel-6 launches; against the einsum "
+        f"body max_abs_err {err:.3e} (largest entry "
+        f"{float(want.float().abs().max()):.3e}); " +
+        ", ".join(f"{key} {val:.3e} (tol {lim:.0e})"
+                  for key, val, lim in readings))
+    if not all(val <= lim for _, val, lim in readings):
+        raise AssertionError("expert_chunk_mlp and the einsum body disagree")
+    del got, want
+    def plain():
+        return torch.stack([K.pallas_matmul_plain(torch.nn.functional.gelu(
+            K.pallas_matmul_plain(chunk[i], w1[i], torch.bfloat16),
+            approximate="tanh"), w2[i], torch.bfloat16) for i in range(e)])
+
+    ms = cuda_ms(torch, lambda: expert_chunk_mlp(chunk, w1, w2))
+    body_ms = cuda_ms(torch, lambda: _expert_mlp(chunk, w1, w2))
+    plain_ms = cuda_ms(torch, plain, iters=5)
+    flops = 4 * e * c * d * f
+    nbytes = 2 * (2 * e * c * d + 2 * e * d * f + e * c * f * 2)
+    bms, by = bound_ms(nbytes, flops)
+    # its parts, each timed alone: the eight (c, d) @ (d, f) products, the
+    # eight gelus, the eight (c, f) @ (f, d) products
+    h = [K.pallas_matmul(chunk[i], w1[i]) for i in range(e)]
+    g = [torch.nn.functional.gelu(x, approximate="tanh") for x in h]
+    parts = {
+        "up": cuda_ms(torch, lambda: [K.pallas_matmul(chunk[i], w1[i])
+                                      for i in range(e)]),
+        "gelu": cuda_ms(torch, lambda: [torch.nn.functional.gelu(
+            x, approximate="tanh") for x in h]),
+        "down": cuda_ms(torch, lambda: [K.pallas_matmul(
+            x, w2[i], out_dtype=torch.bfloat16) for i, x in enumerate(g)])}
+    del h, g
+    log(f"{tag}: (b) expert_chunk_mlp {ms:.4f} ms ({flops / ms / 1e9:.0f} "
+        f"TFLOP/s, {100 * bms / ms:.1f} % of bound {bms:.4f} ms by {by}), "
+        f"einsum body (cuBLAS) {body_ms:.4f} ms ({ms / body_ms:.2f}x), "
+        f"plain loop {plain_ms:.4f} ms; its parts alone: the up products "
+        f"{parts['up']:.4f} ms ({flops / 2 / parts['up'] / 1e9:.0f} "
+        f"TFLOP/s), gelu {parts['gelu']:.4f} ms, the down products "
+        f"{parts['down']:.4f} ms ({flops / 2 / parts['down'] / 1e9:.0f} "
+        f"TFLOP/s)")
+    return counts, dict(ms=ms, einsum_ms=body_ms, plain_ms=plain_ms,
+                        parts_ms=parts, bound_ms=bms,
+                        launches=counts["pallas_matmul"], max_abs_err=err)
+
+
+def moe_checkpoint(torch, hvd, tag: str) -> dict:
+    """Phase 10 (c): the MoE recipe with shard_optimizer_states=True at
+    full width (fewer layers when the temporary directory's disk is short):
+    one step, save_sharded and the parameters (async), a second step; then
+    a fresh model and wrapper restore both and take that second step, which
+    must equal the first run's bit for bit."""
+    from horovod_tpu_torch.checkpoint import Checkpointer
+    from horovod_tpu_torch.models.moe import MoETransformerLM
+    from horovod_tpu_torch.ops import kernels as K
+
+    dev = hvd.device()
+    root = tempfile.mkdtemp(prefix="hvd_torch_moe_ckpt_")
+    try:
+        layers = MOE["layers"]
+        free = shutil.disk_usage(root).free
+        while True:
+            cfg = moe_config(torch, layers)
+            n = sum(p.numel() for p in MoETransformerLM(
+                cfg, device="meta").parameters())
+            need = 3 * 4 * n * 1.2       # params + AdamW's two moments, fp32
+            if need < free or layers <= 2:
+                break
+            layers -= 2
+        log(f"{tag}: (c) {layers} of {MOE['layers']} layers "
+            f"({n / 1e6:.1f}M params, ~{need / 2**30:.1f} GiB to write, "
+            f"{free / 2**30:.1f} GiB free)" +
+            ("" if layers == MOE["layers"] else ": cut for the disk"))
+        tokens = moe_tokens(torch, cfg.vocab_size)
+
+        def build():
+            model = MoETransformerLM(cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(SEED))
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                  weight_decay=1e-4),
+                gradient_predivide_factor=2.0, shard_optimizer_states=True)
+            step = hvd.DistributedTrainStep(moe_loss, opt)
+            model, opt = step.init(model)
+            return model, opt, step, step.shard_batch(tokens)
+
+        model, opt, step, batch = build()
+        # two writers, so that neither save waits for the other's write
+        states = Checkpointer(os.path.join(root, "state"))
+        params = Checkpointer(os.path.join(root, "params"))
+        K.reset_launch_counts()
+        first = float(step(model, opt, batch)[2])
+        groups = len(opt.spec.groups)
+        if K.launch_counts()["fused_scale"] != 2 * groups:
+            raise AssertionError("moe (c): fused_scale not in every group")
+        states.save_sharded(1, opt.sharded_state_dict(), hvd.rank(),
+                            hvd.size(), plan="dp=1")
+        params.save(1, {"model": model.state_dict()})
+        stall = (states.last_stall_s, params.last_stall_s)
+        ref = float(step(model, opt, batch)[2])   # while the writes run
+        states.wait()
+        params.wait()
+        write_s = (states.last_write_s, params.last_write_s)
+        ref_params = {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()}
+        nbytes = sum(os.path.getsize(os.path.join(dp, fn))
+                     for dp, _, fns in os.walk(root) for fn in fns)
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+
+        model, opt, step, batch = build()
+        t0 = time.perf_counter()
+        model.load_state_dict(params.restore(step=1)["model"])
+        opt.load_sharded_state_dict(states.restore_sharded(
+            opt.sharded_state_template(), hvd.rank(), hvd.size(),
+            plan="dp=1"))
+        restore_s = time.perf_counter() - t0
+        got = float(step(model, opt, batch)[2])
+        same = got == ref and all(
+            torch.equal(v.detach().cpu(), ref_params[k])
+            for k, v in model.state_dict().items())
+        log(f"{tag}: (c) {groups} group(s); last_stall_s (the host "
+            f"copy) {stall[0]:.3f} s sharded state, {stall[1]:.3f} s "
+            f"parameters, against last_write_s (in the background, beside "
+            f"the second step) {write_s[0]:.3f} s and {write_s[1]:.3f} s; "
+            f"{nbytes / 1e9:.2f} GB written; restore {restore_s:.2f} s; "
+            f"losses: first "
+            f"{first!r}, second {ref!r}, second after restore {got!r}; "
+            f"bit-exact: {same}")
+        if not same:
+            raise AssertionError("moe (c): the restored run differs")
+        del model, opt, step, batch, ref_params
+        torch.cuda.empty_cache()
+        return dict(layers=layers, groups=groups, stall_s=stall,
+                    write_s=write_s, restore_s=restore_s, bytes=nbytes,
+                    bit_exact=same)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_resnet(torch):
     """ResNet-50 at bench.py's configuration through the five-line recipe;
     returns the launch counts of its run and its summary."""
@@ -1971,6 +2300,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    global CARD
+    CARD = smi.splitlines()[0]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -1993,6 +2324,14 @@ def main() -> int:
         counts[name] = sp_counts[name]
     torch.cuda.empty_cache()
     zero = phase_zero_train(torch, train["losses"])
+    torch.cuda.empty_cache()
+    moe_counts, chunk_counts, moe = phase_moe(torch)
+    # the kernels line's kernel-6 row stays the tp phase's: its ms and
+    # bound are the tp shapes'; phase 10 (b)'s launches and readings are
+    # the moe summary's "chunk"
+    log(f"moe: kernel 6 launches: tp phase {counts['pallas_matmul']}, "
+        f"expert_chunk_mlp {chunk_counts['pallas_matmul']}; the MoE path "
+        f"{ {k: moe_counts[k] for k in TRANSFORMER_KERNELS} }")
 
     csrc = "horovod_tpu_torch/ops/csrc/"
     tpu = "horovod_tpu/ops/pallas_kernels.py:"
@@ -2023,6 +2362,7 @@ def main() -> int:
     log(f"sp summary: {json.dumps(sp)}")
     log(f"zero summary: {json.dumps(zero)}")
     log(f"eager summary: {json.dumps(eager)}")
+    log(f"moe summary [{CARD}]: {json.dumps(moe)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

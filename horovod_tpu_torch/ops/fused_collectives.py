@@ -1,7 +1,8 @@
-"""Tile-fused matmul⊗collective ops and the sp ring over
-``torch.distributed`` (``horovod_tpu/ops/pallas_kernels.py``:
+"""Tile-fused matmul⊗collective ops, the sp ring and the expert-parallel
+dispatch over ``torch.distributed`` (``horovod_tpu/ops/pallas_kernels.py``:
 ``matmul_reducescatter``, ``allgather_matmul``,
-``resolve_fused_collectives``, ``ring_flash_attention`` and its index math).
+``resolve_fused_collectives``, ``ring_flash_attention`` and its index math,
+``expert_chunk_mlp`` and ``expert_alltoall_ffn``).
 
 The tensor-parallel boundary ops of the Megatron sequence-parallel layout.
 Where the JAX package streams tiles around a ``ppermute`` ring inside one
@@ -25,6 +26,11 @@ product against the gathered operand, which the ring collects as it passes.
 :func:`ring_flash_attention` passes K/V blocks around the sequence-parallel
 group the same way, one hop a step, and consumes each visiting block with
 the global-positions flash kernels.
+
+:func:`expert_alltoall_ffn` moves MoE dispatch tiles around the ep group:
+two ``all_to_all`` calls, or a ring whose hop ``s`` carries one tile to expert
+rank ``me+s`` and its outputs home; :func:`expert_chunk_mlp` is the
+per-tile expert MLP on kernel 6.
 """
 
 from __future__ import annotations
@@ -455,3 +461,186 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 #: constructions of the fused sp ring (JAX ``hvd_pallas_fused_launches_total``)
 ring_flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel dispatch: expert_chunk_mlp (pallas_kernels.py:880) and
+# the a2a ⊗ expert-matmul ring (:897)
+# ---------------------------------------------------------------------------
+
+def expert_chunk_mlp(chunk: torch.Tensor, w1: torch.Tensor,
+                     w2: torch.Tensor) -> torch.Tensor:
+    """Per-expert gelu MLP over one ``(e_local, slots, d)`` token chunk
+    (``pallas_kernels.expert_chunk_mlp``): each expert's two products run
+    :func:`~horovod_tpu_torch.ops.kernels.pallas_matmul` (kernel 6 on a
+    card for bf16 operands on its tiling contract, the plain product
+    otherwise), batched by a loop over the local experts.  ``w1`` is
+    ``(e_local, d, f)``, ``w2`` ``(e_local, f, d)``; the hidden activation
+    is rounded to the operands' dtype, the result to ``chunk``'s."""
+    outs = []
+    for e in range(chunk.shape[0]):
+        h = K.pallas_matmul(chunk[e], w1[e])
+        outs.append(K.pallas_matmul(
+            torch.nn.functional.gelu(h, approximate="tanh"), w2[e],
+            out_dtype=chunk.dtype))
+    return torch.stack(outs)
+
+
+def _expert_vjp_graph(expert_fn, tile: torch.Tensor, track: bool):
+    """``expert_fn(tile)``; with ``track``, also the graph from a leaf copy
+    of ``tile`` that the ring's backward differentiates."""
+    if not track:
+        return expert_fn(tile), None
+    leaf = tile.detach().requires_grad_()
+    with torch.enable_grad():
+        out = expert_fn(leaf)
+    return out.detach(), (leaf, out)
+
+
+class _ExpertRing(torch.autograd.Function):
+    """The fused ring, forward and backward.  Forward, hop ``s``: send the
+    tile for rank ``me+s`` and receive rank ``me−s``'s tile for my experts
+    (hop ``s+1`` is posted before hop ``s``'s tile enters ``expert_fn``),
+    then send its outputs home to ``me−s`` and receive mine from
+    ``me+s``.  Backward runs the same ring on the gradients: each output
+    tile's gradient goes back to the rank that computed it, the expert
+    body's vector-Jacobian product runs there (from the graph the forward
+    kept), and the dispatch gradient rides home.  ``params`` (the tensors
+    ``expert_fn`` reads) receive their summed gradients."""
+
+    @staticmethod
+    def forward(ctx, dispatch, expert_fn, group, n_params, *params):
+        world, me = group_size(group), group_rank(group)
+        track = any(ctx.needs_input_grad[i] for i in (0, *range(
+            4, 4 + n_params)))
+        tiles = [dispatch[(me + s) % world].contiguous()
+                 for s in range(world)]
+        graphs = []
+        pending = _hop([tiles[1]], group, (me + 1) % world,
+                       (me - 1) % world)
+        out0, g0 = _expert_vjp_graph(expert_fn, tiles[0], track)
+        chunks, homes = [out0], []
+        graphs.append(g0)
+        for s in range(1, world):
+            (got,), requests = pending
+            _wait(requests)
+            if s + 1 < world:
+                pending = _hop([tiles[s + 1]], group, (me + s + 1) % world,
+                               (me - s - 1) % world)
+            y, g = _expert_vjp_graph(expert_fn, got, track)
+            graphs.append(g)
+            (back,), requests = _hop([y.contiguous()], group,
+                                     (me - s) % world, (me + s) % world)
+            homes.append(requests)
+            chunks.append(back)
+        for requests in homes:
+            _wait(requests)
+        ctx.graphs, ctx.group, ctx.params = graphs, group, params
+        # chunks[s] holds my tokens' outputs from expert rank me+s: roll to
+        # the unfused all_to_all's source-rank order
+        return torch.roll(torch.stack(chunks), me, 0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, graphs, params = ctx.group, ctx.graphs, ctx.params
+        world, me = group_size(group), group_rank(group)
+        needs = [p.requires_grad for p in params]
+        g_params = [None] * len(params)
+
+        def vjp(s, g_out):
+            leaf, out = graphs[s]
+            inputs = [leaf] + [p for p, n in zip(params, needs) if n]
+            got = torch.autograd.grad(out, inputs, g_out, allow_unused=True)
+            it = iter(got[1:])
+            for i, n in enumerate(needs):
+                if n:
+                    gp = next(it)
+                    if gp is not None:
+                        g_params[i] = gp if g_params[i] is None else \
+                            g_params[i] + gp
+            return got[0]
+
+        g_tiles = [grad[(me + s) % world].contiguous() for s in range(world)]
+        g_disp = grad.new_empty((world,) + grad.shape[1:])
+        pending = _hop([g_tiles[1]], group, (me + 1) % world,
+                       (me - 1) % world)
+        g_disp[me] = vjp(0, g_tiles[0])
+        homes = []
+        for s in range(1, world):
+            (g_out,), requests = pending
+            _wait(requests)
+            if s + 1 < world:
+                pending = _hop([g_tiles[s + 1]], group, (me + s + 1) % world,
+                               (me - s - 1) % world)
+            g_in = vjp(s, g_out)
+            (back,), requests = _hop([g_in.contiguous()], group,
+                                     (me - s) % world, (me + s) % world)
+            homes.append((requests, back, (me + s) % world))
+        for requests, back, src in homes:
+            _wait(requests)
+            g_disp[src] = back
+        ctx.graphs = None
+        return (g_disp, None, None, None, *g_params)
+
+
+def expert_alltoall_ffn(dispatch: torch.Tensor, expert_fn, group=None,
+                        fused: bool = True,
+                        params: Optional[Sequence[torch.Tensor]] = None
+                        ) -> torch.Tensor:
+    """The MoE dispatch → expert → combine exchange over ``group``
+    (``pallas_kernels.expert_alltoall_ffn``), differentiable.
+
+    ``dispatch`` is this rank's ``(world, e_local, capacity, d)`` routed
+    token buffer, dim 0 the destination expert rank; ``expert_fn`` applies
+    this rank's local experts to an ``(e_local, slots, d)`` buffer and must
+    be token-wise.  Returns the ``(world, e_local, capacity, d)`` expert
+    outputs back at this rank, dim 0 the expert rank that computed them.
+
+    ``fused=False``: two ``all_to_all_single`` calls around one
+    ``expert_fn`` call over the whole ``world·capacity`` buffer (their
+    gradient is the inverse exchange).  ``fused=True``: the ring of
+    :class:`_ExpertRing`, one tile per hop in each direction, one
+    ``dist.batch_isend_irecv`` pair per hop posted in the same order on
+    every rank, with the next hop in flight while ``expert_fn`` computes;
+    ``params`` are the tensors ``expert_fn`` reads that need gradients
+    (the ring's ``autograd.Function`` returns theirs).  The ring is the JAX
+    package's schedule, kept for parity: eager NCCL hops hide little
+    under the expert body, and at one MoE layer's shapes on four H100s
+    it is the slower schedule (``ep_bench.py``).  A group of one is
+    ``expert_fn(dispatch[0])[None]``."""
+    import torch.distributed.nn.functional as dist_fn
+
+    if dispatch.dim() != 4:
+        raise ValueError(
+            f"expert_alltoall_ffn takes a (world, e_local, capacity, d) "
+            f"dispatch buffer, got shape {tuple(dispatch.shape)}")
+    world = group_size(group)
+    if dispatch.shape[0] != world:
+        raise ValueError(
+            f"dispatch dim 0 is {dispatch.shape[0]} but the ep group has "
+            f"size {world}")
+    _, e_local, capacity, d = dispatch.shape
+    if world == 1:
+        return expert_fn(dispatch[0])[None]
+    if not fused:
+        received = dist_fn.all_to_all_single(
+            torch.empty_like(dispatch), dispatch.contiguous(), group=group)
+        buffers = received.transpose(0, 1).reshape(e_local, world * capacity,
+                                                   d)
+        outputs = expert_fn(buffers).reshape(e_local, world, capacity, d) \
+            .transpose(0, 1).contiguous()
+        return dist_fn.all_to_all_single(torch.empty_like(outputs), outputs,
+                                         group=group)
+    expert_alltoall_ffn.launches += 1
+    params = tuple(params or ())
+    if not torch.is_grad_enabled():
+        # apply() reports the inputs' requires_grad even under no_grad:
+        # hand it nothing to differentiate, so no tile keeps a graph
+        dispatch, params = dispatch.detach(), ()
+    return _ExpertRing.apply(dispatch, expert_fn, group, len(params),
+                             *params)
+
+
+#: constructions of the fused expert ring (JAX
+#: ``hvd_pallas_fused_launches_total{kernel="a2a_matmul"}``)
+expert_alltoall_ffn.launches = 0

@@ -402,8 +402,9 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
 
     def state_dict(self) -> dict:
         """This rank's shard state: the inner optimizer's and the
-        residuals (a per-rank checkpoint; sharded save/restore across
-        world sizes is ROADMAP Queue A 8)."""
+        residuals, for a restore at the same world size and rank
+        (:meth:`sharded_state_dict` is the tree that
+        ``Checkpointer.save_sharded`` reshards across world sizes)."""
         return {"inner": self.sharded_state.inner.state_dict(),
                 "residuals": self.sharded_state.residuals}
 
@@ -412,6 +413,70 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
         if sd.get("residuals") is not None:
             for k, r in sd["residuals"].items():
                 self.sharded_state.residuals[k].copy_(r)
+
+    def sharded_state_dict(self) -> dict:
+        """This rank's shard of the optimizer state as the tree that
+        ``Checkpointer.save_sharded`` writes: ``{"state": {group key:
+        {name: tensor}}}``, the inner optimizer's state of each shard keyed
+        like :attr:`ShardedOptimizerState.shards` (1-D leaves of the
+        group's shard length; scalars such as AdamW's ``step``), and with
+        error feedback ``{"residuals": {group key: tensor}}``, each rank's
+        own full-length residual.  The tensors are the live state, not
+        copies."""
+        st = self.sharded_state
+        out = {"state": {key: dict(st.inner.state[shard])
+                         for key, shard in st.shards.items()
+                         if shard in st.inner.state}}
+        if st.residuals is not None:
+            out["residuals"] = dict(st.residuals)
+        return out
+
+    def sharded_state_template(self) -> dict:
+        """:meth:`sharded_state_dict`'s structure with every 1-D leaf sized
+        by this rank's fusion spec: the restore target of
+        ``Checkpointer.restore_sharded`` at this world size.  A torch
+        optimizer creates its state at its first step, so before that the
+        names and shapes come from one step of the optimizer class, rebuilt
+        over meta tensors of the shards' shapes (no memory, no values).
+        The group keys and their order come from the leaves' sizes and the
+        bucket cap alone, never from the world size."""
+        st = self.sharded_state
+        if all(shard in st.inner.state for shard in st.shards.values()):
+            return self.sharded_state_dict()
+        metas = [torch.zeros(s.shape, dtype=s.dtype, device="meta",
+                             requires_grad=True)
+                 for s in st.shards.values()]
+        group = dict(_hyperparameters(self.optimizer), params=metas)
+        for k in ("foreach", "fused", "capturable", "differentiable"):
+            if k in group:
+                group[k] = False
+        probe = type(self.optimizer)([group])
+        for m in metas:
+            m.grad = torch.zeros_like(m)
+        with torch.no_grad():
+            probe.step()
+        out = {"state": {key: dict(probe.state[m])
+                         for key, m in zip(st.shards, metas)}}
+        if st.residuals is not None:
+            out["residuals"] = dict(st.residuals)
+        return out
+
+    def load_sharded_state_dict(self, tree: dict) -> None:
+        """Load a :meth:`sharded_state_dict` tree (such as
+        ``Checkpointer.restore_sharded`` returns) into this rank's shard
+        state; values move to the shards' device and dtype."""
+        st = self.sharded_state
+        if ("residuals" in tree) != (st.residuals is not None):
+            raise ValueError(
+                "the sharded state and this optimizer disagree on error "
+                "feedback residuals")
+        sd = st.inner.state_dict()
+        sd["state"] = {i: tree["state"][key]
+                       for i, key in enumerate(st.shards)
+                       if key in tree["state"]}
+        st.inner.load_state_dict(sd)
+        for key, r in tree.get("residuals", {}).items():
+            st.residuals[key].copy_(r)
 
     def step(self, closure=None):
         loss = None

@@ -20,10 +20,19 @@ ring masks by other positions than contiguous chunks hold, so under
 refuses an sp plan rather than hand out tokens the mask does not match.  Because the
 loss is a token mean over equal chunks, sp joins the gradient and loss
 average like a data axis: the world group already spans dp × sp.
+
+Expert parallelism (``plan="dp=2,ep=2"``): the batch's rows split over the
+data axes × ep, each rank runs its ``E/ep`` experts of the replicated
+weights over ``step.mesh.group("ep")`` (``MoETransformerLM(ep_group=...)``),
+and the exchange averages over every rank, as ``examples/moe_lm_example.py``
+averages over ep: with ample capacity a step equals local experts on the
+global batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -34,6 +43,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from horovod_tpu_torch import functions as F
 from horovod_tpu_torch.ops import collectives as C
 from horovod_tpu_torch.ops.collectives import Average, ReduceOp, Sum
+from horovod_tpu_torch.ops.fused_collectives import resolve_fused_collectives
 from horovod_tpu_torch.optim.optimizer import (
     DistributedOptimizer,
     _DistributedOptimizer,
@@ -63,9 +73,9 @@ class DistributedTrainStep:
     :func:`~horovod_tpu_torch.parallel.mesh.make_parallel_mesh` unless a
     ``mesh`` is given, which must match it (a mesh alone stands for its
     own plan).  The step trains data plans (dp/fsdp) plus sequence
-    parallelism (sp); plans with pp, ep or tp are rejected.  Every rank
-    must construct the step with the same plan, since the mesh's groups
-    are created collectively.
+    parallelism (sp) and expert parallelism (ep); plans with pp or tp are
+    rejected.  Every rank must construct the step with the same plan,
+    since the mesh's groups are created collectively.
 
     ``shard_optimizer_states=True`` wraps the optimizer in the ZeRO-style
     sharded exchange (:func:`DistributedOptimizer`'s argument of that
@@ -73,7 +83,17 @@ class DistributedTrainStep:
     ``fused_collectives``, ``error_feedback`` and ``reduction``; unset,
     the first four fall back to ``HOROVOD_EXCHANGE_BUCKET_BYTES``,
     ``HOROVOD_EXCHANGE_HIERARCHY``, ``HOROVOD_FUSED_COLLECTIVES`` and
-    ``HOROVOD_EXCHANGE_REDUCTION``, as in the JAX step."""
+    ``HOROVOD_EXCHANGE_REDUCTION``, as in the JAX step.  The sharded
+    exchange with ep > 1 raises ``NotImplementedError`` (ROADMAP Queue A
+    13: the JAX package compiles that pair only under pjit).
+
+    ``moe_fused`` and ``moe_capacity_factor`` are the MoE schedule (unset:
+    ``HOROVOD_MOE_FUSED_DISPATCH`` and ``HOROVOD_MOE_CAPACITY_FACTOR``;
+    neither set: the model's ``MoEConfig`` rules).  The step exposes them
+    resolved and, where set, writes them into the config of every
+    ``SwitchFFN`` of the model it trains, in :meth:`init` and at each
+    call; the JAX step only stamps them into its AOT key and leaves the
+    routing to the model's config."""
 
     def __init__(self, loss_fn: Callable, optimizer,
                  op: ReduceOp = Average, compression=None, plan=None,
@@ -83,7 +103,28 @@ class DistributedTrainStep:
                  hierarchy: str = "auto",
                  fused_collectives: str = "auto",
                  error_feedback: bool = False,
-                 reduction: Optional[str] = None):
+                 reduction: Optional[str] = None,
+                 moe_fused: Optional[str] = None,
+                 moe_capacity_factor: Optional[float] = None):
+        self.plan, self.mesh = _resolve_plan(plan, mesh)
+        if self.plan is not None and self.plan.ep > 1 and (
+                shard_optimizer_states or
+                isinstance(optimizer, _ShardedDistributedOptimizer)):
+            raise NotImplementedError(
+                f"shard_optimizer_states with plan {self.plan.to_string()}: "
+                f"the sharded exchange with ep > 1 is not ported (ROADMAP "
+                f"Queue A 13; the JAX package compiles it only under pjit, "
+                f"where the exchange scope leaves ep out)")
+        if moe_fused is None:
+            moe_fused = os.environ.get("HOROVOD_MOE_FUSED_DISPATCH")
+        self._moe_fused = None if moe_fused is None else (
+            "on" if resolve_fused_collectives(str(moe_fused).lower())
+            else "off")
+        if moe_capacity_factor is None:
+            env_cf = os.environ.get("HOROVOD_MOE_CAPACITY_FACTOR")
+            moe_capacity_factor = float(env_cf) if env_cf else None
+        self._moe_capacity_factor = None if moe_capacity_factor is None \
+            else float(moe_capacity_factor)
         sharded = dict(shard_optimizer_states=shard_optimizer_states,
                        exchange_bucket_bytes=exchange_bucket_bytes,
                        hierarchy=hierarchy,
@@ -110,13 +151,38 @@ class DistributedTrainStep:
                                              **sharded)
         self._loss_fn = loss_fn
         self.optimizer = optimizer
-        self.plan, self.mesh = _resolve_plan(plan, mesh)
+
+    @property
+    def moe_fused(self) -> Optional[str]:
+        """The MoE expert dispatch the step applies: ``"on"`` (the fused
+        ring), ``"off"`` (two all_to_alls), or None (the model's own)."""
+        return self._moe_fused
+
+    @property
+    def moe_capacity_factor(self) -> Optional[float]:
+        """The MoE capacity factor the step applies (None: the model's
+        own)."""
+        return self._moe_capacity_factor
+
+    def _apply_moe_schedule(self, model: torch.nn.Module) -> None:
+        over = {k: v for k, v in (("fused_dispatch", self._moe_fused),
+                                  ("capacity_factor",
+                                   self._moe_capacity_factor))
+                if v is not None}
+        if not over:
+            return
+        from horovod_tpu_torch.models.moe import moe_layers
+
+        for ffn in moe_layers(model):
+            if any(getattr(ffn.cfg, k) != v for k, v in over.items()):
+                ffn.cfg = dataclasses.replace(ffn.cfg, **over)
 
     def init(self, model: torch.nn.Module):
         """Broadcast rank 0's parameters, and its optimizer state unless the
         state is sharded (each rank's shard state is its own, as the JAX
         step's ``init_fn`` builds it per rank); returns ``(model,
         optimizer)``."""
+        self._apply_moe_schedule(model)
         F.broadcast_variables(model, root_rank=0)
         if not isinstance(self.optimizer, _ShardedDistributedOptimizer):
             F.broadcast_optimizer_state(self.optimizer.optimizer,
@@ -127,7 +193,8 @@ class DistributedTrainStep:
         """This rank's part of the *global* batch (identical on every
         rank), on the runtime's device.  Accepts a tensor, a numpy array,
         or a dict of them.  The leading dim is split over the data ranks
-        (the world, or under a plan its dp × fsdp extent); under a plan
+        (the world, or under a plan its dp × fsdp × ep extent, row-major,
+        as the JAX ep formulation shards the batch over ``ep``); under a plan
         with sp > 1 dim 1, the tokens, is split into contiguous chunks
         over the sp group (JAX ``batch_spec``), which is the ``contiguous``
         layout; under ``HOROVOD_SP_LAYOUT=zigzag`` it raises, since the
@@ -138,7 +205,8 @@ class DistributedTrainStep:
         else:
             plan, mesh = self.plan, self.mesh
             data, data_index = 1, 0
-            for ax in plan.data_axes:          # row-major over dp, fsdp
+            for ax in plan.data_axes + (("ep",) if plan.ep > 1 else ()):
+                # row-major over dp, fsdp, ep
                 extent = getattr(plan, ax)
                 data, data_index = data * extent, \
                     data_index * extent + mesh.index(ax)
@@ -174,6 +242,7 @@ class DistributedTrainStep:
         return shard(batch)
 
     def __call__(self, model: torch.nn.Module, optimizer, batch):
+        self._apply_moe_schedule(model)
         optimizer.zero_grad(set_to_none=True)
         loss = self._loss_fn(model, batch)
         loss.backward()
@@ -198,11 +267,12 @@ def _resolve_plan(plan, mesh: Optional[ParallelMesh]):
         raise ValueError(
             f"plan {plan.to_string()} has pp>1: pipeline parallelism is not "
             f"a plan of the training step")
-    blocked = tuple(a for a in plan.model_axes if a != "sp")
+    blocked = tuple(a for a in plan.model_axes if a not in ("sp", "ep"))
     if blocked:
         raise ValueError(
             f"plan {plan.to_string()} has model axes {blocked}: the step "
-            f"trains data plans (dp/fsdp) plus sequence parallelism (sp)")
+            f"trains data plans (dp/fsdp) plus sequence parallelism (sp) "
+            f"and expert parallelism (ep)")
     if mesh is None:
         mesh = make_parallel_mesh(**{ax: getattr(plan, ax)
                                      for ax in PLAN_AXES})

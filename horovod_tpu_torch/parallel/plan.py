@@ -11,8 +11,9 @@ grammar::
 
 The port copies the parts that :class:`~horovod_tpu_torch.optim.train_step.
 DistributedTrainStep` calls: the grammar, :meth:`resolve` against the
-world size, the canonical :meth:`to_string`, and the data and model axes.
-Standard library only.
+world size, the canonical :meth:`to_string`, the data and model axes, and
+:func:`as_plan`, which the sharded checkpoint's plan stamp reads.  Standard
+library only.
 """
 
 from __future__ import annotations
@@ -138,3 +139,15 @@ class ShardingPlan:
         activations, not parameters, but a running job cannot change it."""
         return tuple(ax for ax in ("pp", "ep", "sp", "tp")
                      if getattr(self, ax) > 1)
+
+
+def as_plan(plan) -> Optional[ShardingPlan]:
+    """Coerce a plan argument: a grammar string parses, a
+    :class:`ShardingPlan` passes through, None stays None."""
+    if plan is None or isinstance(plan, ShardingPlan):
+        return plan
+    if isinstance(plan, str):
+        return ShardingPlan.from_string(plan)
+    raise TypeError(
+        f"plan must be a ShardingPlan or a HOROVOD_PLAN string, got "
+        f"{type(plan).__name__}")

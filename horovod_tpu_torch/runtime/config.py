@@ -4,8 +4,8 @@ The part of ``horovod_tpu/runtime/config.py`` the PyTorch port reads: the
 launcher's identity knobs, the coordinator address, the fusion threshold,
 the eager plane's cycle time, negotiation-cache capacity and data plane, the
 sharded exchange's bucket cap, topology, wire codec and reduction
-operator, the fused-collectives mode, the sequence-parallel ring's layout
-and the parallelism plan, under the same ``HOROVOD_*`` names and
+operator, the fused-collectives mode, the sequence-parallel ring's layout,
+the parallelism plan and the MoE dispatch knobs, under the same ``HOROVOD_*`` names and
 with the same defaults, so one environment drives both packages.  A knob
 joins ``KNOWN_KNOBS`` and ``Config`` in the slice that ports the subsystem reading it.  The JAX
 package's jsrun/PMIx identity fallback is not copied: the port's launcher
@@ -39,6 +39,9 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_SP_LAYOUT",
     # -- the parallelism plan (parallel/plan.py, DistributedTrainStep)
     "HOROVOD_PLAN",
+    # -- MoE expert-parallel dispatch (models/moe.py; DistributedTrainStep's
+    #    moe_fused / moe_capacity_factor, applied to the model it trains)
+    "HOROVOD_MOE_FUSED_DISPATCH", "HOROVOD_MOE_CAPACITY_FACTOR",
 })
 
 

@@ -15,7 +15,6 @@ host data plane run there, so they never wait on the card.
 from __future__ import annotations
 
 import atexit
-import socket
 import threading
 from typing import Optional
 
@@ -30,12 +29,6 @@ class NotInitializedError(RuntimeError):
         super().__init__(
             "horovod_tpu_torch has not been initialized; call "
             "horovod_tpu_torch.init() first.")
-
-
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 class GlobalState:
@@ -86,10 +79,17 @@ class GlobalState:
                 raise ValueError("HOROVOD_SIZE > 1 needs "
                                  "HOROVOD_COORDINATOR_ADDR (host:port of "
                                  "rank 0)")
-            addr = cfg.coordinator_addr or f"localhost:{_free_port()}"
             backend = "nccl" if self.device.type == "cuda" else "gloo"
-            dist.init_process_group(backend, init_method=f"tcp://{addr}",
-                                    world_size=self.size, rank=self.rank)
+            if cfg.coordinator_addr:
+                dist.init_process_group(
+                    backend, init_method=f"tcp://{cfg.coordinator_addr}",
+                    world_size=self.size, rank=self.rank)
+            else:
+                # a world of one rendezvouses with nobody: an in-memory
+                # store, so that no free port is picked and then taken by
+                # another socket before the store binds it (EADDRINUSE)
+                dist.init_process_group(backend, store=dist.HashStore(),
+                                        world_size=1, rank=0)
             self.owns_group = True
         # collective: every rank creates it here, in the same order
         self.host_group = dist.group.WORLD if dist.get_backend() == "gloo" \

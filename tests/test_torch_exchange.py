@@ -65,7 +65,9 @@ class TestConfig:
            "HOROVOD_EXCHANGE_REDUCTION": "ADASUM",
            "HOROVOD_FUSED_COLLECTIVES": "ON",
            "HOROVOD_SP_LAYOUT": "zigzag",
-           "HOROVOD_PLAN": "dp=2,sp=4"}
+           "HOROVOD_PLAN": "dp=2,sp=4",
+           "HOROVOD_MOE_FUSED_DISPATCH": "on",
+           "HOROVOD_MOE_CAPACITY_FACTOR": "2.0"}
 
     @pytest.mark.parametrize("set_env", [False, True])
     def test_matches_jax(self, monkeypatch, set_env):

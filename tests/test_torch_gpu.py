@@ -10,7 +10,9 @@ training step over NCCL, one process per card, and with four
 exchange, the eager plane and the hook-fired exchange at a world of 4
 (run those alone on four cards: ``-k "test_tp_over_nccl or
 test_sp_over_nccl or test_zero_over_nccl or test_eager_over_nccl or
-test_overlap_over_nccl"``).
+test_overlap_over_nccl or test_moe_over_nccl"``); ``test_moe_over_nccl``
+also runs the MoE LM over an ep group of four and a sharded checkpoint
+saved at world 4 and restored at 2.
 Imports torch, numpy, the port and ``chip_smoke``'s inputs and tolerances
 only.
 """
@@ -525,6 +527,90 @@ class TestOnCard:
             rel = (got.float() - want.float()).norm() / want.float().norm()
             assert float(rel) <= 5e-3
 
+    def test_moe_step_on_card(self, cuda):
+        """The MoE LM in bf16 with flash attention (head_dim 64) through
+        the hook path on a world of one: each flash kernel once a layer a
+        step, fused_scale twice a bucket, every bucket from its hook, the
+        loss finite and falling."""
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.models.moe import MoEConfig, MoETransformerLM
+
+        from torch_port_workers import moe_lm_loss
+
+        hvd.init()
+        try:
+            cfg = MoEConfig(vocab_size=256, num_layers=4, num_heads=2,
+                            d_model=128, d_ff=512, max_seq_len=128,
+                            dtype=torch.bfloat16, attention_impl="flash",
+                            num_experts=8)
+            model = MoETransformerLM(cfg, device=cuda,
+                                     generator=torch.Generator(
+                                         device=cuda).manual_seed(0))
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW(model.parameters(), lr=1e-3),
+                gradient_predivide_factor=2.0)
+            step = hvd.DistributedTrainStep(moe_lm_loss, opt)
+            model, opt = step.init(model)
+            batch = step.shard_batch(torch.randint(
+                0, 256, (8, 129), generator=torch.Generator().manual_seed(0)))
+            K.reset_launch_counts()
+            losses = []
+            for _ in range(3):
+                model, opt, loss = step(model, opt, batch)
+                losses.append(float(loss))
+                assert [src for _, src in opt.launches] == \
+                    ["hook"] * len(opt._buckets)
+            counts = K.launch_counts()
+            assert all(counts[k] == 4 * 3 for k in chip_smoke.FLASH_KERNELS)
+            assert counts["fused_scale"] == 2 * len(opt._buckets) * 3
+            assert np.isfinite(losses).all() and losses[-1] < losses[0]
+        finally:
+            hvd.shutdown()
+
+    def test_moe_routing_on_card_equals_cpu(self, cuda):
+        """The fp32 router on the card (TF32 off whatever the process
+        sets) routes every token as the CPU does, except a token whose two
+        best scores lie within 1e-5 of each other."""
+        from horovod_tpu_torch.parallel import expert as E
+
+        gen = torch.Generator().manual_seed(3)
+        x = torch.randn(4096, 1024, generator=gen).bfloat16()
+        gate = torch.randn(1024, 8, generator=gen) * 0.02
+        keep = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            scores = E.router_scores(x.to(cuda), gate.to(cuda)).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = keep
+        want = E.router_scores(x, gate)
+        top2 = want.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-5
+        got_idx = E.top1_routing(scores, 640)[0]
+        want_idx = E.top1_routing(want, 640)[0]
+        assert torch.equal(got_idx[clear], want_idx[clear])
+        assert float((scores - want).abs().max()) <= 1e-4
+
+    def test_expert_chunk_mlp_on_card(self, cuda):
+        """expert_chunk_mlp through kernel 6 (two launches an expert)
+        against the batched-einsum expert body, under kernel 6's bf16
+        limits (chip_smoke.MM_BF16_TOL)."""
+        from horovod_tpu_torch.models.moe import _expert_mlp
+        from horovod_tpu_torch.ops.fused_collectives import expert_chunk_mlp
+
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        chunk = torch.randn(4, 640, 256, device=cuda,
+                            generator=gen).bfloat16()
+        w1 = (torch.randn(4, 256, 1024, device=cuda, generator=gen)
+              / 32).bfloat16()
+        w2 = (torch.randn(4, 1024, 256, device=cuda, generator=gen)
+              / 64).bfloat16()
+        before = K.pallas_matmul.launches
+        got = expert_chunk_mlp(chunk, w1, w2)
+        assert K.pallas_matmul.launches - before == 8
+        readings = chip_smoke.mm_agreement(torch, got,
+                                           _expert_mlp(chunk, w1, w2))
+        assert all(val <= lim for _, val, lim in readings), readings
+
     def test_codec_on_card_equals_cpu(self, cuda):
         """The int8 and fp8 codec, with and without segments, with error
         feedback, on the card (an NCCL world of one) bit for bit equal to
@@ -820,3 +906,38 @@ class TestNcclWorld:
                                            rtol=1e-6, atol=1e-6)
             print(f"rank {rank}: step ms (median of 10, two runs each) "
                   f"{out['timing_ms']}")
+
+    def test_moe_over_nccl(self, cards, tmp_path):
+        """At a world of 4 over NCCL: the fp32 MoE LM over an ep group of
+        four against each rank's local mode on the same two rows (loss and
+        the world's summed gradients, 2e-4 normwise, JAX's ep limit), the
+        fused ring against the all_to_alls (1e-5); and a dp = 4 ZeRO state
+        saved at world 4 and restored at shard_count 2 on ranks 0 and 1,
+        equal to the numpy reshard.  Run alone on four cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        outs = spawn_world("run_moe_nccl", world=4, args=(str(tmp_path),),
+                           device="cuda", timeout=300)
+
+        def rel(a, b):
+            num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+            return math.sqrt(num / sum(float((b[k] ** 2).sum()) for k in b))
+
+        for out in outs:
+            (l_loc, g_loc), (l_ep, g_ep), (l_f, g_f) = (
+                out[k] for k in ("local", "ep", "ep_fused"))
+            assert abs(l_ep - l_loc) <= 2e-4 * abs(l_loc)
+            assert rel(g_ep, g_loc) <= 2e-4
+            assert abs(l_f - l_ep) <= 1e-5 * abs(l_ep)
+            assert rel(g_f, g_ep) <= 1e-5
+        for r in (0, 1):
+            for key, padded, shard in outs[r]["groups2"]:
+                for n in ("exp_avg", "exp_avg_sq"):
+                    full = np.concatenate(
+                        [o["saved"]["state"][key][n] for o in outs])
+                    full = np.concatenate(
+                        [full, np.zeros(max(0, padded - full.size),
+                                        full.dtype)])[:padded]
+                    np.testing.assert_array_equal(
+                        outs[r]["restored"]["state"][key][n],
+                        full[r * shard:(r + 1) * shard])

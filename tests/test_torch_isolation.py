@@ -29,7 +29,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 def _port_files():
     return sorted((ROOT / "horovod_tpu_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py", ROOT / "tp_bench.py", ROOT / "sp_bench.py",
-         ROOT / "scale_bench.py"]
+         ROOT / "scale_bench.py", ROOT / "ep_bench.py"]
 
 
 def test_port_files_cover_the_sp_slice():
@@ -59,6 +59,18 @@ def test_port_files_cover_the_eager_slice():
             "horovod_tpu_torch/ops/bucketing.py",
             "horovod_tpu_torch/functions.py",
             "horovod_tpu_torch/optim/train_step.py"} <= names
+
+
+def test_port_files_cover_the_moe_slice():
+    """The import checks below cover the checkpoint plane's and the MoE
+    slice's modules."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/checkpoint.py",
+            "horovod_tpu_torch/parallel/expert.py",
+            "horovod_tpu_torch/models/moe.py",
+            "horovod_tpu_torch/models/__init__.py",
+            "horovod_tpu_torch/ops/fused_collectives.py",
+            "ep_bench.py"} <= names
 
 
 def _forbidden(module: str) -> bool:
@@ -613,6 +625,18 @@ def test_ring_ops_of_one_rank_launch_the_kernel(fake_card):
     FC.allgather_matmul(x, w)
     assert fake_card.calls == ["hvd_matmul"] * 4
     assert FC.matmul_reducescatter.launches == 0
+
+
+def test_expert_chunk_mlp_on_device_launches_the_kernel(fake_card):
+    """expert_chunk_mlp on device bf16 tensors on the tiling contract: two
+    kernel-6 launches an expert, none of the plain product."""
+    from horovod_tpu_torch.ops import fused_collectives as FC
+
+    y = FC.expert_chunk_mlp(_meta(2, 128, 128), _meta(2, 128, 256),
+                            _meta(2, 256, 128))
+    assert y.shape == (2, 128, 128) and y.dtype == torch.bfloat16
+    assert fake_card.calls == ["hvd_matmul"] * 4
+    assert K.pallas_matmul.launches == 4
 
 
 def test_launcher_refuses_non_cuda_tensors():

@@ -413,9 +413,13 @@ def test_shard_batch_refuses_zigzag_knob(worlds):
 
 
 def test_train_step_rejects_model_axes(worlds):
+    """tp and pp plans are refused; ep joins sp among the plans the step
+    trains (the MoE slice), so ``ep=2,sp=2`` builds and ``ep=2,tp=2`` is
+    refused for its tp."""
     errors = worlds[4].result()[0]["plan_errors"]
     assert "model axes" in errors["dp=2,tp=2"]
-    assert "model axes" in errors["ep=2,sp=2"]
+    assert "model axes ('tp',)" in errors["ep=2,tp=2"]
+    assert "ep=2,sp=2" not in errors
     assert "pp>1" in errors["pp=2"]
 
 

@@ -630,7 +630,7 @@ def run_sp(hvd, params, tokens):
         out["train_dense"] = _sp_train(hvd, "dp=4", "dense",
                                        np.tile(rows, (2, 1)))
         errors = {}
-        for plan in ("dp=2,tp=2", "pp=2", "ep=2,sp=2"):
+        for plan in ("dp=2,tp=2", "pp=2", "ep=2,sp=2", "ep=2,tp=2"):
             try:
                 hvd.DistributedTrainStep(lambda m, b: m, torch.optim.SGD(
                     [torch.zeros(1, requires_grad=True)], lr=0.1), plan=plan)
@@ -1811,4 +1811,384 @@ def run_overlap_bench(hvd, steps: int = 8, turns: int = 4):
         for mode in order:
             got[mode].append(_bench_turn(torch, hvd, build, mode, steps))
         out[path] = got
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints (tests/test_torch_checkpoint.py)
+# ---------------------------------------------------------------------------
+
+#: the sharded MLP's exchange buckets: 16 floats, so the plan has groups
+#: of 1 to 16 values whose padded lengths change with the world size
+CKPT_BUCKET_BYTES = 64
+CKPT_LR = 3e-4
+
+
+def _ckpt_mlp(hvd, **kw):
+    """The test MLP wrapped for the sharded exchange through
+    DistributedTrainStep, initialized; returns (step, model, optimizer,
+    this rank's batch)."""
+    import torch
+
+    model = torch.nn.ParameterDict({
+        k: torch.nn.Parameter(torch.from_numpy(v.copy()).to(hvd.device()))
+        for k, v in mlp_params().items()})
+    step = hvd.DistributedTrainStep(
+        mlp_loss, torch.optim.AdamW(model.parameters(), lr=CKPT_LR,
+                                    weight_decay=1e-4),
+        shard_optimizer_states=True,
+        exchange_bucket_bytes=CKPT_BUCKET_BYTES, **kw)
+    model, opt = step.init(model)
+    x, y = mlp_batch()
+    return step, model, opt, step.shard_batch({"x": x, "y": y})
+
+
+def _np_tree(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy().copy()
+    return tree
+
+
+def _params_np(model):
+    return {k: v.detach().cpu().numpy().copy() for k, v in model.items()}
+
+
+def run_ckpt_save(hvd, directory: str):
+    """On a gloo world: the sharded MLP trains 2 steps and every rank saves
+    its shard (step 2, plan ``dp=<world>``) and rank 0 the parameters; then
+    one more step, the continuation a restore must reproduce.  With int8 +
+    error feedback, a same-world round trip into a fresh wrapper.  Rank 0's
+    state read back on every rank by ``restore_and_broadcast``, and the
+    latest step agreed by ``_resolve_step``."""
+    import torch
+
+    from horovod_tpu_torch.checkpoint import Checkpointer
+
+    torch.set_num_threads(1)
+    world, rank = hvd.size(), hvd.rank()
+    out = {}
+    step, model, opt, batch = _ckpt_mlp(hvd)
+    for _ in range(2):
+        model, opt, _ = step(model, opt, batch)
+    ckpt = Checkpointer(os.path.join(directory, "adamw"))
+    ckpt.save_sharded(2, opt.sharded_state_dict(), rank, world,
+                      plan=f"dp={world}")
+    ckpt.save(2, {"model": model.state_dict()})
+    ckpt.wait()
+    hvd.barrier()
+    out["state"] = _np_tree(opt.sharded_state_dict())
+    out["groups"] = [(g.key, g.padded, g.shard, sum(g.sizes))
+                     for g in opt.spec.groups]
+    out["params2"] = _params_np(model)
+    model, opt, _ = step(model, opt, batch)
+    out["params3"] = _params_np(model)
+
+    # int8 wire with error feedback: the residuals round-trip at this world
+    step, model, opt, batch = _ckpt_mlp(hvd, compression=hvd.Compression.int8,
+                                        error_feedback=True)
+    for _ in range(2):
+        model, opt, _ = step(model, opt, batch)
+    ef = Checkpointer(os.path.join(directory, "ef"), async_save=False)
+    ef.save_sharded(2, opt.sharded_state_dict(), rank, world)
+    hvd.barrier()
+    _, _, fresh, _ = _ckpt_mlp(hvd, compression=hvd.Compression.int8,
+                               error_feedback=True)
+    template = fresh.sharded_state_template()
+    fresh.load_sharded_state_dict(ef.restore_sharded(template, rank, world))
+    out["ef"] = (_np_tree(opt.sharded_state_dict()),
+                 _np_tree(fresh.sharded_state_dict()))
+
+    # replicated state: the root reads, every rank receives
+    rb = Checkpointer(os.path.join(directory, "replicated"))
+    rb.save(5, {"w": torch.arange(6.0).reshape(2, 3), "n": 5,
+                "tag": "five"})
+    rb.wait()
+    hvd.barrier()
+    out["broadcast"] = _np_tree(rb.restore_and_broadcast(
+        {"w": torch.zeros(2, 3), "n": 0, "tag": ""}))
+    out["resolved"] = rb._resolve_step()
+    return out
+
+
+def run_ckpt_restore(hvd, directory: str):
+    """On a gloo world of another size than the saving one: a fresh
+    sharded MLP (no step taken, so its optimizer has no state yet) restores
+    the parameters and its shard of the saved state, then takes one step;
+    returns the restored shard state and the parameters after the step."""
+    import torch
+
+    from horovod_tpu_torch.checkpoint import Checkpointer
+
+    torch.set_num_threads(1)
+    world, rank = hvd.size(), hvd.rank()
+    step, model, opt, batch = _ckpt_mlp(hvd)
+    ckpt = Checkpointer(os.path.join(directory, "adamw"))
+    template = opt.sharded_state_template()
+    shapes = {k: {n: tuple(t.shape) for n, t in v.items()}
+              for k, v in template["state"].items()}
+    restored = ckpt.restore_sharded(template, rank, world,
+                                    plan=f"dp={world}")
+    opt.load_sharded_state_dict(restored)
+    model.load_state_dict(ckpt.restore()["model"])
+    state = _np_tree(opt.sharded_state_dict())
+    model, opt, _ = step(model, opt, batch)
+    return {"shapes": shapes, "state": state, "params": _params_np(model),
+            "groups": [(g.key, g.padded, g.shard, sum(g.sizes))
+                       for g in opt.spec.groups]}
+
+
+# ---------------------------------------------------------------------------
+# the Switch-MoE LM and expert parallelism (tests/test_torch_moe.py)
+# ---------------------------------------------------------------------------
+
+#: the small MoE LM of the parity tests (tests/test_moe.py tiny_cfg, with 8
+#: experts so that ep = 2 and 4 divide them)
+MOE_LM = dict(vocab_size=64, num_layers=2, num_heads=2, d_model=32,
+              d_ff=64, max_seq_len=16, num_experts=8, capacity_factor=1.25,
+              moe_every=2)
+MOE_LR = 3e-4
+MOE_STEPS = 2
+MOE_AUX = 0.01
+
+
+def moe_ffn_x(world: int) -> np.ndarray:
+    """(world, 8, 32) tokens, one row of 8 a rank."""
+    return np.random.RandomState(40 + world).randn(world, 8, 32).astype(
+        np.float32)
+
+
+def moe_tokens() -> np.ndarray:
+    """The LM's global batch: 8 rows of 9 tokens."""
+    return np.random.RandomState(41).randint(0, 64, (8, 9)).astype(np.int64)
+
+
+def ring_expert_inputs(world: int, e_local: int = 2, cap: int = 3,
+                       d: int = 4, f: int = 8) -> tuple:
+    """tests/test_pallas_kernels.py's ring inputs: every rank's
+    (world, e_local, cap, d) dispatch buffer and its experts' weights."""
+    rng = np.random.RandomState(0)
+    disp = rng.standard_normal((world, world, e_local, cap, d)).astype(
+        np.float32)
+    w1 = (rng.standard_normal((world, e_local, d, f)) * 0.3).astype(
+        np.float32)
+    w2 = (rng.standard_normal((world, e_local, f, d)) * 0.3).astype(
+        np.float32)
+    return disp, w1, w2
+
+
+def moe_lm_loss(model, batch):
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models.moe import moe_aux_loss
+
+    logits = model(batch[:, :-1])
+    ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                         batch[:, 1:].reshape(-1))
+    return ce + MOE_AUX * moe_aux_loss(model)
+
+
+def _moe_ffn_case(hvd, ffn_params, cf: float, fused: bool):
+    """This rank's row through an ep SwitchFFN over the world: output, drop
+    fraction, and the world's summed gradients of sum(y²) over the router,
+    the experts and this rank's tokens."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models.moe import MoEConfig, SwitchFFN
+
+    world, rank = hvd.size(), hvd.rank()
+    cfg = MoEConfig(dtype=torch.float32, d_model=32, d_ff=64, num_experts=8,
+                    capacity_factor=cf,
+                    fused_dispatch="on" if fused else "off")
+    ffn = SwitchFFN(cfg, ep_group=dist.group.WORLD)
+    ffn.load_state_dict({k: torch.from_numpy(v) for k, v in
+                         ffn_params.items()})
+    x = torch.from_numpy(moe_ffn_x(world)[rank:rank + 1]).requires_grad_()
+    y = ffn(x)
+    grads = torch.autograd.grad((y ** 2).sum(),
+                                [ffn.gate, ffn.w1, ffn.w2, x])
+    summed = []
+    for g in grads[:3]:
+        g = g.clone()
+        dist.all_reduce(g)
+        summed.append(g.numpy())
+    return (y.detach().numpy(), float(ffn.moe_drop_fraction), summed,
+            grads[3].numpy())
+
+
+def _moe_ring_case(hvd, fused: bool):
+    """expert_alltoall_ffn on :func:`ring_expert_inputs`: this rank's
+    output and the gradients of sum(out²) by its dispatch and experts."""
+    import torch
+
+    from horovod_tpu_torch.ops.fused_collectives import expert_alltoall_ffn
+
+    world, rank = hvd.size(), hvd.rank()
+    disp, w1, w2 = (torch.from_numpy(a[rank]).requires_grad_()
+                    for a in ring_expert_inputs(world))
+
+    def expert_fn(t):
+        h = torch.einsum("ecd,edf->ecf", t, w1)
+        return torch.einsum("ecf,efd->ecd",
+                            torch.nn.functional.gelu(h, approximate="tanh"),
+                            w2)
+
+    import torch.distributed as dist
+
+    out = expert_alltoall_ffn(disp, expert_fn, dist.group.WORLD,
+                              fused=fused, params=(w1, w2))
+    grads = torch.autograd.grad((out ** 2).sum(), [disp, w1, w2])
+    with torch.no_grad():
+        plain = expert_alltoall_ffn(disp, expert_fn, dist.group.WORLD,
+                                    fused=fused, params=(w1, w2))
+    assert not plain.requires_grad
+    return out.detach().numpy(), [g.numpy() for g in grads], plain.numpy()
+
+
+def _moe_train(hvd, lm_params, plan: str, fused: bool):
+    """MOE_STEPS AdamW steps of the MoE LM under ``plan`` through
+    DistributedTrainStep on :func:`moe_tokens`, the fused ring chosen by
+    the step's ``moe_fused`` over a model configured unfused; (losses,
+    parameters, the fused rings constructed)."""
+    import torch
+
+    from horovod_tpu_torch.models.moe import MoEConfig, MoETransformerLM
+    from horovod_tpu_torch.ops.fused_collectives import expert_alltoall_ffn
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+    from horovod_tpu_torch.parallel.plan import ShardingPlan
+
+    cfg = MoEConfig(dtype=torch.float32, attention_impl="dense",
+                    fused_dispatch="off", **MOE_LM)
+    p = ShardingPlan.from_string(plan).resolve(hvd.size())
+    mesh = make_parallel_mesh(dp=p.dp, ep=p.ep)
+    model = MoETransformerLM(cfg, ep_group=mesh.group("ep"))
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in lm_params.items()})
+    step = hvd.DistributedTrainStep(
+        moe_lm_loss, torch.optim.AdamW(model.parameters(), lr=MOE_LR,
+                                       weight_decay=1e-4),
+        plan=plan, mesh=mesh, moe_fused="on" if fused else None)
+    model, opt = step.init(model)
+    batch = step.shard_batch(moe_tokens())
+    losses = []
+    rings = expert_alltoall_ffn.launches
+    for _ in range(MOE_STEPS):
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))
+    return losses, {k: v.detach().numpy().copy()
+                    for k, v in model.state_dict().items()}, \
+        expert_alltoall_ffn.launches - rings
+
+
+def run_moe(hvd, ffn_params, lm_params):
+    """On a gloo world, an ep group of the whole world: the ep SwitchFFN
+    (fused and unfused, ample and tight capacity), expert_alltoall_ffn on
+    its own, the LM trained under ``ep=<world>`` (and ``dp=2,ep=2`` and the
+    fused ring at world 4), and the errors."""
+    import torch
+
+    torch.set_num_threads(1)
+    world = hvd.size()
+    out = {}
+    for cf in (16.0, 1.0):
+        for fused in (False, True):
+            out[("ffn", cf, fused)] = _moe_ffn_case(hvd, ffn_params, cf,
+                                                    fused)
+    for fused in (False, True):
+        out[("ring", fused)] = _moe_ring_case(hvd, fused)
+    plans = [(f"ep={world}", False)]
+    if world == 4:
+        plans += [("dp=2,ep=2", False), ("ep=4", True)]
+    for plan, fused in plans:
+        out[("train", plan, fused)] = _moe_train(hvd, lm_params, plan, fused)
+    errors = {}
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.parallel.expert import expert_parallel_ffn
+
+    try:
+        expert_parallel_ffn(torch.zeros(4, 32), torch.zeros(32, 3),
+                            lambda t: t, 3, group=dist.group.WORLD)
+    except ValueError as e:
+        errors["divisible"] = str(e)
+    try:
+        hvd.DistributedTrainStep(moe_lm_loss, torch.optim.AdamW(
+            [torch.zeros(2, requires_grad=True)]), plan=f"ep={world}",
+            shard_optimizer_states=True)
+    except NotImplementedError as e:
+        errors["sharded"] = str(e)
+    out["errors"] = errors
+    return out
+
+
+def _moe_card_model(dev, ep_group=None, fused: bool = False):
+    """The fp32 MoE LM of MOE_LM on ``dev``, dense attention, weights from
+    seed 0 (the same on every rank)."""
+    import torch
+
+    from horovod_tpu_torch.models.moe import MoEConfig, MoETransformerLM
+
+    cfg = MoEConfig(dtype=torch.float32, attention_impl="dense",
+                    fused_dispatch="on" if fused else "off", **MOE_LM)
+    return MoETransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                            ep_group=ep_group).to(dev)
+
+
+def run_moe_nccl(hvd, directory: str):
+    """On a world of cards: this rank's two rows of :func:`moe_tokens`
+    through the fp32 MoE LM in local mode and over an ep group of the whole
+    world (unfused and fused), each loss and the world's summed gradients;
+    then the sharded MLP trained 2 steps at this world, saved, and (ranks 0
+    and 1) restored at shard_count 2 into targets sized by the fusion spec
+    at 2."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.checkpoint import Checkpointer
+    from horovod_tpu_torch.ops import collectives as C
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world, rank, dev = hvd.size(), hvd.rank(), hvd.device()
+    rows = moe_tokens().shape[0] // world
+    shard = torch.from_numpy(moe_tokens()[rank * rows:(rank + 1) * rows]).to(
+        dev)
+    out = {}
+    for name, kw in (("local", {}),
+                     ("ep", dict(ep_group=dist.group.WORLD)),
+                     ("ep_fused", dict(ep_group=dist.group.WORLD,
+                                       fused=True))):
+        model = _moe_card_model(dev, **kw)
+        loss = moe_lm_loss(model, shard)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        summed = {}
+        for n, g in zip(names, grads):
+            g = g.clone()
+            dist.all_reduce(g)
+            summed[n] = g.cpu().numpy()
+        out[name] = (float(loss), summed)
+
+    step, model, opt, batch = _ckpt_mlp(hvd)
+    for _ in range(2):
+        model, opt, _ = step(model, opt, batch)
+    ckpt = Checkpointer(os.path.join(directory, "zero"))
+    ckpt.save_sharded(2, opt.sharded_state_dict(), rank, world,
+                      plan=f"dp={world}")
+    ckpt.wait()
+    hvd.barrier()
+    out["saved"] = _np_tree(opt.sharded_state_dict())
+    if rank < 2:
+        leaves = [torch.from_numpy(v) for v in mlp_params().values()]
+        spec = C.make_fusion_spec(leaves, 2, CKPT_BUCKET_BYTES)
+        target = {"state": {g.key: {"step": torch.tensor(0.0),
+                                    "exp_avg": torch.zeros(g.shard),
+                                    "exp_avg_sq": torch.zeros(g.shard)}
+                            for g in spec.groups}}
+        out["restored"] = _np_tree(ckpt.restore_sharded(
+            target, rank, 2, step=2, plan="dp=2"))
+        out["groups2"] = [(g.key, g.padded, g.shard) for g in spec.groups]
     return out
