@@ -114,7 +114,28 @@ Phases, in order; any failure exits non-zero:
    step, then a fresh model and wrapper restore and repeat it, bit for bit
    (layers cut only if the temporary directory's disk is short); every
    number printed with the card's name and power limit;
-11. print the card's name and power limit, the kernels' JSON line, and last
+11. the input plane and SyncBatchNorm: (a) phase 5's ResNet-50 fed from
+   host memory, as ``bench.py --model resnet50 --fused-bwd --input-mode
+   host`` feeds it: 512 seeded fp32 images in an ``ArraySource`` through
+   ``ShardedDataset(batch_size=128, seed=broadcast_seed(0))`` and
+   ``PrefetchIterator(depth=2, threads=2, place=step.shard_local_batch)``,
+   with ``gradient_predivide_factor=2.0`` so that the exchange scales each
+   bucket twice at a world of one; 2 + 8 steps across two epoch
+   boundaries (kernel 5 exactly 8 times a step, ``fused_scale`` twice a
+   bucket, the losses finite), the pinned staging buffers and the copy
+   stream, the median stall of the timed steps (``input_stall_s``), img/s
+   fed and on a resident batch, two profiled fed steps whose batch copies
+   must be pinned copies off the main stream, a synchronous control (the
+   seeded weights again, the same batches placed inline and fenced) whose
+   losses must equal the fed run's (``FED_LOSS_TOL``; bit-exact expected,
+   logged), and the H2D probe (``utils/input_probe.py``) under
+   ``bench.py``'s field names; (b) ``SyncBatchNorm`` on a world of one at
+   ResNet-50's BatchNorm shapes (``SYNC_BN_SHAPES``, bf16, channels last)
+   against ``BatchNorm(train=True)``: output, running statistics and the
+   input, scale and bias gradients within ``SYNC_BN_TOL`` (bit-exact
+   expected, logged), one all-reduce in the forward and one in the
+   backward, forward + backward timed beside BatchNorm;
+12. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -128,6 +149,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -188,7 +210,7 @@ MOE = dict(batch=16, seq=1024, heads=8, layers=12, d_model=1024, d_ff=4096,
 # every expert local, capacity ceil(1.25 * 16384 / 8)
 CHUNK = dict(e_local=8, capacity=2560, d=1024, f=4096)
 # the card's name and power limit (nvidia-smi), printed beside phase 10's
-# numbers
+# and phase 11's numbers
 CARD = ""
 # ragged shapes: M edges of 8, 24 and 136 rows in the forward and dX, and a
 # 24-row M edge in dW (its n); a layout whose call falls outside the
@@ -1224,6 +1246,14 @@ def stream_overlap(prof) -> dict:
     bwd_end = max((e for _, e, _ in streams[main] if e <= update),
                   default=-math.inf)
     side = [k for sid, ks in streams.items() if sid != main for k in ks]
+    # host-to-device copies: CUPTI names their source memory ("Memcpy HtoD
+    # (Pinned -> Device)" or "(Pageable -> Device)")
+    h2d = [{"pinned": "Pinned" in ev.get("name", ""),
+            "side": ev.get("args", {}).get("stream") != main,
+            "mb": float(ev.get("args", {}).get("bytes", 0)) / 1e6,
+            "ms": float(ev["dur"]) / 1e3}
+           for ev in events if ev.get("cat") == "gpu_memcpy" and
+           "HtoD" in ev.get("name", "") and "dur" in ev]
     total = under = exposed = 0.0
     names: dict = {}
     for b, e, name in side:
@@ -1236,7 +1266,8 @@ def stream_overlap(prof) -> dict:
             i += 1
     return {"exchange_ms": total / 1e3, "under_backward_ms": under / 1e3,
             "exposed_ms": exposed / 1e3, "streams": len(streams),
-            "exchange_split_ms": {k: v / 1e3 for k, v in names.items()}}
+            "exchange_split_ms": {k: v / 1e3 for k, v in names.items()},
+            "h2d": h2d}
 
 
 def no_hook_grads(torch, model, loss) -> dict:
@@ -2288,6 +2319,334 @@ def phase_resnet(torch):
                         first_step_ms=times[0] * 1e3)
 
 
+# phase 11: bench.py --model resnet50 --fused-bwd --input-mode host
+# (bench.py:220-315, :557-570): an ArraySource over seeded fp32 images
+# (bench.py:213-219) through ShardedDataset -> PrefetchIterator; 512 rows
+# are 4 steps an epoch, so the 10 steps cross two epoch boundaries
+FED = dict(rows=512, warmup=2, steps=8, depth=2, threads=2)
+# the fed losses against the synchronous control's (the same weights and
+# batches, placed inline): bit-exact expected, logged
+FED_LOSS_TOL = 1e-5
+# phase 11 (b): SyncBatchNorm at ResNet-50's BatchNorm shapes (N, C, H, W),
+# bf16, channels last, against the port's BatchNorm(train=True): the same
+# fp32 operations in the same order at a world of one, so bit-exact is
+# expected; held normwise and logged
+SYNC_BN_SHAPES = [(128, 256, 56, 56), (128, 512, 28, 28), (128, 2048, 7, 7)]
+SYNC_BN_TOL = 1e-5
+
+
+def _rand_images(np, rng, n: int, hw: int):
+    """(n, hw, hw, 3) float32 uniform images in chunks of 64, as
+    bench.py's ``_rand_images`` makes them."""
+    out = np.empty((n, hw, hw, 3), np.float32)
+    for i in range(0, n, 64):
+        out[i:i + 64] = rng.rand(min(64, n - i), hw, hw, 3)
+    return out
+
+
+def phase_fed(torch, resident: dict) -> tuple:
+    """ResNet-50 at phase 5's configuration, fed from host memory through
+    the input plane; returns the launch counts of the fed run and its
+    summary.  ``resident`` is phase 5's summary."""
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.data import (
+        ArraySource,
+        PrefetchIterator,
+        ShardedDataset,
+        broadcast_seed,
+    )
+    from horovod_tpu_torch.data.prefetch import CardStager
+    from horovod_tpu_torch.models.resnet import ResNet50, resnet_loss
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.utils.input_probe import (
+        fence_batch,
+        measure_h2d_overlap,
+    )
+
+    hvd.init()
+    dev = hvd.device()
+    batch_size, image = RESNET["batch"], RESNET["image"]
+    rng = np.random.RandomState(SEED)
+    host = {"x": _rand_images(np, rng, FED["rows"], image),
+            "y": rng.randint(0, 1000, (FED["rows"],)).astype(np.int32)}
+    init = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                    space_to_depth=True, fused_bwd=True, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED)
+                    ).state_dict()
+
+    def recipe():
+        """A model with the seeded weights and the five-line recipe; the
+        predivide keeps the exchange's two scale passes a bucket at a world
+        of one, as phase 4's does."""
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                         space_to_depth=True, fused_bwd=True, device=dev)
+        model.load_state_dict(init)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01 * hvd.size(),
+                            momentum=0.9), gradient_predivide_factor=2.0)
+        hvd.broadcast_variables(model, root_rank=0)
+        step = hvd.DistributedTrainStep(resnet_loss, opt)
+        model, opt = step.init(model)
+        return model, opt, step
+
+    model, opt, step = recipe()
+    ds = ShardedDataset(ArraySource(host), batch_size=batch_size,
+                        seed=broadcast_seed(0))
+    n_steps = FED["warmup"] + FED["steps"]
+    log(f"fed: ResNet-50 from {FED['rows']} host fp32 images "
+        f"({host['x'].nbytes / 1e6:.1f} MB) through ShardedDataset -> "
+        f"PrefetchIterator(depth {FED['depth']}, threads {FED['threads']}, "
+        f"place=step.shard_local_batch), {ds.steps_per_epoch} steps an "
+        f"epoch, {FED['warmup']} + {FED['steps']} steps")
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    feed = PrefetchIterator(ds.iter_epochs(), place=step.shard_local_batch,
+                            depth=FED["depth"], threads=FED["threads"],
+                            name="resnet")
+    losses, times = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, next(feed))
+        losses.append(float(loss))           # synchronises
+        times.append(time.perf_counter() - t0)
+    counts = K.launch_counts()
+    n_buckets = len(opt._buckets)
+    log(f"fed: losses {losses}")
+    log(f"fed: launches on the fed path {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite fed ResNet loss")
+    want = {"fused_conv_bn_relu_bwd": sum(CBR_MAIN.values()) * n_steps,
+            "fused_scale": 2 * n_buckets * n_steps}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"fed path launches {got}, want {want} "
+                             f"({n_buckets} buckets a step)")
+    stager = feed.stager
+    slots = [s for ring in stager._rings.values() for s in ring]
+    main_stream = torch.cuda.current_stream(dev)
+    if stager.stream.stream_id == main_stream.stream_id or \
+            not slots or not all(s.buf.is_pinned() for s in slots):
+        raise AssertionError("the feed's copies are not on a stream of "
+                             "their own from pinned buffers")
+    timed_stall = feed.stall_samples[FED["warmup"]:n_steps]
+    stall = statistics.median(timed_stall)
+    step_s = statistics.median(times[FED["warmup"]:])
+    log(f"fed: {len(slots)} pinned staging buffers "
+        f"({sum(s.buf.numel() * s.buf.element_size() for s in slots) / 1e6:.1f}"
+        f" MB) for {len(stager._rings)} leaves; copy stream "
+        f"{stager.stream.stream_id}, consumer stream {main_stream.stream_id}")
+    log(f"fed: step {step_s * 1e3:.2f} ms (median of the {FED['steps']} "
+        f"timed steps; steps {[round(t * 1e3, 2) for t in times]}), "
+        f"{batch_size / step_s:.1f} img/s fed; input_stall_s {stall:.6f} "
+        f"(median; timed window {[round(t * 1e3, 3) for t in timed_stall]} "
+        f"ms)")
+
+    # two fed steps under the profiler: the copy of a later batch is
+    # issued once next() frees a place in the queue, after the source's
+    # take, and lands within them
+    profiled = profile_step(
+        torch, lambda: [float(step(model, opt, next(feed))[2])
+                        for _ in range(2)], "cbr_", streams=True)
+    big = [c for c in profiled.get("h2d", []) if c["mb"] >= 1.0]
+    log(f"fed: the two profiled steps' host-to-device copies of 1 MB and "
+        f"more {big}")
+    if not big or not all(c["pinned"] and c["side"] for c in big):
+        raise AssertionError("the profiled fed step's batch copies are not "
+                             "pinned copies off the main stream")
+    feed.close()
+
+    # the same model on one resident batch, timed as phase 5 times
+    batch = step.shard_local_batch(ds.source.take(np.arange(batch_size)))
+    res_times = []
+    for _ in range(RESNET["steps"]):
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, batch)
+        float(loss)
+        res_times.append(time.perf_counter() - t0)
+    res_s = sorted(res_times[1:5])[1:3]
+    res_s = sum(res_s) / 2
+    del batch
+    log(f"fed: resident batch {res_s * 1e3:.2f} ms a step (median of steps "
+        f"2-5), {batch_size / res_s:.1f} img/s; phase 5 "
+        f"{resident['img_per_s']:.1f} img/s; fed/resident "
+        f"{res_s / step_s:.4f}")
+
+    # the synchronous control: the seeded weights again, the same batches
+    # in the same order, each placed inline and fenced
+    del model, opt, step
+    torch.cuda.empty_cache()
+    model, opt, step = recipe()
+    gen = ds.iter_epochs()
+    sync_losses, sync = [], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        b = step.shard_local_batch(next(gen))
+        fence_batch(b)
+        dt = time.perf_counter() - t0
+        model, opt, loss = step(model, opt, b)
+        sync_losses.append(float(loss))
+        if i >= FED["warmup"]:
+            sync.append(dt)
+    sync_stall = statistics.median(sync)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, sync_losses))
+    exact = sum(a == b for a, b in zip(losses, sync_losses))
+    log(f"fed: synchronous control losses {sync_losses}; {exact} of "
+        f"{n_steps} bit-exact with the fed run, max rel {rel:.3e} (tol "
+        f"{FED_LOSS_TOL:g}); input_stall_sync_s {sync_stall:.6f} (timed "
+        f"window {[round(t * 1e3, 3) for t in sync]} ms)")
+    if not rel <= FED_LOSS_TOL:
+        raise AssertionError("the fed losses differ from the synchronous "
+                             "control's")
+
+    # the H2D probe (utils/input_probe.py) through the feed's own staging
+    stager = CardStager(dev, step.shard_local_batch,
+                        FED["depth"] + FED["threads"])
+    holder = [(model, opt)]
+
+    def probe_step(b):
+        m, o, loss = step(holder[0][0], holder[0][1], b)
+        holder[0] = (m, o)
+        return loss
+
+    gen2 = ds.iter_epochs()
+    probe = measure_h2d_overlap(probe_step, lambda: next(gen2),
+                                lambda h: stager.place(h)[0])
+    stager.close()
+    fields = {"input_mode": "host", "input_stall_s": stall,
+              "input_stall_sync_s": sync_stall,
+              "input_stall_speedup":
+                  sync_stall / stall if stall > 0 else None,
+              "prefetch_depth": FED["depth"], **probe.as_bench_fields()}
+    log(f"fed: {json.dumps(fields)}")
+    log(f"fed: h2d probe both_s {probe.both_s:.6f}")
+    del model, opt, step, holder
+    hvd.shutdown()
+    return counts, dict(
+        fields, step_ms=step_s * 1e3, img_per_s_fed=batch_size / step_s,
+        img_per_s_resident=batch_size / res_s,
+        img_per_s_phase5=resident["img_per_s"], h2d_both_s=probe.both_s,
+        losses=losses, sync_losses=sync_losses, losses_bit_exact=exact,
+        idle_pct=100 - 100 * profiled["busy"] / profiled["wall"],
+        h2d_copies=big, buckets=n_buckets)
+
+
+def _rel(a, b) -> float:
+    """Normwise relative difference of two tensors, in fp32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def sync_bn_parity(torch, shape, seed: int = SEED) -> dict:
+    """SyncBatchNorm against the port's BatchNorm(train=True) on the same
+    bf16 channels-last input of ``shape`` on the runtime's card: the
+    normwise difference of the output, the running statistics and the
+    gradients of ``(y·g).sum()`` for the input, scale and bias, and which
+    of them are bit-exact; the all-reduces of a forward and of a backward
+    under torch.profiler; forward + backward ms of both (CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.resnet import BatchNorm
+
+    dev = hvd.device()
+    c = shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    g = torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    stats = {"scale": 1 + 0.1 * torch.randn(c, generator=gen, device=dev),
+             "bias": 0.1 * torch.randn(c, generator=gen, device=dev),
+             "mean": 0.1 * torch.randn(c, generator=gen, device=dev),
+             "var": 1 + 0.1 * torch.rand(c, generator=gen, device=dev)}
+    sync = hvd.SyncBatchNorm(c, device=dev)
+    plain = BatchNorm(c, dtype=torch.bfloat16, device=dev)
+    for m in (sync, plain):
+        m.load_state_dict(stats)
+
+    def run(m, train_kw, xin):
+        xin = xin.detach().clone().requires_grad_()
+        y = m(xin, **train_kw)
+        (y.float() * g.float()).sum().backward()
+        return y, xin.grad
+
+    out = {}
+    ys, dxs = run(sync, {}, x)
+    yp, dxp = run(plain, {"train": True}, x)
+    pairs = {"y": (ys, yp), "mean": (sync.mean, plain.mean),
+             "var": (sync.var, plain.var), "dx": (dxs, dxp),
+             "dscale": (sync.scale.grad, plain.scale.grad),
+             "dbias": (sync.bias.grad, plain.bias.grad)}
+    out["rel"] = {k: _rel(a.detach(), b.detach()) for k, (a, b) in
+                  pairs.items()}
+    out["exact"] = sorted(k for k, (a, b) in pairs.items()
+                          if torch.equal(a.detach(), b.detach()))
+
+    def collectives(fn) -> int:
+        """The all-reduces ``fn`` issued: the c10d op's host events (the
+        NCCL process group's own events where the trace lacks them)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names: dict = {}
+        for e in prof.events():
+            if "allreduce" in e.name or "all_reduce" in e.name:
+                names[e.name] = names.get(e.name, 0) + 1
+        out.setdefault("allreduce_events", []).append(names)
+        return names.get("c10d::allreduce_") or \
+            names.get("nccl:all_reduce", 0)
+
+    xin = x.detach().clone().requires_grad_()
+    box = {}
+    out["allreduce_fwd"] = collectives(
+        lambda: box.setdefault("y", sync(xin)))
+    out["allreduce_bwd"] = collectives(
+        lambda: (box["y"].float() * g.float()).sum().backward())
+    del box
+
+    def fwd_bwd(m, kw):
+        return lambda: run(m, kw, x)
+
+    out["ms"] = cuda_ms(torch, fwd_bwd(sync, {}), iters=10)
+    out["plain_ms"] = cuda_ms(torch, fwd_bwd(plain, {"train": True}),
+                              iters=10)
+    return out
+
+
+def phase_sync_bn(torch) -> dict:
+    """Phase 11 (b): SyncBatchNorm on a world of one at ResNet-50's
+    BatchNorm shapes, held against BatchNorm and timed beside it."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    summary = {}
+    for shape in SYNC_BN_SHAPES:
+        r = sync_bn_parity(torch, shape)
+        key = "x".join(map(str, shape))
+        summary[key] = r
+        log(f"sync_bn {key} bf16 channels-last [{CARD}]: rel "
+            f"{json.dumps({k: float(f'{v:.3e}') for k, v in r['rel'].items()})}"
+            f" (tol {SYNC_BN_TOL:g}), bit-exact {r['exact']}; all-reduces "
+            f"forward {r['allreduce_fwd']}, backward {r['allreduce_bwd']}; "
+            f"forward + backward {r['ms']:.4f} ms, BatchNorm "
+            f"{r['plain_ms']:.4f} ms")
+        if max(r["rel"].values()) > SYNC_BN_TOL:
+            raise AssertionError(f"SyncBatchNorm differs from BatchNorm at "
+                                 f"{key}: {r['rel']}")
+        if (r["allreduce_fwd"], r["allreduce_bwd"]) != (1, 1):
+            raise AssertionError(f"SyncBatchNorm at {key}: all-reduces "
+                                 f"forward {r['allreduce_fwd']}, backward "
+                                 f"{r['allreduce_bwd']}, want 1 and 1")
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2326,6 +2685,12 @@ def main() -> int:
     zero = phase_zero_train(torch, train["losses"])
     torch.cuda.empty_cache()
     moe_counts, chunk_counts, moe = phase_moe(torch)
+    torch.cuda.empty_cache()
+    fed_counts, fed = phase_fed(torch, resnet)
+    for name in ("fused_scale", "fused_conv_bn_relu_bwd"):
+        counts[name] += fed_counts[name]
+    torch.cuda.empty_cache()
+    sync_bn = phase_sync_bn(torch)
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
     # the moe summary's "chunk"
@@ -2363,6 +2728,8 @@ def main() -> int:
     log(f"zero summary: {json.dumps(zero)}")
     log(f"eager summary: {json.dumps(eager)}")
     log(f"moe summary [{CARD}]: {json.dumps(moe)}")
+    log(f"fed summary [{CARD}]: {json.dumps(fed)}")
+    log(f"sync_bn summary [{CARD}]: {json.dumps(sync_bn)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -32,6 +32,8 @@ from __future__ import annotations
 import torch
 
 from horovod_tpu_torch import checkpoint  # noqa: F401
+from horovod_tpu_torch import data  # noqa: F401
+from horovod_tpu_torch import faults  # noqa: F401
 from horovod_tpu_torch.exceptions import (  # noqa: F401
     HorovodInternalError,
     HostsUpdatedInterrupt,
@@ -72,7 +74,9 @@ from horovod_tpu_torch.optim import (  # noqa: F401
     DistributedOptimizer,
     DistributedTrainStep,
     ShardedOptimizerState,
+    SyncBatchNorm,
     join_step,
+    sync_batch_stats,
 )
 from horovod_tpu_torch.runtime import state as _state
 
@@ -119,9 +123,74 @@ def cross_size() -> int:
     return _state.global_state().cross_size
 
 
+def process_rank() -> int:
+    """This process's index.  The port runs one process per card, so it
+    is :func:`rank` (the JAX package's process drives several chips)."""
+    return _state.global_state().rank
+
+
+def process_count() -> int:
+    """The number of processes: :func:`size`, one process per card."""
+    return _state.global_state().size
+
+
+def is_homogeneous() -> bool:
+    """True when every host drives the same number of ranks (reference
+    ``horovod_is_homogeneous``); the local sizes are gathered with the
+    hostnames at ``init()``."""
+    return _state.global_state().is_homogeneous
+
+
 def device():
     """The ``torch.device`` this process runs on."""
     return _state.global_state().device
+
+
+# -- capability probes (reference basics.py:71-233 *_built/enabled), for
+# this build: NCCL on the card, gloo for the host plane and the CPU ---------
+
+def nccl_built() -> bool:
+    import torch.distributed as dist
+
+    return bool(dist.is_nccl_available())
+
+
+def gloo_built() -> bool:
+    return True
+
+
+def gloo_enabled() -> bool:
+    """True once ``init()`` has made the host plane's gloo group."""
+    return _state.is_initialized() and \
+        _state.global_state().host_group is not None
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def rocm_built() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    return False
 
 
 def current_operations() -> str:
@@ -144,7 +213,11 @@ def cache_stats() -> dict:
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
-    "local_size", "cross_rank", "cross_size", "device",
+    "local_size", "cross_rank", "cross_size", "process_rank",
+    "process_count", "is_homogeneous", "device",
+    "nccl_built", "gloo_built", "gloo_enabled", "cuda_built", "mpi_built",
+    "mpi_enabled", "ddl_built", "ccl_built", "rocm_built",
+    "mpi_threads_supported",
     "current_operations", "cache_stats",
     "allreduce", "allreduce_async", "allgather", "allgather_async",
     "alltoall", "alltoall_async", "broadcast", "broadcast_async", "barrier",
@@ -155,6 +228,7 @@ __all__ = [
     "broadcast_variables", "broadcast_parameters", "broadcast_object",
     "broadcast_optimizer_state", "allgather_object",
     "DistributedOptimizer", "DistributedGradientTape", "DistributedTrainStep",
-    "ShardedOptimizerState", "join_step",
-    "checkpoint",
+    "ShardedOptimizerState", "join_step", "SyncBatchNorm",
+    "sync_batch_stats",
+    "checkpoint", "data",
 ]

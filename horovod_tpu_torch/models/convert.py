@@ -5,7 +5,10 @@
 a ``state_dict`` for the port's module of the same architecture built from
 its ``params`` collection; ``variables_from_flax`` also carries the
 ``batch_stats`` collection (BatchNorm ``mean``/``var``), which the port
-keeps beside the parameters under the same module path.
+keeps beside the parameters under the same module path: as parameters in
+the ResNet's ``BatchNorm``, as buffers in
+:class:`~horovod_tpu_torch.optim.SyncBatchNorm`, whose ``scale``/``bias``
+and ``mean``/``var`` a flax ``SyncBatchNorm``'s tree maps onto.
 
 Names: path components join with dots, ``layer_{i}`` becomes
 ``layers.{i}``, and ``kernel`` becomes ``weight``.  A dense kernel

@@ -199,6 +199,22 @@ class DistributedTrainStep:
         over the sp group (JAX ``batch_spec``), which is the ``contiguous``
         layout; under ``HOROVOD_SP_LAYOUT=zigzag`` it raises, since the
         ring would mask those chunks by zigzag positions."""
+        return self._place(batch, slice_rows=True)
+
+    def shard_local_batch(self, batch):
+        """This rank's *own* rows on the runtime's device, with no slicing
+        of the batch dim (the streaming-reader contract, JAX
+        ``shard_local_batch``): each rank passes the rows it read, its
+        shard of the global batch, as a :class:`~horovod_tpu_torch.data.
+        ShardedDataset` hands them out.  Every rank must pass the same
+        number of rows a call; under a plan with sp > 1 the ranks of one
+        sp group pass the same rows, and dim 1 is split over the group as
+        :meth:`shard_batch` splits it.  The copy is ``non_blocking``: from
+        pinned memory (a :class:`~horovod_tpu_torch.data.PrefetchIterator`
+        on a card) it runs on the current stream, off the host."""
+        return self._place(batch, slice_rows=False)
+
+    def _place(self, batch, slice_rows: bool):
         st = state.global_state()
         if self.plan is None:
             data, data_index, sp, sp_index = st.size, st.rank, 1, 0
@@ -224,11 +240,12 @@ class DistributedTrainStep:
         def shard(x):
             x = torch.as_tensor(np.asarray(x)) if isinstance(x, np.ndarray) \
                 else x
-            if x.shape[0] % data:
-                raise ValueError(f"batch dim {x.shape[0]} does not divide "
-                                 f"by the {data} data ranks")
-            n = x.shape[0] // data
-            x = x[data_index * n:(data_index + 1) * n]
+            if slice_rows:
+                if x.shape[0] % data:
+                    raise ValueError(f"batch dim {x.shape[0]} does not "
+                                     f"divide by the {data} data ranks")
+                n = x.shape[0] // data
+                x = x[data_index * n:(data_index + 1) * n]
             if sp > 1:
                 if x.dim() < 2 or x.shape[1] % sp:
                     raise ValueError(f"sp={sp} splits dim 1 (tokens), got "

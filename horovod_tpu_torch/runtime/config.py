@@ -5,7 +5,8 @@ launcher's identity knobs, the coordinator address, the fusion threshold,
 the eager plane's cycle time, negotiation-cache capacity and data plane, the
 sharded exchange's bucket cap, topology, wire codec and reduction
 operator, the fused-collectives mode, the sequence-parallel ring's layout,
-the parallelism plan and the MoE dispatch knobs, under the same ``HOROVOD_*`` names and
+the parallelism plan, the MoE dispatch knobs and the input pipeline's
+prefetch depth and thread count, under the same ``HOROVOD_*`` names and
 with the same defaults, so one environment drives both packages.  A knob
 joins ``KNOWN_KNOBS`` and ``Config`` in the slice that ports the subsystem reading it.  The JAX
 package's jsrun/PMIx identity fallback is not copied: the port's launcher
@@ -42,6 +43,8 @@ KNOWN_KNOBS = frozenset({
     # -- MoE expert-parallel dispatch (models/moe.py; DistributedTrainStep's
     #    moe_fused / moe_capacity_factor, applied to the model it trains)
     "HOROVOD_MOE_FUSED_DISPATCH", "HOROVOD_MOE_CAPACITY_FACTOR",
+    # -- the input pipeline (data/prefetch.py)
+    "HOROVOD_PREFETCH_DEPTH", "HOROVOD_INPUT_THREADS",
 })
 
 
@@ -118,6 +121,11 @@ class Config:
     # by DistributedTrainStep when no plan is passed
     plan: Optional[str] = None
 
+    # -- the input pipeline (data/prefetch.py): prefetch queue bound and
+    # batch-assembly thread count
+    prefetch_depth: int = 2
+    input_threads: int = 2
+
     @staticmethod
     def from_env() -> "Config":
         def opt_int(name: str) -> Optional[int]:
@@ -148,6 +156,8 @@ class Config:
             fused_collectives=os.environ.get(
                 "HOROVOD_FUSED_COLLECTIVES", "auto").lower(),
             plan=os.environ.get("HOROVOD_PLAN"),
+            prefetch_depth=_env_int("HOROVOD_PREFETCH_DEPTH", 2),
+            input_threads=_env_int("HOROVOD_INPUT_THREADS", 2),
         )
 
 

@@ -67,7 +67,8 @@ class TestConfig:
            "HOROVOD_SP_LAYOUT": "zigzag",
            "HOROVOD_PLAN": "dp=2,sp=4",
            "HOROVOD_MOE_FUSED_DISPATCH": "on",
-           "HOROVOD_MOE_CAPACITY_FACTOR": "2.0"}
+           "HOROVOD_MOE_CAPACITY_FACTOR": "2.0",
+           "HOROVOD_PREFETCH_DEPTH": "5", "HOROVOD_INPUT_THREADS": "3"}
 
     @pytest.mark.parametrize("set_env", [False, True])
     def test_matches_jax(self, monkeypatch, set_env):

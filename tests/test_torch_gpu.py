@@ -12,11 +12,14 @@ exchange, the eager plane and the hook-fired exchange at a world of 4
 test_sp_over_nccl or test_zero_over_nccl or test_eager_over_nccl or
 test_overlap_over_nccl or test_moe_over_nccl"``); ``test_moe_over_nccl``
 also runs the MoE LM over an ep group of four and a sharded checkpoint
-saved at world 4 and restored at 2.
+saved at world 4 and restored at 2.  ``test_sync_bn_over_nccl`` starts
+its world the torchrun way (a process group made before ``hvd.init()``)
+and holds SyncBatchNorm against BatchNorm on the concatenated batch.
 Imports torch, numpy, the port and ``chip_smoke``'s inputs and tolerances
 only.
 """
 
+import json
 import math
 
 import numpy as np
@@ -733,6 +736,28 @@ class TestOnCard:
         ref = sum(float(grads[False][n].pow(2).sum()) for n in names)
         assert math.sqrt(diff / ref) <= 5e-2
 
+    def test_prefetch_pinned_side_stream(self, cuda):
+        """A PrefetchIterator on one card: the delivered tensors equal the
+        host batches, on the runtime's card, copied from pinned staging
+        buffers on a stream other than the consumer's, each carrying its
+        copy's event."""
+        out = spawn_world("run_prefetch_card", world=1, device="cuda")[0]
+        assert out["batches"] == 5 and out["equal"]
+        assert out["devices"] == {out["device"]} == {"cuda:0"}
+        assert out["copy"] != out["consumer"]
+        assert out["pinned"] and out["events"]
+
+    def test_sync_bn_equals_batchnorm(self, cuda):
+        """SyncBatchNorm at a world of one against BatchNorm(train=True),
+        bf16 channels-last: the forward bit for bit, the gradients within
+        chip_smoke.SYNC_BN_TOL normwise; one all-reduce each way."""
+        out = spawn_world("run_sync_bn_parity_card", world=1,
+                          device="cuda")[0]
+        print(json.dumps(out))
+        assert {"y", "mean", "var"} <= set(out["exact"])
+        assert max(out["rel"].values()) <= chip_smoke.SYNC_BN_TOL
+        assert (out["allreduce_fwd"], out["allreduce_bwd"]) == (1, 1)
+
 
 @pytest.fixture
 def cards():
@@ -906,6 +931,57 @@ class TestNcclWorld:
                                            rtol=1e-6, atol=1e-6)
             print(f"rank {rank}: step ms (median of 10, two runs each) "
                   f"{out['timing_ms']}")
+
+    def test_sync_bn_over_nccl(self, cards):
+        """A world started the torchrun way (a process group made before
+        ``hvd.init()``, torchrun's ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``, no
+        ``HOROVOD_*``): each rank on ``cuda:<local_rank>``, and
+        SyncBatchNorm over NCCL equal to BatchNorm on the concatenated
+        batch (tests/test_torch_sync_bn.py's limits), one all-reduce each
+        way, and at a world of 4 over a group of two ranks too."""
+        from horovod_tpu_torch.models.resnet import BatchNorm
+
+        from torch_port_workers import SYNC_BN_SHAPE, sync_bn_inputs
+
+        outs = spawn_world("run_sync_bn", world=cards, device="cuda",
+                           launch={"local_world_size": cards}, timeout=300)
+        inp = sync_bn_inputs(cards)
+        b = SYNC_BN_SHAPE[0]
+
+        def concat(lo, hi):
+            bn = BatchNorm(inp["scale"].size)
+            bn.load_state_dict({k: torch.from_numpy(inp[k].copy()) for k in
+                                ("scale", "bias", "mean", "var")})
+            x = torch.from_numpy(inp["x"][lo * b:hi * b].copy()) \
+                .requires_grad_()
+            y = bn(x, train=True)
+            (y * torch.from_numpy(inp["g"][lo * b:hi * b])).sum().backward()
+            return {"y": y.detach().numpy(), "dx": x.grad.numpy(),
+                    "dscale": bn.scale.grad.numpy(),
+                    "dbias": bn.bias.grad.numpy(),
+                    "var": bn.var.detach().numpy()}
+
+        def close(got, want, grad=False):
+            atol = 1e-5 * float(np.abs(want).max()) if grad else 1e-6
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
+
+        want = concat(0, cards)
+        for rank, o in enumerate(outs):
+            assert o["device"] == f"cuda:{o['local_rank']}" == \
+                f"cuda:{rank}"
+            assert o["calls"] == (1, 1) and o["calls_running"] == 0
+            close(o["var"], want["var"])
+        close(np.concatenate([o["y"] for o in outs]), want["y"])
+        close(np.concatenate([o["dx"] for o in outs]), want["dx"], True)
+        for k in ("dscale", "dbias"):
+            close(sum(o[k] for o in outs), want[k], True)
+        if cards == 4:
+            for lo in (0, 2):
+                pair = concat(lo, lo + 2)
+                got = [outs[r]["pair"] for r in (lo, lo + 1)]
+                close(np.concatenate([o["y"] for o in got]), pair["y"])
+                close(np.concatenate([o["dx"] for o in got]), pair["dx"],
+                      True)
 
     def test_moe_over_nccl(self, cards, tmp_path):
         """At a world of 4 over NCCL: the fp32 MoE LM over an ep group of

@@ -73,6 +73,24 @@ def test_port_files_cover_the_moe_slice():
             "ep_bench.py"} <= names
 
 
+def test_port_files_cover_the_input_slice():
+    """The import checks below cover the input plane's and SyncBatchNorm's
+    modules, and the telemetry, fault and parquet modules they read."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/data/__init__.py",
+            "horovod_tpu_torch/data/sharded.py",
+            "horovod_tpu_torch/data/prefetch.py",
+            "horovod_tpu_torch/telemetry/__init__.py",
+            "horovod_tpu_torch/telemetry/registry.py",
+            "horovod_tpu_torch/faults/__init__.py",
+            "horovod_tpu_torch/faults/plan.py",
+            "horovod_tpu_torch/spark/__init__.py",
+            "horovod_tpu_torch/spark/store.py",
+            "horovod_tpu_torch/utils/__init__.py",
+            "horovod_tpu_torch/utils/input_probe.py",
+            "horovod_tpu_torch/optim/sync_batch_norm.py"} <= names
+
+
 def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN
 

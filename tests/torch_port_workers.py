@@ -26,35 +26,73 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _worker(fn_name, rank, world, port, results, args, device):
-    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(world),
-                      HOROVOD_LOCAL_RANK=str(rank),
-                      HOROVOD_LOCAL_SIZE=str(world),
-                      HOROVOD_COORDINATOR_ADDR=f"localhost:{port}")
+def _caller_group(rank, world, port, device, launch):
+    """The process group a caller makes before ``hvd.init()``, with no
+    ``HOROVOD_*`` variable: torchrun's ``LOCAL_*``/``RANK``/``WORLD_SIZE``
+    when ``launch["local_world_size"]`` is set, and with
+    ``launch["hosts"]`` this rank's hostname one of that many."""
+    import socket
+
+    import torch.distributed as dist
+
+    local = launch.get("local_world_size")
+    if local:
+        os.environ.update(LOCAL_RANK=str(rank % local),
+                          LOCAL_WORLD_SIZE=str(local), RANK=str(rank),
+                          WORLD_SIZE=str(world))
+    hosts = launch.get("hosts")
+    if hosts:
+        socket.gethostname = lambda: hosts[rank]
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+
+
+def _worker(fn_name, rank, world, port, results, args, device, launch):
+    if launch is None:
+        os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(world),
+                          HOROVOD_LOCAL_RANK=str(rank),
+                          HOROVOD_LOCAL_SIZE=str(world),
+                          HOROVOD_COORDINATOR_ADDR=f"localhost:{port}")
     try:
+        if launch is not None:
+            _caller_group(rank, world, port, device, launch)
         import horovod_tpu_torch as hvd
 
         hvd.init(device=device)
         try:
-            results.put((rank, True, globals()[fn_name](hvd, *args)))
+            out = globals()[fn_name](hvd, *args)
+            # no rank leaves (and takes down rank 0's store) while another
+            # still rendezvouses through it, e.g. for a subgroup
+            import torch.distributed as dist
+
+            dist.barrier(group=hvd._state.global_state().host_group)
+            results.put((rank, True, out))
         finally:
             hvd.shutdown()
+            if launch is not None:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 - reported to the parent, which raises
         results.put((rank, False, traceback.format_exc()))
 
 
 def spawn_world(fn_name: str, world: int = 2, args=(),
-                timeout: float = 120.0, device: str = "cpu") -> list:
+                timeout: float = 120.0, device: str = "cpu",
+                launch=None) -> list:
     """Run ``fn_name(hvd, *args)`` on every rank of a world on ``device``
     (``"cpu"``: gloo; ``"cuda"``: NCCL, card ``rank`` for rank ``rank``);
     returns the results ordered by rank, or raises with a failing rank's
-    traceback."""
+    traceback.  The world starts through the launcher's ``HOROVOD_*``
+    contract, or with ``launch`` (a dict, see :func:`_caller_group`) from
+    a process group that each rank makes before ``hvd.init()``."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_worker,
                          args=(fn_name, r, world, port, results, args,
-                               device))
+                               device, launch))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -2192,3 +2230,248 @@ def run_moe_nccl(hvd, directory: str):
             target, rank, 2, step=2, plan="dp=2"))
         out["groups2"] = [(g.key, g.padded, g.shard) for g in spec.groups]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the input plane and the identity of a world made by the caller
+# ---------------------------------------------------------------------------
+
+#: rows of the data tests' source, and its per-rank batch
+DATA_ROWS, DATA_BATCH = 48, 3
+IDENTITY_QUERIES = ("rank", "size", "local_rank", "local_size", "cross_rank",
+                    "cross_size", "process_rank", "process_count",
+                    "is_homogeneous")
+PROBES = ("nccl_built", "gloo_built", "gloo_enabled", "cuda_built",
+          "mpi_built", "mpi_enabled", "ddl_built", "ccl_built", "rocm_built",
+          "mpi_threads_supported")
+
+
+def data_columns() -> dict:
+    """The data tests' source: a dict of columns, row i's values i-based."""
+    rows = np.arange(DATA_ROWS)
+    return {"x": np.stack([rows, rows * 10, rows * 100], 1)
+            .astype(np.float32),
+            "y": (rows * 7).astype(np.int64)}
+
+
+def sp_tokens(rows: int) -> np.ndarray:
+    return np.arange(rows * 8, dtype=np.int64).reshape(rows, 8)
+
+
+def run_identity(hvd):
+    """The rank's identity, the probes, and the input plane under it: the
+    broadcast seed, a ShardedDataset's default rank and world, five
+    batches through a PrefetchIterator placing with ``shard_local_batch``,
+    and ``shard_local_batch`` against ``shard_batch`` of the concatenated
+    rows, without a plan and under an sp plan."""
+    import torch
+
+    from horovod_tpu_torch.data import (
+        ArraySource,
+        PrefetchIterator,
+        ShardedDataset,
+        broadcast_seed,
+    )
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    rank, world = hvd.rank(), hvd.size()
+    out = {k: getattr(hvd, k)() for k in IDENTITY_QUERIES}
+    out["probes"] = {k: getattr(hvd, k)() for k in PROBES}
+    out["device"] = str(hvd.device())
+    out["seed"] = broadcast_seed(100 + rank)
+    ds = ShardedDataset(ArraySource(data_columns()), batch_size=DATA_BATCH,
+                        seed=out["seed"])
+    out["ds"] = (ds.rank, ds.world)
+    model = torch.nn.Linear(3, 1)
+    step = hvd.DistributedTrainStep(lambda m, b: m(b["x"]).mean(),
+                                    torch.optim.SGD(model.parameters(),
+                                                    lr=0.1))
+    with PrefetchIterator(ds.iter_epochs(), place=step.shard_local_batch,
+                          depth=2, threads=2) as feed:
+        out["fed"] = [{k: v.numpy() for k, v in next(feed).items()}
+                      for _ in range(2 * ds.steps_per_epoch + 1)]
+    cols = data_columns()
+    mine = {k: v[rank * DATA_BATCH:(rank + 1) * DATA_BATCH]
+            for k, v in cols.items()}
+    every = {k: v[:world * DATA_BATCH] for k, v in cols.items()}
+    out["local"] = {k: v.numpy() for k, v in
+                    step.shard_local_batch(mine).items()}
+    out["global"] = {k: v.numpy() for k, v in
+                     step.shard_batch(every).items()}
+    sp = hvd.DistributedTrainStep(
+        lambda m, b: m(b).mean(),
+        torch.optim.SGD(torch.nn.Linear(8, 1).parameters(), lr=0.1),
+        plan="sp=2" if world == 2 else "dp=2,sp=2")
+    dp = sp.mesh.index("dp")
+    tokens = sp_tokens(sp.plan.dp * 2)
+    out["sp_local"] = sp.shard_local_batch(tokens[dp * 2:(dp + 1) * 2]) \
+        .numpy()
+    out["sp_global"] = sp.shard_batch(tokens).numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SyncBatchNorm
+# ---------------------------------------------------------------------------
+
+#: (rows a rank, channels, height, width) of the SyncBatchNorm tests
+SYNC_BN_SHAPE = (2, 6, 5, 5)
+
+
+def sync_bn_inputs(world: int) -> dict:
+    """The global NCHW input and upstream gradient, the module's
+    parameters and running statistics, and the unequal-counts input (rank
+    r holds r + 1 rows of ``u``)."""
+    b, c, h, w = SYNC_BN_SHAPE
+    rng = np.random.RandomState(40 + world)
+    # channels with distinct offsets and spreads, so that per-rank
+    # statistics would differ from the global ones
+    x = rng.randn(world * b, c, h, w) * (1 + np.arange(c))[:, None, None] \
+        + np.arange(world * b)[:, None, None, None] * 0.3
+    rows = world * (world + 1) // 2
+    u = rng.randn(rows, c, h, w) + np.arange(rows)[:, None, None, None]
+    return {"x": x.astype(np.float32),
+            "g": rng.randn(world * b, c, h, w).astype(np.float32),
+            "scale": (1 + 0.1 * rng.randn(c)).astype(np.float32),
+            "bias": (0.1 * rng.randn(c)).astype(np.float32),
+            "mean": (0.1 * rng.randn(c)).astype(np.float32),
+            "var": (1 + 0.1 * rng.rand(c)).astype(np.float32),
+            "u": u.astype(np.float32),
+            "gm": rng.randn(c).astype(np.float32),
+            "gv": rng.randn(c).astype(np.float32)}
+
+
+def sync_bn_module(torch, inp: dict, **kw):
+    from horovod_tpu_torch.optim import SyncBatchNorm
+
+    bn = SyncBatchNorm(inp["scale"].size, **kw)
+    bn.load_state_dict({k: torch.from_numpy(inp[k].copy())
+                        for k in ("scale", "bias", "mean", "var")})
+    return bn
+
+
+def sync_bn_grads(torch, bn, x, g, **kw) -> dict:
+    """Output, running statistics and the gradients of ``(y·g).sum()``
+    with respect to the input, scale and bias."""
+    x = x.detach().clone().requires_grad_()
+    y = bn(x, **kw)
+    (y * g).sum().backward()
+    return {"y": _host(y), "dx": _host(x.grad), "dscale": _host(bn.scale.grad),
+            "dbias": _host(bn.bias.grad), "mean": _host(bn.mean),
+            "var": _host(bn.var)}
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy().copy()
+
+
+def run_sync_bn(hvd):
+    """SyncBatchNorm on this rank's rows (channels-last, on the runtime's
+    device), counting the collective calls of a forward, a backward and a
+    running-average forward; ``sync_batch_stats`` with unequal per-rank
+    rows; and at a world of 4 the module over a group of two ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.optim import sync_batch_stats
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    rank, world, dev = hvd.rank(), hvd.size(), hvd.device()
+    inp = sync_bn_inputs(world)
+    b = SYNC_BN_SHAPE[0]
+    part = slice(rank * b, (rank + 1) * b)
+    x = torch.from_numpy(inp["x"][part]).to(dev).contiguous(
+        memory_format=torch.channels_last)
+    g = torch.from_numpy(inp["g"][part]).to(dev)
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return all_reduce(*a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        bn = sync_bn_module(torch, inp).to(dev)
+        xg = x.detach().clone().requires_grad_()
+        y = bn(xg)
+        fwd = len(calls)
+        (y * g).sum().backward()
+        out = {"y": _host(y), "dx": _host(xg.grad),
+               "dscale": _host(bn.scale.grad), "dbias": _host(bn.bias.grad),
+               "mean": _host(bn.mean), "var": _host(bn.var),
+               "channels_last": y.is_contiguous(
+                   memory_format=torch.channels_last),
+               "calls": (fwd, len(calls) - fwd), "device": str(dev),
+               "local_rank": hvd.local_rank()}
+        n = len(calls)
+        out["running"] = _host(bn(x, use_running_average=True))
+        out["calls_running"] = len(calls) - n
+    finally:
+        dist.all_reduce = all_reduce
+    lo = rank * (rank + 1) // 2
+    u = torch.from_numpy(inp["u"][lo:lo + rank + 1]).to(dev) \
+        .requires_grad_()
+    h, w = SYNC_BN_SHAPE[2:]
+    mean, var = sync_batch_stats(u, counts=(rank + 1) * h * w)
+    ((mean * torch.from_numpy(inp["gm"]).to(dev)).sum()
+     + (var * torch.from_numpy(inp["gv"]).to(dev)).sum()).backward()
+    out["counts"] = {"mean": _host(mean), "var": _host(var),
+                     "du": _host(u.grad)}
+    if world == 4:
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        out["pair"] = sync_bn_grads(torch, sync_bn_module(
+            torch, inp, group=pairs[rank // 2]).to(dev), x, g)
+    return out
+
+
+def run_prefetch_card(hvd):
+    """A PrefetchIterator on the card (depth 1, two threads): five seeded
+    host batches through ``shard_local_batch``, the delivered tensors and
+    their streams, and the staging buffers."""
+    import torch
+
+    from horovod_tpu_torch.data import PrefetchIterator
+
+    rng = np.random.RandomState(5)
+    # two leaves of one shape: each has a ring of its own
+    host = [{"x": rng.rand(8, 16, 16, 3).astype(np.float32),
+             "x2": rng.rand(8, 16, 16, 3).astype(np.float32),
+             "y": rng.randint(0, 10, (8,)).astype(np.int32)}
+            for _ in range(5)]
+    step = hvd.DistributedTrainStep(
+        lambda m, b: m(b["x"]).mean(),
+        torch.optim.SGD(torch.nn.Linear(3, 1).to(hvd.device()).parameters(),
+                        lr=0.1))
+    consumer = torch.cuda.current_stream()
+    out = {"device": str(hvd.device()), "consumer": consumer.stream_id,
+           "devices": set()}
+    with PrefetchIterator(iter(host), place=step.shard_local_batch,
+                          depth=1, threads=2) as feed:
+        stager = feed.stager
+        out["copy"] = stager.stream.stream_id
+        got = []
+        for i, b in enumerate(feed):
+            if i == 0:
+                slots = [s for ring in stager._rings.values() for s in ring]
+                out["pinned"] = bool(slots) and all(s.buf.is_pinned()
+                                                    for s in slots)
+                out["events"] = all(getattr(v, "_hvd_copy_event", None)
+                                    is not None for v in b.values())
+            # consumer-stream work on the delivered batch
+            got.append({k: (v * 1).cpu().numpy() for k, v in b.items()})
+            out["devices"].update(str(v.device) for v in b.values())
+    out["equal"] = all(np.array_equal(g[k], h[k]) for g, h in zip(got, host)
+                       for k in h)
+    out["batches"] = len(got)
+    return out
+
+
+def run_sync_bn_parity_card(hvd):
+    """chip_smoke's SyncBatchNorm-against-BatchNorm check at a small
+    bf16 channels-last shape on the card."""
+    import torch
+
+    import chip_smoke
+
+    return chip_smoke.sync_bn_parity(torch, (8, 64, 14, 14))
