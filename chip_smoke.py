@@ -135,7 +135,20 @@ Phases, in order; any failure exits non-zero:
    input, scale and bias gradients within ``SYNC_BN_TOL`` (bit-exact
    expected, logged), one all-reduce in the forward and one in the
    backward, forward + backward timed beside BatchNorm;
-12. print the card's name and power limit, the kernels' JSON line, and last
+12. the launcher: (a) phase 4's recipe (the 870.9M TransformerLM, the same
+   seed, weights, batch, AdamW, predivide 2.0 and hook path, 5 steps)
+   started by ``python -m horovod_tpu_torch.runner -np 1 python
+   chip_smoke.py --launched OUT``, whose worker checks the launcher's
+   variables and the port's controller stamp and calls ``hvd.init()``
+   with no device: its losses must equal phase 4's bit for bit, each
+   flash kernel launch 16 times a step and ``fused_scale`` 132, and the
+   identity be rank 0 of 1, local 0 of 1, on ``cuda:0`` (launch to first
+   step beside phase 4's in-process init to first step, step ms, tokens/s
+   and peak memory printed); (b) ``horovod_tpu_torch.runner.run`` of
+   :func:`card_identity` on one rank; (c) ``--check-build`` must report
+   CUDA and NCCL; (d) a rank that exits 3 must make the launcher return
+   3;
+13. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -209,8 +222,8 @@ MOE = dict(batch=16, seq=1024, heads=8, layers=12, d_model=1024, d_ff=4096,
 # phase 10 (b): expert_chunk_mlp at one MoE layer's shapes on one card:
 # every expert local, capacity ceil(1.25 * 16384 / 8)
 CHUNK = dict(e_local=8, capacity=2560, d=1024, f=4096)
-# the card's name and power limit (nvidia-smi), printed beside phase 10's
-# and phase 11's numbers
+# the card's name and power limit (nvidia-smi), printed beside phase 10's,
+# 11's and 12's numbers
 CARD = ""
 # ragged shapes: M edges of 8, 24 and 136 rows in the forward and dX, and a
 # 24-row M edge in dW (its n); a layout whose call falls outside the
@@ -1351,22 +1364,22 @@ def profile_step(torch, run, focus: str = "", ranges=None,
     return split
 
 
-def phase_train(torch):
-    """The five-line recipe at full width; returns the launch counts."""
-    import horovod_tpu_torch as hvd
+def recipe(torch, hvd, steps: int = 5, on_step=None) -> dict:
+    """Phase 4's five-line recipe at full width on this process's card:
+    the seeded 870.9M TransformerLM, ``DistributedOptimizer(AdamW(3e-4,
+    weight_decay=1e-4), gradient_predivide_factor=2.0)`` on the hook path,
+    ``init`` and ``steps`` steps on the seeded batch; ``on_step(i, model)``
+    after each.  Returns the model, the wrapper, the step, the batch, the
+    losses, each step's seconds and bucket sources, the wall clock at the
+    first step's end, the launch counts from ``init`` on and the peak
+    memory."""
     from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
     from horovod_tpu_torch.ops import kernels as K
 
-    hvd.init()
     dev = hvd.device()
-    log(f"init: rank {hvd.rank()} of {hvd.size()} on {dev}")
     cfg = full_config(torch, "flash")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = TransformerLM(cfg, device=dev, generator=gen)
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"model: {n_params / 1e6:.1f}M params, {cfg.num_layers}L/"
-        f"{cfg.d_model}d/{cfg.num_heads}h, seq {FULL['seq']}, "
-        f"batch {FULL['batch']}, attention {cfg.attention_impl}")
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
         gradient_predivide_factor=2.0)
@@ -1383,17 +1396,48 @@ def phase_train(torch):
     K.reset_launch_counts()
     model, opt = step.init(model)
     batch = step.shard_batch(tokens)
-    losses, times, sources = [], [], []
-    for i in range(5):
+    losses, times, sources, first_end = [], [], [], None
+    for i in range(steps):
         t0 = time.perf_counter()
         model, opt, loss = step(model, opt, batch)
         losses.append(float(loss))           # synchronises
         times.append(time.perf_counter() - t0)
+        first_end = first_end or time.time()
         sources.append([src for _, src in opt.launches])
+        if on_step is not None:
+            on_step(i, model)
+    return dict(cfg=cfg, model=model, opt=opt, step=step, batch=batch,
+                loss_fn=loss_fn, losses=losses, times=times,
+                sources=sources, first_end=first_end,
+                counts=K.launch_counts(),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def phase_train(torch):
+    """The five-line recipe at full width; returns the launch counts."""
+    import horovod_tpu_torch as hvd
+
+    t_init = time.time()
+    hvd.init()
+    dev = hvd.device()
+    log(f"init: rank {hvd.rank()} of {hvd.size()} on {dev}")
+    firsts = []
+
+    def keep_first(i, model):
         if i == 0:      # the sp phase's reference: this step's gradients
-            first = (losses[0], flat_grads(torch, model))
-    counts = K.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+            firsts.append(flat_grads(torch, model))
+
+    r = recipe(torch, hvd, on_step=keep_first)
+    cfg, model, opt, step, batch, loss_fn = (
+        r[k] for k in ("cfg", "model", "opt", "step", "batch", "loss_fn"))
+    losses, times, sources = r["losses"], r["times"], r["sources"]
+    counts, peak = r["counts"], r["peak"]
+    first = (losses[0], firsts.pop())
+    init_to_first_s = r["first_end"] - t_init
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: {n_params / 1e6:.1f}M params, {cfg.num_layers}L/"
+        f"{cfg.d_model}d/{cfg.num_heads}h, seq {FULL['seq']}, "
+        f"batch {FULL['batch']}, attention {cfg.attention_impl}")
     log(f"train: losses {losses}")
     log(f"train: launches on the main path {counts}")
     n_buckets = len(opt._buckets)
@@ -1471,6 +1515,7 @@ def phase_train(torch):
     hvd.shutdown()
     return counts, dict(step_ms=steady * 1e3,
                         tokens_per_s=tokens_per_step / steady,
+                        init_to_first_step_s=init_to_first_s,
                         peak_gib=peak / 2**30, losses=losses,
                         buckets=n_buckets, hook_launches=hooks,
                         idle_share=1 - profiled["busy"] / profiled["wall"],
@@ -2647,6 +2692,190 @@ def phase_sync_bn(torch) -> dict:
     return summary
 
 
+# phase 12: the launcher's variables that the launched worker must find
+LAUNCH_VARS = ("HOROVOD_HOSTNAME", "HOROVOD_RANK", "HOROVOD_SIZE",
+               "HOROVOD_LOCAL_RANK", "HOROVOD_LOCAL_SIZE",
+               "HOROVOD_CROSS_RANK", "HOROVOD_CROSS_SIZE",
+               "HOROVOD_COORDINATOR_ADDR", "HOROVOD_CONTROLLER")
+# phase 12 (a)'s launched run must end within this many seconds
+LAUNCH_TIMEOUT_S = 400
+# each step of phase 4's recipe: 16 launches of each flash kernel, and
+# fused_scale twice (predivide 2.0) over each of 66 buckets
+LAUNCHES_A_STEP = {"flash_fwd": 16, "flash_bwd_dq": 16, "flash_bwd_dkv": 16,
+                   "fused_scale": 132}
+
+
+def launched_worker(torch, out_path: str) -> int:
+    """``chip_smoke.py --launched OUT``: phase 12 (a)'s worker, started by
+    ``python -m horovod_tpu_torch.runner -np 1``.  Checks the launcher's
+    variables and the port's controller stamp, calls ``hvd.init()`` with
+    no device (so ``cuda:<local_rank>``), trains phase 4's recipe 5
+    steps, and writes the losses, identity, launches, step ms, tokens/s
+    and peak memory to ``OUT`` as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runtime.config import CONTROLLER
+
+    t_worker = time.time()
+    missing = [k for k in LAUNCH_VARS if not os.environ.get(k)]
+    if missing:
+        raise AssertionError(f"launched without {missing}")
+    if os.environ["HOROVOD_CONTROLLER"] != CONTROLLER:
+        raise AssertionError(f"controller {os.environ['HOROVOD_CONTROLLER']}"
+                             f", want {CONTROLLER}")
+    hvd.init()
+    t_init = time.time()
+    r = recipe(torch, hvd)
+    steps = len(r["losses"])
+    steady = statistics.median(r["times"][1:])
+    out = dict(
+        losses=r["losses"],
+        identity=dict(rank=hvd.rank(), size=hvd.size(),
+                      local_rank=hvd.local_rank(),
+                      local_size=hvd.local_size(),
+                      device=str(hvd.device())),
+        env={k: os.environ[k] for k in LAUNCH_VARS},
+        launches={k: r["counts"][k] for k in LAUNCHES_A_STEP},
+        launches_a_step={k: r["counts"][k] / steps for k in LAUNCHES_A_STEP},
+        step_ms=steady * 1e3, first_step_ms=r["times"][0] * 1e3,
+        tokens_per_s=FULL["batch"] * FULL["seq"] / steady,
+        peak_gib=r["peak"] / 2**30, worker_start=t_worker,
+        init_s=t_init - t_worker, first_end=r["first_end"])
+    del r
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    log(f"launched worker: losses {out['losses']}")
+    return 0
+
+
+def card_identity() -> dict:
+    """Phase 12 (b)'s function for ``horovod_tpu_torch.runner.run``: the
+    rank's identity, its card, and an ``hvd.allreduce`` of a CUDA tensor
+    (the sum of ``arange(4) + rank`` over the ranks)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    try:
+        dev = hvd.device()
+        x = torch.arange(4, dtype=torch.float32, device=dev) + hvd.rank()
+        y = hvd.allreduce(x, op=hvd.Sum)
+        return dict(rank=hvd.rank(), size=hvd.size(),
+                    local_rank=hvd.local_rank(), device=str(dev),
+                    name=torch.cuda.get_device_name(dev),
+                    allreduce=y.cpu().tolist(), on_card=y.is_cuda)
+    finally:
+        hvd.shutdown()
+
+
+def _hvdrun(args, timeout: float) -> subprocess.CompletedProcess:
+    """``python -m horovod_tpu_torch.runner ARGS``; past ``timeout`` the
+    launcher gets SIGTERM, which ends its workers too, and this raises."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=60)
+        finally:
+            proc.kill()
+            proc.wait()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def phase_launch(torch, train: dict) -> dict:
+    """Phase 12: (a) phase 4's recipe launched through ``python -m
+    horovod_tpu_torch.runner -np 1``, its losses held against phase 4's
+    bit for bit; (b) ``run(card_identity, np=1)``; (c) ``--check-build``;
+    (d) a rank that exits 3 makes the launcher return 3."""
+    import chip_smoke
+    from horovod_tpu_torch.runner import run
+
+    log(f"launch: parent holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB on the card before the launch")
+    out_dir = tempfile.mkdtemp(prefix="hvd_torch_launch_")
+    try:
+        out_json = os.path.join(out_dir, "launched.json")
+        t_launch = time.time()
+        proc = _hvdrun(["-np", "1", sys.executable,
+                        os.path.abspath(__file__), "--launched", out_json],
+                       LAUNCH_TIMEOUT_S)
+        wall = time.time() - t_launch
+        for line in proc.stdout.splitlines()[-3:]:
+            log(f"launch (a) worker: {line}")
+        if proc.returncode != 0 or not os.path.exists(out_json):
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"launched recipe: launcher rc "
+                                 f"{proc.returncode}")
+        with open(out_json) as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    want_id = dict(rank=0, size=1, local_rank=0, local_size=1,
+                   device="cuda:0")
+    first_s = res["first_end"] - t_launch
+    log(f"launch (a) [{CARD}]: identity {res['identity']}, controller "
+        f"{res['env']['HOROVOD_CONTROLLER']}, coordinator "
+        f"{res['env']['HOROVOD_COORDINATOR_ADDR']}")
+    log(f"launch (a) [{CARD}]: losses {res['losses']} vs phase 4's "
+        f"{train['losses']}, bit-exact: {res['losses'] == train['losses']}")
+    log(f"launch (a) [{CARD}]: launches a step {res['launches_a_step']}")
+    log(f"launch (a) [{CARD}]: step {res['step_ms']:.1f} ms (phase 4 "
+        f"{train['step_ms']:.1f} ms), {res['tokens_per_s']:.0f} tokens/s, "
+        f"peak {res['peak_gib']:.2f} GiB (phase 4 {train['peak_gib']:.2f}); "
+        f"launch to first step {first_s:.2f} s (worker start "
+        f"{res['worker_start'] - t_launch:.2f} s, its init "
+        f"{res['init_s']:.2f} s, "
+        f"first step {res['first_step_ms'] / 1e3:.2f} s); phase 4's "
+        f"in-process init to first step {train['init_to_first_step_s']:.2f}"
+        f" s; launcher wall {wall:.2f} s")
+    if res["identity"] != want_id:
+        raise AssertionError(f"launched identity {res['identity']}")
+    if res["losses"] != train["losses"]:
+        raise AssertionError("the launched recipe and phase 4 disagree")
+    if res["launches_a_step"] != LAUNCHES_A_STEP:
+        raise AssertionError(f"launched launches {res['launches_a_step']}, "
+                             f"want {LAUNCHES_A_STEP}")
+
+    t0 = time.time()
+    got = run(chip_smoke.card_identity, np=1)
+    run_s = time.time() - t0
+    log(f"launch (b) [{CARD}]: run(card_identity, np=1) -> {got} in "
+        f"{run_s:.2f} s")
+    want = dict(rank=0, size=1, local_rank=0, device="cuda:0",
+                name=torch.cuda.get_device_name(0),
+                allreduce=[0.0, 1.0, 2.0, 3.0], on_card=True)
+    if got != [want]:
+        raise AssertionError(f"run() returned {got}, want {[want]}")
+
+    build = _hvdrun(["--check-build"], 120)
+    log("launch (c): " + " | ".join(build.stdout.splitlines()))
+    if build.returncode != 0 or "[X] CUDA" not in build.stdout or \
+            "[X] NCCL" not in build.stdout:
+        raise AssertionError("--check-build does not report CUDA and NCCL")
+
+    t0 = time.time()
+    fail = _hvdrun(["-np", "1", sys.executable, "-c",
+                    "import sys; sys.exit(3)"], 120)
+    log(f"launch (d): a rank that exits 3 -> launcher rc "
+        f"{fail.returncode} in {time.time() - t0:.2f} s")
+    if fail.returncode != 3:
+        raise AssertionError(f"fail-fast: launcher rc {fail.returncode}")
+    return dict(losses_bit_exact=True, launch_to_first_step_s=first_s,
+                worker_start_s=res["worker_start"] - t_launch,
+                worker_init_s=res["init_s"],
+                phase4_init_to_first_step_s=train["init_to_first_step_s"],
+                step_ms=res["step_ms"], phase4_step_ms=train["step_ms"],
+                tokens_per_s=res["tokens_per_s"], peak_gib=res["peak_gib"],
+                launches_a_step=res["launches_a_step"], run_s=run_s,
+                launcher_wall_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -2655,6 +2884,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--launched"]:
+        return launched_worker(torch, sys.argv[2])
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2691,6 +2922,8 @@ def main() -> int:
         counts[name] += fed_counts[name]
     torch.cuda.empty_cache()
     sync_bn = phase_sync_bn(torch)
+    torch.cuda.empty_cache()
+    launch = phase_launch(torch, train)
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
     # the moe summary's "chunk"
@@ -2730,6 +2963,7 @@ def main() -> int:
     log(f"moe summary [{CARD}]: {json.dumps(moe)}")
     log(f"fed summary [{CARD}]: {json.dumps(fed)}")
     log(f"sync_bn summary [{CARD}]: {json.dumps(sync_bn)}")
+    log(f"launch summary [{CARD}]: {json.dumps(launch)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,10 @@ produced its last gradient, while backward goes on.  The eager collectives
 top-level names, as in the JAX package; the collectives a training step
 calls are in ``hvd.ops.collectives``.
 
+A job of N processes starts with ``python -m horovod_tpu_torch.runner -np N
+python train.py`` (``hvdrun``'s flags; ``--mpi`` and ``--jsrun`` too), or
+``horovod_tpu_torch.runner.run(fn, np=N)``.
+
 The port imports torch, numpy and the standard library only, never JAX or
 ``horovod_tpu``.  Its kernels are CUDA C++ for Hopper (``ops/csrc``),
 built on first use; on CPU tensors each kernel's plain PyTorch version

@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import logging
 import os
-import random
 import shutil
 import threading
 import time
@@ -61,6 +60,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch.runtime import state as _rt
+from horovod_tpu_torch.runtime.retry import RetryPolicy
 
 _log = logging.getLogger(__name__)
 
@@ -139,33 +139,27 @@ def _atomic_save(path: str, payload: Any) -> None:
 
 
 #: The writer's retry for transient storage errors, at the JAX package's
-#: default policy (``runtime/retry.py`` there): 5 tries, each sleep uniform
-#: in ``[0, min(5, 0.1 · 2^attempt)]`` s (full jitter), 60 s in all.
+#: default policy (``runtime/retry.py``): 5 tries, each sleep uniform in
+#: ``[0, min(5, 0.1 · 2^attempt)]`` s (full jitter), 60 s in all.
 IO_ATTEMPTS, IO_BASE_S, IO_MAX_S, IO_DEADLINE_S = 5, 0.1, 5.0, 60.0
+
+
+def _io_policy(jitter: bool = True) -> RetryPolicy:
+    return RetryPolicy(max_attempts=IO_ATTEMPTS, base_s=IO_BASE_S,
+                       max_s=IO_MAX_S, deadline_s=IO_DEADLINE_S,
+                       jitter=jitter, retry_on=(OSError,),
+                       name="checkpoint-io", logger=_log)
 
 
 def _io_backoff_cap(attempt: int) -> float:
     """The sleep cap before retry number ``attempt + 1`` (0-based)."""
-    return min(IO_MAX_S, IO_BASE_S * (2.0 ** attempt))
+    return _io_policy(jitter=False).backoff_s(attempt)
 
 
 def _io_retry(fn, *args) -> Any:
     """``fn(*args)`` with an OSError retried under the policy above; any
     other error, a pickling error for one, surfaces at once."""
-    start = time.monotonic()
-    for attempt in range(IO_ATTEMPTS):
-        try:
-            return fn(*args)
-        except OSError as e:
-            remaining = IO_DEADLINE_S - (time.monotonic() - start)
-            if attempt + 1 >= IO_ATTEMPTS or remaining <= 0:
-                raise
-            delay = min(random.uniform(0.0, _io_backoff_cap(attempt)),
-                        remaining)
-            _log.warning("checkpoint-io: attempt %d/%d failed (%s: %s), "
-                         "retrying in %.2f s", attempt + 1, IO_ATTEMPTS,
-                         type(e).__name__, e, delay)
-            time.sleep(delay)
+    return _io_policy().call(fn, *args)
 
 
 def _load(path: str, map_location=None) -> Any:

@@ -9,6 +9,8 @@ Sites instrumented in the port (grep ``faults.inject``):
 
 ==========================  =================================================
 ``data.feed``               prefetch feeder, once per source batch
+``probe.connect``           NIC probe task's connect to the launcher's probe
+                            driver, once per try under its RetryPolicy
 ==========================  =================================================
 
 Typical use::

@@ -8,9 +8,10 @@ operator, the fused-collectives mode, the sequence-parallel ring's layout,
 the parallelism plan, the MoE dispatch knobs and the input pipeline's
 prefetch depth and thread count, under the same ``HOROVOD_*`` names and
 with the same defaults, so one environment drives both packages.  A knob
-joins ``KNOWN_KNOBS`` and ``Config`` in the slice that ports the subsystem reading it.  The JAX
-package's jsrun/PMIx identity fallback is not copied: the port's launcher
-contract is the ``HOROVOD_*`` variables alone.
+joins ``KNOWN_KNOBS`` and ``Config`` in the slice that ports the subsystem
+reading it.  When ``HOROVOD_RANK`` is unset, the identity falls back to the
+PMIx, OpenMPI or MPICH variables that ``mpirun`` and ``jsrun`` give each rank
+(``runner/cluster_env.jsm_identity``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -45,7 +46,20 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_MOE_FUSED_DISPATCH", "HOROVOD_MOE_CAPACITY_FACTOR",
     # -- the input pipeline (data/prefetch.py)
     "HOROVOD_PREFETCH_DEPTH", "HOROVOD_INPUT_THREADS",
+    # -- the launcher (runner/): the controller stamp it gives each worker,
+    #    run()'s service address and key, the probe task's key, the
+    #    discovery cache's lifetime, the LSF node shape, its logger
+    "HOROVOD_CONTROLLER", "HOROVOD_SECRET_KEY", "HOROVOD_RUN_SECRET",
+    "HOROVOD_RUN_SERVICE_ADDR", "HOROVOD_TPU_DISCOVERY_CACHE_TTL",
+    "HOROVOD_LSF_ACCELERATORS_PER_NODE", "HOROVOD_LSF_CORES_PER_NODE",
+    "HOROVOD_LSF_THREADS_PER_CORE", "HOROVOD_LOG_LEVEL",
+    "HOROVOD_LOG_HIDE_TIME",
 })
+
+#: the launcher's stamp on every worker (``HOROVOD_CONTROLLER``): the
+#: port's control plane is a gloo group, as under reference Horovod's
+#: ``gloo_run``
+CONTROLLER = "gloo"
 
 
 def _env_float(name: str, default: float) -> float:
@@ -132,11 +146,22 @@ class Config:
             v = os.environ.get(name)
             return int(v) if v not in (None, "") else None
 
+        # Identity fallback for mpirun/jsrun launches (hvdrun --mpi,
+        # --jsrun): the ranks carry PMIX_*/OMPI_*/PMI_* variables in place
+        # of HOROVOD_RANK and the local extent
+        jsm = None
+        if opt_int("HOROVOD_RANK") is None:
+            from horovod_tpu_torch.runner.cluster_env import jsm_identity
+
+            jsm = jsm_identity()
+
         return Config(
-            rank=opt_int("HOROVOD_RANK"),
-            size=opt_int("HOROVOD_SIZE"),
-            local_rank=opt_int("HOROVOD_LOCAL_RANK"),
-            local_size=opt_int("HOROVOD_LOCAL_SIZE"),
+            rank=opt_int("HOROVOD_RANK") if jsm is None else jsm["rank"],
+            size=opt_int("HOROVOD_SIZE") if jsm is None else jsm["size"],
+            local_rank=opt_int("HOROVOD_LOCAL_RANK")
+            if jsm is None else jsm["local_rank"],
+            local_size=opt_int("HOROVOD_LOCAL_SIZE")
+            if jsm is None else jsm["local_size"],
             cross_rank=opt_int("HOROVOD_CROSS_RANK"),
             cross_size=opt_int("HOROVOD_CROSS_SIZE"),
             coordinator_addr=os.environ.get("HOROVOD_COORDINATOR_ADDR"),

@@ -5,8 +5,9 @@ Horovod's own: one process per GPU, so ``rank``/``size`` are the process
 rank and world size, and ``local_rank`` picks the process's card.  The
 launcher's environment contract is the JAX package's
 (``HOROVOD_RANK``/``HOROVOD_SIZE``/``HOROVOD_COORDINATOR_ADDR``, plus
-``HOROVOD_LOCAL_*``/``HOROVOD_CROSS_*``); without it the world is this one
-process.  Collectives run on a ``torch.distributed`` process group: NCCL
+``HOROVOD_LOCAL_*``/``HOROVOD_CROSS_*``; under ``mpirun`` or ``jsrun`` the
+rank and local extent come from their PMIx/OpenMPI/MPICH variables,
+``Config.from_env``); without it the world is this one process.  Collectives run on a ``torch.distributed`` process group: NCCL
 for the card, gloo for the CPU.  Beside it every rank holds a gloo group
 over the same ranks, ``host_group``: the eager plane's negotiation and its
 host data plane run there, so they never wait on the card.
@@ -95,14 +96,15 @@ class GlobalState:
                                  "HOROVOD_COORDINATOR_ADDR (host:port of "
                                  "rank 0)")
             backend = "nccl" if self.device.type == "cuda" else "gloo"
-            if cfg.coordinator_addr:
+            if self.size > 1:
                 dist.init_process_group(
                     backend, init_method=f"tcp://{cfg.coordinator_addr}",
                     world_size=self.size, rank=self.rank)
             else:
                 # a world of one rendezvouses with nobody: an in-memory
                 # store, so that no free port is picked and then taken by
-                # another socket before the store binds it (EADDRINUSE)
+                # another socket before the store binds it (EADDRINUSE),
+                # even where a launcher gave one (hvdrun -np 1)
                 dist.init_process_group(backend, store=dist.HashStore(),
                                         world_size=1, rank=0)
             self.owns_group = True

@@ -68,7 +68,17 @@ class TestConfig:
            "HOROVOD_PLAN": "dp=2,sp=4",
            "HOROVOD_MOE_FUSED_DISPATCH": "on",
            "HOROVOD_MOE_CAPACITY_FACTOR": "2.0",
-           "HOROVOD_PREFETCH_DEPTH": "5", "HOROVOD_INPUT_THREADS": "3"}
+           "HOROVOD_PREFETCH_DEPTH": "5", "HOROVOD_INPUT_THREADS": "3",
+           # the launcher's knobs, which no Config
+           # field reads, at their defaults (the loggers read theirs once)
+           "HOROVOD_CONTROLLER": "gloo", "HOROVOD_SECRET_KEY": "k",
+           "HOROVOD_RUN_SECRET": "k",
+           "HOROVOD_RUN_SERVICE_ADDR": "127.0.0.1:1",
+           "HOROVOD_TPU_DISCOVERY_CACHE_TTL": "600",
+           "HOROVOD_LSF_ACCELERATORS_PER_NODE": "4",
+           "HOROVOD_LSF_CORES_PER_NODE": "16",
+           "HOROVOD_LSF_THREADS_PER_CORE": "1",
+           "HOROVOD_LOG_LEVEL": "warning", "HOROVOD_LOG_HIDE_TIME": "0"}
 
     @pytest.mark.parametrize("set_env", [False, True])
     def test_matches_jax(self, monkeypatch, set_env):

@@ -10,7 +10,9 @@ training step over NCCL, one process per card, and with four
 exchange, the eager plane and the hook-fired exchange at a world of 4
 (run those alone on four cards: ``-k "test_tp_over_nccl or
 test_sp_over_nccl or test_zero_over_nccl or test_eager_over_nccl or
-test_overlap_over_nccl or test_moe_over_nccl"``); ``test_moe_over_nccl``
+test_overlap_over_nccl or test_moe_over_nccl"``); ``test_hvdrun_over_nccl``
+starts its world of 4 through ``python -m horovod_tpu_torch.runner -np
+4``; ``test_moe_over_nccl``
 also runs the MoE LM over an ep group of four and a sharded checkpoint
 saved at world 4 and restored at 2.  ``test_sync_bn_over_nccl`` starts
 its world the torchrun way (a process group made before ``hvd.init()``)
@@ -1017,3 +1019,66 @@ class TestNcclWorld:
                     np.testing.assert_array_equal(
                         outs[r]["restored"]["state"][key][n],
                         full[r * shard:(r + 1) * shard])
+
+    def test_hvdrun_over_nccl(self, cards, tmp_path):
+        """``python -m horovod_tpu_torch.runner -np 4`` on one host: four
+        distinct cards, each rank on ``cuda:<local_rank>``; three bf16
+        flash steps of run_train's LM with every rank holding the same
+        bits and the losses of test_train_ranks_stay_identical's spawned
+        world; and a rank that exits 3 while the others wait in
+        ``hvd.init()`` makes the launcher return 3 and ends them.  Run
+        alone on four cards."""
+        import os
+        import pickle
+        import subprocess
+        import sys
+        import time
+        from pathlib import Path
+
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        root = Path(__file__).resolve().parents[1]
+        env = dict(os.environ,
+                   PYTHONPATH=f"{root}{os.pathsep}{root / 'tests'}")
+
+        def hvdrun(fn, out):
+            out.mkdir()
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
+                 "4", sys.executable, str(root / "tests" /
+                                          "torch_port_workers.py"),
+                 fn, str(out), "3", "cuda"],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=300)
+            return proc, time.monotonic() - t0
+
+        proc, _ = hvdrun("run_launch", tmp_path / "train")
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        outs = [pickle.loads((tmp_path / "train" / f"rank.{r}.pkl")
+                             .read_bytes()) for r in range(4)]
+        assert [o["device"] for o in outs] == \
+            [f"cuda:{o['local_rank']}" for o in outs] == \
+            [f"cuda:{r}" for r in range(4)]
+        assert len({o["card"] for o in outs}) == 4
+        assert [(o["rank"], o["size"], o["local_size"], o["cross_size"])
+                for o in outs] == [(r, 4, 4, 1) for r in range(4)]
+        assert all(o["env"]["HOROVOD_CONTROLLER"] == "gloo" for o in outs)
+        want = spawn_world("run_train", world=4, args=(3, 0, True),
+                           device="cuda", timeout=300)
+        for out, (losses, params) in zip(outs, want):
+            assert out["losses"] == losses == want[0][0]
+            for k in params:
+                np.testing.assert_array_equal(out["params"][k], params[k],
+                                              err_msg=k)
+                np.testing.assert_array_equal(out["params"][k],
+                                              outs[0]["params"][k],
+                                              err_msg=k)
+        assert want[0][0][-1] < want[0][0][0]
+
+        proc, seconds = hvdrun("fail_fast", tmp_path / "fail")
+        print(f"fail-fast: launcher rc {proc.returncode} in {seconds:.1f} s")
+        assert proc.returncode == 3, proc.stderr[-4000:]
+        pid = int((tmp_path / "fail" / "rank.0.pid").read_text())
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)

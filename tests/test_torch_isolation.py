@@ -6,6 +6,7 @@ plain version."""
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -89,6 +90,37 @@ def test_port_files_cover_the_input_slice():
             "horovod_tpu_torch/utils/__init__.py",
             "horovod_tpu_torch/utils/input_probe.py",
             "horovod_tpu_torch/optim/sync_batch_norm.py"} <= names
+
+
+def test_port_files_cover_the_launcher_slice():
+    """The import and string checks below cover the launcher's modules and
+    the logging and retry modules it reads."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    runner = {f"horovod_tpu_torch/runner/{m}.py" for m in (
+        "__init__", "__main__", "api", "cache", "cluster_env",
+        "config_parser", "driver_service", "hosts", "js_run", "launch",
+        "mpi_run", "network", "probe_task", "run_task", "safe_shell_exec")}
+    assert runner | {"horovod_tpu_torch/utils/logging.py",
+                     "horovod_tpu_torch/runtime/retry.py"} <= names
+
+
+#: a dotted module path under the JAX package; ``horovod_tpu_torch.`` is
+#: the port's own
+JAX_MODULE = re.compile(r"\bhorovod_tpu\.\w")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_string_names_a_jax_package_module(path):
+    """No string constant (docstrings and f-string parts included) names
+    a ``horovod_tpu.`` module: a child command such as ``-m
+    horovod_tpu.runner.run_task`` would start a worker that imports JAX,
+    and the import check above does not see strings."""
+    tree = ast.parse(path.read_text())
+    bad = [(node.lineno, node.value) for node in ast.walk(tree)
+           if isinstance(node, ast.Constant) and isinstance(node.value, str)
+           and JAX_MODULE.search(node.value)]
+    assert not bad, f"{path.name}: {bad}"
 
 
 def _forbidden(module: str) -> bool:

@@ -48,14 +48,28 @@ def _caller_group(rank, world, port, device, launch):
                             world_size=world, rank=rank)
 
 
+def _mpirun_env(rank, world, port, local_size):
+    """What ``hvdrun --mpi`` gives a rank through ``mpirun -x`` and Open
+    MPI's own identity variables: no ``HOROVOD_RANK``."""
+    os.environ.update(OMPI_COMM_WORLD_RANK=str(rank),
+                      OMPI_COMM_WORLD_SIZE=str(world),
+                      OMPI_COMM_WORLD_LOCAL_RANK=str(rank % local_size),
+                      OMPI_COMM_WORLD_LOCAL_SIZE=str(local_size),
+                      HOROVOD_SIZE=str(world),
+                      HOROVOD_COORDINATOR_ADDR=f"localhost:{port}")
+
+
 def _worker(fn_name, rank, world, port, results, args, device, launch):
+    caller = launch is not None and "mpirun" not in launch
     if launch is None:
         os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(world),
                           HOROVOD_LOCAL_RANK=str(rank),
                           HOROVOD_LOCAL_SIZE=str(world),
                           HOROVOD_COORDINATOR_ADDR=f"localhost:{port}")
+    elif not caller:
+        _mpirun_env(rank, world, port, launch["mpirun"])
     try:
-        if launch is not None:
+        if caller:
             _caller_group(rank, world, port, device, launch)
         import horovod_tpu_torch as hvd
 
@@ -70,7 +84,7 @@ def _worker(fn_name, rank, world, port, results, args, device, launch):
             results.put((rank, True, out))
         finally:
             hvd.shutdown()
-            if launch is not None:
+            if caller:
                 import torch.distributed as dist
 
                 dist.destroy_process_group()
@@ -86,7 +100,9 @@ def spawn_world(fn_name: str, world: int = 2, args=(),
     returns the results ordered by rank, or raises with a failing rank's
     traceback.  The world starts through the launcher's ``HOROVOD_*``
     contract, or with ``launch`` (a dict, see :func:`_caller_group`) from
-    a process group that each rank makes before ``hvd.init()``."""
+    a process group that each rank makes before ``hvd.init()``, or with
+    ``launch={"mpirun": local_size}`` from what ``mpirun -x`` gives each
+    rank (:func:`_mpirun_env`)."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
@@ -2475,3 +2491,87 @@ def run_sync_bn_parity_card(hvd):
     import chip_smoke
 
     return chip_smoke.sync_bn_parity(torch, (8, 64, 14, 14))
+
+
+# ---------------------------------------------------------------------------
+# worlds started by the port's launcher (python -m horovod_tpu_torch.runner)
+# ---------------------------------------------------------------------------
+
+def run_launch(hvd, steps: int):
+    """A rank's identity, the launcher's variables it found, and with
+    ``steps`` the losses and weights of :func:`run_train` (each rank draws
+    its own weights; ``init`` broadcasts rank 0's).  One intra-op thread a
+    rank, in the launched worlds and in their spawned references alike."""
+    import torch
+
+    from chip_smoke import LAUNCH_VARS
+
+    torch.set_num_threads(1)
+    out = {k: getattr(hvd, k)() for k in IDENTITY_QUERIES}
+    out["device"] = str(hvd.device())
+    if hvd.device().type == "cuda":
+        out["card"] = str(torch.cuda.get_device_properties(hvd.device())
+                          .uuid)
+    out["env"] = {k: os.environ.get(k) for k in LAUNCH_VARS}
+    if steps:
+        out["losses"], out["params"] = run_train(hvd, steps, 0, True)
+    return out
+
+
+def rank_identity(tag: str) -> dict:
+    """``run()``'s function: the launcher's identity of this rank."""
+    return {"tag": tag, "rank": int(os.environ["HOROVOD_RANK"]),
+            "size": int(os.environ["HOROVOD_SIZE"]),
+            "local_rank": int(os.environ["HOROVOD_LOCAL_RANK"])}
+
+
+def rank_fails(code: int):
+    """``run()``'s function: rank 1 raises."""
+    if os.environ["HOROVOD_RANK"] == "1":
+        raise RuntimeError(f"rank 1 fails with {code}")
+    return 0
+
+
+def launched_main(argv) -> int:
+    """``python tests/torch_port_workers.py FN OUT_DIR STEPS [DEVICE]``:
+    one rank of a world that the launcher started, on ``DEVICE`` (default
+    ``cpu``; ``cuda`` takes ``cuda:<local_rank>``).  ``fail_fast``: rank 0
+    writes its pid to ``OUT_DIR/rank.0.pid`` and enters ``hvd.init()``,
+    where it waits for rank 1, which exits 3 a second after the pid
+    appears.  Else ``FN(hvd, STEPS)``, its result pickled to
+    ``OUT_DIR/rank.N.pkl``."""
+    import pickle
+
+    fn_name, out_dir, steps = argv[0], argv[1], int(argv[2])
+    device = argv[3] if len(argv) > 3 else "cpu"
+    pid_file = os.path.join(out_dir, "rank.0.pid")
+    if fn_name == "fail_fast" and os.environ["HOROVOD_RANK"] == "1":
+        deadline = time.monotonic() + 60
+        while not os.path.exists(pid_file) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        time.sleep(1.0)
+        return 3
+    import horovod_tpu_torch as hvd
+
+    if fn_name == "fail_fast":
+        with open(pid_file, "w") as f:
+            f.write(str(os.getpid()))
+    hvd.init(device=device)
+    try:
+        out = globals()[fn_name](hvd, steps)
+        print(f"rank {hvd.rank()} of {hvd.size()} done", flush=True)
+        import torch.distributed as dist
+
+        dist.barrier(group=hvd._state.global_state().host_group)
+        with open(os.path.join(out_dir, f"rank.{hvd.rank()}.pkl"),
+                  "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        hvd.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(launched_main(sys.argv[1:]))
