@@ -148,7 +148,29 @@ Phases, in order; any failure exits non-zero:
    :func:`card_identity` on one rank; (c) ``--check-build`` must report
    CUDA and NCCL; (d) a rank that exits 3 must make the launcher return
    3;
-13. print the card's name and power limit, the kernels' JSON line, and last
+13. Adasum and the row-sparse exchange: (a) phase 4's recipe (the same
+   seed, weights, batch and AdamW, 5 steps) through
+   ``DistributedAdasumOptimizer(AdamW)`` and
+   ``DistributedTrainStep(op=None)``: at a world of one Adasum is the
+   identity, so its first loss must be phase 4's, its parameters after the
+   first step ``start + (local - start)`` of phase 4's bit for bit, and its
+   losses phase 4's within ``ADASUM_LOSS_TOL`` (bit-exactness logged);
+   each flash kernel must launch 16 times a step,
+   and the step time beside phase 4's, the peak memory and the delta
+   machinery's device time (stash, subtract, add: 8 bytes moved a
+   parameter byte) against its bound are printed; (b) Adasum's combine of
+   the model's 98 gradients from two seeded batches (``adasum_tree`` over
+   two rows per tensor, the cross level's function) against the same call
+   on the CPU in fp32 within ``combine_tol`` per tensor, bitwise symmetric
+   on the card, its time (CUDA events, and one call's kernels under the
+   profiler) against its bound (both sets read twice, one written) and its
+   launches; (c) a 32000 x 2048 fp32 untied
+   embedding's gradient from phase 4's batch shape through
+   ``DistributedOptimizer(SGD, sparse_params={"embedding": 6144})``
+   against the dense exchange, bit for bit, both timed, and whether the
+   sparse path synced with the host (``torch.cuda.set_sync_debug_mode``);
+   every number printed with the card's name and power limit;
+14. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -1364,15 +1386,18 @@ def profile_step(torch, run, focus: str = "", ranges=None,
     return split
 
 
-def recipe(torch, hvd, steps: int = 5, on_step=None) -> dict:
+def recipe(torch, hvd, steps: int = 5, on_step=None,
+           adasum: bool = False) -> dict:
     """Phase 4's five-line recipe at full width on this process's card:
     the seeded 870.9M TransformerLM, ``DistributedOptimizer(AdamW(3e-4,
     weight_decay=1e-4), gradient_predivide_factor=2.0)`` on the hook path,
     ``init`` and ``steps`` steps on the seeded batch; ``on_step(i, model)``
-    after each.  Returns the model, the wrapper, the step, the batch, the
-    losses, each step's seconds and bucket sources, the wall clock at the
-    first step's end, the launch counts from ``init`` on and the peak
-    memory."""
+    after each.  With ``adasum`` the optimizer is
+    ``DistributedAdasumOptimizer(AdamW(3e-4, weight_decay=1e-4))`` and the
+    step ``DistributedTrainStep(op=None)`` (phase 13 (a)).  Returns the
+    model, the wrapper, the step, the batch, the losses, each step's
+    seconds and bucket sources, the wall clock at the first step's end,
+    the launch counts from ``init`` on and the peak memory."""
     from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
     from horovod_tpu_torch.ops import kernels as K
 
@@ -1380,14 +1405,17 @@ def recipe(torch, hvd, steps: int = 5, on_step=None) -> dict:
     cfg = full_config(torch, "flash")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = TransformerLM(cfg, device=dev, generator=gen)
-    opt = hvd.DistributedOptimizer(
-        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
-        gradient_predivide_factor=2.0)
+    adamw = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    if adasum:
+        opt = hvd.DistributedAdasumOptimizer(adamw)
+    else:
+        opt = hvd.DistributedOptimizer(adamw, gradient_predivide_factor=2.0)
 
     def loss_fn(m, batch):
         return lm_loss(m, batch)
 
-    step = hvd.DistributedTrainStep(loss_fn, opt)
+    step = hvd.DistributedTrainStep(loss_fn, opt,
+                                    op=None if adasum else hvd.Average)
     tokens = torch.randint(0, cfg.vocab_size,
                            (FULL["batch"], FULL["seq"] + 1),
                            generator=torch.Generator().manual_seed(SEED))
@@ -1403,7 +1431,7 @@ def recipe(torch, hvd, steps: int = 5, on_step=None) -> dict:
         losses.append(float(loss))           # synchronises
         times.append(time.perf_counter() - t0)
         first_end = first_end or time.time()
-        sources.append([src for _, src in opt.launches])
+        sources.append([src for _, src in getattr(opt, "launches", [])])
         if on_step is not None:
             on_step(i, model)
     return dict(cfg=cfg, model=model, opt=opt, step=step, batch=batch,
@@ -1414,7 +1442,10 @@ def recipe(torch, hvd, steps: int = 5, on_step=None) -> dict:
 
 
 def phase_train(torch):
-    """The five-line recipe at full width; returns the launch counts."""
+    """The five-line recipe at full width; returns the launch counts, the
+    summary, the first step's loss and gradients (phase 7's reference),
+    phase 9's summary and the parameters after the first step on the host
+    (phase 13's reference)."""
     import horovod_tpu_torch as hvd
 
     t_init = time.time()
@@ -1424,14 +1455,17 @@ def phase_train(torch):
     firsts = []
 
     def keep_first(i, model):
-        if i == 0:      # the sp phase's reference: this step's gradients
+        if i == 0:      # the sp phase's reference: this step's gradients;
+            # phase 13's: the parameters after it
             firsts.append(flat_grads(torch, model))
+            firsts.append(flat_params(torch, model))
 
     r = recipe(torch, hvd, on_step=keep_first)
     cfg, model, opt, step, batch, loss_fn = (
         r[k] for k in ("cfg", "model", "opt", "step", "batch", "loss_fn"))
     losses, times, sources = r["losses"], r["times"], r["sources"]
     counts, peak = r["counts"], r["peak"]
+    step1_params = firsts.pop()
     first = (losses[0], firsts.pop())
     init_to_first_s = r["first_end"] - t_init
     n_params = sum(p.numel() for p in model.parameters())
@@ -1523,7 +1557,7 @@ def phase_train(torch):
                         exchange_under_backward_ms=profiled.get(
                             "under_backward_ms"),
                         exchange_exposed_ms=profiled.get("exposed_ms")), \
-        first, eager
+        first, eager, step1_params
 
 
 def phase_eager(torch, hvd, model, opt, loss_fn, batch) -> dict:
@@ -1667,6 +1701,13 @@ def phase_eager(torch, hvd, model, opt, loss_fn, batch) -> dict:
         raise AssertionError(f"eager surface checks failed: {checks}")
     out.update(checks=checks, poll_in_flight=in_flight, poll_us=poll_us)
     return out
+
+
+def flat_params(torch, model):
+    """Every parameter as one fp32 vector in parameter order, on the
+    host."""
+    return torch.cat([p.detach().float().reshape(-1).cpu()
+                      for p in model.parameters()])
 
 
 def flat_grads(torch, model):
@@ -2876,6 +2917,265 @@ def phase_launch(torch, train: dict) -> dict:
                 launcher_wall_s=wall)
 
 
+# phase 13 (a): the delta form against phase 4.  At a world of one Adasum
+# is the identity, and after the first step the parameters must be
+# start + (local - start) computed from phase 4's, bit for bit: that is
+# local wherever the subtraction is exact (Sterbenz: local within a factor
+# 2 of start) and one fp32 step off for weights near zero (on an H100,
+# 0.84 % of them, by at most 2.9e-11; 1,207 changed their bf16 value).
+# From the second step on, AdamW's update of an element whose gradient
+# sits at the fp32 noise floor flips with such a change (more than half
+# the parameters differed after step 2, by up to 2 lr), so the two
+# trajectories drift apart like two runs from a perturbed weight: the
+# five losses read up to 1.3e-4 apart.  A fault of the form (Adasum not
+# the identity, a delta applied twice or lost) moves step 2's loss by a
+# share of its 6 % drop.
+ADASUM_LOSS_TOL = 1e-3
+# phase 13 (b): two seeded batches of phase 4's shape give the two
+# gradient sets of the combine
+COMBINE_SEEDS = (1, 2)
+# phase 13 (c): the untied embedding table (vocab x d_model, fp32) of the
+# sparse path, phase 4's batch of tokens and the bound on touched rows
+SPARSE_TABLE = (FULL["vocab"], FULL["d_model"])
+SPARSE_MAX_ROWS = FULL["batch"] * FULL["seq"]
+
+
+def combine_tol(n: int) -> float:
+    """Phase 13 (b)'s normwise limit for a tensor of ``n`` elements, card
+    against CPU: each side sums the three fp32 dot products of ``n`` terms
+    in its own order (cuBLAS in a tree, the CPU's BLAS in a few vector
+    accumulators), whose rounding errors walk as sqrt(n) ulps; four such
+    walks move the coefficients, and the combine itself rounds a few times
+    (2^-24 each)."""
+    return 2.0 ** -24 * (8 + 4 * math.sqrt(n))
+
+
+def one_call_profile(torch, fn) -> tuple:
+    """(device ms, kernels launched) of one call of ``fn`` after a warm-up
+    call, under torch.profiler: the kernels' own time, without the gaps
+    between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return sum(ms for ms, _, _ in rows), sum(count for _, count, _ in rows)
+
+
+def phase_adasum(torch, train: dict, step1_params) -> dict:
+    """Phase 13: (a) phase 4's recipe through
+    ``DistributedAdasumOptimizer(AdamW)`` and ``DistributedTrainStep(
+    op=None)``, its losses against phase 4's, the flash launches, step
+    time, peak memory and the delta machinery's device time against its
+    bytes; (b) Adasum's combine over the model's 98 gradients from two
+    seeded batches (``adasum_tree`` of two rows per tensor, the function
+    the cross level runs) against the same call on the CPU in fp32, its
+    bitwise symmetry, device time, bound and launches; (c) an untied
+    32000 x 2048 fp32 embedding's gradient (computed once) through
+    ``DistributedOptimizer(SGD, sparse_params={"embedding": 6144})``
+    against the dense exchange, bit for bit, both timed, and whether the
+    sparse path synced with the host."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import adasum as A
+    from horovod_tpu_torch.optim.optimizer import distributed_gradients
+
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    hvd.init()
+    dev = hvd.device()
+    out = {}
+
+    # (a) the recipe through the delta form; the seeded initial weights on
+    # the host first, and the parameters after the first step
+    start = flat_params(torch, TransformerLM(
+        full_config(torch, "flash"), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED)))
+    torch.cuda.empty_cache()
+    firsts = []
+    r = recipe(torch, hvd, adasum=True,
+               on_step=lambda i, m: firsts.append(flat_params(torch, m))
+               if i == 0 else None)
+    model, opt, counts = r["model"], r["opt"], r["counts"]
+    losses, steps = r["losses"], len(r["losses"])
+    want = start + (step1_params - start)
+    first_exact = torch.equal(firsts[0], want)
+    moved = int((firsts[0] != step1_params).sum())
+    del start, want, firsts
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, train["losses"]))
+    steady = statistics.median(r["times"][1:])
+    log(f"adasum (a) [{CARD}]: parameters after step 1 equal start + "
+        f"(local - start) of phase 4's step bit for bit: {first_exact}; "
+        f"{moved} of {step1_params.numel()} differ from phase 4's "
+        f"({100 * moved / step1_params.numel():.2f} %)")
+    log(f"adasum (a) [{CARD}]: losses {losses} vs phase 4's "
+        f"{train['losses']}: max rel {rel:.3e} (tol {ADASUM_LOSS_TOL}), "
+        f"bit-exact: {losses == train['losses']}")
+    check_flash_launches(counts, steps, "adasum (a)")
+    log(f"adasum (a) [{CARD}]: launches a step "
+        f"{ {k: counts[k] / steps for k in TRANSFORMER_KERNELS} }")
+    if not first_exact or losses[0] != train["losses"][0]:
+        raise AssertionError("the delta form's first step is not phase 4's")
+    if rel > ADASUM_LOSS_TOL or not all(math.isfinite(x) for x in losses):
+        raise AssertionError("the delta form and phase 4 disagree")
+    params, start = opt._params, opt._start
+    n_bytes = sum(p.numel() * p.element_size() for p in params)
+
+    @torch.no_grad()
+    def delta_only():
+        # stash, subtract, add: p -> 0 -> p, exactly
+        torch._foreach_copy_(start, params)
+        torch._foreach_sub_(params, start)
+        torch._foreach_add_(params, start)
+
+    # CUDA events: three launches of a few multi-tensor kernels each, ~9 ms
+    # of device work that the host's launches run well ahead of
+    delta_ms = cuda_ms(torch, delta_only, iters=10, warmup=2)
+    delta_bound, _ = bound_ms(8 * n_bytes, 0)
+    log(f"adasum (a) [{CARD}]: step {steady * 1e3:.1f} ms (phase 4 "
+        f"{train['step_ms']:.1f} ms in this call), peak "
+        f"{r['peak'] / 2**30:.2f} GiB (phase 4 {train['peak_gib']:.2f}); "
+        f"stash + subtract + add {delta_ms:.3f} ms (CUDA events) for "
+        f"{8 * n_bytes / 1e9:.2f} GB (bound {delta_bound:.3f} ms, "
+        f"{100 * delta_bound / delta_ms:.1f} % of it)")
+    out["a"] = dict(losses=losses, max_rel=rel,
+                    bit_exact=losses == train["losses"],
+                    step1_exact=first_exact, step1_moved=moved,
+                    step_ms=steady * 1e3, phase4_step_ms=train["step_ms"],
+                    peak_gib=r["peak"] / 2**30,
+                    phase4_peak_gib=train["peak_gib"],
+                    launches_a_step={k: counts[k] / steps
+                                     for k in TRANSFORMER_KERNELS},
+                    delta_ms=delta_ms, delta_bound_ms=delta_bound,
+                    delta_gb=8 * n_bytes / 1e9)
+
+    # (b) the combine at full width
+    loss_fn, cfg = r["loss_fn"], r["cfg"]
+    model.zero_grad(set_to_none=True)
+    sets = []
+    for seed in COMBINE_SEEDS:
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (FULL["batch"], FULL["seq"] + 1),
+                               generator=torch.Generator().manual_seed(seed))
+        loss = loss_fn(model, tokens.to(dev))
+        sets.append([g.detach() for g in
+                     no_hook_grads(torch, model, loss).values()])
+        del loss
+    del r, opt, params, start
+    ga, gb = sets
+    combine = lambda: [A.adasum_tree([a, b])  # noqa: E731
+                       for a, b in zip(ga, gb)]
+    got = combine()
+    sym = all(torch.equal(x, A.adasum_pair(b, a))
+              for x, a, b in zip(got, ga, gb))
+    got = [x.cpu() for x in got]
+    worst, worst_name = -1.0, None
+    for i, (x, a, b) in enumerate(zip(got, ga, gb)):
+        want = A.adasum_tree([a.cpu(), b.cpu()])
+        err = float((x - want).norm() / want.norm().clamp_min(1e-30))
+        if err / combine_tol(x.numel()) > worst:
+            worst, worst_name = err / combine_tol(x.numel()), (i, err)
+        if err > combine_tol(x.numel()):
+            raise AssertionError(f"combine tensor {i} ({x.numel()} values):"
+                                 f" {err:.3e} normwise from the CPU's, over "
+                                 f"{combine_tol(x.numel()):.3e}")
+    del got
+    set_bytes = sum(g.numel() * g.element_size() for g in ga)
+    comb_ms = cuda_ms(torch, combine, iters=5, warmup=1)
+    comb_device_ms, comb_launches = one_call_profile(torch, combine)
+    comb_bound, _ = bound_ms(5 * set_bytes, 0)
+    log(f"adasum (b) [{CARD}]: {len(ga)} tensors, "
+        f"{set_bytes / 1e9:.2f} GB a set; against the CPU in fp32 within "
+        f"each tensor's limit (worst {worst:.3f} of its limit: tensor "
+        f"{worst_name[0]}, {worst_name[1]:.3e} normwise); bitwise "
+        f"symmetric: {sym}; {comb_ms:.3f} ms between CUDA events, "
+        f"{comb_device_ms:.3f} ms of kernels (profiler, one call), for "
+        f"{5 * set_bytes / 1e9:.2f} GB (bound {comb_bound:.3f} ms, "
+        f"{100 * comb_bound / comb_device_ms:.1f} % of the kernels' time), "
+        f"{comb_launches} launches a combine "
+        f"({comb_launches / len(ga):.1f} a tensor)")
+    if not sym:
+        raise AssertionError("adasum_pair(a, b) != adasum_pair(b, a)")
+    out["b"] = dict(tensors=len(ga), set_gb=set_bytes / 1e9,
+                    worst_share_of_limit=worst, symmetric=sym,
+                    ms=comb_ms, device_ms=comb_device_ms,
+                    bound_ms=comb_bound, launches=comb_launches)
+    del sets, ga, gb, model
+    torch.cuda.empty_cache()
+
+    # (c) the row-sparse exchange at the LM's table
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, SPARSE_TABLE[0],
+                           (FULL["batch"], FULL["seq"]),
+                           generator=torch.Generator().manual_seed(SEED))
+    tokens = tokens.to(dev)
+    weight0 = torch.randn(SPARSE_TABLE, generator=gen, device=dev) * 0.02
+    # one gradient for both exchanges (the embedding's backward is computed
+    # once), handed to each wrapper as a gradient that no hook saw
+    leaf = weight0.clone().requires_grad_(True)
+    g0, = torch.autograd.grad(torch.nn.functional.embedding(
+        tokens, leaf).square().mean(), leaf)
+    del leaf
+    results, grads = {}, {}
+    for name, sparse in (("dense", None),
+                         ("sparse", {"embedding": SPARSE_MAX_ROWS})):
+        table = torch.nn.Embedding(*SPARSE_TABLE, device=dev)
+        with torch.no_grad():
+            table.weight.copy_(weight0)
+        model = torch.nn.ModuleDict({"embedding": table})
+        sgd = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=1.0),
+            named_parameters=model.named_parameters(), sparse_params=sparse)
+        table.weight.grad = g0.clone()
+        sgd.synchronize()
+        grads[name] = table.weight.grad.clone()
+        sgd.step()
+        results[name] = table.weight.detach().clone()
+        del model, sgd, table
+    touched = int(torch.unique(tokens).numel())
+    exact = torch.equal(grads["dense"], grads["sparse"]) and \
+        torch.equal(results["dense"], results["sparse"])
+    g = grads["dense"]
+
+    def dense_exchange():
+        distributed_gradients([g.clone()])
+
+    def sparse_exchange():
+        distributed_gradients({"embedding.weight": g.clone()},
+                              sparse_params={"embedding": SPARSE_MAX_ROWS})
+
+    dense_ms = cuda_ms(torch, dense_exchange)
+    sparse_ms = cuda_ms(torch, sparse_exchange)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sparse_exchange()
+        synced = False
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        synced = True
+        log(f"adasum (c): the sparse path synced: {str(e)[:300]}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"adasum (c) [{CARD}]: {SPARSE_TABLE[0]} x {SPARSE_TABLE[1]} fp32 "
+        f"table, {touched} rows touched, max_rows {SPARSE_MAX_ROWS}: sparse "
+        f"vs dense gradient and SGD step bit-exact: {exact}; exchange "
+        f"{sparse_ms:.3f} ms sparse vs {dense_ms:.3f} ms dense (CUDA "
+        f"events, each with its gradient copy); the sparse path synced "
+        f"with the host: {synced}")
+    if not exact:
+        raise AssertionError("the sparse and dense exchanges disagree")
+    out["c"] = dict(touched_rows=touched, bit_exact=exact,
+                    sparse_ms=sparse_ms, dense_ms=dense_ms,
+                    host_sync=synced)
+    del grads, results, g, g0, weight0
+    hvd.shutdown()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2899,7 +3199,7 @@ def main() -> int:
     errs = phase_check(torch)
     timing = phase_time(torch)
     torch.cuda.empty_cache()
-    counts, train, first, eager = phase_train(torch)
+    counts, train, first, eager, step1_params = phase_train(torch)
     torch.cuda.empty_cache()
     resnet_counts, resnet = phase_resnet(torch)
     for name in RESNET_KERNELS:
@@ -2924,6 +3224,9 @@ def main() -> int:
     sync_bn = phase_sync_bn(torch)
     torch.cuda.empty_cache()
     launch = phase_launch(torch, train)
+    torch.cuda.empty_cache()
+    adasum = phase_adasum(torch, train, step1_params)
+    del step1_params
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
     # the moe summary's "chunk"
@@ -2964,6 +3267,7 @@ def main() -> int:
     log(f"fed summary [{CARD}]: {json.dumps(fed)}")
     log(f"sync_bn summary [{CARD}]: {json.dumps(sync_bn)}")
     log(f"launch summary [{CARD}]: {json.dumps(launch)}")
+    log(f"adasum summary [{CARD}]: {json.dumps(adasum)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@ an NVIDIA GPU: Horovod's five-line recipe ::
 
     hvd.init()                                     # one process per GPU
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters(), 3e-4))
-    # or shard_optimizer_states=True: ZeRO-style, 1/N optimizer state a rank
+    # or shard_optimizer_states=True: ZeRO-style, 1/N optimizer state a rank;
+    # op=hvd.Adasum, sparse_params={"embedding": max_rows}, or
+    # hvd.DistributedAdasumOptimizer(...) with DistributedTrainStep(op=None)
     step = hvd.DistributedTrainStep(loss_fn, opt)
     model, opt = step.init(model)                  # broadcast from rank 0
     model, opt, loss = step(model, opt, step.shard_batch(batch))
@@ -74,6 +76,7 @@ from horovod_tpu_torch.ops import (  # noqa: F401
     synchronize,
 )
 from horovod_tpu_torch.optim import (  # noqa: F401
+    DistributedAdasumOptimizer,
     DistributedGradientTape,
     DistributedOptimizer,
     DistributedTrainStep,
@@ -231,7 +234,8 @@ __all__ = [
     "HorovodInternalError", "HostsUpdatedInterrupt",
     "broadcast_variables", "broadcast_parameters", "broadcast_object",
     "broadcast_optimizer_state", "allgather_object",
-    "DistributedOptimizer", "DistributedGradientTape", "DistributedTrainStep",
+    "DistributedOptimizer", "DistributedAdasumOptimizer",
+    "DistributedGradientTape", "DistributedTrainStep",
     "ShardedOptimizerState", "join_step", "SyncBatchNorm",
     "sync_batch_stats",
     "checkpoint", "data",

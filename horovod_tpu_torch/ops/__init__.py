@@ -10,6 +10,8 @@
 * :mod:`~horovod_tpu_torch.ops.op_manager`: the eager plane's two data
   planes;
 * :mod:`~horovod_tpu_torch.ops.bucketing`: fusion buckets;
+* :mod:`~horovod_tpu_torch.ops.adasum`: Adasum's pairwise combine and its
+  reduction over the world's layout;
 * :mod:`~horovod_tpu_torch.ops.compression`, :mod:`~.kernels`: compression
   and the hand-written CUDA kernels.
 """
@@ -36,6 +38,7 @@ from horovod_tpu_torch.ops.collectives import (  # noqa: F401
     quantized_allreduce,
     quantized_reducescatter,
     reducescatter,
+    sparse_allreduce,
 )
 from horovod_tpu_torch.ops.compression import Compression  # noqa: F401
 from horovod_tpu_torch.ops.eager import (  # noqa: F401

@@ -3,8 +3,9 @@
 Counterpart of ``horovod_tpu/ops/collectives.py``, with the world as the
 group: ``allreduce``, ``grouped_allreduce``, ``allgather`` (tiled or
 stacked), ``allgather_v``, ``reducescatter``, ``alltoall``,
-``alltoall_v``, ``broadcast``, ``barrier`` and the bitwise AND/OR, with the
-reference's semantics; the shared-scale int8/fp8 wire codec
+``alltoall_v``, ``broadcast``, ``barrier``, the bitwise AND/OR and the
+row-sparse :func:`sparse_allreduce`, with the reference's semantics, and
+Adasum (``op=Adasum``, ``ops/adasum.py``); the shared-scale int8/fp8 wire codec
 (:func:`quantized_allreduce`, :func:`quantized_reducescatter`,
 :func:`ef_quantized_reducescatter`); and the ZeRO-style sharded exchange,
 :func:`grouped_reducescatter` → shard-local update →
@@ -35,6 +36,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from horovod_tpu_torch.ops.adasum import adasum_flat
 from horovod_tpu_torch.ops.bucketing import plan_buckets
 from horovod_tpu_torch.ops.kernels import fused_scale
 from horovod_tpu_torch.runtime import state
@@ -93,6 +95,19 @@ def _reduce_flat(flat: torch.Tensor, op: ReduceOp, dtype: torch.dtype,
     return _scale(buf, post, dtype)
 
 
+def _reduce_adasum(flat: torch.Tensor, dtype: torch.dtype,
+                   segments: Sequence[int], prescale_factor,
+                   postscale_factor, wire_dtype) -> torch.Tensor:
+    """Adasum of one dtype group's flat buffer over the world's layout
+    (:func:`~horovod_tpu_torch.ops.adasum.adasum_flat`), every tensor with
+    its own coefficients, between the prescale pass (with the wire cast)
+    and the postscale pass.  No ``1/size`` is folded in."""
+    wire = wire_dtype if wire_dtype is not None and \
+        flat.is_floating_point() else dtype
+    buf = adasum_flat(_scale(flat, prescale_factor, wire), segments)
+    return _scale(buf, postscale_factor, dtype)
+
+
 def grouped_allreduce(xs: Sequence[torch.Tensor],
                       op: ReduceOp = Average,
                       prescale_factor: Optional[float] = None,
@@ -107,7 +122,14 @@ def grouped_allreduce(xs: Sequence[torch.Tensor],
 
     ``quantized_bits=8`` (or ``compression=Compression.int8``) routes each
     *float* dtype group through :func:`quantized_allreduce`, one shared
-    scale per tensor; integer groups stay on the exact sum."""
+    scale per tensor; integer groups stay on the exact sum.
+
+    ``op=Adasum`` reduces each dtype group's buffer over the world's
+    layout (``ops/adasum.py``: the average within a node, Adasum across
+    nodes), each tensor with its own coefficients; the prescale pass runs
+    before it and the postscale pass after, and no ``1/size`` is folded
+    in.  The JAX package drops ``postscale_factor`` on its grouped Adasum
+    call; here it applies, as it does on the single-tensor call in both."""
     if not xs:
         return []
     if quantized_bits is None:
@@ -115,9 +137,8 @@ def grouped_allreduce(xs: Sequence[torch.Tensor],
     if quantized_bits is not None and op not in (ReduceOp.SUM,
                                                  ReduceOp.AVERAGE):
         raise ValueError("quantized_bits supports op=Sum/Average")
-    if op not in _DIST_OPS:
-        raise NotImplementedError(
-            f"{op!r} is not ported to horovod_tpu_torch yet")
+    if op not in _DIST_OPS and op != ReduceOp.ADASUM:
+        raise ValueError(f"unsupported ReduceOp {op!r}")
     wire_dtype = getattr(compression, "wire_dtype", None)
     groups: dict = {}
     for i, x in enumerate(xs):
@@ -130,6 +151,11 @@ def grouped_allreduce(xs: Sequence[torch.Tensor],
                 _scale(flat, prescale_factor), op=op, bits=quantized_bits,
                 segments=tuple(xs[i].numel() for i in idxs)),
                 postscale_factor)
+        elif op == ReduceOp.ADASUM:
+            red = _reduce_adasum(flat, dtype,
+                                 [xs[i].numel() for i in idxs],
+                                 prescale_factor, postscale_factor,
+                                 wire_dtype)
         else:
             red = _reduce_flat(flat, op, dtype, prescale_factor,
                                postscale_factor, wire_dtype)
@@ -222,6 +248,40 @@ def allgather_v_compact(gathered: torch.Tensor,
     c = counts.reshape(-1).tolist()
     return torch.cat([gathered[i, :int(n)] for i, n in enumerate(c)],
                      dim=0)
+
+
+def sparse_allreduce(values: torch.Tensor, indices: torch.Tensor,
+                     dense_rows: int, op: ReduceOp = Average
+                     ) -> torch.Tensor:
+    """Row-sparse reduction, the reference's ``IndexedSlices`` path (JAX
+    ``sparse_allreduce``): every rank's ``values`` (``(n, ...)``) and
+    ``indices`` (``(n,)``, its rows of the dense result) are all-gathered
+    and scatter-added into the dense ``(dense_rows, ...)`` result in a
+    dtype of at least fp32, one rank's shard at a time in rank order, then
+    divided by the world for Average and cast back to ``values``' dtype.
+
+    An index outside ``[0, dense_rows)`` (the fill slot ``dense_rows``) is
+    dropped, as JAX's scatter drops it: it lands on a spare row past the
+    result, so no host sync masks it out.  Each shard's in-range indices
+    must be unique (a shard of a leaf's nonzero rows is), so each shard's
+    scatter, and the result, is the same bits on every rank.  Only Sum and
+    Average reduce; another op raises ``ValueError``."""
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("sparse_allreduce supports Sum/Average")
+    world = _world()
+    all_vals = allgather(values, tiled=False)
+    all_idx = allgather(indices, tiled=False)
+    acc = torch.promote_types(values.dtype, torch.float32)
+    dense = torch.zeros((dense_rows + 1,) + tuple(values.shape[1:]),
+                        dtype=acc, device=values.device)
+    for s in range(world):
+        idx = all_idx[s].long()
+        idx = torch.where((idx >= 0) & (idx < dense_rows), idx, dense_rows)
+        dense.index_add_(0, idx, all_vals[s].to(acc))
+    dense = dense[:dense_rows]
+    if op == ReduceOp.AVERAGE:
+        dense = dense / world
+    return dense.to(values.dtype)
 
 
 def broadcast(x: torch.Tensor, root_rank: int = 0) -> torch.Tensor:

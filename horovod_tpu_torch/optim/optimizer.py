@@ -13,7 +13,11 @@ and ``step()`` updates once they are reduced
 ``shard_optimizer_states=True``, runs the ZeRO-style sharded exchange in
 ``step()`` (:class:`_ShardedDistributedOptimizer`, JAX
 ``sharded_distributed_update``): reduce-scatter, the update on this rank's
-1/N flat shard only, allgather.  :class:`DistributedGradientTape` reduces
+1/N flat shard only, allgather.  :func:`DistributedAdasumOptimizer` is
+Adasum's delta form: the local step, then the weight deltas
+Adasum-reduced (:func:`adasum_updates`).  ``sparse_params`` routes
+embedding-style gradients through the row-sparse exchange
+(:func:`_sparse_leaf_reduce`).  :class:`DistributedGradientTape` reduces
 what a gradient function returns through the eager plane.
 """
 
@@ -21,8 +25,10 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import logging
+import os
 import weakref
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.profiler import record_function
@@ -30,40 +36,128 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from horovod_tpu_torch.ops import collectives as C
 from horovod_tpu_torch.ops.bucketing import plan_buckets
-from horovod_tpu_torch.ops.collectives import Average, ReduceOp
+from horovod_tpu_torch.ops.collectives import Adasum, Average, ReduceOp
 from horovod_tpu_torch.ops.fused_collectives import resolve_fused_collectives
 from horovod_tpu_torch.runtime import state
 from horovod_tpu_torch.runtime.topology import TOPOLOGY_MODES, \
     resolve_topology
 
 
+_log = logging.getLogger(__name__)
+
+
 def _fusion_threshold() -> int:
     return state.global_state().config.fusion_threshold_bytes
 
 
+def _sparse_leaf_reduce(g: torch.Tensor, max_rows: int, op: ReduceOp,
+                        prescale_factor: Optional[float] = None,
+                        postscale_factor: Optional[float] = None
+                        ) -> torch.Tensor:
+    """Row-sparse reduction of one dense-shaped gradient (JAX
+    ``_sparse_leaf_reduce``): the rows of ``g`` with a nonzero entry are
+    taken with the static bound ``max_rows`` and exchanged through
+    :func:`~horovod_tpu_torch.ops.collectives.sparse_allreduce`, an
+    all-gather of ``max_rows`` rows a rank instead of an allreduce of the
+    whole table (the reference's IndexedSlices path,
+    ``tensorflow/__init__.py:100-110``).
+
+    As ``jnp.nonzero(size=max_rows, fill_value=rows)`` does, the first
+    ``max_rows`` touched rows are kept, the slots left over carry index
+    ``rows`` and value 0 (the scatter drops them), and touched rows past
+    the bound are dropped: the bound is the caller's promise.  With
+    ``HOROVOD_DEBUG_SPARSE`` set, a warning is logged when rows are
+    dropped.  The slots are filled by a cumulative sum of the row mask and
+    a scatter, with no host sync (the warning's count reads the card)."""
+    rows = g.shape[0]
+    mask = (g.reshape(rows, -1) != 0).any(dim=1)
+    if os.environ.get("HOROVOD_DEBUG_SPARSE"):
+        touched = int(mask.sum())
+        if touched > max_rows:
+            _log.warning("sparse_params: %d touched rows exceed max_rows=%d;"
+                         " excess gradients dropped", touched, max_rows)
+    slot = torch.cumsum(mask, 0) - 1
+    keep = mask & (slot < max_rows)
+    # rows not kept land on a spare slot past the bound
+    idx = torch.full((max_rows + 1,), rows, dtype=torch.long,
+                     device=g.device)
+    idx.scatter_(0, torch.where(keep, slot, max_rows),
+                 torch.arange(rows, device=g.device))
+    idx = idx[:max_rows]
+    filled = (idx < rows).view((max_rows,) + (1,) * (g.dim() - 1))
+    vals = torch.where(filled, g.index_select(0, idx.clamp(max=rows - 1)),
+                       torch.zeros((), dtype=g.dtype, device=g.device))
+    vals = C._scale(vals, prescale_factor)
+    return C._scale(C.sparse_allreduce(vals, idx, rows, op=op),
+                    postscale_factor)
+
+
+def _match_sparse(name: str, sparse_params: Optional[Mapping]
+                  ) -> Optional[int]:
+    """``max_rows`` for the parameter ``name`` (a ``named_parameters``
+    name, components split on ``.``) when one of its components equals a
+    pattern, or its full name does, written with ``.`` or ``/``; else None
+    (JAX ``_match_sparse``).  Whole components only: ``"emb"`` never
+    routes ``"member"`` through the truncating sparse path."""
+    if not sparse_params:
+        return None
+    comps = name.split(".")
+    for pat, max_rows in sparse_params.items():
+        if pat.replace("/", ".") == name or pat in comps:
+            return int(max_rows)
+    return None
+
+
+def _check_sparse(sparse_params, op: ReduceOp) -> None:
+    if sparse_params and op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("sparse_params supports op=Sum/Average")
+
+
 @torch.no_grad()
-def distributed_gradients(grads: Sequence[torch.Tensor],
+def distributed_gradients(grads: Union[Sequence[torch.Tensor],
+                                       Mapping[str, torch.Tensor]],
                           op: ReduceOp = Average,
                           compression=None,
                           prescale_factor: Optional[float] = None,
                           postscale_factor: Optional[float] = None,
-                          bucket_bytes: Optional[int] = None) -> None:
+                          bucket_bytes: Optional[int] = None,
+                          sparse_params: Optional[Mapping] = None) -> None:
     """Reduce ``grads`` across ranks in place, one fused collective per
     bucket (and dtype).  ``bucket_bytes`` defaults to the runtime's fusion
     threshold (64 MiB).  ``Compression.int8`` sends float buckets through
-    the shared-scale quantized wire, one scale per gradient."""
-    grads = list(grads)
+    the shared-scale quantized wire, one scale per gradient.
+
+    ``sparse_params`` (``{name: max_rows}``, op Sum or Average) needs
+    ``grads`` as a mapping from parameter names to gradients: the ones
+    :func:`_match_sparse` matches leave the buckets and are reduced
+    row-sparse (:func:`_sparse_leaf_reduce`), in order, after them."""
+    _check_sparse(sparse_params, op)
+    names = list(grads) if isinstance(grads, Mapping) else None
+    grads = list(grads.values()) if names is not None else list(grads)
+    sparse: Dict[int, int] = {}
+    if sparse_params:
+        if names is None:
+            raise ValueError("sparse_params matches parameter names: pass "
+                             "grads as a mapping from names to gradients")
+        for i, name in enumerate(names):
+            m = _match_sparse(name, sparse_params)
+            if m is not None:
+                sparse[i] = m
     if bucket_bytes is None:
         bucket_bytes = _fusion_threshold()
-    nbytes = [g.numel() * g.element_size() for g in grads]
+    dense = [i for i in range(len(grads)) if i not in sparse]
+    nbytes = [grads[i].numel() * grads[i].element_size() for i in dense]
     for bucket in plan_buckets(nbytes, bucket_bytes):
-        ins = [grads[i] for i in bucket]
+        ins = [grads[dense[j]] for j in bucket]
         outs = C.grouped_allreduce(ins, op=op,
                                    prescale_factor=prescale_factor,
                                    postscale_factor=postscale_factor,
                                    compression=compression)
         for g, r in zip(ins, outs):
             g.copy_(r)
+    for i, max_rows in sparse.items():
+        grads[i].copy_(_sparse_leaf_reduce(grads[i], max_rows, op,
+                                           prescale_factor, postscale_factor))
 
 
 #: reference ``torch/optimizer.py`` text for a second backward before step()
@@ -116,12 +210,19 @@ class _DistributedOptimizer:
 
     A launch that fails raises from the hook, and so from backward; it
     never falls back to a step-time exchange.  Every other attribute is
-    the wrapped optimizer's."""
+    the wrapped optimizer's.
+
+    ``sparse`` maps the indices of the parameters that ``sparse_params``
+    matched to their ``max_rows``: they stay out of the buckets, and
+    :meth:`synchronize` launches each, in order, after the buckets, as a
+    row-sparse exchange (:func:`_sparse_leaf_reduce`) on the same
+    stream."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, op: ReduceOp,
                  compression, backward_passes_per_step: int,
                  prescale_factor: Optional[float],
-                 postscale_factor: Optional[float], overlap: bool = True):
+                 postscale_factor: Optional[float], overlap: bool = True,
+                 sparse: Optional[Dict[int, int]] = None):
         self.optimizer = optimizer
         self.op = op
         self.compression = compression
@@ -132,6 +233,7 @@ class _DistributedOptimizer:
         self._accum: Dict[int, torch.Tensor] = {}
         self._trainable = [p for g in optimizer.param_groups
                            for p in g["params"] if p.requires_grad]
+        self._sparse = dict(sparse or {})
         self._bucket_bytes = _fusion_threshold()
         self._buckets: List[List[int]] = []
         self._stream = None
@@ -139,9 +241,11 @@ class _DistributedOptimizer:
         #: current or last backward launched, in launch order
         self.launches: List[Tuple[List[int], str]] = []
         if overlap:
-            self._buckets = plan_buckets(
-                [p.numel() * p.element_size() for p in self._trainable],
-                self._bucket_bytes)
+            dense = [i for i in range(len(self._trainable))
+                     if i not in self._sparse]
+            self._buckets = [[dense[j] for j in b] for b in plan_buckets(
+                [self._trainable[i].numel() * self._trainable[i].element_size()
+                 for i in dense], self._bucket_bytes)]
             owner = weakref.ref(self)
             for i, p in enumerate(self._trainable):
                 p._hvd_exchange = id(self)
@@ -190,6 +294,8 @@ class _DistributedOptimizer:
             self._accumulate_grad(i, p, final)
             if not final:
                 return
+        if i in self._sparse:
+            return
         b = self._bucket_of[i]
         self._left[b] -= 1
         if self._left[b] == 0:
@@ -223,16 +329,21 @@ class _DistributedOptimizer:
         self.launches.append((list(ids), source))
         grads = [self._trainable[i].grad for i in ids]
         if not grads[0].is_cuda:
-            self._reduce(grads)
+            self._reduce(ids, grads)
             return
         side = self._side_stream(grads[0].device)
         side.wait_stream(torch.cuda.current_stream(grads[0].device))
         with torch.cuda.stream(side):
             for g in grads:
                 g.record_stream(side)
-            self._reduce(grads)
+            self._reduce(ids, grads)
 
-    def _reduce(self, grads: List[torch.Tensor]) -> None:
+    def _reduce(self, ids: List[int], grads: List[torch.Tensor]) -> None:
+        if ids[0] in self._sparse:
+            grads[0].copy_(_sparse_leaf_reduce(
+                grads[0], self._sparse[ids[0]], self.op,
+                self.prescale_factor, self.postscale_factor))
+            return
         outs = C.grouped_allreduce(grads, op=self.op,
                                    prescale_factor=self.prescale_factor,
                                    postscale_factor=self.postscale_factor,
@@ -257,6 +368,9 @@ class _DistributedOptimizer:
         for bucket in plan_buckets(nbytes, self._bucket_bytes,
                                    reverse=False):
             self._launch([rest[j] for j in bucket], "synchronize")
+        for i in self._sparse:
+            if self._trainable[i].grad is not None:
+                self._launch([i], "synchronize")
         self._next = len(self._buckets)
         if self._stream is not None:
             torch.cuda.current_stream(self._stream.device).wait_stream(
@@ -529,7 +643,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          hierarchy: str = "auto",
                          fused_collectives: str = "auto",
                          error_feedback: bool = False,
-                         reduction: Optional[str] = None):
+                         reduction: Optional[str] = None,
+                         sparse_params: Optional[Mapping] = None):
     """Wrap ``optimizer`` so each ``step()`` uses cross-rank-reduced
     gradients (reference ``DistributedOptimizer``, ``torch/optimizer.py``),
     exchanged bucket by bucket from gradient hooks while backward runs
@@ -540,8 +655,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ``torch/optimizer.py:119-123``).  ``backward_passes_per_step=N`` makes
     ``step()`` a no-op for N-1 calls, accumulating each call's gradients,
     and on the Nth reduce their mean and update, as optax ``MultiSteps``
-    does in the JAX package.  ``named_parameters`` is accepted for the
-    reference's signature.  ``Compression.int8`` quantizes the wire
+    does in the JAX package.  ``named_parameters`` names the parameters
+    for ``sparse_params``.  ``Compression.int8`` quantizes the wire
     (shared-scale int8, or fp8 e4m3 under ``HOROVOD_EXCHANGE_WIRE_DTYPE``).
 
     ``shard_optimizer_states=True`` replaces allreduce-then-update with the
@@ -559,8 +674,21 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ``reduction="adasum"`` is, on the flat topology, the plain sum, bit
     for bit, as in JAX.  The wrapped optimizer must be elementwise, with
     one set of hyperparameters over its param groups.
+
+    ``op=Adasum`` reduces each bucket by Adasum over the world's layout
+    (``ops/adasum.py``), each gradient with its own coefficients, so the
+    bucket plan does not change the result.  That is Adasum on raw
+    gradients, right for plain SGD; a stateful optimizer takes
+    :func:`DistributedAdasumOptimizer`.
+
+    ``sparse_params`` (``{pattern: max_rows}``, op Sum or Average, not with
+    ``shard_optimizer_states``) takes the parameters whose
+    ``named_parameters`` name matches a pattern (:func:`_match_sparse`)
+    out of the buckets and reduces their gradients row-sparse, at most
+    ``max_rows`` nonzero rows a rank (:func:`_sparse_leaf_reduce`): an
+    embedding table's gradient touches only the rows of the batch's
+    tokens.  It needs ``named_parameters``.
     """
-    del named_parameters
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
     if exchange_bucket_bytes is not None and not shard_optimizer_states:
@@ -581,6 +709,11 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             "pass shard_optimizer_states=True to enable it")
     qbits = getattr(compression, "wire_reduce_bits", None)
     if shard_optimizer_states:
+        if sparse_params:
+            raise ValueError(
+                "shard_optimizer_states is incompatible with sparse_params: "
+                "sparse leaves bypass the fused flat buffer the shard "
+                "slicing is defined over")
         if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
             raise ValueError(
                 "shard_optimizer_states supports op=Sum/Average")
@@ -621,9 +754,157 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             optimizer, op, compression, backward_passes_per_step,
             prescale_factor, postscale_factor, exchange_bucket_bytes,
             error_feedback)
-    return _DistributedOptimizer(optimizer, op, compression,
-                                 backward_passes_per_step, prescale_factor,
-                                 postscale_factor)
+    _check_sparse(sparse_params, op)
+    return _DistributedOptimizer(
+        optimizer, op, compression, backward_passes_per_step,
+        prescale_factor, postscale_factor,
+        sparse=_sparse_indices(optimizer, named_parameters, sparse_params))
+
+
+def _sparse_indices(optimizer: torch.optim.Optimizer, named_parameters,
+                    sparse_params: Optional[Mapping]) -> Dict[int, int]:
+    """``{index among the trainable parameters: max_rows}`` of those whose
+    name ``sparse_params`` matches."""
+    if not sparse_params:
+        return {}
+    if named_parameters is None:
+        raise ValueError("sparse_params matches parameter names: pass "
+                         "named_parameters (model.named_parameters())")
+    names = {id(p): name for name, p in named_parameters}
+    trainable = [p for g in optimizer.param_groups for p in g["params"]
+                 if p.requires_grad]
+    out = {}
+    for i, p in enumerate(trainable):
+        m = _match_sparse(names.get(id(p), ""), sparse_params)
+        if m is not None:
+            out[i] = m
+    return out
+
+
+@torch.no_grad()
+def adasum_updates(deltas: Sequence[torch.Tensor], compression=None,
+                   bucket_bytes: Optional[int] = None) -> None:
+    """Adasum-reduce weight deltas in place (JAX ``adasum_updates``), the
+    core of :func:`DistributedAdasumOptimizer`: :func:`distributed_gradients`
+    with ``op=Adasum``, in :func:`plan_buckets` buckets of ``bucket_bytes``
+    (the fusion threshold by default), each delta with its own
+    coefficients.  On a world of one without a compression it is the
+    identity and moves nothing, as JAX returns the tensors at extent 1."""
+    if state.global_state().size == 1 and compression is None:
+        return
+    distributed_gradients(list(deltas), op=Adasum, compression=compression,
+                          bucket_bytes=bucket_bytes)
+
+
+class _DistributedAdasumOptimizer:
+    """Adasum in its delta form (reference ``_DistributedAdasumOptimizer``,
+    ``torch/optimizer.py:210-380``; JAX ``DistributedAdasumOptimizer``,
+    ``chain(optimizer, adasum_updates)``).  ``step()``:
+
+    1. copy the trainable parameters into one persistent stash
+       (``torch._foreach_copy_``);
+    2. run the wrapped optimizer's step on this rank's local gradients;
+    3. turn each parameter into its delta, ``p - start``, in place;
+    4. Adasum-reduce the deltas (:func:`adasum_updates`);
+    5. add the stash back, ``p = start + delta``.
+
+    Gradients are never exchanged, and the optimizer's state (momenta,
+    moments) evolves from local gradients, so it is per rank: a checkpoint
+    saves rank 0's and a restore broadcasts it, the reference's rank-0
+    convention.  ``backward_passes_per_step = k`` is optax ``MultiSteps``:
+    ``step()`` adds each pass's gradients into a running sum and returns
+    with the parameters unmoved, and on the k-th pass installs their mean
+    and runs one local step and one Adasum.  Every other attribute is the
+    wrapped optimizer's."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, compression,
+                 backward_passes_per_step: int):
+        self.optimizer = optimizer
+        self.compression = compression
+        self.backward_passes_per_step = backward_passes_per_step
+        self._params = [p for g in optimizer.param_groups
+                        for p in g["params"] if p.requires_grad]
+        self._bucket_bytes = _fusion_threshold()
+        self._start: Optional[List[torch.Tensor]] = None
+        self._passes = 0
+        self._accum: Dict[int, torch.Tensor] = {}
+
+    def __getattr__(self, name):
+        if name == "optimizer":        # not set yet (e.g. mid-unpickle)
+            raise AttributeError(name)
+        return getattr(self.optimizer, name)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def _micro_step(self) -> bool:
+        """Fold this pass's gradients into the running sums; on the pass
+        that completes a step install their mean and return True."""
+        k = self.backward_passes_per_step
+        if k == 1:
+            return True
+        for i, p in enumerate(self._params):
+            if p.grad is not None:
+                acc = self._accum.get(i)
+                if acc is None:
+                    self._accum[i] = p.grad.clone()
+                else:
+                    acc.add_(p.grad)
+        final = self._passes == k - 1
+        self._passes = 0 if final else self._passes + 1
+        if final:
+            for i, acc in self._accum.items():
+                p = self._params[i]
+                if p.grad is None:
+                    p.grad = acc.div_(k)
+                else:
+                    p.grad.copy_(acc.div_(k))
+            self._accum = {}
+        return final
+
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        if self._micro_step():
+            self._delta_step()
+        return loss
+
+    @torch.no_grad()
+    def _delta_step(self) -> None:
+        params = self._params
+        if self._start is None:
+            self._start = [torch.empty_like(p) for p in params]
+        torch._foreach_copy_(self._start, params)
+        self.optimizer.step()
+        torch._foreach_sub_(params, self._start)
+        adasum_updates(params, compression=self.compression,
+                       bucket_bytes=self._bucket_bytes)
+        torch._foreach_add_(params, self._start)
+
+
+def DistributedAdasumOptimizer(optimizer: torch.optim.Optimizer,
+                               named_parameters=None, compression=None,
+                               backward_passes_per_step: int = 1):
+    """Wrap ``optimizer`` in Adasum's delta form
+    (:class:`_DistributedAdasumOptimizer`): the local step first, then the
+    weight delta, not the gradient, Adasum-reduced over the world's layout
+    (the average within a node, Adasum across nodes).  ``op=Adasum`` on
+    raw gradients (:func:`DistributedOptimizer`) is only right for plain
+    SGD; this form is right for momentum and Adam too.  Its gradients
+    stay local, so ``DistributedTrainStep`` takes it with ``op=None``.
+    ``named_parameters`` is accepted for the reference's signature;
+    ``compression`` (``Compression.fp16``/``bf16``) is the deltas' wire
+    dtype."""
+    del named_parameters
+    if backward_passes_per_step < 1:
+        raise ValueError("backward_passes_per_step must be >= 1")
+    if getattr(compression, "wire_reduce_bits", None) is not None:
+        raise ValueError("quantized_bits supports op=Sum/Average")
+    return _DistributedAdasumOptimizer(optimizer, compression,
+                                       backward_passes_per_step)
 
 
 class DistributedGradientTape:

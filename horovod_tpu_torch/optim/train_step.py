@@ -46,6 +46,7 @@ from horovod_tpu_torch.ops.collectives import Average, ReduceOp, Sum
 from horovod_tpu_torch.ops.fused_collectives import resolve_fused_collectives
 from horovod_tpu_torch.optim.optimizer import (
     DistributedOptimizer,
+    _DistributedAdasumOptimizer,
     _DistributedOptimizer,
     _ShardedDistributedOptimizer,
 )
@@ -87,6 +88,18 @@ class DistributedTrainStep:
     exchange with ep > 1 raises ``NotImplementedError`` (ROADMAP Queue A
     13: the JAX package compiles that pair only under pjit).
 
+    ``op=Adasum`` reduces the gradients by Adasum over the world's layout.
+    ``op=None`` leaves them local: the optimizer owns the reduction, as
+    :func:`~horovod_tpu_torch.optim.optimizer.DistributedAdasumOptimizer`
+    does (the only distributing optimizer the step takes with it; given
+    one, ``op`` must be None), and neither ``compression`` nor
+    ``sparse_params`` may be given.  ``sparse_params`` (``{pattern:
+    max_rows}``) reaches :func:`DistributedOptimizer`; since it matches
+    ``named_parameters`` names, the step wraps the optimizer in
+    :meth:`init`, from the model's names, and a call needs the optimizer
+    that :meth:`init` returned.  The loss is averaged over the world
+    whatever ``op`` is.
+
     ``moe_fused`` and ``moe_capacity_factor`` are the MoE schedule (unset:
     ``HOROVOD_MOE_FUSED_DISPATCH`` and ``HOROVOD_MOE_CAPACITY_FACTOR``;
     neither set: the model's ``MoEConfig`` rules).  The step exposes them
@@ -96,7 +109,8 @@ class DistributedTrainStep:
     routing to the model's config."""
 
     def __init__(self, loss_fn: Callable, optimizer,
-                 op: ReduceOp = Average, compression=None, plan=None,
+                 op: Optional[ReduceOp] = Average, compression=None,
+                 plan=None,
                  mesh: Optional[ParallelMesh] = None,
                  shard_optimizer_states: bool = False,
                  exchange_bucket_bytes: Optional[int] = None,
@@ -105,7 +119,24 @@ class DistributedTrainStep:
                  error_feedback: bool = False,
                  reduction: Optional[str] = None,
                  moe_fused: Optional[str] = None,
-                 moe_capacity_factor: Optional[float] = None):
+                 moe_capacity_factor: Optional[float] = None,
+                 sparse_params: Optional[dict] = None):
+        if op is None and sparse_params:
+            raise ValueError(
+                "op=None leaves gradients local, so train-step "
+                "sparse_params would never route anything; pass sparse "
+                "handling to the distributing optimizer instead")
+        if op is None and compression is not None:
+            raise ValueError(
+                "op=None leaves gradients local, so a train-step "
+                "compression would never run; pass compression to the "
+                "distributing optimizer (e.g. DistributedAdasumOptimizer) "
+                "instead")
+        if sparse_params and shard_optimizer_states:
+            raise ValueError(
+                "shard_optimizer_states is incompatible with sparse_params "
+                "(sparse leaves bypass the fused flat buffer the shard "
+                "slicing is defined over)")
         self.plan, self.mesh = _resolve_plan(plan, mesh)
         if self.plan is not None and self.plan.ep > 1 and (
                 shard_optimizer_states or
@@ -130,12 +161,30 @@ class DistributedTrainStep:
                        hierarchy=hierarchy,
                        fused_collectives=fused_collectives,
                        error_feedback=error_feedback, reduction=reduction)
+        #: DistributedOptimizer's arguments until init() names the
+        #: parameters for sparse_params
+        self._wrap = None
         if isinstance(optimizer, _DistributedOptimizer):
             if op != Average or compression is not None or \
-                    sharded != _SHARDED_DEFAULTS:
-                raise ValueError("op/compression and the sharded exchange's "
-                                 "options belong to the "
+                    sharded != _SHARDED_DEFAULTS or sparse_params:
+                raise ValueError("op/compression, sparse_params and the "
+                                 "sharded exchange's options belong to the "
                                  "DistributedOptimizer already given")
+        elif op is None or isinstance(optimizer,
+                                      _DistributedAdasumOptimizer):
+            if op is not None:
+                raise ValueError(
+                    "a DistributedAdasumOptimizer reduces the weight deltas "
+                    "itself and leaves the gradients local: pass op=None")
+            if sharded != _SHARDED_DEFAULTS:
+                raise ValueError(
+                    "op=None leaves gradients local; the sharded exchange "
+                    "reduces them and supports op=Sum/Average")
+        elif sparse_params:
+            if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+                raise ValueError("sparse_params supports op=Sum/Average")
+            self._wrap = dict(op=op, compression=compression,
+                              sparse_params=sparse_params, **sharded)
         else:
             if shard_optimizer_states:
                 cfg = state.global_state().config
@@ -183,10 +232,16 @@ class DistributedTrainStep:
         step's ``init_fn`` builds it per rank); returns ``(model,
         optimizer)``."""
         self._apply_moe_schedule(model)
+        if self._wrap is not None:
+            self.optimizer = DistributedOptimizer(
+                self.optimizer, named_parameters=model.named_parameters(),
+                **self._wrap)
+            self._wrap = None
         F.broadcast_variables(model, root_rank=0)
         if not isinstance(self.optimizer, _ShardedDistributedOptimizer):
-            F.broadcast_optimizer_state(self.optimizer.optimizer,
-                                        root_rank=0)
+            F.broadcast_optimizer_state(
+                getattr(self.optimizer, "optimizer", self.optimizer),
+                root_rank=0)
         return model, self.optimizer
 
     def shard_batch(self, batch):
@@ -259,6 +314,10 @@ class DistributedTrainStep:
         return shard(batch)
 
     def __call__(self, model: torch.nn.Module, optimizer, batch):
+        if self._wrap is not None:
+            raise RuntimeError("sparse_params names the model's parameters: "
+                               "call init(model) first and step with the "
+                               "optimizer it returns")
         self._apply_moe_schedule(model)
         optimizer.zero_grad(set_to_none=True)
         loss = self._loss_fn(model, batch)

@@ -46,6 +46,8 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_MOE_FUSED_DISPATCH", "HOROVOD_MOE_CAPACITY_FACTOR",
     # -- the input pipeline (data/prefetch.py)
     "HOROVOD_PREFETCH_DEPTH", "HOROVOD_INPUT_THREADS",
+    # -- the row-sparse exchange's dropped-rows warning (optim/optimizer.py)
+    "HOROVOD_DEBUG_SPARSE",
     # -- the launcher (runner/): the controller stamp it gives each worker,
     #    run()'s service address and key, the probe task's key, the
     #    discovery cache's lifetime, the LSF node shape, its logger

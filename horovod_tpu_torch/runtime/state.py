@@ -19,6 +19,12 @@ then comes from ``HOROVOD_LOCAL_*``, else torchrun's
 group, and ``cross_*`` follow, so that local × cross = size on a
 homogeneous world, as the JAX package derives them from its devices.  The
 card, ``cuda:<local_rank>``, is chosen only after that.
+
+The world's layout, ``(cross, local)`` in row-major order as the JAX
+package's ``(dcn, ici)`` mesh, has a process group per level
+(:meth:`GlobalState.layout_group`): ``"local"``, the ranks of one node,
+and ``"cross"``, the ranks of one local index across the nodes.  They are
+made at their first use, by every rank, and kept until ``shutdown()``.
 """
 
 from __future__ import annotations
@@ -27,12 +33,18 @@ import atexit
 import os
 import socket
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.runtime.config import Config
+
+
+#: the layout's levels, innermost first (JAX ``AXIS_ICI``, ``AXIS_DCN``)
+LOCAL = "local"
+CROSS = "cross"
+LAYOUT_LEVELS = (LOCAL, CROSS)
 
 
 class NotInitializedError(RuntimeError):
@@ -67,6 +79,8 @@ class GlobalState:
         # the eager plane's per-world state (ops/eager.py): its handles,
         # negotiation caches and cycle counter, and its Bucketer
         self.eager = None
+        # this rank's group of each layout level, made at first use
+        self._layout: Optional[Dict[str, Optional[dist.ProcessGroup]]] = None
 
     def initialize(self) -> None:
         cfg = self.config
@@ -170,6 +184,56 @@ class GlobalState:
             self.cross_size = cfg.cross_size
         self.is_homogeneous = len(set(sizes)) == 1
 
+    def layout_group(self, level: str) -> Optional[dist.ProcessGroup]:
+        """This rank's process group of layout level ``level``:
+        ``"local"`` (the ranks that share its ``cross_rank``, ordered by
+        ``local_rank``) or ``"cross"`` (the ranks that share its
+        ``local_rank``, ordered by ``cross_rank``).  ``None`` at extent 1,
+        ``dist.group.WORLD`` when the level spans the world.
+
+        The first call makes every group of both levels, local ones node
+        by node and then cross ones index by index, so every rank must
+        make it, at the same point of its program (the collectives that
+        need a level do).  It gathers each rank's ``(cross_rank,
+        local_rank)`` and raises ``ValueError`` on every rank alike unless
+        the world is the row-major grid ``rank = cross_rank *
+        local_size + local_rank``, the order of the JAX package's mesh."""
+        if level not in LAYOUT_LEVELS:
+            raise ValueError(f"layout level must be one of {LAYOUT_LEVELS}, "
+                             f"got {level!r}")
+        if self._layout is None:
+            self._layout = self._make_layout()
+        return self._layout[level]
+
+    def _make_layout(self) -> Dict[str, Optional[dist.ProcessGroup]]:
+        n_cross, n_local = self.cross_size, self.local_size
+        ids = [(c, l) for _, c, l in self._gather((self.cross_rank,
+                                                   self.local_rank))]
+        grid = [(r // n_local, r % n_local) for r in range(self.size)]
+        if n_cross * n_local != self.size or ids != grid:
+            raise ValueError(
+                f"the world of {self.size} is not laid out as {n_cross} "
+                f"nodes of {n_local} ranks in rank order (rank = "
+                f"cross_rank * local_size + local_rank); (cross_rank, "
+                f"local_rank) by rank: {ids}")
+        levels = {LOCAL: [[c * n_local + l for l in range(n_local)]
+                          for c in range(n_cross)],
+                  CROSS: [[c * n_local + l for c in range(n_cross)]
+                          for l in range(n_local)]}
+        out: Dict[str, Optional[dist.ProcessGroup]] = {}
+        for level, lines in levels.items():
+            extent = len(lines[0])
+            if extent == 1:
+                out[level] = None
+            elif extent == self.size:
+                out[level] = dist.group.WORLD
+            else:
+                for ranks in lines:
+                    group = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        out[level] = group
+        return out
+
     def _set_device(self) -> None:
         if self.device.type == "cuda":
             self.device = torch.device("cuda", self.local_rank)
@@ -179,10 +243,14 @@ class GlobalState:
         if dist.is_initialized():
             if self.owns_group:
                 dist.destroy_process_group()
-            elif self.host_group not in (None, dist.group.WORLD):
-                dist.destroy_process_group(self.host_group)
+            else:
+                made = [self.host_group] + list((self._layout or {}).values())
+                for group in made:
+                    if group not in (None, dist.group.WORLD):
+                        dist.destroy_process_group(group)
         self.owns_group = False
         self.host_group = None
+        self._layout = None
 
 
 _state: Optional[GlobalState] = None

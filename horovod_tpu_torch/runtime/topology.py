@@ -3,8 +3,10 @@ the part the flat sharded exchange needs).
 
 The world is laid out as the JAX package's runtime mesh, ``(cross,
 local)`` = ``(dcn, ici)`` in mesh order: ``HOROVOD_CROSS_SIZE`` nodes of
-``HOROVOD_LOCAL_SIZE`` cards.  :func:`resolve_topology` applies the JAX
-package's decision rule to those extents.  Only the one-level (flat)
+``HOROVOD_LOCAL_SIZE`` cards, with a process group per level
+(``GlobalState.layout_group("local"/"cross")``, ``runtime/state.py``),
+which Adasum's reduction runs over.  :func:`resolve_topology` applies the
+JAX package's decision rule to those extents.  Only the one-level (flat)
 exchange is ported: a two-level or tree exchange, asked for or picked by
 ``"auto"``, raises :class:`NotImplementedError` rather than run flat.
 """

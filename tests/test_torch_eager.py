@@ -269,7 +269,7 @@ class TestAgainstJax:
                      (np.zeros(5), rng.randn(5)),
                      (rng.randn(7), 3 * rng.randn(7))):
             a, b = a.astype(np.float32), b.astype(np.float32)
-            got = TA._combine(torch.from_numpy(a), torch.from_numpy(b))
+            got = TA.adasum_pair(torch.from_numpy(a), torch.from_numpy(b))
             want = np.asarray(JA._combine(jnp.asarray(a), jnp.asarray(b)))
             np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
                                        atol=1e-6)

@@ -69,6 +69,9 @@ class TestConfig:
            "HOROVOD_MOE_FUSED_DISPATCH": "on",
            "HOROVOD_MOE_CAPACITY_FACTOR": "2.0",
            "HOROVOD_PREFETCH_DEPTH": "5", "HOROVOD_INPUT_THREADS": "3",
+           # read where it is used, as in the JAX package, by no Config
+           # field
+           "HOROVOD_DEBUG_SPARSE": "1",
            # the launcher's knobs, which no Config
            # field reads, at their defaults (the loggers read theirs once)
            "HOROVOD_CONTROLLER": "gloo", "HOROVOD_SECRET_KEY": "k",

@@ -17,6 +17,10 @@ also runs the MoE LM over an ep group of four and a sharded checkpoint
 saved at world 4 and restored at 2.  ``test_sync_bn_over_nccl`` starts
 its world the torchrun way (a process group made before ``hvd.init()``)
 and holds SyncBatchNorm against BatchNorm on the concatenated batch.
+``test_adasum_over_nccl`` lays its worlds out as nodes (4 x 1, 2 x 2 and
+3 x 1, ``spawn_world(layout=...)``) and ``test_sparse_over_nccl`` runs
+the row-sparse exchange at a world of 4; run them alone on four cards:
+``-k "test_adasum_over_nccl or test_sparse_over_nccl"``.
 Imports torch, numpy, the port and ``chip_smoke``'s inputs and tolerances
 only.
 """
@@ -31,10 +35,11 @@ import torch
 import chip_smoke
 from horovod_tpu_torch.ops import kernels as K
 
-from torch_port_workers import EAGER_CASES, EAGER_CHECKS, EXCHANGE_CASES, \
-    OVERLAP_CASES, OVERLAP_THRESHOLDS, assert_adam_close, \
-    check_eager_reduction, check_exchange, check_overlap, exchange_inputs, \
-    join_step_inputs, spawn_world, zero_inputs
+from torch_port_workers import ADASUM_LM_STEPS, EAGER_CASES, \
+    EAGER_CHECKS, EXCHANGE_CASES, OVERLAP_CASES, OVERLAP_THRESHOLDS, \
+    SPARSE_ROWS, assert_adam_close, check_eager_reduction, check_exchange, \
+    check_overlap, exchange_inputs, join_step_inputs, sparse_inputs, \
+    spawn_world, zero_inputs
 
 
 #: fused_scale.cu's batch: U = 4 16-byte vectors for each of a block's 256
@@ -1082,3 +1087,94 @@ class TestNcclWorld:
         pid = int((tmp_path / "fail" / "rank.0.pid").read_text())
         with pytest.raises(ProcessLookupError):
             os.kill(pid, 0)
+
+    @pytest.mark.parametrize("layout", [(4, 1), (2, 2), (3, 1)],
+                             ids=lambda lay: f"{lay[0]}x{lay[1]}")
+    def test_adasum_over_nccl(self, cards, layout):
+        """Adasum over the layout on NCCL (recursive doubling across 4 and
+        2 nodes, the gathered tree across 3, the average within a node of
+        2): the grouped reduction and the seeded fp32 LM trained 3 steps by
+        DistributedAdasumOptimizer(AdamW) and by op=Adasum on the hook
+        path.  Every rank holds the same bits, and each result matches the
+        same world on gloo within the CPU tests' limits (rtol 1e-4 for the
+        fp32 reduction, 1e-5 for the losses, ``assert_adam_close`` for the
+        parameters; the bf16 tensor within 4 bf16 steps of its largest
+        entry).  Run alone on four cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        world = layout[0] * layout[1]
+        card = spawn_world("run_adasum_card", world=world, device="cuda",
+                           layout=layout, timeout=300)
+        gloo = spawn_world("run_adasum_card", world=world, device="cpu",
+                           layout=layout, timeout=300)
+        for rank, out in enumerate(card):
+            for j, (got, want) in enumerate(zip(out["grouped"],
+                                                gloo[rank]["grouped"])):
+                if j == 2:
+                    err = np.abs(got - want).max()
+                    assert err <= 4 * 2.0 ** -8 * np.abs(want).max(), \
+                        (rank, err)
+                else:
+                    np.testing.assert_allclose(got, want, rtol=1e-4,
+                                               atol=1e-6)
+            for path in ("delta", "hook"):
+                got, want = out[path], gloo[rank][path]
+                print(f"{layout} rank {rank} {path}: losses card "
+                      f"{got['losses']}, gloo {want['losses']}")
+                np.testing.assert_allclose(got["losses"], want["losses"],
+                                           rtol=1e-5)
+                assert got["losses"][-1] < got["losses"][0]
+                for k, v in got["params"].items():
+                    assert_adam_close(v, want["params"][k], k,
+                                      steps=ADASUM_LM_STEPS)
+        for out in card[1:]:
+            for path in ("delta", "hook"):
+                assert out[path]["losses"] == card[0][path]["losses"]
+                for k, v in out[path]["params"].items():
+                    np.testing.assert_array_equal(
+                        v, card[0][path]["params"][k], err_msg=k)
+            for a, b in zip(out["grouped"], card[0]["grouped"]):
+                np.testing.assert_array_equal(a, b)
+
+    def test_sparse_over_nccl(self, cards):
+        """The row-sparse exchange at a world of 4 over NCCL:
+        sparse_allreduce equals the dense reduction (its fill slots
+        dropped), the optimizer's and the step's sparse_params equal the
+        dense exchange, and every rank holds the same bits.  Run alone on
+        four cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        outs = spawn_world("run_sparse", world=4, device="cuda",
+                           timeout=240)
+        dense = np.zeros((SPARSE_ROWS, 3), np.float64)
+        for r in range(4):
+            inp = sparse_inputs(r)
+            for v, i in zip(inp["values"][:-1], inp["indices"][:-1]):
+                dense[i] += v
+        for rank, out in enumerate(outs):
+            np.testing.assert_allclose(out[("allreduce", "Sum")], dense,
+                                       rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(out[("allreduce", "Average")],
+                                       dense / 4, rtol=1e-5, atol=1e-6)
+            for bound in (4, 16):
+                for path in ("hook", "step_time"):
+                    got = out[("opt", bound, path)]
+                    for k, v in out[("opt", None, path)].items():
+                        np.testing.assert_allclose(got[k], v, rtol=1e-5,
+                                                   atol=1e-6)
+            for k, v in out[("step", None)]["params"].items():
+                np.testing.assert_allclose(out[("step", 8)]["params"][k], v,
+                                           rtol=1e-5, atol=1e-6)
+        for out in outs[1:]:
+            for key, val in out.items():
+                for a, b in zip(_leaves(val), _leaves(outs[0][key])):
+                    np.testing.assert_array_equal(a, b, err_msg=str(key))
+
+
+def _leaves(x) -> list:
+    """The arrays and numbers of a nested dict/list result, in order."""
+    if isinstance(x, dict):
+        return [v for k in sorted(x, key=str) for v in _leaves(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [v for item in x for v in _leaves(item)]
+    return [np.asarray(x)]

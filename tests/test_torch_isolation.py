@@ -104,6 +104,21 @@ def test_port_files_cover_the_launcher_slice():
                      "horovod_tpu_torch/runtime/retry.py"} <= names
 
 
+def test_port_files_cover_the_adasum_slice():
+    """The import and string checks below cover the modules that Adasum,
+    the row-sparse exchange and the layout's process groups live in."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/ops/adasum.py",
+            "horovod_tpu_torch/ops/collectives.py",
+            "horovod_tpu_torch/ops/eager.py",
+            "horovod_tpu_torch/optim/optimizer.py",
+            "horovod_tpu_torch/optim/train_step.py",
+            "horovod_tpu_torch/optim/__init__.py",
+            "horovod_tpu_torch/runtime/state.py",
+            "horovod_tpu_torch/__init__.py",
+            "chip_smoke.py"} <= names
+
+
 #: a dotted module path under the JAX package; ``horovod_tpu_torch.`` is
 #: the port's own
 JAX_MODULE = re.compile(r"\bhorovod_tpu\.\w")

@@ -59,13 +59,32 @@ def _mpirun_env(rank, world, port, local_size):
                       HOROVOD_COORDINATOR_ADDR=f"localhost:{port}")
 
 
-def _worker(fn_name, rank, world, port, results, args, device, launch):
+def _layout_env(rank, device, layout):
+    """``HOROVOD_LOCAL_*``/``HOROVOD_CROSS_*`` of rank ``rank`` in a world
+    laid out as ``layout = (cross, local)``, row-major, and on
+    ``device="cuda"`` its node's cards, so that ``cuda:<local_rank>`` is
+    card ``rank`` whichever node the rank is on."""
+    cross, local = layout
+    node = rank // local
+    os.environ.update(HOROVOD_LOCAL_RANK=str(rank % local),
+                      HOROVOD_LOCAL_SIZE=str(local),
+                      HOROVOD_CROSS_RANK=str(node),
+                      HOROVOD_CROSS_SIZE=str(cross))
+    if device == "cuda":
+        os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(
+            str(node * local + j) for j in range(local))
+
+
+def _worker(fn_name, rank, world, port, results, args, device, launch,
+            layout=None):
     caller = launch is not None and "mpirun" not in launch
     if launch is None:
         os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(world),
                           HOROVOD_LOCAL_RANK=str(rank),
                           HOROVOD_LOCAL_SIZE=str(world),
                           HOROVOD_COORDINATOR_ADDR=f"localhost:{port}")
+        if layout is not None:
+            _layout_env(rank, device, layout)
     elif not caller:
         _mpirun_env(rank, world, port, launch["mpirun"])
     try:
@@ -94,7 +113,7 @@ def _worker(fn_name, rank, world, port, results, args, device, launch):
 
 def spawn_world(fn_name: str, world: int = 2, args=(),
                 timeout: float = 120.0, device: str = "cpu",
-                launch=None) -> list:
+                launch=None, layout=None) -> list:
     """Run ``fn_name(hvd, *args)`` on every rank of a world on ``device``
     (``"cpu"``: gloo; ``"cuda"``: NCCL, card ``rank`` for rank ``rank``);
     returns the results ordered by rank, or raises with a failing rank's
@@ -102,13 +121,18 @@ def spawn_world(fn_name: str, world: int = 2, args=(),
     contract, or with ``launch`` (a dict, see :func:`_caller_group`) from
     a process group that each rank makes before ``hvd.init()``, or with
     ``launch={"mpirun": local_size}`` from what ``mpirun -x`` gives each
-    rank (:func:`_mpirun_env`)."""
+    rank (:func:`_mpirun_env`).  Through the ``HOROVOD_*`` contract the
+    world is one node of ``world`` ranks unless ``layout=(cross, local)``
+    lays it out as ``cross`` nodes of ``local`` ranks
+    (:func:`_layout_env`)."""
+    if layout is not None and layout[0] * layout[1] != world:
+        raise ValueError(f"layout {layout} does not cover {world} ranks")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_worker,
                          args=(fn_name, r, world, port, results, args,
-                               device, launch))
+                               device, launch, layout))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -2530,6 +2554,382 @@ def rank_fails(code: int):
     if os.environ["HOROVOD_RANK"] == "1":
         raise RuntimeError(f"rank 1 fails with {code}")
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Adasum and the row-sparse exchange (tests/test_torch_adasum.py,
+# tests/test_torch_sparse.py)
+# ---------------------------------------------------------------------------
+
+#: the (cross, local) layouts of the Adasum worlds: recursive doubling over
+#: 2 and 4 nodes, the gathered tree over 3, and JAX's GLOBAL_AXES mesh
+ADASUM_LAYOUTS = ((2, 1), (4, 1), (3, 1), (2, 4))
+#: the layouts whose worlds also train: the optimizer cases and the MLP
+ADASUM_TRAIN_LAYOUTS = ((4, 1), (2, 4))
+#: grouped_allreduce(op=Adasum)'s scale factors in the scaled case
+ADASUM_SCALES = (0.5, 3.0)
+
+
+def adasum_inputs(rank: int) -> list:
+    """Rank ``rank``'s tensors: two fp32 of odd sizes and one that
+    :func:`adasum_torch` casts to bf16; rank 1's second tensor is zero, so
+    the zero-norm guard acts."""
+    rng = np.random.RandomState(300 + rank)
+    xs = [rng.randn(3, 7).astype(np.float32),
+          rng.randn(11).astype(np.float32),
+          rng.randn(6).astype(np.float32)]
+    if rank == 1:
+        xs[1][:] = 0.0
+    return xs
+
+
+def adasum_torch(rank: int, device="cpu") -> list:
+    import torch
+
+    xs = [torch.from_numpy(x).to(device) for x in adasum_inputs(rank)]
+    xs[2] = xs[2].to(torch.bfloat16)
+    return xs
+
+
+#: the delta optimizer's parameters and per-rank gradients (the JAX
+#: package's tests/test_adasum.py TestDistributedAdasumOptimizer)
+DAO_W0 = np.linspace(-1.0, 1.0, 6).reshape(3, 2).astype(np.float32)
+DAO_B0 = np.array([0.5, -0.5, 1.5, 2.0], np.float32)
+DAO_STEPS = 3
+#: name -> (torch optimizer, keyword arguments); the test builds the optax
+#: twin of each
+DAO_CASES = {"sgdm": ("SGD", dict(lr=0.1, momentum=0.9)),
+             "adamw": ("AdamW", dict(lr=1e-2, weight_decay=1e-2))}
+
+
+def dao_grads(rank: int, step: int, xp=np) -> dict:
+    """Deterministic per-rank, per-step gradients, not parallel across
+    ranks (numpy or jnp)."""
+    gw = xp.sin(DAO_W0 * (rank + 1) + 0.3 * step) * 0.5
+    gb = xp.cos(DAO_B0 * (rank + 2) - 0.1 * step) * 0.5
+    return {"w": gw.astype(xp.float32), "b": gb.astype(xp.float32)}
+
+
+def _dao_run(hvd, case: str, k: int = 1) -> list:
+    """``DAO_STEPS * k`` micro-steps of ``DistributedAdasumOptimizer`` on
+    :func:`dao_grads`; the parameters after each, as numpy."""
+    import torch
+
+    name, kw = DAO_CASES[case]
+    dev = hvd.device()
+    w = torch.nn.Parameter(torch.from_numpy(DAO_W0.copy()).to(dev))
+    b = torch.nn.Parameter(torch.from_numpy(DAO_B0.copy()).to(dev))
+    opt = hvd.DistributedAdasumOptimizer(
+        getattr(torch.optim, name)([w, b], **kw), backward_passes_per_step=k)
+    hist = []
+    for t in range(DAO_STEPS * k):
+        g = dao_grads(hvd.rank(), t)
+        w.grad = torch.from_numpy(g["w"]).to(dev)
+        b.grad = torch.from_numpy(g["b"]).to(dev)
+        opt.step()
+        opt.zero_grad()
+        hist.append({"w": w.detach().cpu().numpy().copy(),
+                     "b": b.detach().cpu().numpy().copy()})
+    return hist
+
+
+#: the MLP's rows a rank, steps and SGD learning rate in the op=Adasum cases
+ADASUM_MLP = dict(rows=4, steps=2, lr=0.1)
+
+
+def adasum_mlp_batch(world: int):
+    return mlp_batch(n=ADASUM_MLP["rows"] * world, seed=11)
+
+
+def _mlp_model(dev):
+    import torch
+
+    return torch.nn.ParameterDict({
+        k: torch.nn.Parameter(torch.from_numpy(v.copy()).to(dev))
+        for k, v in mlp_params().items()})
+
+
+def _mlp_numpy(model) -> dict:
+    return {k: v.detach().cpu().numpy().copy() for k, v in model.items()}
+
+
+def _adasum_mlp(hvd, path: str) -> dict:
+    """``ADASUM_MLP["steps"]`` SGD steps of the MLP on this rank's rows:
+    ``"hook"``, ``DistributedOptimizer(op=Adasum)`` with hooks fired by
+    ``backward()``; ``"step_time"``, the same with the gradients from
+    ``torch.autograd.grad`` (no hook), so ``step()`` launches every
+    bucket; ``"train_step"``, ``DistributedTrainStep(op=Adasum)``;
+    ``"delta"``, ``DistributedTrainStep(op=None)`` over
+    ``DistributedAdasumOptimizer(SGD(momentum=0.9))``."""
+    import torch
+
+    dev, rank = hvd.device(), hvd.rank()
+    model = _mlp_model(dev)
+    lr, steps = ADASUM_MLP["lr"], ADASUM_MLP["steps"]
+    x, y = adasum_mlp_batch(hvd.size())
+    if path in ("train_step", "delta"):
+        if path == "delta":
+            opt = hvd.DistributedAdasumOptimizer(
+                torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9))
+            step = hvd.DistributedTrainStep(mlp_loss, opt, op=None)
+        else:
+            opt = torch.optim.SGD(model.parameters(), lr=lr)
+            step = hvd.DistributedTrainStep(mlp_loss, opt, op=hvd.Adasum)
+        model, opt = step.init(model)
+        batch = step.shard_batch({"x": x, "y": y})
+        losses = [float(step(model, opt, batch)[2]) for _ in range(steps)]
+        return {"params": _mlp_numpy(model), "losses": losses}
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=lr),
+                                   op=hvd.Adasum)
+    n = ADASUM_MLP["rows"]
+    batch = {"x": torch.from_numpy(x[rank * n:(rank + 1) * n]).to(dev),
+             "y": torch.from_numpy(y[rank * n:(rank + 1) * n]).to(dev)}
+    sources = []
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = mlp_loss(model, batch)
+        if path == "hook":
+            loss.backward()
+        else:
+            params = list(model.values())
+            for p, g in zip(params, torch.autograd.grad(loss, params)):
+                p.grad = g
+        opt.step()
+        sources.append(sorted({src for _, src in opt.launches}))
+    return {"params": _mlp_numpy(model), "sources": sources,
+            "buckets": len(opt._buckets)}
+
+
+#: the slice's LM: TransformerLM sizes, tokens and AdamW of its 3 steps
+ADASUM_LM = dict(vocab_size=128, num_layers=2, num_heads=2, d_model=64,
+                 d_ff=128, max_seq_len=32)
+ADASUM_LM_STEPS = 3
+
+
+def adasum_lm_tokens(rows: int = 8) -> np.ndarray:
+    return np.random.RandomState(13).randint(0, 128, (rows, 17)).astype(
+        np.int64)
+
+
+def adasum_lm_train(hvd, params=None, hook: bool = False,
+                    rows: int = 8) -> dict:
+    """The fp32 TransformerLM from ``params`` (a state dict of numpy
+    arrays; None: drawn from seed 0) trained ``ADASUM_LM_STEPS`` steps
+    through ``DistributedTrainStep(op=None)`` over
+    ``DistributedAdasumOptimizer(AdamW(3e-4, weight_decay=1e-4))``, or
+    with ``hook`` through ``DistributedTrainStep(op=Adasum)`` (the hook
+    path), on ``rows`` sequences of :func:`adasum_lm_tokens`; losses and
+    state dict as numpy."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+
+    dev = hvd.device()
+    cfg = TransformerConfig(dtype=torch.float32, attention_impl="flash",
+                            **ADASUM_LM)
+    model = TransformerLM(cfg, generator=torch.Generator().manual_seed(0))
+    if params is not None:
+        model.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                               for k, v in params.items()})
+    model.to(dev)
+    adamw = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    if hook:
+        step = hvd.DistributedTrainStep(lambda m, b: lm_loss(m, b), adamw,
+                                        op=hvd.Adasum)
+    else:
+        step = hvd.DistributedTrainStep(
+            lambda m, b: lm_loss(m, b),
+            hvd.DistributedAdasumOptimizer(adamw), op=None)
+    model, opt = step.init(model)
+    batch = step.shard_batch(adasum_lm_tokens(rows))
+    losses = [float(step(model, opt, batch)[2])
+              for _ in range(ADASUM_LM_STEPS)]
+    return {"losses": losses,
+            "params": {k: v.cpu().numpy().copy()
+                       for k, v in model.state_dict().items()}}
+
+
+def run_adasum(hvd, train: bool = False, lm_params=None) -> dict:
+    """Every Adasum check of one world: the grouped reduction, the
+    ``grouped_allreduce``/``allreduce(op=Adasum)`` forms, the eager plane
+    on the same tensor, the zero-norm guard's count; with ``train`` the
+    delta optimizer's cases (and ``backward_passes_per_step=2``) and the
+    MLP through every op=Adasum path; with ``lm_params`` the slice's LM."""
+    import torch
+
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.ops import adasum as A
+    from horovod_tpu_torch.ops import collectives as C
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    dev, rank = hvd.device(), hvd.rank()
+    xs = adasum_torch(rank, dev)
+    host = lambda ts: [t.float().cpu().numpy() for t in ts]  # noqa: E731
+    telemetry.enable()
+    telemetry.reset()
+    out = {"grouped": host(A.adasum_grouped_allreduce(xs))}
+    out["fallbacks"] = telemetry.value("hvd_adasum_zero_norm_fallbacks_total")
+    pre, post = ADASUM_SCALES
+    out["scaled"] = host(C.grouped_allreduce(
+        xs, op=C.Adasum, prescale_factor=pre, postscale_factor=post))
+    out["single"] = host([C.allreduce(xs[0], op=C.Adasum)])[0]
+    out["eager"] = host([hvd.allreduce(xs[0], op=hvd.Adasum)])[0]
+    out["inputs_kept"] = all(torch.equal(a, b) for a, b in
+                             zip(xs, adasum_torch(rank, dev)))
+    if train:
+        out["dao"] = {case: _dao_run(hvd, case)[-1] for case in DAO_CASES}
+        out["dao_k2"] = _dao_run(hvd, "sgdm", k=2)
+        cfg = hvd._state.global_state().config
+        threshold, cfg.fusion_threshold_bytes = \
+            cfg.fusion_threshold_bytes, 64
+        try:
+            out["mlp"] = {path: _adasum_mlp(hvd, path) for path in
+                          ("hook", "step_time", "train_step", "delta")}
+        finally:
+            cfg.fusion_threshold_bytes = threshold
+    if lm_params is not None:
+        out["lm"] = adasum_lm_train(hvd, lm_params)
+    return out
+
+
+def run_adasum_card(hvd) -> dict:
+    """The grouped reduction of :func:`adasum_inputs` and the seeded LM
+    trained on 12 sequences (a multiple of worlds of 2, 3 and 4) by the
+    delta form and by op=Adasum on the hook path (a world on the card or
+    its gloo twin)."""
+    import torch
+
+    from horovod_tpu_torch.ops import adasum as A
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    xs = adasum_torch(hvd.rank(), hvd.device())
+    return {"grouped": [t.float().cpu().numpy()
+                        for t in A.adasum_grouped_allreduce(xs)],
+            "delta": adasum_lm_train(hvd, rows=12),
+            "hook": adasum_lm_train(hvd, hook=True, rows=12)}
+
+
+#: the row-sparse cases: the dense table's rows and width, each rank's
+#: max_rows slots, and the embedding model of the optimizer cases
+SPARSE_ROWS, SPARSE_WIDTH, SPARSE_SLOTS = 12, 3, 5
+SPARSE_V, SPARSE_D = 32, 4
+
+
+def sparse_inputs(rank: int) -> dict:
+    """Rank ``rank``'s ``sparse_allreduce`` operands (``SPARSE_SLOTS``
+    unique rows of ``SPARSE_ROWS``, the last slot the fill index with a
+    nonzero value that must be dropped) and a dense gradient with 4
+    touched rows for ``_sparse_leaf_reduce``."""
+    rng = np.random.RandomState(500 + rank)
+    idx = rng.permutation(SPARSE_ROWS)[:SPARSE_SLOTS].astype(np.int64)
+    idx[-1] = SPARSE_ROWS
+    vals = rng.randn(SPARSE_SLOTS, SPARSE_WIDTH).astype(np.float32)
+    g = np.zeros((SPARSE_ROWS, SPARSE_WIDTH), np.float32)
+    rows = rng.permutation(SPARSE_ROWS)[:4]
+    g[rows] = rng.randn(4, SPARSE_WIDTH).astype(np.float32)
+    return {"values": vals, "indices": idx, "grad": g}
+
+
+def sparse_model_params() -> dict:
+    """The JAX package's TestSparseGradientRouting table and head."""
+    rng = np.random.RandomState(3)
+    return {"emb": rng.randn(SPARSE_V, SPARSE_D).astype(np.float32),
+            "w": rng.randn(SPARSE_D, 2).astype(np.float32)}
+
+
+def sparse_tokens(world: int) -> np.ndarray:
+    """4 token ids a rank, ``(world, 4)``."""
+    return np.random.RandomState(9).randint(0, SPARSE_V, (world, 4))
+
+
+def _sparse_opt_run(hvd, sparse, path: str) -> dict:
+    """One SGD(1.0) step of the embedding model on this rank's tokens
+    (``sum((emb[t] @ w)**2)``); ``path`` ``"hook"`` (backward) or
+    ``"step_time"`` (``torch.autograd.grad``, no hook).  Returns the
+    parameters, i.e. the initial ones minus the reduced gradients."""
+    import torch
+
+    dev = hvd.device()
+    model = torch.nn.ParameterDict({
+        k: torch.nn.Parameter(torch.from_numpy(v.copy()).to(dev))
+        for k, v in sparse_model_params().items()})
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=1.0),
+                                   named_parameters=model.named_parameters(),
+                                   sparse_params=sparse)
+    tok = torch.from_numpy(sparse_tokens(hvd.size())[hvd.rank()]).to(dev)
+    loss = torch.sum((model["emb"][tok] @ model["w"]) ** 2)
+    if path == "hook":
+        loss.backward()
+    else:
+        params = list(model.values())
+        for p, g in zip(params, torch.autograd.grad(loss, params)):
+            p.grad = g
+    opt.step()
+    return _mlp_numpy(model)
+
+
+def _sparse_step_run(hvd, sparse) -> dict:
+    """One SGD(0.1) step of DistributedTrainStep(sparse_params=sparse)
+    on the global tokens (``mean((emb[t] @ w)**2)``)."""
+    import torch
+
+    dev = hvd.device()
+    model = torch.nn.ParameterDict({
+        k: torch.nn.Parameter(torch.from_numpy(v.copy()).to(dev))
+        for k, v in sparse_model_params().items()})
+
+    def loss_fn(m, batch):
+        return torch.mean((m["emb"][batch] @ m["w"]) ** 2)
+
+    step = hvd.DistributedTrainStep(
+        loss_fn, torch.optim.SGD(model.parameters(), lr=0.1),
+        sparse_params=sparse)
+    model, opt = step.init(model)
+    batch = step.shard_batch(torch.from_numpy(sparse_tokens(hvd.size())))
+    loss = float(step(model, opt, batch)[2])
+    return {"params": _mlp_numpy(model), "loss": loss}
+
+
+def run_sparse(hvd) -> dict:
+    """Every row-sparse check of one world: ``sparse_allreduce`` for Sum
+    and Average, ``_sparse_leaf_reduce`` with a bound that drops rows and
+    one that leaves fill slots, ``distributed_gradients`` with a mapping,
+    the optimizer on both paths and the step, each with and without
+    ``sparse_params``."""
+    import torch
+
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.optim import optimizer as O
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    dev = hvd.device()
+    inp = sparse_inputs(hvd.rank())
+    vals = torch.from_numpy(inp["values"]).to(dev)
+    idx = torch.from_numpy(inp["indices"]).to(dev)
+    g = torch.from_numpy(inp["grad"]).to(dev)
+    out = {}
+    for op in ("Sum", "Average"):
+        out[("allreduce", op)] = C.sparse_allreduce(
+            vals, idx, SPARSE_ROWS, op=getattr(C, op)).cpu().numpy()
+        for bound in (2, 8):
+            out[("leaf", op, bound)] = O._sparse_leaf_reduce(
+                g, bound, getattr(C, op)).cpu().numpy()
+    named = {"table.emb": g.clone(), "head": vals.clone()}
+    O.distributed_gradients(named, sparse_params={"emb": 8})
+    out["distributed_gradients"] = {k: v.cpu().numpy()
+                                    for k, v in named.items()}
+    for sparse in (None, {"emb": 4}, {"emb": 16}):
+        key = None if sparse is None else sparse["emb"]
+        for path in ("hook", "step_time"):
+            out[("opt", key, path)] = _sparse_opt_run(hvd, sparse, path)
+    for sparse in (None, {"emb": 8}):
+        out[("step", None if sparse is None else 8)] = _sparse_step_run(
+            hvd, sparse)
+    return out
 
 
 def launched_main(argv) -> int:
