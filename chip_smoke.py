@@ -170,7 +170,21 @@ Phases, in order; any failure exits non-zero:
    against the dense exchange, bit for bit, both timed, and whether the
    sparse path synced with the host (``torch.cuda.set_sync_debug_mode``);
    every number printed with the card's name and power limit;
-14. print the card's name and power limit, the kernels' JSON line, and last
+14. the two-level sharded exchange: phase 8's two cases (the same
+   weights, batch, AdamW, predivide 2.0, 5 steps) through
+   ``DistributedOptimizer(..., shard_optimizer_states=True,
+   hierarchy="two_level")`` and ``DistributedTrainStep``, whose
+   ``exchange_hierarchy`` must read ``"two_level"``: at a world of one
+   both levels are one rank, so (a) the fp32 wire must equal phase 8
+   (a)'s losses bit for bit, and (b) ``Compression.int8`` with error
+   feedback, 64 MiB buckets and ``reduction="adasum"`` quantizes the local
+   hop and the cross hop (as JAX's two-level exchange does at any extent)
+   and must end within ``ZERO_INT8_TOL`` of (a)'s drop (its distance
+   from phase 8 (b) logged); ``fused_scale`` twice a group a step and each
+   flash kernel 16 times a step; step time beside phase 8's in the same
+   call, tokens/s, peak memory and the profiled step's split under the
+   exchange's ranges, with the card's name and power limit;
+15. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -244,8 +258,8 @@ MOE = dict(batch=16, seq=1024, heads=8, layers=12, d_model=1024, d_ff=4096,
 # phase 10 (b): expert_chunk_mlp at one MoE layer's shapes on one card:
 # every expert local, capacity ceil(1.25 * 16384 / 8)
 CHUNK = dict(e_local=8, capacity=2560, d=1024, f=4096)
-# the card's name and power limit (nvidia-smi), printed beside phase 10's,
-# 11's and 12's numbers
+# the card's name and power limit (nvidia-smi), printed beside the numbers
+# of phases 8 and 10-14
 CARD = ""
 # ragged shapes: M edges of 8, 24 and 136 rows in the forward and dX, and a
 # 24-row M edge in dW (its n); a layout whose call falls outside the
@@ -1814,25 +1828,23 @@ def phase_sp_train(torch, first):
                         grad_rel=grad_rel, bit_exact=bit_exact)
 
 
-def phase_zero_train(torch, ref_losses):
+def zero_cases(torch, hvd, tag: str, cases: dict) -> dict:
     """The 870.9M TransformerLM through the sharded exchange at a world of
-    one, with phase 4's weights, batch and recipe; ``ref_losses`` are
-    phase 4's.  Returns each case's summary."""
-    import horovod_tpu_torch as hvd
+    one, with phase 4's weights, batch and recipe, once for each of
+    ``cases`` ({name: DistributedOptimizer options}): 5 steps, then a
+    profiled one.  Checks the loss falls, the flash launches and
+    ``fused_scale`` twice a group a step; returns each case's summary."""
     from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
     from horovod_tpu_torch.ops import kernels as K
 
-    hvd.init()
     dev = hvd.device()
     cfg = full_config(torch, "flash")
     tokens = torch.randint(0, cfg.vocab_size,
                            (FULL["batch"], FULL["seq"] + 1),
                            generator=torch.Generator().manual_seed(SEED))
-    cases = {"a": {},
-             "b": dict(compression=hvd.Compression.int8, error_feedback=True,
-                       exchange_bucket_bytes=64 << 20)}
     steps, out = 5, {}
     for name, kw in cases.items():
+        label = f"{tag} ({name})"
         model = TransformerLM(cfg, device=dev, generator=torch.Generator(
             device=dev).manual_seed(SEED))
         opt = hvd.DistributedOptimizer(
@@ -1841,9 +1853,9 @@ def phase_zero_train(torch, ref_losses):
             gradient_predivide_factor=2.0, shard_optimizer_states=True, **kw)
         step = hvd.DistributedTrainStep(lambda m, b: lm_loss(m, b), opt)
         groups = len(opt.spec.groups)
-        log(f"zero ({name}): {groups} group(s), "
+        log(f"{label}: {groups} group(s), "
             f"{sum(g.padded for g in opt.spec.groups) / 1e6:.1f}M values, "
-            f"options {sorted(kw)}")
+            f"options {sorted(kw)}, exchange {step.exchange_hierarchy}")
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         model, opt = step.init(model)
@@ -1856,26 +1868,25 @@ def phase_zero_train(torch, ref_losses):
             times.append(time.perf_counter() - t0)
         counts = K.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        log(f"zero ({name}): losses {losses}")
-        log(f"zero ({name}): launches {counts}")
+        log(f"{label}: losses {losses}")
+        log(f"{label}: launches {counts}")
         if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"zero ({name}): non-finite loss")
+            raise AssertionError(f"{label}: non-finite loss")
         if not losses[-1] < losses[0]:
-            raise AssertionError(f"zero ({name}): loss did not fall: "
-                                 f"{losses}")
-        check_flash_launches(counts, steps, f"zero ({name})")
+            raise AssertionError(f"{label}: loss did not fall: {losses}")
+        check_flash_launches(counts, steps, label)
         # a prescale of each group's buffer and a postscale of its shard
         if counts["fused_scale"] != 2 * groups * steps:
             raise AssertionError(
-                f"zero ({name}): {counts['fused_scale']} fused_scale "
-                f"launches, want {2 * groups * steps}")
+                f"{label}: {counts['fused_scale']} fused_scale launches, "
+                f"want {2 * groups * steps}")
         steady = sorted(times[1:])[len(times[1:]) // 2]
         tokens_per_step = FULL["batch"] * FULL["seq"]
-        log(f"zero ({name}): step {steady * 1e3:.1f} ms (median of steps "
-            f"2-5; first {times[0] * 1e3:.1f} ms), "
+        log(f"{label}: step {steady * 1e3:.1f} ms (median of steps 2-5; "
+            f"first {times[0] * 1e3:.1f} ms), "
             f"{tokens_per_step / steady:.0f} tokens/s, peak memory "
             f"{peak / 2**30:.2f} GiB, fused_scale "
-            f"{counts['fused_scale'] // steps} a step")
+            f"{counts['fused_scale'] // steps} a step [{CARD}]")
         split = profile_step(torch, lambda: float(step(model, opt, batch)[2]),
                              "scale_", ZERO_RANGES)
         out[name] = dict(step_ms=steady * 1e3,
@@ -1883,10 +1894,24 @@ def phase_zero_train(torch, ref_losses):
                          peak_gib=peak / 2**30, losses=losses,
                          first_step_ms=times[0] * 1e3, groups=groups,
                          fused_scale_per_step=counts["fused_scale"] // steps,
-                         split_ms=split)
+                         exchange=step.exchange_hierarchy, split_ms=split)
         del model, opt, step, batch
         torch.cuda.empty_cache()
+    return out
 
+
+def phase_zero_train(torch, ref_losses):
+    """Phase 8: the 870.9M TransformerLM through the sharded exchange at a
+    world of one, (a) the fp32 wire and (b) int8 + error feedback in 64
+    MiB buckets; ``ref_losses`` are phase 4's.  Returns each case's
+    summary."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    out = zero_cases(torch, hvd, "zero", {
+        "a": {}, "b": dict(compression=hvd.Compression.int8,
+                           error_feedback=True,
+                           exchange_bucket_bytes=64 << 20)})
     a, b = out["a"]["losses"], out["b"]["losses"]
     # (a): the same elementwise AdamW on one flat shard, on the same
     # gradients (the scale passes and a reduce-scatter of one rank are
@@ -1904,6 +1929,54 @@ def phase_zero_train(torch, ref_losses):
         raise AssertionError("the int8 wire strays from the fp32 one")
     out["b"]["drop_share"] = dev_b / drop
     hvd.shutdown()
+    return out
+
+
+def phase_hier_train(torch, zero: dict) -> dict:
+    """Phase 14: phase 8's two cases through the two-level exchange
+    (``hierarchy="two_level"``), (b) with ``reduction="adasum"``; ``zero``
+    is phase 8's summary.  At a world of one each level is one rank: (a)
+    must equal phase 8 (a)'s losses bit for bit, (b) quantizes the local
+    hop (its residual fed back) and again the cross hop, as JAX's
+    two-level exchange does at any extent, and must end within
+    ``ZERO_INT8_TOL`` of (a)'s drop; its distance from phase 8 (b) is
+    logged.  Step times beside phase 8's, in this call."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    out = zero_cases(torch, hvd, "hier", {
+        "a": dict(hierarchy="two_level"),
+        "b": dict(hierarchy="two_level", compression=hvd.Compression.int8,
+                  error_feedback=True, exchange_bucket_bytes=64 << 20,
+                  reduction="adasum")})
+    hvd.shutdown()
+    for name in ("a", "b"):
+        if out[name]["exchange"] != "two_level":
+            raise AssertionError(f"hier ({name}): the step runs "
+                                 f"{out[name]['exchange']}")
+        log(f"hier ({name}) vs zero ({name}) [{CARD}]: step "
+            f"{out[name]['step_ms']:.1f} ms against "
+            f"{zero[name]['step_ms']:.1f} ms "
+            f"({out[name]['step_ms'] / zero[name]['step_ms'] - 1:+.1%}), "
+            f"peak {out[name]['peak_gib']:.2f} against "
+            f"{zero[name]['peak_gib']:.2f} GiB")
+    a, b = out["a"]["losses"], out["b"]["losses"]
+    log(f"parity hier (a) vs zero (a): {a} vs {zero['a']['losses']}, "
+        f"bit-exact: {a == zero['a']['losses']}")
+    if a != zero["a"]["losses"]:
+        raise AssertionError("the two-level fp32 exchange and phase 8 (a) "
+                             "disagree")
+    drop = a[0] - a[-1]
+    dev_b = abs(b[-1] - a[-1])
+    log(f"parity hier (b) vs (a): last loss {b[-1]!r} vs {a[-1]!r}, "
+        f"{dev_b:.3e} = {dev_b / drop:.3e} of (a)'s drop {drop:.4f} (tol "
+        f"{ZERO_INT8_TOL}); vs zero (b): "
+        f"{max(abs(x - y) for x, y in zip(b, zero['b']['losses'])):.3e} "
+        f"at most, bit-exact: {b == zero['b']['losses']}")
+    if not dev_b <= ZERO_INT8_TOL * drop:
+        raise AssertionError("the two-level int8 wire strays from the fp32 "
+                             "one")
+    out["b"]["drop_share"] = dev_b / drop
     return out
 
 
@@ -2251,7 +2324,7 @@ def moe_checkpoint(torch, hvd, tag: str) -> dict:
         groups = len(opt.spec.groups)
         if K.launch_counts()["fused_scale"] != 2 * groups:
             raise AssertionError("moe (c): fused_scale not in every group")
-        states.save_sharded(1, opt.sharded_state_dict(), hvd.rank(),
+        states.save_sharded(1, opt.sharded_state_dict(), opt.shard_index,
                             hvd.size(), plan="dp=1")
         params.save(1, {"model": model.state_dict()})
         stall = (states.last_stall_s, params.last_stall_s)
@@ -2270,7 +2343,7 @@ def moe_checkpoint(torch, hvd, tag: str) -> dict:
         t0 = time.perf_counter()
         model.load_state_dict(params.restore(step=1)["model"])
         opt.load_sharded_state_dict(states.restore_sharded(
-            opt.sharded_state_template(), hvd.rank(), hvd.size(),
+            opt.sharded_state_template(), opt.shard_index, hvd.size(),
             plan="dp=1"))
         restore_s = time.perf_counter() - t0
         got = float(step(model, opt, batch)[2])
@@ -3227,6 +3300,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     adasum = phase_adasum(torch, train, step1_params)
     del step1_params
+    torch.cuda.empty_cache()
+    hier = phase_hier_train(torch, zero)
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
     # the moe summary's "chunk"
@@ -3268,6 +3343,7 @@ def main() -> int:
     log(f"sync_bn summary [{CARD}]: {json.dumps(sync_bn)}")
     log(f"launch summary [{CARD}]: {json.dumps(launch)}")
     log(f"adasum summary [{CARD}]: {json.dumps(adasum)}")
+    log(f"hier summary [{CARD}]: {json.dumps(hier)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,7 @@ not change the result.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -66,14 +66,17 @@ def adasum_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (acoeff * af + bcoeff * bf).to(a.dtype).view(a.shape)
 
 
-def adasum_tree(rows: List[torch.Tensor]) -> torch.Tensor:
+def adasum_tree(rows: List[torch.Tensor],
+                combine: Callable = adasum_pair) -> torch.Tensor:
     """The pairwise Adasum reduction tree over per-rank rows (JAX
     ``eager._adasum_tree`` and the non-power-of-two branch of
-    ``_adasum_axis``): neighbours combine, an odd last row passes up
-    unchanged, until one row is left."""
+    ``_adasum_axis``): neighbours combine, the lower row first, an odd
+    last row passes up unchanged, until one row is left.  ``combine`` is
+    the pair rule (the sharded exchange's takes whole-bucket
+    coefficients)."""
     vals = list(rows)
     while len(vals) > 1:
-        nxt = [adasum_pair(vals[i], vals[i + 1])
+        nxt = [combine(vals[i], vals[i + 1])
                for i in range(0, len(vals) - 1, 2)]
         if len(vals) % 2:
             nxt.append(vals[-1])
@@ -110,6 +113,18 @@ def _average_local(flat: torch.Tensor,
         flat.copy_((flat.double() / n).to(flat.dtype))
 
 
+def swap(send: torch.Tensor, recv: torch.Tensor, partner: int,
+         group: dist.ProcessGroup) -> None:
+    """Send ``send`` to the rank of index ``partner`` in ``group`` and
+    receive its tensor of the same shape into ``recv``: one
+    ``dist.batch_isend_irecv`` pair, both partners calling."""
+    peer = dist.get_global_rank(group, partner)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, peer, group),
+                                   dist.P2POp(dist.irecv, recv, peer, group)])
+    for req in reqs:
+        req.wait()
+
+
 def _adasum_cross(flat: torch.Tensor, bounds: Sequence[int],
                   group: Optional[dist.ProcessGroup]) -> torch.Tensor:
     """Adasum of ``flat`` (segments at ``bounds``) across the cross group
@@ -123,12 +138,7 @@ def _adasum_cross(flat: torch.Tensor, bounds: Sequence[int],
         recv = torch.empty_like(flat)
         for r in range(n.bit_length() - 1):
             partner = me ^ (1 << r)
-            peer = dist.get_global_rank(group, partner)
-            reqs = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, flat, peer, group),
-                dist.P2POp(dist.irecv, recv, peer, group)])
-            for req in reqs:
-                req.wait()
+            swap(flat, recv, partner, group)
             # the lower cross index's operand first on both partners, so
             # both compute the same expression
             lo, hi = (flat, recv) if me < partner else (recv, flat)

@@ -36,7 +36,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from horovod_tpu_torch.ops.adasum import adasum_flat
+from horovod_tpu_torch.ops.adasum import adasum_flat, adasum_tree, swap
 from horovod_tpu_torch.ops.bucketing import plan_buckets
 from horovod_tpu_torch.ops.kernels import fused_scale
 from horovod_tpu_torch.runtime import state
@@ -182,24 +182,49 @@ def _world() -> int:
     return state.global_state().size
 
 
-def _reduce_scatter_tensor(out: torch.Tensor, inp: torch.Tensor) -> None:
-    """Sum-reduce-scatter the flat ``inp`` into ``out`` (its 1/world
-    slice), under the ``hvd.reduce_scatter`` range.  torch 2.13
-    deprecates ``reduce_scatter_tensor`` for ``reduce_scatter_single``,
-    which older versions lack: the new name where it exists."""
+#: The ``group`` of a level of one rank (an :class:`ExchangeLevel` of
+#: extent 1): its collectives are the identity and launch nothing.  A
+#: ``group`` of None is the world.
+_ALONE = object()
+
+
+def _extent(group) -> int:
+    """The number of ranks in ``group`` (None: the world)."""
+    if group is None:
+        return _world()
+    return 1 if group is _ALONE else dist.get_world_size(group)
+
+
+def _index(group) -> int:
+    """This rank's index in ``group`` (None: its global rank)."""
+    if group is None:
+        return state.global_state().rank
+    return 0 if group is _ALONE else dist.get_rank(group)
+
+
+def _reduce_scatter_tensor(out: torch.Tensor, inp: torch.Tensor,
+                           group: Optional[dist.ProcessGroup] = None
+                           ) -> None:
+    """Sum-reduce-scatter the flat ``inp`` over ``group`` (None: the
+    world) into ``out``, its slice of this rank's index, under the
+    ``hvd.reduce_scatter`` range.  torch 2.13 deprecates
+    ``reduce_scatter_tensor`` for ``reduce_scatter_single``, which older
+    versions lack: the new name where it exists."""
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
     with record_function("hvd.reduce_scatter"):
-        fn(out, inp, op=dist.ReduceOp.SUM)
+        fn(out, inp, op=dist.ReduceOp.SUM, group=group)
 
 
-def _all_gather_tensor(out: torch.Tensor, inp: torch.Tensor) -> None:
-    """Gather every rank's ``inp`` into ``out`` (world × ``inp``), under
-    the ``hvd.allgather`` range (``all_gather_single`` from torch 2.13)."""
+def _all_gather_tensor(out: torch.Tensor, inp: torch.Tensor,
+                       group: Optional[dist.ProcessGroup] = None) -> None:
+    """Gather the ``inp`` of every rank of ``group`` (None: the world)
+    into ``out`` (extent × ``inp``, in index order), under the
+    ``hvd.allgather`` range (``all_gather_single`` from torch 2.13)."""
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
     with record_function("hvd.allgather"):
-        fn(out, inp)
+        fn(out, inp, group=group)
 
 
 def allgather(x: torch.Tensor, tiled: bool = True) -> torch.Tensor:
@@ -466,10 +491,12 @@ def _bounds(n: int, segments: Sequence[int]) -> List[int]:
 
 
 def _shared_wire_scale(x32: torch.Tensor, bounds: Sequence[int],
-                       qmax: float) -> torch.Tensor:
+                       qmax: float, group=None) -> torch.Tensor:
     """The shared quantization scale of each segment of the flat fp32
-    ``x32``: ``max(max over ranks of the segment's absmax / qmax,
-    1e-30)``, agreed by one MAX allreduce (JAX ``_shared_wire_scale``).
+    ``x32``: ``max(max over the ranks of group of the segment's absmax /
+    qmax, 1e-30)``, agreed by one MAX allreduce over ``group`` (None: the
+    world; none for a level of one rank), as JAX's ``pmax`` over the
+    level's axis (JAX ``_shared_wire_scale``).
     The division is the multiply by fp32 ``1/qmax`` that XLA compiles
     JAX's ``/ qmax`` to, so the scales agree bit for bit.  Returns one
     scale per segment; the passes apply each through views of its segment
@@ -477,7 +504,8 @@ def _shared_wire_scale(x32: torch.Tensor, bounds: Sequence[int],
     amax = torch.stack([
         x32[a:b].abs().amax() if b > a else x32.new_zeros(())
         for a, b in zip(bounds[:-1], bounds[1:])])
-    dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+    if group is not _ALONE:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     return torch.clamp_min(amax * (1.0 / qmax), 1e-30)
 
 
@@ -601,10 +629,13 @@ def ef_quantized_reducescatter(x: torch.Tensor, op: ReduceOp = Average,
 
 
 def _quantized_rs(x, op, residual, bits, segments, wire_dtype, name,
-                  feedback: bool = False):
+                  feedback: bool = False, group=None):
+    """The codec's reduce-scatter over ``group`` (None: the world): the
+    scale agreed, the codes summed and the slice of this rank's index
+    decoded within that group only."""
     _check_codec(bits, op, name)
     wire = _resolve_wire_dtype(wire_dtype)
-    world = _world()
+    world = _extent(group)
     _check_scatter(x, world, name)
     with record_function("hvd.wire_codec"):
         if feedback:
@@ -614,16 +645,18 @@ def _quantized_rs(x, op, residual, bits, segments, wire_dtype, name,
         else:
             e = x.float()
         bounds = _bounds(e.numel(), segments)
-        scales = _shared_wire_scale(e, bounds, _WIRE_QMAX[wire])
+        scales = _shared_wire_scale(e, bounds, _WIRE_QMAX[wire], group)
         q = _encode(e, bounds, scales, wire)
     shard = x.shape[0] // world
-    total = q.new_empty(shard)
-    _reduce_scatter_tensor(total, q)
+    if group is _ALONE:
+        total = q
+    else:
+        total = q.new_empty(shard)
+        _reduce_scatter_tensor(total, q, group)
     with record_function("hvd.wire_codec"):
         if feedback:
             _subtract_sent(e, q, bounds, scales)
-        y = _decode(total, state.global_state().rank * shard, bounds,
-                    scales)
+        y = _decode(total, _index(group) * shard, bounds, scales)
         if op == ReduceOp.AVERAGE:
             y.mul_(1.0 / world)
     return y.to(x.dtype), (e if feedback else None)
@@ -701,14 +734,17 @@ def _group_flat(group: ShardGroup, leaves: Sequence[torch.Tensor],
 
 
 def local_fusion_shards(leaves: Sequence[torch.Tensor], spec: FusionSpec,
-                        out: Optional[Dict[str, torch.Tensor]] = None
+                        out: Optional[Dict[str, torch.Tensor]] = None,
+                        index: Optional[int] = None
                         ) -> Dict[str, torch.Tensor]:
     """This rank's slice of every group buffer, no collective (JAX
     ``local_fusion_shards``): the sharded optimizer's view of the
-    parameters that sit beside the gradient shard it owns.  Copied from
-    the leaves slice by slice, without building the group buffer;
-    written into ``out[key]`` when given."""
-    me = state.global_state().rank
+    parameters that sit beside the gradient shard it owns.  ``index`` is
+    the block this rank owns: its rank under the flat exchange (the
+    default), :func:`tree_shard_index` under the tree's.  Copied from the
+    leaves slice by slice, without building the group buffer; written
+    into ``out[key]`` when given."""
+    me = state.global_state().rank if index is None else int(index)
     result: Dict[str, torch.Tensor] = {}
     for g in spec.groups:
         first = leaves[g.indices[0]]
@@ -801,8 +837,370 @@ def grouped_allgather(shards: Dict[str, torch.Tensor],
         s = shards[g.key].contiguous()
         flat = s.new_empty(g.padded)
         _all_gather_tensor(flat, s)
-        offset = 0
-        for i, n, shape in zip(g.indices, g.sizes, g.shapes):
-            out[i] = flat[offset:offset + n].view(shape)
-            offset += n
+        _unpack(flat, g, out)
     return out
+
+
+def _unpack(flat: torch.Tensor, g: ShardGroup,
+            out: List[Optional[torch.Tensor]]) -> None:
+    """``g``'s leaves as views of its gathered buffer ``flat``, into
+    ``out`` at their leaf indices (the padding dropped)."""
+    offset = 0
+    for i, n, shape in zip(g.indices, g.sizes, g.shapes):
+        out[i] = flat[offset:offset + n].view(shape)
+        offset += n
+
+
+# ---------------------------------------------------------------------------
+# the hierarchical and tree exchange
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeLevel:
+    """One level of the tree exchange (JAX ``ExchangeLevel``): the process
+    group its collectives run over (None at extent 1, where they are the
+    identity), its extent, and the wire codec's width on its hop (None =
+    full precision).  Levels go INNERMOST first: ``local`` (the NVLink
+    node) before ``cross`` (the fabric between nodes).  :meth:`over`
+    reads the extent from the group."""
+
+    group: Optional[dist.ProcessGroup]
+    extent: int
+    quantized_bits: Optional[int] = None
+
+    def __post_init__(self):
+        if (self.group is None) != (self.extent == 1):
+            raise ValueError(f"an exchange level of extent {self.extent} "
+                             f"needs {'no' if self.extent == 1 else 'a'} "
+                             f"process group")
+
+    @staticmethod
+    def over(group: Optional[dist.ProcessGroup],
+             quantized_bits: Optional[int] = None) -> "ExchangeLevel":
+        """The level over ``group`` (None: a level of one rank)."""
+        return ExchangeLevel(group, 1 if group is None
+                             else dist.get_world_size(group), quantized_bits)
+
+    @property
+    def index(self) -> int:
+        """This rank's index in the level's group."""
+        return 0 if self.group is None else dist.get_rank(self.group)
+
+    @property
+    def scope(self):
+        """What the codec takes as its group: the level's, or
+        :data:`_ALONE` at extent 1."""
+        return _ALONE if self.group is None else self.group
+
+
+def exchange_levels_from_topology(tree) -> Tuple[ExchangeLevel, ...]:
+    """The :class:`ExchangeLevel` of each level of a resolved
+    ``runtime/topology.TopologyTree``, over the world's layout groups
+    (``GlobalState.layout_group``), each at its ``wire_bits``: a ``local``
+    or ``cross`` level over that group, the flat tree's one level over the
+    world.  Every rank must call it together: the first call makes the
+    layout's groups."""
+    st = state.global_state()
+    out = []
+    for lv in tree.levels:
+        if lv.axes is not None or lv.extent == st.size:
+            group = dist.group.WORLD if lv.extent > 1 else None
+        elif lv.name in state.LAYOUT_LEVELS:
+            group = st.layout_group(lv.name)
+        else:
+            raise ValueError(f"level {lv.name!r} is not a layout level of "
+                             f"this world {state.LAYOUT_LEVELS}")
+        level = ExchangeLevel.over(group, lv.wire_bits)
+        if level.extent != lv.extent:
+            raise ValueError(f"level {lv.name!r} has extent {lv.extent}, "
+                             f"its group {level.extent}")
+        out.append(level)
+    return tuple(out)
+
+
+def tree_shard_index(levels: Sequence[ExchangeLevel]) -> int:
+    """The flat block this rank owns after :func:`tree_reducescatter`
+    (JAX ``tree_index_axes``): row-major over the levels innermost FIRST,
+    ``k = i0·(n1·n2·…) + i1·(n2·…) + …``, so the rank at ``(cross c, local
+    l)`` owns block ``l·C + c``, not its global rank ``c·L + l``."""
+    k = 0
+    for lv in levels:
+        k = k * lv.extent + lv.index
+    return k
+
+
+def _adasum_combine(a: torch.Tensor, b: torch.Tensor,
+                    scalar_groups: Sequence[dist.ProcessGroup]
+                    ) -> torch.Tensor:
+    """:func:`~horovod_tpu_torch.ops.adasum.adasum_pair` with the fp32
+    ``⟨a,b⟩``, ``‖a‖²`` and ``‖b‖²`` of this rank's segment summed over
+    ``scalar_groups``, the inner levels the bucket is scattered across
+    (JAX ``_adasum_combine``), so that every rank applies the
+    coefficients of the whole bucket.  Each sum gathers the three partials
+    of every rank of the group and adds them in index order: two XOR
+    partners, whose inner groups are different communicators, then hold
+    the same bits, where two all-reduces could add in different orders.
+    Callers pass the lower cross index's operand as ``a`` on both
+    partners."""
+    af, bf = a.float(), b.float()
+    partial = torch.stack([torch.dot(af, bf), torch.dot(af, af),
+                           torch.dot(bf, bf)])
+    for group in scalar_groups:
+        rows = partial.new_empty(3 * dist.get_world_size(group))
+        _all_gather_tensor(rows, partial, group)
+        partial = rows.view(-1, 3).sum(0)
+    dot, anormsq, bnormsq = partial
+    one = torch.ones((), dtype=torch.float32, device=a.device)
+    acoeff = torch.where(anormsq >= 1e-30,
+                         1.0 - dot / (2.0 * anormsq + 1e-30), one)
+    bcoeff = torch.where(bnormsq >= 1e-30,
+                         1.0 - dot / (2.0 * bnormsq + 1e-30), one)
+    return (acoeff * af + bcoeff * bf).to(a.dtype)
+
+
+def _quantized_pair_exchange(x: torch.Tensor, level: ExchangeLevel,
+                             partner: int, wire: str):
+    """One codec round of the Adasum schedule (JAX
+    ``_quantized_pair_exchange``): the scale agreed over the whole level
+    by one MAX, ``x`` encoded (int8 codes, or e4m3), the codes swapped
+    with ``partner`` (1 byte an element), and both sides decoded, so both
+    partners combine the same dequantized values.  Returns (own,
+    partner's) in ``x``'s dtype."""
+    x32 = x.float()
+    bounds = [0, x32.numel()]
+    with record_function("hvd.wire_codec"):
+        scale = _shared_wire_scale(x32, bounds, _WIRE_QMAX[wire],
+                                   level.group)
+        codes = _encode(x32, bounds, scale, wire).to(
+            torch.float8_e4m3fn if wire == "fp8_e4m3" else torch.int8)
+    recv = torch.empty_like(codes)
+    swap(codes.view(torch.uint8), recv.view(torch.uint8), partner,
+         level.group)
+    with record_function("hvd.wire_codec"):
+        return ((codes.float() * scale).to(x.dtype),
+                (recv.float() * scale).to(x.dtype))
+
+
+def _adasum_reducescatter(block: torch.Tensor, level: ExchangeLevel,
+                          scalar_groups: Sequence[dist.ProcessGroup],
+                          wire_dtype: Optional[str] = None) -> torch.Tensor:
+    """Adasum reduce-scatter of ``block`` over the outer ``level`` (JAX
+    ``_adasum_psum_scatter``): the whole surviving block combined across
+    the level, then this rank's 1/extent slice.  At a power-of-two extent,
+    log2 rounds with the XOR partner (``dist.batch_isend_irecv``), each
+    through the codec when the level has bits, the lower index's operand
+    first on both partners so both hold the same bits; otherwise one
+    all-gather and the same binary tree on every rank, without the codec,
+    as JAX gathers its fallback unquantized.  Coefficients are the whole
+    bucket's (:func:`_adasum_combine`), not each tensor's as
+    :func:`~horovod_tpu_torch.ops.adasum.adasum_flat` takes them."""
+    n, me = level.extent, level.index
+    x = block
+    if n & (n - 1) == 0:
+        wire = _resolve_wire_dtype(wire_dtype)
+        for r in range(n.bit_length() - 1):
+            partner = me ^ (1 << r)
+            if level.quantized_bits is not None:
+                own, other = _quantized_pair_exchange(x, level, partner, wire)
+            else:
+                own, other = x, torch.empty_like(x)
+                with record_function("hvd.reduce_scatter"):
+                    swap(x, other, partner, level.group)
+            lo, hi = (own, other) if me < partner else (other, own)
+            x = _adasum_combine(lo, hi, scalar_groups)
+    else:
+        rows = x.new_empty(n * x.numel())
+        _all_gather_tensor(rows, x, level.group)
+        x = adasum_tree(list(rows.view(n, -1)), lambda a, b: _adasum_combine(
+            a, b, scalar_groups))
+    shard = x.numel() // n
+    return x[me * shard:(me + 1) * shard].clone()
+
+
+def tree_reducescatter(xs: Sequence[torch.Tensor],
+                       levels: Sequence[ExchangeLevel],
+                       op: ReduceOp = Sum,
+                       prescale_factor: Optional[float] = None,
+                       postscale_factor: Optional[float] = None,
+                       bucket_bytes: Optional[int] = None,
+                       spec: Optional[FusionSpec] = None,
+                       residuals: Optional[Dict[str, torch.Tensor]] = None,
+                       reduction: str = "sum"):
+    """The N-level reduce-scatter (JAX ``tree_reducescatter``): each
+    (bucket, dtype) group buffer is prescaled in one pass, then phase ℓ
+    reduce-scatters the block that phases 0..ℓ-1 left over level ℓ's
+    group, so level ℓ's fabric carries only ``(nℓ−1)/nℓ`` of
+    ``B/∏inner``, and the surviving shard is postscaled in one pass (the
+    Average's ``1/world`` folded in).  A level of extent 1 launches
+    nothing.  Ownership is :func:`tree_shard_index`'s; reassemble with
+    :func:`tree_allgather`.
+
+    A level with ``quantized_bits`` runs its hop through the shared-scale
+    codec, its scale agreed over that level's group.  The innermost hop's
+    buffer is still whole, so its codec takes one scale a leaf and honours
+    ``residuals`` (error feedback; the return is then ``(shards, spec,
+    new_residuals)``); an outer hop's takes one scale a block, since the
+    inner scatter leaves rank-dependent segment boundaries.  A codec level
+    of extent 1 still quantizes, as JAX's does.
+
+    ``reduction="adasum"`` combines on the OUTERMOST level with Adasum
+    (:func:`_adasum_reducescatter`) where the tree has an outer hop of
+    extent > 1; a one-level tree or an outer extent of 1 is the plain sum,
+    bit for bit.  With ``op=Average`` the inner levels deliver the mean of
+    the inner replicas and no ``1/world`` is applied after: the
+    ``1/inner`` JAX multiplies in before the outer hop is folded into the
+    prescale pass's factor here, so each group still takes two
+    ``fused_scale`` passes.  That is the same bits as JAX's two multiplies
+    when the inner extent is a power of two, and within one rounding
+    otherwise; under error feedback the residuals then carry ``1/inner``
+    of JAX's."""
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("tree_reducescatter supports op=Sum/Average")
+    if reduction not in REDUCTIONS:
+        raise ValueError(f"tree_reducescatter reduction must be one of "
+                         f"{REDUCTIONS}, got {reduction!r}")
+    levels = tuple(levels)
+    if not levels:
+        raise ValueError("tree_reducescatter needs >= 1 level")
+    if residuals is not None and levels[0].quantized_bits is None:
+        raise ValueError("residuals carry the innermost hop's codec error "
+                         "feedback; give levels[0] quantized_bits to enable "
+                         "it")
+    world = 1
+    for lv in levels:
+        world *= lv.extent
+    if spec is None:
+        spec = make_fusion_spec(xs, world, bucket_bytes)
+    elif spec.world != world:
+        raise ValueError(f"spec was planned for world {spec.world}, the "
+                         f"{len(levels)}-level tree has {world}")
+    outer = levels[-1]
+    adasum_outer = reduction == "adasum" and len(levels) >= 2 and \
+        outer.extent > 1
+    scalar_groups = [lv.group for lv in levels[:-1] if lv.group is not None]
+    shards: Dict[str, torch.Tensor] = {}
+    new_residuals = dict(residuals) if residuals is not None else {}
+    for g in spec.groups:
+        floating = xs[g.indices[0]].is_floating_point()
+        if op == ReduceOp.AVERAGE and not floating:
+            raise ValueError(f"op=Average requires floating dtypes, got "
+                             f"{g.dtype}")
+        adasum = adasum_outer and floating
+        pre, post = prescale_factor, \
+            1.0 if postscale_factor is None else float(postscale_factor)
+        if adasum and op == ReduceOp.AVERAGE:
+            pre = (1.0 if pre is None else float(pre)) * \
+                (outer.extent / world)
+        elif op == ReduceOp.AVERAGE:
+            post /= world
+        block = _group_flat(g, xs, pre)
+        for li, lv in enumerate(levels):
+            bits = lv.quantized_bits if floating else None
+            if li == 0 and bits is not None:
+                segs = list(g.sizes)
+                segs[-1] += g.padded - sum(g.sizes)
+                res = residuals.get(g.key) if residuals is not None \
+                    else None
+                block, r = _quantized_rs(
+                    block, ReduceOp.SUM, res, bits, tuple(segs), None,
+                    "tree_reducescatter", feedback=res is not None,
+                    group=lv.scope)
+                if res is not None:
+                    new_residuals[g.key] = r
+            elif adasum and li == len(levels) - 1:
+                block = _adasum_reducescatter(block, lv, scalar_groups)
+            elif bits is not None:
+                block = _quantized_rs(block, ReduceOp.SUM, None, bits, (),
+                                      None, "tree_reducescatter",
+                                      group=lv.scope)[0]
+            elif lv.extent > 1:
+                red = block.new_empty(block.numel() // lv.extent)
+                _reduce_scatter_tensor(red, block, lv.group)
+                block = red
+        shards[g.key] = _scale(block, post)
+    if residuals is not None:
+        return shards, spec, new_residuals
+    return shards, spec
+
+
+def tree_allgather(shards: Dict[str, torch.Tensor], spec: FusionSpec,
+                   levels: Sequence[ExchangeLevel]) -> List[torch.Tensor]:
+    """Reassemble :func:`tree_reducescatter`'s shards (JAX
+    ``tree_allgather``): each group's shard is all-gathered over the
+    levels outermost FIRST, so each level's gather runs while the buffer
+    is still shrunk by every level inside it (the slow hop moves the least
+    bytes) and the concatenations land in ownership order, no permute;
+    then split into the leaves (views of the gathered buffer)."""
+    out: List[Optional[torch.Tensor]] = [None] * spec.num_leaves
+    for g in spec.groups:
+        buf = shards[g.key].contiguous()
+        for lv in reversed(tuple(levels)):
+            if lv.extent > 1:
+                whole = buf.new_empty(buf.numel() * lv.extent)
+                _all_gather_tensor(whole, buf, lv.group)
+                buf = whole
+        _unpack(buf, g, out)
+    return out
+
+
+def layout_levels(quantized_bits: Optional[int] = None,
+                  quantize_inner: bool = False
+                  ) -> Tuple[ExchangeLevel, ...]:
+    """The world's two layout levels, ``local`` then ``cross``
+    (``GlobalState.layout_group``), with ``quantized_bits`` on the cross
+    hop and, with ``quantize_inner``, on the local one too.  Every rank
+    must call it together: the first call makes the layout's groups."""
+    st = state.global_state()
+    return (ExchangeLevel.over(st.layout_group(state.LOCAL),
+                               quantized_bits if quantize_inner else None),
+            ExchangeLevel.over(st.layout_group(state.CROSS),
+                               quantized_bits))
+
+
+def hierarchical_reducescatter(xs: Sequence[torch.Tensor],
+                               op: ReduceOp = Sum,
+                               prescale_factor: Optional[float] = None,
+                               postscale_factor: Optional[float] = None,
+                               quantized_bits: Optional[int] = None,
+                               bucket_bytes: Optional[int] = None,
+                               spec: Optional[FusionSpec] = None,
+                               quantize_inner: bool = False,
+                               inner_residuals: Optional[
+                                   Dict[str, torch.Tensor]] = None,
+                               reduction: str = "sum"):
+    """The two-level reduce-scatter over the world's layout (JAX
+    ``hierarchical_reducescatter``; reference ``NCCLHierarchicalAllreduce``,
+    ``nccl_operations.cc:191-341``): each group buffer is reduce-scattered
+    within the node (``local``), then its surviving 1/L block across the
+    nodes (``cross``), which so carries ``(C−1)/C·B/L`` bytes.
+    ``quantized_bits=8`` puts the codec on the cross hop only;
+    ``quantize_inner`` also on the local hop, where ``inner_residuals``
+    feed its rounding back (the return is then ``(shards, spec,
+    new_inner_residuals)``).  ``reduction="adasum"`` combines across the
+    nodes with Adasum.  The rank at ``(cross c, local l)`` owns block
+    ``l·C + c`` (:func:`tree_shard_index`); reassemble with
+    :func:`hierarchical_allgather`.  Every rank must call it together: the
+    first call makes the layout's groups."""
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("hierarchical_reducescatter supports "
+                         "op=Sum/Average")
+    if quantize_inner and quantized_bits is None:
+        raise ValueError("quantize_inner puts the codec on the local hop; "
+                         "pass quantized_bits=8 to select it")
+    if inner_residuals is not None and not quantize_inner:
+        raise ValueError("inner_residuals carry the local codec's error "
+                         "feedback; pass quantize_inner=True to enable that "
+                         "hop")
+    return tree_reducescatter(
+        xs, layout_levels(quantized_bits, quantize_inner), op=op,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        bucket_bytes=bucket_bytes, spec=spec, residuals=inner_residuals,
+        reduction=reduction)
+
+
+def hierarchical_allgather(shards: Dict[str, torch.Tensor],
+                           spec: FusionSpec) -> List[torch.Tensor]:
+    """Reassemble :func:`hierarchical_reducescatter`'s shards (JAX
+    ``hierarchical_allgather``): across the nodes first, while the buffers
+    are 1/world, then within each node."""
+    return tree_allgather(shards, spec, layout_levels())

@@ -39,8 +39,8 @@ from horovod_tpu_torch.ops.bucketing import plan_buckets
 from horovod_tpu_torch.ops.collectives import Adasum, Average, ReduceOp
 from horovod_tpu_torch.ops.fused_collectives import resolve_fused_collectives
 from horovod_tpu_torch.runtime import state
-from horovod_tpu_torch.runtime.topology import TOPOLOGY_MODES, \
-    resolve_topology
+from horovod_tpu_torch.runtime.topology import LAYOUT_AXES, \
+    TOPOLOGY_MODES, parse_level_codecs, resolve_topology
 
 
 _log = logging.getLogger(__name__)
@@ -455,19 +455,35 @@ def _rebuild(optimizer: torch.optim.Optimizer,
 
 class _ShardedDistributedOptimizer(_DistributedOptimizer):
     """``step()`` = the sharded exchange with the update in the middle
-    (JAX ``sharded_distributed_update``, flat topology):
+    (JAX ``sharded_distributed_update``):
 
-    1. reduce-scatter the gradients in reverse-layer-order buckets
-       (:func:`~horovod_tpu_torch.ops.collectives.grouped_reducescatter`;
-       ``Compression.int8`` quantizes the wire, error feedback keeps its
-       residual);
-    2. copy this rank's slice of the parameters into its shard tensors
+    1. reduce-scatter the gradients in reverse-layer-order buckets:
+       flat (:func:`~horovod_tpu_torch.ops.collectives.grouped_reducescatter`)
+       or, on a world of several nodes of several ranks, two-level
+       (:func:`~horovod_tpu_torch.ops.collectives.tree_reducescatter`
+       within the node, then across the nodes); ``Compression.int8``
+       quantizes the wire, error feedback keeps its residual;
+    2. copy this rank's slice of the parameters (the block it owns,
+       :attr:`shard_index`) into its shard tensors
        (:func:`~horovod_tpu_torch.ops.collectives.local_fusion_shards`),
        so a broadcast or restore between steps is seen, and set their
        ``.grad`` to the reduced shards;
     3. step the user's optimizer class, rebuilt over the shards, with the
        user optimizer's current hyperparameters;
     4. all-gather the new shards and copy them into the parameters.
+
+    The topology is resolved once, here, from the world's ``(cross,
+    local)`` extents (``runtime/topology.resolve_topology``), as JAX's
+    ``update_fn`` resolves it at trace time: ``"flat"`` or ``"two_level"``
+    (:attr:`exchange_hierarchy`; a ``"tree"`` over the layout's two axes
+    is the two-level one, as in JAX).  The two-level exchange puts the
+    codec on the cross hop, and under error feedback on the local hop too,
+    where the residual pins it (JAX's ``quantize_inner``); as in JAX,
+    ``level_codecs`` is checked against the levels' names and places
+    codecs only on a tree of three or more levels, which the two-axis
+    layout does not give.  ``reduction="adasum"`` combines across the
+    nodes with Adasum and is the plain sum on a flat topology.  The
+    layout's process groups are made here, on every rank alike.
 
     Equal to allreduce-then-update for elementwise optimizers (SGD,
     momentum, Adam/AdamW, RMSProp): element i's update reads only element
@@ -482,11 +498,28 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
 
     def __init__(self, optimizer, op, compression, backward_passes_per_step,
                  prescale_factor, postscale_factor, bucket_bytes,
-                 error_feedback: bool):
+                 error_feedback: bool, hierarchy: str = "auto",
+                 level_codecs: Optional[Dict[str, Optional[int]]] = None,
+                 reduction: str = "sum"):
         super().__init__(optimizer, op, compression,
                          backward_passes_per_step, prescale_factor,
                          postscale_factor, overlap=False)
         self.quantized_bits = getattr(compression, "wire_reduce_bits", None)
+        self.reduction = reduction
+        st = state.global_state()
+        tree = resolve_topology(hierarchy, (st.cross_size, st.local_size),
+                                axis_names=LAYOUT_AXES,
+                                wire_bits=self.quantized_bits,
+                                level_codecs=level_codecs)
+        #: the exchange this wrapper runs: "flat" or "two_level"
+        self.exchange_hierarchy = tree.mode
+        #: the two-level exchange's (local, cross) levels; None when flat
+        self.levels = None
+        self.shard_index = st.rank
+        if tree.mode == "two_level":
+            self.levels = C.layout_levels(self.quantized_bits,
+                                          quantize_inner=error_feedback)
+            self.shard_index = C.tree_shard_index(self.levels)
         if not self._trainable:
             raise ValueError("shard_optimizer_states needs a parameter "
                              "that requires a gradient")
@@ -607,15 +640,23 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
         st = self.sharded_state
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._trainable]
-        out = C.grouped_reducescatter(
-            grads, op=self.op, prescale_factor=self.prescale_factor,
-            postscale_factor=self.postscale_factor,
-            quantized_bits=self.quantized_bits, spec=self.spec,
-            residuals=st.residuals)
+        if self.levels is None:
+            out = C.grouped_reducescatter(
+                grads, op=self.op, prescale_factor=self.prescale_factor,
+                postscale_factor=self.postscale_factor,
+                quantized_bits=self.quantized_bits, spec=self.spec,
+                residuals=st.residuals)
+        else:
+            out = C.tree_reducescatter(
+                grads, self.levels, op=self.op,
+                prescale_factor=self.prescale_factor,
+                postscale_factor=self.postscale_factor, spec=self.spec,
+                residuals=st.residuals, reduction=self.reduction)
         if st.residuals is not None:
             st.residuals = out[2]
         del grads
-        C.local_fusion_shards(self._trainable, self.spec, out=st.shards)
+        C.local_fusion_shards(self._trainable, self.spec, out=st.shards,
+                              index=self.shard_index)
         for key, shard in st.shards.items():
             shard.grad = out[0][key]
         del out
@@ -625,9 +666,11 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
             st.inner.step()
         for shard in st.shards.values():
             shard.grad = None
-        for p, full in zip(self._trainable,
-                           C.grouped_allgather(st.shards, self.spec)):
-            p.copy_(full)
+        full = C.grouped_allgather(st.shards, self.spec) \
+            if self.levels is None else \
+            C.tree_allgather(st.shards, self.spec, self.levels)
+        for p, leaf in zip(self._trainable, full):
+            p.copy_(leaf)
 
 
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
@@ -644,7 +687,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          fused_collectives: str = "auto",
                          error_feedback: bool = False,
                          reduction: Optional[str] = None,
-                         sparse_params: Optional[Mapping] = None):
+                         sparse_params: Optional[Mapping] = None,
+                         level_codecs: Optional[
+                             Dict[str, Optional[int]]] = None):
     """Wrap ``optimizer`` so each ``step()`` uses cross-rank-reduced
     gradients (reference ``DistributedOptimizer``, ``torch/optimizer.py``),
     exchanged bucket by bucket from gradient hooks while backward runs
@@ -664,16 +709,25 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     parameters within dtype tolerance, 1/N optimizer state and update work
     per rank.  With it: ``exchange_bucket_bytes`` splits the exchange into
     reverse-layer-order buckets (None: one); ``hierarchy`` selects the
-    topology, of which only flat is ported (``"auto"`` resolves to it on a
-    one-level world; a two-level or tree exchange raises
-    ``NotImplementedError``); ``fused_collectives`` is checked and has no
-    effect: JAX tiles the last bucket's reduce-scatter so that XLA overlaps
-    each tile's wire with the update, and eager collectives run one after
-    another, so tiles would only add launches; ``error_feedback=True``
-    (needs ``Compression.int8``) carries the wire's rounding residual;
-    ``reduction="adasum"`` is, on the flat topology, the plain sum, bit
-    for bit, as in JAX.  The wrapped optimizer must be elementwise, with
-    one set of hyperparameters over its param groups.
+    topology over the world's ``(cross, local)`` layout: ``"auto"`` runs
+    the two-level exchange (within each node, then across the nodes)
+    when both extents exceed 1 and the flat one otherwise,
+    ``"flat"``/``"two_level"``/``"tree"`` force one (a tree over the two
+    layout levels is the two-level exchange), and under the two-level one
+    the rank at ``(cross c, local l)`` owns block ``l·C + c`` of each
+    buffer; ``level_codecs`` (``{level name: wire bits or None}``, unset:
+    ``HOROVOD_EXCHANGE_LEVEL_CODECS``) is checked against the tree's
+    level names, as in JAX (see :class:`_ShardedDistributedOptimizer`);
+    ``fused_collectives`` is checked and has no effect: JAX tiles the last
+    bucket's reduce-scatter so that XLA overlaps each tile's wire with the
+    update, and eager collectives run one after another, so tiles would
+    only add launches; ``error_feedback=True`` (needs
+    ``Compression.int8``) carries the wire's rounding residual;
+    ``reduction="adasum"`` combines the nodes' partial sums with Adasum on
+    the two-level exchange's cross hop (whole-bucket coefficients, the
+    ``1/world`` of Average left out, as in JAX) and is, on a flat
+    topology, the plain sum, bit for bit.  The wrapped optimizer must be
+    elementwise, with one set of hyperparameters over its param groups.
 
     ``op=Adasum`` reduces each bucket by Adasum over the world's layout
     (``ops/adasum.py``), each gradient with its own coefficients, so the
@@ -699,6 +753,10 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
         raise ValueError(
             "hierarchy selects the sharded exchange topology; pass "
             "shard_optimizer_states=True to enable it")
+    if level_codecs is not None and not shard_optimizer_states:
+        raise ValueError(
+            "level_codecs places wire codecs on the sharded exchange's "
+            "tree levels; pass shard_optimizer_states=True to enable it")
     if fused_collectives != "auto" and not shard_optimizer_states:
         raise ValueError(
             "fused_collectives schedules the sharded exchange's final "
@@ -744,16 +802,15 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                 "error_feedback compensates the quantized wire's rounding; "
                 "pass a wire-reduction compression (Compression.int8) to "
                 "enable it")
-        # adasum combines the outermost level's partial sums; the flat
-        # topology has one level, so both operators are the plain sum
-        C._resolve_reduction(reduction)
         resolve_fused_collectives(fused_collectives)
-        st = state.global_state()
-        resolve_topology(hierarchy, (st.cross_size, st.local_size))
+        if level_codecs is None:
+            level_codecs = parse_level_codecs(
+                state.global_state().config.exchange_level_codecs)
         return _ShardedDistributedOptimizer(
             optimizer, op, compression, backward_passes_per_step,
             prescale_factor, postscale_factor, exchange_bucket_bytes,
-            error_feedback)
+            error_feedback, hierarchy, level_codecs,
+            C._resolve_reduction(reduction))
     _check_sparse(sparse_params, op)
     return _DistributedOptimizer(
         optimizer, op, compression, backward_passes_per_step,

@@ -84,7 +84,10 @@ class DistributedTrainStep:
     ``fused_collectives``, ``error_feedback`` and ``reduction``; unset,
     the first four fall back to ``HOROVOD_EXCHANGE_BUCKET_BYTES``,
     ``HOROVOD_EXCHANGE_HIERARCHY``, ``HOROVOD_FUSED_COLLECTIVES`` and
-    ``HOROVOD_EXCHANGE_REDUCTION``, as in the JAX step.  The sharded
+    ``HOROVOD_EXCHANGE_REDUCTION``, and the per-level codecs are
+    ``HOROVOD_EXCHANGE_LEVEL_CODECS``'s, as in the JAX step (the
+    optimizer reads that one).  :attr:`exchange_hierarchy` is the
+    topology the exchange runs.  The sharded
     exchange with ep > 1 raises ``NotImplementedError`` (ROADMAP Queue A
     13: the JAX package compiles that pair only under pjit).
 
@@ -200,6 +203,16 @@ class DistributedTrainStep:
                                              **sharded)
         self._loss_fn = loss_fn
         self.optimizer = optimizer
+        self._hierarchy = optimizer.exchange_hierarchy if isinstance(
+            optimizer, _ShardedDistributedOptimizer) else hierarchy
+
+    @property
+    def exchange_hierarchy(self) -> str:
+        """The exchange topology this step runs (JAX's property of that
+        name): ``"flat"`` or ``"two_level"``, resolved against the world's
+        layout, under the sharded exchange; the ``hierarchy`` argument as
+        given otherwise."""
+        return self._hierarchy
 
     @property
     def moe_fused(self) -> Optional[str]:

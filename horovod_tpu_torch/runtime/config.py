@@ -3,8 +3,8 @@
 The part of ``horovod_tpu/runtime/config.py`` the PyTorch port reads: the
 launcher's identity knobs, the coordinator address, the fusion threshold,
 the eager plane's cycle time, negotiation-cache capacity and data plane, the
-sharded exchange's bucket cap, topology, wire codec and reduction
-operator, the fused-collectives mode, the sequence-parallel ring's layout,
+sharded exchange's bucket cap, topology, wire codec, per-level codecs and
+reduction operator, the fused-collectives mode, the sequence-parallel ring's layout,
 the parallelism plan, the MoE dispatch knobs and the input pipeline's
 prefetch depth and thread count, under the same ``HOROVOD_*`` names and
 with the same defaults, so one environment drives both packages.  A knob
@@ -35,6 +35,7 @@ KNOWN_KNOBS = frozenset({
     # -- the sharded exchange (optim/optimizer.py, ops/collectives.py)
     "HOROVOD_EXCHANGE_BUCKET_BYTES", "HOROVOD_EXCHANGE_HIERARCHY",
     "HOROVOD_EXCHANGE_WIRE_DTYPE", "HOROVOD_EXCHANGE_REDUCTION",
+    "HOROVOD_EXCHANGE_LEVEL_CODECS",
     # -- tile-fused matmul⊗collective rings (ops/fused_collectives.py)
     "HOROVOD_FUSED_COLLECTIVES",
     # -- the sp ring's sequence layout (parallel/ring_attention.py)
@@ -123,11 +124,14 @@ class Config:
     # cap (None: one bucket) and topology ("auto" resolves against the
     # world's (cross, local) extents, runtime/topology.py), read by
     # DistributedTrainStep; the wire codec of Compression.int8 ("int8" or
-    # "fp8_e4m3") and the combine operator ("sum" or "adasum")
+    # "fp8_e4m3"), the combine operator ("sum" or "adasum") and the
+    # per-level codecs ("cross=int8,local=fp32",
+    # topology.parse_level_codecs)
     exchange_bucket_bytes: Optional[int] = None
     exchange_hierarchy: str = "auto"
     exchange_wire_dtype: str = "int8"
     exchange_reduction: str = "sum"
+    exchange_level_codecs: Optional[str] = None
 
     # -- tile-fused rings at the tensor-parallel boundaries: "auto",
     # "on" or "off" (ops/fused_collectives.resolve_fused_collectives)
@@ -180,6 +184,8 @@ class Config:
                 "HOROVOD_EXCHANGE_WIRE_DTYPE", "int8").lower(),
             exchange_reduction=os.environ.get(
                 "HOROVOD_EXCHANGE_REDUCTION", "sum").lower(),
+            exchange_level_codecs=os.environ.get(
+                "HOROVOD_EXCHANGE_LEVEL_CODECS") or None,
             fused_collectives=os.environ.get(
                 "HOROVOD_FUSED_COLLECTIVES", "auto").lower(),
             plan=os.environ.get("HOROVOD_PLAN"),

@@ -63,6 +63,7 @@ class TestConfig:
            "HOROVOD_EXCHANGE_HIERARCHY": "FLAT",
            "HOROVOD_EXCHANGE_WIRE_DTYPE": "FP8_E4M3",
            "HOROVOD_EXCHANGE_REDUCTION": "ADASUM",
+           "HOROVOD_EXCHANGE_LEVEL_CODECS": "cross=int8,local=fp32",
            "HOROVOD_FUSED_COLLECTIVES": "ON",
            "HOROVOD_SP_LAYOUT": "zigzag",
            "HOROVOD_PLAN": "dp=2,sp=4",

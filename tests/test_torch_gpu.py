@@ -21,12 +21,16 @@ and holds SyncBatchNorm against BatchNorm on the concatenated batch.
 3 x 1, ``spawn_world(layout=...)``) and ``test_sparse_over_nccl`` runs
 the row-sparse exchange at a world of 4; run them alone on four cards:
 ``-k "test_adasum_over_nccl or test_sparse_over_nccl"``.
+``test_hierarchy_over_nccl`` runs the two-level exchange on four cards
+laid out 2 x 2, the 870.9M LM among it: ``-s -k
+test_hierarchy_over_nccl`` alone on four cards.
 Imports torch, numpy, the port and ``chip_smoke``'s inputs and tolerances
 only.
 """
 
 import json
 import math
+import subprocess
 
 import numpy as np
 import pytest
@@ -38,8 +42,8 @@ from horovod_tpu_torch.ops import kernels as K
 from torch_port_workers import ADASUM_LM_STEPS, EAGER_CASES, \
     EAGER_CHECKS, EXCHANGE_CASES, OVERLAP_CASES, OVERLAP_THRESHOLDS, \
     SPARSE_ROWS, assert_adam_close, check_eager_reduction, check_exchange, \
-    check_overlap, exchange_inputs, join_step_inputs, sparse_inputs, \
-    spawn_world, zero_inputs
+    check_overlap, exchange_inputs, hier_leaves, join_step_inputs, \
+    sparse_inputs, spawn_world, zero_inputs
 
 
 #: fused_scale.cu's batch: U = 4 16-byte vectors for each of a block's 256
@@ -1169,6 +1173,86 @@ class TestNcclWorld:
             for key, val in out.items():
                 for a, b in zip(_leaves(val), _leaves(outs[0][key])):
                     np.testing.assert_array_equal(a, b, err_msg=str(key))
+
+
+    def test_hierarchy_over_nccl(self, cards):
+        """The two-level exchange on four cards laid out 2 x 2 nodes: (i)
+        tree_reducescatter -> tree_allgather of seeded fp32 leaves and a
+        bf16 one against the numpy sum of the inputs as sent and the flat
+        exchange (fp32 rtol 1e-6, atol 1e-6; bf16 within 4 bf16 steps of
+        its largest entry), and against the same world on gloo; (ii) the
+        870.9M TransformerLM, 5 steps two_level and flat: losses within
+        1e-5 relative, every rank's parameters rank 0's, each rank's AdamW
+        state a quarter of the padded buffer, both step times printed
+        beside the card's name and power limit; (iii) the small fp32 LM
+        with int8, error feedback and reduction="adasum" two_level,
+        against the gloo twin (losses 1e-5, parameters as
+        assert_adam_close states) and the same bits on every card.  Every
+        reading is printed before any is checked.  Run alone on four
+        cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        card = spawn_world("run_hier_nccl", world=4, args=(True,),
+                           device="cuda", layout=(2, 2), timeout=900)
+        gloo = spawn_world("run_hier_nccl", world=4, device="cpu",
+                           layout=(2, 2), timeout=300)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
+        for rank, out in enumerate(card):
+            two, flat = out["full"]["two_level"], out["full"]["flat"]
+            ms = {h: 1e3 * sorted(r["times"][1:])[len(r["times"][1:]) // 2]
+                  for h, r in out["full"].items()}
+            rel = [abs(a - b) / abs(b) for a, b in zip(two["losses"],
+                                                       flat["losses"])]
+            print(f"rank {rank} 870.9M LM 2x2 [{smi[rank]}]: step "
+                  f"two_level {ms['two_level']:.1f} ms, flat "
+                  f"{ms['flat']:.1f} ms (median of steps 2-5; all "
+                  f"{[round(t * 1e3, 1) for t in two['times']]} / "
+                  f"{[round(t * 1e3, 1) for t in flat['times']]}); losses "
+                  f"{two['losses']} / {flat['losses']}, rel "
+                  f"{[f'{x:.2e}' for x in rel]}; peak "
+                  f"{two['peak'] / 2**30:.2f} / {flat['peak'] / 2**30:.2f}"
+                  f" GiB; state {two['state_bytes']} B of {two['padded']} "
+                  f"values; same as rank 0: {two['same']}, {flat['same']}")
+            print(f"rank {rank} int8+EF+adasum LM: card "
+                  f"{out['lm']['losses']}, gloo {gloo[rank]['lm']['losses']}")
+        inp = hier_leaves(4)
+        exact = [inp[k].sum(0) for k in "abc"] + [torch.from_numpy(
+            inp["b"]).to(torch.bfloat16).float().numpy().sum(0)]
+        for rank, out in enumerate(card):
+            assert out["index"] == [0, 2, 1, 3][rank]
+            for j, want in enumerate(exact):
+                for got in (out["tree"][j], out["flat"][j],
+                            gloo[rank]["tree"][j]):
+                    if j == 3:
+                        err = np.abs(got - want).max()
+                        assert err <= 4 * 2.0 ** -8 * np.abs(want).max(), \
+                            (rank, err)
+                    else:
+                        np.testing.assert_allclose(got, want, rtol=1e-6,
+                                                   atol=1e-6)
+            lm, twin = out["lm"], gloo[rank]["lm"]
+            assert lm["mode"] == twin["mode"] == "two_level"
+            np.testing.assert_allclose(lm["losses"], twin["losses"],
+                                       rtol=1e-5)
+            assert lm["losses"][-1] < lm["losses"][0]
+            for k, v in lm["params"].items():
+                assert_adam_close(v, twin["params"][k], k,
+                                  steps=ADASUM_LM_STEPS)
+                np.testing.assert_array_equal(
+                    v, card[0]["lm"]["params"][k], err_msg=k)
+            two, flat = out["full"]["two_level"], out["full"]["flat"]
+            assert (two["mode"], flat["mode"]) == ("two_level", "flat")
+            assert two["index"] == out["index"]
+            np.testing.assert_allclose(two["losses"], flat["losses"],
+                                       rtol=1e-5)
+            assert two["losses"][-1] < two["losses"][0]
+            for r in (two, flat):
+                assert r["same"], rank
+                assert r["state_bytes"] * 4 == 2 * 4 * r["padded"]
+        assert all(out["full"]["two_level"]["losses"] ==
+                   card[0]["full"]["two_level"]["losses"] for out in card)
 
 
 def _leaves(x) -> list:

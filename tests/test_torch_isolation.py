@@ -119,6 +119,20 @@ def test_port_files_cover_the_adasum_slice():
             "chip_smoke.py"} <= names
 
 
+def test_port_files_cover_the_hierarchy_slice():
+    """The import and string checks below cover the modules that the
+    hierarchical and tree exchange live in."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/runtime/topology.py",
+            "horovod_tpu_torch/runtime/config.py",
+            "horovod_tpu_torch/ops/collectives.py",
+            "horovod_tpu_torch/ops/adasum.py",
+            "horovod_tpu_torch/optim/optimizer.py",
+            "horovod_tpu_torch/optim/train_step.py",
+            "horovod_tpu_torch/checkpoint.py",
+            "chip_smoke.py"} <= names
+
+
 #: a dotted module path under the JAX package; ``horovod_tpu_torch.`` is
 #: the port's own
 JAX_MODULE = re.compile(r"\bhorovod_tpu\.\w")

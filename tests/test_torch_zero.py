@@ -685,18 +685,23 @@ class TestTopology:
     @pytest.mark.parametrize("sizes", [(1,), (8,), (1, 8), (8, 1), (1, 1)])
     @pytest.mark.parametrize("mode", ["auto", "flat"])
     def test_flat_matches_jax(self, sizes, mode):
-        assert TTopo.resolve_topology(mode, sizes) == \
+        assert TTopo.resolve_topology(mode, sizes).mode == \
             JTopo.resolve_topology(mode, sizes).mode == "flat"
 
     @pytest.mark.parametrize("mode,sizes", [
         ("auto", (2, 4)), ("two_level", (2, 4)), ("two_level", (1, 8)),
         ("tree", (2, 4)), ("auto", (2, 2, 2)), ("tree", (2, 2, 2))])
-    def test_other_modes_raise(self, mode, sizes):
-        """JAX resolves these to a two-level or tree exchange, which the
-        port does not run flat."""
-        assert JTopo.resolve_topology(mode, sizes).mode != "flat"
-        with pytest.raises(NotImplementedError, match="Queue A 7"):
-            TTopo.resolve_topology(mode, sizes)
+    def test_other_modes_match_jax(self, mode, sizes):
+        """JAX resolves these to a two-level or tree exchange, and so does
+        the port: the same mode, level names (JAX's ici and dcn are the
+        port's local and cross) and extents, innermost first."""
+        names = {"local": "ici", "cross": "dcn"}
+        got = TTopo.resolve_topology(mode, sizes)
+        want = JTopo.resolve_topology(mode, sizes)
+        assert got.mode == want.mode != "flat"
+        assert tuple(names.get(n, n) for n in got.names) == want.names
+        assert [lv.extent for lv in got.levels] == \
+            [lv.extent for lv in want.levels]
 
     @pytest.mark.parametrize("mode,sizes", [("ring", (8,)),
                                             ("two_level", (8,)),
@@ -724,6 +729,7 @@ OPTIMIZER_GUARDS = [
     (dict(fused_collectives="on"), ValueError),
     (dict(reduction="adasum"), ValueError),
     (dict(error_feedback=True), ValueError),
+    (dict(level_codecs={"cross": 8}), ValueError),
     (dict(shard_optimizer_states=True, op=TC.ReduceOp.MAX), ValueError),
     (dict(shard_optimizer_states=True, op=TC.Adasum), ValueError),
     (dict(shard_optimizer_states=True, compression="fp16"), ValueError),
@@ -734,10 +740,6 @@ OPTIMIZER_GUARDS = [
     (dict(shard_optimizer_states=True, reduction="mean"), ValueError),
     (dict(shard_optimizer_states=True, gradient_predivide_factor=2.0,
           op=TC.Sum), ValueError),
-    (dict(shard_optimizer_states=True, hierarchy="two_level"),
-     NotImplementedError),
-    (dict(shard_optimizer_states=True, hierarchy="tree"),
-     NotImplementedError),
 ]
 
 
@@ -752,25 +754,48 @@ class TestGuards:
         with pytest.raises(err):
             hvd_torch.DistributedOptimizer(_opt(), **kw)
 
-    @pytest.mark.parametrize("case", [0, 1, 2, 3, 4])
+    @pytest.mark.parametrize("case", [0, 1, 2, 3, 4, 5])
     def test_jax_raises_the_same(self, case):
         """The replicated-path guards are JAX's own."""
         kw, err = OPTIMIZER_GUARDS[case]
         with pytest.raises(err):
             jhvd.DistributedOptimizer(optax.sgd(0.1), **kw)
 
-    def test_auto_on_a_two_level_world_raises(self, hvd_torch, monkeypatch):
+    @pytest.mark.parametrize("hierarchy", ["two_level", "tree"])
+    def test_hierarchy_at_a_world_of_one_equals_flat(self, hvd_torch,
+                                                     hierarchy):
+        """An explicit two-level (or two-axis tree) exchange builds at a
+        world of one, where each level is one rank, and steps as the flat
+        one does, bit for bit."""
+        out = []
+        for h in (hierarchy, "flat"):
+            p = torch.nn.Parameter(torch.linspace(-1, 1, 9))
+            opt = hvd_torch.DistributedOptimizer(
+                torch.optim.AdamW([p], lr=0.1), shard_optimizer_states=True,
+                hierarchy=h, gradient_predivide_factor=2.0)
+            assert opt.exchange_hierarchy == \
+                ("flat" if h == "flat" else "two_level")
+            p.grad = torch.linspace(1, 2, 9)
+            opt.step()
+            out.append(p.detach().clone())
+        torch.testing.assert_close(out[0], out[1], rtol=0, atol=0)
+
+    def test_auto_on_a_two_level_world_is_two_level(self, hvd_torch,
+                                                    monkeypatch):
         """A world of 2 nodes x 4 cards: "auto" is two-level in JAX, and
-        the port raises instead of running flat."""
+        in the port (the identity monkeypatched, each layout level one
+        rank here)."""
         st = hvd_torch._state.global_state()
         monkeypatch.setattr(st, "cross_size", 2)
         monkeypatch.setattr(st, "local_size", 4)
-        with pytest.raises(NotImplementedError, match="two_level"):
-            hvd_torch.DistributedOptimizer(_opt(),
-                                           shard_optimizer_states=True)
-        with pytest.raises(NotImplementedError):
-            hvd_torch.DistributedTrainStep(lambda m, b: 0, _opt(),
-                                           shard_optimizer_states=True)
+        monkeypatch.setattr(st, "layout_group", lambda level: None)
+        assert JTopo.resolve_topology("auto", (2, 4)).mode == "two_level"
+        opt = hvd_torch.DistributedOptimizer(_opt(),
+                                             shard_optimizer_states=True)
+        assert opt.exchange_hierarchy == "two_level"
+        step = hvd_torch.DistributedTrainStep(lambda m, b: 0, _opt(),
+                                              shard_optimizer_states=True)
+        assert step.exchange_hierarchy == "two_level"
 
     def test_param_groups_must_agree(self, hvd_torch):
         a, b = torch.nn.Parameter(torch.ones(3)), \
@@ -840,7 +865,20 @@ class TestGuards:
                                            shard_optimizer_states=True)
         monkeypatch.setattr(cfg, "fused_collectives", "auto")
         monkeypatch.setattr(cfg, "exchange_hierarchy", "tree")
-        with pytest.raises(NotImplementedError):
+        # a tree over the two layout levels is the two-level exchange
+        step = hvd_torch.DistributedTrainStep(lambda m, b: 0, _opt(),
+                                              shard_optimizer_states=True)
+        assert step.exchange_hierarchy == "two_level"
+        st = hvd_torch._state.global_state()
+        monkeypatch.setattr(cfg, "exchange_hierarchy", "auto")
+        monkeypatch.setattr(st, "cross_size", 2)
+        monkeypatch.setattr(st, "local_size", 4)
+        monkeypatch.setattr(st, "layout_group", lambda level: None)
+        step = hvd_torch.DistributedTrainStep(lambda m, b: 0, _opt(),
+                                              shard_optimizer_states=True)
+        assert step.exchange_hierarchy == "two_level"
+        monkeypatch.setattr(cfg, "exchange_level_codecs", "nic=int8")
+        with pytest.raises(ValueError, match="unknown level"):
             hvd_torch.DistributedTrainStep(lambda m, b: 0, _opt(),
                                            shard_optimizer_states=True)
 

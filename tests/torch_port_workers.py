@@ -1947,13 +1947,13 @@ def run_ckpt_save(hvd, directory: str):
     from horovod_tpu_torch.checkpoint import Checkpointer
 
     torch.set_num_threads(1)
-    world, rank = hvd.size(), hvd.rank()
+    world = hvd.size()
     out = {}
     step, model, opt, batch = _ckpt_mlp(hvd)
     for _ in range(2):
         model, opt, _ = step(model, opt, batch)
     ckpt = Checkpointer(os.path.join(directory, "adamw"))
-    ckpt.save_sharded(2, opt.sharded_state_dict(), rank, world,
+    ckpt.save_sharded(2, opt.sharded_state_dict(), opt.shard_index, world,
                       plan=f"dp={world}")
     ckpt.save(2, {"model": model.state_dict()})
     ckpt.wait()
@@ -1971,12 +1971,13 @@ def run_ckpt_save(hvd, directory: str):
     for _ in range(2):
         model, opt, _ = step(model, opt, batch)
     ef = Checkpointer(os.path.join(directory, "ef"), async_save=False)
-    ef.save_sharded(2, opt.sharded_state_dict(), rank, world)
+    ef.save_sharded(2, opt.sharded_state_dict(), opt.shard_index, world)
     hvd.barrier()
     _, _, fresh, _ = _ckpt_mlp(hvd, compression=hvd.Compression.int8,
                                error_feedback=True)
     template = fresh.sharded_state_template()
-    fresh.load_sharded_state_dict(ef.restore_sharded(template, rank, world))
+    fresh.load_sharded_state_dict(ef.restore_sharded(template,
+                                                     fresh.shard_index, world))
     out["ef"] = (_np_tree(opt.sharded_state_dict()),
                  _np_tree(fresh.sharded_state_dict()))
 
@@ -2002,13 +2003,13 @@ def run_ckpt_restore(hvd, directory: str):
     from horovod_tpu_torch.checkpoint import Checkpointer
 
     torch.set_num_threads(1)
-    world, rank = hvd.size(), hvd.rank()
+    world = hvd.size()
     step, model, opt, batch = _ckpt_mlp(hvd)
     ckpt = Checkpointer(os.path.join(directory, "adamw"))
     template = opt.sharded_state_template()
     shapes = {k: {n: tuple(t.shape) for n, t in v.items()}
               for k, v in template["state"].items()}
-    restored = ckpt.restore_sharded(template, rank, world,
+    restored = ckpt.restore_sharded(template, opt.shard_index, world,
                                     plan=f"dp={world}")
     opt.load_sharded_state_dict(restored)
     model.load_state_dict(ckpt.restore()["model"])
@@ -2254,7 +2255,7 @@ def run_moe_nccl(hvd, directory: str):
     for _ in range(2):
         model, opt, _ = step(model, opt, batch)
     ckpt = Checkpointer(os.path.join(directory, "zero"))
-    ckpt.save_sharded(2, opt.sharded_state_dict(), rank, world,
+    ckpt.save_sharded(2, opt.sharded_state_dict(), opt.shard_index, world,
                       plan=f"dp={world}")
     ckpt.wait()
     hvd.barrier()
@@ -2929,6 +2930,383 @@ def run_sparse(hvd) -> dict:
     for sparse in (None, {"emb": 8}):
         out[("step", None if sparse is None else 8)] = _sparse_step_run(
             hvd, sparse)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the hierarchical and tree exchange (tests/test_torch_hierarchy.py)
+# ---------------------------------------------------------------------------
+
+#: the gloo worlds of the hierarchy tests, as (cross, local) layouts; the
+#: world of 8 also runs the three-level tree 2 x 2 x 2 from its own groups
+HIER_LAYOUTS = ((2, 4), (3, 2))
+#: the MLP trainings of :func:`hier_mlp`: name -> (steps, step options)
+HIER_MLP_CASES = {
+    "flat": (8, {"hierarchy": "flat"}),
+    "two_level": (8, {"hierarchy": "two_level"}),
+    "auto": (8, {}),
+    "tree": (8, {"hierarchy": "tree"}),
+    "b64": (8, {"hierarchy": "two_level", "exchange_bucket_bytes": 64}),
+    "int8": (3, {"hierarchy": "two_level", "compression": "int8"}),
+    "int8_ef": (3, {"hierarchy": "two_level", "compression": "int8",
+                    "error_feedback": True, "exchange_bucket_bytes": 64}),
+    "fp8_ef": (3, {"hierarchy": "two_level", "compression": "int8",
+                   "error_feedback": True, "wire": "fp8_e4m3"}),
+    "adasum": (3, {"hierarchy": "two_level", "reduction": "adasum"}),
+}
+#: the cases the world of 3 x 2 trains too
+HIER_MLP_3X2 = ("flat", "two_level", "adasum")
+
+
+def hier_leaves(world: int) -> dict:
+    """Every rank's exchange inputs, stacked over ranks: three fp32 leaves
+    of 10, 3 x 5 and 7 values, a 24-value codec input per rank, and the
+    local codec's residuals (their first values, as many as the leaves'
+    one group pads to)."""
+    rng = np.random.RandomState(600 + world)
+    return {"a": rng.randn(world, 10).astype(np.float32),
+            "b": rng.randn(world, 3, 5).astype(np.float32),
+            "c": rng.randn(world, 7).astype(np.float32),
+            "codec": rng.randn(world, 24).astype(np.float32),
+            "resid": (rng.randn(world, 48) * 1e-2).astype(np.float32)}
+
+
+def tree3_groups(rank: int):
+    """The 2 x 2 x 2 tree's (chip, slice, pod) groups of ``rank`` in a
+    world of 8, rank = pod·4 + slice·2 + chip; every rank makes every
+    group, in one order."""
+    import torch.distributed as dist
+
+    mine = []
+    for level in range(3):          # chip, slice, pod
+        stride = 1 << level
+        for base in range(8):
+            if base & stride:
+                continue
+            ranks = [base, base + stride]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine.append(group)
+    return mine
+
+
+def _tree_case(C, xs, levels, **kw):
+    """tree_reducescatter then tree_allgather: (shards, leaves), numpy."""
+    out = C.tree_reducescatter(xs, levels, **kw)
+    shards, spec = out[0], out[1]
+    host = {k: v.float().numpy().copy() for k, v in shards.items()}
+    back = [v.numpy().copy() for v in C.tree_allgather(shards, spec, levels)]
+    if len(out) == 3:
+        return host, back, {k: v.numpy().copy() for k, v in out[2].items()}
+    return host, back
+
+
+def hier_mlp(hvd, name: str) -> dict:
+    """``HIER_MLP_CASES[name]`` through DistributedTrainStep with AdamW
+    (lr 1e-2, weight decay 1e-4) on :func:`mlp_batch`'s global batch of 8
+    rows a rank: the last loss, the parameters, the mode the step
+    runs, the block this rank owns and its first-moment shards."""
+    import torch
+
+    steps, kw = HIER_MLP_CASES[name]
+    kw = dict(kw)
+    cfg = hvd._state.global_state().config
+    wire, cfg.exchange_wire_dtype = cfg.exchange_wire_dtype, \
+        kw.pop("wire", "int8")
+    if "compression" in kw:
+        kw["compression"] = getattr(hvd.Compression, kw["compression"])
+    try:
+        model = torch.nn.ParameterDict({
+            k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+            for k, v in mlp_params().items()})
+        step = hvd.DistributedTrainStep(
+            mlp_loss, torch.optim.AdamW(model.parameters(), lr=1e-2,
+                                        weight_decay=1e-4),
+            shard_optimizer_states=True, **kw)
+        model, opt = step.init(model)
+        x, y = mlp_batch(8 * hvd.size())
+        batch = step.shard_batch({"x": x, "y": y})
+        for _ in range(steps):
+            model, opt, loss = step(model, opt, batch)
+    finally:
+        cfg.exchange_wire_dtype = wire
+    st = opt.sharded_state
+    return {"loss": float(loss),
+            "params": {k: v.detach().numpy().copy()
+                       for k, v in model.items()},
+            "mode": step.exchange_hierarchy, "index": opt.shard_index,
+            "mu": {k: st.inner.state[s]["exp_avg"].numpy().copy()
+                   for k, s in st.shards.items()}}
+
+
+def run_hierarchy(hvd, lm=None) -> dict:
+    """On a gloo world laid out as (cross, local) nodes: the two-level
+    exchange's round trip, shards, ownership, Average and buckets, codecs
+    (outer, inner with residuals, by level name) and Adasum on the cross
+    hop; on a world of 8 also the three-level tree from its own groups;
+    the MLP trainings, and with ``lm`` (state dict, sizes, tokens) the
+    two-layer TransformerLM 3 steps two_level and tree."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.runtime.topology import resolve_topology
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    world, rank = hvd.size(), hvd.rank()
+    st = hvd._state.global_state()
+    cfg = st.config
+    inp = hier_leaves(world)
+
+    def t(k):
+        return torch.from_numpy(np.ascontiguousarray(inp[k][rank]))
+
+    xs = [t("a"), t("b"), t("c")]
+    two = C.layout_levels()
+    out = {"index": C.tree_shard_index(two),
+           ("two", "sum"): _tree_case(C, xs, two)}
+    shards, spec = C.grouped_reducescatter(xs)
+    out[("flat", "sum")] = (
+        {k: v.numpy().copy() for k, v in shards.items()},
+        [v.numpy().copy() for v in C.grouped_allgather(shards, spec)])
+    sh, spec = C.hierarchical_reducescatter(xs, op=C.Average,
+                                            bucket_bytes=64)
+    out[("two", "avg_b64")] = (
+        {k: v.numpy().copy() for k, v in sh.items()},
+        [v.numpy().copy() for v in C.hierarchical_allgather(sh, spec)])
+    # rank 0's leaves on every rank: the owned slices gather back to them
+    first = [torch.from_numpy(np.ascontiguousarray(inp[k][0]))
+             for k in "abc"]
+    own = C.local_fusion_shards(first, spec, index=out["index"])
+    out["own"] = ({k: v.numpy().copy() for k, v in own.items()},
+                  [v.numpy().copy() for v in C.tree_allgather(own, spec,
+                                                              two)])
+    codec = [t("codec")]
+    padded = C.make_fusion_spec(xs, world).groups[0].padded
+    for wire in WIRES:
+        wire0, cfg.exchange_wire_dtype = cfg.exchange_wire_dtype, wire
+        try:
+            out[("q", wire)] = _tree_case(C, codec, C.layout_levels(8),
+                                          op=C.Average)
+            out[("qi", wire)] = _tree_case(
+                C, xs, C.layout_levels(8, True), op=C.Sum,
+                residuals={"b0/float32": t("resid")[:padded].clone()})
+            out[("adasum_q", wire)] = _tree_case(
+                C, xs, C.layout_levels(8), reduction="adasum")
+        finally:
+            cfg.exchange_wire_dtype = wire0
+    levels = C.exchange_levels_from_topology(resolve_topology(
+        "two_level", (st.cross_size, st.local_size),
+        level_codecs={"local": 8}))
+    out["codecs_local"] = _tree_case(C, xs, levels, op=C.Average)
+    for op in ("Sum", "Average"):
+        out[("adasum", op)] = _tree_case(C, xs, two, op=getattr(C, op),
+                                         reduction="adasum",
+                                         prescale_factor=0.5,
+                                         postscale_factor=2.0)
+    # an outer hop of one rank, and a tree of one level: the plain sum
+    deg = (C.ExchangeLevel.over(dist.group.WORLD), C.ExchangeLevel.over(None))
+    out["degenerate"] = [_tree_case(C, xs, lv, op=C.Average,
+                                    reduction=red)
+                         for lv in (deg, deg[:1]) for red in C.REDUCTIONS]
+    if world == 8:
+        tree = [C.ExchangeLevel.over(g) for g in tree3_groups(rank)]
+        q_pod = tree[:2] + [C.ExchangeLevel.over(tree[2].group, 8)]
+        q_chip = [C.ExchangeLevel.over(tree[0].group, 8)] + tree[1:]
+        out["tree3"] = {
+            "index": C.tree_shard_index(tree),
+            "sum": _tree_case(C, xs, tree),
+            "pod_int8": _tree_case(C, codec, q_pod, op=C.Average),
+            "chip_int8": _tree_case(C, [torch.full((8,), 500.0),
+                                        torch.full((8,), 1e-3)], q_chip,
+                                    op=C.Average),
+            "adasum": _tree_case(C, xs, tree, op=C.Average,
+                                 reduction="adasum")}
+    cases = HIER_MLP_CASES if world == 8 else HIER_MLP_3X2
+    out["mlp"] = {name: hier_mlp(hvd, name) for name in cases}
+    if lm is not None:
+        out["lm"] = {h: hier_lm(hvd, *lm, h) for h in ("two_level", "tree")}
+    return out
+
+
+def hier_lm(hvd, lm_sd, sizes, tokens, hierarchy: str) -> tuple:
+    """The TransformerLM of ``sizes`` from ``lm_sd`` (convert.py's
+    weights) through ``DistributedTrainStep(shard_optimizer_states=True,
+    hierarchy=...)`` with AdamW(3e-4, weight decay 1e-4), 3 steps on the
+    global batch ``tokens``; (losses, parameters)."""
+    import torch
+
+    from horovod_tpu_torch.models import transformer as TT
+
+    model = TT.TransformerLM(TT.TransformerConfig(
+        dtype=torch.float32, attention_impl="flash", **sizes))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in lm_sd.items()})
+    step = hvd.DistributedTrainStep(
+        lambda m, b: TT.lm_loss(m, b),
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        shard_optimizer_states=True, hierarchy=hierarchy)
+    model, opt = step.init(model)
+    batch = step.shard_batch(torch.from_numpy(tokens).long())
+    losses = []
+    for _ in range(3):
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))
+    return losses, {k: v.numpy().copy() for k, v in
+                    model.state_dict().items()}
+
+
+def run_hier_ckpt(hvd, directory: str, save: bool) -> dict:
+    """The sharded MLP of :func:`_ckpt_mlp` on the world's own layout.
+    ``save``: 2 steps, every rank saves its shard at the block it owns
+    (plan ``dp=<world>``) and rank 0 the parameters, then a third step;
+    then fresh wrappers restore at this world, under ``"auto"`` and
+    ``"flat"``.  Else a fresh wrapper restores under ``"auto"``.  Each
+    restore reports its shard state, the parameters after the third step,
+    the mode and the block it owns."""
+    import torch
+
+    from horovod_tpu_torch.checkpoint import Checkpointer
+
+    torch.set_num_threads(1)
+    world = hvd.size()
+    ckpt = Checkpointer(os.path.join(directory, "hier"), async_save=False)
+    out = {}
+    if save:
+        step, model, opt, batch = _ckpt_mlp(hvd)
+        for _ in range(2):
+            model, opt, _ = step(model, opt, batch)
+        ckpt.save_sharded(2, opt.sharded_state_dict(), opt.shard_index,
+                          world, plan=f"dp={world}")
+        ckpt.save(2, {"model": model.state_dict()})
+        out["saved"] = _np_tree(opt.sharded_state_dict())
+        out["index"] = opt.shard_index
+        model, opt, _ = step(model, opt, batch)
+        out["params3"] = _params_np(model)
+        hvd.barrier()
+    for how in ("auto", "flat") if save else ("auto",):
+        step, model, opt, batch = _ckpt_mlp(hvd, hierarchy=how)
+        opt.load_sharded_state_dict(ckpt.restore_sharded(
+            opt.sharded_state_template(), opt.shard_index, world,
+            plan=f"dp={world}"))
+        model.load_state_dict(ckpt.restore()["model"])
+        restored = _np_tree(opt.sharded_state_dict())
+        model, opt, _ = step(model, opt, batch)
+        out[how] = {"restored": restored, "params": _params_np(model),
+                    "mode": step.exchange_hierarchy,
+                    "index": opt.shard_index}
+    return out
+
+
+def hier_small_lm(hvd) -> dict:
+    """The fp32 TransformerLM of :data:`ADASUM_LM` (seed 0) trained
+    ``ADASUM_LM_STEPS`` steps through ``DistributedTrainStep(
+    shard_optimizer_states=True, hierarchy="two_level")`` with
+    ``Compression.int8``, error feedback and ``reduction="adasum"`` on 8
+    sequences of :func:`adasum_lm_tokens`; losses and state dict as
+    numpy."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+
+    cfg = TransformerConfig(dtype=torch.float32, attention_impl="flash",
+                            **ADASUM_LM)
+    model = TransformerLM(cfg, generator=torch.Generator().manual_seed(0))
+    model.to(hvd.device())
+    step = hvd.DistributedTrainStep(
+        lambda m, b: lm_loss(m, b),
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        compression=hvd.Compression.int8, shard_optimizer_states=True,
+        hierarchy="two_level", error_feedback=True, reduction="adasum")
+    model, opt = step.init(model)
+    batch = step.shard_batch(adasum_lm_tokens(8))
+    losses = [float(step(model, opt, batch)[2])
+              for _ in range(ADASUM_LM_STEPS)]
+    return {"losses": losses, "mode": step.exchange_hierarchy,
+            "params": {k: v.cpu().numpy().copy()
+                       for k, v in model.state_dict().items()}}
+
+
+def _full_lm_run(hvd, hierarchy: str, steps: int = 5) -> dict:
+    """chip_smoke's 870.9M TransformerLM (seed 0, bf16 compute, flash)
+    through ``DistributedOptimizer(AdamW(3e-4, weight_decay=1e-4),
+    gradient_predivide_factor=2.0, shard_optimizer_states=True,
+    hierarchy=...)`` and DistributedTrainStep, ``steps`` steps on a global
+    batch of 6 sequences a rank: losses, each step's seconds, peak memory,
+    this rank's AdamW state bytes, the padded buffer's values, and whether
+    every parameter equals rank 0's."""
+    import torch
+
+    from chip_smoke import FULL, SEED, full_config
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import collectives as C
+
+    dev = hvd.device()
+    cfg = full_config(torch, "flash")
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        gradient_predivide_factor=2.0, shard_optimizer_states=True,
+        hierarchy=hierarchy)
+    step = hvd.DistributedTrainStep(lambda m, b: lm_loss(m, b), opt)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (FULL["batch"] * hvd.size(), FULL["seq"] + 1),
+                           generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = step.init(model)
+    batch = step.shard_batch(tokens)
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))           # synchronises
+        times.append(time.perf_counter() - t0)
+    with torch.no_grad():
+        same = all(bool(torch.equal(p, C.broadcast(p, 0)))
+                   for p in model.parameters())
+    out = {"losses": losses, "times": times, "mode": step.exchange_hierarchy,
+           "peak": torch.cuda.max_memory_allocated(), "same": same,
+           "state_bytes": state_bytes(opt.sharded_state.inner),
+           "padded": sum(g.padded for g in opt.spec.groups),
+           "index": opt.shard_index}
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_hier_nccl(hvd, full: bool = False) -> dict:
+    """On a world laid out as nodes (cards over NCCL, or its gloo twin):
+    the two-level round trip of :func:`hier_leaves`' fp32 leaves and of a
+    bf16 one against the flat exchange, the small LM of
+    :func:`hier_small_lm`, and with ``full`` the 870.9M LM two_level and
+    flat (:func:`_full_lm_run`)."""
+    import torch
+
+    from horovod_tpu_torch.ops import collectives as C
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    world, rank, dev = hvd.size(), hvd.rank(), hvd.device()
+    inp = hier_leaves(world)
+    xs = [torch.from_numpy(np.ascontiguousarray(inp[k][rank])).to(dev)
+          for k in "abc"]
+    xs.append(xs[1].to(torch.bfloat16))
+    levels = C.layout_levels()
+    shards, spec = C.tree_reducescatter(xs, levels)
+    host = lambda ts: [t.float().cpu().numpy() for t in ts]  # noqa: E731
+    out = {"index": C.tree_shard_index(levels),
+           "tree": host(C.tree_allgather(shards, spec, levels)),
+           "tree_shards": {k: v.float().cpu().numpy()
+                           for k, v in shards.items()}}
+    shards, spec = C.grouped_reducescatter(xs)
+    out["flat"] = host(C.grouped_allgather(shards, spec))
+    out["lm"] = hier_small_lm(hvd)
+    if full:
+        out["full"] = {h: _full_lm_run(hvd, h) for h in ("two_level", "flat")}
     return out
 
 
