@@ -112,7 +112,8 @@ Phases, in order; any failure exits non-zero:
    timed beside it; (c) the same LM with ``shard_optimizer_states=True``:
    one step, ``save_sharded`` and ``save`` on the async writer, a second
    step, then a fresh model and wrapper restore and repeat it, bit for bit
-   (layers cut only if the temporary directory's disk is short); every
+   (at 4 of the 12 layers, ``MOE_CKPT_LAYERS``, to keep the script's
+   time; fewer if the temporary directory's disk is short); every
    number printed with the card's name and power limit;
 11. the input plane and SyncBatchNorm: (a) phase 5's ResNet-50 fed from
    host memory, as ``bench.py --model resnet50 --fused-bwd --input-mode
@@ -184,7 +185,24 @@ Phases, in order; any failure exits non-zero:
    flash kernel 16 times a step; step time beside phase 8's in the same
    call, tokens/s, peak memory and the profiled step's split under the
    exchange's ranges, with the card's name and power limit;
-15. print the card's name and power limit, the kernels' JSON line, and last
+15. tp and fsdp in the step's plan, and the ViT: (a) phase 4's recipe (the
+   same seed, weights, batch, AdamW, predivide 2.0 and hook path, 5 steps)
+   with the 870.9M LM built with the tp group of ``plan.build_mesh()`` for
+   ``plan="tp=1"`` (a group of one: the ``ColumnParallelDense``/
+   ``RowParallelDense`` modules with no collective) through
+   ``DistributedTrainStep(mode="pjit", plan="tp=1")``: its losses must
+   equal phase 4's bit for bit, each flash kernel 16 launches a step; its
+   step time beside phase 4's and one profiled step's idle share;
+   (b) ViT-B/16 at ``bench.py --model vit``'s defaults (224 px, 196
+   patches, batch 128, bf16, flash) through ``DistributedTrainStep`` with
+   ``AdamW(3e-4, weight_decay=1e-4)``, 5 steps (finite, falling losses;
+   each flash kernel exactly 12 launches a step, non-causal), img/s, peak
+   memory and a profiled step, and the same weights under dense attention
+   (loss within 5e-3 relative, gradients 2e-2 normwise, phase 6's
+   limits); (c) the three flash kernels timed non-causal at ViT's shape
+   (b128 t196 h12 d64) beside SDPA without a mask and the bound (the same
+   shape is held against the plain versions in phase 2);
+16. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -255,9 +273,17 @@ BWD_EDGES = [((1, 65, 2, 128), True), ((2, 136, 3, 64), True),
 MOE = dict(batch=16, seq=1024, heads=8, layers=12, d_model=1024, d_ff=4096,
            experts=8, moe_every=2, capacity_factor=1.25, vocab=32_000,
            aux=0.01, steps=5)
+# phase 10 (c)'s depth: 4 of the 12 layers (two MoE blocks) since phase 15
+# joined, to keep the script's time; the round trip is the same at any depth
+MOE_CKPT_LAYERS = 4
 # phase 10 (b): expert_chunk_mlp at one MoE layer's shapes on one card:
 # every expert local, capacity ceil(1.25 * 16384 / 8)
 CHUNK = dict(e_local=8, capacity=2560, d=1024, f=4096)
+# ViT-B/16 at bench.py --model vit's defaults (bench.py:871-876, 2946):
+# 224 px, patch 16 (196 patches), 12 layers, 12 heads of 64, d_model 768,
+# d_ff 3072, 1000 classes, batch 128, bf16
+VIT = dict(batch=128, image=224, steps=5, layers=12)
+VIT_FLASH = (VIT["batch"], 196, 12, 64)       # flash's (b, t, h, d)
 # the card's name and power limit (nvidia-smi), printed beside the numbers
 # of phases 8 and 10-14
 CARD = ""
@@ -311,6 +337,11 @@ def efficiency(r: dict, flops: float) -> str:
         "no library call"
     return (f"{ratio}, {flops / r['ms'] / 1e9:.0f} TFLOP/s, "
             f"{100 * r['bound_ms'] / r['ms']:.1f} % of bound")
+
+
+def fmt_ms(ms) -> str:
+    """A reading in ms, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -432,12 +463,13 @@ def device_split(torch, fn, iters: int = 20, warmup: int = 3,
     return split
 
 
-def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3,
+              tries: int = 3) -> float:
     """The device time of one call of ``fn``: its kernels' own time under
     torch.profiler over ``iters`` calls.  For a call whose host work
     between kernels can outlast them (autograd's backward of SDPA), CUDA
     events around a loop would time the host instead."""
-    return sum(device_split(torch, fn, iters, warmup).values())
+    return sum(device_split(torch, fn, iters, warmup, tries).values())
 
 
 def phase_build():
@@ -830,7 +862,8 @@ def phase_check(torch):
     # flash at the main path's shapes, then small off-grid ones and the
     # tile edges
     b, t, h, d = FULL["batch"], FULL["seq"], FULL["heads"], FULL["head_dim"]
-    shapes = [((b, t, h, d), True, True), ((2, 256, 4, 128), False, False),
+    shapes = [((b, t, h, d), True, True), (VIT_FLASH, False, False),
+              ((2, 256, 4, 128), False, False),
               ((2, 200, 3, 64), True, False), ((1, 24, 2, 64), True, False),
               *[(shape, causal, False)
                 for shape, causal in FLASH_EDGES + BWD_EDGES]]
@@ -1045,11 +1078,13 @@ def time_mm(torch) -> dict:
     return total
 
 
-def time_flash(torch, q, k, v, do, scale, qpos=None, kpos=None) -> dict:
+def time_flash(torch, q, k, v, do, scale, qpos=None, kpos=None,
+               causal: bool = True) -> dict:
     """The three flash kernels (with ``qpos``/``kpos`` their positions
-    variant), causal, at one input: kernel, plain and library ms beside the
-    bound.  The library call is SDPA (causal, or with the boolean mask the
-    positions give) for the forward and, for dQ and dK/dV, SDPA's backward
+    variant), causal or not, at one input: kernel, plain and library ms
+    beside the bound.  The library call is SDPA (causal, with the boolean
+    mask the positions give, or with no mask) for the forward and, for dQ
+    and dK/dV, SDPA's backward
     alone (``torch.autograd.grad`` on a retained graph, its device time:
     :func:`device_ms`), which computes the pair's dQ, dK and dV in one
     call; dQ is timed as the autograd glue runs it, computing delta from
@@ -1064,37 +1099,52 @@ def time_flash(torch, q, k, v, do, scale, qpos=None, kpos=None) -> dict:
     b, t, h, d = q.shape
     suffix, pos = ("", ()) if qpos is None else ("_pos", (qpos, kpos))
     mask = qpos[:, None] >= kpos[None, :] if pos else torch.ones(
-        t, t, dtype=torch.bool, device=q.device).tril()
+        t, t, dtype=torch.bool, device=q.device)
+    if causal and not pos:
+        mask = mask.tril()
     visible = float(mask.sum()) / (t * t)
     prod = 2 * b * h * t * t * d * visible      # one visible t x t x d product
     tile, rows, nbytes_pos = b * t * h * d * 2, b * h * t * 4, 4 * len(pos) * t
-    o, lse = K.flash_fwd(q, k, v, True, scale, *pos)
+    o, lse = K.flash_fwd(q, k, v, causal, scale, *pos)
     qt, kt, vt, dot = (a.transpose(1, 2) for a in (q, k, v, do))
-    how = dict(attn_mask=mask) if pos else dict(is_causal=True)
+    how = dict(attn_mask=mask) if pos else dict(is_causal=causal)
     qg, kg, vg = (a.detach().requires_grad_() for a in (qt, kt, vt))
     y = F.scaled_dot_product_attention(qg, kg, vg, **how)
 
     def sdpa_bwd():
         torch.autograd.grad(y, (qg, kg, vg), dot, retain_graph=True)
 
-    sdpa_bwd_ms = device_ms(torch, sdpa_bwd)
-    _, delta = K.flash_bwd_dq(q, k, v, do, lse, None, True, scale, *pos,
+    if causal:
+        sdpa_bwd_ms = device_ms(torch, sdpa_bwd)
+    else:
+        # at ViT's shape the profiler drops a few records of some traces
+        # of 20 calls; 10-call traces and more tries, then CUDA events
+        # around a loop of calls: at this shape each call's kernels
+        # outlast autograd's host glue, so the queue never drains and the
+        # events read device time
+        try:
+            sdpa_bwd_ms = device_ms(torch, sdpa_bwd, iters=10, tries=6)
+        except RuntimeError as e:
+            sdpa_bwd_ms = cuda_ms(torch, sdpa_bwd)
+            log(f"  SDPA's backward by CUDA events, {sdpa_bwd_ms:.4f} ms "
+                f"(the profiler gave no reading: {e})")
+    _, delta = K.flash_bwd_dq(q, k, v, do, lse, None, causal, scale, *pos,
                               out=o)
-    args = (q, k, v, do, lse, delta, True, scale, *pos)
+    args = (q, k, v, do, lse, delta, causal, scale, *pos)
     r = {"flash_fwd" + suffix: dict(
-             ms=cuda_ms(torch, lambda: K.flash_fwd(q, k, v, True, scale,
+             ms=cuda_ms(torch, lambda: K.flash_fwd(q, k, v, causal, scale,
                                                    *pos)),
              plain_ms=cuda_ms(torch, lambda: K.flash_fwd_plain(
-                 q, k, v, True, scale, *pos), iters=5),
+                 q, k, v, causal, scale, *pos), iters=5),
              library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, **how)),
              work=(4 * tile + rows + nbytes_pos, 2 * prod)),
          "flash_bwd_dq" + suffix: dict(
              ms=cuda_ms(torch, lambda: K.flash_bwd_dq(
-                 q, k, v, do, lse, None, True, scale, *pos, out=o)),
+                 q, k, v, do, lse, None, causal, scale, *pos, out=o)),
              plain_ms=cuda_ms(torch, lambda: K.flash_bwd_dq_plain(
-                 q, k, v, do, lse, K.flash_delta(o, do), True, scale, *pos),
-                 iters=5),
+                 q, k, v, do, lse, K.flash_delta(o, do), causal, scale,
+                 *pos), iters=5),
              library_ms=sdpa_bwd_ms,
              work=(6 * tile + 2 * rows + nbytes_pos, 3 * prod)),
          "flash_bwd_dkv" + suffix: dict(
@@ -1109,13 +1159,13 @@ def time_flash(torch, q, k, v, do, scale, qpos=None, kpos=None) -> dict:
         log(f"time {name}: {row['ms']:.4f} ms ({efficiency(row, flops)}; "
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} over the "
             f"{visible:.4f} of the grid the mask shows, plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms)")
+            f"{row['plain_ms']:.4f} ms, library {fmt_ms(row['library_ms'])})")
     dq, dkv = r["flash_bwd_dq" + suffix], r["flash_bwd_dkv" + suffix]
     pair = dict(ms=dq["ms"] + dkv["ms"], library_ms=sdpa_bwd_ms,
                 bound_ms=dq["bound_ms"] + dkv["bound_ms"])
     log(f"time flash backward pair{suffix} (dQ + dK/dV): {pair['ms']:.4f} ms "
         f"({efficiency(pair, 7 * prod)}; SDPA's backward alone "
-        f"{sdpa_bwd_ms:.4f} ms of device time, "
+        f"{fmt_ms(sdpa_bwd_ms)} of device time, "
         f"{cuda_ms(torch, sdpa_bwd):.4f} ms between CUDA events)")
     del y, qg, kg, vg
     return r
@@ -1401,14 +1451,17 @@ def profile_step(torch, run, focus: str = "", ranges=None,
 
 
 def recipe(torch, hvd, steps: int = 5, on_step=None,
-           adasum: bool = False) -> dict:
+           adasum: bool = False, plan=None) -> dict:
     """Phase 4's five-line recipe at full width on this process's card:
     the seeded 870.9M TransformerLM, ``DistributedOptimizer(AdamW(3e-4,
     weight_decay=1e-4), gradient_predivide_factor=2.0)`` on the hook path,
     ``init`` and ``steps`` steps on the seeded batch; ``on_step(i, model)``
     after each.  With ``adasum`` the optimizer is
     ``DistributedAdasumOptimizer(AdamW(3e-4, weight_decay=1e-4))`` and the
-    step ``DistributedTrainStep(op=None)`` (phase 13 (a)).  Returns the
+    step ``DistributedTrainStep(op=None)`` (phase 13 (a)).  With ``plan``
+    the model is built with the tp group of ``plan.build_mesh()`` and the
+    step is ``DistributedTrainStep(mode="pjit", plan=plan, mesh=...)``
+    (phase 15 (a)).  Returns the
     model, the wrapper, the step, the batch, the losses, each step's
     seconds and bucket sources, the wall clock at the first step's end,
     the launch counts from ``init`` on and the peak memory."""
@@ -1418,7 +1471,16 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
     dev = hvd.device()
     cfg = full_config(torch, "flash")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    model = TransformerLM(cfg, device=dev, generator=gen)
+    planned = {}
+    if plan is not None:
+        from horovod_tpu_torch.parallel.plan import ShardingPlan
+
+        mesh = ShardingPlan.from_string(plan).resolve(hvd.size()) \
+            .build_mesh()
+        planned = dict(plan=plan, mesh=mesh, mode="pjit")
+    model = TransformerLM(cfg, device=dev, generator=gen,
+                          tp_group=planned["mesh"].group("tp")
+                          if planned else None)
     adamw = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
     if adasum:
         opt = hvd.DistributedAdasumOptimizer(adamw)
@@ -1429,7 +1491,8 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
         return lm_loss(m, batch)
 
     step = hvd.DistributedTrainStep(loss_fn, opt,
-                                    op=None if adasum else hvd.Average)
+                                    op=None if adasum else hvd.Average,
+                                    **planned)
     tokens = torch.randint(0, cfg.vocab_size,
                            (FULL["batch"], FULL["seq"] + 1),
                            generator=torch.Generator().manual_seed(SEED))
@@ -1980,6 +2043,136 @@ def phase_hier_train(torch, zero: dict) -> dict:
     return out
 
 
+def vit_train(torch, hvd) -> tuple:
+    """Phase 15 (b): ViT-B/16 at ``VIT`` through ``DistributedTrainStep``
+    (AdamW(3e-4, weight_decay=1e-4), which the step wraps; pjit), flash
+    attention on 196 patches; the parity with dense attention on the same
+    weights.  Returns (summary, launch counts of the run)."""
+    from horovod_tpu_torch.models.vit import ViT_B16, vit_loss
+    from horovod_tpu_torch.ops import kernels as K
+
+    dev = hvd.device()
+    model = ViT_B16(dtype=torch.bfloat16, attention_impl="flash",
+                    device=dev, generator=torch.Generator(
+                        device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    step = hvd.DistributedTrainStep(vit_loss, torch.optim.AdamW(
+        model.parameters(), lr=3e-4, weight_decay=1e-4))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n, px = VIT["batch"], VIT["image"]
+    images = {"x": torch.rand((n, px, px, 3), generator=gen, device=dev),
+              "y": torch.randint(0, 1000, (n,), generator=gen, device=dev)}
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    model, opt = step.init(model)
+    batch = step.shard_batch(images)
+    losses, times = [], []
+    for _ in range(VIT["steps"]):
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))           # synchronises
+        times.append(time.perf_counter() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"vit: ViT-B/16, {n_params / 1e6:.1f}M params, {px} px -> 196 "
+        f"patches, batch {n}, bf16, flash, mode {step.mode}")
+    log(f"vit: losses {losses}")
+    log(f"vit: launches {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite ViT loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"ViT loss did not fall: {losses}")
+    check_flash_launches(counts, VIT["steps"], "vit", layers=VIT["layers"])
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"vit [{CARD}]: step {steady * 1e3:.1f} ms (median of steps 2-5; "
+        f"first {times[0] * 1e3:.1f} ms), {n / steady:.1f} img/s, peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    profiled = profile_step(torch, lambda: float(step(model, opt, batch)[2]),
+                            "flash")
+
+    # the same weights under dense attention, phase 6's limits: 5e-3
+    # relative on the loss, 2e-2 relative L2 over all gradients
+    grads = {}
+    for impl in ("flash", "dense"):
+        for block in model.layers:
+            block.attn.cfg.attention_impl = impl
+        loss = vit_loss(model, batch)
+        grads[impl] = (float(loss.detach()), torch.cat(
+            [g.float().reshape(-1)
+             for g in no_hook_grads(torch, model, loss).values()]))
+    for block in model.layers:
+        block.attn.cfg.attention_impl = "flash"
+    (lf, gf), (ld, gd) = grads["flash"], grads["dense"]
+    loss_rel = abs(lf - ld) / abs(ld)
+    grad_rel = float((gf - gd).norm() / gd.norm())
+    log(f"parity vit flash vs dense: loss {lf:.6f} vs {ld:.6f} (rel "
+        f"{loss_rel:.3e}, tol 5e-3), grads rel L2 {grad_rel:.3e} (tol 2e-2)")
+    if not (loss_rel <= 5e-3 and grad_rel <= 2e-2):
+        raise AssertionError("ViT flash and dense paths disagree")
+    del grads, gf, gd, model, opt, step, batch, images
+    return dict(step_ms=steady * 1e3, img_per_s=n / steady,
+                first_step_ms=times[0] * 1e3, peak_gib=peak / 2**30,
+                losses=losses, params_m=n_params / 1e6,
+                idle_share=1 - profiled["busy"] / profiled["wall"],
+                loss_rel=loss_rel, grad_rel=grad_rel), counts
+
+
+def phase_model_parallel(torch, train: dict) -> dict:
+    """Phase 15: (a) phase 4's recipe with the 870.9M LM built with a tp
+    group of one through ``DistributedTrainStep(mode="pjit", plan="tp=1")``,
+    whose losses must equal phase 4's bit for bit; (b) ViT-B/16
+    (:func:`vit_train`); (c) the flash kernels non-causal at ViT's shape
+    against SDPA and the bound.  ``train`` is phase 4's summary."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel.tensor_parallel import tp_modules
+
+    hvd.init()
+    r = recipe(torch, hvd, plan="tp=1")
+    losses, times, step = r["losses"], r["times"], r["step"]
+    extents = [m.tp for m in tp_modules(r["model"])]
+    log(f"mp (a): plan {step.plan.to_string()}, mode {step.mode}, "
+        f"{len(extents)} tensor-parallel modules at tp {set(extents)}")
+    log(f"mp (a): losses {losses}; phase 4 {train['losses']}; bit-exact: "
+        f"{losses == train['losses']}")
+    log(f"mp (a): launches {r['counts']}")
+    if step.mode != "pjit" or set(extents) != {1} or \
+            len(extents) != 4 * FULL["layers"]:
+        raise AssertionError("the tp=1 plan did not build the pjit step over "
+                             "the tensor-parallel modules")
+    if losses != train["losses"]:
+        raise AssertionError("the tp=1 plan's losses differ from phase 4's")
+    check_flash_launches(r["counts"], len(losses), "mp (a)")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"mp (a) [{CARD}]: step {steady * 1e3:.1f} ms (phase 4 "
+        f"{train['step_ms']:.1f} ms; steps "
+        f"{[round(t * 1e3, 1) for t in times]}), peak "
+        f"{r['peak'] / 2**30:.2f} GiB")
+    model, opt, batch = r["model"], r["opt"], r["batch"]
+    profiled = profile_step(torch, lambda: float(step(model, opt, batch)[2]))
+    idle = 1 - profiled["busy"] / profiled["wall"]
+    log(f"mp (a): idle share {idle:.3f} (phase 4 {train['idle_share']:.3f})")
+    out = {"a": dict(losses=losses, step_ms=steady * 1e3,
+                     peak_gib=r["peak"] / 2**30, idle_share=idle,
+                     busy_ms=profiled["busy"])}
+    del r, step, model, opt, batch
+    torch.cuda.empty_cache()
+    out["b"], vit_counts = vit_train(torch, hvd)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    q, k, v, do = (torch.randn(VIT_FLASH, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    log(f"time flash non-causal at ViT's b{VIT_FLASH[0]} t{VIT_FLASH[1]} "
+        f"h{VIT_FLASH[2]} d{VIT_FLASH[3]} [{CARD}]:")
+    out["c"] = time_flash(torch, q, k, v, do, VIT_FLASH[-1] ** -0.5,
+                          causal=False)
+    for name, row in out["c"].items():
+        row["launches"] = vit_counts[name]
+    del q, k, v, do
+    hvd.shutdown()
+    return out
+
+
 def phase_tp_train(torch):
     """The 870.9M TransformerLM through ``fused_tp_apply`` on a tp group of
     one, trained by the five-line recipe; returns the launch counts of its
@@ -2277,7 +2470,8 @@ def moe_chunk(torch, tag: str, dev) -> tuple:
 
 def moe_checkpoint(torch, hvd, tag: str) -> dict:
     """Phase 10 (c): the MoE recipe with shard_optimizer_states=True at
-    full width (fewer layers when the temporary directory's disk is short):
+    full width at ``MOE_CKPT_LAYERS`` layers (fewer when the temporary
+    directory's disk is short):
     one step, save_sharded and the parameters (async), a second step; then
     a fresh model and wrapper restore both and take that second step, which
     must equal the first run's bit for bit."""
@@ -2288,7 +2482,7 @@ def moe_checkpoint(torch, hvd, tag: str) -> dict:
     dev = hvd.device()
     root = tempfile.mkdtemp(prefix="hvd_torch_moe_ckpt_")
     try:
-        layers = MOE["layers"]
+        layers = MOE_CKPT_LAYERS
         free = shutil.disk_usage(root).free
         while True:
             cfg = moe_config(torch, layers)
@@ -2301,7 +2495,8 @@ def moe_checkpoint(torch, hvd, tag: str) -> dict:
         log(f"{tag}: (c) {layers} of {MOE['layers']} layers "
             f"({n / 1e6:.1f}M params, ~{need / 2**30:.1f} GiB to write, "
             f"{free / 2**30:.1f} GiB free)" +
-            ("" if layers == MOE["layers"] else ": cut for the disk"))
+            (": cut for time" if layers == MOE_CKPT_LAYERS
+             else ": cut for time and the disk"))
         tokens = moe_tokens(torch, cfg.vocab_size)
 
         def build():
@@ -3268,40 +3463,42 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    phase_build()
-    errs = phase_check(torch)
-    timing = phase_time(torch)
-    torch.cuda.empty_cache()
-    counts, train, first, eager, step1_params = phase_train(torch)
-    torch.cuda.empty_cache()
-    resnet_counts, resnet = phase_resnet(torch)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its seconds kept under ``name``, then the card's
+        cache emptied for the next phase."""
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+        return result
+
+    timed("1 build", phase_build)
+    errs = timed("2 check", phase_check, torch)
+    timing = timed("3 time", phase_time, torch)
+    counts, train, first, eager, step1_params = timed("4+9 train",
+                                                      phase_train, torch)
+    resnet_counts, resnet = timed("5 resnet", phase_resnet, torch)
     for name in RESNET_KERNELS:
         counts[name] = resnet_counts[name]
-    torch.cuda.empty_cache()
-    tp_counts, tp = phase_tp_train(torch)
+    tp_counts, tp = timed("6 tp", phase_tp_train, torch)
     counts["pallas_matmul"] = tp_counts["pallas_matmul"]
-    torch.cuda.empty_cache()
-    sp_counts, sp = phase_sp_train(torch, first)
+    sp_counts, sp = timed("7 sp", phase_sp_train, torch, first)
     del first
     for name in SP_KERNELS:
         counts[name] = sp_counts[name]
-    torch.cuda.empty_cache()
-    zero = phase_zero_train(torch, train["losses"])
-    torch.cuda.empty_cache()
-    moe_counts, chunk_counts, moe = phase_moe(torch)
-    torch.cuda.empty_cache()
-    fed_counts, fed = phase_fed(torch, resnet)
+    zero = timed("8 zero", phase_zero_train, torch, train["losses"])
+    moe_counts, chunk_counts, moe = timed("10 moe", phase_moe, torch)
+    fed_counts, fed = timed("11a fed", phase_fed, torch, resnet)
     for name in ("fused_scale", "fused_conv_bn_relu_bwd"):
         counts[name] += fed_counts[name]
-    torch.cuda.empty_cache()
-    sync_bn = phase_sync_bn(torch)
-    torch.cuda.empty_cache()
-    launch = phase_launch(torch, train)
-    torch.cuda.empty_cache()
-    adasum = phase_adasum(torch, train, step1_params)
+    sync_bn = timed("11b sync_bn", phase_sync_bn, torch)
+    launch = timed("12 launch", phase_launch, torch, train)
+    adasum = timed("13 adasum", phase_adasum, torch, train, step1_params)
     del step1_params
-    torch.cuda.empty_cache()
-    hier = phase_hier_train(torch, zero)
+    hier = timed("14 hier", phase_hier_train, torch, zero)
+    mp = timed("15 mp", phase_model_parallel, torch, train)
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
     # the moe summary's "chunk"
@@ -3344,6 +3541,8 @@ def main() -> int:
     log(f"launch summary [{CARD}]: {json.dumps(launch)}")
     log(f"adasum summary [{CARD}]: {json.dumps(adasum)}")
     log(f"hier summary [{CARD}]: {json.dumps(hier)}")
+    log(f"mp summary [{CARD}]: {json.dumps(mp)}")
+    log(f"phase seconds: {json.dumps(seconds)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -121,6 +121,37 @@ def _unflatten(template: Any, leaves) -> Any:
     return None if template is None else next(leaves)
 
 
+def _refuse_shards(tree: Any, call: str) -> None:
+    """Raise when a tensor of ``tree`` holds this rank's shard of a wider
+    parameter (a tensor-parallel slice or an FSDP placement,
+    ``parallel.mesh.shard_of``): a rank-0 checkpoint would write rank 0's
+    shard under the full parameter's name, and a broadcast restore would
+    put rank 0's shard on every rank."""
+    from horovod_tpu_torch.parallel.mesh import shard_of
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
+        elif isinstance(node, torch.Tensor):
+            what = shard_of(node)
+            if what is not None:
+                raise ValueError(
+                    f"Checkpointer.{call}: {'/'.join(path) or 'the state'} "
+                    f"holds this rank's {what}, not the whole tensor, so "
+                    f"rank 0 alone cannot stand for it; write every rank's "
+                    f"shard with save_sharded(step, state, "
+                    f"shard_rank=hvd.rank(), shard_count=hvd.size()) and "
+                    f"read it back with restore_sharded, or save the full "
+                    f"weights (parallel.fsdp.gather_params for an fsdp "
+                    f"placement)")
+
+    walk(tree, ())
+
+
 def _atomic_save(path: str, payload: Any) -> None:
     """``torch.save`` to ``path`` durably: tmp file → fsync → atomic
     rename → fsync of the directory entry."""
@@ -255,7 +286,9 @@ class Checkpointer:
     def save(self, step: int, state: Any) -> bool:
         """Write ``state`` (tensors, numbers, strings and dicts, lists or
         tuples of them) for ``step`` on rank 0; a no-op elsewhere.  Returns
-        whether this rank wrote."""
+        whether this rank wrote.  A state that holds a rank's shard of a
+        tensor-parallel or FSDP-placed parameter raises, on every rank."""
+        _refuse_shards(state, "save")
         if not _is_root():
             return False
         host_state = self._snapshot(state)
@@ -451,8 +484,12 @@ class Checkpointer:
         copied in place; numbers and strings replaced) and every rank
         receives it: tensors through ``broadcast_variables``, the rest
         pickled.  Collective at a world above one; returns ``target``'s
-        structure with the checkpoint's values."""
+        structure with the checkpoint's values.  A target that holds a
+        rank's shard of a tensor-parallel or FSDP-placed parameter raises,
+        on every rank."""
         from horovod_tpu_torch import functions as F
+
+        _refuse_shards(target, "restore_and_broadcast")
 
         if _world() == 1:
             return _fill(target, self.restore(step))

@@ -15,6 +15,15 @@ Names: path components join with dots, ``layer_{i}`` becomes
 ``(in, out)`` becomes ``(out, in)``; a convolution kernel, HWIO in flax,
 becomes OIHW (``permute(3, 2, 0, 1)``: a plain transpose would also swap
 its H and W).
+
+``params_from_flax(tree, tp=n, tp_index=r)`` gives rank ``r`` of a tp
+group of ``n`` its shard of the transformer blocks' kernels, as a model
+built with that ``tp_group`` holds them
+(:mod:`~horovod_tpu_torch.parallel.tensor_parallel`): its per-head q, k
+and v output features of ``attn.qkv``, its output features of ``mlp.wi``
+(column-parallel), and its input features of ``attn.proj`` and
+``mlp.wo`` (row-parallel).  Every other leaf stays whole.  FSDP needs no
+converter: the step places full weights.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from horovod_tpu_torch.parallel.tensor_parallel import column_rows
 
 COLLECTIONS = ("params", "batch_stats")
 
@@ -59,12 +70,36 @@ def _flatten(tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
     walk(tree, ())
 
 
-def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+#: the tensor-parallel layout of the transformer blocks' kernels: the
+#: name's ending -> ("column", parts) or ("row", 1)
+TP_LAYOUT = {"attn.qkv.weight": ("column", 3), "mlp.wi.weight": ("column", 1),
+             "attn.proj.weight": ("row", 1), "mlp.wo.weight": ("row", 1)}
+
+
+def tp_shard(name: str, weight: torch.Tensor, tp: int,
+             index: int) -> torch.Tensor:
+    """Rank ``index``'s shard of the full ``(out, in)`` ``weight`` named
+    ``name`` at a tp extent of ``tp`` (:data:`TP_LAYOUT`; any other leaf
+    whole)."""
+    layout = next((v for k, v in TP_LAYOUT.items()
+                   if name == k or name.endswith("." + k)), None)
+    if tp == 1 or layout is None:
+        return weight
+    kind, parts = layout
+    if kind == "column":
+        return weight[column_rows(weight.shape[0], tp, index, parts)]
+    width = weight.shape[1] // tp
+    return weight[:, index * width:(index + 1) * width].contiguous()
+
+
+def params_from_flax(tree: Mapping, tp: int = 1,
+                     tp_index: int = 0) -> Dict[str, torch.Tensor]:
     """The ``params`` collection (or a bare parameter tree) as a
-    ``state_dict``."""
+    ``state_dict``; with ``tp > 1``, rank ``tp_index``'s shard of it
+    (:func:`tp_shard`)."""
     out: Dict[str, torch.Tensor] = {}
     _flatten(tree.get("params", tree), out)
-    return out
+    return {k: tp_shard(k, v, tp, tp_index) for k, v in out.items()}
 
 
 def variables_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:

@@ -10,8 +10,21 @@ maps one onto the other.  ``attention_impl`` is ``dense`` (plain
 attention), ``flash`` (the port's flash kernels), or one of the sequence-
 parallel formulations over the ``sp_group`` the model is built with:
 ``ring`` (:func:`~horovod_tpu_torch.parallel.ring_attention.ring_attention`)
-or ``ulysses``.  :func:`fused_tp_apply` is the tensor-parallel execution
-mode over a ``tp`` process group; remat waits for a later slice.
+or ``ulysses``.
+
+Tensor parallelism, two ways.  Built with a ``tp_group`` (or sharded by
+``DistributedTrainStep(plan="...,tp=n")``), the model holds this rank's
+shard of every block's kernels, as the JAX model's
+``ColumnParallelDense``/``RowParallelDense`` annotations place them:
+``qkv`` and ``wi`` column-parallel, ``proj`` and ``wo`` row-parallel
+(:mod:`~horovod_tpu_torch.parallel.tensor_parallel`), and attention runs
+on the rank's ``num_heads/tp`` heads, its q, k and v slices of each head
+(:func:`~horovod_tpu_torch.parallel.tensor_parallel.column_rows` with
+three parts).  The embedding and the norm scales stay whole, as JAX's
+``nn.Embed`` and ``RMSNorm`` carry no partitioning.  With ``tp_group=None``
+the blocks are the plain products.  :func:`fused_tp_apply` is the other
+way: the sequence-parallel boundary products over a model's full
+replicated weights.  Remat waits for a later slice.
 """
 
 from __future__ import annotations
@@ -24,6 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.ops.kernels import flash_attention
+from horovod_tpu_torch.parallel.tensor_parallel import (
+    ColumnParallelDense,
+    RowParallelDense,
+)
 from horovod_tpu_torch.parallel.ring_attention import (
     reference_attention,
     ring_attention,
@@ -41,7 +58,7 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
     attention_impl: str = "dense"       # dense | flash | ring | ulysses
-    flash_block: int = 512              # only gates fit_flash_block
+    flash_block: int = 512              # gates fit_flash_block on the CPU
     causal: bool = True
     # the ring's sequence layout; None reads HOROVOD_SP_LAYOUT (default
     # "contiguous"), "zigzag" balances the causal work across ranks
@@ -83,33 +100,34 @@ class RMSNorm(nn.Module):
         return (y * self.scale).to(x.dtype)
 
 
-class Dense(nn.Linear):
-    """Bias-free linear computed in ``dtype`` (flax ``Dense(dtype=...)``
-    with fp32 parameters: both operands cast, product in ``dtype``)."""
-
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
-                 device=None):
-        super().__init__(d_in, d_out, bias=False, device=device)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        return F.linear(x.to(self.compute_dtype),
-                        self.weight.to(self.compute_dtype))
-
-
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None, sp_group=None):
+    """Fused bias-free QKV, column-parallel over ``tp_group`` (each rank its
+    heads' q, k and v), attention over the rank's ``num_heads/tp`` heads,
+    and a row-parallel bias-free output projection."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, sp_group=None,
+                 tp_group=None):
         super().__init__()
         self.cfg = cfg
         self.sp_group = sp_group
-        self.qkv = Dense(cfg.d_model, 3 * cfg.d_model, cfg.dtype, device)
-        self.proj = Dense(cfg.d_model, cfg.d_model, cfg.dtype, device)
+        self.qkv = ColumnParallelDense(cfg.d_model, 3 * cfg.d_model, tp_group,
+                                       use_bias=False, dtype=cfg.dtype,
+                                       parts=3, device=device)
+        self.proj = RowParallelDense(cfg.d_model, cfg.d_model, tp_group,
+                                     use_bias=False, dtype=cfg.dtype,
+                                     device=device)
 
     def forward(self, x, positions):
         cfg = self.cfg
         b, t, _ = x.shape
-        q, k, v = self.qkv(x).split(cfg.d_model, dim=-1)
-        shape = (b, t, cfg.num_heads, cfg.head_dim)
+        tp = self.qkv.tp
+        if cfg.num_heads % tp:
+            raise ValueError(f"{cfg.num_heads} heads do not split over "
+                             f"tp={tp}")
+        heads = cfg.num_heads // tp
+        d_loc = heads * cfg.head_dim
+        q, k, v = self.qkv(x).split(d_loc, dim=-1)
+        shape = (b, t, heads, cfg.head_dim)
         q, k, v = (a.reshape(shape) for a in (q, k, v))
         q = rotary_embedding(q, positions)
         k = rotary_embedding(k, positions)
@@ -128,14 +146,21 @@ class Attention(nn.Module):
         else:
             raise ValueError(
                 f"unknown attention_impl {cfg.attention_impl!r}")
-        return self.proj(o.reshape(b, t, cfg.d_model))
+        return self.proj(o.reshape(b, t, d_loc))
 
 
 class MlpBlock(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    """``wi`` column-parallel and ``wo`` row-parallel over ``tp_group``,
+    both bias-free, tanh GELU between them."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, tp_group=None):
         super().__init__()
-        self.wi = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, device)
-        self.wo = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, device)
+        self.wi = ColumnParallelDense(cfg.d_model, cfg.d_ff, tp_group,
+                                      use_bias=False, dtype=cfg.dtype,
+                                      device=device)
+        self.wo = RowParallelDense(cfg.d_ff, cfg.d_model, tp_group,
+                                   use_bias=False, dtype=cfg.dtype,
+                                   device=device)
 
     def forward(self, x):
         # flax nn.gelu defaults to the tanh approximation
@@ -143,12 +168,13 @@ class MlpBlock(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None, sp_group=None):
+    def __init__(self, cfg: TransformerConfig, device=None, sp_group=None,
+                 tp_group=None):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device=device)
-        self.attn = Attention(cfg, device, sp_group)
+        self.attn = Attention(cfg, device, sp_group, tp_group)
         self.ln2 = RMSNorm(cfg.d_model, device=device)
-        self.mlp = MlpBlock(cfg, device)
+        self.mlp = MlpBlock(cfg, device, tp_group)
 
     def forward(self, x, positions):
         x = x + self.attn(self.ln1(x), positions)
@@ -170,32 +196,39 @@ class TransformerLM(nn.Module):
     shard's global positions (for ``zigzag``, ``ring_layout_positions``,
     with the tokens permuted by ``zigzag_sequence_indices``).  ``sp_group``
     is the sequence-parallel process group that ``attention_impl`` ``ring``
-    and ``ulysses`` run over (``None``: a group of one).  Weights are drawn
-    from ``generator`` (a ``torch.Generator`` on ``device``): embeddings
-    N(0, 0.02), dense kernels N(0, 1/fan_in) (flax's lecun normal,
-    untruncated), norm scales 1.
+    and ``ulysses`` run over (``None``: a group of one), and ``tp_group``
+    the tensor-parallel one the blocks' kernels are sharded over (module
+    docstring).  Weights are drawn from ``generator`` (a
+    ``torch.Generator`` on ``device``): embeddings N(0, 0.02), dense
+    kernels N(0, 1/fan_in) (flax's lecun normal, untruncated, fan_in the
+    kernel's full input width), each drawn at its full shape and cut to
+    this rank's block (:func:`draw_dense_`), so that a model built with a
+    ``tp_group`` holds the shards of the model built without one from the
+    same seed; norm scales 1.
     """
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  generator: Optional[torch.Generator] = None,
-                 sp_group=None):
+                 sp_group=None, tp_group=None):
         super().__init__()
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, device)
-        self.layers = nn.ModuleList(Block(cfg, device, sp_group)
+        self.layers = nn.ModuleList(Block(cfg, device, sp_group, tp_group)
                                     for _ in range(cfg.num_layers))
         self.ln_f = RMSNorm(cfg.d_model, device=device)
         self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        dense = dense_kernels(self)
         for name, p in self.named_parameters():
             if name.endswith(".scale"):
                 p.fill_(1.0)
-                continue
-            std = 0.02 if name == "embed.embedding" else p.shape[1] ** -0.5
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=p.device) * std)
+            elif name == "embed.embedding":
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=p.device) * 0.02)
+            else:
+                draw_dense_(dense[name], generator)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -209,6 +242,24 @@ class TransformerLM(nn.Module):
         x = self.ln_f(x)
         # tied head as flax Embed.attend: both operands in cfg.dtype
         return x.to(cfg.dtype) @ emb.to(cfg.dtype).t()
+
+
+def dense_kernels(model: nn.Module) -> dict:
+    """``{"<module>.weight": module}`` over ``model``'s
+    :class:`ColumnParallelDense` and :class:`RowParallelDense` modules."""
+    return {f"{m}.weight": mod for m, mod in model.named_modules()
+            if isinstance(mod, (ColumnParallelDense, RowParallelDense))}
+
+
+def draw_dense_(module: nn.Module,
+                generator: Optional[torch.Generator]) -> None:
+    """Draw ``module``'s kernel N(0, 1/in_features) at its full
+    ``(features, in_features)`` shape and keep this rank's block of it, so
+    that every tp extent takes the same values from ``generator``."""
+    w = module.weight
+    full = torch.randn((module.features, module.in_features),
+                       generator=generator, device=w.device)
+    w.copy_(module.local(full * module.in_features ** -0.5))
 
 
 def lm_loss(model: TransformerLM, tokens: torch.Tensor,

@@ -82,16 +82,54 @@ def _scale(x: torch.Tensor, factor: Optional[float],
                        out=x if out_dtype == x.dtype else None)
 
 
+class _Alone:
+    def __repr__(self) -> str:
+        return "ALONE"
+
+
+#: The scope of a collective over this rank alone (a mesh group of extent
+#: 1, an :class:`ExchangeLevel` of one rank): it is the identity and
+#: launches nothing.  A ``group`` of None is the world.
+ALONE = _Alone()
+_ALONE = ALONE
+
+
+def _world() -> int:
+    return state.global_state().size
+
+
+def _extent(group) -> int:
+    """The number of ranks in ``group`` (None: the world)."""
+    if group is None:
+        return _world()
+    return 1 if group is _ALONE else dist.get_world_size(group)
+
+
+def _index(group) -> int:
+    """This rank's index in ``group`` (None: its global rank)."""
+    if group is None:
+        return state.global_state().rank
+    return 0 if group is _ALONE else dist.get_rank(group)
+
+
+def is_world(group) -> bool:
+    """Whether a collective over ``group`` spans every rank: None, the
+    world's group, or any group (``ALONE`` too) as large as the world."""
+    return group is None or group is dist.group.WORLD or \
+        _extent(group) == _world()
+
+
 def _reduce_flat(flat: torch.Tensor, op: ReduceOp, dtype: torch.dtype,
                  prescale_factor, postscale_factor,
-                 wire_dtype) -> torch.Tensor:
+                 wire_dtype, group=None) -> torch.Tensor:
     wire = wire_dtype if wire_dtype is not None and \
         flat.is_floating_point() else dtype
     buf = _scale(flat, prescale_factor, wire)
-    dist.all_reduce(buf, op=_DIST_OPS[op])
+    if group is not _ALONE:
+        dist.all_reduce(buf, op=_DIST_OPS[op], group=group)
     post = 1.0 if postscale_factor is None else float(postscale_factor)
     if op == ReduceOp.AVERAGE:
-        post /= state.global_state().size
+        post /= _extent(group)
     return _scale(buf, post, dtype)
 
 
@@ -113,12 +151,16 @@ def grouped_allreduce(xs: Sequence[torch.Tensor],
                       prescale_factor: Optional[float] = None,
                       postscale_factor: Optional[float] = None,
                       compression=None,
-                      quantized_bits: Optional[int] = None
-                      ) -> List[torch.Tensor]:
+                      quantized_bits: Optional[int] = None,
+                      group=None) -> List[torch.Tensor]:
     """Fused allreduce of many tensors (Tensor Fusion): one flat buffer
     and one collective per dtype, then split back.  ``compression``'s
     ``wire_dtype`` (``Compression.fp16``/``bf16``) is the dtype floating
     buffers travel in; results come back in each input's dtype.
+    ``group`` is the scope (JAX's ``axis``): None for the world, a process
+    group (Average divides by its size), or :data:`ALONE`, where the
+    pre/postscale passes run and no collective; the quantized wire and
+    Adasum take the world only.
 
     ``quantized_bits=8`` (or ``compression=Compression.int8``) routes each
     *float* dtype group through :func:`quantized_allreduce`, one shared
@@ -139,6 +181,10 @@ def grouped_allreduce(xs: Sequence[torch.Tensor],
         raise ValueError("quantized_bits supports op=Sum/Average")
     if op not in _DIST_OPS and op != ReduceOp.ADASUM:
         raise ValueError(f"unsupported ReduceOp {op!r}")
+    if not is_world(group) and (quantized_bits is not None or
+                                op == ReduceOp.ADASUM):
+        raise ValueError("the quantized wire and Adasum reduce over the "
+                         "world's layout; pass group=None")
     wire_dtype = getattr(compression, "wire_dtype", None)
     groups: dict = {}
     for i, x in enumerate(xs):
@@ -158,7 +204,7 @@ def grouped_allreduce(xs: Sequence[torch.Tensor],
                                  wire_dtype)
         else:
             red = _reduce_flat(flat, op, dtype, prescale_factor,
-                               postscale_factor, wire_dtype)
+                               postscale_factor, wire_dtype, group)
         offset = 0
         for i in idxs:
             n = xs[i].numel()
@@ -170,36 +216,13 @@ def grouped_allreduce(xs: Sequence[torch.Tensor],
 def allreduce(x: torch.Tensor, op: ReduceOp = Average,
               prescale_factor: Optional[float] = None,
               postscale_factor: Optional[float] = None,
-              compression=None) -> torch.Tensor:
+              compression=None, group=None) -> torch.Tensor:
     """Allreduce of one tensor with the reference's semantics (a new
-    tensor; ``x`` is left as it was)."""
+    tensor; ``x`` is left as it was), over ``group`` as
+    :func:`grouped_allreduce` takes it."""
     return grouped_allreduce([x], op=op, prescale_factor=prescale_factor,
                              postscale_factor=postscale_factor,
-                             compression=compression)[0]
-
-
-def _world() -> int:
-    return state.global_state().size
-
-
-#: The ``group`` of a level of one rank (an :class:`ExchangeLevel` of
-#: extent 1): its collectives are the identity and launch nothing.  A
-#: ``group`` of None is the world.
-_ALONE = object()
-
-
-def _extent(group) -> int:
-    """The number of ranks in ``group`` (None: the world)."""
-    if group is None:
-        return _world()
-    return 1 if group is _ALONE else dist.get_world_size(group)
-
-
-def _index(group) -> int:
-    """This rank's index in ``group`` (None: its global rank)."""
-    if group is None:
-        return state.global_state().rank
-    return 0 if group is _ALONE else dist.get_rank(group)
+                             compression=compression, group=group)[0]
 
 
 def _reduce_scatter_tensor(out: torch.Tensor, inp: torch.Tensor,

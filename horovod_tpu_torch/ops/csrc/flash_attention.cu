@@ -16,7 +16,7 @@
 // Layout: q, k, v, o, dO, dq, dk, dv are contiguous (b, t, h, d) bf16, the
 // JAX package's layout, read in place (row stride h*d) with no transpose.
 // lse and delta are (b*h, t) fp32.  Rows and keys at or past t are masked, so
-// any t works; the caller keeps fit_flash_block's dispatch rule.
+// any t works, and flash_attention launches the kernels at any t on a card.
 //
 // Global positions (the sp ring's variant, the Pallas kernels' positions=True
 // branch): with qpos/kpos, (t,) int32 device vectors, the causal mask is

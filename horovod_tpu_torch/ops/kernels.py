@@ -775,18 +775,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     block_q: int = 512, block_k: int = 512) -> torch.Tensor:
     """Blocked attention over ``(batch, seq, heads, head_dim)`` inputs,
-    differentiable through the FlashAttention-2 backward kernels.  A
-    sequence that :func:`fit_flash_block` cannot tile computes
-    :func:`~horovod_tpu_torch.parallel.ring_attention.reference_attention`,
-    as the JAX package does, and so do inputs the kernels do not take
-    (:func:`flash_kernels_take`: on a card, a dtype other than bfloat16 or
-    a head_dim outside :data:`FLASH_HEAD_DIMS`); ``block_q``/``block_k``
-    only decide the first."""
+    differentiable through the FlashAttention-2 backward kernels.  Inputs
+    the kernels do not take (:func:`flash_kernels_take`: on a card, a dtype
+    other than bfloat16 or a head_dim outside :data:`FLASH_HEAD_DIMS`)
+    compute :func:`~horovod_tpu_torch.parallel.ring_attention.reference_attention`.
+    On a card the kernels take any sequence length, masking the ragged
+    tile (ViT-B/16's 196 patches launch them; the JAX package's Pallas
+    kernels need :func:`fit_flash_block`'s tiling and compute dense
+    attention there); on the CPU a sequence that :func:`fit_flash_block`
+    cannot tile computes reference attention, as the JAX package does, and
+    ``block_q``/``block_k`` only decide that."""
     t, d = q.shape[1], q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
-    if fit_flash_block(t, block_q) is None or \
-            fit_flash_block(t, block_k) is None or \
-            not flash_kernels_take(q, k, v):
+    untiled = q.device.type == "cpu" and (
+        fit_flash_block(t, block_q) is None or
+        fit_flash_block(t, block_k) is None)
+    if untiled or not flash_kernels_take(q, k, v):
         from horovod_tpu_torch.parallel.ring_attention import \
             reference_attention
 

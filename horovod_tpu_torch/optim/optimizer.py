@@ -121,11 +121,14 @@ def distributed_gradients(grads: Union[Sequence[torch.Tensor],
                           prescale_factor: Optional[float] = None,
                           postscale_factor: Optional[float] = None,
                           bucket_bytes: Optional[int] = None,
-                          sparse_params: Optional[Mapping] = None) -> None:
+                          sparse_params: Optional[Mapping] = None,
+                          group=None) -> None:
     """Reduce ``grads`` across ranks in place, one fused collective per
     bucket (and dtype).  ``bucket_bytes`` defaults to the runtime's fusion
     threshold (64 MiB).  ``Compression.int8`` sends float buckets through
-    the shared-scale quantized wire, one scale per gradient.
+    the shared-scale quantized wire, one scale per gradient.  ``group`` is
+    the exchange's scope (JAX's ``axis``): None for the world, a process
+    group, or :data:`~horovod_tpu_torch.ops.collectives.ALONE`.
 
     ``sparse_params`` (``{name: max_rows}``, op Sum or Average) needs
     ``grads`` as a mapping from parameter names to gradients: the ones
@@ -143,6 +146,9 @@ def distributed_gradients(grads: Union[Sequence[torch.Tensor],
             m = _match_sparse(name, sparse_params)
             if m is not None:
                 sparse[i] = m
+    if sparse and not C.is_world(group):
+        raise ValueError("sparse_params reduces over the world; pass "
+                         "group=None")
     if bucket_bytes is None:
         bucket_bytes = _fusion_threshold()
     dense = [i for i in range(len(grads)) if i not in sparse]
@@ -152,7 +158,7 @@ def distributed_gradients(grads: Union[Sequence[torch.Tensor],
         outs = C.grouped_allreduce(ins, op=op,
                                    prescale_factor=prescale_factor,
                                    postscale_factor=postscale_factor,
-                                   compression=compression)
+                                   compression=compression, group=group)
         for g, r in zip(ins, outs):
             g.copy_(r)
     for i, max_rows in sparse.items():
@@ -216,16 +222,26 @@ class _DistributedOptimizer:
     matched to their ``max_rows``: they stay out of the buckets, and
     :meth:`synchronize` launches each, in order, after the buckets, as a
     row-sparse exchange (:func:`_sparse_leaf_reduce`) on the same
-    stream."""
+    stream.
+
+    ``axis`` is the exchange's scope (:attr:`axis`: None for the world, a
+    process group, or ``ALONE``); ``scopes`` gives some parameters, by
+    index, a scope of their own (the FSDP-placed shards, which backward
+    has averaged over the fsdp group already, take the rest of the data
+    axes).  A bucket holds the parameters of one scope: each bucket of the
+    plan is split by scope, in order."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, op: ReduceOp,
                  compression, backward_passes_per_step: int,
                  prescale_factor: Optional[float],
                  postscale_factor: Optional[float], overlap: bool = True,
-                 sparse: Optional[Dict[int, int]] = None):
+                 sparse: Optional[Dict[int, int]] = None, axis=None,
+                 scopes: Optional[Dict[int, object]] = None):
         self.optimizer = optimizer
         self.op = op
         self.compression = compression
+        self.axis = axis
+        self._scopes = dict(scopes or {})
         self.backward_passes_per_step = backward_passes_per_step
         self.prescale_factor = prescale_factor
         self.postscale_factor = postscale_factor
@@ -243,9 +259,11 @@ class _DistributedOptimizer:
         if overlap:
             dense = [i for i in range(len(self._trainable))
                      if i not in self._sparse]
-            self._buckets = [[dense[j] for j in b] for b in plan_buckets(
-                [self._trainable[i].numel() * self._trainable[i].element_size()
-                 for i in dense], self._bucket_bytes)]
+            self._buckets = self._by_scope(
+                [[dense[j] for j in b] for b in plan_buckets(
+                    [self._trainable[i].numel() *
+                     self._trainable[i].element_size() for i in dense],
+                    self._bucket_bytes)])
             owner = weakref.ref(self)
             for i, p in enumerate(self._trainable):
                 p._hvd_exchange = id(self)
@@ -261,6 +279,23 @@ class _DistributedOptimizer:
         if name == "optimizer":        # not set yet (e.g. mid-unpickle)
             raise AttributeError(name)
         return getattr(self.optimizer, name)
+
+    def _scope(self, i: int):
+        """The scope parameter ``i``'s gradient is reduced over."""
+        return self._scopes.get(i, self.axis)
+
+    def _by_scope(self, buckets: List[List[int]]) -> List[List[int]]:
+        """Each bucket split into one bucket a scope, in first-seen
+        order."""
+        if not self._scopes:
+            return buckets
+        out = []
+        for ids in buckets:
+            parts: Dict[int, List[int]] = {}
+            for i in ids:
+                parts.setdefault(id(self._scope(i)), []).append(i)
+            out.extend(parts.values())
+        return out
 
     # -- one backward pass's exchange ---------------------------------------
 
@@ -347,7 +382,8 @@ class _DistributedOptimizer:
         outs = C.grouped_allreduce(grads, op=self.op,
                                    prescale_factor=self.prescale_factor,
                                    postscale_factor=self.postscale_factor,
-                                   compression=self.compression)
+                                   compression=self.compression,
+                                   group=self._scope(ids[0]))
         for g, r in zip(grads, outs):
             g.copy_(r)
 
@@ -365,9 +401,10 @@ class _DistributedOptimizer:
                 if self._trainable[i].grad is not None]
         nbytes = [self._trainable[i].grad.numel() *
                   self._trainable[i].grad.element_size() for i in rest]
-        for bucket in plan_buckets(nbytes, self._bucket_bytes,
-                                   reverse=False):
-            self._launch([rest[j] for j in bucket], "synchronize")
+        for ids in self._by_scope([
+                [rest[j] for j in bucket] for bucket in
+                plan_buckets(nbytes, self._bucket_bytes, reverse=False)]):
+            self._launch(ids, "synchronize")
         for i in self._sparse:
             if self._trainable[i].grad is not None:
                 self._launch([i], "synchronize")
@@ -689,11 +726,22 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          reduction: Optional[str] = None,
                          sparse_params: Optional[Mapping] = None,
                          level_codecs: Optional[
-                             Dict[str, Optional[int]]] = None):
+                             Dict[str, Optional[int]]] = None,
+                         axis=None):
     """Wrap ``optimizer`` so each ``step()`` uses cross-rank-reduced
     gradients (reference ``DistributedOptimizer``, ``torch/optimizer.py``),
     exchanged bucket by bucket from gradient hooks while backward runs
     (:class:`_DistributedOptimizer`).
+
+    ``axis`` is the exchange's scope (JAX's ``axis``): the world (None),
+    or a process group, such as a mesh's data group
+    (``mesh.scope(plan.data_axes)``, which is
+    :data:`~horovod_tpu_torch.ops.collectives.ALONE` when the group is
+    this rank alone).  It reaches the hook-fired and step-time exchanges,
+    and Average and the pre/postscale passes divide by its size.  The
+    sharded, Adasum, quantized and row-sparse forms take the world only
+    (JAX runs them under ``shard_map``, whose scope is the data axes of a
+    plan without tp) and raise otherwise.
 
     ``gradient_predivide_factor`` splits the averaging around the sum:
     gradients scale by ``1/f`` before it and ``f/size`` after (reference
@@ -766,6 +814,16 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             "reduction selects the sharded exchange's combine operator; "
             "pass shard_optimizer_states=True to enable it")
     qbits = getattr(compression, "wire_reduce_bits", None)
+    if not C.is_world(axis):
+        scoped = [name for name, on in (
+            ("shard_optimizer_states", shard_optimizer_states),
+            ("op=Adasum", op == Adasum), ("a quantized wire", qbits),
+            ("sparse_params", bool(sparse_params))) if on]
+        if scoped:
+            raise ValueError(
+                f"{', '.join(scoped)} reduce(s) over the world; an exchange "
+                f"scoped to a process group (axis=) takes the replicated "
+                f"form with op=Sum/Average")
     if shard_optimizer_states:
         if sparse_params:
             raise ValueError(
@@ -815,7 +873,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     return _DistributedOptimizer(
         optimizer, op, compression, backward_passes_per_step,
         prescale_factor, postscale_factor,
-        sparse=_sparse_indices(optimizer, named_parameters, sparse_params))
+        sparse=_sparse_indices(optimizer, named_parameters, sparse_params),
+        axis=axis)
 
 
 def _sparse_indices(optimizer: torch.optim.Optimizer, named_parameters,

@@ -1254,6 +1254,57 @@ class TestNcclWorld:
         assert all(out["full"]["two_level"]["losses"] ==
                    card[0]["full"]["two_level"]["losses"] for out in card)
 
+    def test_model_parallel_over_nccl(self, cards):
+        """tp and fsdp in the step's plan on four cards: the 870.9M
+        TransformerLM at full width (bf16 compute, flash, AdamW which the
+        step wraps, 6 sequences a rank of one global batch) under ``dp=4``,
+        ``tp=4``, ``dp=2,tp=2``, ``fsdp=4`` and ``fsdp=2,tp=2``, three steps
+        each.  Every plan's losses within 1e-2 normwise of ``dp=4``'s; each
+        rank's resident parameter bytes at most the replicated bytes over
+        the plan's tp·fsdp extent plus the leaves the plan leaves whole;
+        each flash kernel 16 launches a step, at h/tp heads under tp;
+        ``dp=2,tp=2`` and ``fsdp=2,tp=2`` draw the model from the seed with
+        the plan's tp group, and each rank holds tp_shard of the model
+        drawn at full width; step times, peak memory, the AdamW state's
+        bytes and the launch counts printed beside the card's name and
+        power limit before anything is checked.  Run alone on four
+        cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        card = spawn_world("run_mp_nccl", world=4, device="cuda",
+                           timeout=900)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
+        for rank, out in enumerate(card):
+            for plan, r in out.items():
+                ms = 1e3 * sorted(r["times"][1:])[len(r["times"][1:]) // 2]
+                print(f"rank {rank} 870.9M LM {plan} [{smi[rank]}]: mode "
+                      f"{r['mode']}, step {ms:.1f} ms (median of steps 2-3; "
+                      f"all {[round(t * 1e3, 1) for t in r['times']]}), "
+                      f"losses {r['losses']}, peak {r['peak'] / 2**30:.2f} "
+                      f"GiB, resident {r['resident']} B of {r['full']} "
+                      f"(whole leaves {r['whole']} B), AdamW state "
+                      f"{r['state_bytes']} B, launches {r['launches']}, "
+                      f"drawn with its tp group and equal to the full "
+                      f"draw's shard: {r['seeded']}")
+        for rank, out in enumerate(card):
+            ref = np.asarray(out["dp=4"]["losses"])
+            for plan, r in out.items():
+                assert r["mode"] == "pjit", plan
+                got = np.asarray(r["losses"])
+                assert np.linalg.norm(got - ref) <= 1e-2 * np.linalg.norm(
+                    ref), (rank, plan)
+                assert r["resident"] <= r["full"] / r["extent"] + \
+                    r["whole"], (rank, plan)
+                assert r["seeded"] is (True if plan in (
+                    "dp=2,tp=2", "fsdp=2,tp=2") else None), (rank, plan)
+                flash = {k: r["launches"].get(k, 0) for k in
+                         ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                assert flash == dict.fromkeys(flash, 16 * len(r["losses"])), \
+                    (rank, plan, r["launches"])
+            assert out["dp=4"]["losses"][-1] < out["dp=4"]["losses"][0]
+
 
 def _leaves(x) -> list:
     """The arrays and numbers of a nested dict/list result, in order."""

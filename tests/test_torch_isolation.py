@@ -133,6 +133,24 @@ def test_port_files_cover_the_hierarchy_slice():
             "chip_smoke.py"} <= names
 
 
+def test_port_files_cover_the_model_parallel_slice():
+    """The import and string checks below cover the modules of tp and fsdp
+    in the step's plan and of the ViT."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/parallel/plan.py",
+            "horovod_tpu_torch/parallel/mesh.py",
+            "horovod_tpu_torch/parallel/tensor_parallel.py",
+            "horovod_tpu_torch/parallel/fsdp.py",
+            "horovod_tpu_torch/models/transformer.py",
+            "horovod_tpu_torch/models/vit.py",
+            "horovod_tpu_torch/models/convert.py",
+            "horovod_tpu_torch/optim/optimizer.py",
+            "horovod_tpu_torch/optim/train_step.py",
+            "horovod_tpu_torch/checkpoint.py",
+            "horovod_tpu_torch/ops/kernels.py",
+            "chip_smoke.py"} <= names
+
+
 #: a dotted module path under the JAX package; ``horovod_tpu_torch.`` is
 #: the port's own
 JAX_MODULE = re.compile(r"\bhorovod_tpu\.\w")
@@ -670,6 +688,36 @@ def test_attention_kernel_inputs_still_launch(fake_card, entry):
     if entry == "ring_attention":
         want = tuple(f"{n}_pos" for n in want)
     assert counts == dict.fromkeys(want, 2)
+
+
+def test_flash_at_vit_patches_launches_the_kernels(fake_card):
+    """ViT-B/16's 196 patches, which no flash block tiles: a device tensor
+    still launches the three kernels (they mask the ragged tile), without
+    the causal mask; on the CPU the same call computes reference
+    attention, as the JAX package does."""
+    q = _meta(2, 196, 3, 64).requires_grad_()
+    K.flash_attention(q, q, q, causal=False).backward(_meta(2, 196, 3, 64))
+    assert fake_card.calls == ["hvd_flash_fwd", "hvd_flash_bwd_dq",
+                               "hvd_flash_bwd_dkv"]
+    assert [args[-2] for args in fake_card.args] == [0, 0, 0]
+    assert K.fit_flash_block(196, 512) is None
+
+
+def test_vit_on_device_runs_the_flash_kernels(fake_card):
+    """A ViT at 224 px with flash attention: each layer's forward and
+    backward launch each flash kernel once, non-causal."""
+    from horovod_tpu_torch.models.vit import ViTConfig, VisionTransformer
+
+    cfg = ViTConfig(num_layers=2, num_heads=2, d_model=128, d_ff=256,
+                    attention_impl="flash")
+    model = VisionTransformer(cfg, device="meta")
+    logits = model(torch.empty(2, 224, 224, 3, device="meta"))
+    assert logits.shape == (2, 1000) and logits.dtype == torch.float32
+    logits.sum().backward()
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    assert counts == dict.fromkeys(("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"), 2)
+    assert {args[-2] for args in fake_card.args} == {0}
 
 
 @pytest.mark.parametrize("shape,dtype,want", [

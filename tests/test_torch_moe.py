@@ -469,9 +469,14 @@ class TestExpertParallel:
     @pytest.mark.parametrize("world", WORLDS)
     def test_errors(self, worlds, world):
         """3 experts over an ep group of 2 or 4 raises JAX's ValueError,
-        word for word; the sharded exchange with ep > 1 raises
-        NotImplementedError naming its ROADMAP item."""
+        word for word.  The sharded exchange with ep > 1 resolves to
+        shard_map and raises the JAX step's refusal of model axes there,
+        word for word, and an explicit ``mode="pjit"`` JAX's refusal of
+        sharded states under pjit: the JAX package has no shard_map + ep
+        step, and its sharded state under ep is the fsdp placement."""
+        import horovod_tpu as jhvd
         from jax.sharding import Mesh, PartitionSpec as P
+        from horovod_tpu.parallel import ShardingPlan as JPlan
 
         mesh = Mesh(np.array(jax.devices()[:world]), ("ep",))
         with pytest.raises(ValueError) as jerr:
@@ -482,7 +487,15 @@ class TestExpertParallel:
                 check_vma=False)(jnp.zeros((4, 32)), jnp.zeros((32, 3)))
         errors = worlds[world][0]["errors"]
         assert errors["divisible"] == str(jerr.value)
-        assert "Queue A 13" in errors["sharded"]
+        plan = JPlan.from_string(f"ep={world}").resolve(world)
+        jmesh = plan.build_mesh(devices=jax.devices()[:world])
+        for key, mode in (("sharded", "shard_map"), ("sharded_pjit", "pjit")):
+            with pytest.raises(ValueError) as jerr:
+                jhvd.DistributedTrainStep(
+                    lambda p, b: 0.0, optax.adamw(1e-3), mesh=jmesh,
+                    plan=f"ep={world}", mode=mode,
+                    shard_optimizer_states=True)
+            assert errors[key] == str(jerr.value), key
 
 
 def _jax_ep_step(lm_params, n_shards):

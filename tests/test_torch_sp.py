@@ -413,14 +413,23 @@ def test_shard_batch_refuses_zigzag_knob(worlds):
 
 
 def test_train_step_rejects_model_axes(worlds):
-    """tp and pp plans are refused; ep joins sp among the plans the step
-    trains (the MoE slice), so ``ep=2,sp=2`` builds and ``ep=2,tp=2`` is
-    refused for its tp."""
-    errors = worlds[4].result()[0]["plan_errors"]
-    assert "model axes" in errors["dp=2,tp=2"]
-    assert "model axes ('tp',)" in errors["ep=2,tp=2"]
-    assert "ep=2,sp=2" not in errors
+    """Under ``mode="shard_map"`` (where sp runs) the step refuses every
+    model axis but sp, as the JAX step does: ``dp=2,tp=2`` for its tp,
+    ``ep=2,tp=2`` for ep and tp, ``ep=2,sp=2`` for its ep; a pipeline plan
+    is refused in any mode.  Under the default mode ``ep=2,sp=2`` builds:
+    sp resolves it to shard_map, which then keeps ep on the world
+    exchange; ``dp=2,tp=2`` and ``ep=2,tp=2`` resolve to pjit."""
+    out = worlds[4].result()[0]
+    errors = out["plan_errors"]
+    assert "model axes ('tp',)" in errors["dp=2,tp=2"]
+    assert "model axes ('ep', 'tp')" in errors["ep=2,tp=2"]
+    assert "model axes ('ep',)" in errors["ep=2,sp=2"]
     assert "pp>1" in errors["pp=2"]
+    default = out["default_plan_errors"]
+    assert default["ep=2,sp=2"] == "shard_map"
+    assert default["dp=2,tp=2"] == "pjit"
+    assert default["ep=2,tp=2"] == "pjit"
+    assert "pp>1" in default["pp=2"]
 
 
 # ---------------------------------------------------------------------------

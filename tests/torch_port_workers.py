@@ -707,14 +707,20 @@ def run_sp(hvd, params, tokens):
             del os.environ["HOROVOD_SP_LAYOUT"]
         out["train_dense"] = _sp_train(hvd, "dp=4", "dense",
                                        np.tile(rows, (2, 1)))
-        errors = {}
-        for plan in ("dp=2,tp=2", "pp=2", "ep=2,sp=2", "ep=2,tp=2"):
-            try:
-                hvd.DistributedTrainStep(lambda m, b: m, torch.optim.SGD(
-                    [torch.zeros(1, requires_grad=True)], lr=0.1), plan=plan)
-            except ValueError as e:
-                errors[plan] = str(e)
-        out["plan_errors"] = errors
+        # each plan under the default mode (its mode, or the refusal) and
+        # under mode="shard_map" (the refusal, or the mode)
+        for key, kw in (("default_plan_errors", {}),
+                        ("plan_errors", {"mode": "shard_map"})):
+            errors = {}
+            for plan in ("dp=2,tp=2", "pp=2", "ep=2,sp=2", "ep=2,tp=2"):
+                try:
+                    errors[plan] = hvd.DistributedTrainStep(
+                        lambda m, b: m, torch.optim.SGD(
+                            [torch.zeros(1, requires_grad=True)], lr=0.1),
+                        plan=plan, **kw).mode
+                except ValueError as e:
+                    errors[plan] = str(e)
+            out[key] = errors
     return out
 
 
@@ -2194,12 +2200,13 @@ def run_moe(hvd, ffn_params, lm_params):
                             lambda t: t, 3, group=dist.group.WORLD)
     except ValueError as e:
         errors["divisible"] = str(e)
-    try:
-        hvd.DistributedTrainStep(moe_lm_loss, torch.optim.AdamW(
-            [torch.zeros(2, requires_grad=True)]), plan=f"ep={world}",
-            shard_optimizer_states=True)
-    except NotImplementedError as e:
-        errors["sharded"] = str(e)
+    for key, mode in (("sharded", None), ("sharded_pjit", "pjit")):
+        try:
+            hvd.DistributedTrainStep(moe_lm_loss, torch.optim.AdamW(
+                [torch.zeros(2, requires_grad=True)]), plan=f"ep={world}",
+                shard_optimizer_states=True, mode=mode)
+        except ValueError as e:
+            errors[key] = str(e)
     out["errors"] = errors
     return out
 
@@ -3353,3 +3360,653 @@ if __name__ == "__main__":
     import sys
 
     sys.exit(launched_main(sys.argv[1:]))
+
+
+# ---------------------------------------------------------------------------
+# tp and fsdp in the step's plan (tests/test_torch_model_parallel.py)
+# ---------------------------------------------------------------------------
+
+#: the 2-layer LM of the model-parallel tests (d 128, 4 heads)
+MP_LM = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=128,
+             d_ff=256, max_seq_len=16)
+MP_LR = 1e-3
+MP_STEPS = 3
+
+
+def mp_tokens() -> np.ndarray:
+    """The global batch of the LM cases: 8 rows of 17 tokens."""
+    return np.random.RandomState(11).randint(0, 64, (8, 17)).astype(np.int64)
+
+
+def mp_mlp_batch() -> dict:
+    """``tests/test_plan.py``'s TpMlp batch: x and y of (16, 32)."""
+    rng = np.random.RandomState(0)
+    return {"x": rng.randn(16, 32).astype(np.float32),
+            "y": rng.randn(16, 32).astype(np.float32)}
+
+
+def fsdp_setup() -> tuple:
+    """``tests/test_plan.py``'s FSDP set-up: w1 (64, 256), w2 (256, 8) and
+    a batch of 32 rows."""
+    rng = np.random.RandomState(0)
+    w = {"w1": (rng.randn(64, 256) * 0.05).astype(np.float32),
+         "w2": (rng.randn(256, 8) * 0.05).astype(np.float32)}
+    batch = {"x": rng.randn(32, 64).astype(np.float32),
+             "y": rng.randn(32, 8).astype(np.float32)}
+    return w, batch
+
+
+def tp_mlp(group=None):
+    """``tests/test_plan.py``'s TpMlp: ColumnParallelDense(64), gelu,
+    RowParallelDense(32), both with a bias."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.parallel.tensor_parallel import (
+        ColumnParallelDense,
+        RowParallelDense,
+    )
+
+    class TpMlp(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.col = ColumnParallelDense(32, 64, group)
+            self.row = RowParallelDense(64, 32, group)
+
+        def forward(self, x):
+            return self.row(F.gelu(self.col(x), approximate="tanh"))
+
+    return TpMlp()
+
+
+def tp_mlp_state(flax_params: dict) -> dict:
+    """The flax TpMlp's parameters as :func:`tp_mlp`'s full state_dict."""
+    import torch
+
+    col, row = flax_params["ColumnParallelDense_0"], \
+        flax_params["RowParallelDense_0"]
+    return {"col.weight": torch.from_numpy(col["kernel"].T.copy()),
+            "col.bias": torch.from_numpy(col["bias"].copy()),
+            "row.weight": torch.from_numpy(row["kernel"].T.copy()),
+            "row.bias": torch.from_numpy(row["bias"].copy())}
+
+
+def _fsdp_mlp():
+    import torch
+
+    class Mlp(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w1 = torch.nn.Parameter(torch.zeros(64, 256))
+            self.w2 = torch.nn.Parameter(torch.zeros(256, 8))
+
+        def forward(self, x):
+            return torch.relu(x @ self.w1) @ self.w2
+
+    return Mlp()
+
+
+def _np_state(model) -> dict:
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in model.state_dict().items()}
+
+
+def _mp_train(hvd, model, loss_fn, batch, plan, opt_fn, mesh=None,
+              **kw) -> dict:
+    """MP_STEPS steps of DistributedTrainStep under ``plan``: the losses,
+    this rank's parameters (its shards), the optimizer state's shapes, the
+    step's mode and the resident bytes."""
+    from horovod_tpu_torch.parallel.fsdp import resident_bytes
+
+    step = hvd.DistributedTrainStep(loss_fn, opt_fn(model.parameters()),
+                                    plan=plan, mesh=mesh, **kw)
+    model, opt = step.init(model)
+    b = step.shard_batch(batch)
+    losses = []
+    for _ in range(MP_STEPS):
+        model, opt, loss = step(model, opt, b)
+        losses.append(float(loss))
+    inner = getattr(opt, "optimizer", opt)
+    state_shapes = {name: tuple(inner.state[p]["exp_avg"].shape)
+                    for name, p in model.named_parameters()
+                    if p in inner.state}
+    return dict(losses=losses, params=_np_state(model), mode=step.mode,
+                state_shapes=state_shapes, resident=resident_bytes(model),
+                tp_index=step.mesh.index("tp"),
+                fsdp_index=step.mesh.index("fsdp"),
+                dims=None if step.fsdp_placement is None
+                else dict(step.fsdp_placement.dims)), step, model
+
+
+def _adamw(params):
+    import torch
+
+    return torch.optim.AdamW(params, lr=MP_LR, weight_decay=1e-4)
+
+
+def _mp_lm(hvd, lm_sd, plan, tp_group_from_mesh: bool = False):
+    """The LM under ``plan`` from the flax weights ``lm_sd`` (a full
+    state_dict): built at full width for the step to shard, or with
+    ``tp_group_from_mesh`` from ``plan.build_mesh()`` with this rank's
+    converted shard.  Returns _mp_train's record plus the logits of the
+    whole batch after training."""
+    import torch
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.models.convert import tp_shard
+    from horovod_tpu_torch.parallel.plan import ShardingPlan
+
+    cfg = TT.TransformerConfig(dtype=torch.float32, attention_impl="flash",
+                               **MP_LM)
+    mesh = None
+    if tp_group_from_mesh:
+        mesh = ShardingPlan.from_string(plan).resolve(hvd.size()).build_mesh()
+        tp, idx = mesh.shape["tp"], mesh.index("tp")
+        model = TT.TransformerLM(cfg, tp_group=mesh.group("tp"))
+        model.load_state_dict({k: tp_shard(k, v, tp, idx)
+                               for k, v in lm_sd.items()})
+    else:
+        model = TT.TransformerLM(cfg)
+        model.load_state_dict(lm_sd)
+    tok = mp_tokens()
+    rec, step, model = _mp_train(hvd, model, lambda m, b: TT.lm_loss(m, b),
+                                 tok, plan, _adamw, mesh=mesh)
+    with torch.no_grad():
+        rec["logits"] = model(torch.from_numpy(tok[:, :-1])).numpy()
+    if step.fsdp_placement is not None:
+        from horovod_tpu_torch.parallel.fsdp import gather_params
+
+        rec["full"] = {k: v.numpy() for k, v in gather_params(model).items()}
+    return rec
+
+
+def _mp_fsdp_mlp(hvd, w, batch, plan, **kw):
+    import torch
+
+    model = _fsdp_mlp()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in w.items()})
+
+    def loss_fn(m, b):
+        return torch.mean((m(b["x"]) - b["y"]) ** 2)
+
+    rec, step, model = _mp_train(
+        hvd, model, loss_fn, batch, plan,
+        lambda p: torch.optim.Adam(p, lr=1e-2), **kw)
+    if step.fsdp_placement is not None:
+        from horovod_tpu_torch.parallel.fsdp import gather_params
+
+        rec["full"] = {k: v.numpy() for k, v in gather_params(model).items()}
+    return rec
+
+
+def _mp_moe(hvd, plan):
+    """The MoE LM of MOE_LM, seeded weights, under ``plan`` (the model's
+    ep group from the plan's mesh), placed leaves from one element up."""
+    import torch
+
+    from horovod_tpu_torch.models.moe import MoEConfig, MoETransformerLM
+    from horovod_tpu_torch.parallel.plan import ShardingPlan
+
+    mesh = ShardingPlan.from_string(plan).resolve(hvd.size()).build_mesh()
+    cfg = MoEConfig(dtype=torch.float32, attention_impl="dense",
+                    fused_dispatch="off", **MOE_LM)
+    model = MoETransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                             ep_group=mesh.group("ep"))
+    kw = {"fsdp_min_weight_size": 1} if mesh.shape["fsdp"] > 1 else {}
+    rec, step, model = _mp_train(hvd, model, moe_lm_loss, moe_tokens(), plan,
+                                 _adamw, mesh=mesh, **kw)
+    if step.fsdp_placement is not None:
+        from horovod_tpu_torch.parallel.fsdp import gather_params
+
+        rec["full"] = {k: v.numpy() for k, v in gather_params(model).items()}
+    return rec
+
+
+def _caught_step(hvd, fn) -> str:
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as e:
+        return str(e)
+    return ""
+
+
+#: the refusals held word for word against the JAX step: (name, plan,
+#: keyword arguments); ``op``/``compression`` by name
+MP_REFUSALS = [
+    ("tp_under_shard_map", "dp=2,tp=2", dict(mode="shard_map")),
+    ("ep_sharded_states", "dp=2,ep=2", dict(shard_optimizer_states=True)),
+    ("sharded_states_under_pjit", "dp=4",
+     dict(mode="pjit", shard_optimizer_states=True)),
+    ("data_axes_conflict", "dp=2,fsdp=2", dict(data_axes=("dp",))),
+    ("fsdp_axis_under_shard_map", "dp=2,fsdp=2",
+     dict(mode="shard_map", fsdp_axis="fsdp")),
+    ("fsdp_axis_unknown", "dp=4", dict(fsdp_axis="zz")),
+    ("fsdp_min_without_axis", "dp=4", dict(fsdp_min_weight_size=1)),
+    ("sum_under_pjit", "dp=4", dict(mode="pjit", op="Sum")),
+    ("compression_under_pjit", "dp=4", dict(mode="pjit",
+                                            compression="fp16")),
+    ("op_none_under_pjit", "dp=4", dict(mode="pjit", op=None)),
+    ("sparse_under_pjit", "dp=4", dict(mode="pjit",
+                                       sparse_params={"w": 4})),
+    ("unknown_mode", "dp=4", dict(mode="gspmd")),
+    ("pipeline", "dp=2,pp=2", {}),
+]
+
+
+def mp_refusal_kwargs(hvd, kw: dict) -> dict:
+    """A refusal case's keyword arguments with ``op`` and ``compression``
+    named resolved against ``hvd`` (either package)."""
+    kw = dict(kw)
+    if "op" in kw and kw["op"] is not None:
+        kw["op"] = getattr(hvd, kw["op"])
+    if "compression" in kw:
+        kw["compression"] = getattr(hvd.Compression, kw["compression"])
+    return kw
+
+
+def _mp_errors(hvd) -> dict:
+    import torch
+
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    out = {}
+    for name, plan, kw in MP_REFUSALS:
+        kw = mp_refusal_kwargs(hvd, kw)
+        out[name] = _caught_step(hvd, lambda: hvd.DistributedTrainStep(
+            lambda m, b: None, torch.optim.SGD(
+                [torch.zeros(2, requires_grad=True)], lr=0.1),
+            plan=plan, **kw))
+    other = make_parallel_mesh(tp=4)
+    out["mesh_mismatch"] = _caught_step(hvd, lambda: hvd.DistributedTrainStep(
+        lambda m, b: None, torch.optim.SGD(
+            [torch.zeros(2, requires_grad=True)], lr=0.1),
+        plan="dp=2,tp=2", mesh=other))
+    # a model sharded over another extent than the plan's, and a plan's
+    # tp with no tensor-parallel module
+    step = hvd.DistributedTrainStep(
+        lambda m, b: None, torch.optim.SGD(
+            [torch.zeros(2, requires_grad=True)], lr=0.1), plan="tp=4")
+    out["tp_extent"] = _caught_step(
+        hvd, lambda: step.init(tp_mlp(make_parallel_mesh(tp=2).group("tp"))))
+    lin = torch.nn.Linear(4, 4)
+    step = hvd.DistributedTrainStep(
+        lambda m, b: None, torch.optim.SGD(lin.parameters(), lr=0.1),
+        plan="tp=4")
+    out["tp_no_modules"] = _caught_step(hvd, lambda: step.init(lin))
+    return out
+
+
+def _mp_checkpoint(hvd, directory: str) -> dict:
+    """The checkpoint guard: a tp-sharded and an fsdp-placed model's
+    state_dict refused by save and restore_and_broadcast on every rank; a
+    replicated one saved."""
+    import torch
+
+    from horovod_tpu_torch.checkpoint import Checkpointer
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    ckpt = Checkpointer(directory, async_save=False)
+    out = {}
+    tp_model = tp_mlp(make_parallel_mesh(dp=2, tp=2).group("tp"))
+    out["tp_save"] = _caught_step(
+        hvd, lambda: ckpt.save(1, {"model": tp_model.state_dict()}))
+    out["tp_restore"] = _caught_step(
+        hvd, lambda: ckpt.restore_and_broadcast(
+            {"model": tp_model.state_dict()}))
+    w, _ = fsdp_setup()
+    model = _fsdp_mlp()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in w.items()})
+    step = hvd.DistributedTrainStep(
+        lambda m, b: None, torch.optim.SGD(model.parameters(), lr=0.1),
+        plan="fsdp=4", fsdp_min_weight_size=1)
+    model, _ = step.init(model)
+    out["fsdp_save"] = _caught_step(
+        hvd, lambda: ckpt.save(2, {"model": model.state_dict()}))
+    # the optimizer state alone: AdamW's moments of a tp and an fsdp shard
+    tp_opt = torch.optim.AdamW(tp_model.parameters(), lr=1e-3)
+    tp_model(torch.from_numpy(mp_mlp_batch()["x"])).sum().backward()
+    tp_opt.step()
+    out["tp_opt_save"] = _caught_step(
+        hvd, lambda: ckpt.save(4, {"opt": tp_opt.state_dict()}))
+    out["tp_opt_restore"] = _caught_step(
+        hvd, lambda: ckpt.restore_and_broadcast(
+            {"opt": tp_opt.state_dict()}))
+    model = _fsdp_mlp()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in w.items()})
+    step = hvd.DistributedTrainStep(
+        lambda m, b: torch.mean((m(b["x"]) - b["y"]) ** 2),
+        torch.optim.AdamW(model.parameters(), lr=1e-3), plan="fsdp=4",
+        fsdp_min_weight_size=1)
+    model, opt = step.init(model)
+    model, opt, _ = step(model, opt, step.shard_batch(fsdp_setup()[1]))
+    out["fsdp_opt_save"] = _caught_step(
+        hvd, lambda: ckpt.save(5, {"opt": opt.state_dict()}))
+    out["written"] = sorted(os.listdir(directory)) if os.path.isdir(
+        directory) else []
+    torch.distributed.barrier()        # every rank listed before step 3
+    repl = tp_mlp()
+    out["replicated_save"] = ckpt.save(3, {"model": repl.state_dict()})
+    return out
+
+
+def mp_axis_grads(rank: int) -> np.ndarray:
+    """Rank ``rank``'s gradient in the exchange-scope case."""
+    return np.random.RandomState(40 + rank).randn(6).astype(np.float32)
+
+
+def _mp_axis(hvd) -> dict:
+    """DistributedOptimizer(axis=...) over the dp group of a ``dp=2,tp=2``
+    mesh and over ALONE, on the hook path and at synchronize(), with a
+    predivide factor; the forms that take the world only, refused; a step
+    given an optimizer of another scope, refused."""
+    import torch
+
+    from horovod_tpu_torch.ops.collectives import ALONE
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    mesh = make_parallel_mesh(dp=2, tp=2)
+    out = {}
+    for name, axis, kw in (("dp", mesh.scope("dp"), {}),
+                           ("dp_predivide", mesh.scope("dp"),
+                            {"gradient_predivide_factor": 2.0}),
+                           ("alone", ALONE, {})):
+        for path in ("hook", "synchronize"):
+            p = torch.nn.Parameter(torch.zeros(6))
+            opt = hvd.DistributedOptimizer(torch.optim.SGD([p], lr=1.0),
+                                           axis=axis, **kw)
+            g = torch.from_numpy(mp_axis_grads(hvd.rank()))
+            if path == "hook":
+                (p * g).sum().backward()
+            else:
+                p.grad = g.clone()
+            opt.synchronize()
+            out[(name, path)] = (p.grad.numpy().copy(),
+                                 [src for _, src in opt.launches])
+    p = [torch.nn.Parameter(torch.zeros(2))]
+    refusals = {}
+    for name, kw in (("sharded", dict(shard_optimizer_states=True)),
+                     ("adasum", dict(op=hvd.Adasum)),
+                     ("int8", dict(compression=hvd.Compression.int8)),
+                     ("sparse", dict(sparse_params={"w": 2},
+                                     named_parameters=[("w", p[0])]))):
+        refusals[name] = _caught_step(hvd, lambda: hvd.DistributedOptimizer(
+            torch.optim.SGD(p, lr=0.1), axis=mesh.scope("dp"), **kw))
+    refusals["step_scope"] = _caught_step(hvd, lambda: hvd.DistributedTrainStep(
+        lambda m, b: None, hvd.DistributedOptimizer(torch.optim.SGD(
+            p, lr=0.1)), plan="dp=2,tp=2", mesh=mesh))
+    step = hvd.DistributedTrainStep(
+        lambda m, b: None, hvd.DistributedOptimizer(
+            torch.optim.SGD(p, lr=0.1), axis=mesh.scope("dp")),
+        plan="dp=2,tp=2", mesh=mesh)
+    out["scope_accepted"] = step.exchange_scope is mesh.scope("dp")
+    out["refusals"] = refusals
+    out["dp_ranks"] = sorted(
+        torch.distributed.get_process_group_ranks(mesh.group("dp")))
+    return out
+
+
+def _mp_seeded_tp(mesh) -> dict:
+    """The LM of MP_LM and the ViT of VIT_CPU drawn from seed 0 with the
+    tp group of ``mesh``, against the shards of the same models drawn at
+    full width: per model, the names whose shard differs (by tp_shard) and
+    the number of parameters compared."""
+    import torch
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.models.convert import tp_shard
+    from horovod_tpu_torch.models.vit import ViTConfig, VisionTransformer
+
+    tp, idx = mesh.shape["tp"], mesh.index("tp")
+    out = {}
+    for name, build in (
+            ("lm", lambda **kw: TT.TransformerLM(
+                TT.TransformerConfig(dtype=torch.float32, **MP_LM), **kw)),
+            ("vit", lambda **kw: VisionTransformer(
+                ViTConfig(dtype=torch.float32, **VIT_CPU), **kw))):
+        full = build(generator=torch.Generator().manual_seed(0)).state_dict()
+        shard = build(generator=torch.Generator().manual_seed(0),
+                      tp_group=mesh.group("tp")).state_dict()
+        out[name] = ([k for k, v in shard.items()
+                      if not torch.equal(v, tp_shard(k, full[k], tp, idx))],
+                     len(shard))
+    return out
+
+
+def _mp_tp_buckets(hvd) -> dict:
+    """One step of plan ``dp=2,tp=2`` over the LM of MP_LM at full width
+    (the step cuts it in init) at a 128 KiB fusion threshold: the buckets
+    the step's exchange launched, and plan_buckets' counts over the
+    shards' bytes and over the full parameters' bytes."""
+    import torch
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.ops.bucketing import plan_buckets
+    from horovod_tpu_torch.runtime import state
+
+    cfg = state.global_state().config
+    threshold, cfg.fusion_threshold_bytes = cfg.fusion_threshold_bytes, \
+        128 * 1024
+    try:
+        model = TT.TransformerLM(TT.TransformerConfig(
+            dtype=torch.float32, **MP_LM),
+            generator=torch.Generator().manual_seed(0))
+        full = [p.numel() * 4 for p in model.parameters()]
+        step = hvd.DistributedTrainStep(
+            lambda m, b: TT.lm_loss(m, b),
+            torch.optim.AdamW(model.parameters(), lr=MP_LR), plan="dp=2,tp=2")
+        model, opt = step.init(model)
+        step(model, opt, step.shard_batch(mp_tokens()))
+        shards = [p.numel() * 4 for p in model.parameters()]
+        return dict(launched=len(opt.launches),
+                    shards=len(plan_buckets(shards, 128 * 1024)),
+                    full=len(plan_buckets(full, 128 * 1024)))
+    finally:
+        cfg.fusion_threshold_bytes = threshold
+
+
+def run_model_parallel(hvd, tp_mlp_params, lm_sd, directory: str) -> dict:
+    """On a gloo world of 4 (or 2: ``tp=2`` only): tp, fsdp and their mixes
+    through DistributedTrainStep, against the replicated plans; models
+    drawn from a seed over a tp group; the refusals and the checkpoint
+    guard (world 4)."""
+    import torch
+
+    from horovod_tpu_torch.parallel.plan import ShardingPlan
+
+    torch.set_num_threads(1)
+    world = hvd.size()
+    out = {}
+    out["seeded_tp"] = _mp_seeded_tp(ShardingPlan.from_string(
+        "dp=2,tp=2" if world == 4 else "tp=2").resolve(world).build_mesh())
+    mlp_b = mp_mlp_batch()
+    full = tp_mlp_state(tp_mlp_params)
+    tp_plans = ["dp=2,tp=2"] if world == 4 else ["tp=2"]
+    for plan in tp_plans:
+        model = tp_mlp()
+        model.load_state_dict(full)
+
+        def mse(m, b):
+            return torch.mean((m(b["x"]) - b["y"]) ** 2)
+
+        rec, _, model = _mp_train(hvd, model, mse, mlp_b, plan, _adamw)
+        with torch.no_grad():
+            rec["logits"] = model(torch.from_numpy(mlp_b["x"])).numpy()
+        out[("tp_mlp", plan)] = rec
+        out[("lm", plan)] = _mp_lm(hvd, lm_sd, plan,
+                                   tp_group_from_mesh=world == 4)
+    if world == 2:
+        return out
+    w, batch = fsdp_setup()
+    for plan in ("dp=2,fsdp=2", "fsdp=4"):
+        out[("fsdp_mlp", plan)] = _mp_fsdp_mlp(hvd, w, batch, plan,
+                                               fsdp_min_weight_size=1)
+    out[("fsdp_mlp", "dp=4")] = _mp_fsdp_mlp(hvd, w, batch, "dp=4")
+    out[("fsdp_mlp_default_min", "fsdp=4")] = _mp_fsdp_mlp(hvd, w, batch,
+                                                           "fsdp=4")
+    for plan in ("dp=4", "fsdp=2,tp=2"):
+        out[("lm", plan)] = _mp_lm(hvd, lm_sd, plan)
+    for plan in ("dp=2,ep=2", "fsdp=2,ep=2"):
+        out[("moe", plan)] = _mp_moe(hvd, plan)
+    out["errors"] = _mp_errors(hvd)
+    out["tp_buckets"] = _mp_tp_buckets(hvd)
+    out["checkpoint"] = _mp_checkpoint(hvd, directory)
+    out["axis"] = _mp_axis(hvd)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the ViT (tests/test_torch_vit.py)
+# ---------------------------------------------------------------------------
+
+#: bench.py's CPU ViT: 32 px, patch 16, 2 layers, d 128, 4 heads
+VIT_CPU = dict(image_size=32, patch_size=16, num_layers=2, num_heads=4,
+               d_model=128, d_ff=512)
+VIT_LR = 3e-4
+
+
+def vit_batch(n: int = 4) -> dict:
+    """``n`` NHWC fp32 images of VIT_CPU's size and int64 labels of 1000
+    classes."""
+    rng = np.random.RandomState(5)
+    return {"x": rng.rand(n, 32, 32, 3).astype(np.float32),
+            "y": rng.randint(0, 1000, (n,)).astype(np.int64)}
+
+
+def vit_step(hvd, sd, plan=None, impl="dense", steps: int = 1) -> dict:
+    """``steps`` AdamW(3e-4, weight_decay=1e-4) steps of the fp32 ViT of
+    VIT_CPU from the state_dict ``sd`` through DistributedTrainStep under
+    ``plan``: losses, this rank's parameters, its tp index, and the logits
+    of the whole batch before and after."""
+    import torch
+
+    from horovod_tpu_torch.models.vit import ViTConfig, VisionTransformer, \
+        vit_loss
+
+    cfg = ViTConfig(dtype=torch.float32, attention_impl=impl, **VIT_CPU)
+    model = VisionTransformer(cfg)
+    model.load_state_dict(sd)
+    batch = vit_batch()
+    x = torch.from_numpy(batch["x"])
+    with torch.no_grad():
+        before = model(x).numpy()
+    step = hvd.DistributedTrainStep(
+        vit_loss, torch.optim.AdamW(model.parameters(), lr=VIT_LR,
+                                    weight_decay=1e-4), plan=plan)
+    model, opt = step.init(model)
+    b = step.shard_batch(batch)
+    losses = []
+    for _ in range(steps):
+        model, opt, loss = step(model, opt, b)
+        losses.append(float(loss))
+    with torch.no_grad():
+        after = model(x).numpy()
+    return dict(losses=losses, params=_np_state(model), before=before,
+                after=after, mode=step.mode,
+                tp_index=step.mesh.index("tp") if step.mesh else 0)
+
+
+def run_vit(hvd, sd) -> dict:
+    """On a gloo world of 2: the ViT one step under ``dp=2`` and ``tp=2``."""
+    import torch
+
+    torch.set_num_threads(1)
+    return {plan: vit_step(hvd, sd, plan) for plan in ("dp=2", "tp=2")}
+
+
+#: the plans of the four-card model-parallel test, the replicated one first
+MP_NCCL_PLANS = ("dp=4", "tp=4", "dp=2,tp=2", "fsdp=4", "fsdp=2,tp=2")
+#: the plans whose model is drawn with the plan's tp group (the others at
+#: full width, for the step to shard)
+MP_NCCL_SEEDED = ("dp=2,tp=2", "fsdp=2,tp=2")
+
+
+def run_mp_nccl(hvd, small: bool = False, steps: int = 3) -> dict:
+    """chip_smoke's 870.9M TransformerLM (seed 0, bf16 compute on a card,
+    flash) under each of MP_NCCL_PLANS through DistributedTrainStep with
+    AdamW(3e-4, weight_decay=1e-4), which the step wraps, ``steps`` steps
+    on one global batch of 6 sequences a rank of a world of 4: losses,
+    step seconds, peak memory, this rank's resident parameter and AdamW
+    state bytes, and the bytes of the leaves the plan leaves whole.  Under
+    MP_NCCL_SEEDED's plans the model is drawn from the seed with the tp
+    group of the step's mesh, and ``seeded`` says whether it is, leaf for
+    leaf, tp_shard of the model drawn at full width.  ``small`` runs a
+    2-layer d 128 model on sequences of 16 (the gloo rehearsal)."""
+    import torch
+
+    from chip_smoke import FULL, SEED, full_config
+    from horovod_tpu_torch.models.convert import tp_shard
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel.fsdp import resident_bytes
+    from horovod_tpu_torch.parallel.plan import ShardingPlan
+
+    torch.set_num_threads(1)
+    dev = hvd.device()
+    if small:
+        cfg = TransformerConfig(dtype=torch.float32, attention_impl="flash",
+                                **MP_LM)
+        seq, rows = 16, 2
+    else:
+        cfg = full_config(torch, "flash")
+        seq, rows = FULL["seq"], FULL["batch"]
+    tokens = torch.randint(0, cfg.vocab_size, (rows * hvd.size(), seq + 1),
+                           generator=torch.Generator().manual_seed(SEED))
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    out, numel = {}, None
+    for plan in MP_NCCL_PLANS:
+        mesh, kw, same = None, {}, None
+        if plan in MP_NCCL_SEEDED:
+            mesh = ShardingPlan.from_string(plan).resolve(hvd.size()) \
+                .build_mesh()
+            kw = {"tp_group": mesh.group("tp")}
+        model = TransformerLM(cfg, device=dev, generator=seeded(), **kw)
+        if numel is None:               # dp=4's full width
+            full_bytes = resident_bytes(model)
+            numel = {n: p.numel() for n, p in model.named_parameters()}
+        if mesh is not None:
+            full = TransformerLM(cfg, device=dev,
+                                 generator=seeded()).state_dict()
+            tp, idx = mesh.shape["tp"], mesh.index("tp")
+            same = all(torch.equal(v, tp_shard(k, full[k], tp, idx))
+                       for k, v in model.state_dict().items())
+            del full
+        step = hvd.DistributedTrainStep(
+            lambda m, b: lm_loss(m, b),
+            torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              weight_decay=1e-4), plan=plan, mesh=mesh)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        model, opt = step.init(model)
+        batch = step.shard_batch(tokens)
+        losses, times = [], []
+        K.reset_launch_counts()
+        for _ in range(steps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt, loss = step(model, opt, batch)
+            losses.append(float(loss))           # synchronises
+            times.append(time.perf_counter() - t0)
+        launches = {k: v for k, v in K.launch_counts().items() if v}
+        inner = getattr(opt, "optimizer", opt)
+        extent = step.plan.tp * step.plan.fsdp
+        # the leaves the plan does not cut to 1/extent, at what they hold
+        whole = sum(p.numel() * p.element_size()
+                    for n, p in model.named_parameters()
+                    if p.numel() * extent != numel[n])
+        out[plan] = dict(
+            losses=losses, times=times, mode=step.mode, extent=extent,
+            resident=resident_bytes(model), full=full_bytes, whole=whole,
+            seeded=same, state_bytes=state_bytes(inner), launches=launches,
+            peak=torch.cuda.max_memory_allocated()
+            if dev.type == "cuda" else 0)
+        del model, opt, step, batch, inner
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
