@@ -409,24 +409,97 @@ def device_rows(prof) -> list:
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if us > 0 and not re.fullmatch(r"[\w.]+#[\w.]+", e.key) and \
-                e.key not in ZERO_RANGES and \
+        if us > 0 and not _annotation(e.key) and \
                 str(getattr(e, "device_type", "")).endswith("CUDA"):
             rows.append((us / 1e3, e.count, e.key))
     return rows
 
 
-def range_kernels(event) -> list:
-    """(name, device us) of the kernels a host-side profiler event and its
-    children launched.  The device side of an annotation (a
-    ``record_function`` range, "Optimizer.step#AdamW.step") may be filed
-    among an event's kernels; it spans kernels counted already, so it is
-    left out (``FunctionEvent.device_time_total`` keeps it: on the
-    sharded phase it read more than the step)."""
-    own = [(k.name, k.duration) for k in event.kernels
-           if k.name not in ZERO_RANGES and
-           not re.fullmatch(r"[\w.]+#[\w.]+", k.name)]
-    return own + [k for c in event.cpu_children for k in range_kernels(c)]
+def _annotation(name: str) -> bool:
+    """Whether a device event is the device side of an annotation (a
+    ``record_function`` range, "Optimizer.step#AdamW.step"): it spans
+    kernels counted already."""
+    return name in ZERO_RANGES or bool(re.fullmatch(r"[\w.]+#[\w.]+", name))
+
+
+def launched_kernels(events) -> dict:
+    """{correlation id of the host operation that launched it: [(name,
+    start us, device us)]} of the device events among a profiler's
+    ``events()``; empty where this torch's events carry no
+    ``linked_correlation_id``."""
+    out: dict = {}
+    for e in events:
+        corr = getattr(e, "linked_correlation_id", 0) or 0
+        if corr > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            out.setdefault(corr, []).append(
+                (e.name, e.time_range.start, e.time_range.elapsed_us()))
+    return out
+
+
+def range_kernels(event, launched=None) -> list:
+    """(name, start us, device us) of the kernels that a host-side
+    profiler event and the events under it launched, each kernel once.
+    ``launched`` is :func:`launched_kernels`'s map: a kernel is then the
+    device event of a host operation's correlation id, with its start, so
+    one filed under both an event and its child counts once.  Without it
+    the events' own ``kernels`` lists are read, which carry no start: a
+    kernel is then known by (name, duration).  Annotations are left out
+    (``FunctionEvent.device_time_total`` keeps them and read more than
+    the step on the sharded phase)."""
+    seen, out = set(), []
+
+    def walk(e):
+        found = (launched or {}).get(getattr(e, "id", None))
+        if found is None:
+            found = [(k.name, None, k.duration) for k in e.kernels]
+        for name, start, us in found:
+            key = (name, start, us)
+            if not _annotation(name) and key not in seen:
+                seen.add(key)
+                out.append(key)
+        for c in e.cpu_children:
+            walk(c)
+
+    walk(event)
+    return out
+
+
+def split_ranges(events, ranges: dict, busy_ms: float) -> tuple:
+    """({part: device ms}, {part: {kernel: ms}}, {part: device-side span
+    ms}) of the ``record_function`` ranges in ``ranges`` ({range name:
+    part}) among a profiler's ``events()``: the kernels launched under
+    each range's host side, each kernel once, in the innermost range
+    that holds it; "rest" is the busy time outside every range.  Raises
+    when the ranges sum to more than ``busy_ms``, the step's busy device
+    time."""
+    launched = launched_kernels(events)
+    split = dict.fromkeys(ranges.values(), 0.0)
+    span = dict.fromkeys(ranges.values(), 0.0)
+    top: dict = {part: {} for part in ranges.values()}
+    hosts = []
+    for e in events:
+        if e.name not in ranges:
+            continue
+        if str(e.device_type).endswith("CPU"):
+            hosts.append(e)
+        else:
+            span[ranges[e.name]] += e.time_range.elapsed_us() / 1e3
+    claimed = set()
+    for e in sorted(hosts, key=lambda e: e.time_range.elapsed_us()):
+        part = ranges[e.name]
+        for key in range_kernels(e, launched):
+            if key[1] is not None and key in claimed:
+                continue
+            claimed.add(key)
+            split[part] += key[2] / 1e3
+            top[part][key[0]] = top[part].get(key[0], 0.0) + key[2] / 1e3
+    total = sum(split.values())
+    if total > busy_ms * (1 + 1e-9):
+        raise AssertionError(
+            f"the ranges' kernels read {total:.3f} ms of a step whose "
+            f"device was busy {busy_ms:.3f} ms: {split}")
+    split["rest"] = busy_ms - total
+    return split, top, span
 
 
 def device_split(torch, fn, iters: int = 20, warmup: int = 3,
@@ -1424,21 +1497,8 @@ def profile_step(torch, run, focus: str = "", ranges=None,
     if ranges:
         # the kernels launched under each range's host side; its device
         # side spans them, idle gaps included, and is logged apart
-        span = dict.fromkeys(ranges.values(), 0.0)
-        top: dict = {part: {} for part in ranges.values()}
-        for part in ranges.values():
-            split[part] = 0.0
-        for e in prof.events():
-            if e.name not in ranges:
-                continue
-            part = ranges[e.name]
-            if str(e.device_type).endswith("CPU"):
-                for name, us in range_kernels(e):
-                    split[part] += us / 1e3
-                    top[part][name] = top[part].get(name, 0.0) + us / 1e3
-            else:
-                span[part] += e.time_range.elapsed_us() / 1e3
-        split["rest"] = busy - sum(split[p] for p in ranges.values())
+        parts, top, span = split_ranges(prof.events(), ranges, busy)
+        split.update(parts)
         log("profile split: " + ", ".join(
             f"{part} {split[part]:.2f} ms" for part in
             list(ranges.values()) + ["rest"]) + f" of {busy:.2f} ms busy")
@@ -3444,6 +3504,208 @@ def phase_adasum(torch, train: dict, step1_params) -> dict:
     return out
 
 
+def phase_elastic(torch, train: dict) -> dict:
+    """Phase 16 (a): phase 4's recipe under ``hvd.elastic.run`` with a
+    ``TorchState`` over the model and AdamW, a commit after each step.
+    After commit 3, step 4 runs and the training function raises
+    ``HorovodInternalError`` before committing it: ``run`` restores commit
+    3, resets the runtime (a new NCCL world of one), rebuilds the
+    optimizer's wrapper and the step in the reset callback, and runs
+    steps 4 and 5 again.  The five committed losses must be phase 4's
+    bit for bit, and the restored parameters and AdamW state commit 3's
+    snapshot; each flash kernel launches 16 times and ``fused_scale`` 132
+    times a step run.  Returns the summary."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.elastic import state as ES
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import kernels as K
+
+    hvd.init()
+    dev = hvd.device()
+    cfg = full_config(torch, "flash")
+    model = TransformerLM(cfg, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(SEED))
+    adamw = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (FULL["batch"], FULL["seq"] + 1),
+                           generator=torch.Generator().manual_seed(SEED))
+    parts: dict = {}
+
+    def build():
+        """This world's wrapper and step, as phase 4 builds them (the
+        reset callback builds them again for the new world)."""
+        opt = hvd.DistributedOptimizer(adamw, gradient_predivide_factor=2.0)
+        step = hvd.DistributedTrainStep(lambda m, b: lm_loss(m, b), opt,
+                                        op=hvd.Average)
+        m, opt = step.init(model)
+        if m is not model:
+            raise AssertionError("init replaced the model")
+        parts.update(step=step, opt=opt, batch=step.shard_batch(tokens))
+
+    def same_as_snapshot(label: str) -> None:
+        """The live parameters and AdamW state equal the committed host
+        snapshot bit for bit."""
+        live = {"model": model.state_dict(), "optimizer": adamw.state_dict()}
+        snap = dict(ES._tensor_paths(state._snapshot))
+        got = dict(ES._tensor_paths(live))
+        if got.keys() != snap.keys():
+            raise AssertionError(f"{label}: the snapshot's tensors differ")
+        bad = [k for k, t in got.items()
+               if not torch.equal(t, snap[k].to(t.device, non_blocking=True))]
+        if bad:
+            raise AssertionError(f"{label}: {len(bad)} tensors differ from "
+                                 f"the snapshot, e.g. {bad[:3]}")
+
+    state = hvd.elastic.TorchState(model, adamw, step=0)
+    marks: dict = {"commit_s": [], "losses": {}, "raised": False}
+
+    def on_reset():
+        marks["restored_check_s"] = time.perf_counter()
+        same_as_snapshot("restored")
+        marks["restored_check_s"] = time.perf_counter() - \
+            marks["restored_check_s"]
+        marks["restore_s"] = state.last_restore_s
+        build()
+
+    state.register_reset_callbacks([on_reset])
+    build()
+    K.reset_launch_counts()
+    runs = []
+
+    @hvd.elastic.run
+    def training(state):
+        while state.step < 5:
+            step, opt, batch = parts["step"], parts["opt"], parts["batch"]
+            _, _, loss = step(model, opt, batch)
+            loss = float(loss)                       # synchronises
+            runs.append(state.step + 1)
+            if "t_fail" in marks and "reset_to_first_step_s" not in marks:
+                marks["reset_to_first_step_s"] = \
+                    time.perf_counter() - marks["t_fail"]
+            state.step += 1
+            if state.step == 4 and not marks["raised"]:
+                marks["raised"] = True
+                marks["t_fail"] = time.perf_counter()
+                raise hvd.HorovodInternalError("a peer died (rehearsed)")
+            marks["losses"][state.step] = loss
+            state.commit()
+            marks["commit_s"].append(
+                (state.last_commit_s, state.last_commit_bytes))
+            if state.step == 3:
+                same_as_snapshot("commit 3")
+
+    training(state)
+    counts = K.launch_counts()
+    losses = [marks["losses"][k] for k in range(1, 6)]
+    log(f"elastic: committed losses {losses} vs phase 4's "
+        f"{train['losses']}, bit-exact {losses == train['losses']}; "
+        f"steps run {runs}")
+    if losses != train["losses"]:
+        raise AssertionError("the interrupted elastic run and phase 4 "
+                             "disagree")
+    steps = len(runs)
+    check_flash_launches(counts, steps, "elastic")
+    # a prescale and a postscale of each of phase 4's buckets a step
+    if counts["fused_scale"] != 2 * train["buckets"] * steps:
+        raise AssertionError(f"elastic: {counts['fused_scale']} fused_scale "
+                             f"launches over {steps} steps, want "
+                             f"{2 * train['buckets'] * steps}")
+    (first_s, nbytes), rest = marks["commit_s"][0], marks["commit_s"][1:]
+    steady = sorted(s for s, _ in rest)[len(rest) // 2]
+    out = dict(losses=losses, steps_run=runs, commit_bytes=nbytes,
+               first_commit_s=first_s, commit_s=steady,
+               commit_gb_per_s=nbytes / steady / 1e9,
+               restore_s=marks["restore_s"],
+               restore_gb_per_s=nbytes / marks["restore_s"] / 1e9,
+               reset_s=ES.last_reset_s,
+               reset_to_first_step_s=marks["reset_to_first_step_s"],
+               restored_check_s=marks["restored_check_s"],
+               launches={k: counts[k] for k in TRANSFORMER_KERNELS})
+    log(f"elastic: commit {nbytes / 1e9:.2f} GB in {steady:.3f} s "
+        f"({out['commit_gb_per_s']:.1f} GB/s; the first, with the pinned "
+        f"buffers' allocation, {first_s:.3f} s), restore "
+        f"{out['restore_s']:.3f} s ({out['restore_gb_per_s']:.1f} GB/s), "
+        f"reset {ES.last_reset_s:.3f} s, failure to the next step's end "
+        f"{out['reset_to_first_step_s']:.3f} s [{CARD}]")
+    del parts, state, model, adamw
+    hvd.shutdown()
+    return out
+
+
+def phase_pipeline(torch, train: dict, first) -> dict:
+    """Phase 16 (b): the 870.9M model's 16 blocks through
+    ``interleaved_1f1b`` on a pp group of one, four chunks of four blocks
+    (v = 4), the batch of 6 as six microbatches of one sequence; the
+    embedding and the head outside the pipe; AdamW, 3 steps.  The first
+    loss within 1e-3 relative of phase 4's (the microbatches' sum order
+    differs), the first step's gradients within 2e-2 normwise of phase
+    4's (``first``), ``gpipe`` (v = 1, one chunk of 16 blocks) the same
+    first loss as v = 4 bit for bit, and 96 launches of each flash
+    kernel a step.  Returns the summary."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.stages import lm_chunks, pipeline_lm_loss
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.ops import kernels as K
+
+    hvd.init()
+    dev = hvd.device()
+    cfg = full_config(torch, "flash")
+    model = TransformerLM(cfg, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(SEED))
+    batch = torch.randint(0, cfg.vocab_size,
+                          (FULL["batch"], FULL["seq"] + 1),
+                          generator=torch.Generator().manual_seed(SEED)
+                          ).to(dev)
+    m = FULL["batch"]
+    chunks = lm_chunks(model, None, 4)
+    with torch.no_grad():
+        by_v = {v: float(pipeline_lm_loss(model, batch, lm_chunks(
+            model, None, v), m)) for v in (1, 4)}
+    log(f"pipeline: first loss gpipe (v = 1) {by_v[1]!r}, interleaved "
+        f"(v = 4) {by_v[4]!r}, bit-exact {by_v[1] == by_v[4]}")
+    if by_v[1] != by_v[4]:
+        raise AssertionError("gpipe and the interleaved schedule disagree")
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times, grads = [], [], None
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = pipeline_lm_loss(model, batch, chunks, m)
+        loss.backward()
+        if i == 0:
+            grads = flat_grads(torch, model)
+        opt.step()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_flash_launches(counts, 3 * m, "pipeline")
+    rel = abs(losses[0] - train["losses"][0]) / abs(train["losses"][0])
+    grad_rel = float((grads - first[1]).norm() / first[1].norm())
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"pipeline: losses {losses}; first vs phase 4's "
+        f"{train['losses'][0]!r}: rel {rel:.3e} (tol 1e-3); first-step "
+        f"gradients rel L2 {grad_rel:.3e} (tol 2e-2); step "
+        f"{steady * 1e3:.1f} ms (phase 4's {train['step_ms']:.1f} ms), "
+        f"peak memory {peak / 2**30:.2f} GiB [{CARD}]")
+    if not (rel <= 1e-3 and grad_rel <= 2e-2):
+        raise AssertionError("the pipeline and phase 4 disagree")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite pipeline loss")
+    del model, opt, chunks, grads
+    hvd.shutdown()
+    return dict(losses=losses, first_loss_rel=rel, grad_rel=grad_rel,
+                gpipe_equals_v4=by_v[1] == by_v[4], step_ms=steady * 1e3,
+                phase4_step_ms=train["step_ms"], peak_gib=peak / 2**30,
+                launches={k: counts[k] for k in FLASH_KERNELS})
+
+
 def main() -> int:
     import torch
 
@@ -3485,7 +3747,6 @@ def main() -> int:
     tp_counts, tp = timed("6 tp", phase_tp_train, torch)
     counts["pallas_matmul"] = tp_counts["pallas_matmul"]
     sp_counts, sp = timed("7 sp", phase_sp_train, torch, first)
-    del first
     for name in SP_KERNELS:
         counts[name] = sp_counts[name]
     zero = timed("8 zero", phase_zero_train, torch, train["losses"])
@@ -3499,6 +3760,9 @@ def main() -> int:
     del step1_params
     hier = timed("14 hier", phase_hier_train, torch, zero)
     mp = timed("15 mp", phase_model_parallel, torch, train)
+    elastic = timed("16a elastic", phase_elastic, torch, train)
+    pipeline = timed("16b pipeline", phase_pipeline, torch, train, first)
+    del first
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
     # the moe summary's "chunk"
@@ -3542,6 +3806,8 @@ def main() -> int:
     log(f"adasum summary [{CARD}]: {json.dumps(adasum)}")
     log(f"hier summary [{CARD}]: {json.dumps(hier)}")
     log(f"mp summary [{CARD}]: {json.dumps(mp)}")
+    log(f"elastic summary [{CARD}]: {json.dumps(elastic)}")
+    log(f"pipeline summary [{CARD}]: {json.dumps(pipeline)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -39,6 +39,7 @@ import torch
 
 from horovod_tpu_torch import checkpoint  # noqa: F401
 from horovod_tpu_torch import data  # noqa: F401
+from horovod_tpu_torch import elastic  # noqa: F401
 from horovod_tpu_torch import faults  # noqa: F401
 from horovod_tpu_torch.exceptions import (  # noqa: F401
     HorovodInternalError,
@@ -238,5 +239,5 @@ __all__ = [
     "DistributedGradientTape", "DistributedTrainStep",
     "ShardedOptimizerState", "join_step", "SyncBatchNorm",
     "sync_batch_stats",
-    "checkpoint", "data",
+    "checkpoint", "data", "elastic",
 ]

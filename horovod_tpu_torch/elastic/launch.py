@@ -1,0 +1,85 @@
+"""Elastic launch path of the port's launcher (a copy of
+``horovod_tpu/elastic/launch.py``; the JAX package's warm-start compile
+cache has no counterpart here yet).
+
+Reference: ``horovod/runner/gloo_run.py:274 launch_gloo_elastic`` —
+rendezvous server + ``ElasticDriver`` + per-slot worker exec with the
+elastic env contract.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Optional
+
+from horovod_tpu_torch.elastic.discovery import FixedHosts, HostDiscoveryScript
+from horovod_tpu_torch.elastic.driver import ElasticDriver
+from horovod_tpu_torch.runner import config_parser, safe_shell_exec
+from horovod_tpu_torch.runner.hosts import SlotInfo, parse_hosts
+from horovod_tpu_torch.runner.launch import build_worker_command
+from horovod_tpu_torch.runner.network import make_secret_key
+
+
+def run_elastic(args) -> int:
+    min_np = args.min_np or args.np
+    if not min_np:
+        raise SystemExit("elastic mode needs --min-np or -np")
+    if args.host_discovery_script:
+        discovery = HostDiscoveryScript(args.host_discovery_script,
+                                        default_slots=args.slots or 1)
+    elif args.hosts:
+        discovery = FixedHosts(
+            {h.hostname: h.slots for h in parse_hosts(args.hosts)})
+    else:
+        raise SystemExit(
+            "elastic mode needs --host-discovery-script or -H hosts")
+
+    key = make_secret_key()
+    from horovod_tpu_torch.elastic.driver import START_TIMEOUT_S
+
+    start_timeout = float(os.environ.get("HOROVOD_ELASTIC_START_TIMEOUT",
+                                         START_TIMEOUT_S))
+    driver = ElasticDriver(discovery, min_np, args.max_np,
+                           timeout=args.elastic_timeout,
+                           reset_limit=args.reset_limit or 0,
+                           secret_key=key,
+                           start_timeout=start_timeout)
+    base_env = config_parser.set_env_from_args(dict(os.environ), args)
+    driver_host, driver_port = driver.address
+    out_dir: Optional[str] = args.output_filename
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+
+    def create_worker_fn(slot: SlotInfo, coordinator: str,
+                         generation: int, abort_event=None) -> int:
+        env = dict(base_env)
+        env.update(slot.to_env())
+        env.update({
+            "HOROVOD_COORDINATOR_ADDR": coordinator,
+            "HOROVOD_ELASTIC": "1",
+            "HOROVOD_SECRET_KEY": key,
+            "HOROVOD_ELASTIC_DRIVER_ADDR": f"{driver_host}:{driver_port}",
+            "HOROVOD_ELASTIC_NOTIFY_ADDR": "1",
+            "HOROVOD_ELASTIC_GENERATION": str(generation),
+        })
+        cmd = build_worker_command(slot, args.command, args.ssh_port,
+                                   getattr(args, "ssh_identity_file", None))
+        stdout = stderr = None
+        if out_dir:
+            stdout = open(os.path.join(out_dir, f"rank.{slot.rank}.out"), "ab")
+            stderr = open(os.path.join(out_dir, f"rank.{slot.rank}.err"), "ab")
+        events = [abort_event] if abort_event is not None else None
+        try:
+            return safe_shell_exec.execute(cmd, env=env, stdout=stdout,
+                                           stderr=stderr, events=events)
+        finally:
+            for f in (stdout, stderr):
+                if f:
+                    f.close()
+
+    if args.verbose:
+        print(f"[launcher] elastic driver at {driver_host}:{driver_port}, "
+              f"min_np={min_np} max_np={args.max_np}", file=sys.stderr)
+    driver.start(args.np or min_np, create_worker_fn)
+    return driver.wait_for_completion()

@@ -11,6 +11,15 @@ Sites instrumented in the port (grep ``faults.inject``):
 ``data.feed``               prefetch feeder, once per source batch
 ``probe.connect``           NIC probe task's connect to the launcher's probe
                             driver, once per try under its RetryPolicy
+``coordinator.connect``     an elastic worker's join of the driver's store,
+                            once per try
+``worker.commit``           elastic ``State.commit()``
+``worker.heartbeat``        each heartbeat a worker sends the driver
+``worker.register``         a worker's registration with the driver
+``worker.rendezvous``       each poll for a new generation's assignment
+``discovery.script``        each run of the host discovery script
+``driver.discovery``        each pass of the driver's discovery loop
+``driver.health``           each pass of the driver's health monitor
 ==========================  =================================================
 
 Typical use::

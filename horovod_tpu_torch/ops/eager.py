@@ -52,6 +52,7 @@ from horovod_tpu_torch.ops.adasum import adasum_tree
 from horovod_tpu_torch.ops.collectives import Average, ReduceOp, Sum
 from horovod_tpu_torch.ops.kernels import fused_scale
 from horovod_tpu_torch.runtime import state
+from horovod_tpu_torch.runtime.distributed import raise_internal
 
 # Reference error text: common.h:163 DUPLICATE_NAME_ERROR
 _DUPLICATE_NAME_ERROR = (
@@ -169,6 +170,7 @@ def _allgather_host_metadata(arr: np.ndarray) -> np.ndarray:
     return op_manager.active_op().metadata_allgather(arr)
 
 
+@raise_internal("the eager negotiation")
 def _negotiate(desc: Optional[dict], join_cycle: int = -1) -> _Negotiation:
     """One negotiation cycle: controller-lite with join.
 
@@ -525,6 +527,7 @@ def _dispatch_group(entries) -> None:
                            else HorovodInternalError(str(err)))
 
 
+@raise_internal("an eager collective")
 def synchronize(handle: Handle) -> torch.Tensor:
     """The handle's result once its collective has completed (reference
     ``torch/mpi_ops.py:606``): pending buckets are flushed first, and on a
@@ -750,4 +753,8 @@ def join() -> int:
                                 device=device)
             plane.reduce_rows(zeros, op, d["pre"], d["post"],
                               tuple(d["segments"]))
+        elif kind == "hostsync":
+            # elastic host-update sync: the fixed 3-word exchange, with
+            # zeros ("nothing to report")
+            _allgather_host_metadata(np.zeros((3,), np.int64))
         # barrier: the head exchange was the whole contribution

@@ -39,6 +39,7 @@ from horovod_tpu_torch.ops.bucketing import plan_buckets
 from horovod_tpu_torch.ops.collectives import Adasum, Average, ReduceOp
 from horovod_tpu_torch.ops.fused_collectives import resolve_fused_collectives
 from horovod_tpu_torch.runtime import state
+from horovod_tpu_torch.runtime.distributed import raise_internal
 from horovod_tpu_torch.runtime.topology import LAYOUT_AXES, \
     TOPOLOGY_MODES, parse_level_codecs, resolve_topology
 
@@ -241,6 +242,7 @@ class _DistributedOptimizer:
         self.op = op
         self.compression = compression
         self.axis = axis
+        self._world = state.world_id()
         self._scopes = dict(scopes or {})
         self.backward_passes_per_step = backward_passes_per_step
         self.prescale_factor = prescale_factor
@@ -358,9 +360,12 @@ class _DistributedOptimizer:
         return self._stream
 
     @torch.no_grad()
+    @raise_internal("the gradient exchange")
     def _launch(self, ids: List[int], source: str) -> None:
         """Reduce the gradients of parameters ``ids`` as one bucket of
         :func:`distributed_gradients`, into their ``.grad``."""
+        self._world = state.check_world(self._world,
+                                        "this DistributedOptimizer")
         self.launches.append((list(ids), source))
         grads = [self._trainable[i].grad for i in ids]
         if not grads[0].is_cuda:
@@ -387,12 +392,15 @@ class _DistributedOptimizer:
         for g, r in zip(grads, outs):
             g.copy_(r)
 
+    @raise_internal("the gradient exchange")
     def synchronize(self) -> None:
         """Launch the buckets no hook launched, over the gradients present
         and planned as :func:`distributed_gradients` plans them, and order
         the current stream after the exchange (reference
         ``optimizer.synchronize``).  Once a step; ``step()`` then skips
         it."""
+        self._world = state.check_world(self._world,
+                                        "this DistributedOptimizer")
         if self._synced:
             return
         if not self._open:
@@ -432,6 +440,7 @@ class _DistributedOptimizer:
         self._close_round()
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
+    @raise_internal("the optimizer step")
     def step(self, closure=None):
         if not self._micro_step():
             self._close_round()
@@ -662,7 +671,10 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
         for key, r in tree.get("residuals", {}).items():
             st.residuals[key].copy_(r)
 
+    @raise_internal("the optimizer step")
     def step(self, closure=None):
+        self._world = state.check_world(self._world,
+                                        "this DistributedOptimizer")
         loss = None
         if closure is not None:
             with torch.enable_grad():
@@ -938,6 +950,7 @@ class _DistributedAdasumOptimizer:
         self.optimizer = optimizer
         self.compression = compression
         self.backward_passes_per_step = backward_passes_per_step
+        self._world = state.world_id()
         self._params = [p for g in optimizer.param_groups
                         for p in g["params"] if p.requires_grad]
         self._bucket_bytes = _fusion_threshold()
@@ -979,7 +992,10 @@ class _DistributedAdasumOptimizer:
             self._accum = {}
         return final
 
+    @raise_internal("the optimizer step")
     def step(self, closure=None):
+        self._world = state.check_world(self._world,
+                                        "this DistributedAdasumOptimizer")
         loss = None
         if closure is not None:
             with torch.enable_grad():

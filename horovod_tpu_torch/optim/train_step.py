@@ -72,6 +72,7 @@ from horovod_tpu_torch.parallel.tensor_parallel import (
     tp_modules,
 )
 from horovod_tpu_torch.runtime import config, state
+from horovod_tpu_torch.runtime.distributed import raise_internal
 
 #: the step's modes (JAX's ``mode``)
 MODES = ("pjit", "shard_map")
@@ -176,6 +177,7 @@ class DistributedTrainStep:
                  data_axes=None,
                  fsdp_axis: Optional[str] = None,
                  fsdp_min_weight_size: Optional[int] = None):
+        self._world = state.world_id()
         self.plan, self.mesh = _resolve_plan(plan, mesh)
         plan = self.plan
         # a shard_map that mode=None chose keeps ep on the world exchange
@@ -545,7 +547,10 @@ class DistributedTrainStep:
             return {k: shard(v) for k, v in batch.items()}
         return shard(batch)
 
+    @raise_internal("the training step")
     def __call__(self, model: torch.nn.Module, optimizer, batch):
+        self._world = state.check_world(self._world,
+                                        "this DistributedTrainStep")
         if self._wrap is not None:
             raise RuntimeError("the step wraps the optimizer in init(model) "
                                "(sparse_params names the parameters; fsdp "

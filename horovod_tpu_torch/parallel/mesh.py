@@ -14,6 +14,7 @@ line of ranks along it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -158,7 +159,7 @@ def make_parallel_mesh(dp: Optional[int] = None, pp: int = 1, fsdp: int = 1,
             groups[key] = dist.group.WORLD
         else:
             for ranks in axis_ranks(shape, key):
-                group = dist.new_group(ranks)
+                group = dist.new_group(ranks, timeout=st.timeout)
                 if st.rank in ranks:
                     groups[key] = group
     return ParallelMesh(shape, coords, groups)
@@ -174,22 +175,35 @@ _WATCHING = False
 def mark_shard(param, what: str) -> None:
     """Record that ``param`` holds this rank's shard of a wider tensor;
     ``what`` says how (for error messages).  From the first mark on, every
-    optimizer step marks the state tensors of a marked parameter that have
-    its shape (AdamW's moments): they hold the same shard."""
+    optimizer step and every optimizer's ``load_state_dict`` mark the
+    state tensors of a marked parameter that have its shape (AdamW's
+    moments): they hold the same shard, whether a step made them or a
+    loaded state did."""
     global _WATCHING
     key = id(param)
     _SHARDS[key] = (weakref.ref(param, lambda _: _SHARDS.pop(key, None)),
                     what)
     if not _WATCHING:
+        from torch.optim import Optimizer
         from torch.optim.optimizer import register_optimizer_step_post_hook
 
         register_optimizer_step_post_hook(_mark_state)
+        # torch has global hooks for steps only: a load's post hook is
+        # installed on every optimizer by wrapping the base class's method
+        load = Optimizer.load_state_dict
+
+        @functools.wraps(load)
+        def load_state_dict(self, state_dict):
+            load(self, state_dict)
+            _mark_state(self, (), {})
+
+        Optimizer.load_state_dict = load_state_dict
         _WATCHING = True
 
 
 def _mark_state(optimizer, args, kwargs) -> None:
-    """An optimizer step's post hook: mark the state of its parameters
-    :func:`mark_shard` marked."""
+    """An optimizer step's (and load's) post hook: mark the state of its
+    parameters :func:`mark_shard` marked."""
     for p, st in optimizer.state.items():
         entry = _SHARDS.get(id(p))
         if entry is None or entry[0]() is not p:

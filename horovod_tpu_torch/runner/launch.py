@@ -17,9 +17,13 @@ Usage::
     python -m horovod_tpu_torch.runner -np 4 -H h1:2,h2:2 python train.py
     python -m horovod_tpu_torch.runner -np 8 --mpi python train.py
 
-Elastic launch (``--min-np``, ``--max-np``, ``--host-discovery-script``,
-``--slots-per-host``, ``--elastic-timeout``, ``--reset-limit``) is not
-ported yet and raises before anything starts.
+    python -m horovod_tpu_torch.runner -np 4 --min-np 2 --max-np 8 \
+        --host-discovery-script ./hosts.sh python train.py
+
+Any elastic flag (``--min-np``, ``--max-np``, ``--host-discovery-script``,
+``--slots-per-host``, ``--elastic-timeout``, ``--reset-limit``) launches
+through the elastic driver (``elastic/launch.py``): the training script
+runs its loop under ``hvd.elastic.run``.
 """
 
 from __future__ import annotations
@@ -491,16 +495,15 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
         raise SystemExit("no training command given")
     if args.command and args.command[0] == "--":
         args.command = args.command[1:]
+    if args.np is None and not args.host_discovery_script:
+        raise SystemExit("-np is required")
+    # any elastic flag launches through the elastic driver
     if (args.host_discovery_script or args.min_np or args.max_np
             or args.slots is not None or args.reset_limit is not None
             or args.elastic_timeout != ELASTIC_TIMEOUT_S):
-        raise NotImplementedError(
-            "elastic launch (--min-np, --max-np, --host-discovery-script, "
-            "--slots-per-host, --elastic-timeout, --reset-limit) is not "
-            "ported to horovod_tpu_torch yet: it waits in ROADMAP Queue "
-            "A 11 (elastic/); launch a fixed world with -np")
-    if args.np is None:
-        raise SystemExit("-np is required")
+        from horovod_tpu_torch.elastic.launch import run_elastic
+
+        return run_elastic(args)
     return _run_static(args)
 
 

@@ -57,6 +57,21 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_LSF_ACCELERATORS_PER_NODE", "HOROVOD_LSF_CORES_PER_NODE",
     "HOROVOD_LSF_THREADS_PER_CORE", "HOROVOD_LOG_LEVEL",
     "HOROVOD_LOG_HIDE_TIME",
+    # -- the elastic runtime (elastic/, runtime/distributed.py): the
+    #    driver's and the worker's addresses, the generation, the health
+    #    plane's timings, the host quarantine, the worker's host name
+    "HOROVOD_ELASTIC", "HOROVOD_ELASTIC_DRIVER_ADDR",
+    "HOROVOD_ELASTIC_NOTIFY_ADDR", "HOROVOD_ELASTIC_GENERATION",
+    "HOROVOD_ELASTIC_START_TIMEOUT", "HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT",
+    "HOROVOD_ELASTIC_HEARTBEAT_INTERVAL",
+    "HOROVOD_ELASTIC_HEARTBEAT_SUSPECT_MISSES",
+    "HOROVOD_ELASTIC_HEARTBEAT_DEAD_S",
+    "HOROVOD_ELASTIC_PROGRESS_TIMEOUT_S",
+    "HOROVOD_ELASTIC_DEPART_GRACE_S",
+    "HOROVOD_ELASTIC_STRAGGLER_RATIO",
+    "HOROVOD_QUARANTINE_BASE_S", "HOROVOD_QUARANTINE_MAX_S",
+    "HOROVOD_QUARANTINE_PROBATION_S", "HOROVOD_QUARANTINE_DISABLE",
+    "HOROVOD_HOSTNAME",
 })
 
 #: the launcher's stamp on every worker (``HOROVOD_CONTROLLER``): the
@@ -146,6 +161,11 @@ class Config:
     prefetch_depth: int = 2
     input_threads: int = 2
 
+    # -- elastic (HOROVOD_ELASTIC, set by the elastic launcher): the
+    # world's process group rendezvouses on the driver's store
+    # (runtime/distributed.py)
+    elastic_enabled: bool = False
+
     @staticmethod
     def from_env() -> "Config":
         def opt_int(name: str) -> Optional[int]:
@@ -191,6 +211,8 @@ class Config:
             plan=os.environ.get("HOROVOD_PLAN"),
             prefetch_depth=_env_int("HOROVOD_PREFETCH_DEPTH", 2),
             input_threads=_env_int("HOROVOD_INPUT_THREADS", 2),
+            elastic_enabled=os.environ.get("HOROVOD_ELASTIC", "").lower()
+            in ("1", "true", "yes", "on"),
         )
 
 

@@ -1,0 +1,189 @@
+"""The elastic world's coordination store (``horovod_tpu/runtime/
+distributed.py``).
+
+A process group rendezvouses through a key-value store.  In a plain
+launch that store lives in rank 0 (``init_method="tcp://..."``): if
+rank 0 dies, every other rank loses it.  Elastic training must survive
+any rank's death, so, as the reference's rendezvous server lives in the
+launcher (``gloo_run.py:213 RendezvousServer``) and the JAX package's
+coordination service in its driver, the port keeps the store in the
+elastic **driver**:
+
+* the driver hosts one ``torch.distributed.TCPStore`` (``is_master``) per
+  world generation (:func:`start_coordination_service`) at the
+  generation's coordinator address, which it hands out with each
+  worker's assignment;
+* **workers** join it with :func:`connect_elastic_client` and
+  ``init_process_group(store=...)`` on it (``runtime/state.py``) under
+  the rendezvous's :func:`start_timeout`, then give the groups the short
+  :func:`elastic_timeout`, so that a collective with a dead peer raises in
+  the caller instead of hanging;
+* :func:`disconnect_elastic_client` leaves it on reset without a
+  barrier (a barrier would wait on the dead peers).
+
+A dead peer surfaces as a ``RuntimeError`` or ``DistBackendError`` from
+the collective (gloo: "Connection closed by peer"; NCCL: the timeout or
+the aborted communicator), which the exchange, the eager plane and the
+step turn into ``HorovodInternalError`` (:func:`raise_internal`), and
+the elastic retry loop recovers.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+import threading
+
+from horovod_tpu_torch.exceptions import HorovodInternalError
+from horovod_tpu_torch.utils import logging as hvd_logging
+
+# snappy failure detection for elastic worlds, as the JAX package's
+DEFAULT_HEARTBEAT_TIMEOUT_S = 10
+
+
+def elastic_timeout() -> datetime.timedelta:
+    """The collectives' timeout in an elastic world:
+    ``HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT`` seconds (default 10)."""
+    return datetime.timedelta(seconds=float(os.environ.get(
+        "HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT", DEFAULT_HEARTBEAT_TIMEOUT_S)))
+
+
+def start_timeout() -> datetime.timedelta:
+    """The rendezvous's timeout in an elastic world: a new generation's
+    joiners start their processes while its survivors wait for them, so
+    the groups are made under ``HOROVOD_ELASTIC_START_TIMEOUT`` seconds
+    (default 120, the driver's start timeout) and
+    :func:`shorten_timeouts` then gives them :func:`elastic_timeout`."""
+    return datetime.timedelta(seconds=float(os.environ.get(
+        "HOROVOD_ELASTIC_START_TIMEOUT", 120.0)))
+
+
+def shorten_timeouts(groups) -> datetime.timedelta:
+    """Give ``groups`` (every rank of the world has joined them)
+    :func:`elastic_timeout` for their collectives, and return it."""
+    from torch.distributed import distributed_c10d as c10d
+
+    timeout = elastic_timeout()
+    for group in groups:
+        if group is not None:
+            c10d._set_pg_timeout(timeout, group)
+    return timeout
+
+
+class CoordinationService:
+    """Driver-side store handle (one per generation)."""
+
+    def __init__(self, port: int, num_processes: int,
+                 heartbeat_timeout: int = DEFAULT_HEARTBEAT_TIMEOUT_S):
+        import torch.distributed as dist
+
+        # the store serves joins for as long as the generation lives; the
+        # heartbeat timeout bounds a client's wait on a key
+        self._store = dist.TCPStore(
+            "0.0.0.0", port, None, True,
+            timeout=datetime.timedelta(seconds=max(heartbeat_timeout, 60)),
+            wait_for_workers=False)
+        self.port = self._store.port      # the bound one, given port 0
+        self.num_processes = num_processes
+
+    def shutdown(self) -> None:
+        self._store = None
+
+
+def start_coordination_service(
+        port: int, num_processes: int,
+        heartbeat_timeout: int = DEFAULT_HEARTBEAT_TIMEOUT_S,
+) -> CoordinationService:
+    return CoordinationService(port, num_processes, heartbeat_timeout)
+
+
+_client_lock = threading.Lock()
+_live_client = None
+
+
+def connect_elastic_client(coordinator_addr: str, num_processes: int,
+                           process_id: int, init_timeout: int = 120):
+    """Worker-side: join the driver-hosted store at ``coordinator_addr``
+    (``host:port``), retrying a refused connect (the driver mid-bind) on
+    a fresh client; returns the store, which :func:`client_store` hands
+    out until :func:`disconnect_elastic_client`."""
+    global _live_client
+    import torch.distributed as dist
+
+    host, port = coordinator_addr.rsplit(":", 1)
+
+    def _connect():
+        from horovod_tpu_torch import faults
+
+        faults.inject("coordinator.connect")
+        return dist.TCPStore(
+            host, int(port), None, False,
+            timeout=datetime.timedelta(seconds=init_timeout))
+
+    from horovod_tpu_torch.runtime.retry import default_policy
+
+    store = default_policy(name="coordinator-connect",
+                           retry_on=(OSError, TimeoutError, RuntimeError),
+                           deadline_s=float(init_timeout)).call(_connect)
+    with _client_lock:
+        _live_client = store
+    hvd_logging.info(
+        "elastic: joined the driver-hosted store %s as process %d of %d",
+        coordinator_addr, process_id, num_processes)
+    return store
+
+
+def client_store():
+    """The store :func:`connect_elastic_client` joined, or None."""
+    with _client_lock:
+        return _live_client
+
+
+def disconnect_elastic_client() -> None:
+    """Leave the current generation's store, without a barrier."""
+    global _live_client
+    with _client_lock:
+        _live_client = None
+
+
+def elastic_client_active() -> bool:
+    with _client_lock:
+        return _live_client is not None
+
+
+#: the errors a collective raises when a peer died or the group was
+#: aborted (``DistBackendError`` is a ``RuntimeError``)
+PEER_ERRORS = (RuntimeError, ConnectionError, TimeoutError)
+
+
+@contextlib.contextmanager
+def raise_internal(what: str):
+    """Turn a collective's peer failure into ``HorovodInternalError``, the
+    exception the elastic retry loop recovers from; every other error
+    passes as it is."""
+    try:
+        yield
+    except HorovodInternalError:
+        raise
+    except PEER_ERRORS as e:
+        if isinstance(e, (NotImplementedError, RecursionError)) or \
+                not _peer_failure(e):
+            raise
+        raise HorovodInternalError(f"{what}: {e}") from e
+
+
+#: fragments of the messages of torch.distributed's peer failures that
+#: come as a plain ``RuntimeError`` (gloo's closed or reset connections
+#: and timeouts; NCCL's raise ``DistBackendError``)
+_PEER_MARKERS = ("connection closed", "connection reset", "broken pipe",
+                 "timed out", "timeout", "aborted", "peer", "read error",
+                 "write error")
+
+
+def _peer_failure(e: BaseException) -> bool:
+    text = f"{type(e).__name__}: {e}".lower()
+    return type(e).__name__ in ("DistBackendError", "DistNetworkError",
+                                "DistStoreError") or \
+        isinstance(e, (ConnectionError, TimeoutError)) or \
+        any(m in text for m in _PEER_MARKERS)

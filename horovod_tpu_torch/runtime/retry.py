@@ -86,3 +86,13 @@ class RetryPolicy:
                 self._sleep(delay)
         assert last is not None
         raise last
+
+
+#: the JAX package's policy with its ``HOROVOD_RETRY_*`` knobs unset: the
+#: elastic plane's callers state only what differs from it, as there
+DEFAULTS = dict(max_attempts=5, base_s=0.1, max_s=5.0, deadline_s=60.0)
+
+
+def default_policy(**kw) -> RetryPolicy:
+    """A :class:`RetryPolicy` of :data:`DEFAULTS` and ``kw``."""
+    return RetryPolicy(**{**DEFAULTS, **kw})

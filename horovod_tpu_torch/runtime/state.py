@@ -81,6 +81,9 @@ class GlobalState:
         self.eager = None
         # this rank's group of each layout level, made at first use
         self._layout: Optional[Dict[str, Optional[dist.ProcessGroup]]] = None
+        # the process groups' timeout: torch's default, or an elastic
+        # world's short one (runtime/distributed.py)
+        self.timeout = None
 
     def initialize(self) -> None:
         cfg = self.config
@@ -110,7 +113,9 @@ class GlobalState:
                                  "HOROVOD_COORDINATOR_ADDR (host:port of "
                                  "rank 0)")
             backend = "nccl" if self.device.type == "cuda" else "gloo"
-            if self.size > 1:
+            if self.size > 1 and cfg.elastic_enabled:
+                self._init_elastic_group(backend)
+            elif self.size > 1:
                 dist.init_process_group(
                     backend, init_method=f"tcp://{cfg.coordinator_addr}",
                     world_size=self.size, rank=self.rank)
@@ -123,14 +128,45 @@ class GlobalState:
                                         world_size=1, rank=0)
             self.owns_group = True
             self._make_host_group()
+            # a gather over the host group: every rank has joined
             sizes = [n for _, _, n in self._gather(
                 (self.local_rank, self.local_size))]
             self.is_homogeneous = len(set(sizes)) == 1
+            if self.size > 1 and cfg.elastic_enabled:
+                from horovod_tpu_torch.runtime import distributed as hvd_dist
+
+                self.timeout = hvd_dist.shorten_timeouts(
+                    {dist.group.WORLD, self.host_group})
+
+    def _init_elastic_group(self, backend: str) -> None:
+        """The world's process group of an elastic generation: on the
+        driver's store (``runtime/distributed.py``), so that no rank's
+        death takes the rendezvous down, under the rendezvous's long
+        timeout (``initialize`` then shortens it, so that a collective
+        with a dead peer raises in the caller).  On NCCL the watchdog
+        aborts the communicator and leaves the process up
+        (``TORCH_NCCL_ASYNC_ERROR_HANDLING=2``, "clean up only", which
+        this sets: the other modes tear the process down or never abort)."""
+        from horovod_tpu_torch.runtime import distributed as hvd_dist
+
+        store = hvd_dist.client_store()
+        if store is None:
+            store = hvd_dist.connect_elastic_client(
+                self.config.coordinator_addr, self.size, self.rank)
+        if backend == "nccl":
+            # set, not defaulted: a launcher's or an image's other mode
+            # either tears the survivor down or never aborts the collective
+            os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "2"
+        # the rendezvous waits for the joiners' start; the collectives
+        # get the short timeout once every rank is in (initialize)
+        self.timeout = hvd_dist.start_timeout()
+        dist.init_process_group(backend, store=store, world_size=self.size,
+                                rank=self.rank, timeout=self.timeout)
 
     def _make_host_group(self) -> None:
         # collective: every rank creates it here, in the same order
         self.host_group = dist.group.WORLD if dist.get_backend() == "gloo" \
-            else dist.new_group(backend="gloo")
+            else dist.new_group(backend="gloo", timeout=self.timeout)
 
     def _local_env(self) -> tuple:
         """This rank's (local rank, local size) from ``HOROVOD_LOCAL_*``,
@@ -229,7 +265,7 @@ class GlobalState:
                 out[level] = dist.group.WORLD
             else:
                 for ranks in lines:
-                    group = dist.new_group(ranks)
+                    group = dist.new_group(ranks, timeout=self.timeout)
                     if self.rank in ranks:
                         out[level] = group
         return out
@@ -239,9 +275,13 @@ class GlobalState:
             self.device = torch.device("cuda", self.local_rank)
             torch.cuda.set_device(self.device)
 
-    def shutdown(self) -> None:
+    def shutdown(self, abort: bool = False) -> None:
         if dist.is_initialized():
-            if self.owns_group:
+            if self.owns_group and abort and dist.get_backend() == "nccl":
+                # a peer died: abort the communicators rather than wait on
+                # the collectives that will never complete
+                _abort_or_destroy()
+            elif self.owns_group:
                 dist.destroy_process_group()
             else:
                 made = [self.host_group] + list((self._layout or {}).values())
@@ -253,8 +293,27 @@ class GlobalState:
         self._layout = None
 
 
+def _abort_or_destroy() -> None:
+    """Abort every process group (torch's ``_abort_process_group``, where
+    this torch has it and every backend takes it), else destroy them."""
+    import logging
+
+    from torch.distributed import distributed_c10d as c10d
+
+    try:
+        c10d._abort_process_group()
+    except (AttributeError, RuntimeError, NotImplementedError) as e:
+        logging.getLogger(__name__).warning(
+            "aborting the process groups failed (%s); destroying them", e)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 _state: Optional[GlobalState] = None
 _state_lock = threading.Lock()
+#: how many worlds init() has made in this process: an object built in one
+#: holds its groups, and must not run in the next (elastic resets)
+_worlds = 0
 
 
 @atexit.register
@@ -283,22 +342,47 @@ def init(device=None, config: Optional[Config] = None) -> GlobalState:
     with _state_lock:
         if _state is not None:
             return _state
+        global _worlds
         st = GlobalState(config or Config.from_env(), _resolve_device(device))
         st.initialize()
         _state = st
+        _worlds += 1
         return st
 
 
-def shutdown() -> None:
+def shutdown(abort: bool = False) -> None:
+    """Destroy the world's process groups (``abort``: abort the NCCL
+    communicators instead, after a peer died)."""
     global _state
     with _state_lock:
         if _state is not None:
-            _state.shutdown()
+            _state.shutdown(abort)
             _state = None
 
 
 def is_initialized() -> bool:
     return _state is not None
+
+
+def world_id() -> Optional[int]:
+    """The number of the current world (None before ``init()``): an
+    elastic reset's ``init()`` makes a new one."""
+    return _worlds if _state is not None else None
+
+
+def check_world(built: Optional[int], what: str) -> int:
+    """Raise when ``built``, the :func:`world_id` an object took when it
+    was built, is an earlier world's: its process groups and plans are
+    gone (an elastic reset), and its collectives would hang.  Returns
+    the current world's number (``built`` None: the object was built
+    before ``init()`` and takes this world)."""
+    now = world_id()
+    if built is not None and now != built:
+        raise RuntimeError(
+            f"{what} was built for an earlier world (before an elastic "
+            f"reset): its process groups are gone; build it again, in "
+            f"the elastic state's on_reset callback")
+    return now
 
 
 def global_state() -> GlobalState:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
+from horovod_tpu_torch.telemetry.context import RunContext, run_context
 from horovod_tpu_torch.telemetry.registry import (
     DEFAULT_SIZE_BUCKETS,
     DEFAULT_TIME_BUCKETS,
@@ -32,10 +33,52 @@ __all__ = [
     "counter", "gauge", "histogram", "default_registry", "enabled",
     "enable", "disable", "reset", "value", "snapshot",
     "counters_snapshot", "merge_counter_snapshots", "series_key",
+    "RunContext", "run_context", "WorkerMetricsStore", "worker_store",
 ]
 
 _registry: Optional[MetricsRegistry] = None
 _registry_lock = threading.Lock()
+_worker_store: Optional["WorkerMetricsStore"] = None
+
+
+class WorkerMetricsStore:
+    """Driver-side per-worker counter snapshots, fed by the heartbeat
+    piggyback (``HeartbeatRequest.metrics``) as the step counter rides
+    it: no extra RPC, no extra thread (``horovod_tpu/telemetry/
+    export.py``'s store; the port has no exporter, so no rendering)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._snapshots: Dict[str, Dict[str, float]] = {}
+
+    def update(self, worker: str, counters: Dict[str, float]) -> None:
+        if not isinstance(counters, dict):
+            return
+        clean = {str(k): float(v) for k, v in counters.items()
+                 if isinstance(v, (int, float))}
+        with self._lock:
+            self._snapshots[worker] = clean
+
+    def purge(self, keep) -> None:
+        """Drop workers no longer assigned (as HealthMonitor.purge)."""
+        keep = set(keep)
+        with self._lock:
+            self._snapshots = {w: s for w, s in self._snapshots.items()
+                               if w in keep}
+
+    def snapshots(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {w: dict(s) for w, s in self._snapshots.items()}
+
+
+def worker_store() -> WorkerMetricsStore:
+    """The process-wide per-worker aggregation store (driver side)."""
+    global _worker_store
+    if _worker_store is None:
+        with _registry_lock:
+            if _worker_store is None:
+                _worker_store = WorkerMetricsStore()
+    return _worker_store
 
 
 def default_registry() -> MetricsRegistry:

@@ -82,7 +82,26 @@ class TestConfig:
            "HOROVOD_LSF_ACCELERATORS_PER_NODE": "4",
            "HOROVOD_LSF_CORES_PER_NODE": "16",
            "HOROVOD_LSF_THREADS_PER_CORE": "1",
-           "HOROVOD_LOG_LEVEL": "warning", "HOROVOD_LOG_HIDE_TIME": "0"}
+           "HOROVOD_LOG_LEVEL": "warning", "HOROVOD_LOG_HIDE_TIME": "0",
+           # the elastic runtime's: HOROVOD_ELASTIC is a Config field, the
+           # rest are read where they are used, as in the JAX package
+           "HOROVOD_ELASTIC": "1",
+           "HOROVOD_ELASTIC_DRIVER_ADDR": "127.0.0.1:1",
+           "HOROVOD_ELASTIC_NOTIFY_ADDR": "127.0.0.1:2",
+           "HOROVOD_ELASTIC_GENERATION": "3",
+           "HOROVOD_ELASTIC_START_TIMEOUT": "120",
+           "HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT": "10",
+           "HOROVOD_ELASTIC_HEARTBEAT_INTERVAL": "1",
+           "HOROVOD_ELASTIC_HEARTBEAT_SUSPECT_MISSES": "3",
+           "HOROVOD_ELASTIC_HEARTBEAT_DEAD_S": "30",
+           "HOROVOD_ELASTIC_PROGRESS_TIMEOUT_S": "0",
+           "HOROVOD_ELASTIC_DEPART_GRACE_S": "60",
+           "HOROVOD_ELASTIC_STRAGGLER_RATIO": "0",
+           "HOROVOD_QUARANTINE_BASE_S": "30",
+           "HOROVOD_QUARANTINE_MAX_S": "600",
+           "HOROVOD_QUARANTINE_PROBATION_S": "300",
+           "HOROVOD_QUARANTINE_DISABLE": "0",
+           "HOROVOD_HOSTNAME": "host-a"}
 
     @pytest.mark.parametrize("set_env", [False, True])
     def test_matches_jax(self, monkeypatch, set_env):

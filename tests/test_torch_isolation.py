@@ -151,6 +151,22 @@ def test_port_files_cover_the_model_parallel_slice():
             "chip_smoke.py"} <= names
 
 
+def test_port_files_cover_the_pipeline_and_elastic_slice():
+    """The import and string checks below cover the pipeline axis, the
+    elastic plane and the callbacks."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/parallel/pipeline.py",
+            "horovod_tpu_torch/models/stages.py",
+            "horovod_tpu_torch/runtime/distributed.py",
+            "horovod_tpu_torch/utils/stall.py",
+            "horovod_tpu_torch/callbacks.py",
+            "horovod_tpu_torch/telemetry/context.py",
+            "horovod_tpu_torch/runner/network.py",
+            *(f"horovod_tpu_torch/elastic/{m}.py" for m in (
+                "__init__", "registration", "discovery", "health",
+                "driver", "worker", "state", "launch"))} <= names
+
+
 #: a dotted module path under the JAX package; ``horovod_tpu_torch.`` is
 #: the port's own
 JAX_MODULE = re.compile(r"\bhorovod_tpu\.\w")

@@ -637,3 +637,19 @@ class TestCheckpointGuard:
                 ck["fsdp_opt_save"]
             assert "(optimizer state)" in ck["fsdp_opt_save"]
             assert ck["written"] == []
+
+    def test_loaded_optimizer_state_of_shards_is_refused(self, worlds):
+        """An AdamW over a tp = 2 or fsdp = 2 shard that loads a saved
+        state is refused before any step, naming ``save_sharded`` and
+        ``fsdp.gather_params``, as it is after a step: the loaded moments
+        are this rank's shard too."""
+        for out in worlds[4]:
+            ck = out["checkpoint"]
+            for key, what in (("tp_loaded_save", "tensor-parallel columns"),
+                              ("fsdp_loaded_save", "fsdp shard")):
+                assert f"opt/state/0/exp_avg holds this rank's {what}" in \
+                    ck[key], key
+                assert "(optimizer state)" in ck[key]
+                assert "save_sharded" in ck[key]
+                assert "fsdp.gather_params" in ck[key]
+            assert ck["written"] == []

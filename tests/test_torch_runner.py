@@ -267,19 +267,32 @@ class TestCommands:
         assert envs[0][1]["HOROVOD_FUSION_THRESHOLD"] == str(64 << 20)
 
     def test_elastic_flags_raise_before_launch(self, monkeypatch):
-        """Elastic launch waits in ROADMAP Queue A 11: the flags raise
-        before any host is resolved or process started."""
+        """Each elastic flag sends the launch through the elastic driver's
+        ``run_elastic``, with the flag's value parsed, before any host is
+        resolved or process started (monkeypatched: nothing launches)."""
+        from horovod_tpu_torch.elastic import launch as TEL
+
         def no_launch(*a, **k):
             raise AssertionError("launched")
 
+        seen = []
         monkeypatch.setattr(TL, "_run_static", no_launch)
         monkeypatch.setattr(TL.safe_shell_exec, "execute", no_launch)
-        for flags in (["--min-np", "1"], ["--max-np", "4"],
-                      ["--host-discovery-script", "./d.sh"],
-                      ["--slots-per-host", "2"], ["--elastic-timeout", "60"],
-                      ["--reset-limit", "3"]):
-            with pytest.raises(NotImplementedError, match="Queue A 11"):
-                TL.run_commandline(["-np", "2", *flags, "--", "true"])
+        monkeypatch.setattr(TEL, "run_elastic",
+                            lambda args: seen.append(args) or 7)
+        for flags, field, value in (
+                (["--min-np", "1"], "min_np", 1),
+                (["--max-np", "4"], "max_np", 4),
+                (["--host-discovery-script", "./d.sh"],
+                 "host_discovery_script", "./d.sh"),
+                (["--slots-per-host", "2"], "slots", 2),
+                (["--elastic-timeout", "60"], "elastic_timeout", 60),
+                (["--reset-limit", "3"], "reset_limit", 3)):
+            assert TL.run_commandline(["-np", "2", *flags, "--", "true"]) \
+                == 7
+            assert getattr(seen[-1], field) == value
+            assert seen[-1].command == ["true"]
+        assert len(seen) == 6
 
     def test_check_build(self, capsys):
         """The port's version, CUDA/NCCL/Gloo/MPI and the eager data plane,

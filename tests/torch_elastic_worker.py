@@ -1,0 +1,212 @@
+"""The training script of the port's elastic end-to-end tests, launched
+by ``python -m horovod_tpu_torch.runner --host-discovery-script ...``
+(the JAX package's ``tests/test_elastic_e2e.py`` script, over the port).
+
+Epochs of batches; rank 0 appends one JSON line per epoch (the line
+count drives the discovery script); the state commits every batch; a
+scheduled exit raises or kills itself on a chosen (epoch, batch,
+start_rank).  ``--model lm`` trains a ``TransformerLM`` under
+``TorchState`` on the card (the four-card test) instead of the one
+``ObjectState`` vector; every rank then appends its loss and reset
+seconds to ``--rank-logfile``.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+p = argparse.ArgumentParser()
+p.add_argument("--logfile", required=True)
+p.add_argument("--epochs", type=int, default=3)
+p.add_argument("--batches-per-epoch", type=int, default=2)
+p.add_argument("--discovery-schedule", default="[]")
+p.add_argument("--exit-schedule", default="{}")
+p.add_argument("--exit-mode", default="exception")
+p.add_argument("--discovery-wait", type=int, default=30)
+p.add_argument("--rank-logfile", default="")
+p.add_argument("--model", default="vector", choices=("vector", "lm"))
+p.add_argument("--hosts", default="",
+               help="comma-separated host names, in the order that maps "
+                    "each host's slots to its block of cards")
+p.add_argument("--slots", type=int, default=1)
+args = p.parse_args()
+
+hostname = os.environ.get("HOROVOD_HOSTNAME")
+start_rank = int(os.environ.get("HOROVOD_RANK", 0))
+if args.model == "lm":
+    # two host names on one machine: both hosts' slots have local ranks
+    # 0..slots-1, and init() takes cuda:<local_rank>; list this host's
+    # block of cards first so that cuda:<local_rank> is a card no other
+    # host's slot takes
+    host_index = args.hosts.split(",").index(hostname)
+    cards = list(range(4))
+    mine = cards[host_index * args.slots:(host_index + 1) * args.slots]
+    os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(
+        str(c) for c in mine + [c for c in cards if c not in mine])
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import horovod_tpu_torch as hvd  # noqa: E402
+
+torch.set_num_threads(1)
+device = "cuda" if args.model == "lm" else "cpu"
+if device == "cuda":
+    # build the kernels before any collective: a rank that builds while a
+    # peer waits in a collective would outlast the elastic timeout
+    from horovod_tpu_torch.ops.build import load_library
+
+    load_library()
+hvd.init(device=device)
+if device == "cuda":
+    rank_log_env = {k: os.environ.get(k) for k in (
+        "TORCH_NCCL_ASYNC_ERROR_HANDLING", "TORCH_NCCL_BLOCKING_WAIT",
+        "TORCH_NCCL_HEARTBEAT_TIMEOUT_SEC", "NCCL_ASYNC_ERROR_HANDLING")}
+    print(f"env {rank_log_env} torch {torch.__version__}", flush=True)
+
+discovery_schedule = json.loads(args.discovery_schedule)
+epoch_to_hosts = {e: h for e, h in discovery_schedule if e is not None}
+default_hosts = discovery_schedule[-1][1] if discovery_schedule else []
+exit_schedule = json.loads(args.exit_schedule)
+
+
+def check_exit(epoch, batch):
+    key = f"{epoch},{batch}"
+    if key in exit_schedule and start_rank in exit_schedule[key]:
+        print(f"planned exit epoch={epoch} batch={batch} "
+              f"start_rank={start_rank} mode={args.exit_mode}", flush=True)
+        if args.exit_mode == "exception":
+            raise RuntimeError("planned worker failure")
+        os.kill(os.getpid(), 9)
+
+
+def log_state(state, w):
+    with open(args.logfile, "a") as f:
+        f.write(json.dumps({
+            "epoch": state.epoch,
+            "hostname": hostname,
+            "start_rank": start_rank,
+            "rank": hvd.process_rank(),
+            "size": hvd.process_count(),
+            "rendezvous": state.rendezvous,
+            "w": w,
+        }) + os.linesep)
+
+
+def rank_log(record):
+    if args.rank_logfile:
+        # O_APPEND line writes are atomic at this size
+        with open(args.rank_logfile, "a") as f:
+            f.write(json.dumps(dict(record, t=time.time())) + os.linesep)
+
+
+def lm_parts():
+    """The 870.9M LM's width (d 2048, 16 heads, vocab 32000) at 4 layers,
+    seeded; AdamW; the hook-path exchange built anew each generation."""
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+
+    cfg = TransformerConfig(vocab_size=32000, num_layers=4, num_heads=16,
+                            d_model=2048, d_ff=8192, max_seq_len=1024,
+                            dtype=torch.bfloat16, attention_impl="flash")
+    dev = hvd.device()
+    model = TransformerLM(cfg, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    return model, opt, lm_loss
+
+
+if args.model == "lm":
+    model, inner, lm_loss = lm_parts()
+    box = {}
+
+    def rebuild():
+        box["opt"] = hvd.DistributedOptimizer(
+            inner, named_parameters=model.named_parameters())
+
+    rebuild()
+    state = hvd.elastic.TorchState(model, inner, epoch=0, batch=0,
+                                   rendezvous=0)
+    state.register_reset_callbacks([rebuild])
+else:
+    state = hvd.elastic.ObjectState(params=np.zeros(2), epoch=0, batch=0,
+                                    rendezvous=0)
+
+
+def lm_batch(state):
+    """Each rank's rows of one seeded global batch of 8 sequences of 256
+    tokens, by (epoch, batch)."""
+    g = torch.Generator().manual_seed(1000 * state.epoch + state.batch)
+    tokens = torch.randint(0, 32000, (8, 257), generator=g)
+    rows = tokens.shape[0] // hvd.size()
+    return tokens[hvd.rank() * rows:(hvd.rank() + 1) * rows].to(
+        hvd.device())
+
+
+@hvd.elastic.run
+def train(state):
+    from horovod_tpu_torch.elastic import state as elastic_state
+
+    state.rendezvous += 1
+    rank_log({"event": "rendezvous", "start_rank": start_rank,
+              "rank": hvd.process_rank(), "size": hvd.process_count(),
+              "rendezvous": state.rendezvous,
+              "reset_s": elastic_state.last_reset_s,
+              "commit_s": getattr(state, "last_commit_s", None)})
+    while state.epoch < args.epochs:
+        while state.batch < args.batches_per_epoch:
+            check_exit(state.epoch, state.batch)
+            if args.model == "lm":
+                opt = box["opt"]
+                opt.zero_grad()
+                loss = lm_loss(model, lm_batch(state))
+                loss.backward()
+                opt.step()
+                rank_log({"event": "step", "epoch": state.epoch,
+                          "batch": state.batch, "start_rank": start_rank,
+                          "rank": hvd.process_rank(),
+                          "size": hvd.process_count(),
+                          "loss": float(loss.detach())})
+            else:
+                grad = hvd.allreduce(torch.ones(2), op=hvd.Average,
+                                     name="grad")
+                state.params = state.params + grad.numpy()
+            state.batch += 1
+            state.commit()
+            if args.model == "lm":
+                rank_log({"event": "commit",
+                          "gstep": state.epoch * args.batches_per_epoch +
+                          state.batch, "rank": hvd.process_rank(),
+                          "size": hvd.process_count(),
+                          "rendezvous": state.rendezvous,
+                          "check": repr(sum(float(p.detach().double().sum())
+                                            for p in model.parameters()))})
+        rank_log({"epoch": state.epoch, "start_rank": start_rank,
+                  "rank": hvd.process_rank(), "size": hvd.process_count()})
+        if hvd.process_rank() == 0:
+            w = round(float(state.params[0]), 4) if args.model == "vector" \
+                else round(float(model.ln_f.scale.float().sum()), 4)
+            log_state(state, w)
+            cur = epoch_to_hosts.get(state.epoch, default_hosts)
+            nxt = epoch_to_hosts.get(state.epoch + 1, default_hosts)
+            if cur != nxt:
+                # wait for the driver to observe the logfile-driven host
+                # change so the interrupt lands at this epoch boundary
+                t0 = time.time()
+                while state._host_messages.empty():
+                    if time.time() - t0 > args.discovery_wait:
+                        raise TimeoutError("no host-change notification")
+                    time.sleep(0.1)
+        state.epoch += 1
+        state.batch = 0
+        state.commit()
+
+
+train(state)
+print(f"worker done start_rank={start_rank}", flush=True)
+sys.stdout.flush()

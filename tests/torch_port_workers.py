@@ -3681,11 +3681,50 @@ def _mp_checkpoint(hvd, directory: str) -> dict:
     model, opt, _ = step(model, opt, step.shard_batch(fsdp_setup()[1]))
     out["fsdp_opt_save"] = _caught_step(
         hvd, lambda: ckpt.save(5, {"opt": opt.state_dict()}))
+    out.update(_mp_loaded_state(hvd, ckpt, tp_opt))
     out["written"] = sorted(os.listdir(directory)) if os.path.isdir(
         directory) else []
     torch.distributed.barrier()        # every rank listed before step 3
     repl = tp_mlp()
     out["replicated_save"] = ckpt.save(3, {"model": repl.state_dict()})
+    return out
+
+
+def _mp_loaded_state(hvd, ckpt, tp_opt) -> dict:
+    """An AdamW over a tp = 2 and an fsdp = 2 shard that loads a saved
+    state (a copy, as ``torch.load`` gives) and saves before any step:
+    the loaded moments are that rank's shard, refused as a step's are."""
+    import copy
+
+    import torch
+
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    out = {}
+    saved = copy.deepcopy(tp_opt.state_dict())
+    tp_model = tp_mlp(make_parallel_mesh(dp=2, tp=2).group("tp"))
+    loaded = torch.optim.AdamW(tp_model.parameters(), lr=1e-3)
+    loaded.load_state_dict(saved)
+    out["tp_loaded_save"] = _caught_step(
+        hvd, lambda: ckpt.save(6, {"opt": loaded.state_dict()}))
+    w, batch = fsdp_setup()
+
+    def fsdp_step():
+        model = _fsdp_mlp()
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in w.items()})
+        step = hvd.DistributedTrainStep(
+            lambda m, b: torch.mean((m(b["x"]) - b["y"]) ** 2),
+            torch.optim.AdamW(model.parameters(), lr=1e-3),
+            plan="dp=2,fsdp=2", fsdp_min_weight_size=1)
+        return step, *step.init(model)
+
+    step, model, opt = fsdp_step()
+    step(model, opt, step.shard_batch(batch))
+    saved = copy.deepcopy(opt.state_dict())
+    _, _, opt = fsdp_step()
+    opt.load_state_dict(saved)
+    out["fsdp_loaded_save"] = _caught_step(
+        hvd, lambda: ckpt.save(7, {"opt": opt.state_dict()}))
     return out
 
 
@@ -4010,3 +4049,283 @@ def run_mp_nccl(hvd, small: bool = False, steps: int = 3) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the pipeline axis (tests/test_torch_pipeline.py)
+# ---------------------------------------------------------------------------
+
+#: (num_microbatches, virtual_stages) of the JAX package's interleaved cases
+PIPE_CASES = [(4, 1), (8, 1), (4, 2), (8, 2), (8, 4)]
+PIPE_D = 8
+PIPE_BATCH = 16
+#: the narrow LM of the pipeline test: 4 blocks, d 64
+PIPE_LM = dict(vocab_size=64, num_layers=4, num_heads=4, d_model=64,
+               d_ff=128, max_seq_len=16)
+#: (num_microbatches, virtual_stages) of the LM at pp = 2
+PIPE_LM_CASES = [(4, 1), (4, 2)]
+
+
+def pipe_inputs(world: int, v: int):
+    """The ``v * world`` stage kernels (d, d) and the input (16, d)."""
+    rng = np.random.RandomState(100 * world + v)
+    ws = (rng.randn(v * world, PIPE_D, PIPE_D) / np.sqrt(PIPE_D)).astype(
+        np.float32)
+    return ws, rng.randn(PIPE_BATCH, PIPE_D).astype(np.float32)
+
+
+def pipe_error_cases(world: int) -> list:
+    """(name, batch rows, num_microbatches, virtual_stages) the schedules
+    refuse at a pp group of ``world``."""
+    return [("m_not_multiple_of_s", 12, 3 * world // 2, 2),
+            ("batch", 10, 4, 2), ("gpipe_batch", 10, 4, 1),
+            ("virtual_stages", 12, world, 0)]
+
+
+def pipe_lm_tokens() -> np.ndarray:
+    return np.random.RandomState(12).randint(0, 64, (4, 17)).astype(np.int64)
+
+
+def _pipe_case(group, world: int, rank: int, m: int, v: int,
+               schedule: str) -> dict:
+    """One schedule over tanh(h @ w) stages: the fanned-out output, this
+    rank's chunk gradients and its input gradient of sum(y**2), the loss
+    averaged over the group as JAX's pmean over pp."""
+    import torch
+
+    from horovod_tpu_torch.parallel import pipeline as P
+
+    ws, x = pipe_inputs(world, v)
+    mine = torch.tensor(np.stack([ws[j * world + rank] for j in range(v)]),
+                        requires_grad=True)
+    xt = torch.tensor(x, requires_grad=True)
+
+    def stage(w, h):
+        return torch.tanh(h @ w)
+
+    if schedule == "gpipe":
+        y = P.gpipe(stage, mine[0], xt, m, group=group)
+    else:
+        y = P.interleaved_1f1b(stage, mine, xt, m, v, group=group)
+    (y.pow(2).sum() / world).backward()
+    return {"y": y.detach().numpy(), "g": mine.grad.numpy(),
+            "gx": None if xt.grad is None else xt.grad.numpy()}
+
+
+def _pipe_lm(hvd, group, lm_sd: dict, m: int, v: int) -> dict:
+    """The narrow LM with its blocks through the pipeline: the loss, and
+    the gradients of this rank's blocks and of the parameters outside the
+    pipe (summed over the group)."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models.stages import (
+        lm_chunks,
+        outside_parameters,
+        pipeline_lm_loss,
+    )
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+    )
+
+    model = TransformerLM(TransformerConfig(dtype=torch.float32, **PIPE_LM))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in lm_sd.items()})
+    chunks = lm_chunks(model, group, v)
+    loss = pipeline_lm_loss(model, torch.from_numpy(pipe_lm_tokens()),
+                            chunks, m, group=group)
+    (loss / dist.get_world_size(group)).backward()
+    for p in outside_parameters(model):
+        dist.all_reduce(p.grad, group=group)
+    mine = {id(p) for c in chunks for p in c.parameters()} | \
+        {id(p) for p in outside_parameters(model)}
+    return {"loss": float(loss),
+            "grads": {n: p.grad.numpy() for n, p in model.named_parameters()
+                      if id(p) in mine}}
+
+
+def run_pipeline(hvd, lm_sd=None) -> dict:
+    """Every pipeline case on this world's pp group (the world), the
+    refusals, and, given the LM's weights, the narrow LM."""
+    import torch
+
+    from horovod_tpu_torch.parallel import pipeline as P
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+
+    torch.set_num_threads(1)
+    world, rank = hvd.size(), hvd.rank()
+    group = make_parallel_mesh(pp=world).group("pp")
+    out = {"cases": {(m, v): _pipe_case(group, world, rank, m, v,
+                                        "interleaved")
+                     for m, v in PIPE_CASES},
+           "gpipe": _pipe_case(group, world, rank, 8, 1, "gpipe")}
+    _, x = pipe_inputs(world, 2)
+    errors = {}
+    for name, rows, m, v in pipe_error_cases(world):
+        try:
+            if v == 1:
+                P.gpipe(lambda w, h: h, None, torch.from_numpy(x)[:rows], m,
+                        group=group)
+            else:
+                P.interleaved_1f1b(lambda w, h: h, [None] * v,
+                                   torch.from_numpy(x)[:rows], m, v,
+                                   group=group)
+        except ValueError as e:
+            errors[name] = str(e)
+    out["errors"] = errors
+    if lm_sd is not None:
+        out["lm"] = {(m, v): _pipe_lm(hvd, group, lm_sd, m, v)
+                     for m, v in PIPE_LM_CASES}
+    return out
+
+
+def run_pp_nccl(hvd, small: bool = False, steps: int = 3) -> dict:
+    """The 870.9M TransformerLM's 16 blocks at pp = the world (4 cards),
+    batch 8 as 8 microbatches of one sequence: ``gpipe`` (4 blocks a
+    stage) and ``interleaved_1f1b`` at v = 2 (8 chunks of 2 blocks), the
+    embedding and the head outside the pipe, ``steps`` forward and
+    backward passes each.  Against the same weights run sequentially on
+    this card: the losses, and this rank's stage gradients and the
+    (summed) gradients of the parameters outside the pipe, normwise; each
+    rank's loss (from the fanned-out output), step seconds, peak memory,
+    flash launches, and the compute-idle share of one profiled step (1 −
+    its kernels' device time outside NCCL / its wall time) beside
+    ``bubble_fraction``.  ``small`` runs an 8-block d 32 model on
+    sequences of 16 (the gloo rehearsal)."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import FULL, SEED, full_config
+    from horovod_tpu_torch.models.stages import (
+        lm_chunks,
+        outside_parameters,
+        pipeline_lm_loss,
+    )
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+    from horovod_tpu_torch.parallel.pipeline import bubble_fraction
+
+    torch.set_num_threads(1)
+    dev = hvd.device()
+    world = hvd.size()
+    cuda = dev.type == "cuda"
+    if small:
+        cfg = TransformerConfig(vocab_size=64, num_layers=8, num_heads=2,
+                                d_model=32, d_ff=64, max_seq_len=16,
+                                dtype=torch.float32, attention_impl="dense")
+        seq = 16
+    else:
+        cfg, seq = full_config(torch, "flash"), FULL["seq"]
+    batch = m = 8
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=torch.Generator().manual_seed(SEED)
+                           ).to(dev)
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    group = make_parallel_mesh(pp=world).group("pp")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # the one-rank sequential run of the same weights, on this card
+    loss = lm_loss(model, tokens)
+    loss.backward()
+    out = {"ref_loss": float(loss.detach())}
+    ref = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    outside = {id(p) for p in outside_parameters(model)}
+
+    def rel(ids):
+        num = den = 0.0
+        for n, p in model.named_parameters():
+            if id(p) in ids:
+                num += float((p.grad.float() - ref[n]).pow(2).sum())
+                den += float(ref[n].pow(2).sum())
+        return (num / den) ** 0.5
+
+    for v in (1, 2):
+        chunks = lm_chunks(model, group, v)
+        stage = {id(p) for c in chunks for p in c.parameters()}
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            loss = pipeline_lm_loss(model, tokens, chunks, m, group=group)
+            (loss / world).backward()
+            for p in outside_parameters(model):
+                dist.all_reduce(p.grad, group=group)
+            return loss
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        times = []
+        for _ in range(steps):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            loss = step()
+            sync()
+            times.append(time.perf_counter() - t0)
+        counts = K.launch_counts()
+        losses = [None] * world
+        dist.all_gather_object(losses, float(loss.detach()))
+        rec = dict(loss=float(loss.detach()), losses=losses, times=times,
+                   stage_rel=rel(stage), outside_rel=rel(outside),
+                   stage_blocks=sum(len(c) for c in chunks),
+                   bubble=bubble_fraction(world, m, v),
+                   launches={k: counts.get(k, 0) for k in
+                             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+                   peak=torch.cuda.max_memory_allocated() if cuda else 0)
+        if cuda:
+            from torch.profiler import ProfilerActivity, profile
+
+            dist.barrier()
+            sync()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step()
+                sync()
+                wall = time.perf_counter() - t0
+            busy = comm = 0.0
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+                if us <= 0 or "#" in e.key:
+                    continue
+                if "nccl" in e.key.lower():
+                    comm += us / 1e6
+                else:
+                    busy += us / 1e6
+            rec.update(wall_s=wall, compute_s=busy, nccl_s=comm,
+                       compute_idle=1 - busy / wall)
+        out[v] = rec
+    return out
+
+
+def run_torch_state_sync(hvd) -> dict:
+    """``TorchState.sync()`` on a world where rank 0's MLP has taken an
+    AdamW step and the others hold other weights and no optimizer state
+    (a joiner's): every rank ends with rank 0's parameters, AdamW state
+    and attributes, bit for bit."""
+    import torch
+
+    from horovod_tpu_torch.elastic.state import TorchState
+
+    torch.manual_seed(hvd.rank())
+    model = torch.nn.Sequential(torch.nn.Linear(4, 8), torch.nn.Tanh(),
+                                torch.nn.Linear(8, 2))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-2)
+    if hvd.rank() == 0:
+        model(torch.ones(3, 4)).sum().backward()
+        opt.step()
+    state = TorchState(model, opt, epoch=5 if hvd.rank() == 0 else 0)
+    state.sync()
+    return {"params": {k: v.numpy() for k, v in model.state_dict().items()},
+            "opt": {f"{i}/{k}": v.numpy() for i, s in
+                    opt.state_dict()["state"].items() for k, v in s.items()},
+            "epoch": state.epoch, "commits": state._commit_count}
