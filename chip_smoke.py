@@ -202,7 +202,28 @@ Phases, in order; any failure exits non-zero:
    limits); (c) the three flash kernels timed non-causal at ViT's shape
    (b128 t196 h12 d64) beside SDPA without a mask and the bound (the same
    shape is held against the plain versions in phase 2);
-16. print the card's name and power limit, the kernels' JSON line, and last
+16. (a) phase 4's recipe under ``hvd.elastic.run``, interrupted and
+   restored, and (b) the 16 blocks through ``interleaved_1f1b`` and gpipe
+   on a pp group of one;
+17. the runtime tools on phase 4's model, weights and batch, right after
+   phase 9 (``phase_tools``): (a) phase 9 (b)'s eager pass over the 98
+   gradients under ``start_timeline`` with the native writer (it must be
+   the one that ran) and then the Python writer, each bit for bit the pass
+   with the timeline off, three wall-clock readings each way, and a
+   NEGOTIATE and an ``NCCL_ALLREDUCE`` span for every gradient in the
+   native trace with no event dropped; (b) one pass under
+   ``torch.profiler`` holding the timeline's ``record_function`` ranges;
+   (c) a world made anew with ``HOROVOD_AUTOTUNE=1`` (4 dispatches a
+   sample, 2 Bayesian samples), passes until the parameter manager is
+   done, every result bit for bit, its log and chosen point; (d)
+   ``ThroughputAutotuner`` over the sharded exchange's
+   ``exchange_bucket_bytes`` at 16, 64 and 256 MiB, three timed steps
+   each (tokens/s, a reading); (e) with the metrics exporters on, a
+   rank-0 checkpoint of the model: the saves counter rises by one, the
+   stall histogram's sum is ``last_stall_s``, the JSONL snapshot is
+   written and the Prometheus endpoint on localhost is scraped once;
+   every number with the card's name and power limit;
+18. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -1683,7 +1704,12 @@ def phase_train(torch):
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     eager = phase_eager(torch, hvd, model, opt, loss_fn, batch)
+    t0 = time.perf_counter()
+    tools = phase_tools(torch, hvd, model, loss_fn, batch,
+                        opt.prescale_factor, opt.postscale_factor)
+    tools["seconds"] = round(time.perf_counter() - t0, 1)
     hvd.shutdown()
+    eager["tools"] = tools
     return counts, dict(step_ms=steady * 1e3,
                         tokens_per_s=tokens_per_step / steady,
                         init_to_first_step_s=init_to_first_s,
@@ -1837,6 +1863,255 @@ def phase_eager(torch, hvd, model, opt, loss_fn, batch) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"eager surface checks failed: {checks}")
     out.update(checks=checks, poll_in_flight=in_flight, poll_us=poll_us)
+    return out
+
+
+def _prom_values(text: str) -> dict:
+    """The samples of a Prometheus text exposition, ``{series: value}``;
+    raises on a line that does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, value = line.rsplit(" ", 1)
+        out[series] = float(value)
+    return out
+
+
+def phase_tools(torch, hvd, model, loss_fn, batch, pre, post) -> dict:
+    """Phase 17, the runtime tools on phase 4's model, weights and batch:
+    (a) phase 9 (b)'s eager pass over every gradient under
+    ``start_timeline`` with the native writer (which must be the one that
+    ran), then the Python writer, each against the pass with the timeline
+    off bit for bit, the wall ms of three passes each way, and the native
+    trace's NEGOTIATE and NCCL_ALLREDUCE span for every gradient, with no
+    event dropped; (b) one pass under ``torch.profiler``, whose events
+    hold the timeline's ``record_function`` ranges; (c) a world made anew
+    with ``HOROVOD_AUTOTUNE=1`` (and the metrics exporters on), passes
+    until the parameter manager is done, every result bit for bit; (d)
+    ``ThroughputAutotuner`` over the sharded exchange's
+    ``exchange_bucket_bytes`` at three values, three timed steps each;
+    (e) a rank-0 checkpoint of the model with metrics on: the saves
+    counter rises by one, the stall histogram's sum is the save's
+    ``last_stall_s``, the JSONL snapshot is written and the Prometheus
+    endpoint is scraped once.  Returns the readings."""
+    import socket
+    import urllib.request
+
+    from horovod_tpu_torch import native, telemetry
+    from horovod_tpu_torch.utils import timeline as tl
+    from horovod_tpu_torch.utils.bench_autotune import ThroughputAutotuner
+
+    out = {}
+    grads = list(no_hook_grads(torch, model, loss_fn(model, batch)).values())
+    names = [f"grad.{i}" for i in range(len(grads))]
+
+    def eager_pass():
+        hs = [hvd.allreduce_async(g, name=n, prescale_factor=pre,
+                                  postscale_factor=post)
+              for n, g in zip(names, grads)]
+        return [hvd.synchronize(h) for h in hs]
+
+    def timed_passes():
+        results, ms = None, []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = eager_pass()
+            torch.cuda.synchronize()
+            ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+        return results, ms
+
+    # (a) the timeline: off, the native writer, the Python writer
+    tmp = tempfile.mkdtemp(prefix="hvd_torch_tools_")
+    try:
+        eager_pass()                                  # warm-up
+        want, out["off_ms"] = timed_passes()
+        st = hvd._state.global_state()
+        os.environ.pop("HOROVOD_TIMELINE_PYTHON", None)
+        hvd.start_timeline(os.path.join(tmp, "native.json"))
+        writer = type(st.timeline).__name__
+        if writer != "NativeTimeline":
+            raise AssertionError(f"the timeline's writer is {writer}, not "
+                                 f"the native one: {native.native_error()}")
+        got, out["native_ms"] = timed_passes()
+        dropped = st.timeline.dropped_events
+        hvd.stop_timeline()
+        exact_native = all(torch.equal(a, b) for a, b in zip(got, want))
+        os.environ["HOROVOD_TIMELINE_PYTHON"] = "1"
+        try:
+            hvd.start_timeline(os.path.join(tmp, "python.json"))
+        finally:
+            os.environ.pop("HOROVOD_TIMELINE_PYTHON")
+        got, out["python_ms"] = timed_passes()
+        hvd.stop_timeline()
+        exact_python = all(torch.equal(a, b) for a, b in zip(got, want))
+        del got
+        events = tl.load_trace(os.path.join(tmp, "native.json"))
+        spans = {}
+        for e in events:
+            if e["ph"] == "B":
+                spans.setdefault(e["tid"], set()).add(e["name"])
+        activity = tl.collective_activity(tl.ALLREDUCE, "nccl")
+        complete = sum(spans.get(n, set()) >= {"NEGOTIATE", activity}
+                       for n in names)
+        drop_rows = [e for e in events
+                     if str(e.get("name", "")).startswith("DROPPED_")]
+        log(f"tools (a) [{CARD}]: the eager pass over {len(grads)} "
+            f"gradients, wall ms x3: timeline off {out['off_ms']}, native "
+            f"writer {out['native_ms']}, Python writer {out['python_ms']}; "
+            f"native trace {len(events)} events, NEGOTIATE + {activity} "
+            f"spans for {complete} of {len(names)} gradients, dropped "
+            f"{dropped} (+{len(drop_rows)} DROPPED rows); bit-exact with "
+            f"the timeline off: native {exact_native}, Python "
+            f"{exact_python}; library built in "
+            f"{native.build_seconds:.1f} s")
+        if not (exact_native and exact_python):
+            raise AssertionError("the timeline changed the eager results")
+        if complete != len(names) or dropped or drop_rows:
+            raise AssertionError("the native trace lacks spans or dropped "
+                                 "events")
+        out.update(trace_events=len(events), spans_complete=complete,
+                   dropped=dropped, exact=exact_native and exact_python)
+
+        # (b) the timeline's ranges in a profiler trace
+        from torch.profiler import ProfilerActivity, profile
+
+        hvd.start_timeline(os.path.join(tmp, "profiled.json"))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eager_pass()
+            torch.cuda.synchronize()
+        hvd.stop_timeline()
+        ranges = [e for e in prof.events() if e.name.startswith("hvd:")]
+        negotiate = sum(e.name.startswith("hvd:NEGOTIATE:") for e in ranges)
+        collective = sum(e.name.startswith(f"hvd:{activity}:")
+                         for e in ranges)
+        log(f"tools (b): the profiled pass holds {len(ranges)} timeline "
+            f"ranges, {negotiate} NEGOTIATE and {collective} {activity}")
+        if negotiate < len(names) or collective < len(names):
+            raise AssertionError("the timeline's ranges are not in the "
+                                 "profiler's events")
+        out.update(profiler_ranges=len(ranges))
+
+        # (c) online autotune, and (e)'s exporters, in a world made anew
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        knobs = {"HOROVOD_AUTOTUNE": "1",
+                 "HOROVOD_AUTOTUNE_LOG": os.path.join(tmp, "autotune.csv"),
+                 "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "4",
+                 "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "2",
+                 "HOROVOD_METRICS_PORT": str(port),
+                 "HOROVOD_METRICS_LOG": os.path.join(tmp, "metrics.jsonl")}
+        saved = {k: os.environ.get(k) for k in knobs}
+        hvd.shutdown()
+        os.environ.update(knobs)
+        try:
+            hvd.init()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        st = hvd._state.global_state()
+        pm = st.parameter_manager
+        passes, exact = 0, True
+        while pm.active and passes < 60:
+            exact &= all(torch.equal(a, b)
+                         for a, b in zip(eager_pass(), want))
+            passes += 1
+        with open(knobs["HOROVOD_AUTOTUNE_LOG"]) as f:
+            rows = f.read().strip().splitlines()
+        chosen = (st.config.fusion_threshold_bytes, st.config.cycle_time_ms)
+        log(f"tools (c) [{CARD}]: autotune done after {passes} passes "
+            f"(active {pm.active}), every result bit-exact: {exact}; log:")
+        for row in rows:
+            log(f"  {row}")
+        log(f"tools (c): chosen fusion_threshold {chosen[0]} B, cycle "
+            f"{chosen[1]} ms")
+        if pm.active or not exact:
+            raise AssertionError("online autotune did not finish exactly")
+        out.update(autotune_passes=passes, autotune_rows=rows[1:],
+                   autotune_chosen=chosen)
+        del want
+        grads.clear()
+
+        # (d) offline autotune of the sharded exchange's bucket bytes
+        from horovod_tpu_torch.models.transformer import TransformerLM
+
+        def measure(point):
+            m = TransformerLM(full_config(torch, "flash"), device=hvd.device(),
+                              generator=torch.Generator(
+                                  device=hvd.device()).manual_seed(SEED))
+            o = hvd.DistributedOptimizer(
+                torch.optim.AdamW(m.parameters(), lr=3e-4,
+                                  weight_decay=1e-4),
+                gradient_predivide_factor=2.0, shard_optimizer_states=True,
+                exchange_bucket_bytes=point["exchange_bucket_bytes"])
+            step = hvd.DistributedTrainStep(loss_fn, o)
+            m, o = step.init(m)
+            float(step(m, o, batch)[2])               # warm-up
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                float(step(m, o, batch)[2])
+                times.append(time.perf_counter() - t0)
+            del m, o, step
+            torch.cuda.empty_cache()
+            return FULL["batch"] * FULL["seq"] / statistics.median(times)
+
+        values = [16 << 20, 64 << 20, 256 << 20]
+        tuner = ThroughputAutotuner(
+            measure, {"exchange_bucket_bytes": values},
+            log_path=os.path.join(tmp, "offline.csv"))
+        best, rate = tuner.run()
+        with open(os.path.join(tmp, "offline.csv")) as f:
+            offline = f.read().strip().splitlines()
+        log(f"tools (d) [{CARD}]: sharded exchange tokens/s by "
+            f"exchange_bucket_bytes (three timed steps each, median):")
+        for row in offline:
+            log(f"  {row}")
+        log(f"tools (d): picked {best} at {rate:.0f} tokens/s (a reading, "
+            f"not a claim)")
+        out.update(offline_rows=offline[1:], offline_best=best,
+                   offline_tokens_per_s=rate)
+
+        # (e) metrics around a rank-0 checkpoint
+        reg = telemetry.default_registry()
+        saves0 = reg.value("hvd_checkpoint_saves_total")
+        stall0 = reg.snapshot()["histograms"].get(
+            "hvd_checkpoint_stall_seconds", {}).get("sum", 0.0)
+        ckpt = hvd.checkpoint.Checkpointer(os.path.join(tmp, "ckpt"))
+        ckpt.save(1, {"model": model.state_dict()})
+        ckpt.wait()
+        saves = reg.value("hvd_checkpoint_saves_total") - saves0
+        stall = reg.snapshot()["histograms"][
+            "hvd_checkpoint_stall_seconds"]["sum"] - stall0
+        body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                      timeout=10).read().decode()
+        scraped = _prom_values(body)
+        hvd.shutdown()
+        telemetry.disable()       # the later phases run with metrics off
+        with open(knobs["HOROVOD_METRICS_LOG"]) as f:
+            snapshots = [json.loads(line) for line in f if line.strip()]
+        log(f"tools (e) [{CARD}]: saves_total +{saves:g}, stall histogram "
+            f"sum {stall!r} s vs last_stall_s {ckpt.last_stall_s!r} s, "
+            f"write {ckpt.last_write_s:.3f} s; {len(snapshots)} JSONL "
+            f"snapshot(s), last saves_total "
+            f"{snapshots[-1]['counters'].get('hvd_checkpoint_saves_total')}"
+            f"; endpoint :{port} served {len(scraped)} samples, saves_total "
+            f"{scraped.get('hvd_checkpoint_saves_total')}")
+        if saves != 1 or abs(stall - ckpt.last_stall_s) > 1e-9 or \
+                not snapshots or \
+                scraped.get("hvd_checkpoint_saves_total") != saves0 + 1:
+            raise AssertionError("the checkpoint's metrics disagree")
+        out.update(ckpt_stall_s=ckpt.last_stall_s,
+                   ckpt_write_s=ckpt.last_write_s, snapshots=len(snapshots),
+                   scraped=len(scraped))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -3739,8 +4014,10 @@ def main() -> int:
     timed("1 build", phase_build)
     errs = timed("2 check", phase_check, torch)
     timing = timed("3 time", phase_time, torch)
-    counts, train, first, eager, step1_params = timed("4+9 train",
+    counts, train, first, eager, step1_params = timed("4+9+17 train",
                                                       phase_train, torch)
+    tools = eager.pop("tools")
+    seconds["17 tools"] = tools["seconds"]
     resnet_counts, resnet = timed("5 resnet", phase_resnet, torch)
     for name in RESNET_KERNELS:
         counts[name] = resnet_counts[name]
@@ -3808,6 +4085,7 @@ def main() -> int:
     log(f"mp summary [{CARD}]: {json.dumps(mp)}")
     log(f"elastic summary [{CARD}]: {json.dumps(elastic)}")
     log(f"pipeline summary [{CARD}]: {json.dumps(pipeline)}")
+    log(f"tools summary [{CARD}]: {json.dumps(tools)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

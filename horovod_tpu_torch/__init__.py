@@ -107,6 +107,28 @@ def is_initialized() -> bool:
     return _state.is_initialized()
 
 
+def start_timeline(file_path: str, mark_cycles: bool = False):
+    """Start timeline recording at run time (reference
+    ``horovod_start_timeline``), with the native writer unless
+    ``HOROVOD_TIMELINE_PYTHON`` is set or the library is unavailable.
+
+    Every rank may pass the same path: ranks other than 0 record to
+    ``<file_path>.<rank>``, and :func:`stop_timeline` merges everything
+    back into ``file_path`` on rank 0."""
+    from horovod_tpu_torch.utils.timeline import make_timeline
+
+    st = _state.global_state()
+    st.close_timeline(aggregate=False)
+    st.timeline = make_timeline(file_path, mark_cycles, rank=st.rank)
+
+
+def stop_timeline():
+    """Stop recording; in a world of more than one rank, rank 0 then
+    gathers every rank's events into one merged Chrome trace (reference
+    rank-0 aggregated timeline, ``timeline.cc``).  Every rank calls it."""
+    _state.global_state().close_timeline(aggregate=True)
+
+
 def rank() -> int:
     return _state.global_state().rank
 
@@ -229,7 +251,8 @@ __all__ = [
     "current_operations", "cache_stats",
     "allreduce", "allreduce_async", "allgather", "allgather_async",
     "alltoall", "alltoall_async", "broadcast", "broadcast_async", "barrier",
-    "join", "poll", "synchronize", "Handle",
+    "join", "poll", "synchronize", "Handle", "start_timeline",
+    "stop_timeline",
     "grouped_allreduce", "allgather_v", "reducescatter", "alltoall_v",
     "Average", "Sum", "Adasum", "ReduceOp", "Compression",
     "HorovodInternalError", "HostsUpdatedInterrupt",

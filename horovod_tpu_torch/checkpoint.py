@@ -31,8 +31,12 @@ world's and sliced (:func:`_reshard_leaf`).  A plan stamped into the shards
 (``plan=``) lets the data extent (dp×fsdp×sp) change and refuses a change
 of pp/ep/tp.
 
-The JAX package's orbax backend and its telemetry and fault-injection hooks
-are not ported.
+**Telemetry and faults**: ``hvd_checkpoint_saves_total`` counts the saves
+dispatched, ``hvd_checkpoint_stall_seconds`` and
+``hvd_checkpoint_write_seconds`` are histograms of each save's blocking
+copy and its write, ``hvd_checkpoint_writer_errors_total`` counts the
+writer's failures, and the writer passes the ``checkpoint.write`` fault
+site before each write.  The JAX package's orbax backend is not ported.
 
 ::
 
@@ -59,10 +63,25 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from horovod_tpu_torch import faults, telemetry
 from horovod_tpu_torch.runtime import state as _rt
 from horovod_tpu_torch.runtime.retry import RetryPolicy
 
 _log = logging.getLogger(__name__)
+
+# the save plane's telemetry: dispatch counts, the blocking copy (the
+# consistent cut), the background write, and the writer's sticky errors
+_TEL_SAVES = telemetry.counter(
+    "hvd_checkpoint_saves_total", "checkpoint saves dispatched")
+_TEL_STALL = telemetry.histogram(
+    "hvd_checkpoint_stall_seconds",
+    "train-loop blocking time of a save (the D2H consistent cut)")
+_TEL_WRITE = telemetry.histogram(
+    "hvd_checkpoint_write_seconds",
+    "end-to-end background write duration (pickle+fsync+rename)")
+_TEL_ERRORS = telemetry.counter(
+    "hvd_checkpoint_writer_errors_total",
+    "checkpoint writer-thread failures (sticky until clear_error)")
 
 
 def _world() -> int:
@@ -254,12 +273,15 @@ class Checkpointer:
         def run():
             t0 = time.perf_counter()
             try:
+                faults.inject("checkpoint.write")
                 fn()
             except BaseException as e:  # noqa: BLE001 - surfaced at wait()
+                _TEL_ERRORS.inc()
                 with self._error_lock:
                     self._writer_error = e
             finally:
                 self.last_write_s = time.perf_counter() - t0
+                _TEL_WRITE.observe(self.last_write_s)
 
         if not self._async:
             run()
@@ -279,6 +301,8 @@ class Checkpointer:
         t0 = time.perf_counter()
         host_state = _host_copy(state)    # the consistent cut
         self.last_stall_s = time.perf_counter() - t0
+        _TEL_SAVES.inc()
+        _TEL_STALL.observe(self.last_stall_s)
         return host_state
 
     # -- write -------------------------------------------------------------

@@ -252,6 +252,7 @@ class TorchState(ObjectState):
         with a partial sum): a one-element all-reduce over the world runs
         after everything queued before it, and an aborted communicator
         raises from it or sums short."""
+        from horovod_tpu_torch.runtime import distributed as hvd_dist
         from horovod_tpu_torch.runtime import state as rt
         from horovod_tpu_torch.runtime.distributed import raise_internal
 
@@ -261,8 +262,16 @@ class TorchState(ObjectState):
 
         st = rt.global_state()
         flag = torch.ones(1, device=st.device)
-        with raise_internal("the elastic commit's check of the world"):
+        what = "the elastic commit's check of the world"
+        with raise_internal(what):
             dist.all_reduce(flag)
+            deadline = hvd_dist.collective_deadline_s()
+            if deadline is not None:
+                # read the sum only once it is there, or raise within the
+                # group's timeout (runtime/distributed.await_event)
+                done = torch.cuda.Event()
+                done.record()
+                hvd_dist.await_event(done, what, deadline)
             if int(flag.item()) != st.size:
                 raise HorovodInternalError(
                     f"the elastic commit's check of the world summed "
@@ -472,6 +481,7 @@ def run(func: Callable) -> Callable:
     """
 
     def wrapper(state: State, *args, **kwargs):
+        global last_failure_t
         from horovod_tpu_torch.elastic.worker import \
             init_notification_manager
 
@@ -487,18 +497,22 @@ def run(func: Callable) -> Callable:
                 try:
                     return func(state, *args, **kwargs)
                 except HorovodInternalError:
+                    last_failure_t = time.time()
                     hvd_logging.warning(
                         "elastic: collective failure — restoring last "
                         "committed state and re-initializing")
+                    # the dead world's groups are aborted first: a
+                    # collective that a dead peer never joined may still
+                    # hold the card, and the restore waits for the card
+                    device = _abort_world()
                     state.restore()
                     skip_sync = False
-                    failed = True
+                    _reset(device=device)
                 except HostsUpdatedInterrupt as e:
                     hvd_logging.info(
                         "elastic: host set changed — re-initializing")
                     skip_sync = e.skip_sync
-                    failed = False
-                _reset(abort=failed)
+                    _reset()
                 state.on_reset()
         finally:
             if notification_manager is not None:
@@ -509,9 +523,28 @@ def run(func: Callable) -> Callable:
 
 #: seconds of the last :func:`_reset`, teardown to the new world's init
 last_reset_s: Optional[float] = None
+#: wall-clock time (``time.time()``) at which :func:`run` last caught a
+#: ``HorovodInternalError``: a dead peer's detection, in this rank
+last_failure_t: Optional[float] = None
 
 
-def _reset(abort: bool = False) -> None:
+def _abort_world() -> Optional[str]:
+    """After a peer failure: shut the runtime down with every process
+    group of the dead world aborted (``runtime/state.shutdown(abort=
+    True)``: NCCL's communicators are aborted, not waited on, so no
+    collective a dead peer never joined is left holding the card and no
+    group's watchdog outlives the world).  Returns the runtime's device
+    type, for :func:`_reset`'s new world."""
+    from horovod_tpu_torch.runtime import state as rt_state
+
+    if not rt_state.is_initialized():
+        return None
+    device = rt_state.global_state().device.type
+    rt_state.shutdown(abort=True)
+    return device
+
+
+def _reset(device: Optional[str] = None) -> None:
     """Tear down and re-initialize the runtime for a changed world.
 
     In order: the input pipelines close (their queues hold the old world's
@@ -520,9 +553,11 @@ def _reset(abort: bool = False) -> None:
     ``make_parallel_mesh``'s groups, and with them the eager plane's
     state and Bucketer, which live in the runtime state); under an
     elastic launcher the new assignment is fetched from the driver; the
-    old generation's store is left; ``init()`` makes the new world.
-    ``abort`` (a peer died) aborts NCCL communicators instead of waiting
-    on them.  Objects that hold the old world's groups and bucket plans
+    old generation's store is left; ``init()`` makes the new world on
+    ``device`` (default: the old world's).  After a peer failure
+    :func:`run` has aborted the old world already (:func:`_abort_world`),
+    before it restored the state.  Objects that hold the old world's
+    groups and bucket plans
     (``DistributedOptimizer``, ``DistributedTrainStep``, a
     ``ParallelMesh``) are rebuilt by the caller's reset callbacks.
     """
@@ -538,9 +573,9 @@ def _reset(abort: bool = False) -> None:
     if n_closed:
         hvd_logging.info(
             "elastic: closed %d input pipeline(s) for reset", n_closed)
-    device = rt_state.global_state().device.type \
-        if rt_state.is_initialized() else None
-    rt_state.shutdown(abort=abort)
+    if rt_state.is_initialized():
+        device = rt_state.global_state().device.type
+    rt_state.shutdown()
     refresh_assignment_from_driver()
     hvd_dist.disconnect_elastic_client()
     rt_state.init(device=device)

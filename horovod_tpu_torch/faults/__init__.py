@@ -20,6 +20,12 @@ Sites instrumented in the port (grep ``faults.inject``):
 ``discovery.script``        each run of the host discovery script
 ``driver.discovery``        each pass of the driver's discovery loop
 ``driver.health``           each pass of the driver's health monitor
+``checkpoint.write``        the checkpoint writer, before each write
+``timeline.write``          the timeline's Python writer thread, once per
+                            event
+``stall.watch``             each pass of the stall inspector's watcher
+``telemetry.export``        the metrics snapshot writer, once per export
+                            pass
 ==========================  =================================================
 
 Typical use::

@@ -66,7 +66,10 @@ class Bucketer:
     nowhere else.  :meth:`flush` (on ``synchronize``, ``poll`` and
     ``join``) dispatches what waits, in insertion order, which is program
     order, so every rank dispatches the same groups in the same order.
-    There is no background thread.  ``groups`` counts the dispatches."""
+    There is no background thread.  ``groups`` counts the dispatches; each
+    marks a cycle on the timeline (``HOROVOD_TIMELINE_MARK_CYCLES``) and
+    reports its bytes to the parameter manager (``HOROVOD_AUTOTUNE``), which
+    tunes the threshold and the cycle time."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -95,9 +98,23 @@ class Bucketer:
 
     def _dispatch(self, group: List[_Entry]) -> None:
         from horovod_tpu_torch.ops.eager import _dispatch_group
+        from horovod_tpu_torch.runtime import state
 
+        st = state.global_state()
         self.groups += 1
+        if st.timeline is not None:
+            st.timeline.mark_cycle_start()
         _dispatch_group(group)
+        self._record_autotune(st, group)
+
+    @staticmethod
+    def _record_autotune(st, group: List[_Entry]) -> None:
+        """The dispatched bytes, to the parameter manager while it tunes
+        (JAX ``Bucketer._record_autotune``); its next point takes effect
+        at the next :meth:`add`."""
+        pm = st.parameter_manager
+        if pm is not None and pm.active:
+            pm.record_bytes(sum(e.nbytes for e in group))
 
     def flush(self) -> None:
         """Dispatch every waiting bucket, in insertion order."""

@@ -31,8 +31,13 @@ The device plane's :func:`_reduce_flat` runs the same steps around one
 (``ops/collectives.grouped_allreduce``), which scales bf16 in bf16 and
 folds Average's ``1/size`` into its postscale.
 
-The reference's stall inspector and timeline spans around each phase are
-not ported yet.
+Observability (JAX ``ops/eager.py``): every handle registers with the
+stall inspector at dispatch and clears at completion; on the timeline each
+tensor has a NEGOTIATE span (from ``allreduce_async`` until its cycle's
+negotiation agrees, or around the inline negotiation of the other ops)
+followed by its collective's span, named after the backend that moved
+the data (``NCCL_ALLREDUCE`` on a card, ``GLOO_*`` on gloo), and each
+negotiation cycle leaves a NEGOTIATE instant with its cache outcome.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from horovod_tpu_torch.ops.collectives import Average, ReduceOp, Sum
 from horovod_tpu_torch.ops.kernels import fused_scale
 from horovod_tpu_torch.runtime import state
 from horovod_tpu_torch.runtime.distributed import raise_internal
+from horovod_tpu_torch.utils import timeline as tl
 
 # Reference error text: common.h:163 DUPLICATE_NAME_ERROR
 _DUPLICATE_NAME_ERROR = (
@@ -276,6 +282,13 @@ def _negotiate(desc: Optional[dict], join_cycle: int = -1) -> _Negotiation:
         w.validated.add(ref_digest)
         w.desc_cache[ref_digest] = desc
     st.cache_stats["hits" if seen else "misses"] += 1
+    # the reference's timeline records NEGOTIATE_* phases per tensor
+    # (controller.cc:845-857); here one instant a cycle, with the cache
+    # outcome and the join count
+    if st.timeline is not None:
+        st.timeline.instant(tl.NEGOTIATE, {
+            "kind": desc.get("kind"), "cache": "hit" if seen else "miss",
+            "cycle": w.cycle, "joined": len(joined)})
 
     if joined:
         kind = desc.get("kind")
@@ -400,6 +413,10 @@ class Handle:
         self._error: Optional[Exception] = None
         self._event = None
         self._decompress = (None, None)
+        # the timeline that holds this handle's open NEGOTIATE span (None:
+        # the timeline was off at submission), so that the dispatch closes
+        # it on the same file even across start/stop_timeline
+        self._tl_neg = None
 
     def _fulfill(self, result: torch.Tensor) -> None:
         self._result = result
@@ -414,6 +431,9 @@ class Handle:
 
     def _finish(self) -> None:
         self._done = True
+        st = state.global_state()
+        if st.stall_inspector is not None:
+            st.stall_inspector.record_complete(self.name)
         w = _world()
         with w.lock:
             w.in_flight.pop(self.name, None)
@@ -426,6 +446,18 @@ def _register(name: str, handle: Handle) -> None:
             raise HorovodInternalError(_DUPLICATE_NAME_ERROR +
                                        f" (name={name})")
         w.in_flight[name] = handle
+    st = state.global_state()
+    if st.stall_inspector is not None:
+        st.stall_inspector.record_dispatch(name)
+
+
+def _timeline():
+    return state.global_state().timeline
+
+
+def _activity(plane, kind: str) -> str:
+    """The timeline activity of a ``kind`` collective on ``plane``."""
+    return tl.collective_activity(kind, plane.backend())
 
 
 def _fulfilled(name: str, value: torch.Tensor) -> Handle:
@@ -475,6 +507,13 @@ def allreduce_async(tensor, average: Optional[bool] = None,
     name = name or _next_name("allreduce")
     handle = Handle(name)
     _register(name, handle)
+    # the tensor's negotiation phase (reference timeline.h:77-131: every
+    # tensor walks NEGOTIATING → TOP_LEVEL) opens at submission and closes
+    # in _dispatch_group once its cycle's negotiation agrees
+    tlobj = _timeline()
+    if tlobj is not None:
+        tlobj.start_activity(name, tl.NEGOTIATE)
+    handle._tl_neg = tlobj
     tensor = _intake(tensor)
     ctx = None
     if compression is not None:
@@ -491,6 +530,17 @@ def _dispatch_group(entries) -> None:
     rank replays the same flat reduction with zeros, so the descriptor
     carries the flat length, dtype, op, scales, segments and plane."""
     e0 = entries[0]
+    tlobj = _timeline()
+
+    def end_negotiate():
+        # each entry's NEGOTIATE span closes on the timeline it opened on
+        for e in entries:
+            t = e.handle._tl_neg
+            if t is not None:
+                t.end_activity(e.name)
+                e.handle._tl_neg = None
+
+    spans_open = False
     try:
         plane = op_manager.active_op(e0.tensor)
         segments = tuple(int(e.tensor.numel()) for e in entries) \
@@ -511,6 +561,14 @@ def _dispatch_group(entries) -> None:
                     f"{e.op.name}:{e.prescale}:{e.postscale}"
                     for e in entries),
             })
+        # negotiation agreed: NEGOTIATE ends, the collective's span opens
+        # (reference NEGOTIATING → TOP_LEVEL → ACTIVITY)
+        end_negotiate()
+        if tlobj is not None:
+            activity = _activity(plane, tl.ALLREDUCE)
+            for e in entries:
+                tlobj.start_activity(e.name, activity)
+            spans_open = True
         # always the concatenation, a single entry too: the buffer is the
         # reduction's own, and joined ranks replay it by length alone
         flat = torch.cat([e.tensor.reshape(-1) for e in entries])
@@ -521,7 +579,15 @@ def _dispatch_group(entries) -> None:
             n = e.tensor.numel()
             e.handle._fulfill(red[off:off + n].view(e.tensor.shape))
             off += n
+        if spans_open:
+            for e in entries:
+                tlobj.end_activity(e.name)
+            spans_open = False
     except Exception as err:  # noqa: BLE001 - delivered on every handle
+        end_negotiate()
+        if spans_open:
+            for e in entries:
+                tlobj.end_activity(e.name)
         for e in entries:
             e.handle._fail(err if isinstance(err, HorovodInternalError)
                            else HorovodInternalError(str(err)))
@@ -596,19 +662,23 @@ def _allgather_submit(tensor, name: Optional[str] = None):
     sizes = None
     try:
         plane = op_manager.active_op(tensor)
-        # first dims may differ by rank; everything else must agree
-        _negotiate({
-            "kind": "allgather", "plane": plane.name,
-            "sig": f"{name}:{tensor.dtype}:{tuple(tensor.shape[1:])}",
-        })
-        sizes = _allgather_host_metadata(
-            np.asarray([tensor.shape[0]], np.int64)).reshape(nproc)
-        max_rows = int(sizes.max())
-        pad = tensor.new_zeros((max_rows,) + tuple(tensor.shape[1:]))
-        pad[:tensor.shape[0]] = tensor
-        rows = plane.allgather_padded(pad)
-        handle._fulfill(torch.cat([rows[p, :int(sizes[p])]
-                                   for p in range(nproc)], dim=0))
+        # NEGOTIATE, then the collective's span, one after the other, so
+        # that the collective's span holds no negotiation wait
+        with tl.activity(name, tl.NEGOTIATE):
+            # first dims may differ by rank; everything else must agree
+            _negotiate({
+                "kind": "allgather", "plane": plane.name,
+                "sig": f"{name}:{tensor.dtype}:{tuple(tensor.shape[1:])}",
+            })
+            sizes = _allgather_host_metadata(
+                np.asarray([tensor.shape[0]], np.int64)).reshape(nproc)
+        with tl.activity(name, _activity(plane, tl.ALLGATHER)):
+            max_rows = int(sizes.max())
+            pad = tensor.new_zeros((max_rows,) + tuple(tensor.shape[1:]))
+            pad[:tensor.shape[0]] = tensor
+            rows = plane.allgather_padded(pad)
+            handle._fulfill(torch.cat([rows[p, :int(sizes[p])]
+                                       for p in range(nproc)], dim=0))
     except Exception as err:  # noqa: BLE001 - delivered by synchronize
         handle._fail(err if isinstance(err, HorovodInternalError)
                      else HorovodInternalError(str(err)))
@@ -633,12 +703,14 @@ def broadcast_async(tensor, root_rank: int,
     _register(name, handle)
     try:
         plane = op_manager.active_op(tensor)
-        _negotiate({
-            "kind": "broadcast", "plane": plane.name,
-            "sig": f"{name}:{tensor.dtype}:{tuple(tensor.shape)}:"
-                   f"{root_rank}",
-        })
-        handle._fulfill(plane.bcast(tensor, root_rank))
+        with tl.activity(name, tl.NEGOTIATE):
+            _negotiate({
+                "kind": "broadcast", "plane": plane.name,
+                "sig": f"{name}:{tensor.dtype}:{tuple(tensor.shape)}:"
+                       f"{root_rank}",
+            })
+        with tl.activity(name, _activity(plane, tl.BROADCAST)):
+            handle._fulfill(plane.bcast(tensor, root_rank))
     except Exception as err:  # noqa: BLE001 - delivered by synchronize
         handle._fail(err if isinstance(err, HorovodInternalError)
                      else HorovodInternalError(str(err)))
@@ -677,24 +749,28 @@ def alltoall_async(tensor, splits=None,
     _register(name, handle)
     try:
         plane = op_manager.active_op(tensor)
-        _negotiate({
-            "kind": "alltoall", "plane": plane.name,
-            "sig": f"{name}:{tensor.dtype}:{tuple(tensor.shape[1:])}",
-        })
-        all_splits = _allgather_host_metadata(splits).reshape(nproc, nproc)
-        max_rows = int(all_splits.max())
-        me = state.global_state().rank
-        # slot-pack: slot d holds the rows for rank d
-        slots = tensor.new_zeros((nproc, max_rows) + tuple(tensor.shape[1:]))
-        off = 0
-        for d in range(nproc):
-            cnt = int(splits[d])
-            slots[d, :cnt] = tensor[off:off + cnt]
-            off += cnt
-        cols = plane.alltoall_slots(slots)
-        handle._fulfill(torch.cat(
-            [cols[src, :int(all_splits[src, me])] for src in range(nproc)],
-            dim=0))
+        with tl.activity(name, tl.NEGOTIATE):
+            _negotiate({
+                "kind": "alltoall", "plane": plane.name,
+                "sig": f"{name}:{tensor.dtype}:{tuple(tensor.shape[1:])}",
+            })
+            all_splits = _allgather_host_metadata(splits).reshape(nproc,
+                                                                  nproc)
+        with tl.activity(name, _activity(plane, tl.ALLTOALL)):
+            max_rows = int(all_splits.max())
+            me = state.global_state().rank
+            # slot-pack: slot d holds the rows for rank d
+            slots = tensor.new_zeros((nproc, max_rows) +
+                                     tuple(tensor.shape[1:]))
+            off = 0
+            for d in range(nproc):
+                cnt = int(splits[d])
+                slots[d, :cnt] = tensor[off:off + cnt]
+                off += cnt
+            cols = plane.alltoall_slots(slots)
+            handle._fulfill(torch.cat(
+                [cols[src, :int(all_splits[src, me])]
+                 for src in range(nproc)], dim=0))
     except Exception as err:  # noqa: BLE001 - delivered by synchronize
         handle._fail(err if isinstance(err, HorovodInternalError)
                      else HorovodInternalError(str(err)))

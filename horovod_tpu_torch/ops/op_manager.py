@@ -37,6 +37,9 @@ Primitives (collective: every rank calls them in the same order):
 * ``alltoall_slots(slots) -> (world, ...)``: ``slots[d]`` holds the rows
   this rank sends to rank ``d``; row ``s`` of the result is what rank
   ``s`` sent here.
+
+``backend()`` names the backend that moves a plane's data (``"nccl"`` or
+``"gloo"``), which names the timeline's collective spans.
 """
 
 from __future__ import annotations
@@ -90,6 +93,10 @@ class DeviceOps:
         return tensor is None or tensor.device.type != "cpu" or \
             dist.get_backend() == "gloo"
 
+    def backend(self) -> str:
+        """The backend that moves this plane's data: the world's."""
+        return dist.get_backend()
+
     def metadata_allgather(self, arr: np.ndarray) -> np.ndarray:
         return _host_metadata_allgather(arr)
 
@@ -131,6 +138,9 @@ class HostOps:
 
     def enabled(self, tensor=None) -> bool:
         return True
+
+    def backend(self) -> str:
+        return "gloo"
 
     def metadata_allgather(self, arr: np.ndarray) -> np.ndarray:
         return _host_metadata_allgather(arr)

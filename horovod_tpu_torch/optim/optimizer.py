@@ -38,6 +38,7 @@ from horovod_tpu_torch.ops import collectives as C
 from horovod_tpu_torch.ops.bucketing import plan_buckets
 from horovod_tpu_torch.ops.collectives import Adasum, Average, ReduceOp
 from horovod_tpu_torch.ops.fused_collectives import resolve_fused_collectives
+from horovod_tpu_torch.runtime import distributed as hvd_dist
 from horovod_tpu_torch.runtime import state
 from horovod_tpu_torch.runtime.distributed import raise_internal
 from horovod_tpu_torch.runtime.topology import LAYOUT_AXES, \
@@ -418,6 +419,15 @@ class _DistributedOptimizer:
                 self._launch([i], "synchronize")
         self._next = len(self._buckets)
         if self._stream is not None:
+            deadline = hvd_dist.collective_deadline_s()
+            if deadline is not None:
+                # an elastic world: the host waits for the exchange, so
+                # that a dead peer raises here within the group's timeout,
+                # before anything queued behind it reads a result
+                done = torch.cuda.Event()
+                done.record(self._stream)
+                hvd_dist.await_event(done, "the gradient exchange",
+                                     deadline)
             torch.cuda.current_stream(self._stream.device).wait_stream(
                 self._stream)
         self._synced = True

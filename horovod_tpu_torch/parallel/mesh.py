@@ -159,7 +159,7 @@ def make_parallel_mesh(dp: Optional[int] = None, pp: int = 1, fsdp: int = 1,
             groups[key] = dist.group.WORLD
         else:
             for ranks in axis_ranks(shape, key):
-                group = dist.new_group(ranks, timeout=st.timeout)
+                group = dist.new_group(ranks, timeout=st.group_timeout())
                 if st.rank in ranks:
                     groups[key] = group
     return ParallelMesh(shape, coords, groups)

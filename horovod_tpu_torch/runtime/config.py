@@ -5,8 +5,10 @@ launcher's identity knobs, the coordinator address, the fusion threshold,
 the eager plane's cycle time, negotiation-cache capacity and data plane, the
 sharded exchange's bucket cap, topology, wire codec, per-level codecs and
 reduction operator, the fused-collectives mode, the sequence-parallel ring's layout,
-the parallelism plan, the MoE dispatch knobs and the input pipeline's
-prefetch depth and thread count, under the same ``HOROVOD_*`` names and
+the parallelism plan, the MoE dispatch knobs, the input pipeline's
+prefetch depth and thread count, and the runtime tools (the timeline, the
+stall inspector, the parameter manager and the metrics exporters, with the
+set of knobs the user fixed), under the same ``HOROVOD_*`` names and
 with the same defaults, so one environment drives both packages.  A knob
 joins ``KNOWN_KNOBS`` and ``Config`` in the slice that ports the subsystem
 reading it.  When ``HOROVOD_RANK`` is unset, the identity falls back to the
@@ -72,6 +74,17 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_QUARANTINE_BASE_S", "HOROVOD_QUARANTINE_MAX_S",
     "HOROVOD_QUARANTINE_PROBATION_S", "HOROVOD_QUARANTINE_DISABLE",
     "HOROVOD_HOSTNAME",
+    # -- the runtime tools (utils/timeline.py, utils/stall.py,
+    #    utils/autotune.py, telemetry/export.py)
+    "HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES",
+    "HOROVOD_TIMELINE_PYTHON", "HOROVOD_STALL_CHECK_DISABLE",
+    "HOROVOD_STALL_CHECK_TIME_SECONDS", "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS",
+    "HOROVOD_AUTOTUNE", "HOROVOD_AUTOTUNE_LOG",
+    "HOROVOD_AUTOTUNE_WARMUP_SAMPLES", "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES",
+    "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE",
+    "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", "HOROVOD_METRICS",
+    "HOROVOD_METRICS_PORT", "HOROVOD_METRICS_LOG",
+    "HOROVOD_METRICS_INTERVAL_S", "HOROVOD_RUN_ID",
 })
 
 #: the launcher's stamp on every worker (``HOROVOD_CONTROLLER``): the
@@ -98,6 +111,29 @@ def _env_int(name: str, default: int) -> int:
         return int(v)
     except ValueError:
         raise ValueError(f"{name} must be an integer, got {v!r}")
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v.lower() in ("1", "true", "yes", "on")
+
+
+#: the knobs a set ``HOROVOD_*`` variable fixes: the parameter manager
+#: never tunes them (reference "fixed" flag, ``operations.cc:436``)
+_FIXABLE = (
+    ("HOROVOD_FUSION_THRESHOLD", "fusion_threshold_bytes"),
+    ("HOROVOD_CYCLE_TIME", "cycle_time_ms"),
+    ("HOROVOD_CACHE_CAPACITY", "cache_capacity"),
+    ("HOROVOD_EXCHANGE_BUCKET_BYTES", "exchange_bucket_bytes"),
+    ("HOROVOD_EXCHANGE_HIERARCHY", "exchange_hierarchy"),
+    ("HOROVOD_EXCHANGE_WIRE_DTYPE", "exchange_wire_dtype"),
+    ("HOROVOD_EXCHANGE_LEVEL_CODECS", "exchange_level_codecs"),
+    ("HOROVOD_EXCHANGE_REDUCTION", "exchange_reduction"),
+    ("HOROVOD_FUSED_COLLECTIVES", "fused_collectives"),
+    ("HOROVOD_PLAN", "plan"),
+)
 
 
 @dataclasses.dataclass
@@ -166,6 +202,36 @@ class Config:
     # (runtime/distributed.py)
     elastic_enabled: bool = False
 
+    # -- autotune (reference parameter_manager.h:58-78): the eager
+    # Bucketer's fusion threshold and cycle time, tuned online
+    autotune: bool = False
+    autotune_log: Optional[str] = None
+    autotune_warmup_samples: int = 3
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: float = 0.8
+    autotune_steps_per_sample: int = 10
+
+    # -- the telemetry plane's exporters (telemetry/export.py):
+    # metrics_enabled None = auto (on iff an exporter is configured);
+    # port 0 = no Prometheus endpoint; log None = no JSONL snapshots
+    metrics_enabled: Optional[bool] = None
+    metrics_port: int = 0
+    metrics_log: Optional[str] = None
+    metrics_interval_s: float = 10.0
+    run_id: Optional[str] = None
+
+    # -- timeline (reference operations.cc:417-424)
+    timeline_filename: Optional[str] = None
+    timeline_mark_cycles: bool = False
+
+    # -- stall inspector (reference stall_inspector.h:73-81)
+    stall_check_enabled: bool = True
+    stall_warning_time_seconds: float = 60.0
+    stall_shutdown_time_seconds: float = 0.0  # 0 = never
+
+    # knobs the user set explicitly, which autotune must not touch
+    fixed_knobs: frozenset = frozenset()
+
     @staticmethod
     def from_env() -> "Config":
         def opt_int(name: str) -> Optional[int]:
@@ -211,8 +277,37 @@ class Config:
             plan=os.environ.get("HOROVOD_PLAN"),
             prefetch_depth=_env_int("HOROVOD_PREFETCH_DEPTH", 2),
             input_threads=_env_int("HOROVOD_INPUT_THREADS", 2),
-            elastic_enabled=os.environ.get("HOROVOD_ELASTIC", "").lower()
-            in ("1", "true", "yes", "on"),
+            elastic_enabled=_env_bool("HOROVOD_ELASTIC", False),
+            autotune=_env_bool("HOROVOD_AUTOTUNE", False),
+            autotune_log=os.environ.get("HOROVOD_AUTOTUNE_LOG"),
+            autotune_warmup_samples=_env_int(
+                "HOROVOD_AUTOTUNE_WARMUP_SAMPLES", 3),
+            autotune_bayes_opt_max_samples=_env_int(
+                "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", 20),
+            autotune_gaussian_process_noise=_env_float(
+                "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE", 0.8),
+            autotune_steps_per_sample=_env_int(
+                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", 10),
+            metrics_enabled=(None if os.environ.get("HOROVOD_METRICS")
+                             in (None, "") else
+                             _env_bool("HOROVOD_METRICS", False)),
+            metrics_port=_env_int("HOROVOD_METRICS_PORT", 0),
+            metrics_log=os.environ.get("HOROVOD_METRICS_LOG"),
+            metrics_interval_s=_env_float("HOROVOD_METRICS_INTERVAL_S",
+                                          10.0),
+            run_id=os.environ.get("HOROVOD_RUN_ID"),
+            timeline_filename=os.environ.get("HOROVOD_TIMELINE"),
+            timeline_mark_cycles=_env_bool("HOROVOD_TIMELINE_MARK_CYCLES",
+                                           False),
+            stall_check_enabled=not _env_bool("HOROVOD_STALL_CHECK_DISABLE",
+                                              False),
+            stall_warning_time_seconds=_env_float(
+                "HOROVOD_STALL_CHECK_TIME_SECONDS", 60.0),
+            stall_shutdown_time_seconds=_env_float(
+                "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0),
+            fixed_knobs=frozenset(
+                knob for name, knob in _FIXABLE
+                if os.environ.get(name) not in (None, "")),
         )
 
 

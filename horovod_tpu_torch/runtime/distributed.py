@@ -15,9 +15,13 @@ elastic **driver**:
   worker's assignment;
 * **workers** join it with :func:`connect_elastic_client` and
   ``init_process_group(store=...)`` on it (``runtime/state.py``) under
-  the rendezvous's :func:`start_timeout`, then give the groups the short
-  :func:`elastic_timeout`, so that a collective with a dead peer raises in
-  the caller instead of hanging;
+  the rendezvous's :func:`start_timeout`, then give the gloo groups the
+  short :func:`elastic_timeout`, so that a collective with a dead peer
+  raises in the caller instead of hanging, and the NCCL groups
+  :func:`watchdog_timeout`: on a card the host waits for the exchange
+  with the short deadline itself (:func:`await_event`), and the elastic
+  loop aborts the dead world's groups before anything else waits on
+  them;
 * :func:`disconnect_elastic_client` leaves it on reset without a
   barrier (a barrier would wait on the dead peers).
 
@@ -34,6 +38,7 @@ import contextlib
 import datetime
 import os
 import threading
+import time
 
 from horovod_tpu_torch.exceptions import HorovodInternalError
 from horovod_tpu_torch.utils import logging as hvd_logging
@@ -59,16 +64,38 @@ def start_timeout() -> datetime.timedelta:
         "HOROVOD_ELASTIC_START_TIMEOUT", 120.0)))
 
 
-def shorten_timeouts(groups) -> datetime.timedelta:
-    """Give ``groups`` (every rank of the world has joined them)
-    :func:`elastic_timeout` for their collectives, and return it."""
+#: an NCCL group's own timeout, in elastic timeouts: the watchdog is the
+#: backstop, behind the host's deadline (:func:`await_event`)
+WATCHDOG_FACTOR = 6
+
+
+def watchdog_timeout() -> datetime.timedelta:
+    """The timeout of an elastic world's NCCL groups: ``WATCHDOG_FACTOR``
+    elastic timeouts.  The host waits for a collective one elastic
+    timeout (:func:`collective_deadline_s`) and then aborts the world's
+    groups; that abort must come before NCCL's watchdog catches the
+    timeout itself: on four H100s (torch 2.11, NCCL 2.27) an abort made
+    after the watchdog had caught a dead peer's timeout never returned,
+    and one made before it returned in 0.66 s."""
+    return elastic_timeout() * WATCHDOG_FACTOR
+
+
+def shorten_timeouts(world, host_group) -> tuple:
+    """Give the world's groups (every rank has joined them) their elastic
+    timeouts: :func:`elastic_timeout` to the gloo groups, whose
+    collectives then raise in the caller, and :func:`watchdog_timeout` to
+    an NCCL world.  Returns ``(timeout, device_timeout)``: the gloo
+    groups', and that of groups made later on the world's backend."""
+    import torch.distributed as dist
     from torch.distributed import distributed_c10d as c10d
 
     timeout = elastic_timeout()
-    for group in groups:
-        if group is not None:
-            c10d._set_pg_timeout(timeout, group)
-    return timeout
+    device_timeout = timeout if dist.get_backend(world) == "gloo" \
+        else watchdog_timeout()
+    c10d._set_pg_timeout(device_timeout, world)
+    if host_group is not None and host_group is not world:
+        c10d._set_pg_timeout(timeout, host_group)
+    return timeout, device_timeout
 
 
 class CoordinationService:
@@ -150,6 +177,61 @@ def disconnect_elastic_client() -> None:
 def elastic_client_active() -> bool:
     with _client_lock:
         return _live_client is not None
+
+
+def world_store():
+    """The store every rank of the world reaches without a collective, for
+    the runtime tools' out-of-band keys (the timeline's aggregation, the
+    stall inspector's status): the elastic driver's (:func:`client_store`),
+    else the default process group's, else None."""
+    store = client_store()
+    if store is not None:
+        return store
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return None
+    from torch.distributed import distributed_c10d as c10d
+
+    try:
+        return c10d._get_default_store()
+    except (RuntimeError, ValueError):
+        return None
+
+
+def await_event(event, what: str, timeout_s: float,
+                poll_s: float = 0.0002) -> None:
+    """Block the host until ``event`` (a ``torch.cuda.Event`` recorded
+    after the collectives to wait for) has completed, or raise
+    ``HorovodInternalError`` once ``timeout_s`` has passed.
+
+    NCCL's own watchdog does not bound the wait of a host that reads a
+    result behind a collective a dead peer never joined (the survivors
+    read a loss 70 s after a kill, with a 10 s group timeout): the host
+    waits here instead, off the stream, so that the elastic loop can
+    restore and abort the dead world's groups (``runtime/state.py``)."""
+    deadline = time.monotonic() + timeout_s
+    while not event.query():
+        if time.monotonic() > deadline:
+            raise HorovodInternalError(
+                f"{what} did not complete within {timeout_s:g} s, the "
+                f"world's collective timeout: a peer may have died")
+        time.sleep(poll_s)
+
+
+def collective_deadline_s():
+    """The host's deadline for a collective of the current world: the
+    elastic timeout in an elastic world of more than one rank on a card,
+    else None (no host-side wait: torch's timeout governs)."""
+    from horovod_tpu_torch.runtime import state
+
+    if not state.is_initialized():
+        return None
+    st = state.global_state()
+    if st.size == 1 or not st.config.elastic_enabled or \
+            st.device.type != "cuda" or st.timeout is None:
+        return None
+    return st.timeout.total_seconds()
 
 
 #: the errors a collective raises when a peer died or the group was

@@ -82,8 +82,19 @@ class GlobalState:
         # this rank's group of each layout level, made at first use
         self._layout: Optional[Dict[str, Optional[dist.ProcessGroup]]] = None
         # the process groups' timeout: torch's default, or an elastic
-        # world's short one (runtime/distributed.py)
+        # world's short one (runtime/distributed.py); device_timeout is
+        # that of the groups on the world's backend (an elastic NCCL
+        # world's backstop, longer than the host's deadline)
         self.timeout = None
+        self.device_timeout = None
+        # the runtime tools (JAX runtime/state.py:182-204): the telemetry
+        # exporters, the timeline, the stall inspector, the parameter
+        # manager; and the timeline aggregation's per-world key counter
+        self.telemetry = None
+        self.timeline = None
+        self.stall_inspector = None
+        self.parameter_manager = None
+        self.aggregate_seq = 0
 
     def initialize(self) -> None:
         cfg = self.config
@@ -135,8 +146,37 @@ class GlobalState:
             if self.size > 1 and cfg.elastic_enabled:
                 from horovod_tpu_torch.runtime import distributed as hvd_dist
 
-                self.timeout = hvd_dist.shorten_timeouts(
-                    {dist.group.WORLD, self.host_group})
+                self.timeout, self.device_timeout = \
+                    hvd_dist.shorten_timeouts(dist.group.WORLD,
+                                              self.host_group)
+        self._start_tools()
+
+    def _start_tools(self) -> None:
+        """The telemetry plane first (the timeline renders its gauges and
+        the stall inspector counts through it), then the timeline, the
+        stall inspector and the parameter manager, as the config asks."""
+        cfg = self.config
+        from horovod_tpu_torch import telemetry
+
+        self.telemetry = telemetry.start_from_config(cfg,
+                                                     process_rank=self.rank)
+        if cfg.timeline_filename:
+            from horovod_tpu_torch.utils.timeline import make_timeline
+
+            self.timeline = make_timeline(cfg.timeline_filename,
+                                          cfg.timeline_mark_cycles,
+                                          rank=self.rank)
+        if cfg.stall_check_enabled:
+            from horovod_tpu_torch.utils.stall import StallInspector
+
+            self.stall_inspector = StallInspector(
+                warning_time_s=cfg.stall_warning_time_seconds,
+                shutdown_time_s=cfg.stall_shutdown_time_seconds)
+        if cfg.autotune:
+            from horovod_tpu_torch.utils.autotune import ParameterManager
+
+            self.parameter_manager = ParameterManager(
+                cfg, log_path=cfg.autotune_log)
 
     def _init_elastic_group(self, backend: str) -> None:
         """The world's process group of an elastic generation: on the
@@ -265,17 +305,51 @@ class GlobalState:
                 out[level] = dist.group.WORLD
             else:
                 for ranks in lines:
-                    group = dist.new_group(ranks, timeout=self.timeout)
+                    group = dist.new_group(ranks,
+                                           timeout=self.group_timeout())
                     if self.rank in ranks:
                         out[level] = group
         return out
+
+    def group_timeout(self):
+        """The timeout of a group made on the world's backend (None:
+        torch's default)."""
+        return self.device_timeout or self.timeout
 
     def _set_device(self) -> None:
         if self.device.type == "cuda":
             self.device = torch.device("cuda", self.local_rank)
             torch.cuda.set_device(self.device)
 
+    def close_timeline(self, aggregate: bool = True) -> None:
+        """Close the timeline; with ``aggregate`` (every rank calls it at
+        the same point) rank 0 then merges every rank's file into its own
+        (``utils/timeline.aggregate_after_close``)."""
+        tl, self.timeline = self.timeline, None
+        if tl is None:
+            return
+        tl.close()
+        if aggregate and dist.is_initialized():
+            from horovod_tpu_torch.utils.timeline import aggregate_after_close
+
+            aggregate_after_close(tl.filename, tl.wall_origin_us)
+
+    def _stop_tools(self, abort: bool) -> None:
+        # an aborted world merges no timeline: its dead ranks upload
+        # nothing, and rank 0 would wait out the aggregation's deadline
+        self.close_timeline(aggregate=not abort)
+        if self.stall_inspector is not None:
+            self.stall_inspector.stop()
+            self.stall_inspector = None
+        self.parameter_manager = None
+        if self.telemetry is not None:
+            # final JSONL snapshot and endpoint teardown; the registry
+            # itself lives on (elastic resets re-init around it)
+            self.telemetry.shutdown()
+            self.telemetry = None
+
     def shutdown(self, abort: bool = False) -> None:
+        self._stop_tools(abort)
         if dist.is_initialized():
             if self.owns_group and abort and dist.get_backend() == "nccl":
                 # a peer died: abort the communicators rather than wait on

@@ -21,6 +21,7 @@ import socket
 import stat
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import pytest
@@ -96,6 +97,7 @@ def run_elastic(tmp_path, discovery_schedule, np=1, min_np=1, max_np=2,
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
         rc = f"timed out after {timeout} s"
+    t_return = time.time()
     _kill_workers(out_dir)
     results = []
     if logfile.exists():
@@ -106,7 +108,8 @@ def run_elastic(tmp_path, discovery_schedule, np=1, min_np=1, max_np=2,
         ranks = [json.loads(line) for line in
                  (tmp_path / "ranks.jsonl").read_text().splitlines()]
     return {"rc": rc, "stdout": out, "stderr": err, "results": results,
-            "ranks": ranks, "logs": worker_logs(tmp_path)}
+            "ranks": ranks, "logs": worker_logs(tmp_path),
+            "t_return": t_return}
 
 
 def _kill_workers(out_dir):

@@ -101,7 +101,23 @@ class TestConfig:
            "HOROVOD_QUARANTINE_MAX_S": "600",
            "HOROVOD_QUARANTINE_PROBATION_S": "300",
            "HOROVOD_QUARANTINE_DISABLE": "0",
-           "HOROVOD_HOSTNAME": "host-a"}
+           "HOROVOD_HOSTNAME": "host-a",
+           # the runtime tools': Config fields, but HOROVOD_TIMELINE_PYTHON,
+           # which the timeline's maker reads, as in the JAX package
+           "HOROVOD_TIMELINE": "/tmp/tl.json",
+           "HOROVOD_TIMELINE_MARK_CYCLES": "1",
+           "HOROVOD_TIMELINE_PYTHON": "1",
+           "HOROVOD_STALL_CHECK_DISABLE": "1",
+           "HOROVOD_STALL_CHECK_TIME_SECONDS": "7.5",
+           "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "30",
+           "HOROVOD_AUTOTUNE": "1", "HOROVOD_AUTOTUNE_LOG": "/tmp/at.csv",
+           "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "2",
+           "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "4",
+           "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE": "0.5",
+           "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "3",
+           "HOROVOD_METRICS": "1", "HOROVOD_METRICS_PORT": "9090",
+           "HOROVOD_METRICS_LOG": "/tmp/m.jsonl",
+           "HOROVOD_METRICS_INTERVAL_S": "2.5", "HOROVOD_RUN_ID": "run-a"}
 
     @pytest.mark.parametrize("set_env", [False, True])
     def test_matches_jax(self, monkeypatch, set_env):

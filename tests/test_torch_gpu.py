@@ -661,6 +661,22 @@ class TestOnCard:
         assert isinstance(out["poll_in_flight"], bool)
         assert out["big_exact"] and out["poll_done"]
 
+    def test_timeline_on_card(self, cuda, tmp_path):
+        """The timeline on one card: the native writer records a NEGOTIATE
+        and an ``NCCL_ALLREDUCE`` span for each eager tensor, drops
+        nothing and changes no result; under ``torch.profiler`` the spans
+        are ``record_function`` ranges."""
+        out = spawn_world("run_timeline_card", world=1, device="cuda",
+                          args=(str(tmp_path),), timeout=300)[0]
+        print(out)
+        assert out["writer"] == "NativeTimeline"
+        assert out["exact"] and out["dropped"] == 0
+        for i in range(8):
+            assert out["spans"][f"card.{i}"] == ["NEGOTIATE",
+                                                 "NCCL_ALLREDUCE"]
+        assert {"hvd:NEGOTIATE:card.prof",
+                "hvd:NCCL_ALLREDUCE:card.prof"} <= set(out["ranges"])
+
     def test_hook_path_on_card_equals_step_time(self, cuda):
         """The hook-fired exchange on the card (side stream, fused_scale,
         NCCL) equals distributed_gradients on the same gradients bit for
@@ -1370,7 +1386,7 @@ class TestNcclWorld:
         run = run_elastic(
             tmp_path, [(0, both), (1, ["localhost:2"]), (None, both)],
             np=4, min_np=2, max_np=4, exit_schedule={"3,0": [3]},
-            exit_mode="kill", epochs=4, timeout=600,
+            exit_mode="kill", epochs=4, timeout=300,
             # a failed host stays out (the reference's blacklist): one
             # readmitted after its cooldown would respawn the killed
             # start rank, which replays the restored epoch's exit
@@ -1404,6 +1420,19 @@ class TestNcclWorld:
         killed = [r for r in run["ranks"] if r.get("event") == "rendezvous"
                   and r["rendezvous"] > 3]
         assert killed, "the survivors did not rendezvous after the kill"
+        # C 11: each survivor detects the dead peer within 3x the 10 s
+        # group timeout, finishes, and exits with the launcher
+        kill_t = next(r["t"] for r in run["ranks"]
+                      if r.get("event") == "kill")
+        detect = {r["start_rank"]: r["failure_t"] - kill_t for r in killed}
+        done = {r["start_rank"]: r["t"] - kill_t for r in run["ranks"]
+                if r.get("event") == "done"}
+        print(f"[{smi[0]}] seconds from the kill to detection by start "
+              f"rank: {json.dumps(detect)}; to each survivor's end of "
+              f"training: {json.dumps(done)}; to the launcher's return: "
+              f"{run['t_return'] - kill_t:.2f}")
+        assert detect and all(0 < s <= 30 for s in detect.values()), detect
+        assert set(done) == set(detect), (done, detect)
 
 
 def _leaves(x) -> list:

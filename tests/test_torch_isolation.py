@@ -30,7 +30,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 def _port_files():
     return sorted((ROOT / "horovod_tpu_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py", ROOT / "tp_bench.py", ROOT / "sp_bench.py",
-         ROOT / "scale_bench.py", ROOT / "ep_bench.py"]
+         ROOT / "scale_bench.py", ROOT / "ep_bench.py",
+         ROOT / "nccl_abort_probe.py"]
 
 
 def test_port_files_cover_the_sp_slice():
@@ -165,6 +166,40 @@ def test_port_files_cover_the_pipeline_and_elastic_slice():
             *(f"horovod_tpu_torch/elastic/{m}.py" for m in (
                 "__init__", "registration", "discovery", "health",
                 "driver", "worker", "state", "launch"))} <= names
+
+
+def test_port_files_cover_the_tools_slice():
+    """The import and string checks below cover the runtime tools: the
+    native library's loader, the timeline, the stall inspector, the
+    autotuners, the metric exporters, and the modules they hook into."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/native/__init__.py",
+            "horovod_tpu_torch/utils/timeline.py",
+            "horovod_tpu_torch/utils/stall.py",
+            "horovod_tpu_torch/utils/bayesian.py",
+            "horovod_tpu_torch/utils/autotune.py",
+            "horovod_tpu_torch/utils/bench_autotune.py",
+            "horovod_tpu_torch/telemetry/__init__.py",
+            "horovod_tpu_torch/telemetry/export.py",
+            "horovod_tpu_torch/runtime/config.py",
+            "horovod_tpu_torch/runtime/state.py",
+            "horovod_tpu_torch/ops/eager.py",
+            "horovod_tpu_torch/ops/bucketing.py",
+            "horovod_tpu_torch/checkpoint.py",
+            "horovod_tpu_torch/faults/__init__.py"} <= names
+
+
+def test_native_source_is_the_ports_own():
+    """The native library builds from the port's own ``hvd_native.cc``
+    into ``<repo>/build/``: no path of the JAX package's ``native``
+    directory (its source or its library) in the loader."""
+    from horovod_tpu_torch import native
+
+    assert native.SRC == ROOT / "horovod_tpu_torch" / "native" / \
+        "hvd_native.cc" and native.SRC.exists()
+    assert native.BUILD_DIR == ROOT / "build"
+    text = (ROOT / "horovod_tpu_torch" / "native" / "__init__.py").read_text()
+    assert "libhvd_tpu_native" not in text
 
 
 #: a dotted module path under the JAX package; ``horovod_tpu_torch.`` is

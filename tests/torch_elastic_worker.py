@@ -77,6 +77,7 @@ def check_exit(epoch, batch):
     if key in exit_schedule and start_rank in exit_schedule[key]:
         print(f"planned exit epoch={epoch} batch={batch} "
               f"start_rank={start_rank} mode={args.exit_mode}", flush=True)
+        rank_log({"event": "kill", "start_rank": start_rank})
         if args.exit_mode == "exception":
             raise RuntimeError("planned worker failure")
         os.kill(os.getpid(), 9)
@@ -157,6 +158,7 @@ def train(state):
               "rank": hvd.process_rank(), "size": hvd.process_count(),
               "rendezvous": state.rendezvous,
               "reset_s": elastic_state.last_reset_s,
+              "failure_t": elastic_state.last_failure_t,
               "commit_s": getattr(state, "last_commit_s", None)})
     while state.epoch < args.epochs:
         while state.batch < args.batches_per_epoch:
@@ -208,5 +210,6 @@ def train(state):
 
 
 train(state)
+rank_log({"event": "done", "start_rank": start_rank})
 print(f"worker done start_rank={start_rank}", flush=True)
 sys.stdout.flush()

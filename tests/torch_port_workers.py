@@ -75,8 +75,31 @@ def _layout_env(rank, device, layout):
             str(node * local + j) for j in range(local))
 
 
+#: the variables through which a launcher places a process in a world:
+#: the ``HOROVOD_*`` identity and rendezvous contract (the elastic ones
+#: too), torchrun's, and those of mpirun and jsrun that the runtime reads
+#: (``runner/cluster_env.jsm_identity``)
+LAUNCH_ENV = (
+    "HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+    "HOROVOD_LOCAL_SIZE", "HOROVOD_CROSS_RANK", "HOROVOD_CROSS_SIZE",
+    "HOROVOD_COORDINATOR_ADDR", "HOROVOD_HOSTNAME", "HOROVOD_ELASTIC",
+    "HOROVOD_ELASTIC_GENERATION", "HOROVOD_ELASTIC_DRIVER_ADDR",
+    "HOROVOD_ELASTIC_NOTIFY_ADDR", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+    "LOCAL_WORLD_SIZE", "GROUP_RANK", "MASTER_ADDR", "MASTER_PORT",
+    "PMIX_RANK", "PMIX_SIZE", "PMIX_LOCAL_RANK", "PMIX_LOCAL_SIZE",
+    "OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE",
+    "OMPI_COMM_WORLD_LOCAL_RANK", "OMPI_COMM_WORLD_LOCAL_SIZE",
+    "PMI_RANK", "PMI_SIZE", "MPI_LOCALRANKID", "MPI_LOCALNRANKS")
+
+
 def _worker(fn_name, rank, world, port, results, args, device, launch,
             layout=None):
+    # a rank takes its place in its world from what spawn_world sets
+    # below, never from what the test process holds (a test that ran an
+    # elastic worker or a launcher in-process, or a world the test
+    # process is in)
+    for name in LAUNCH_ENV:
+        os.environ.pop(name, None)
     caller = launch is not None and "mpirun" not in launch
     if launch is None:
         os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(world),
@@ -96,10 +119,12 @@ def _worker(fn_name, rank, world, port, results, args, device, launch,
         try:
             out = globals()[fn_name](hvd, *args)
             # no rank leaves (and takes down rank 0's store) while another
-            # still rendezvouses through it, e.g. for a subgroup
+            # still rendezvouses through it, e.g. for a subgroup (a
+            # function that shut the world down has made its own barrier)
             import torch.distributed as dist
 
-            dist.barrier(group=hvd._state.global_state().host_group)
+            if hvd.is_initialized():
+                dist.barrier(group=hvd._state.global_state().host_group)
             results.put((rank, True, out))
         finally:
             hvd.shutdown()
@@ -117,8 +142,10 @@ def spawn_world(fn_name: str, world: int = 2, args=(),
     """Run ``fn_name(hvd, *args)`` on every rank of a world on ``device``
     (``"cpu"``: gloo; ``"cuda"``: NCCL, card ``rank`` for rank ``rank``);
     returns the results ordered by rank, or raises with a failing rank's
-    traceback.  The world starts through the launcher's ``HOROVOD_*``
-    contract, or with ``launch`` (a dict, see :func:`_caller_group`) from
+    traceback.  Each rank starts without the test process's launcher
+    variables (:data:`LAUNCH_ENV`).  The world starts through the
+    launcher's ``HOROVOD_*`` contract, or with ``launch`` (a dict, see
+    :func:`_caller_group`) from
     a process group that each rank makes before ``hvd.init()``, or with
     ``launch={"mpirun": local_size}`` from what ``mpirun -x`` gives each
     rank (:func:`_mpirun_env`).  Through the ``HOROVOD_*`` contract the
@@ -2307,7 +2334,8 @@ def sp_tokens(rows: int) -> np.ndarray:
 
 
 def run_identity(hvd):
-    """The rank's identity, the probes, and the input plane under it: the
+    """The rank's identity, the probes, the launcher variables it sees,
+    and the input plane under it: the
     broadcast seed, a ShardedDataset's default rank and world, five
     batches through a PrefetchIterator placing with ``shard_local_batch``,
     and ``shard_local_batch`` against ``shard_batch`` of the concatenated
@@ -2326,6 +2354,7 @@ def run_identity(hvd):
     out = {k: getattr(hvd, k)() for k in IDENTITY_QUERIES}
     out["probes"] = {k: getattr(hvd, k)() for k in PROBES}
     out["device"] = str(hvd.device())
+    out["launch_env"] = sorted(k for k in LAUNCH_ENV if k in os.environ)
     out["seed"] = broadcast_seed(100 + rank)
     ds = ShardedDataset(ArraySource(data_columns()), batch_size=DATA_BATCH,
                         seed=out["seed"])
@@ -4329,3 +4358,159 @@ def run_torch_state_sync(hvd) -> dict:
             "opt": {f"{i}/{k}": v.numpy() for i, s in
                     opt.state_dict()["state"].items() for k, v in s.items()},
             "epoch": state.epoch, "commits": state._commit_count}
+
+
+# ---------------------------------------------------------------------------
+# the runtime tools: timeline, stall inspector, aggregation, group teardown
+# ---------------------------------------------------------------------------
+
+#: the stall inspector's warning time in ``run_tools``, and how long rank 1
+#: keeps back the op that rank 0 has submitted
+STALL_WARN_S, STALL_HOLD_S = 0.6, 2.0
+
+
+def run_tools(hvd, directory: str, jax_traces=None) -> dict:
+    """The runtime tools on a gloo world: (a) the eager ops under
+    ``start_timeline`` (the file rank 0 holds after ``stop_timeline``, and
+    whether the others wrote ``<file>.<rank>``); (b) the port's
+    ``aggregate_after_close`` over the JAX package's per-rank trace files
+    ``jax_traces`` (``[(path, wall_origin_us)]`` by rank); (c) the stall
+    inspector's warnings on rank 0 while rank 1 holds back an op that rank
+    0 has submitted."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.utils import logging as hvd_logging
+    from horovod_tpu_torch.utils import stall as stall_mod
+    from horovod_tpu_torch.utils import timeline as tl_mod
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    r, world = hvd.rank(), hvd.size()
+    st = hvd._state.global_state()
+    out = {}
+    # the eager ops twice: through the native writer, then the Python one
+    # (which records the NEGOTIATE instants' arguments), tensors named
+    # apart so that the second pass negotiates anew
+    for suffix in ("", ".py"):
+        path = os.path.join(directory, f"eager{suffix}.json")
+        if suffix:
+            os.environ["HOROVOD_TIMELINE_PYTHON"] = "1"
+        hvd.start_timeline(path)
+        h1 = hvd.allreduce_async(torch.ones(4) * (r + 1),
+                                 name=f"tl.ar_a{suffix}")
+        h2 = hvd.allreduce_async(torch.ones(8) * (r + 1),
+                                 name=f"tl.ar_b{suffix}")
+        out["ar"] = [hvd.synchronize(h).numpy() for h in (h1, h2)]
+        out["ag"] = hvd.allgather(torch.full((r + 1, 2), float(r)),
+                                  name=f"tl.ag{suffix}").numpy()
+        out["bc"] = hvd.broadcast(torch.full((3,), float(r)), root_rank=1,
+                                  name=f"tl.bc{suffix}").numpy()
+        out["a2a"] = hvd.alltoall(torch.arange(2.0 * world) + 10 * r,
+                                  name=f"tl.a2a{suffix}").numpy()
+        out[f"writer{suffix}"] = type(st.timeline).__name__
+        hvd.stop_timeline()
+        os.environ.pop("HOROVOD_TIMELINE_PYTHON", None)
+        out[f"own_file{suffix}"] = os.path.exists(f"{path}.{r}") \
+            if r else None
+        if r == 0:
+            out[f"merged{suffix}"] = tl_mod.load_trace(path)
+    if jax_traces:
+        p, origin = jax_traces[r]
+        tl_mod.aggregate_after_close(p, origin)
+        if r == 0:
+            with open(p) as f:
+                out["jax_merged"] = json.load(f)
+    # (c) a short warning time; rank 1 submits the op STALL_HOLD_S late
+    warnings = []
+    real = hvd_logging.warning
+    hvd_logging.warning = lambda msg, *a: warnings.append(msg % a)
+    try:
+        st.stall_inspector.stop()
+        st.stall_inspector = stall_mod.StallInspector(
+            warning_time_s=STALL_WARN_S, poll_interval_s=0.1)
+        dist.barrier(group=st.host_group)
+        if r == 0:
+            h = hvd.allreduce_async(torch.ones(2), name="tl.stuck")
+            time.sleep(STALL_HOLD_S)
+        else:
+            time.sleep(STALL_HOLD_S)
+            h = hvd.allreduce_async(torch.ones(2), name="tl.stuck")
+        out["stuck"] = hvd.synchronize(h).numpy()
+        out["pending_after"] = st.stall_inspector.pending_ops()
+    finally:
+        hvd_logging.warning = real
+    out["warnings"] = warnings
+    return out
+
+
+def run_abort_groups(hvd) -> dict:
+    """The groups a world made (the world, the host group, the layout
+    groups, a parallel mesh's) against what ``shutdown(abort=True)`` left,
+    with the NCCL branch taken on gloo: ``dist.get_backend`` answers
+    ``"nccl"`` and ``c10d._abort_process_group`` is recorded, then run."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+    from horovod_tpu_torch.runtime import state
+
+    st = state.global_state()
+    st.layout_group("local")
+    make_parallel_mesh(dp=2, tp=2)
+    made = len(c10d._world.pg_map)
+    dist.barrier(group=st.host_group)
+    calls = []
+    real_abort, real_backend = c10d._abort_process_group, dist.get_backend
+
+    def abort(group=None):
+        calls.append(group)
+        real_abort(group)
+
+    c10d._abort_process_group = abort
+    state.dist.get_backend = lambda group=None: "nccl"
+    try:
+        state.shutdown(abort=True)
+    finally:
+        c10d._abort_process_group = real_abort
+        state.dist.get_backend = real_backend
+    return {"made": made, "left": len(c10d._world.pg_map),
+            "calls": calls, "initialized": dist.is_initialized(),
+            "runtime": hvd.is_initialized()}
+
+
+def run_timeline_card(hvd, directory: str) -> dict:
+    """On one card: eight CUDA tensors through ``allreduce_async`` under
+    ``start_timeline`` (the native writer), then under ``torch.profiler``;
+    the writer, the results, the dropped count and the trace's spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.utils import timeline as tl_mod
+
+    dev = hvd.device()
+    xs = [torch.randn(1000 * (i + 1), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(i))
+          for i in range(8)]
+    path = os.path.join(directory, "card.json")
+    hvd.start_timeline(path)
+    st = hvd._state.global_state()
+    writer = type(st.timeline).__name__
+    hs = [hvd.allreduce_async(x, name=f"card.{i}", prescale_factor=0.5,
+                              postscale_factor=2.0) for i, x in enumerate(xs)]
+    exact = all(torch.equal(hvd.synchronize(h), x) for h, x in zip(hs, xs))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        hvd.allreduce(xs[0], name="card.prof")
+        torch.cuda.synchronize()
+    dropped = st.timeline.dropped_events
+    hvd.stop_timeline()
+    spans = {}
+    for e in tl_mod.load_trace(path):
+        if e["ph"] == "B":
+            spans.setdefault(e["tid"], []).append(e["name"])
+    return {"writer": writer, "exact": exact, "dropped": dropped,
+            "spans": spans,
+            "ranges": sorted({e.name for e in prof.events()
+                              if e.name.startswith("hvd:")})}
