@@ -223,7 +223,17 @@ Phases, in order; any failure exits non-zero:
    stall histogram's sum is ``last_stall_s``, the JSONL snapshot is
    written and the Prometheus endpoint on localhost is scraped once;
    every number with the card's name and power limit;
-18. print the card's name and power limit, the kernels' JSON line, and last
+18. the planning and memory plane on phase 4's recipe
+   (``phase_memory``): (a) each remat tier (``none``, ``dots``, ``full``,
+   ``offload``) 3 steps, losses bit for bit ``none``'s, the flash forward
+   twice a block a step under remat, step time, peak memory, the measured
+   activation share and overhead beside the cost model's constants, the
+   offload tier's host bytes (its activations under ``dots``'); (b) the planner
+   under ``HOROVOD_HBM_BUDGET_BYTES`` between none's and full's peaks,
+   its tier trained through ``HOROVOD_REMAT_POLICY`` under the budget;
+   (c) ``HostOffloadEngine`` round-tripping AdamW's state, bit-exact, GB/s
+   each way; (d) the card's rates and memory beside the H100 preset;
+19. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -1532,7 +1542,7 @@ def profile_step(torch, run, focus: str = "", ranges=None,
 
 
 def recipe(torch, hvd, steps: int = 5, on_step=None,
-           adasum: bool = False, plan=None) -> dict:
+           adasum: bool = False, plan=None, remat_policy=None) -> dict:
     """Phase 4's five-line recipe at full width on this process's card:
     the seeded 870.9M TransformerLM, ``DistributedOptimizer(AdamW(3e-4,
     weight_decay=1e-4), gradient_predivide_factor=2.0)`` on the hook path,
@@ -1542,7 +1552,8 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
     step ``DistributedTrainStep(op=None)`` (phase 13 (a)).  With ``plan``
     the model is built with the tp group of ``plan.build_mesh()`` and the
     step is ``DistributedTrainStep(mode="pjit", plan=plan, mesh=...)``
-    (phase 15 (a)).  Returns the
+    (phase 15 (a)).  ``remat_policy`` is the model's remat tier (phase
+    18).  Returns the
     model, the wrapper, the step, the batch, the losses, each step's
     seconds and bucket sources, the wall clock at the first step's end,
     the launch counts from ``init`` on and the peak memory."""
@@ -1551,6 +1562,7 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
 
     dev = hvd.device()
     cfg = full_config(torch, "flash")
+    cfg.remat_policy = remat_policy
     gen = torch.Generator(device=dev).manual_seed(SEED)
     planned = {}
     if plan is not None:
@@ -3981,7 +3993,256 @@ def phase_pipeline(torch, train: dict, first) -> dict:
                 launches={k: counts[k] for k in FLASH_KERNELS})
 
 
+# phase 18: the remat tiers run 3 steps each; the planner's budget lies
+# halfway between none's and full's measured peaks
+REMAT_TIERS = ("none", "dots", "full", "offload")
+REMAT_STEPS = 3
+
+
+def remat_tier(torch, hvd, tier, env_policy: bool = False) -> dict:
+    """Phase 4's recipe under one remat tier (the model's
+    ``remat_policy``; with ``env_policy`` through ``HOROVOD_REMAT_POLICY``
+    instead), ``REMAT_STEPS`` steps: losses, step seconds, peak memory,
+    the state resident after a step (parameters, gradients, AdamW's state,
+    the exchange's buffers), flash launches a step, the offload tier's
+    host bytes; then one more forward, whose resident growth is the
+    activations the tier keeps for backward (the saved tensors, the
+    logits and the loss); and the model, optimizer, step and batch."""
+    from horovod_tpu_torch.memory.remat import OffloadStats
+    from horovod_tpu_torch.ops import kernels as K
+
+    OffloadStats.reset()
+    if env_policy:
+        os.environ["HOROVOD_REMAT_POLICY"] = tier
+    try:
+        r = recipe(torch, hvd, steps=REMAT_STEPS,
+                   remat_policy=None if env_policy else tier)
+    finally:
+        os.environ.pop("HOROVOD_REMAT_POLICY", None)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    host = (OffloadStats.d2h_bytes, OffloadStats.h2d_bytes)
+    state = torch.cuda.memory_allocated()
+    if env_policy:
+        os.environ["HOROVOD_REMAT_POLICY"] = tier
+    try:
+        loss = r["loss_fn"](r["model"], r["batch"])
+        torch.cuda.synchronize()
+        activations = torch.cuda.memory_allocated() - state
+        del loss
+    finally:
+        os.environ.pop("HOROVOD_REMAT_POLICY", None)
+    out = dict(tier=tier, losses=r["losses"],
+               step_ms=statistics.median(r["times"][1:]) * 1e3,
+               peak=r["peak"], state=state, activations=activations,
+               launches={k: counts[k] / REMAT_STEPS for k in FLASH_KERNELS},
+               counts=counts, host_d2h=host[0], host_h2d=host[1],
+               param_bytes=sum(p.numel() * p.element_size()
+                               for p in r["model"].parameters()),
+               step_policy=r["step"].remat_policy)
+    out["keep"] = (r["model"], r["opt"], r["step"], r["batch"])
+    return out
+
+
+def phase_memory(torch, train: dict) -> dict:
+    """Phase 18, the planning and memory plane on phase 4's recipe (the
+    870.9M LM, seq 1024, batch 6, seed, weights, batch, AdamW, predivide
+    2.0, the hook path) at a world of one.  (a) ``none``, ``dots``,
+    ``full`` and ``offload`` through ``TransformerConfig(remat_policy=)``,
+    ``REMAT_STEPS`` steps each: every tier's losses equal ``none``'s bit
+    for bit (recompute replays the same kernels on the same inputs), each
+    flash forward launches twice a block a step under a remat tier (32,
+    against 16) and each backward kernel 16 times; the step time, peak
+    memory, the activations a forward keeps for backward and their share
+    of ``none``'s beside ``REMAT_ACTIVATION_FRACTION`` (offload's and
+    full's below dots', dots' below none's), the step-time overhead beside
+    ``REMAT_RECOMPUTE_OVERHEAD``, and the offload tier's host bytes.  (b)
+    ``HOROVOD_HBM_BUDGET_BYTES`` halfway between none's and full's
+    measured peaks: ``search_memory_plans(["dp=1"])`` with the model's
+    parameter bytes, none's activations and its step time must pick a
+    tier whose training, through ``HOROVOD_REMAT_POLICY``, peaks under the
+    budget; the predicted and measured high-water.  (c)
+    ``HostOffloadEngine`` round-trips a copy of AdamW's state after step
+    3, bit-exact: GB/s each way (the second of two round trips, once the
+    host buffers are pinned), and, timed beside a step alone, a step with
+    the copy in flight and the fetch's stall after it (whether the copy
+    hid under the step, printed, not asserted).  (d) The card's matmul
+    and memory rates (``calibration.measure_rates``) beside the H100
+    preset's, the card's memory against the preset's capacity, and
+    ``resolve_hardware_model()`` on the card.  Returns the summary."""
+    import gc
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import calibration as CAL
+    from horovod_tpu_torch.analysis import cost_model as CM
+    from horovod_tpu_torch.memory import HostOffloadEngine, search_memory_plans
+
+    hvd.init()
+    dev = hvd.device()
+    gib = 2 ** 30
+    runs = {}
+    for tier in REMAT_TIERS:
+        run = remat_tier(torch, hvd, tier)
+        run.pop("keep")
+        runs[tier] = run
+        gc.collect()
+        torch.cuda.empty_cache()
+    none = runs["none"]
+    counts = {k: sum(r["counts"][k] for r in runs.values())
+              for k in FLASH_KERNELS}
+    rows = {}
+    for tier, run in runs.items():
+        share = run["activations"] / none["activations"]
+        overhead = run["step_ms"] / none["step_ms"] - 1
+        rows[tier] = dict(
+            losses=run["losses"], step_ms=run["step_ms"],
+            peak_gib=run["peak"] / gib, state_gib=run["state"] / gib,
+            activation_gib=run["activations"] / gib,
+            flash_launches_a_step=run["launches"],
+            activation_share=share,
+            model_activation_fraction=CM.REMAT_ACTIVATION_FRACTION[tier],
+            overhead=overhead,
+            model_recompute_overhead=CM.REMAT_RECOMPUTE_OVERHEAD[tier],
+            host_d2h_bytes=run["host_d2h"], host_h2d_bytes=run["host_h2d"])
+        log(f"memory (a) {tier}: losses {run['losses']}, step "
+            f"{run['step_ms']:.1f} ms (overhead {100 * overhead:.1f} %, "
+            f"model {100 * CM.REMAT_RECOMPUTE_OVERHEAD[tier]:.0f} %), peak "
+            f"{run['peak'] / gib:.2f} GiB, state after a step "
+            f"{run['state'] / gib:.2f} GiB, a forward's activations "
+            f"{run['activations'] / gib:.2f} GiB, share {share:.3f} "
+            f"(model {CM.REMAT_ACTIVATION_FRACTION[tier]}), flash launches "
+            f"a step {run['launches']}, host bytes d2h {run['host_d2h']} "
+            f"h2d {run['host_h2d']} [{CARD}]")
+        if run["losses"] != none["losses"]:
+            raise AssertionError(f"remat {tier}: losses {run['losses']} "
+                                 f"differ from none's {none['losses']}")
+        fwd = FULL["layers"] * (1 if tier == "none" else 2)
+        want = {"flash_fwd": fwd, "flash_bwd_dq": FULL["layers"],
+                "flash_bwd_dkv": FULL["layers"]}
+        if run["launches"] != want:
+            raise AssertionError(f"remat {tier}: flash launches a step "
+                                 f"{run['launches']}, want {want}")
+    log(f"memory (a): none's losses against phase 4's first "
+        f"{REMAT_STEPS}: bit-exact "
+        f"{none['losses'] == train['losses'][:REMAT_STEPS]}")
+    if runs["offload"]["host_d2h"] == 0:
+        raise AssertionError("the offload tier copied nothing to the host")
+    act = {t: run["activations"] for t, run in runs.items()}
+    if not (act["offload"] < act["dots"] < act["none"]
+            and act["full"] < act["dots"]):
+        raise AssertionError(f"the tiers' activations {act} are not "
+                             f"ordered none > dots > offload, full")
+
+    # (b) the planner under a budget between none's and full's peaks
+    budget = (none["peak"] + runs["full"]["peak"]) // 2
+    os.environ["HOROVOD_HBM_BUDGET_BYTES"] = str(budget)
+    try:
+        pick = search_memory_plans(["dp=1"], param_bytes=none["param_bytes"],
+                                   activation_bytes=none["activations"],
+                                   compute_s=none["step_ms"] / 1e3,
+                                   microbatches=(1,), offload=(False,))
+        chosen = remat_tier(torch, hvd, pick.remat_policy, env_policy=True)
+    finally:
+        os.environ.pop("HOROVOD_HBM_BUDGET_BYTES", None)
+    model, opt, step, batch = chosen.pop("keep")
+    log(f"memory (b): budget {budget / gib:.2f} GiB; the planner picked "
+        f"{pick.summary()}; predicted high-water {pick.total_bytes / gib:.2f}"
+        f" GiB, measured {chosen['peak'] / gib:.2f} GiB through "
+        f"HOROVOD_REMAT_POLICY (the step's policy "
+        f"{chosen['step_policy']!r}) [{CARD}]")
+    if pick.remat_policy == "none" or chosen["peak"] > budget:
+        raise AssertionError("the planner's tier does not fit the budget")
+    if chosen["losses"] != none["losses"]:
+        raise AssertionError("the planned tier's losses differ from none's")
+
+    # (c) host offload of AdamW's state around a fourth step
+    inner = opt.optimizer
+    state = {pid: {k: v.clone() for k, v in st.items()}
+             for pid, st in inner.state_dict()["state"].items()}
+    nbytes = sum(v.numel() * v.element_size() for st in state.values()
+                 for v in st.values() if v.is_cuda)
+    with HostOffloadEngine(name="adamw", depth=2) as engine:
+        # two timed round trips: the first pins the host buffers, which
+        # the engine reuses from then on; the second's rates are kept
+        for tag in ("pin", "timed"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.offload(tag, state)
+            engine.wait(tag)
+            d2h_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = engine.fetch(tag, None)
+            torch.cuda.synchronize()
+            h2d_s = time.perf_counter() - t0
+            log(f"memory (c): round trip {tag!r}: D2H {d2h_s:.3f} s, H2D "
+                f"{h2d_s:.3f} s")
+            # step 4 alone, then step 5 with the copy of step 3's state in
+        # flight on the side stream
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine.offload(3, state)
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        stall0 = engine.stall_s
+        restored = engine.fetch(3, None)
+        torch.cuda.synchronize()
+        stall = engine.stall_s - stall0
+        fallbacks = engine.fallbacks
+    exact = fallbacks == 0 and all(
+        torch.equal(restored[pid][k], v) for pid, st in state.items()
+        for k, v in st.items())
+    hidden = stall < 0.1 * plain_s and step_s < 1.1 * plain_s
+    log(f"memory (c): AdamW's state after step 3, {nbytes / 1e9:.3f} GB on "
+        f"the card: D2H {d2h_s:.3f} s ({nbytes / d2h_s / 1e9:.2f} GB/s), "
+        f"H2D {h2d_s:.3f} s ({nbytes / h2d_s / 1e9:.2f} GB/s); round trip "
+        f"bit-exact {exact}; a step {plain_s * 1e3:.1f} ms alone, "
+        f"{step_s * 1e3:.1f} ms with the copy in flight, then the fetch "
+        f"stalled {stall * 1e3:.1f} ms: the copy "
+        f"{'hid' if hidden else 'did not hide'} under the step [{CARD}]")
+    if not exact:
+        raise AssertionError("the offload round trip is not bit-exact")
+    del model, opt, step, batch, state, restored, inner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the card's rates beside the preset's
+    mm, hbm = CAL.measure_rates(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    resolved = CM.resolve_hardware_model()
+    log(f"memory (d): bf16 matmul {mm / 1e12:.1f} TFLOP/s (preset "
+        f"{CM.H100.peak_flops_per_s / 1e12:.0f}), memory stream "
+        f"{hbm / 1e12:.3f} TB/s (preset {CM.H100.hbm_bytes_per_s / 1e12:.2f}"
+        f"); total memory {total} B (preset "
+        f"{CM.H100.hbm_capacity_bytes}); resolve_hardware_model() -> "
+        f"{resolved.name} [{CARD}]")
+    if resolved is not CM.H100:
+        raise AssertionError(f"the card resolves to {resolved.name}")
+    if total != CM.H100.hbm_capacity_bytes:
+        raise AssertionError(f"the card reports {total} B, the H100 preset "
+                             f"{CM.H100.hbm_capacity_bytes}")
+    hvd.shutdown()
+    return dict(tiers=rows, budget_gib=budget / gib,
+                planned=dict(tier=pick.remat_policy,
+                             predicted_gib=pick.total_bytes / gib,
+                             measured_gib=chosen["peak"] / gib,
+                             step_ms=chosen["step_ms"]),
+                offload=dict(bytes=nbytes, d2h_gbs=nbytes / d2h_s / 1e9,
+                             h2d_gbs=nbytes / h2d_s / 1e9, exact=exact,
+                             step_ms=plain_s * 1e3,
+                             step_with_copy_ms=step_s * 1e3,
+                             stall_ms=stall * 1e3, hidden=hidden),
+                rates=dict(matmul_tflops=mm / 1e12, hbm_tbs=hbm / 1e12,
+                           total_memory=total),
+                launches=counts)
+
+
 def main() -> int:
+    global CARD
     import torch
 
     if not torch.cuda.is_available():
@@ -3995,7 +4256,6 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    global CARD
     CARD = smi.splitlines()[0]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -4040,6 +4300,9 @@ def main() -> int:
     elastic = timed("16a elastic", phase_elastic, torch, train)
     pipeline = timed("16b pipeline", phase_pipeline, torch, train, first)
     del first
+    memory = timed("18 memory", phase_memory, torch, train)
+    for name, n in memory.pop("launches").items():
+        counts[name] += n
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
     # the moe summary's "chunk"
@@ -4086,6 +4349,7 @@ def main() -> int:
     log(f"elastic summary [{CARD}]: {json.dumps(elastic)}")
     log(f"pipeline summary [{CARD}]: {json.dumps(pipeline)}")
     log(f"tools summary [{CARD}]: {json.dumps(tools)}")
+    log(f"memory summary [{CARD}]: {json.dumps(memory)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

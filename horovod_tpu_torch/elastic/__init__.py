@@ -9,9 +9,16 @@ rendezvous).  The semantics preserved exactly: ``state.sync()`` →
 retry.  ``reset()`` shuts the runtime down, joins the driver's store of
 the new generation and makes the new world's process groups; objects
 that hold the old world's groups are rebuilt in the reset callbacks.
-The JAX package's plan-aware degradation waits for a later slice.
+Plan-aware degradation (:mod:`~horovod_tpu_torch.elastic.degrade`)
+re-resolves the parallelism plan to the surviving world.
 """
 
+from horovod_tpu_torch.elastic.degrade import (
+    DegradeController,
+    DegradeDecision,
+    DegradedPlanResolver,
+    preserve_global_batch,
+)
 from horovod_tpu_torch.elastic.state import ObjectState, State, TorchState, run
 from horovod_tpu_torch.exceptions import (
     HorovodInternalError,
@@ -21,4 +28,6 @@ from horovod_tpu_torch.exceptions import (
 __all__ = [
     "State", "ObjectState", "TorchState", "run",
     "HorovodInternalError", "HostsUpdatedInterrupt",
+    "DegradeController", "DegradeDecision", "DegradedPlanResolver",
+    "preserve_global_batch",
 ]

@@ -8,9 +8,10 @@ workers query for their new identity after a reset.  Each world
 generation gets a fresh coordinator address: a ``torch.distributed``
 store that this process hosts (``runtime/distributed.py``), on which the
 generation's process group rendezvouses, handed out through the same
-rendezvous RPC.  A degrade controller (the JAX package's plan-aware
-graceful degradation) is taken through :meth:`ElasticDriver.
-set_degrade_controller` from whoever builds one; the port builds none yet.
+rendezvous RPC.  A degrade controller (:class:`~horovod_tpu_torch.
+elastic.degrade.DegradeController`, plan-aware graceful degradation) is
+taken through :meth:`ElasticDriver.set_degrade_controller`; the elastic
+launcher attaches one under ``HOROVOD_DEGRADE=1``.
 """
 
 from __future__ import annotations
@@ -168,8 +169,8 @@ class ElasticDriver:
         return self._degrade
 
     def set_degrade_controller(self, controller) -> None:
-        """Attach a degrade controller (the JAX package's
-        ``DegradeController``; any object with its ``current_plan``,
+        """Attach a degrade controller (:class:`~horovod_tpu_torch.
+        elastic.degrade.DegradeController`; any object with its ``current_plan``,
         ``on_world_change``, ``min_world`` and ``wait_s``): reassignment
         consults it for the plan the surviving world should run,
         ``resume`` waits only for its minimum world (the model extent)

@@ -1,6 +1,9 @@
 """Elastic launch path of the port's launcher (a copy of
 ``horovod_tpu/elastic/launch.py``; the JAX package's warm-start compile
-cache has no counterpart here yet).
+cache has no counterpart here yet).  Under ``HOROVOD_DEGRADE=1`` the
+launcher attaches a :class:`~horovod_tpu_torch.elastic.degrade.
+DegradeController` to its driver, which the JAX launcher leaves to its
+caller.
 
 Reference: ``horovod/runner/gloo_run.py:274 launch_gloo_elastic`` —
 rendezvous server + ``ElasticDriver`` + per-slot worker exec with the
@@ -13,6 +16,7 @@ import os
 import sys
 from typing import Optional
 
+from horovod_tpu_torch.elastic import degrade
 from horovod_tpu_torch.elastic.discovery import FixedHosts, HostDiscoveryScript
 from horovod_tpu_torch.elastic.driver import ElasticDriver
 from horovod_tpu_torch.runner import config_parser, safe_shell_exec
@@ -46,6 +50,15 @@ def run_elastic(args) -> int:
                            secret_key=key,
                            start_timeout=start_timeout)
     base_env = config_parser.set_env_from_args(dict(os.environ), args)
+    if degrade.enabled():
+        # plan-aware degradation: the driver re-resolves the plan at each
+        # reassignment, from the launch's plan (HOROVOD_PLAN, else dp over
+        # the starting world)
+        n = args.np or min_np
+        controller = degrade.DegradeController(
+            degrade.DegradedPlanResolver.from_env(
+                base_env.get("HOROVOD_PLAN") or f"dp={n}", n))
+        driver.set_degrade_controller(controller)
     driver_host, driver_port = driver.address
     out_dir: Optional[str] = args.output_filename
     if out_dir:
@@ -55,6 +68,10 @@ def run_elastic(args) -> int:
                          generation: int, abort_event=None) -> int:
         env = dict(base_env)
         env.update(slot.to_env())
+        plan = driver.degrade_controller and \
+            driver.degrade_controller.current_plan.to_string()
+        if plan:        # a joiner starts at the generation's plan
+            env["HOROVOD_PLAN"] = plan
         env.update({
             "HOROVOD_COORDINATOR_ADDR": coordinator,
             "HOROVOD_ELASTIC": "1",

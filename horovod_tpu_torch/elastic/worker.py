@@ -267,9 +267,18 @@ def refresh_assignment_from_driver(timeout_s: float = 60.0) -> bool:
             os.environ.update(resp.slot.to_env())
             os.environ["HOROVOD_COORDINATOR_ADDR"] = resp.coordinator_addr
             os.environ["HOROVOD_ELASTIC_GENERATION"] = str(resp.generation)
+            # a degrade/promote transition re-resolved the plan to this
+            # generation's world: export it, so that the step made after
+            # reset builds its mesh at the current factorization
+            # (elastic/degrade.py); getattr: the driver may predate the
+            # plan field
+            plan = getattr(resp, "plan", None)
+            if plan:
+                os.environ["HOROVOD_PLAN"] = plan
             hvd_logging.info(
-                "elastic: new assignment rank=%d/%d (generation %d)",
-                resp.slot.rank, resp.slot.size, resp.generation)
+                "elastic: new assignment rank=%d/%d (generation %d%s)",
+                resp.slot.rank, resp.slot.size, resp.generation,
+                f", plan {plan}" if plan else "")
             return True
         time.sleep(0.5)
     raise TimeoutError(

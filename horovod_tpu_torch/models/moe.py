@@ -27,7 +27,10 @@ unchanged.  After each forward a :class:`SwitchFFN` keeps its Switch aux
 loss, its per-expert routing share and its drop fraction
 (``moe_aux_loss``, ``moe_expert_fraction``, ``moe_drop_fraction``, the JAX
 model's sowed ``intermediates``); :func:`moe_aux_loss` averages the aux
-losses of a model's last forward.
+losses of a model's last forward.  ``remat``/``remat_policy`` wrap each
+block in its remat tier, dense and MoE blocks alike, as the JAX model
+does; a recomputed MoE block sets those attributes again to the same
+values.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horovod_tpu_torch.memory.remat import remat_block, resolve_remat_policy
 from horovod_tpu_torch.models.transformer import (
     Attention,
     Block,
@@ -74,13 +78,7 @@ class MoEConfig:
     moe_every: int = 2              # every Nth block is MoE (Switch: 2)
     fused_dispatch: Optional[str] = None  # auto|on|off; None -> env knob
     remat: bool = False
-    remat_policy: Optional[str] = None
-
-    def __post_init__(self):
-        if self.remat or self.remat_policy not in (None, "none"):
-            raise NotImplementedError(
-                "MoEConfig remat/remat_policy: the remat tiers come with "
-                "the memory plane's port (ROADMAP Queue A 12)")
+    remat_policy: Optional[str] = None  # none|dots|full|offload
 
     def resolved_fused_dispatch(self) -> str:
         """``fused_dispatch`` with the ``HOROVOD_MOE_FUSED_DISPATCH``
@@ -238,8 +236,9 @@ class MoETransformerLM(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         emb = self.embed.embedding
         x = F.embedding(tokens, emb).to(cfg.dtype)
+        policy = resolve_remat_policy(cfg.remat_policy, cfg.remat)
         for block in self.layers:
-            x = block(x, positions)
+            x = remat_block(block, policy)(x, positions)
         x = self.ln_f(x)
         # tied head as flax Embed.attend: both operands in cfg.dtype
         return x.to(cfg.dtype) @ emb.to(cfg.dtype).t()

@@ -24,7 +24,11 @@ three parts).  The embedding and the norm scales stay whole, as JAX's
 ``nn.Embed`` and ``RMSNorm`` carry no partitioning.  With ``tp_group=None``
 the blocks are the plain products.  :func:`fused_tp_apply` is the other
 way: the sequence-parallel boundary products over a model's full
-replicated weights.  Remat waits for a later slice.
+replicated weights.
+
+``remat``/``remat_policy`` wrap each block in its remat tier
+(:func:`~horovod_tpu_torch.memory.remat.remat_block`), as the JAX model
+wraps ``Block`` in ``remat_block``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horovod_tpu_torch.memory.remat import remat_block, resolve_remat_policy
 from horovod_tpu_torch.ops.kernels import flash_attention
 from horovod_tpu_torch.parallel.tensor_parallel import (
     ColumnParallelDense,
@@ -63,6 +68,11 @@ class TransformerConfig:
     # the ring's sequence layout; None reads HOROVOD_SP_LAYOUT (default
     # "contiguous"), "zigzag" balances the causal work across ranks
     sp_layout: Optional[str] = None
+    remat: bool = False
+    # per-block remat tier (none|dots|full|offload), over the boolean when
+    # set; resolved at each forward with HOROVOD_REMAT_POLICY
+    # (memory/remat.resolve_remat_policy)
+    remat_policy: Optional[str] = None
 
     @property
     def head_dim(self) -> int:
@@ -237,8 +247,9 @@ class TransformerLM(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         emb = self.embed.embedding
         x = F.embedding(tokens, emb).to(cfg.dtype)
+        policy = resolve_remat_policy(cfg.remat_policy, cfg.remat)
         for block in self.layers:
-            x = block(x, positions)
+            x = remat_block(block, policy)(x, positions)
         x = self.ln_f(x)
         # tied head as flax Embed.attend: both operands in cfg.dtype
         return x.to(cfg.dtype) @ emb.to(cfg.dtype).t()

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horovod_tpu_torch.memory.remat import remat_block, resolve_remat_policy
 from horovod_tpu_torch.models.transformer import (
     Block,
     RMSNorm,
@@ -47,6 +48,8 @@ class ViTConfig:
     channels: int = 3
     dtype: torch.dtype = torch.bfloat16
     attention_impl: str = "dense"       # dense | flash
+    remat: bool = False
+    remat_policy: Optional[str] = None  # none|dots|full|offload
 
     @property
     def num_patches(self) -> int:
@@ -62,7 +65,8 @@ class ViTConfig:
             num_layers=self.num_layers, num_heads=self.num_heads,
             d_model=self.d_model, d_ff=self.d_ff,
             max_seq_len=self.num_patches, dtype=self.dtype,
-            attention_impl=self.attention_impl, causal=False)
+            attention_impl=self.attention_impl, causal=False,
+            remat=self.remat, remat_policy=self.remat_policy)
 
 
 class PatchEmbed(nn.Module):
@@ -131,8 +135,9 @@ class VisionTransformer(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = self.patch_embed(images)
         positions = torch.arange(x.shape[1], device=x.device)
+        policy = resolve_remat_policy(self.cfg.remat_policy, self.cfg.remat)
         for block in self.layers:
-            x = block(x, positions)
+            x = remat_block(block, policy)(x, positions)
         x = self.ln_f(x).mean(dim=1)
         return F.linear(x.float(), self.head.weight, self.head.bias)
 

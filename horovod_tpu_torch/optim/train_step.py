@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -55,6 +55,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from horovod_tpu_torch import functions as F
+from horovod_tpu_torch.memory.remat import remat_fn, resolve_remat_policy
 from horovod_tpu_torch.ops import collectives as C
 from horovod_tpu_torch.ops.collectives import Average, ReduceOp, Sum
 from horovod_tpu_torch.ops.fused_collectives import resolve_fused_collectives
@@ -152,6 +153,13 @@ class DistributedTrainStep:
     that :meth:`init` returned.  The loss is averaged over the exchange's
     scope whatever ``op`` is.
 
+    ``remat`` (a bool or a policy string, ``none|dots|full|offload``)
+    wraps ``loss_fn`` in that remat tier
+    (:func:`~horovod_tpu_torch.memory.remat.remat_fn`); :attr:`remat_policy`
+    is the policy resolved with the ``HOROVOD_REMAT_POLICY`` knob, which the
+    models read per block.  With the sharded exchange, the first call sets
+    the cost model's wire bytes a step per layout level as gauges.
+
     ``moe_fused`` and ``moe_capacity_factor`` are the MoE schedule (unset:
     ``HOROVOD_MOE_FUSED_DISPATCH`` and ``HOROVOD_MOE_CAPACITY_FACTOR``;
     neither set: the model's ``MoEConfig`` rules).  The step exposes them
@@ -176,7 +184,8 @@ class DistributedTrainStep:
                  mode: Optional[str] = None,
                  data_axes=None,
                  fsdp_axis: Optional[str] = None,
-                 fsdp_min_weight_size: Optional[int] = None):
+                 fsdp_min_weight_size: Optional[int] = None,
+                 remat: Union[bool, str] = False):
         self._world = state.world_id()
         self.plan, self.mesh = _resolve_plan(plan, mesh)
         plan = self.plan
@@ -365,6 +374,15 @@ class DistributedTrainStep:
             optimizer = DistributedOptimizer(optimizer, op=op,
                                              compression=compression,
                                              axis=self._scope, **sharded)
+        # remat takes the legacy bool or a policy string; the resolved
+        # policy (the HOROVOD_REMAT_POLICY knob included, which steers the
+        # models' per-block remat) is the step's property, and the loss is
+        # wrapped only when the caller asked: a knob-driven model already
+        # remats per block
+        self._remat_policy = resolve_remat_policy(remat=remat)
+        if remat:
+            loss_fn = remat_fn(loss_fn, self._remat_policy)
+        self._wire_recorded = False
         self._loss_fn = loss_fn
         self.optimizer = optimizer
         self._hierarchy = optimizer.exchange_hierarchy if isinstance(
@@ -389,6 +407,14 @@ class DistributedTrainStep:
         layout, under the sharded exchange; the ``hierarchy`` argument as
         given otherwise."""
         return self._hierarchy
+
+    @property
+    def remat_policy(self) -> str:
+        """The resolved remat policy (``none|dots|full|offload``) this step
+        was built under: the ``remat=`` argument or the
+        ``HOROVOD_REMAT_POLICY`` knob (:mod:`~horovod_tpu_torch.memory.
+        remat`)."""
+        return self._remat_policy
 
     @property
     def moe_fused(self) -> Optional[str]:
@@ -562,8 +588,45 @@ class DistributedTrainStep:
         loss = self._loss_fn(model, batch)
         loss.backward()
         optimizer.step()
+        if not self._wire_recorded:
+            self._record_wire_telemetry(model, optimizer)
         return model, optimizer, C.allreduce(loss.detach(), op=Average,
                                              group=self._scope)
+
+    def _record_wire_telemetry(self, model: torch.nn.Module,
+                               optimizer) -> None:
+        """Once: the cost model's wire bytes of the sharded exchange a
+        step, per layout level (``hvd_exchange_wire_bytes{level=local|
+        cross}``), and Adasum's extra cross bytes
+        (``hvd_adasum_dot_wire_bytes``), as JAX's
+        ``_record_step_telemetry`` sets them."""
+        self._wire_recorded = True
+        if not isinstance(optimizer, _ShardedDistributedOptimizer):
+            return
+        from horovod_tpu_torch import telemetry
+        from horovod_tpu_torch.analysis import cost_model as CM
+
+        st = state.global_state()
+        payload = float(sum(p.numel() * p.element_size()
+                            for p in model.parameters()))
+        hierarchy = self._hierarchy \
+            if self._hierarchy in ("flat", "two_level") else "flat"
+        wire = CM.exchange_wire_bytes(payload, n_dcn=st.cross_size,
+                                      n_ici=st.local_size,
+                                      hierarchy=hierarchy)
+        g = telemetry.gauge(
+            "hvd_exchange_wire_bytes",
+            "modeled per-step gradient-exchange bytes per layout level "
+            "(analysis/cost_model.py)")
+        g.set(wire.ici, level="local")
+        g.set(wire.dcn, level="cross")
+        if optimizer.reduction == "adasum":
+            telemetry.gauge(
+                "hvd_adasum_dot_wire_bytes",
+                "modeled extra per-step cross-level bytes of the adasum "
+                "exchange (analysis/cost_model.py)").set(
+                    CM.adasum_extra_wire_bytes(payload, n_dcn=st.cross_size,
+                                               n_ici=st.local_size))
 
 
 def _broadcast_model(model: torch.nn.Module,

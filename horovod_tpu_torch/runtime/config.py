@@ -6,10 +6,12 @@ the eager plane's cycle time, negotiation-cache capacity and data plane, the
 sharded exchange's bucket cap, topology, wire codec, per-level codecs and
 reduction operator, the fused-collectives mode, the sequence-parallel ring's layout,
 the parallelism plan, the MoE dispatch knobs, the input pipeline's
-prefetch depth and thread count, and the runtime tools (the timeline, the
+prefetch depth and thread count, the runtime tools (the timeline, the
 stall inspector, the parameter manager and the metrics exporters, with the
-set of knobs the user fixed), under the same ``HOROVOD_*`` names and
-with the same defaults, so one environment drives both packages.  A knob
+set of knobs the user fixed), the memory plane and the hardware model,
+under the same ``HOROVOD_*`` names and with the same defaults, so one
+environment drives both packages (the degrade knobs are read where they
+are used, as in the JAX package).  A knob
 joins ``KNOWN_KNOBS`` and ``Config`` in the slice that ports the subsystem
 reading it.  When ``HOROVOD_RANK`` is unset, the identity falls back to the
 PMIx, OpenMPI or MPICH variables that ``mpirun`` and ``jsrun`` give each rank
@@ -85,6 +87,16 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", "HOROVOD_METRICS",
     "HOROVOD_METRICS_PORT", "HOROVOD_METRICS_LOG",
     "HOROVOD_METRICS_INTERVAL_S", "HOROVOD_RUN_ID",
+    # -- the hardware model (analysis/cost_model.py): calibration artifact
+    #    > preset > the card's preset > h100
+    "HOROVOD_CALIBRATION_PATH", "HOROVOD_HW_PRESET",
+    # -- plan-aware graceful degradation (elastic/degrade.py)
+    "HOROVOD_DEGRADE", "HOROVOD_DEGRADE_WAIT_S",
+    "HOROVOD_DEGRADE_MIN_DATA_EXTENT", "HOROVOD_DEGRADE_PROMOTE",
+    # -- the memory plane (memory/): remat tier, the planner's budget,
+    #    host offload
+    "HOROVOD_REMAT_POLICY", "HOROVOD_HBM_BUDGET_BYTES",
+    "HOROVOD_OFFLOAD_OPTIMIZER", "HOROVOD_OFFLOAD_DEPTH",
 })
 
 #: the launcher's stamp on every worker (``HOROVOD_CONTROLLER``): the
@@ -133,6 +145,8 @@ _FIXABLE = (
     ("HOROVOD_EXCHANGE_REDUCTION", "exchange_reduction"),
     ("HOROVOD_FUSED_COLLECTIVES", "fused_collectives"),
     ("HOROVOD_PLAN", "plan"),
+    ("HOROVOD_REMAT_POLICY", "remat_policy"),
+    ("HOROVOD_OFFLOAD_OPTIMIZER", "offload_optimizer"),
 )
 
 
@@ -229,6 +243,19 @@ class Config:
     stall_warning_time_seconds: float = 60.0
     stall_shutdown_time_seconds: float = 0.0  # 0 = never
 
+    # -- the memory plane (memory/): remat tier (None = model/step
+    # default), the budget the planner must fit (None = the device's
+    # capacity), host offload of the optimizer state and its ring depth
+    remat_policy: Optional[str] = None
+    hbm_budget_bytes: Optional[int] = None
+    offload_optimizer: bool = False
+    offload_depth: int = 2
+
+    # -- the hardware model (analysis/cost_model.py): a calibration
+    # artifact's path and/or a preset name ("h100", "cpu-twin")
+    calibration_path: Optional[str] = None
+    hw_preset: Optional[str] = None
+
     # knobs the user set explicitly, which autotune must not touch
     fixed_knobs: frozenset = frozenset()
 
@@ -305,6 +332,13 @@ class Config:
                 "HOROVOD_STALL_CHECK_TIME_SECONDS", 60.0),
             stall_shutdown_time_seconds=_env_float(
                 "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0),
+            remat_policy=os.environ.get("HOROVOD_REMAT_POLICY") or None,
+            hbm_budget_bytes=opt_int("HOROVOD_HBM_BUDGET_BYTES"),
+            offload_optimizer=_env_bool("HOROVOD_OFFLOAD_OPTIMIZER", False),
+            offload_depth=_env_int("HOROVOD_OFFLOAD_DEPTH", 2),
+            calibration_path=os.environ.get("HOROVOD_CALIBRATION_PATH")
+            or None,
+            hw_preset=os.environ.get("HOROVOD_HW_PRESET") or None,
             fixed_knobs=frozenset(
                 knob for name, knob in _FIXABLE
                 if os.environ.get(name) not in (None, "")),

@@ -117,7 +117,18 @@ class TestConfig:
            "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "3",
            "HOROVOD_METRICS": "1", "HOROVOD_METRICS_PORT": "9090",
            "HOROVOD_METRICS_LOG": "/tmp/m.jsonl",
-           "HOROVOD_METRICS_INTERVAL_S": "2.5", "HOROVOD_RUN_ID": "run-a"}
+           "HOROVOD_METRICS_INTERVAL_S": "2.5", "HOROVOD_RUN_ID": "run-a",
+           # the hardware model's and the memory plane's: Config fields;
+           # the degrade knobs are read where they are used, as in the
+           # JAX package
+           "HOROVOD_CALIBRATION_PATH": "/tmp/cal.json",
+           "HOROVOD_HW_PRESET": "h100",
+           "HOROVOD_DEGRADE": "1", "HOROVOD_DEGRADE_WAIT_S": "7",
+           "HOROVOD_DEGRADE_MIN_DATA_EXTENT": "2",
+           "HOROVOD_DEGRADE_PROMOTE": "0",
+           "HOROVOD_REMAT_POLICY": "dots",
+           "HOROVOD_HBM_BUDGET_BYTES": "1000000000",
+           "HOROVOD_OFFLOAD_OPTIMIZER": "1", "HOROVOD_OFFLOAD_DEPTH": "3"}
 
     @pytest.mark.parametrize("set_env", [False, True])
     def test_matches_jax(self, monkeypatch, set_env):

@@ -661,6 +661,34 @@ class TestOnCard:
         assert isinstance(out["poll_in_flight"], bool)
         assert out["big_exact"] and out["poll_done"]
 
+    def test_remat_tiers_on_card(self, cuda):
+        """The remat tiers on the card (the 870.9M LM's width at 2 layers):
+        every tier's losses equal ``none``'s bit for bit; the flash forward
+        launches twice a block a step under ``dots``, ``full`` and
+        ``offload`` (the recompute replays it), the backward kernels once;
+        ``offload`` copies to the host and back, and a forward keeps fewer
+        bytes for backward under it and ``full`` than under ``dots``, and
+        under ``dots`` than ``none``."""
+        out = spawn_world("run_remat_card", world=1, device="cuda",
+                          timeout=300)[0]
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()[0]
+        for tier, r in out.items():
+            print(f"[{smi}] remat {tier}: {json.dumps(r)}")
+        none = out["none"]
+        for tier, r in out.items():
+            assert r["losses"] == none["losses"], tier
+            fwd = 2 if tier == "none" else 4
+            assert r["launches"] == {"flash_fwd": fwd, "flash_bwd_dq": 2,
+                                     "flash_bwd_dkv": 2}, tier
+        # the recompute stops once it has what backward needs: a block's
+        # last product (wo) comes back from the host in no tier
+        assert 0 < out["offload"]["host_h2d"] < out["offload"]["host_d2h"]
+        act = {tier: r["activations"] for tier, r in out.items()}
+        assert act["offload"] < act["dots"] < act["none"]
+        assert act["full"] < act["dots"]
+
     def test_timeline_on_card(self, cuda, tmp_path):
         """The timeline on one card: the native writer records a NEGOTIATE
         and an ``NCCL_ALLREDUCE`` span for each eager tensor, drops
@@ -1433,6 +1461,75 @@ class TestNcclWorld:
               f"{run['t_return'] - kill_t:.2f}")
         assert detect and all(0 < s <= 30 for s in detect.values()), detect
         assert set(done) == set(detect), (done, detect)
+
+    def test_calibration_over_nccl(self, cards, tmp_path):
+        """``calibration.measure_artifact`` over the four cards' local
+        level (NVLink), the default sweep (64 KiB-128 MiB): an artifact
+        that ``validate_calibration`` accepts and
+        ``HardwareModel.from_calibration`` reads; the fitted reduce-scatter
+        bandwidth and alpha of each collective are printed."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        from horovod_tpu_torch.analysis import calibration as CAL
+        from horovod_tpu_torch.analysis import cost_model as CM
+
+        path = tmp_path / "CALIBRATION.json"
+        arts = spawn_world("run_calibrate", world=4, device="cuda",
+                           args=(str(path), None), timeout=600)
+        art = json.loads(path.read_text())
+        assert CAL.validate_calibration(art) == []
+        assert all(a == art for a in arts)
+        assert art["platform"] == "gpu" and art["level_order"] == ["local"]
+        hw = CM.HardwareModel.from_calibration(str(path))
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()[0]
+        for coll, fit in art["levels"]["local"]["collectives"].items():
+            print(f"[{smi}] local x4 {coll}: beta "
+                  f"{fit['beta_bytes_per_s'] / 1e9:.2f} GB/s, alpha "
+                  f"{fit['alpha_s'] * 1e6:.2f} us, residual "
+                  f"{fit['residual']:.4f}")
+        print(f"[{smi}] matmul {art['matmul_flops_per_s'] / 1e12:.1f} "
+              f"TFLOP/s, stream {art['hbm_bytes_per_s'] / 1e12:.3f} TB/s; "
+              f"model {hw}")
+        assert hw.ici_bytes_per_s > 0 and hw.hbm_capacity_bytes == \
+            CM.H100.hbm_capacity_bytes
+
+    def test_degrade_over_nccl(self, cards, tmp_path):
+        """The elastic launcher on four cards under ``HOROVOD_DEGRADE=1``,
+        base plan dp=4, the degrade scenario's sharded momentum and
+        error-feedback residual (``--model zero --device cuda``): discovery
+        takes a host (two cards) away, the driver's controller shrinks the
+        plan to dp=2, the survivors take it from ``HOROVOD_PLAN``,
+        reshard-restore their shards and accumulate 2 microbatches; the
+        host comes back and the controller promotes at the epoch's
+        checkpoint.  The committed losses equal the never-degraded run's
+        within the gloo rehearsal's 1e-9 (``test_torch_degrade.py``)."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        from test_torch_elastic_e2e import run_elastic
+
+        from torch_port_workers import check_degrade_run
+
+        both = ["localhost:2", "127.0.0.1:2"]
+        run = run_elastic(
+            tmp_path, [(0, both), (1, ["localhost:2"]), (None, both)],
+            np=4, min_np=2, max_np=4, epochs=3, timeout=300,
+            extra_env={"HOROVOD_DEGRADE": "1",
+                       "HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT": "10",
+                       "HOROVOD_ELASTIC_START_TIMEOUT": "300"},
+            worker_args=("--model", "zero", "--device", "cuda",
+                         "--ckpt-dir", str(tmp_path / "ckpt"), "--hosts",
+                         "localhost,127.0.0.1", "--slots", "2"))
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
+        t0 = min((r["t"] for r in run["ranks"]), default=0.0)
+        for rec in run["ranks"]:
+            if rec.get("event") in ("rendezvous", "zero_step"):
+                print(f"{rec['t'] - t0:8.2f} s [{smi[0]}]: {json.dumps(rec)}")
+        assert run["rc"] == 0, (run["stderr"][-3000:] + run["logs"])
+        print(json.dumps(check_degrade_run(run)))
 
 
 def _leaves(x) -> list:

@@ -189,6 +189,32 @@ def test_port_files_cover_the_tools_slice():
             "horovod_tpu_torch/faults/__init__.py"} <= names
 
 
+def test_port_files_cover_the_memory_slice():
+    """The import and string checks below cover the planning and memory
+    plane: the cost model and calibration, the scaling model, the remat
+    tiers, the planner, host offload, degradation, and the modules that
+    hook them in."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"horovod_tpu_torch/analysis/__init__.py",
+            "horovod_tpu_torch/analysis/cost_model.py",
+            "horovod_tpu_torch/analysis/calibration.py",
+            "horovod_tpu_torch/utils/scaling.py",
+            "horovod_tpu_torch/memory/__init__.py",
+            "horovod_tpu_torch/memory/remat.py",
+            "horovod_tpu_torch/memory/planner.py",
+            "horovod_tpu_torch/memory/offload.py",
+            "horovod_tpu_torch/elastic/degrade.py",
+            "horovod_tpu_torch/elastic/__init__.py",
+            "horovod_tpu_torch/elastic/worker.py",
+            "horovod_tpu_torch/elastic/launch.py",
+            "horovod_tpu_torch/models/transformer.py",
+            "horovod_tpu_torch/models/vit.py",
+            "horovod_tpu_torch/models/moe.py",
+            "horovod_tpu_torch/optim/train_step.py",
+            "horovod_tpu_torch/runtime/config.py",
+            "chip_smoke.py"} <= names
+
+
 def test_native_source_is_the_ports_own():
     """The native library builds from the port's own ``hvd_native.cc``
     into ``<repo>/build/``: no path of the JAX package's ``native``

@@ -78,9 +78,15 @@ def _np(tree):
 @pytest.fixture(scope="module")
 def jax_runtime():
     """JAX's runtime with its warm-start store off: steps of one program
-    on meshes of 4 and of 8 devices would share a key there."""
+    on meshes of 4 and of 8 devices would share a key there.  A runtime
+    that a JAX test earlier in the process left initialized (with the
+    store on: ``tests/test_parallel.py``'s fsdp steps on 8 devices, whose
+    executables this module's 4-device steps were then handed) is shut
+    down first, so that ``init`` reads the knob."""
     old = os.environ.get("HOROVOD_COMPILE_CACHE")
     os.environ["HOROVOD_COMPILE_CACHE"] = "0"
+    if jhvd.is_initialized():
+        jhvd.shutdown()
     jhvd.init()
     yield
     jhvd.shutdown()

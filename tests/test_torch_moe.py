@@ -325,11 +325,6 @@ class TestMoETransformerLM:
         losses = [float(step(model, opt, batch)[2]) for _ in range(5)]
         assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
-    def test_remat_raises(self):
-        for kw in ({"remat": True}, {"remat_policy": "dots"}):
-            with pytest.raises(NotImplementedError, match="Queue A 12"):
-                TM.MoEConfig(**kw)
-
 
 class TestExpertChunkMlp:
     @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5)])

@@ -65,6 +65,8 @@ def jax_steps(jax_vit):
     model, variables = jax_vit
     old = os.environ.get("HOROVOD_COMPILE_CACHE")
     os.environ["HOROVOD_COMPILE_CACHE"] = "0"
+    if jhvd.is_initialized():       # left on, with the store, by a JAX test
+        jhvd.shutdown()
     jhvd.init()
     try:
         batch = {k: jnp.asarray(v) for k, v in vit_batch().items()}

@@ -8,7 +8,13 @@ scheduled exit raises or kills itself on a chosen (epoch, batch,
 start_rank).  ``--model lm`` trains a ``TransformerLM`` under
 ``TorchState`` on the card (the four-card test) instead of the one
 ``ObjectState`` vector; every rank then appends its loss and reset
-seconds to ``--rank-logfile``.
+seconds to ``--rank-logfile``.  ``--model zero`` trains the degrade
+scenario of ``torch_port_workers.DEGRADE`` (sharded momentum and
+error-feedback residual, a checkpoint every step in ``--ckpt-dir``) at
+the plan ``HOROVOD_PLAN`` names: each entry of ``train`` re-slices the
+last committed step's shards to the world's plan (``reshard_restore``)
+and accumulates as ``preserve_global_batch`` says; every rank logs each
+step's loss, plan and accumulation.
 """
 
 import argparse
@@ -26,7 +32,11 @@ p.add_argument("--exit-schedule", default="{}")
 p.add_argument("--exit-mode", default="exception")
 p.add_argument("--discovery-wait", type=int, default=30)
 p.add_argument("--rank-logfile", default="")
-p.add_argument("--model", default="vector", choices=("vector", "lm"))
+p.add_argument("--model", default="vector", choices=("vector", "lm", "zero"))
+p.add_argument("--ckpt-dir", default="",
+               help="--model zero: the sharded checkpoints' directory")
+p.add_argument("--device", default="",
+               help="--model zero: cpu (default) or cuda")
 p.add_argument("--hosts", default="",
                help="comma-separated host names, in the order that maps "
                     "each host's slots to its block of cards")
@@ -35,7 +45,8 @@ args = p.parse_args()
 
 hostname = os.environ.get("HOROVOD_HOSTNAME")
 start_rank = int(os.environ.get("HOROVOD_RANK", 0))
-if args.model == "lm":
+on_card = args.model == "lm" or args.device == "cuda"
+if on_card:
     # two host names on one machine: both hosts' slots have local ranks
     # 0..slots-1, and init() takes cuda:<local_rank>; list this host's
     # block of cards first so that cuda:<local_rank> is a card no other
@@ -52,7 +63,7 @@ import torch  # noqa: E402
 import horovod_tpu_torch as hvd  # noqa: E402
 
 torch.set_num_threads(1)
-device = "cuda" if args.model == "lm" else "cpu"
+device = "cuda" if on_card else "cpu"
 if device == "cuda":
     # build the kernels before any collective: a rank that builds while a
     # peer waits in a collective would outlast the elastic timeout
@@ -137,6 +148,47 @@ if args.model == "lm":
 else:
     state = hvd.elastic.ObjectState(params=np.zeros(2), epoch=0, batch=0,
                                     rendezvous=0)
+zero = {}
+
+
+def zero_enter(state):
+    """``--model zero`` at each entry of ``train``: this world's plan (the
+    driver's, through ``HOROVOD_PLAN``), and w and this rank's slices of
+    m and r at the last committed step, re-sliced from the checkpoint."""
+    from horovod_tpu_torch.checkpoint import Checkpointer
+    from horovod_tpu_torch.elastic.degrade import reshard_restore
+    from horovod_tpu_torch.parallel.plan import ShardingPlan
+    from torch_port_workers import DEGRADE
+
+    n = hvd.size()
+    plan = ShardingPlan.from_string(
+        os.environ.get("HOROVOD_PLAN") or f"dp={n}").resolve(n)
+    ckpt = Checkpointer(args.ckpt_dir)
+    shard = DEGRADE["width"] // n
+    gstep = state.epoch * args.batches_per_epoch + state.batch
+    if gstep:
+        w = ckpt.restore(step=gstep)["w"]
+        st = reshard_restore(ckpt, {"m": torch.zeros(shard),
+                                    "r": torch.zeros(shard)},
+                             hvd.rank(), plan, step=gstep)
+        m, r = st["m"], st["r"]
+    else:
+        w = torch.full((DEGRADE["width"],), 1.5)
+        m, r = torch.zeros(shard), torch.zeros(shard)
+    dev = hvd.device()
+    zero.update(plan=plan, ckpt=ckpt, w=w.to(dev), m=m.to(dev), r=r.to(dev))
+
+
+def zero_step(state):
+    from torch_port_workers import degrade_train
+
+    gstep = state.epoch * args.batches_per_epoch + state.batch + 1
+    zero["w"], zero["m"], zero["r"], losses, accum = degrade_train(
+        hvd, zero["plan"], zero["ckpt"], zero["w"], zero["m"], zero["r"],
+        [gstep], save_every=1)
+    rank_log({"event": "zero_step", "gstep": gstep, "loss": losses[0],
+              "plan": zero["plan"].to_string(), "accum": accum,
+              "rank": hvd.rank(), "size": hvd.size()})
 
 
 def lm_batch(state):
@@ -160,6 +212,8 @@ def train(state):
               "reset_s": elastic_state.last_reset_s,
               "failure_t": elastic_state.last_failure_t,
               "commit_s": getattr(state, "last_commit_s", None)})
+    if args.model == "zero":
+        zero_enter(state)
     while state.epoch < args.epochs:
         while state.batch < args.batches_per_epoch:
             check_exit(state.epoch, state.batch)
@@ -174,6 +228,8 @@ def train(state):
                           "rank": hvd.process_rank(),
                           "size": hvd.process_count(),
                           "loss": float(loss.detach())})
+            elif args.model == "zero":
+                zero_step(state)
             else:
                 grad = hvd.allreduce(torch.ones(2), op=hvd.Average,
                                      name="grad")
@@ -192,7 +248,8 @@ def train(state):
                   "rank": hvd.process_rank(), "size": hvd.process_count()})
         if hvd.process_rank() == 0:
             w = round(float(state.params[0]), 4) if args.model == "vector" \
-                else round(float(model.ln_f.scale.float().sum()), 4)
+                else round(float(model.ln_f.scale.float().sum()), 4) \
+                if args.model == "lm" else round(float(zero["w"].sum()), 4)
             log_state(state, w)
             cur = epoch_to_hosts.get(state.epoch, default_hosts)
             nxt = epoch_to_hosts.get(state.epoch + 1, default_hosts)

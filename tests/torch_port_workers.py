@@ -4514,3 +4514,236 @@ def run_timeline_card(hvd, directory: str) -> dict:
             "spans": spans,
             "ranges": sorted({e.name for e in prof.events()
                               if e.name.startswith("hvd:")})}
+
+
+# ---------------------------------------------------------------------------
+# the planning and memory plane: calibration and degradation
+# ---------------------------------------------------------------------------
+
+#: the sweep of the gloo calibration: small enough for a CPU world, large
+#: enough that the host clock resolves a bandwidth
+CAL_SWEEP = (2 ** 16, 2 ** 18, 2 ** 20, 2 ** 22)
+
+
+def run_calibrate(hvd, out_path: str, sizes=CAL_SWEEP, reps: int = 3
+                  ) -> dict:
+    """``calibration.measure_artifact`` over this world's layout, each
+    point the best of ``reps``; rank 0 saves it to ``out_path``.  Every
+    rank returns its artifact.  On the CPU a rank keeps one intra-op
+    thread, as the other gloo worlds here do."""
+    import torch
+
+    from horovod_tpu_torch.analysis import calibration as CAL
+
+    if hvd.device().type == "cpu":
+        torch.set_num_threads(1)
+    return CAL.measure_artifact(out_path, sizes_bytes=sizes, reps=reps)
+
+
+#: the degrade scenario of ``horovod_tpu/elastic/smoke.py`` on real
+#: worlds: a dp=4 world with ZeRO-style sharded momentum and error-feedback
+#: residual (flat fusion-buffer slices), checkpoints every ``every`` steps,
+#: half the world lost after ``kill_at``, the lost steps replayed at dp=2
+#: with gradient accumulation, capacity back at the next boundary
+DEGRADE = dict(plan="dp=4", world=4, shrunk=2, steps=12, every=3, kill_at=8,
+               width=16, global_batch=8, per_replica_batch=2)
+#: the degrade runs' losses against the never-degraded run's: float64
+#: partial sums added in another order (the state itself is bit-exact)
+DEGRADE_LOSS_TOL = 1e-9
+
+
+def degrade_sample_grads(step: int) -> np.ndarray:
+    """The global batch's per-sample gradients at ``step``, (samples,
+    width): multiples of 1/16 in [-1.5, 1.5], so that any grouping of
+    their sums, and the mean, is exact in fp32 (a world of any size, with
+    any accumulation, computes the same bits)."""
+    d = DEGRADE
+    k = np.arange(d["global_batch"], dtype=np.float64)[:, None]
+    i = np.arange(d["width"], dtype=np.float64)[None, :]
+    base = np.round(16 * np.sin(i * (1.0 + 0.1 * step) + k)) / 16
+    return (base * np.where(k % 2 == 0, 0.5, 1.5)).astype(np.float32)
+
+
+def degrade_update(w, m, r, g):
+    """The smoke's elementwise step over flat buffers (any equal slicing
+    of them reproduces it bit for bit): quantize gradient + residual
+    (error feedback), momentum, apply."""
+    q = np.round(8.0 * (g + r)) / 8.0 if isinstance(g, np.ndarray) else \
+        (8.0 * (g + r)).round() / 8.0
+    r = g + r - q
+    m = 0.9 * m + q
+    return w - 0.1 * m, m, r
+
+
+def degrade_reference(steps: int):
+    """The never-degraded run in numpy fp32: (w, m, r) after ``steps``,
+    and each step's loss (the global batch's mean of ``g_s · w`` over
+    the width, in float64, at the weights before the step)."""
+    d = DEGRADE
+    w = np.full((d["width"],), 1.5, np.float32)
+    m = np.zeros_like(w)
+    r = np.zeros_like(w)
+    losses = []
+    for s in range(1, steps + 1):
+        gs = degrade_sample_grads(s)
+        losses.append(float((gs.astype(np.float64) @ w.astype(np.float64))
+                            .mean() / d["width"]))
+        g = gs.mean(axis=0, dtype=np.float32)
+        w, m, r = (x.astype(np.float32)
+                   for x in degrade_update(w, m, r, g))
+    return w, m, r, losses
+
+
+def degrade_train(hvd, plan, ckpt, w, m, r, steps, save_every=None):
+    """Steps ``steps`` of the scenario on this world at ``plan``: each rank
+    accumulates ``grad_accum`` microbatches of ``per_replica_batch`` rows
+    (``preserve_global_batch``), the gradient is reduce-scattered (sum)
+    and divided by the rows' count, each rank updates its slice of w, m
+    and r, and w is all-gathered.  At a step that ``save_every`` divides,
+    rank 0 saves w and every rank its slice of m and r, stamped with the
+    plan.  Returns (w, m, r, losses, grad_accum)."""
+    import torch
+
+    from horovod_tpu_torch.elastic.degrade import preserve_global_batch
+
+    d = DEGRADE
+    n, rank = hvd.size(), hvd.rank()
+    dev = hvd.device()
+    accum, achieved = preserve_global_batch(d["global_batch"], plan,
+                                            d["per_replica_batch"])
+    assert achieved == d["global_batch"]
+    p = d["per_replica_batch"]
+    losses = []
+    for s in steps:
+        gs = torch.from_numpy(degrade_sample_grads(s)).to(dev)
+        local = torch.zeros(d["width"], device=dev)
+        part = torch.zeros((), dtype=torch.float64, device=dev)
+        for j in range(accum):
+            rows = gs[(j * n + rank) * p:(j * n + rank + 1) * p]
+            local += rows.mean(dim=0)
+            part += (rows.double() @ w.double()).sum()
+        g = hvd.reducescatter(local, op=hvd.Sum) / (n * accum)
+        # named: a joiner's eager plane counts unnamed calls from zero
+        losses.append(float(hvd.allreduce(part, op=hvd.Sum,
+                                          name=f"degrade.loss.{s}"))
+                      / d["global_batch"] / d["width"])
+        sl = slice(rank * (d["width"] // n), (rank + 1) * (d["width"] // n))
+        w_shard, m, r = degrade_update(w[sl], m, r, g)
+        w = hvd.allgather(w_shard, name=f"degrade.w.{s}")
+        if save_every and s % save_every == 0:
+            ckpt.save(s, {"w": w.cpu()})
+            ckpt.save_sharded(s, {"m": m.cpu(), "r": r.cpu()}, rank, n,
+                              plan=plan.to_string())
+            ckpt.wait()
+    return w, m, r, losses, accum
+
+
+def run_degrade(hvd, directory: str, plan: str, restore_step: int,
+                last_step: int) -> dict:
+    """One generation of the degrade scenario: a world at ``plan``
+    restores step ``restore_step`` (w from rank 0's save, its slice of m
+    and r re-sliced from the sharded save by ``reshard_restore``; step 0
+    starts fresh) and trains steps ``restore_step + 1 .. last_step``,
+    saving every ``DEGRADE["every"]`` steps."""
+    import torch
+
+    from horovod_tpu_torch.checkpoint import Checkpointer
+    from horovod_tpu_torch.elastic.degrade import reshard_restore
+    from horovod_tpu_torch.parallel.plan import ShardingPlan
+
+    d = DEGRADE
+    plan = ShardingPlan.from_string(plan).resolve(hvd.size())
+    shard = d["width"] // hvd.size()
+    ckpt = Checkpointer(directory)
+    dev = hvd.device()
+    if restore_step:
+        w = ckpt.restore(step=restore_step)["w"].to(dev)
+        st = reshard_restore(ckpt, {"m": torch.zeros(shard),
+                                    "r": torch.zeros(shard)},
+                             hvd.rank(), plan, step=restore_step)
+        m, r = st["m"].to(dev), st["r"].to(dev)
+    else:
+        w = torch.full((d["width"],), 1.5, device=dev)
+        m = torch.zeros(shard, device=dev)
+        r = torch.zeros(shard, device=dev)
+    w, m, r, losses, accum = degrade_train(
+        hvd, plan, ckpt, w, m, r, range(restore_step + 1, last_step + 1),
+        d["every"])
+    ckpt.close()
+    return {"w": w.cpu().numpy(), "m": m.cpu().numpy(),
+            "r": r.cpu().numpy(), "losses": losses, "grad_accum": accum}
+
+
+def check_degrade_run(run) -> dict:
+    """The launcher's degrade run: worlds of 4, 2, 4; each generation at
+    the plan the controller chose, with the accumulation that keeps the
+    global batch; the committed losses those of the never-degraded run.
+    Returns the per-generation plans and the losses."""
+    steps = [r for r in run["ranks"] if r.get("event") == "zero_step"]
+    by_gen = {}
+    for r in steps:
+        by_gen.setdefault(r["plan"], set()).add((r["size"], r["accum"]))
+    assert by_gen == {"dp=4": {(4, 1)}, "dp=2": {(2, 2)}}, by_gen
+    sizes = [r["size"] for r in run["results"]]
+    assert sizes[:3] == [4, 2, 4], sizes
+    last = {}
+    for r in steps:
+        last[r["gstep"]] = r["loss"]
+    n = max(last)
+    _, _, _, want = degrade_reference(n)
+    assert sorted(last) == list(range(1, n + 1))
+    np.testing.assert_allclose([last[s] for s in range(1, n + 1)], want,
+                               rtol=DEGRADE_LOSS_TOL)
+    return {"plans": sorted(by_gen), "losses": [last[s] for s in sorted(last)]}
+
+
+def run_remat_card(hvd, layers: int = 2, steps: int = 3) -> dict:
+    """On one card: the 870.9M LM's width at ``layers`` layers (seq 1024,
+    batch 2, bf16, flash) through ``DistributedTrainStep`` with AdamW,
+    ``steps`` steps under each remat tier from one seed: the losses, the
+    flash launches a step, the peak memory, the offload tier's host bytes,
+    and the bytes one more forward keeps for backward."""
+    import torch
+
+    from horovod_tpu_torch.memory.remat import OffloadStats
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+    from horovod_tpu_torch.ops import kernels as K
+
+    dev = hvd.device()
+    tokens = torch.randint(0, 32000, (2, 1025),
+                           generator=torch.Generator().manual_seed(0))
+    out = {}
+    for tier in ("none", "dots", "full", "offload"):
+        cfg = TransformerConfig(vocab_size=32000, num_layers=layers,
+                                num_heads=16, d_model=2048, d_ff=8192,
+                                max_seq_len=1024, dtype=torch.bfloat16,
+                                attention_impl="flash", remat_policy=tier)
+        model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        step = hvd.DistributedTrainStep(
+            lm_loss, torch.optim.AdamW(model.parameters(), lr=3e-4))
+        model, opt = step.init(model)
+        batch = step.shard_batch(tokens)
+        OffloadStats.reset()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        losses = [float(step(model, opt, batch)[2]) for _ in range(steps)]
+        counts = K.launch_counts()
+        host = (OffloadStats.d2h_bytes, OffloadStats.h2d_bytes)
+        torch.cuda.synchronize()
+        state = torch.cuda.memory_allocated()
+        loss = lm_loss(model, batch)
+        activations = torch.cuda.memory_allocated() - state
+        del loss
+        out[tier] = {"losses": losses, "activations": activations,
+                     "launches": {k: counts[k] / steps for k in (
+                         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "host_d2h": host[0], "host_h2d": host[1]}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return out
