@@ -233,7 +233,17 @@ Phases, in order; any failure exits non-zero:
    its tier trained through ``HOROVOD_REMAT_POLICY`` under the budget;
    (c) ``HostOffloadEngine`` round-tripping AdamW's state, bit-exact, GB/s
    each way; (d) the card's rates and memory beside the H100 preset;
-19. print the card's name and power limit, the kernels' JSON line, and last
+19. the training-state guard and the serving plane (``phase_guard``,
+   ``phase_serve``): (a) phase 4's recipe through the step's ``guard=``
+   (skip_step), its losses bit for bit, a non-finite and a spiked step
+   skipped with the parameters' and AdamW's fingerprints unchanged, the
+   norm against ``vector_norm``, guarded against unguarded step ms; (b)
+   the card's fingerprint of 10.45 GB against the host's; (c)
+   rollback-and-replay at 4 of the 16 layers, bit for bit a fault-free
+   run; (d) the 870.9M LM served by two replicas through
+   ``ExecutableCache.from_module`` with a crash mid-load; (e) a fleet of
+   the LM and ViT-B/16 with a live weight flip and a corrupt one caught;
+20. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -1542,7 +1552,8 @@ def profile_step(torch, run, focus: str = "", ranges=None,
 
 
 def recipe(torch, hvd, steps: int = 5, on_step=None,
-           adasum: bool = False, plan=None, remat_policy=None) -> dict:
+           adasum: bool = False, plan=None, remat_policy=None,
+           guard=None, loss_scale=None) -> dict:
     """Phase 4's five-line recipe at full width on this process's card:
     the seeded 870.9M TransformerLM, ``DistributedOptimizer(AdamW(3e-4,
     weight_decay=1e-4), gradient_predivide_factor=2.0)`` on the hook path,
@@ -1553,7 +1564,10 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
     the model is built with the tp group of ``plan.build_mesh()`` and the
     step is ``DistributedTrainStep(mode="pjit", plan=plan, mesh=...)``
     (phase 15 (a)).  ``remat_policy`` is the model's remat tier (phase
-    18).  Returns the
+    18).  ``guard`` is the step's ``guard=``, and ``loss_scale`` a list
+    whose one value the loss is multiplied by at each call (phase 19
+    (a): 1.0 leaves every bit of the loss and gradients as they are).
+    Returns the
     model, the wrapper, the step, the batch, the losses, each step's
     seconds and bucket sources, the wall clock at the first step's end,
     the launch counts from ``init`` on and the peak memory."""
@@ -1581,11 +1595,13 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
         opt = hvd.DistributedOptimizer(adamw, gradient_predivide_factor=2.0)
 
     def loss_fn(m, batch):
+        if loss_scale is not None:
+            return lm_loss(m, batch) * loss_scale[0]
         return lm_loss(m, batch)
 
     step = hvd.DistributedTrainStep(loss_fn, opt,
                                     op=None if adasum else hvd.Average,
-                                    **planned)
+                                    guard=guard, **planned)
     tokens = torch.randint(0, cfg.vocab_size,
                            (FULL["batch"], FULL["seq"] + 1),
                            generator=torch.Generator().manual_seed(SEED))
@@ -4241,6 +4257,660 @@ def phase_memory(torch, train: dict) -> dict:
                 launches=counts)
 
 
+#: phase 19: the guarded step's schedule after phase 4's five clean steps
+#: (a non-finite loss, a spike past the limit, then a clean step), the
+#: rollback run's cut model and schedule, and the served load
+GUARD_SCALES = (float("nan"), 1e3, 1.0)
+GUARD_VERDICTS = ("nonfinite", "spike", "ok")
+GNORM_RTOL = 1e-5
+ROLLBACK = dict(layers=4, steps=6, every=2, interval=3, nan_at=5)
+SERVE = dict(requests=48, lens=(1024, 512), buckets=(1, 2, 4, 8),
+             crash_at=3)
+FLEET = dict(lm_requests=24, vit_requests=64, lm_wave=3, vit_wave=8,
+             vit_buckets=(1, 2, 4, 8, 16, 32), corrupt_at=2)
+#: a served batch's logits against the plain path's (the same model and
+#: padded batch, ``flash_fwd_plain`` in the kernel's place): a path's
+#: output against its twin's, as phase 4 holds the flash path's gradients
+#: against the dense path's (5e-2 normwise); each element within one
+#: flash call's elementwise limit.  (FLASH_NORM_TOL holds one kernel
+#: call; through the LM's 16 bf16 layers one batch of the first card run
+#: read 1.005e-2 against it.)
+SERVE_NORM_TOL = 5e-2
+
+
+def _tree_bytes(torch, tree) -> int:
+    from horovod_tpu_torch.utils import pytree
+
+    return sum(t.numel() * t.element_size() for t in pytree.leaves(tree)
+               if torch.is_tensor(t))
+
+
+def phase_guard(torch, train: dict) -> dict:
+    """Phase 19 (a)-(c), the training-state guard on phase 4's recipe.
+    (a) ``TrainingGuard(policy="skip_step", warmup_steps=2)`` through the
+    step's ``guard=``: the five clean steps give phase 4's losses bit for
+    bit; the norm agrees with ``torch.linalg.vector_norm`` of the reduced
+    gradients within GNORM_RTOL; then a non-finite loss and a spike past
+    the limit are skipped, the device fingerprints of the parameters and
+    of AdamW's state equal to those from before each, and a clean step
+    moves them; each flash kernel 16 launches a call and ``fused_scale``
+    twice a bucket, every call (the exchange runs before the verdict);
+    guarded and unguarded steps timed in turns on the same model.  (b)
+    The fingerprint of the parameters and AdamW's state (10.45 GB) on the
+    card, against the host's numpy arithmetic over copies of the same
+    tensors, bit for bit, both timed.  (c) Rollback-and-replay at the
+    870.9M LM's width with ROLLBACK's layers (each checkpoint writes the
+    parameters and AdamW's state): ``TorchState`` with a checkpoint every
+    2 commits, policy ``rollback``, a replica check every 3 steps; a
+    non-finite loss at step 5 raises ``GuardRollback`` before anything
+    moves, ``guard.rollback()`` restores the pinned last-good step and the
+    loop replays; the final parameters equal a fault-free run's bit for
+    bit.  Returns the summary and the launch counts of (a)."""
+    import gc
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.guard import TrainingGuard, fingerprint
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.utils import pytree
+
+    hvd.init()
+    scale = [1.0]
+    guard = TrainingGuard(policy="skip_step", warmup_steps=2)
+    r = recipe(torch, hvd, guard=guard, loss_scale=scale)
+    model, opt, step, batch = (r[k] for k in ("model", "opt", "step",
+                                              "batch"))
+    log(f"guard (a): losses {r['losses']} (phase 4's bit for bit: "
+        f"{r['losses'] == train['losses']}), norms "
+        f"{guard.numerics.last_gnorm}")
+    if r["losses"] != train["losses"]:
+        raise AssertionError(f"guarded losses {r['losses']} differ from "
+                             f"phase 4's {train['losses']}")
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    want = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads])))
+    rel = abs(guard.numerics.last_gnorm - want) / want
+    log(f"guard (a): norm {guard.numerics.last_gnorm!r} against "
+        f"vector_norm of the reduced gradients {want!r}: rel {rel:.3e} "
+        f"(tol {GNORM_RTOL})")
+    if rel > GNORM_RTOL:
+        raise AssertionError("the guarded norm is not the reduced "
+                             "gradients' norm")
+    del grads
+
+    def state_fp():
+        """The parameters' fingerprint and AdamW state's."""
+        return (fingerprint(model.state_dict()),
+                fingerprint(opt.state_dict()))
+
+    verdicts, unchanged = [], []
+    for s in GUARD_SCALES:
+        scale[0] = s
+        before = state_fp()
+        limit = guard.current_limit()
+        step(model, opt, batch)
+        after = state_fp()
+        verdicts.append(guard.numerics.last_verdict)
+        unchanged.append(before == after)
+        if (before[0] == after[0]) != (before[1] == after[1]):
+            raise AssertionError("a step moved the parameters or AdamW's "
+                                 "state alone")
+        log(f"guard (a): loss scale {s}: norm {guard.numerics.last_gnorm!r}"
+            f", limit {limit!r}, verdict {verdicts[-1]}, state unchanged "
+            f"{before == after}")
+    scale[0] = 1.0
+    calls = len(r["losses"]) + len(GUARD_SCALES)
+    counts = K.launch_counts()
+    buckets = len(opt._buckets)
+    want_counts = {"fused_scale": 2 * buckets * calls,
+                   **dict.fromkeys(FLASH_KERNELS, FULL["layers"] * calls)}
+    got_counts = {k: counts[k] for k in want_counts}
+    log(f"guard (a): launches over {calls} calls {got_counts} (want "
+        f"{want_counts}: {buckets} buckets)")
+    if verdicts != list(GUARD_VERDICTS) or \
+            unchanged != [v != "ok" for v in verdicts]:
+        raise AssertionError(f"guard verdicts {verdicts}, unchanged "
+                             f"{unchanged}")
+    if got_counts != want_counts:
+        raise AssertionError("guarded step launches differ")
+
+    plain = hvd.DistributedTrainStep(r["loss_fn"], opt)
+    times = {"guarded": [], "unguarded": []}
+    for name in ("guarded", "unguarded", "unguarded", "guarded",
+                 "guarded", "unguarded"):
+        run = step if name == "guarded" else plain
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(run(model, opt, batch)[2])
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    step_ms = {k: statistics.median(v) for k, v in times.items()}
+    log(f"guard (a) [{CARD}]: step ms guarded {times['guarded']}, "
+        f"unguarded {times['unguarded']} (medians {step_ms})")
+
+    # (b) the fingerprint of the parameters and AdamW's state
+    tree = [model.state_dict(), opt.state_dict()]
+    nbytes = _tree_bytes(torch, tree)
+    device_ms = cuda_ms(torch, lambda: fingerprint(tree), iters=3,
+                        warmup=1)
+    device_fp = fingerprint(tree)
+    t0 = time.perf_counter()
+    host_tree = pytree.map_leaves(
+        tree, lambda i, t: t.cpu() if torch.is_tensor(t) else t)
+    host_fp = fingerprint(host_tree)
+    host_s = time.perf_counter() - t0
+    log(f"guard (b) [{CARD}]: fingerprint of {nbytes / 1e9:.2f} GB "
+        f"(parameters and AdamW state): card {device_ms:.1f} ms "
+        f"({nbytes / device_ms / 1e6:.0f} GB/s), host copy + numpy "
+        f"{host_s:.1f} s; {device_fp:#x} == {host_fp:#x}: "
+        f"{device_fp == host_fp}")
+    if device_fp != host_fp:
+        raise AssertionError("the card's fingerprint differs from the "
+                             "host's")
+    del model, opt, step, plain, batch, tree, host_tree, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rollback = guard_rollback(torch, hvd)
+    hvd.shutdown()
+    return dict(losses=train["losses"], verdicts=verdicts,
+                step_ms=step_ms, gnorm_rel=rel,
+                fingerprint=dict(bytes=nbytes, device_ms=device_ms,
+                                 host_s=host_s),
+                rollback=rollback), got_counts
+
+
+def guard_rollback(torch, hvd) -> dict:
+    """Phase 19 (c) (``phase_guard``): the fault-free run, then the run
+    with the non-finite step; the summary."""
+    import dataclasses
+    import gc
+
+    from horovod_tpu_torch.checkpoint import Checkpointer
+    from horovod_tpu_torch.elastic import TorchState
+    from horovod_tpu_torch.guard import (
+        GuardRollback,
+        RollbackManager,
+        TrainingGuard,
+        fingerprint,
+    )
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+
+    rb = ROLLBACK
+    dev = hvd.device()
+    cfg = dataclasses.replace(full_config(torch, "flash"),
+                              num_layers=rb["layers"])
+    root = tempfile.mkdtemp(prefix="hvd_torch_guard_")
+
+    def run(fault: bool) -> dict:
+        model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        adamw = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                  weight_decay=1e-4)
+        opt = hvd.DistributedOptimizer(adamw, gradient_predivide_factor=2.0)
+        scale = [1.0]
+        state = guard = ckpt = None
+        if fault:
+            ckpt = Checkpointer(os.path.join(root, "ckpt"))
+            state = TorchState(model, adamw, checkpointer=ckpt,
+                               checkpoint_every=rb["every"])
+            guard = TrainingGuard(policy="rollback", warmup_steps=2,
+                                  check_interval=rb["interval"],
+                                  rollback=RollbackManager(state))
+        step = hvd.DistributedTrainStep(
+            lambda m, b: lm_loss(m, b) * scale[0], opt, guard=guard)
+        model, opt = step.init(model)
+        done, fired, events = 0, False, []
+        while done < rb["steps"]:
+            s = done + 1
+            tokens = torch.randint(
+                0, cfg.vocab_size, (FULL["batch"], FULL["seq"] + 1),
+                generator=torch.Generator().manual_seed(SEED + s))
+            scale[0] = float("nan") if fault and s == rb["nan_at"] \
+                and not fired else 1.0
+            try:
+                step(model, opt, step.shard_batch(tokens))
+            except GuardRollback as e:
+                fired = True
+                pinned = ckpt.pinned_steps()
+                t0 = time.perf_counter()
+                state.wait()
+                replayed = guard.rollback(reason="nonfinite")
+                torch.cuda.synchronize()
+                events.append(dict(step=s, kind=e.kind, pinned=pinned,
+                                   replayed=replayed,
+                                   restored=state._commit_count,
+                                   seconds=time.perf_counter() - t0))
+                done = state._commit_count
+                continue
+            if fault:
+                state.commit()
+                guard.note_commit()
+                guard.check_replicas(s, model.state_dict())
+                done = state._commit_count
+            else:
+                done = s
+        if fault:
+            state.wait()
+        out = dict(fp=fingerprint(model.state_dict()), events=events,
+                   checkpoint_bytes=state.last_commit_bytes if fault
+                   else None, pinned=ckpt.pinned_steps() if fault else None)
+        del model, opt, step, adamw
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    try:
+        clean = run(False)
+        faulty = run(True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ev = faulty["events"]
+    log(f"guard (c) [{CARD}]: {rb['layers']} of {FULL['layers']} layers, "
+        f"{faulty['checkpoint_bytes'] / 1e9:.2f} GB a commit and "
+        f"checkpoint; events {json.dumps(ev)}; final fingerprint "
+        f"{faulty['fp']:#x}, fault-free {clean['fp']:#x}; pinned at the "
+        f"end {faulty['pinned']}")
+    if len(ev) != 1 or ev[0]["kind"] != "nonfinite" or \
+            ev[0]["restored"] != ev[0]["pinned"][0] or \
+            faulty["fp"] != clean["fp"]:
+        raise AssertionError("rollback-and-replay did not give the "
+                             "fault-free parameters")
+    return dict(events=ev, checkpoint_bytes=faulty["checkpoint_bytes"],
+                layers=rb["layers"])
+
+
+def _last_logits(torch, lm):
+    class Served(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lm = lm
+
+        def forward(self, tokens):
+            return self.lm(tokens)[:, -1]
+
+    return Served()
+
+
+def served_agreement(torch, got, want) -> tuple:
+    """(normwise, elementwise ratio, argmax rows checked, argmax rows
+    equal) of served logits against the plain path's: SERVE_NORM_TOL and
+    the flash elementwise limit (FLASH_RTOL·|want| + FLASH_ATOL·rms), and
+    the argmax equal wherever the plain top-2 margin exceeds that
+    limit."""
+    readings = dict((n, v) for n, v, _ in
+                    flash_agreement(torch, got, want, False))
+    w = want.float()
+    top = w.topk(2, dim=-1)
+    rms = w.pow(2).mean(-1).sqrt()
+    limit = FLASH_RTOL * top.values[:, 0].abs() + FLASH_ATOL * rms
+    clear = (top.values[:, 0] - top.values[:, 1]) > limit
+    same = got.float().argmax(-1) == top.indices[:, 0]
+    return (readings["norm_rel"], readings["elem_ratio"],
+            int(clear.sum()), int((same & clear).sum()))
+
+
+def _check_batches(torch, records, reference, label: str, dev) -> dict:
+    """Each recorded batch (payloads, results, bucket) against
+    ``reference(padded_batch on dev, record)``: the worst readings."""
+    worst = [0.0, 0.0, 0, 0]
+    for rec in records:
+        pads = rec["payloads"] + [rec["payloads"][-1]] * (
+            rec["padded"] - len(rec["payloads"]))
+        with torch.inference_mode():
+            want = reference(torch.stack(pads).to(dev), rec)
+        got = torch.stack(rec["results"])
+        norm, elem, checked, equal = served_agreement(
+            torch, got, want[:len(rec["results"])])
+        worst = [max(worst[0], norm), max(worst[1], elem),
+                 worst[2] + checked, worst[3] + equal]
+    log(f"serve {label}: {len(records)} batches against the plain path: "
+        f"worst normwise {worst[0]:.3e} (tol {SERVE_NORM_TOL}), worst "
+        f"elementwise ratio {worst[1]:.3f} (tol 1), argmax equal in "
+        f"{worst[3]} of the {worst[2]} rows whose margin clears the limit")
+    if worst[0] > SERVE_NORM_TOL or worst[1] > 1.0 or worst[2] != worst[3]:
+        raise AssertionError(f"served {label} results outside the limits")
+    return dict(norm_rel=worst[0], elem_ratio=worst[1],
+                argmax_rows=worst[2])
+
+
+def _latencies(responses) -> dict:
+    lat = sorted(r.latency_s for r in responses)
+    return dict(p50_ms=1e3 * lat[len(lat) // 2],
+                p99_ms=1e3 * lat[min(len(lat) - 1,
+                                     int(0.99 * (len(lat) - 1) + 0.5))])
+
+
+def phase_serve(torch) -> tuple:
+    """Phase 19 (d)-(e), the serving plane on one card.  (d) The 870.9M LM
+    at full width behind a ``ReplicaPool`` of two in-process replicas and
+    a ``ContinuousBatcher`` over ``ExecutableCache.from_module`` (buckets
+    SERVE["buckets"], every bucket built before the load): 48 seeded
+    requests of 1024 and 512 tokens (two signatures), a result the last
+    position's logits, a ``serve.batch`` crash on a replica mid-load.
+    Every request answered exactly once, the crashed lease requeued once;
+    each batch within SERVE_NORM_TOL and the flash elementwise limit of
+    the plain path's forward of the same padded batch (``flash_fwd_plain``
+    in the kernel's place); 16 flash-forward launches a batch.  (e) A
+    ``FleetBatcher`` over the LM and ViT-B/16 (224 px, buckets up to 32,
+    12 non-causal flash forwards a batch); a ``WeightRefresher`` staging
+    through ``HostOffloadEngine`` flips the LM's weights mid-load, and a
+    second stage, corrupted by a ``serve.refresh`` fault, is caught by the
+    fingerprint verify, rolled back and quarantined; every response
+    carries the fingerprint of the weights its batch ran on, and each
+    batch equals, bit for bit, a forward of its padded batch on those
+    weights.  Returns the summary and the flash launches."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.guard import fingerprint
+    from horovod_tpu_torch.memory import HostOffloadEngine
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.models.vit import ViT_B16
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.serve import (
+        AdmissionQueue,
+        ContinuousBatcher,
+        ExecutableCache,
+        FleetBatcher,
+        InferenceRequest,
+        MultiTenantQueue,
+        Replica,
+        ReplicaPool,
+        WeightRefresher,
+    )
+
+    hvd.init()
+    dev = hvd.device()
+
+    def launched() -> int:
+        return K.launch_counts()["flash_fwd"]
+
+    first = launched()
+    cfg = full_config(torch, "flash")
+    lm = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    served = _last_logits(torch, lm)
+    layers = FULL["layers"]
+
+    def tokens_example(signature, padded):
+        return torch.zeros((padded,) + tuple(signature[0]),
+                           dtype=torch.long)
+
+    def plain_lm(x, rec):
+        with _plain_flash():
+            return served(x)
+
+    # (d) two replicas over one executable cache, a crash mid-load
+    cache = ExecutableCache.from_module(served, tokens_example,
+                                        bucket_sizes=SERVE["buckets"])
+    t0 = time.perf_counter()
+    start = launched()
+    for n in SERVE["lens"]:
+        for b in SERVE["buckets"]:
+            cache.get(((n,), "torch.int64"), b)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = launched() - start
+    records = []
+
+    def run(payloads):
+        results = cache.run(payloads)
+        records.append(dict(payloads=list(payloads), results=results,
+                            padded=cache.padded_size(len(payloads))))
+        return results
+
+    queue = AdmissionQueue(depth=64, max_requeues=3)
+    pool = ReplicaPool(queue, drain_timeout_s=5.0)
+    for i in range(2):
+        pool.add_replica(Replica(f"lm-{i}", run, host=f"card-{i}"))
+    got = {}
+    batcher = ContinuousBatcher(
+        queue, pool, max_batch=max(SERVE["buckets"]),
+        on_response=lambda r: got.setdefault(r.request_id, []).append(r))
+    gen = torch.Generator().manual_seed(SEED + 19)
+    reqs = [InferenceRequest(f"lm-{i:02d}", torch.randint(
+        0, cfg.vocab_size, (SERVE["lens"][i % 2],), generator=gen))
+        for i in range(SERVE["requests"])]
+    start = launched()
+    faults.set_plan(faults.FaultPlan(sim=True).add(
+        "serve.batch", "crash", at=SERVE["crash_at"]))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            if queue.submit(r) != "admitted":
+                raise AssertionError(f"request {r.request_id} shed")
+        while len(queue):
+            batcher.step()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        faults.clear_plan()
+    launches = launched() - start
+    responses = [rs[0] for rs in got.values()]
+    requeued = sorted(r.request_id for r in responses if r.requeues)
+    dead = [r.name for r in pool.replicas() if not r.alive]
+    occupancy = statistics.mean(len(rec["payloads"]) for rec in records)
+    lm_serve = dict(requests_per_s=len(reqs) / load_s, load_s=load_s,
+                    batches=len(records), occupancy=occupancy,
+                    requeued=len(requeued), dead=dead, build_s=build_s,
+                    flash_launches=launches, **_latencies(responses))
+    log(f"serve (d) [{CARD}]: {len(reqs)} requests of {SERVE['lens']} "
+        f"tokens in {load_s:.3f} s ({lm_serve['requests_per_s']:.1f} "
+        f"requests/s), p50 {lm_serve['p50_ms']:.1f} ms, p99 "
+        f"{lm_serve['p99_ms']:.1f} ms, {len(records)} batches, mean "
+        f"occupancy {occupancy:.2f}; replica dead {dead}, requeued "
+        f"{len(requeued)} {requeued}; flash forwards {launches} "
+        f"({launches / max(len(records), 1):.1f} a batch); the "
+        f"{len(cache)} executables built in {build_s:.2f} s "
+        f"({build_launches} flash forwards)")
+    if sorted(got) != sorted(r.request_id for r in reqs) or \
+            any(len(v) != 1 for v in got.values()):
+        raise AssertionError("a request was lost or answered twice")
+    if len(dead) != 1 or not requeued or \
+            any(r.requeues != 1 for r in responses if r.requeues):
+        raise AssertionError("the crash did not requeue its lease once")
+    if launches != layers * len(records) or \
+            build_launches != layers * len(cache):
+        raise AssertionError("served flash forwards are not 16 a batch")
+    lm_serve["agreement"] = _check_batches(torch, records, plain_lm, "(d)",
+                                           dev)
+
+    # (e) the fleet: the LM and ViT-B/16, a weight flip and a corrupt one
+    vit = ViT_B16(dtype=torch.bfloat16, attention_impl="flash", device=dev,
+                  image_size=VIT["image"],
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    vit_layers = VIT["layers"]
+    px = VIT["image"]
+
+    def image_example(signature, padded):
+        return torch.zeros((padded,) + tuple(signature[0]))
+
+    caches = {"lm": cache,
+              "vit": ExecutableCache.from_module(
+                  vit, image_example, bucket_sizes=FLEET["vit_buckets"])}
+    for b in FLEET["vit_buckets"]:
+        caches["vit"].get(((px, px, 3), "torch.float32"), b)
+    fleet_records = []
+
+    def fleet_run(payloads, model_id=None, weights=None):
+        results = caches[model_id].run(payloads, weights=weights)
+        fleet_records.append(dict(
+            model=model_id, payloads=list(payloads), results=results,
+            weights=weights,
+            padded=caches[model_id].padded_size(len(payloads))))
+        return results
+
+    engine = HostOffloadEngine(name="refresh")
+    refresher = WeightRefresher(engine=engine)
+    old = {k: v for k, v in served.state_dict().items()}
+    fp_of = {id(old): refresher.register("lm", old)}
+    fleet = MultiTenantQueue()
+    fleet.add_model("lm", weight=2.0, slo_class="batch", depth=64)
+    fleet.add_model("vit", weight=1.0, slo_class="batch", depth=64)
+    fpool = ReplicaPool(fleet, drain_timeout_s=5.0)
+    for i in range(2):
+        fpool.add_replica(Replica(f"fleet-{i}", fleet_run, host=f"card-{i}"))
+    fgot = {}
+    fbatcher = FleetBatcher(
+        fleet, fpool, refresher=refresher, max_batch=32,
+        on_response=lambda r: fgot.setdefault(r.request_id, []).append(r))
+    gen = torch.Generator().manual_seed(SEED + 20)
+    freqs_lm = [InferenceRequest(f"lm-{i:02d}", torch.randint(
+        0, cfg.vocab_size, (SERVE["lens"][0],), generator=gen),
+        model_id="lm") for i in range(FLEET["lm_requests"])]
+    freqs_vit = [InferenceRequest(f"vit-{i:02d}", torch.rand(
+        (px, px, 3), generator=gen), model_id="vit")
+        for i in range(FLEET["vit_requests"])]
+    freqs = freqs_lm + freqs_vit
+    flips = []
+    real_flip = refresher.maybe_flip
+
+    def timed_flip(model_id):
+        pending = refresher.pending(model_id)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = real_flip(model_id)
+        torch.cuda.synchronize()
+        if pending:
+            flips.append(dict(model=model_id, committed=done,
+                              ms=(time.perf_counter() - t0) * 1e3))
+        return done
+
+    refresher.maybe_flip = timed_flip
+    stages = []
+
+    def stage(version: int):
+        g = torch.Generator(device=dev).manual_seed(SEED + 100 + version)
+        new = {k: (v + 1e-3 * torch.randn(v.shape, generator=g, device=dev,
+                                          dtype=v.dtype)
+                   if v.is_floating_point() else v.clone())
+               for k, v in old.items()}
+        nbytes = _tree_bytes(torch, new)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tag = refresher.stage("lm", new, tag=f"lm-v{version}")
+        torch.cuda.synchronize()
+        stages.append(dict(tag=tag, bytes=nbytes,
+                           seconds=time.perf_counter() - t0))
+        return new
+
+    start = launched()
+    faults.set_plan(faults.FaultPlan(seed=SEED).add(
+        "serve.refresh", "corrupt", at=FLEET["corrupt_at"], arg=1.0))
+    try:
+        # open-loop arrivals: a wave of each tenant's requests before each
+        # engine step, so the LM runs several small batches
+        waves = [freqs_lm[i:i + FLEET["lm_wave"]] +
+                 freqs_vit[j:j + FLEET["vit_wave"]]
+                 for i, j in zip(range(0, len(freqs_lm), FLEET["lm_wave"]),
+                                 range(0, len(freqs_vit),
+                                       FLEET["vit_wave"]))]
+        lm_batches, staged = 0, None
+        while waves or len(fleet):
+            for r in (waves.pop(0) if waves else []):
+                if fleet.submit(r) != "admitted":
+                    raise AssertionError(f"request {r.request_id} shed")
+            resp = fbatcher.step()
+            active, active_fp = refresher.active("lm")
+            fp_of.setdefault(id(active), active_fp)
+            if resp and resp[0].model_id == "lm":
+                lm_batches += 1
+                if lm_batches == 1:
+                    staged = stage(1)
+                elif lm_batches == 2:
+                    stage(2)
+        torch.cuda.synchronize()
+    finally:
+        faults.clear_plan()
+        engine.close()
+    fleet_launches = launched() - start
+    by_model = {m: [rec for rec in fleet_records if rec["model"] == m]
+                for m in ("lm", "vit")}
+    fresponses = {rid: rs for rid, rs in fgot.items()}
+    fps_seen = sorted({rs[0].weights_fp for rid, rs in fresponses.items()
+                       if rid.startswith("lm")})
+    log(f"serve (e) [{CARD}]: {len(freqs)} requests, batches "
+        f"{ {m: len(v) for m, v in by_model.items()} }, flips "
+        f"{refresher.flips}, rollbacks {refresher.rollbacks}, quarantined "
+        f"{refresher.quarantined}; the LM's responses carried "
+        f"{[hex(f) for f in fps_seen]}; stages "
+        f"{[(s['tag'], round(s['bytes'] / s['seconds'] / 1e9, 2)) for s in stages]}"
+        f" GB/s a round trip through the engine; flips {flips}; flash "
+        f"forwards {fleet_launches}")
+    if sorted(fresponses) != sorted(r.request_id for r in freqs) or \
+            any(len(v) != 1 for v in fresponses.values()):
+        raise AssertionError("a fleet request was lost or answered twice")
+    if refresher.flips != 1 or refresher.rollbacks != 1 or \
+            refresher.quarantined != [("lm", stages[1]["tag"])]:
+        raise AssertionError("the flip and the corrupt stage's rollback "
+                             "did not happen as staged")
+    if len(fps_seen) != 2 or refresher.fingerprint_of("lm") != \
+            fingerprint(staged):
+        raise AssertionError("the LM's responses do not carry the old and "
+                             "the flipped weights' fingerprints")
+    want = layers * len(by_model["lm"]) + vit_layers * len(by_model["vit"])
+    if fleet_launches != want:
+        raise AssertionError(f"fleet flash forwards {fleet_launches}, want "
+                             f"{want}")
+    # each LM batch equals its padded batch's forward on the weights it
+    # ran on (bit for bit: the same kernels on the same inputs), and each
+    # of its responses carries those weights' fingerprint
+    carried = {}
+    for rec in by_model["lm"]:
+        pads = rec["payloads"] + [rec["payloads"][-1]] * (
+            rec["padded"] - len(rec["payloads"]))
+        with torch.inference_mode():
+            again = torch.func.functional_call(
+                served, rec["weights"], (torch.stack(pads).to(dev),))
+        if not torch.equal(torch.stack(rec["results"]),
+                           again[:len(rec["results"])]):
+            raise AssertionError("an LM batch differs from a forward on "
+                                 "the weights it ran on")
+        for p, res in zip(rec["payloads"], rec["results"]):
+            carried[id(res)] = fp_of[id(rec["weights"])]
+    for rid, rs in fresponses.items():
+        if rid.startswith("lm") and carried[id(rs[0].result)] != \
+                rs[0].weights_fp:
+            raise AssertionError(f"{rid} carries another fingerprint than "
+                                 f"its weights'")
+    vit_agreement = _check_batches(
+        torch, by_model["vit"], lambda x, rec: _plain_vit(vit, x), "(e) vit",
+        dev)
+    fleet_summary = dict(
+        batches={m: len(v) for m, v in by_model.items()},
+        occupancy={m: statistics.mean(len(r["payloads"]) for r in v)
+                   for m, v in by_model.items()},
+        flips=flips, stages=[dict(s, gb_per_s=s["bytes"] / s["seconds"]
+                                  / 1e9) for s in stages],
+        flash_launches=fleet_launches, vit_agreement=vit_agreement,
+        **_latencies([rs[0] for rs in fresponses.values()]))
+    total = launched() - first
+    hvd.shutdown()
+    return dict(lm=lm_serve, fleet=fleet_summary), {"flash_fwd": total}
+
+
+def _plain_vit(vit, x):
+    with _plain_flash():
+        return vit(x)
+
+
+class _plain_flash:
+    """Inside: ``flash_fwd`` computes its plain PyTorch version on any
+    device (the served paths' reference forward: the same model and
+    inputs, the kernel's twin in its place)."""
+
+    def __enter__(self):
+        from horovod_tpu_torch.ops import kernels as K
+
+        self._kernel = K.flash_fwd
+        K.flash_fwd = K.flash_fwd_plain
+
+    def __exit__(self, *exc):
+        from horovod_tpu_torch.ops import kernels as K
+
+        K.flash_fwd = self._kernel
+        return False
+
+
 def main() -> int:
     global CARD
     import torch
@@ -4303,6 +4973,10 @@ def main() -> int:
     memory = timed("18 memory", phase_memory, torch, train)
     for name, n in memory.pop("launches").items():
         counts[name] += n
+    guard, guard_counts = timed("19a guard", phase_guard, torch, train)
+    serve, serve_counts = timed("19b serve", phase_serve, torch)
+    for name, n in list(guard_counts.items()) + list(serve_counts.items()):
+        counts[name] += n
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
     # the moe summary's "chunk"
@@ -4350,6 +5024,8 @@ def main() -> int:
     log(f"pipeline summary [{CARD}]: {json.dumps(pipeline)}")
     log(f"tools summary [{CARD}]: {json.dumps(tools)}")
     log(f"memory summary [{CARD}]: {json.dumps(memory)}")
+    log(f"guard summary [{CARD}]: {json.dumps(guard)}")
+    log(f"serve summary [{CARD}]: {json.dumps(serve)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

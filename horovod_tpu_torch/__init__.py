@@ -41,6 +41,7 @@ from horovod_tpu_torch import checkpoint  # noqa: F401
 from horovod_tpu_torch import data  # noqa: F401
 from horovod_tpu_torch import elastic  # noqa: F401
 from horovod_tpu_torch import faults  # noqa: F401
+from horovod_tpu_torch import guard  # noqa: F401
 from horovod_tpu_torch.exceptions import (  # noqa: F401
     HorovodInternalError,
     HostsUpdatedInterrupt,
@@ -262,5 +263,5 @@ __all__ = [
     "DistributedGradientTape", "DistributedTrainStep",
     "ShardedOptimizerState", "join_step", "SyncBatchNorm",
     "sync_batch_stats",
-    "checkpoint", "data", "elastic",
+    "checkpoint", "data", "elastic", "guard",
 ]

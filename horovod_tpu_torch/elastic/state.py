@@ -89,10 +89,12 @@ class State:
         where a survivor's already covers the update.  Through the eager
         plane's host metadata exchange (int64 stays int64), behind a
         ``hostsync`` negotiation that a rank in ``join()`` answers with
-        zeros."""
+        zeros.  Without an initialized runtime the process is a world of
+        one, as the JAX package's is without one."""
         from horovod_tpu_torch.ops import eager
+        from horovod_tpu_torch.runtime import state as rt
 
-        if eager._size() == 1:
+        if not rt.is_initialized() or eager._size() == 1:
             return prev_ts, last_ts, update_res
         eager._negotiate({"kind": "hostsync", "sig": "hostsync"})
         allv = eager._allgather_host_metadata(

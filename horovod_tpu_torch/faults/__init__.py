@@ -26,6 +26,19 @@ Sites instrumented in the port (grep ``faults.inject``):
 ``stall.watch``             each pass of the stall inspector's watcher
 ``telemetry.export``        the metrics snapshot writer, once per export
                             pass
+``guard.check``             each ``TrainingGuard.check_replicas``
+``guard.params``            the same call, with the parameters as the
+                            value: ``corrupt`` is the silent-data-corruption
+                            fault the replica vote must catch
+``guard.repair``            each peer-state fetch of a repair
+``worker.preempt``          a preemption drain's finalize
+``serve.batch``             a replica, before each batch
+``serve.feed``              the batcher, at the top of each step
+``serve.drain``             a replica's drain, once its lease is clear
+``serve.tenant``            each weighted-fair pick of the fleet
+``serve.refresh``           each weight flip, with the staged weights as the
+                            value (``corrupt`` must be caught by the verify)
+``serve.scale``             each autoscale poll
 ==========================  =================================================
 
 Typical use::

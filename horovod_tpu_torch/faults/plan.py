@@ -1,9 +1,10 @@
 """Seeded fault plans and the ``inject()`` hook.
 
 A copy of ``horovod_tpu/faults/plan.py``: its warnings go to the standard
-``logging`` module, and the ``corrupt`` action flattens its value with
-torch's pytree, which orders a dict's leaves as inserted (JAX's sorts the
-keys), so on a dict it may pick another leaf than the JAX package.
+``logging`` module, and the ``corrupt`` action walks its value in the JAX
+package's leaf order (:mod:`~horovod_tpu_torch.utils.pytree`: a dict's
+keys sorted) and perturbs a torch tensor leaf on its own device, in its own
+dtype.
 
 Grammar (``HOROVOD_FAULT_PLAN``, ``;``-separated clauses)::
 
@@ -50,6 +51,7 @@ Actions:
 from __future__ import annotations
 
 import logging
+import math
 import os
 import random
 import subprocess
@@ -261,28 +263,59 @@ def _corrupt_value(value: Any, scale: float, seed: int, site: str,
     ``(seed, site, hit)`` — a pure function of the plan, so two runs of
     the same plan corrupt the same element by the same amount.  The
     perturbation ``x += scale * (1 + |x|)`` moves the element whether or
-    not it is near zero, and preserves the leaf's dtype."""
+    not it is near zero, and preserves the leaf's dtype.  The leaves are
+    visited in the JAX package's order, so both packages pick the same
+    element of the same tree; a torch tensor leaf comes back as a tensor
+    of its dtype on its device (numpy leaves as numpy arrays), and the
+    original is left untouched."""
     if value is None:
         return scale
     # lazy: only the corrupt action needs array machinery, and _fire
     # never runs on the production no-plan path
     import numpy as np
-    from torch.utils._pytree import tree_flatten, tree_unflatten
+    import torch
+
+    from horovod_tpu_torch.utils import pytree
 
     rng = random.Random(f"{seed}:{site}:{hit}:corrupt")
-    leaves, treedef = tree_flatten(value)
+    leaves = pytree.leaves(value)
     eligible = [i for i, leaf in enumerate(leaves)
-                if hasattr(leaf, "shape") and np.prod(leaf.shape) > 0]
+                if hasattr(leaf, "shape") and int(np.prod(leaf.shape)) > 0]
     if not eligible:
         return value
     li = eligible[rng.randrange(len(eligible))]
-    leaf = np.array(leaves[li])          # host copy, original untouched
-    flat = leaf.reshape(-1)
-    j = rng.randrange(flat.size)
-    x = float(flat[j])
-    flat[j] = np.asarray(x + scale * (1.0 + abs(x)), dtype=leaf.dtype)
-    leaves[li] = leaf
-    return tree_unflatten(leaves, treedef)
+    leaf = leaves[li]
+    if isinstance(leaf, torch.Tensor):
+        # a device copy: no host round trip of the leaf, whatever its dtype
+        out = leaf.detach().clone(memory_format=torch.contiguous_format)
+        flat = out.view(-1)
+        j = rng.randrange(flat.numel())
+        x = float(flat[j])
+        flat[j] = _rounded(x + scale * (1.0 + abs(x)), out.dtype)
+    else:
+        out = np.array(leaf)             # host copy, original untouched
+        flat = out.reshape(-1)
+        j = rng.randrange(flat.size)
+        x = float(flat[j])
+        flat[j] = np.asarray(x + scale * (1.0 + abs(x)), dtype=out.dtype)
+    return pytree.map_leaves(value, lambda i, l: out if i == li else l)
+
+
+#: (significand bits, least normal exponent in ``math.frexp``'s form) of
+#: the half-width floats, which torch rounds from a Python float through
+#: float32 (two roundings) where numpy rounds once
+_HALF_FORMATS = {"torch.bfloat16": (8, -125), "torch.float16": (11, -13)}
+
+
+def _rounded(v: float, dtype) -> float:
+    """``v`` rounded to nearest-even in ``dtype`` when that is bf16 or
+    fp16 (a value torch then stores exactly), else ``v``."""
+    fmt = _HALF_FORMATS.get(str(dtype))
+    if fmt is None or v == 0.0 or not math.isfinite(v):
+        return v
+    bits, emin = fmt
+    e = max(math.frexp(v)[1], emin)
+    return math.ldexp(round(math.ldexp(v, bits - e)), e - bits)
 
 
 def _make_exception(name: Optional[str], site: str, hit: int) -> BaseException:

@@ -19,6 +19,11 @@ Adasum-reduced (:func:`adasum_updates`).  ``sparse_params`` routes
 embedding-style gradients through the row-sparse exchange
 (:func:`_sparse_leaf_reduce`).  :class:`DistributedGradientTape` reduces
 what a gradient function returns through the eager plane.
+
+Each wrapper also has ``guarded_step(limit)``, the update under the
+numerics guard (``DistributedTrainStep(guard=)``): the global gradient
+norm is read on the host before the update, and the update runs only when
+the norm is finite and within ``limit`` (:func:`guard_ok`).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import inspect
 import logging
+import math
 import os
 import weakref
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
@@ -36,7 +42,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from horovod_tpu_torch.ops import collectives as C
 from horovod_tpu_torch.ops.bucketing import plan_buckets
-from horovod_tpu_torch.ops.collectives import Adasum, Average, ReduceOp
+from horovod_tpu_torch.ops.collectives import Adasum, Average, ReduceOp, Sum
 from horovod_tpu_torch.ops.fused_collectives import resolve_fused_collectives
 from horovod_tpu_torch.runtime import distributed as hvd_dist
 from horovod_tpu_torch.runtime import state
@@ -50,6 +56,38 @@ _log = logging.getLogger(__name__)
 
 def _fusion_threshold() -> int:
     return state.global_state().config.fusion_threshold_bytes
+
+
+def grad_sumsq(grads: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+    """fp32 sum of squares over every tensor of ``grads`` (None skipped):
+    the global-norm reduction of the guarded step (JAX ``_sumsq``), each
+    tensor's fp32 2-norm from one multi-tensor pass, then the sum of their
+    squares.  A 0-d tensor on the runtime's device when there is none."""
+    grads = [g for g in grads if g is not None]
+    if not grads:
+        return torch.zeros((), dtype=torch.float32,
+                           device=state.global_state().device)
+    norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+    return torch.stack(norms).square().sum()
+
+
+def params_sumsq(params: Sequence[torch.Tensor]) -> torch.Tensor:
+    """:func:`grad_sumsq` over the ``.grad`` of ``params``."""
+    return grad_sumsq([p.grad for p in params])
+
+
+def world_gnorm(params: Sequence[torch.Tensor], sumsq=None) -> float:
+    """The guarded norm where JAX takes it before the reduction (the
+    sharded exchange, the delta form): the root of the world's sum of each
+    rank's ``sumsq(params)`` (default :func:`params_sumsq`), one scalar
+    all-reduce."""
+    return float(C.allreduce((sumsq or params_sumsq)(params), op=Sum).sqrt())
+
+
+def guard_ok(gnorm: float, limit: float) -> bool:
+    """The guarded step's predicate (JAX ``isfinite(gnorm) & (gnorm <=
+    limit)``): the update runs only when it holds."""
+    return math.isfinite(gnorm) and gnorm <= limit
 
 
 def _sparse_leaf_reduce(g: torch.Tensor, max_rows: int, op: ReduceOp,
@@ -459,6 +497,25 @@ class _DistributedOptimizer:
         self._close_round()
         return self.optimizer.step(closure)
 
+    @raise_internal("the optimizer step")
+    def guarded_step(self, limit: float, sumsq=None) -> Optional[float]:
+        """:meth:`step` under the numerics guard: once the exchange has
+        finished, the global norm of the reduced gradients
+        (``sumsq(params)`` of the trainable parameters, default
+        :func:`params_sumsq`) is read on the host, and the wrapped
+        optimizer steps only when :func:`guard_ok` holds; otherwise
+        nothing of its state moves.  Returns the norm, or None on a pass
+        that only accumulates."""
+        if not self._micro_step():
+            self._close_round()
+            return None
+        self.synchronize()
+        self._close_round()
+        gnorm = float((sumsq or params_sumsq)(self._trainable).sqrt())
+        if guard_ok(gnorm, limit):
+            self.optimizer.step()
+        return gnorm
+
 
 @dataclasses.dataclass
 class ShardedOptimizerState:
@@ -693,6 +750,23 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
             return loss
         self._exchange_and_update()
         return loss
+
+    @raise_internal("the optimizer step")
+    def guarded_step(self, limit: float, sumsq=None) -> Optional[float]:
+        """:meth:`step` under the numerics guard, with JAX's norm for the
+        sharded exchange (:func:`world_gnorm` of the gradients before the
+        reduction).  When :func:`guard_ok` fails, neither the
+        reduce-scatter, the update nor the allgather runs, so the
+        error-feedback residuals stay as they were too.  Returns the norm,
+        or None on a pass that only accumulates."""
+        self._world = state.check_world(self._world,
+                                        "this DistributedOptimizer")
+        if not self._micro_step():
+            return None
+        gnorm = world_gnorm(self._trainable, sumsq)
+        if guard_ok(gnorm, limit):
+            self._exchange_and_update()
+        return gnorm
 
     @torch.no_grad()
     def _exchange_and_update(self) -> None:
@@ -1013,6 +1087,22 @@ class _DistributedAdasumOptimizer:
         if self._micro_step():
             self._delta_step()
         return loss
+
+    @raise_internal("the optimizer step")
+    def guarded_step(self, limit: float, sumsq=None) -> Optional[float]:
+        """:meth:`step` under the numerics guard, with JAX's ``op=None``
+        norm (:func:`world_gnorm` of the local gradients); when
+        :func:`guard_ok` fails the whole delta step (local update and
+        Adasum) is skipped.  Returns the norm, or None on a pass that only
+        accumulates."""
+        self._world = state.check_world(self._world,
+                                        "this DistributedAdasumOptimizer")
+        if not self._micro_step():
+            return None
+        gnorm = world_gnorm(self._params, sumsq)
+        if guard_ok(gnorm, limit):
+            self._delta_step()
+        return gnorm
 
     @torch.no_grad()
     def _delta_step(self) -> None:

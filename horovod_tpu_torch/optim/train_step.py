@@ -160,6 +160,26 @@ class DistributedTrainStep:
     models read per block.  With the sharded exchange, the first call sets
     the cost model's wire bytes a step per layout level as gauges.
 
+    ``guard`` attaches the numerics guardian
+    (:class:`~horovod_tpu_torch.guard.TrainingGuard`, or anything with
+    ``current_limit()`` and ``observe(gnorm, limit=)``): once the exchange
+    has finished, the global gradient norm is computed on the device and
+    read on the host, and the optimizer's update runs only when the norm
+    is finite and at most the guardian's current limit (rounded to fp32,
+    as the JAX step's traced limit is); otherwise the parameters and the
+    optimizer's state (moments, step counters, error-feedback residuals)
+    stay as they were.  Then the guardian observes the norm against that
+    limit and applies its policy, raising ``GuardRollback``/``GuardAbort``
+    from the call.  The norm is JAX's: that of the reduced gradient on the
+    hook path and under pjit, where a tp or fsdp shard's squares are summed
+    over the group that holds the shards and a leaf tp leaves whole counts
+    once; under the sharded exchange and ``op=None`` the root of the
+    world's sum of each rank's sum of squares before the reduction.  A
+    call that only accumulates (``backward_passes_per_step``) observes
+    nothing.  Every rank reaches the same verdict.  ``steps_per_call`` must
+    be 1 (JAX's scanned multi-step call has no eager counterpart here), and
+    a guard refuses an ep plan, whose experts differ by rank.
+
     ``moe_fused`` and ``moe_capacity_factor`` are the MoE schedule (unset:
     ``HOROVOD_MOE_FUSED_DISPATCH`` and ``HOROVOD_MOE_CAPACITY_FACTOR``;
     neither set: the model's ``MoEConfig`` rules).  The step exposes them
@@ -185,7 +205,22 @@ class DistributedTrainStep:
                  data_axes=None,
                  fsdp_axis: Optional[str] = None,
                  fsdp_min_weight_size: Optional[int] = None,
-                 remat: Union[bool, str] = False):
+                 remat: Union[bool, str] = False,
+                 guard=None, steps_per_call: int = 1):
+        if steps_per_call < 1:
+            raise ValueError(
+                f"steps_per_call must be >= 1, got {steps_per_call}")
+        if guard is not None and steps_per_call != 1:
+            raise ValueError(
+                "guard= requires steps_per_call=1: the guardian must "
+                "observe (and be able to suppress) every optimizer step "
+                "individually — a scanned multi-step program would apply "
+                "k-1 updates before the host sees the first norm")
+        if steps_per_call != 1:
+            raise ValueError(
+                f"steps_per_call={steps_per_call}: the eager step runs one "
+                f"optimizer step a call")
+        self._guard = guard
         self._world = state.world_id()
         self.plan, self.mesh = _resolve_plan(plan, mesh)
         plan = self.plan
@@ -283,6 +318,11 @@ class DistributedTrainStep:
                 "mode='shard_map' for op=Adasum/Sum or compression")
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}")
+        if guard is not None and plan is not None and plan.ep > 1:
+            raise ValueError(
+                f"guard= with plan {plan.to_string()}: each ep rank holds "
+                f"other experts, and the guarded norm counts only leaves "
+                f"that are whole or tp/fsdp shards")
         self._mode = mode
         self._fsdp_axis = fsdp_axis
         self._fsdp_min = fsdp_min_weight_size
@@ -587,11 +627,74 @@ class DistributedTrainStep:
         optimizer.zero_grad(set_to_none=True)
         loss = self._loss_fn(model, batch)
         loss.backward()
-        optimizer.step()
+        gnorm = None
+        if self._guard is None:
+            optimizer.step()
+        else:
+            # the limit the step runs with, in fp32 as JAX traces it
+            limit = float(np.float32(self._guard.current_limit()))
+            gnorm = optimizer.guarded_step(limit,
+                                           sumsq=self._plan_sumsq(model))
         if not self._wire_recorded:
             self._record_wire_telemetry(model, optimizer)
-        return model, optimizer, C.allreduce(loss.detach(), op=Average,
-                                             group=self._scope)
+        loss = C.allreduce(loss.detach(), op=Average, group=self._scope)
+        if gnorm is not None:
+            # the state is known unchanged on a failed verdict: the policy
+            # may raise now
+            self._guard.observe(gnorm, limit=limit)
+        return model, optimizer, loss
+
+    def _plan_sumsq(self, model: torch.nn.Module):
+        """The guarded norm's sum of squares over the trainable parameters
+        under a pjit plan that shards leaves (tp > 1 or an fsdp axis): each
+        tp shard's and fsdp shard's squares summed over the groups that
+        hold its pieces (fsdp first, then tp), and the squares of the
+        leaves tp leaves whole added on tp index 0 only, so every element
+        counts once and every rank holds the same sum.  None (the
+        optimizer's own sum) otherwise."""
+        plan = self.plan
+        if self._mode != "pjit" or plan is None or (
+                plan.tp == 1 and self._fsdp_axis is None):
+            return None
+        import torch.distributed as dist
+
+        from horovod_tpu_torch.optim.optimizer import grad_sumsq
+
+        tp_ids = set()
+        for m in tp_modules(model):
+            if m.tp > 1:
+                tp_ids.add(id(m.weight))
+                if isinstance(m, ColumnParallelDense) and m.bias is not None:
+                    tp_ids.add(id(m.bias))
+        placed = set() if self.fsdp_placement is None else \
+            {id(p) for p in self.fsdp_placement.params}
+        tp_group = self.mesh.group("tp")
+        fsdp_group = None if self._fsdp_axis is None else \
+            self.mesh.group(self._fsdp_axis)
+        first_tp = self.mesh.index("tp") == 0
+
+        def sumsq(params) -> torch.Tensor:
+            kinds = {"whole": [], "tp": [], "fsdp": [], "both": []}
+            for p in params:
+                if id(p) in placed:
+                    kind = "both" if id(p) in tp_ids else "fsdp"
+                else:
+                    kind = "tp" if id(p) in tp_ids else "whole"
+                kinds[kind].append(p.grad)
+            s = {k: grad_sumsq(g).reshape(1) for k, g in kinds.items()}
+            if fsdp_group is not None:
+                placed_sums = torch.cat([s["both"], s["fsdp"]])
+                dist.all_reduce(placed_sums, group=fsdp_group)
+                s["both"], s["fsdp"] = placed_sums[:1], placed_sums[1:]
+            total = s["tp"] + s["both"]
+            if tp_group is None:
+                return total + s["whole"] + s["fsdp"]
+            if first_tp:
+                total = total + s["whole"] + s["fsdp"]
+            dist.all_reduce(total, group=tp_group)
+            return total
+
+        return sumsq
 
     def _record_wire_telemetry(self, model: torch.nn.Module,
                                optimizer) -> None:

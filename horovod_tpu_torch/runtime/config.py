@@ -8,7 +8,9 @@ reduction operator, the fused-collectives mode, the sequence-parallel ring's lay
 the parallelism plan, the MoE dispatch knobs, the input pipeline's
 prefetch depth and thread count, the runtime tools (the timeline, the
 stall inspector, the parameter manager and the metrics exporters, with the
-set of knobs the user fixed), the memory plane and the hardware model,
+set of knobs the user fixed), the memory plane, the hardware model and
+the training-state guard (the serving plane's knobs are read where they
+are used),
 under the same ``HOROVOD_*`` names and with the same defaults, so one
 environment drives both packages (the degrade knobs are read where they
 are used, as in the JAX package).  A knob
@@ -97,6 +99,20 @@ KNOWN_KNOBS = frozenset({
     #    host offload
     "HOROVOD_REMAT_POLICY", "HOROVOD_HBM_BUDGET_BYTES",
     "HOROVOD_OFFLOAD_OPTIMIZER", "HOROVOD_OFFLOAD_DEPTH",
+    # -- the training-state guard (guard/, DistributedTrainStep(guard=))
+    "HOROVOD_GUARD", "HOROVOD_GUARD_POLICY",
+    "HOROVOD_GUARD_CHECK_INTERVAL", "HOROVOD_GUARD_ZSCORE",
+    "HOROVOD_GUARD_WARMUP_STEPS", "HOROVOD_GUARD_EMA",
+    "HOROVOD_GUARD_PREEMPT",
+    # -- the serving plane (serve/): read where they are used, as in the
+    #    JAX package
+    "HOROVOD_SERVE_QUEUE_DEPTH", "HOROVOD_SERVE_MAX_REQUEUES",
+    "HOROVOD_SERVE_MAX_BATCH", "HOROVOD_SERVE_DRAIN_TIMEOUT_S",
+    "HOROVOD_SERVE_SCALE_UP_DEPTH", "HOROVOD_SERVE_SCALE_DOWN_DEPTH",
+    "HOROVOD_SERVE_OVERLOAD_FRACTION", "HOROVOD_SERVE_REFRESH_VERIFY",
+    "HOROVOD_SERVE_SCALE_HOLD_S", "HOROVOD_SERVE_SCALE_COOLDOWN_S",
+    "HOROVOD_SERVE_SCALE_MIN_REPLICAS",
+    "HOROVOD_SERVE_SCALE_MAX_REPLICAS",
 })
 
 #: the launcher's stamp on every worker (``HOROVOD_CONTROLLER``): the
@@ -256,6 +272,16 @@ class Config:
     calibration_path: Optional[str] = None
     hw_preset: Optional[str] = None
 
+    # -- the training-state guard (guard/): numerics guardian, replica
+    # checksums, rollback-and-replay, preemption grace
+    guard_enabled: bool = False
+    guard_policy: str = "rollback"       # skip_step | rollback | abort
+    guard_check_interval: int = 10       # replica-checksum cadence (steps)
+    guard_zscore: float = 6.0            # grad-norm spike threshold
+    guard_warmup_steps: int = 10         # steps before spike detection arms
+    guard_ema: float = 0.99              # EMA decay for the norm baseline
+    guard_preempt: bool = True           # SIGTERM graceful-departure handler
+
     # knobs the user set explicitly, which autotune must not touch
     fixed_knobs: frozenset = frozenset()
 
@@ -339,6 +365,15 @@ class Config:
             calibration_path=os.environ.get("HOROVOD_CALIBRATION_PATH")
             or None,
             hw_preset=os.environ.get("HOROVOD_HW_PRESET") or None,
+            guard_enabled=_env_bool("HOROVOD_GUARD", False),
+            guard_policy=os.environ.get("HOROVOD_GUARD_POLICY",
+                                        "rollback").lower(),
+            guard_check_interval=_env_int("HOROVOD_GUARD_CHECK_INTERVAL",
+                                          10),
+            guard_zscore=_env_float("HOROVOD_GUARD_ZSCORE", 6.0),
+            guard_warmup_steps=_env_int("HOROVOD_GUARD_WARMUP_STEPS", 10),
+            guard_ema=_env_float("HOROVOD_GUARD_EMA", 0.99),
+            guard_preempt=_env_bool("HOROVOD_GUARD_PREEMPT", True),
             fixed_knobs=frozenset(
                 knob for name, knob in _FIXABLE
                 if os.environ.get(name) not in (None, "")),

@@ -1,0 +1,216 @@
+"""Continuous batcher: packs compatible requests into executables (a copy
+of ``horovod_tpu/serve/batcher.py``).
+
+The batcher is the serving plane's engine loop.  Each :meth:`step`
+drains up to ``HOROVOD_SERVE_MAX_BATCH`` batch-compatible requests
+(same :func:`~horovod_tpu_torch.serve.request.payload_signature`) from the
+admission queue, leases them to a SERVING replica picked round-robin
+from the pool, and feeds the observed service time back to the queue's
+admission controller.  Run it inline (tests, seeded scenarios —
+deterministic on a logical clock) or as a background feeder thread
+(:meth:`start` / :meth:`stop`, the production shape).
+
+:class:`ExecutableCache` is the hot-swap layer: batch sizes are bucketed
+so a handful of padded executables cover every occupancy, each bucket
+built once.  :meth:`ExecutableCache.from_module` builds them over a
+``torch.nn.Module``: a bucket's first build runs the forward once at the
+padded size (the JAX package compiles there, through its AOT store; the
+port has no compiled executable or disk warm start yet).
+
+Fault site ``serve.feed`` fires at the top of every step; a ``hang``
+there models a wedged queue feeder (docs/faults.md).
+"""
+
+from __future__ import annotations
+
+import inspect
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from horovod_tpu_torch import faults, telemetry
+from horovod_tpu_torch.runtime.config import _env_int
+from horovod_tpu_torch.serve.pool import ReplicaPool
+from horovod_tpu_torch.serve.queue import AdmissionQueue
+from horovod_tpu_torch.serve.request import InferenceResponse, payload_signature
+
+DEFAULT_MAX_BATCH = 8
+DEFAULT_BUCKET_SIZES = (1, 2, 4, 8, 16, 32)
+
+_TEL_OCCUPANCY = telemetry.histogram(
+    "hvd_serve_batch_occupancy", "requests packed per executed batch",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0))
+
+
+class ExecutableCache:
+    """Executable hot-swap keyed by ``(model_id, signature, padded
+    batch size)``.
+
+    ``build(signature, padded_size) -> executor`` is invoked once per
+    key (a ``build`` taking a third ``model_id`` argument receives it —
+    the fleet shape, one executable set per tenant model); use
+    :meth:`from_module` to build them over a model.  Short batches are
+    padded up to the next bucket (by repeating the tail payload) and the
+    results truncated, so the executable set stays small and every size
+    hits a cached entry.  ``model_id=None`` keys the single-model plane —
+    its entries never collide with a named tenant's.
+    """
+
+    def __init__(self, build: Callable[..., Callable],
+                 bucket_sizes: Sequence[int] = DEFAULT_BUCKET_SIZES):
+        self._build = build
+        try:
+            params = inspect.signature(build).parameters
+            self._build_takes_model = len(params) >= 3 or any(
+                p.kind == inspect.Parameter.VAR_POSITIONAL
+                for p in params.values())
+        except (TypeError, ValueError):    # builtins, C callables
+            self._build_takes_model = False
+        self.bucket_sizes = tuple(sorted(bucket_sizes))
+        self._lock = threading.Lock()
+        self._cache: Dict[Tuple[Optional[str], Tuple, int],
+                          Callable] = {}
+
+    @classmethod
+    def from_module(cls, model, example_batch: Callable[[Tuple, int], Any],
+                    bucket_sizes: Sequence[int] = DEFAULT_BUCKET_SIZES
+                    ) -> "ExecutableCache":
+        """Executors over ``model``'s forward.  ``example_batch`` maps
+        ``(signature, padded_size)`` to an input batch of that size; each
+        bucket's build runs the forward on it once under
+        ``torch.inference_mode()`` on the model's device (the counterpart
+        of the JAX package's compile of the bucket) and returns an
+        executor that stacks the payloads on that device, runs the forward
+        — ``torch.func.functional_call(model, weights, ...)`` when given
+        ``weights`` (a name → tensor dict of the model's parameters and
+        buffers) — and returns one result per payload: the output's rows."""
+        import torch
+
+        device = next(iter(model.parameters()), torch.empty(0)).device
+
+        def build(signature: Tuple, padded: int) -> Callable:
+            with torch.inference_mode():
+                model(example_batch(signature, padded).to(device))
+
+            def executor(payloads: Sequence[Any], weights=None) -> List[Any]:
+                x = torch.stack([torch.as_tensor(p) for p in payloads])
+                x = x.to(device, non_blocking=True)
+                with torch.inference_mode():
+                    out = model(x) if weights is None else \
+                        torch.func.functional_call(model, weights, (x,))
+                return list(out.unbind(0))
+
+            return executor
+
+        return cls(build, bucket_sizes=bucket_sizes)
+
+    def padded_size(self, n: int) -> int:
+        for b in self.bucket_sizes:
+            if n <= b:
+                return b
+        return n
+
+    def get(self, signature: Tuple, n: int,
+            model_id: Optional[str] = None) -> Callable:
+        key = (model_id, signature, self.padded_size(n))
+        with self._lock:
+            ex = self._cache.get(key)
+        if ex is None:
+            if self._build_takes_model and model_id is not None:
+                built = self._build(signature, key[2], model_id)
+            else:
+                built = self._build(signature, key[2])
+            with self._lock:
+                ex = self._cache.setdefault(key, built)
+        return ex
+
+    def run(self, payloads: Sequence[Any],
+            model_id: Optional[str] = None, **kwargs) -> List[Any]:
+        """Replica-executor entry point: pad to the bucket, execute,
+        truncate — shaped to plug straight into ``Replica(executor=)``
+        (extra replica keywords like ``weights`` pass through to the
+        built executor when it accepts them, and are dropped when it
+        does not — a weight-less executable set stays valid)."""
+        payloads = list(payloads)
+        signature = payload_signature(payloads[0])
+        padded = self.padded_size(len(payloads))
+        ex = self.get(signature, len(payloads), model_id=model_id)
+        full = payloads + [payloads[-1]] * (padded - len(payloads))
+        if kwargs:
+            try:
+                accepts = any(
+                    p.kind == inspect.Parameter.VAR_KEYWORD
+                    or p.name in kwargs
+                    for p in inspect.signature(ex).parameters.values())
+            except (TypeError, ValueError):
+                accepts = False
+            if accepts:
+                return list(ex(full, **kwargs))[:len(payloads)]
+        return list(ex(full))[:len(payloads)]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._cache)
+
+
+class ContinuousBatcher:
+    """Queue → replica engine loop (module docstring)."""
+
+    def __init__(self, queue: AdmissionQueue, pool: ReplicaPool,
+                 max_batch: Optional[int] = None,
+                 on_response: Optional[Callable[[InferenceResponse],
+                                                None]] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 poll_interval_s: float = 0.001):
+        self._queue = queue
+        self._pool = pool
+        self.max_batch = max_batch if max_batch is not None \
+            else _env_int("HOROVOD_SERVE_MAX_BATCH", DEFAULT_MAX_BATCH)
+        self._on_response = on_response
+        self._clock = clock
+        self._poll_interval_s = poll_interval_s
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def step(self) -> List[InferenceResponse]:
+        """One engine iteration: pick a replica, lease a compatible
+        batch, execute, feed service time back to admission.  Returns
+        the responses (empty when idle, when no replica is SERVING, or
+        when the replica died mid-batch — its lease re-enqueues)."""
+        faults.inject("serve.feed")
+        replica = self._pool.pick()
+        if replica is None:
+            return []
+        batch = self._queue.take(self.max_batch)
+        if not batch:
+            return []
+        _TEL_OCCUPANCY.observe(float(len(batch)))
+        t0 = self._clock()
+        responses = self._pool.execute(replica, batch)
+        if responses:
+            self._queue.note_service_time(max(self._clock() - t0, 0.0))
+            if self._on_response is not None:
+                for resp in responses:
+                    self._on_response(resp)
+        return responses
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            if not self.step():
+                # idle or drained — back off so the feeder doesn't spin
+                self._stop.wait(self._poll_interval_s)
+
+    def start(self) -> None:
+        """Start the background feeder thread (production shape; tests
+        and the seeded scenarios call :meth:`step` inline instead)."""
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(
+            target=self._run, name="hvd-serve-batcher", daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout_s: float = 5.0) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout_s)
+            self._thread = None

@@ -22,7 +22,6 @@
    batch.
 """
 
-import re
 import types
 from pathlib import Path
 
@@ -47,21 +46,18 @@ from horovod_tpu_torch.elastic import state as TS
 from horovod_tpu_torch.exceptions import HorovodInternalError
 from horovod_tpu_torch.runner import hosts as THosts
 
+from torch_port_workers import port_test_module
+
 TESTS = Path(__file__).resolve().parent
 
 
 def _port_of(name: str) -> types.ModuleType:
-    """``tests/<name>`` with its imports of the JAX package pointed at the
-    port, run as a module of its own (its slow mark, which keeps the JAX
-    driver's cases out of tier-1 where they hang, is dropped: the port's
-    driver cases finish in seconds)."""
+    """``tests/<name>`` against the port (:func:`port_test_module`), its
+    slow mark, which keeps the JAX driver's cases out of tier-1 where they
+    hang, dropped: the port's driver cases finish in seconds."""
+    slow = "pytestmark = pytest.mark.slow"
     src = (TESTS / name).read_text()
-    src = re.sub(r"\bhorovod_tpu\b(?!_torch)", "horovod_tpu_torch", src)
-    src = src.replace("pytestmark = pytest.mark.slow", "")
-    mod = types.ModuleType(f"port_{name[:-3]}")
-    mod.__file__ = str(TESTS / name)
-    exec(compile(src, f"port of tests/{name}", "exec"), mod.__dict__)
-    return mod
+    return port_test_module(name, [(slow, "")] if slow in src else [])
 
 
 _RECOVERY = _port_of("test_elastic_recovery.py")

@@ -128,7 +128,26 @@ class TestConfig:
            "HOROVOD_DEGRADE_PROMOTE": "0",
            "HOROVOD_REMAT_POLICY": "dots",
            "HOROVOD_HBM_BUDGET_BYTES": "1000000000",
-           "HOROVOD_OFFLOAD_OPTIMIZER": "1", "HOROVOD_OFFLOAD_DEPTH": "3"}
+           "HOROVOD_OFFLOAD_OPTIMIZER": "1", "HOROVOD_OFFLOAD_DEPTH": "3",
+           # the guard's: Config fields; the serving plane's are read
+           # where they are used, as in the JAX package
+           "HOROVOD_GUARD": "1", "HOROVOD_GUARD_POLICY": "Skip_Step",
+           "HOROVOD_GUARD_CHECK_INTERVAL": "4",
+           "HOROVOD_GUARD_ZSCORE": "3.5",
+           "HOROVOD_GUARD_WARMUP_STEPS": "2", "HOROVOD_GUARD_EMA": "0.9",
+           "HOROVOD_GUARD_PREEMPT": "0",
+           "HOROVOD_SERVE_QUEUE_DEPTH": "64",
+           "HOROVOD_SERVE_MAX_REQUEUES": "2",
+           "HOROVOD_SERVE_MAX_BATCH": "4",
+           "HOROVOD_SERVE_DRAIN_TIMEOUT_S": "3",
+           "HOROVOD_SERVE_SCALE_UP_DEPTH": "16",
+           "HOROVOD_SERVE_SCALE_DOWN_DEPTH": "1",
+           "HOROVOD_SERVE_OVERLOAD_FRACTION": "0.5",
+           "HOROVOD_SERVE_REFRESH_VERIFY": "0",
+           "HOROVOD_SERVE_SCALE_HOLD_S": "2",
+           "HOROVOD_SERVE_SCALE_COOLDOWN_S": "10",
+           "HOROVOD_SERVE_SCALE_MIN_REPLICAS": "1",
+           "HOROVOD_SERVE_SCALE_MAX_REPLICAS": "4"}
 
     @pytest.mark.parametrize("set_env", [False, True])
     def test_matches_jax(self, monkeypatch, set_env):

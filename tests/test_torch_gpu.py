@@ -23,7 +23,9 @@ the row-sparse exchange at a world of 4; run them alone on four cards:
 ``-k "test_adasum_over_nccl or test_sparse_over_nccl"``.
 ``test_hierarchy_over_nccl`` runs the two-level exchange on four cards
 laid out 2 x 2, the 870.9M LM among it: ``-s -k
-test_hierarchy_over_nccl`` alone on four cards.
+test_hierarchy_over_nccl`` alone on four cards.  ``test_guard_over_nccl``
+corrupts one replica of four and rolls the world back: ``-s -k
+test_guard_over_nccl`` alone on four cards.
 Imports torch, numpy, the port and ``chip_smoke``'s inputs and tolerances
 only.
 """
@@ -1494,6 +1496,36 @@ class TestNcclWorld:
               f"model {hw}")
         assert hw.ici_bytes_per_s > 0 and hw.hbm_capacity_bytes == \
             CM.H100.hbm_capacity_bytes
+
+    def test_guard_over_nccl(self, cards):
+        """The training-state guard on four cards (``run_guard_nccl``):
+        phase 4's recipe at the 870.9M LM's width with 4 of its 16 layers,
+        dp = 4, ``TrainingGuard(policy="rollback")`` with a replica check
+        every 2 steps over fingerprints gathered as int64 over NCCL,
+        ``TorchState`` with a checkpoint every 2 commits.  A ``guard.params``
+        corrupt fault on rank 2 only at step 5: every rank's vote names
+        rank 2 at step 6, the world rolls back to the pinned step 4 (rank 2
+        takes the restored state) and replays, and every rank ends on the
+        fault-free run's parameters bit for bit.  Then the sharded
+        exchange's guarded step skips a non-finite step on every rank.
+        Run alone on four cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        from torch_port_workers import check_guard_world
+
+        outs = spawn_world("run_guard_nccl", world=4, device="cuda",
+                           timeout=900)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
+        for rank, out in enumerate(outs):
+            ev = out["faulty"]["events"]
+            print(f"rank {rank} guard [{smi[rank]}]: events "
+                  f"{json.dumps(ev)}, final fingerprint clean "
+                  f"{out['clean']['fp']:#x} faulty {out['faulty']['fp']:#x}, "
+                  f"state {out['clean']['state_bytes']} B a checkpoint, "
+                  f"sharded {out['sharded']}")
+        check_guard_world(outs)
 
     def test_degrade_over_nccl(self, cards, tmp_path):
         """The elastic launcher on four cards under ``HOROVOD_DEGRADE=1``,

@@ -215,6 +215,23 @@ def test_port_files_cover_the_memory_slice():
             "chip_smoke.py"} <= names
 
 
+def test_port_files_cover_the_guard_and_serve_slice():
+    """The import and string checks below cover the training-state guard,
+    the serving plane and the modules they hook into."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    guard = {f"horovod_tpu_torch/guard/{m}.py" for m in (
+        "__init__", "numerics", "checksum", "rollback", "preempt", "repair")}
+    serve = {f"horovod_tpu_torch/serve/{m}.py" for m in (
+        "__init__", "request", "queue", "replica", "pool", "batcher",
+        "tenancy", "refresh", "autoscale")}
+    assert guard | serve | {"horovod_tpu_torch/utils/pytree.py",
+                            "horovod_tpu_torch/faults/plan.py",
+                            "horovod_tpu_torch/optim/optimizer.py",
+                            "horovod_tpu_torch/optim/train_step.py",
+                            "horovod_tpu_torch/runtime/config.py",
+                            "chip_smoke.py"} <= names
+
+
 def test_native_source_is_the_ports_own():
     """The native library builds from the port's own ``hvd_native.cc``
     into ``<repo>/build/``: no path of the JAX package's ``native``
@@ -848,3 +865,33 @@ def test_launcher_refuses_non_cuda_tensors():
     which raises instead of falling back."""
     with pytest.raises(ValueError, match="CUDA tensors"):
         K.fused_scale(_meta(4, dtype=torch.float32), 2.0)
+
+
+def test_inference_launches_the_forward_kernel_alone(fake_card):
+    """Served under ``torch.inference_mode()``, a device tensor's
+    attention launches the forward kernel once and no backward."""
+    q = _meta(2, 128, 4, 128)
+    with torch.inference_mode():
+        K.flash_attention(q, q, q, causal=True)
+    assert fake_card.calls == ["hvd_flash_fwd"]
+    assert K.launch_counts()["flash_fwd"] == 1
+
+
+def test_fingerprint_of_a_device_tensor_stays_on_it(monkeypatch):
+    """A tensor that is not on the CPU is summed on its own device: the
+    host path never runs for it (no quiet copy to the host)."""
+    from horovod_tpu_torch.guard import checksum
+
+    seen = []
+
+    def host(x):
+        raise AssertionError("a device tensor took the host path")
+
+    def device(x):
+        seen.append(x.device.type)
+        return torch.tensor(7, dtype=torch.int64)
+
+    monkeypatch.setattr(checksum, "_leaf_fingerprint", host)
+    monkeypatch.setattr(checksum, "_device_fingerprint", device)
+    checksum.fingerprint({"w": _meta(4, 4), "b": [_meta(3)]})
+    assert seen == ["meta", "meta"]

@@ -191,6 +191,30 @@ def spawn_world(fn_name: str, world: int = 2, args=(),
     return [got[r] for r in range(world)]
 
 
+def port_test_module(name: str, subs=()) -> "types.ModuleType":
+    """``tests/<name>`` (or ``<name>`` under the repository's root when it
+    has a directory), each ``(pattern, new)`` of ``subs`` replaced (a
+    regular expression, which must match), its imports of the JAX package
+    pointed at the port, run as a module of its own: the JAX package's
+    tests or seeded scenarios of a plane, against the port's modules."""
+    import re
+    import types
+    from pathlib import Path
+
+    tests = Path(__file__).resolve().parent
+    path = tests / name if "/" not in name else tests.parent / name
+    src = path.read_text()
+    for pattern, new in subs:
+        src, n = re.subn(pattern, new, src)
+        if not n:
+            raise ValueError(f"tests/{name} has no {pattern!r}")
+    src = re.sub(r"\bhorovod_tpu\b(?!_torch)", "horovod_tpu_torch", src)
+    mod = types.ModuleType(f"port_{path.stem}")
+    mod.__file__ = str(path)
+    exec(compile(src, f"port of {name}", "exec"), mod.__dict__)
+    return mod
+
+
 # ---------------------------------------------------------------------------
 # inputs shared by the workers and the tests
 # ---------------------------------------------------------------------------
@@ -4747,3 +4771,320 @@ def run_remat_card(hvd, layers: int = 2, steps: int = 3) -> dict:
         del model, opt, step
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the training-state guard (tests/test_torch_guarded_step.py,
+# tests/test_torch_guard.py, the four-card test_guard_over_nccl)
+# ---------------------------------------------------------------------------
+
+#: the loss scale of each step of the guarded-step worlds: clean steps, a
+#: non-finite loss at step 4, a spike past the limit at step 6 (the
+#: guardian's warmup is 2 clean steps)
+GUARD_SCALES = (1.0, 1.0, 1.0, float("nan"), 1.0, 1e3, 1.0)
+GUARD_VERDICTS = ("ok", "ok", "ok", "nonfinite", "ok", "spike", "ok")
+GUARD_CASES = ("hook", "sharded", "adasum", "tp", "fsdp")
+GUARD_ROWS = 4
+
+
+def guard_tokens(world: int, seed: int = 0) -> np.ndarray:
+    """The guarded-step worlds' global batch: ``GUARD_ROWS`` sequences a
+    rank of MP_LM's tokens (17 each)."""
+    return np.random.RandomState(seed).randint(
+        0, MP_LM["vocab_size"], (GUARD_ROWS * world, 17)).astype(np.int64)
+
+
+def guard_loss(model, batch):
+    """``lm_loss`` times the batch's scale (one value a row, all equal)."""
+    from horovod_tpu_torch.models.transformer import lm_loss
+
+    return lm_loss(model, batch["tokens"]) * batch["scale"][0]
+
+
+def guard_model(seed: int = 0, device=None):
+    """MP_LM in fp32 with flash attention, drawn from ``seed``."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+    )
+
+    cfg = TransformerConfig(dtype=torch.float32, attention_impl="flash",
+                            **MP_LM)
+    return TransformerLM(cfg, device=device,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def guard_state(opt) -> list:
+    """What a skipped step must leave as it was: the optimizer state the
+    wrapper holds (the sharded exchange's shard state and error-feedback
+    residuals included)."""
+    sharded = getattr(opt, "sharded_state", None)
+    if sharded is not None:
+        return [sharded.inner.state_dict(), sharded.residuals]
+    return [opt.state_dict()]
+
+
+def guard_case(hvd, case: str, world_tokens: np.ndarray) -> dict:
+    """GUARD_SCALES through ``DistributedTrainStep(guard=TrainingGuard(
+    policy="skip_step", warmup_steps=2))`` in one exchange form: each
+    step's norm and verdict, and whether the parameters and the optimizer
+    state (AdamW's step counters included) are bit for bit those from
+    before each step (by their fingerprints)."""
+    import torch
+
+    from horovod_tpu_torch.guard import TrainingGuard, fingerprint
+
+    model = guard_model()
+    adamw = torch.optim.AdamW(model.parameters(), lr=MP_LR,
+                              weight_decay=1e-4)
+    size = hvd.size()
+    opt, kw = adamw, {}
+    if case == "hook":
+        opt = hvd.DistributedOptimizer(adamw)
+    elif case == "sharded":
+        kw = dict(shard_optimizer_states=True,
+                  compression=hvd.Compression.int8, error_feedback=True)
+    elif case == "adasum":
+        opt, kw = hvd.DistributedAdasumOptimizer(adamw), dict(op=None)
+    elif case == "tp":
+        kw = dict(plan=f"tp={size}")
+    elif case == "fsdp":
+        kw = dict(plan=f"fsdp={size}", fsdp_min_weight_size=1)
+    guard = TrainingGuard(policy="skip_step", warmup_steps=2)
+    step = hvd.DistributedTrainStep(guard_loss, opt, guard=guard, **kw)
+    model, opt = step.init(model)
+    out = {"gnorm": [], "verdict": [], "unchanged": [], "limit": []}
+    for scale in GUARD_SCALES:
+        tokens = torch.from_numpy(world_tokens)
+        batch = step.shard_batch({
+            "tokens": tokens,
+            "scale": torch.full((tokens.shape[0],), scale)})
+        before = fingerprint([model.state_dict(), guard_state(opt)])
+        out["limit"].append(guard.current_limit())
+        step(model, opt, batch)
+        after = fingerprint([model.state_dict(), guard_state(opt)])
+        out["gnorm"].append(guard.numerics.last_gnorm)
+        out["verdict"].append(guard.numerics.last_verdict)
+        out["unchanged"].append(before == after)
+    if case == "hook":
+        # the replica vote over gloo: equal replicas agree; a copy
+        # perturbed on rank 1 is named
+        from horovod_tpu_torch.guard import ReplicaChecker, dist_gather_fn
+
+        tree = {k: v.clone() for k, v in model.state_dict().items()}
+        fps = dist_gather_fn()(fingerprint(tree))
+        out["fps_agree"] = len(set(fps)) == 1 and len(fps) == size
+        if hvd.rank() == 1:
+            first = next(iter(tree))
+            tree[first].view(-1)[0] += 1.0
+        report = ReplicaChecker(1, dist_gather_fn()).check(1, tree)
+        out["diverged"] = None if report is None else report.diverged
+    return out
+
+
+def run_guard(hvd) -> dict:
+    """Every GUARD_CASES exchange form on this world (gloo, one intra-op
+    thread a rank)."""
+    import torch
+
+    torch.set_num_threads(1)
+    tokens = guard_tokens(hvd.size())
+    return {case: guard_case(hvd, case, tokens) for case in GUARD_CASES}
+
+
+#: the four-card guard scenario: the 870.9M LM's width at 4 of its 16
+#: layers (each checkpoint writes the parameters and AdamW state), a
+#: checkpoint every 2 commits, a replica check every 2 steps, rank 2's
+#: parameters corrupted at step 5
+GUARD_NCCL = dict(steps=8, every=2, interval=2, corrupt_at=5, rank=2,
+                  layers=4)
+
+
+def _guard_world_scenario(hvd, cfg, rows: int, seq: int, root: str,
+                          fault: bool) -> dict:
+    """One run of the four-card scenario: phase 4's recipe (AdamW 3e-4,
+    the hook path) under ``TrainingGuard(policy="rollback")`` with
+    fingerprints gathered over the world, ``TorchState`` with a
+    ``Checkpointer``; with ``fault``, a ``guard.params`` corrupt fault on
+    rank GUARD_NCCL["rank"] at its check of step ``corrupt_at``.  The
+    batch of each step is drawn from the step's number, so a replay
+    trains on the same rows.  Returns this rank's final fingerprint, the
+    divergence events and the pinned steps."""
+    import torch
+
+    from chip_smoke import SEED
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.checkpoint import Checkpointer
+    from horovod_tpu_torch.elastic import TorchState
+    from horovod_tpu_torch.guard import (
+        GuardRollback,
+        RollbackManager,
+        TrainingGuard,
+        dist_gather_fn,
+        fingerprint,
+    )
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+
+    dev = hvd.device()
+    g = GUARD_NCCL
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    adamw = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              weight_decay=1e-4)
+    opt = hvd.DistributedOptimizer(adamw, gradient_predivide_factor=2.0)
+    ckpt = Checkpointer(os.path.join(root, "fault" if fault else "clean"))
+    state = TorchState(model, adamw, checkpointer=ckpt,
+                       checkpoint_every=g["every"])
+    guard = TrainingGuard(policy="rollback", check_interval=g["interval"],
+                          gather_fn=dist_gather_fn(),
+                          rollback=RollbackManager(state))
+    step = hvd.DistributedTrainStep(lm_loss, opt, guard=guard)
+    model, opt = step.init(model)
+    if fault and hvd.rank() == g["rank"]:
+        faults.set_plan(faults.FaultPlan(seed=SEED).add(
+            "guard.params", "corrupt", at=g["corrupt_at"], arg=1.0))
+    events, t_rollback = [], None
+    try:
+        while state._commit_count < g["steps"]:
+            s = state._commit_count + 1
+            tokens = torch.randint(
+                0, cfg.vocab_size, (rows * hvd.size(), seq + 1),
+                generator=torch.Generator().manual_seed(SEED + s))
+            model, opt, loss = step(model, opt, step.shard_batch(tokens))
+            state.commit()
+            guard.note_commit()
+            live = dict(model.named_parameters())
+            try:
+                out = guard.check_replicas(s, live)
+            except GuardRollback:
+                report = guard.checker.last_report
+                t0 = time.perf_counter()
+                state.wait()            # rank 0's writer: the target is on
+                hvd.barrier()           # disk before any rank reads it
+                replayed = guard.rollback(reason="divergence")
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t_rollback = time.perf_counter() - t0
+                events.append(dict(
+                    step=s, diverged=report.diverged,
+                    fingerprints=report.fingerprints, replayed=replayed,
+                    restored=state._commit_count,
+                    pinned=ckpt.pinned_steps(), seconds=t_rollback))
+                continue
+            with torch.no_grad():
+                for name, t in out.items():
+                    if t is not live[name]:     # the injected corruption
+                        live[name].copy_(t)
+        state.wait()
+    finally:
+        faults.clear_plan()
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 list(model.state_dict().values()) +
+                 [v for st in adamw.state.values() for v in st.values()
+                  if torch.is_tensor(v)])
+    return dict(fp=fingerprint(model.state_dict()), events=events,
+                pinned=ckpt.pinned_steps(), state_bytes=nbytes,
+                commits=state._commit_count)
+
+
+def _guard_sharded_skip(hvd, cfg, rows: int, seq: int) -> dict:
+    """The sharded exchange under ``guard=`` (skip_step): a clean step,
+    then a non-finite loss; this rank's verdicts and norms."""
+    import torch
+
+    from chip_smoke import SEED
+    from horovod_tpu_torch.guard import TrainingGuard
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    dev = hvd.device()
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    guard = TrainingGuard(policy="skip_step", warmup_steps=2)
+    step = hvd.DistributedTrainStep(
+        guard_loss, torch.optim.AdamW(model.parameters(), lr=3e-4),
+        shard_optimizer_states=True, guard=guard)
+    model, opt = step.init(model)
+    tokens = torch.randint(0, cfg.vocab_size, (rows * hvd.size(), seq + 1),
+                           generator=torch.Generator().manual_seed(SEED))
+    out = {"verdict": [], "gnorm": []}
+    for scale in (1.0, float("nan"), 1.0):
+        step(model, opt, step.shard_batch({
+            "tokens": tokens,
+            "scale": torch.full((tokens.shape[0],), scale)}))
+        out["verdict"].append(guard.numerics.last_verdict)
+        out["gnorm"].append(guard.numerics.last_gnorm)
+    return out
+
+
+def run_guard_nccl(hvd, small: bool = False) -> dict:
+    """The four-card guard test (``test_guard_over_nccl``): the
+    GUARD_NCCL scenario fault-free, then with rank 2's parameters
+    corrupted; then the sharded exchange's guarded skip.  ``small`` runs
+    MP_LM on sequences of 16 (the gloo rehearsal)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from chip_smoke import FULL, full_config
+
+    if small:
+        torch.set_num_threads(1)
+        from horovod_tpu_torch.models.transformer import TransformerConfig
+
+        cfg = TransformerConfig(dtype=torch.float32, attention_impl="flash",
+                                **MP_LM)
+        seq, rows = 16, 2
+    else:
+        cfg = dataclasses.replace(full_config(torch, "flash"),
+                                  num_layers=GUARD_NCCL["layers"])
+        seq, rows = FULL["seq"], FULL["batch"]
+    root = hvd.broadcast_object(
+        tempfile.mkdtemp(prefix="hvd_guard_") if hvd.rank() == 0 else None,
+        root_rank=0)
+    try:
+        clean = _guard_world_scenario(hvd, cfg, rows, seq, root, False)
+        if hvd.device().type == "cuda":
+            torch.cuda.empty_cache()
+        faulty = _guard_world_scenario(hvd, cfg, rows, seq, root, True)
+        if hvd.device().type == "cuda":
+            torch.cuda.empty_cache()
+        sharded = _guard_sharded_skip(hvd, cfg, rows, seq)
+    finally:
+        hvd.barrier()
+        if hvd.rank() == 0:
+            shutil.rmtree(root, ignore_errors=True)
+    return dict(clean=clean, faulty=faulty, sharded=sharded)
+
+
+def check_guard_world(outs: list) -> None:
+    """What ``run_guard_nccl``'s ranks must show: the vote on every rank
+    names rank GUARD_NCCL["rank"] once, at the first check after the
+    corruption, and the world rolls back to the pinned last-good step;
+    every rank ends on the fault-free run's parameters bit for bit; the
+    sharded exchange's guarded step skips the non-finite step on every
+    rank, with the same norms."""
+    g = GUARD_NCCL
+    detect = -(-g["corrupt_at"] // g["interval"]) * g["interval"]
+    last_good = (detect - g["interval"]) // g["every"] * g["every"]
+    first = outs[0]
+    for rank, out in enumerate(outs):
+        clean, faulty = out["clean"], out["faulty"]
+        assert clean["events"] == [], rank
+        assert len(faulty["events"]) == 1, (rank, faulty["events"])
+        ev = faulty["events"][0]
+        assert ev["step"] == detect and ev["diverged"] == [g["rank"]], \
+            (rank, ev)
+        assert ev["restored"] == last_good and ev["pinned"] == [last_good]
+        assert ev["replayed"] == detect - last_good
+        assert ev["fingerprints"] == first["faulty"]["events"][0][
+            "fingerprints"]
+        assert faulty["fp"] == clean["fp"] == first["clean"]["fp"], rank
+        assert faulty["commits"] == clean["commits"] == g["steps"]
+        sharded = out["sharded"]
+        assert sharded["verdict"] == ["ok", "nonfinite", "ok"], rank
+        np.testing.assert_array_equal(sharded["gnorm"],
+                                      first["sharded"]["gnorm"])
