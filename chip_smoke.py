@@ -243,7 +243,18 @@ Phases, in order; any failure exits non-zero:
    run; (d) the 870.9M LM served by two replicas through
    ``ExecutableCache.from_module`` with a crash mid-load; (e) a fleet of
    the LM and ViT-B/16 with a live weight flip and a corrupt one caught;
-20. print the card's name and power limit, the kernels' JSON line, and last
+20. the executable plane (``phase_graph``): (a) phase 4's recipe with
+   ``AdamW(capturable=True)`` through ``steps_per_call=4``, the step
+   captured as a CUDA graph and replayed, two calls against eight eager
+   calls bit for bit (losses, parameters, AdamW's state), the capture's
+   seconds, ms a step and host ms a call both ways, the peaks, a replayed
+   call's kernel launches from the profiler (4 x the step's) and the
+   in-memory layer's hits and misses; (b) the compile cache's warm start:
+   phase 12 (a)'s fresh process loaded the kernel library that phase 1
+   built into the store (a hit, 0 s of compiling); (c) phase 19 (d)'s 48
+   requests in six batches through ``ExecutableCache.from_module``'s graph
+   executors and the eager forward, bit for bit, requests/s both ways;
+21. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -589,9 +600,14 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3,
 def phase_build():
     from horovod_tpu_torch.ops import build
 
+    from horovod_tpu_torch.runtime import compile_cache
+
     lib_path = build.build()
     build.load_library()
-    log(f"build: {build.build_seconds:.1f} s -> {lib_path.name}")
+    log(f"build: {build.build_seconds:.1f} s -> {lib_path.name} in the "
+        f"compile cache's store {lib_path.parent} ("
+        f"{'hit' if build.library_hit else 'miss'}; "
+        f"{compile_cache.stats()})")
     report = lib_path.with_suffix(".log")
     if report.exists():
         for line in report.read_text().splitlines():
@@ -1553,7 +1569,8 @@ def profile_step(torch, run, focus: str = "", ranges=None,
 
 def recipe(torch, hvd, steps: int = 5, on_step=None,
            adasum: bool = False, plan=None, remat_policy=None,
-           guard=None, loss_scale=None) -> dict:
+           guard=None, loss_scale=None, capturable: bool = False,
+           steps_per_call: int = 1) -> dict:
     """Phase 4's five-line recipe at full width on this process's card:
     the seeded 870.9M TransformerLM, ``DistributedOptimizer(AdamW(3e-4,
     weight_decay=1e-4), gradient_predivide_factor=2.0)`` on the hook path,
@@ -1567,9 +1584,12 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
     18).  ``guard`` is the step's ``guard=``, and ``loss_scale`` a list
     whose one value the loss is multiplied by at each call (phase 19
     (a): 1.0 leaves every bit of the loss and gradients as they are).
-    Returns the
-    model, the wrapper, the step, the batch, the losses, each step's
-    seconds and bucket sources, the wall clock at the first step's end,
+    ``capturable`` builds AdamW with ``capturable=True`` and
+    ``steps_per_call`` is the step's (phase 20 (a): ``steps`` calls of that
+    many steps each).  Returns the
+    model, the wrapper, the step, the batch, the losses, each call's
+    seconds (to the loss on the host) and host seconds (to the call's
+    return), its bucket sources, the wall clock at the first call's end,
     the launch counts from ``init`` on and the peak memory."""
     from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
     from horovod_tpu_torch.ops import kernels as K
@@ -1588,7 +1608,8 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
     model = TransformerLM(cfg, device=dev, generator=gen,
                           tp_group=planned["mesh"].group("tp")
                           if planned else None)
-    adamw = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    adamw = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4,
+                              capturable=capturable)
     if adasum:
         opt = hvd.DistributedAdasumOptimizer(adamw)
     else:
@@ -1601,7 +1622,8 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
 
     step = hvd.DistributedTrainStep(loss_fn, opt,
                                     op=None if adasum else hvd.Average,
-                                    guard=guard, **planned)
+                                    guard=guard,
+                                    steps_per_call=steps_per_call, **planned)
     tokens = torch.randint(0, cfg.vocab_size,
                            (FULL["batch"], FULL["seq"] + 1),
                            generator=torch.Generator().manual_seed(SEED))
@@ -1610,10 +1632,11 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
     K.reset_launch_counts()
     model, opt = step.init(model)
     batch = step.shard_batch(tokens)
-    losses, times, sources, first_end = [], [], [], None
+    losses, times, host, sources, first_end = [], [], [], [], None
     for i in range(steps):
         t0 = time.perf_counter()
         model, opt, loss = step(model, opt, batch)
+        host.append(time.perf_counter() - t0)
         losses.append(float(loss))           # synchronises
         times.append(time.perf_counter() - t0)
         first_end = first_end or time.time()
@@ -1621,7 +1644,7 @@ def recipe(torch, hvd, steps: int = 5, on_step=None,
         if on_step is not None:
             on_step(i, model)
     return dict(cfg=cfg, model=model, opt=opt, step=step, batch=batch,
-                loss_fn=loss_fn, losses=losses, times=times,
+                loss_fn=loss_fn, losses=losses, times=times, host=host,
                 sources=sources, first_end=first_end,
                 counts=K.launch_counts(),
                 peak=torch.cuda.max_memory_allocated())
@@ -3394,10 +3417,16 @@ def launched_worker(torch, out_path: str) -> int:
     if os.environ["HOROVOD_CONTROLLER"] != CONTROLLER:
         raise AssertionError(f"controller {os.environ['HOROVOD_CONTROLLER']}"
                              f", want {CONTROLLER}")
+    from horovod_tpu_torch.ops import build
+
     hvd.init()
     t_init = time.time()
     r = recipe(torch, hvd)
     steps = len(r["losses"])
+    store = dict(build_seconds=build.build_seconds,
+                 library_hit=build.library_hit,
+                 library=build.library_path().name,
+                 cache_stats=hvd.cache_stats())
     steady = statistics.median(r["times"][1:])
     out = dict(
         losses=r["losses"],
@@ -3411,7 +3440,7 @@ def launched_worker(torch, out_path: str) -> int:
         step_ms=steady * 1e3, first_step_ms=r["times"][0] * 1e3,
         tokens_per_s=FULL["batch"] * FULL["seq"] / steady,
         peak_gib=r["peak"] / 2**30, worker_start=t_worker,
-        init_s=t_init - t_worker, first_end=r["first_end"])
+        init_s=t_init - t_worker, first_end=r["first_end"], store=store)
     del r
     hvd.shutdown()
     with open(out_path, "w") as f:
@@ -3545,7 +3574,7 @@ def phase_launch(torch, train: dict) -> dict:
                 step_ms=res["step_ms"], phase4_step_ms=train["step_ms"],
                 tokens_per_s=res["tokens_per_s"], peak_gib=res["peak_gib"],
                 launches_a_step=res["launches_a_step"], run_s=run_s,
-                launcher_wall_s=wall)
+                launcher_wall_s=wall, store=res["store"])
 
 
 # phase 13 (a): the delta form against phase 4.  At a world of one Adasum
@@ -4582,14 +4611,16 @@ def _latencies(responses) -> dict:
 def phase_serve(torch) -> tuple:
     """Phase 19 (d)-(e), the serving plane on one card.  (d) The 870.9M LM
     at full width behind a ``ReplicaPool`` of two in-process replicas and
-    a ``ContinuousBatcher`` over ``ExecutableCache.from_module`` (buckets
-    SERVE["buckets"], every bucket built before the load): 48 seeded
+    a ``ContinuousBatcher`` over ``ExecutableCache.from_module``'s graph
+    executors (buckets SERVE["buckets"], every bucket built, its graph
+    captured, before the load): 48 seeded
     requests of 1024 and 512 tokens (two signatures), a result the last
     position's logits, a ``serve.batch`` crash on a replica mid-load.
     Every request answered exactly once, the crashed lease requeued once;
     each batch within SERVE_NORM_TOL and the flash elementwise limit of
     the plain path's forward of the same padded batch (``flash_fwd_plain``
-    in the kernel's place); 16 flash-forward launches a batch.  (e) A
+    in the kernel's place); 16 flash-forward launches a batch, replayed
+    (a replay counts the launches its capture recorded).  (e) A
     ``FleetBatcher`` over the LM and ViT-B/16 (224 px, buckets up to 32,
     12 non-causal flash forwards a batch); a ``WeightRefresher`` staging
     through ``HostOffloadEngine`` flips the LM's weights mid-load, and a
@@ -4649,6 +4680,7 @@ def phase_serve(torch) -> tuple:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = launched() - start
+    built = dict(captures=cache.graphs.misses, hits=cache.graphs.hits)
     records = []
 
     def run(payloads):
@@ -4669,7 +4701,8 @@ def phase_serve(torch) -> tuple:
     reqs = [InferenceRequest(f"lm-{i:02d}", torch.randint(
         0, cfg.vocab_size, (SERVE["lens"][i % 2],), generator=gen))
         for i in range(SERVE["requests"])]
-    start = launched()
+    start, misses0 = launched(), cache.graphs.misses
+    hits0 = cache.graphs.hits
     faults.set_plan(faults.FaultPlan(sim=True).add(
         "serve.batch", "crash", at=SERVE["crash_at"]))
     try:
@@ -4685,6 +4718,8 @@ def phase_serve(torch) -> tuple:
     finally:
         faults.clear_plan()
     launches = launched() - start
+    loaded = dict(captures=cache.graphs.misses - misses0,
+                  replays=cache.graphs.hits - hits0)
     responses = [rs[0] for rs in got.values()]
     requeued = sorted(r.request_id for r in responses if r.requeues)
     dead = [r.name for r in pool.replicas() if not r.alive]
@@ -4692,7 +4727,9 @@ def phase_serve(torch) -> tuple:
     lm_serve = dict(requests_per_s=len(reqs) / load_s, load_s=load_s,
                     batches=len(records), occupancy=occupancy,
                     requeued=len(requeued), dead=dead, build_s=build_s,
-                    flash_launches=launches, **_latencies(responses))
+                    flash_launches=launches, graphs=dict(
+                        build=built, load=loaded),
+                    **_latencies(responses))
     log(f"serve (d) [{CARD}]: {len(reqs)} requests of {SERVE['lens']} "
         f"tokens in {load_s:.3f} s ({lm_serve['requests_per_s']:.1f} "
         f"requests/s), p50 {lm_serve['p50_ms']:.1f} ms, p99 "
@@ -4701,15 +4738,19 @@ def phase_serve(torch) -> tuple:
         f"{len(requeued)} {requeued}; flash forwards {launches} "
         f"({launches / max(len(records), 1):.1f} a batch); the "
         f"{len(cache)} executables built in {build_s:.2f} s "
-        f"({build_launches} flash forwards)")
+        f"({build_launches} flash forwards); graphs: build {built}, load "
+        f"{loaded}")
     if sorted(got) != sorted(r.request_id for r in reqs) or \
             any(len(v) != 1 for v in got.values()):
         raise AssertionError("a request was lost or answered twice")
     if len(dead) != 1 or not requeued or \
             any(r.requeues != 1 for r in responses if r.requeues):
         raise AssertionError("the crash did not requeue its lease once")
+    # each bucket's build runs one forward eagerly (the capture's warm-up)
+    # and records one in its graph; the load only replays
     if launches != layers * len(records) or \
-            build_launches != layers * len(cache):
+            build_launches != layers * len(cache) or \
+            built["captures"] != len(cache) or loaded["captures"] != 0:
         raise AssertionError("served flash forwards are not 16 a batch")
     lm_serve["agreement"] = _check_batches(torch, records, plain_lm, "(d)",
                                            dev)
@@ -4794,6 +4835,7 @@ def phase_serve(torch) -> tuple:
         return new
 
     start = launched()
+    misses0 = {m: c.graphs.misses for m, c in caches.items()}
     faults.set_plan(faults.FaultPlan(seed=SEED).add(
         "serve.refresh", "corrupt", at=FLEET["corrupt_at"], arg=1.0))
     try:
@@ -4823,6 +4865,8 @@ def phase_serve(torch) -> tuple:
         faults.clear_plan()
         engine.close()
     fleet_launches = launched() - start
+    fleet_graphs = {m: dict(captures=c.graphs.misses - misses0[m],
+                            held=len(c.graphs)) for m, c in caches.items()}
     by_model = {m: [rec for rec in fleet_records if rec["model"] == m]
                 for m in ("lm", "vit")}
     fresponses = {rid: rs for rid, rs in fgot.items()}
@@ -4835,7 +4879,7 @@ def phase_serve(torch) -> tuple:
         f"{[hex(f) for f in fps_seen]}; stages "
         f"{[(s['tag'], round(s['bytes'] / s['seconds'] / 1e9, 2)) for s in stages]}"
         f" GB/s a round trip through the engine; flips {flips}; flash "
-        f"forwards {fleet_launches}")
+        f"forwards {fleet_launches}; graphs {fleet_graphs}")
     if sorted(fresponses) != sorted(r.request_id for r in freqs) or \
             any(len(v) != 1 for v in fresponses.values()):
         raise AssertionError("a fleet request was lost or answered twice")
@@ -4847,10 +4891,19 @@ def phase_serve(torch) -> tuple:
             fingerprint(staged):
         raise AssertionError("the LM's responses do not carry the old and "
                              "the flipped weights' fingerprints")
+    # the batches' forwards are replays; a capture with weights met for
+    # the first time (the LM's first weights, the flip) adds its warm-up;
+    # a flip drops the old weights' graphs, so the LM's cache holds at
+    # most one graph a bucket
     want = layers * len(by_model["lm"]) + vit_layers * len(by_model["vit"])
-    if fleet_launches != want:
+    warm = layers * fleet_graphs["lm"]["captures"] + \
+        vit_layers * fleet_graphs["vit"]["captures"]
+    if fleet_launches != want + warm or \
+            fleet_graphs["lm"]["captures"] < 2 or \
+            fleet_graphs["lm"]["held"] > len(SERVE["buckets"]):
         raise AssertionError(f"fleet flash forwards {fleet_launches}, want "
-                             f"{want}")
+                             f"{want} replayed and {warm} warm-ups; graphs "
+                             f"{fleet_graphs}")
     # each LM batch equals its padded batch's forward on the weights it
     # ran on (bit for bit: the same kernels on the same inputs), and each
     # of its responses carries those weights' fingerprint
@@ -4881,9 +4934,11 @@ def phase_serve(torch) -> tuple:
                    for m, v in by_model.items()},
         flips=flips, stages=[dict(s, gb_per_s=s["bytes"] / s["seconds"]
                                   / 1e9) for s in stages],
-        flash_launches=fleet_launches, vit_agreement=vit_agreement,
+        flash_launches=fleet_launches, graphs=fleet_graphs,
+        vit_agreement=vit_agreement,
         **_latencies([rs[0] for rs in fresponses.values()]))
     total = launched() - first
+    del caches, cache
     hvd.shutdown()
     return dict(lm=lm_serve, fleet=fleet_summary), {"flash_fwd": total}
 
@@ -4909,6 +4964,299 @@ class _plain_flash:
 
         K.flash_fwd = self._kernel
         return False
+
+
+#: phase 20 (a): calls of steps_per_call=GRAPH_K against GRAPH_CALLS x
+#: GRAPH_K eager calls
+GRAPH_K = 4
+GRAPH_CALLS = 2
+#: phase 20 (a): calls under a float lr that changes every call, and how
+#: far the card's reserved memory may move across them (a graph kept
+#: beyond its key holds the step's activations, 11.49 GiB, and gradients)
+GRAPH_SCHEDULED = 3
+GRAPH_SLACK = 2**30
+#: the kernels of phase 4's step, by their device symbols' names
+GRAPH_SYMBOLS = {"scale_vec_kernel": "fused_scale",
+                 "flash_fwd_kernel": "flash_fwd",
+                 "flash_bwd_dq_kernel": "flash_bwd_dq",
+                 "flash_bwd_dkv_kernel": "flash_bwd_dkv"}
+
+
+def profiled_launches(prof) -> dict:
+    """{kernel: device launches} of kernels 1-4 in a profiler run,
+    counted from its device events (a replayed graph's kernels are device
+    events with no host-side launch of their own); the flash kernels'
+    positions variant is not counted."""
+    out = {name: 0 for name in GRAPH_SYMBOLS.values()}
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        name = kernel_name(e.name)
+        if ", pos>" in name:
+            continue
+        for symbol, kernel in GRAPH_SYMBOLS.items():
+            if name.startswith(symbol):
+                out[kernel] += 1
+    return out
+
+
+def _leaf_diffs(torch, got, want) -> list:
+    return [(i, float((a.float() - b.float()).abs().max()))
+            for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+
+
+def phase_graph(torch, launch: dict) -> tuple:
+    """Phase 20, the executable plane.  (a) Phase 4's recipe with
+    ``AdamW(capturable=True)``: GRAPH_CALLS calls of
+    ``steps_per_call=GRAPH_K`` (the first runs one step eagerly, captures
+    the step and replays it GRAPH_K - 1 times; the second replays it
+    GRAPH_K times) against GRAPH_CALLS x GRAPH_K eager calls from the same
+    weights and batch: each call's loss and the final parameters and
+    AdamW state bit for bit; the capture's seconds, ms a step and host ms
+    a call both ways, the peaks, and one more replayed call under the
+    profiler, whose kernel 1-4 launches must be GRAPH_K x phase 4's step's
+    and equal the capture's record x GRAPH_K and the wrappers' counts; the
+    in-memory layer's hits and misses; then GRAPH_SCHEDULED calls whose
+    float lr changes each call: each captures anew, and the card's
+    reserved memory (its cache emptied) stays within GRAPH_SLACK of the
+    first's, for the step keeps one graph.  (b) The warm start: phase 1 built the kernel library into
+    the compile cache's store, and phase 12 (a)'s launched worker, a fresh
+    process, must have loaded it from there (a hit, no compiling).  (c)
+    Phase 19 (d)'s 48 requests, six batches of 8, through
+    ``ExecutableCache.from_module``'s graph executors and through the
+    eager forward: bit for bit, requests/s both ways in turns, captures
+    and hits.  Returns the summary and the launches that ran."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.ops import build
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.serve import ExecutableCache
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {name: 0 for name in GRAPH_SYMBOLS.values()}
+
+    def add(launches):
+        for name, n in launches.items():
+            if name in counts:
+                counts[name] += n
+
+    # (a) eight eager calls, then two calls of four steps
+    hvd.init()
+    eager = recipe(torch, hvd, steps=GRAPH_CALLS * GRAPH_K, capturable=True)
+    add(eager["counts"])
+    # kept on the host, so that they do not count in the graph's peak
+    want_params = [p.detach().cpu() for p in eager["model"].parameters()]
+    want_state = [t.detach().cpu() for st in
+                  eager["opt"].optimizer.state.values() for t in st.values()]
+    eager_summary = dict(
+        step_ms=1e3 * statistics.median(eager["times"][1:]),
+        host_ms=1e3 * statistics.median(eager["host"][1:]),
+        peak_gib=eager["peak"] / 2**30)
+    want_losses = eager["losses"][GRAPH_K - 1::GRAPH_K]
+    del eager
+    torch.cuda.empty_cache()
+    stats0 = hvd.cache_stats()
+    r = recipe(torch, hvd, steps=GRAPH_CALLS, capturable=True,
+               steps_per_call=GRAPH_K)
+    step, model, opt, batch = r["step"], r["model"], r["opt"], r["batch"]
+    (captured,) = step.graphs.values()
+    diffs = _leaf_diffs(torch, [p.detach().cpu() for p in model.parameters()],
+                        want_params)
+    state = [t.detach().cpu() for st in opt.optimizer.state.values()
+             for t in st.values()]
+    state_diffs = _leaf_diffs(torch, state, want_state)
+    del state
+    graph_summary = dict(
+        step_ms=1e3 * r["times"][-1] / GRAPH_K,
+        host_ms=1e3 * r["host"][-1],
+        first_call_s=r["times"][0],
+        capture_s=captured.graph.seconds,
+        peak_gib=r["peak"] / 2**30)
+    log(f"graph (a) [{CARD}]: losses {r['losses']} vs the eager calls' "
+        f"{want_losses}; capture {captured.graph.seconds:.2f} s, first "
+        f"call {r['times'][0]:.2f} s; ms a step: graph "
+        f"{graph_summary['step_ms']:.1f}, eager {eager_summary['step_ms']:.1f}"
+        f"; host ms a call: graph {graph_summary['host_ms']:.1f} (a call of "
+        f"{GRAPH_K} steps), eager {eager_summary['host_ms']:.1f} (one step);"
+        f" peak: graph {graph_summary['peak_gib']:.2f} GiB, eager "
+        f"{eager_summary['peak_gib']:.2f} GiB")
+    if r["losses"] != want_losses or diffs or state_diffs:
+        for i, d in diffs[:20]:
+            log(f"graph (a): parameter {i} differs by up to {d:.3e}")
+        for i, d in state_diffs[:20]:
+            log(f"graph (a): AdamW state tensor {i} differs by up to {d:.3e}")
+        raise AssertionError(
+            f"steps_per_call={GRAPH_K} is not bit for bit {GRAPH_K} eager "
+            f"calls: losses {r['losses']} vs {want_losses}, "
+            f"{len(diffs)} parameters and {len(state_diffs)} state tensors "
+            f"differ (the replayed step runs other kernels or other "
+            f"inputs than the eager one)")
+    del want_params, want_state
+    # the host's share of a graph call: the key's hash, and GRAPH_K bare
+    # replays (they step the model on; the check is done)
+    from horovod_tpu_torch.runtime import compile_cache
+
+    t0 = time.perf_counter()
+    for _ in range(10):
+        compile_cache.executable_key(step._aot_extras(), model=model,
+                                     optimizer=opt, batch=batch)
+    key_ms = (time.perf_counter() - t0) * 1e2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_K):
+        captured.graph.replay()
+    replay_host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    graph_summary.update(key_ms=key_ms, replays_host_ms=replay_host_ms)
+    log(f"graph (a) [{CARD}]: host ms of a call's parts: the key "
+        f"{key_ms:.2f}, {GRAPH_K} bare replays {replay_host_ms:.2f}")
+    # one more call under the profiler: GRAPH_K replays
+    torch.cuda.synchronize()
+    before = K.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model, opt, loss = step(model, opt, batch)
+        float(loss)
+    replayed = profiled_launches(prof)
+    want = {k: GRAPH_K * n for k, n in LAUNCHES_A_STEP.items()}
+    record = {k: GRAPH_K * captured.graph.launches.get(k, 0) for k in want}
+    counted = {k: K.launch_counts()[k] - before[k] for k in want}
+    stats1 = hvd.cache_stats()
+    memory = dict(hits=stats1["hits"] - stats0["hits"],
+                  misses=stats1["misses"] - stats0["misses"])
+    log(f"graph (a) [{CARD}]: one replayed call of {GRAPH_K} steps under "
+        f"the profiler: {replayed} (want {want}; the capture's record x "
+        f"{GRAPH_K}: {record}; the wrappers' counts {counted}); in-memory "
+        f"layer {memory}, {step.replays} replays")
+    if replayed != want or record != want or counted != want:
+        raise AssertionError(f"a replayed call launched {replayed}, want "
+                             f"{want}")
+    # the first call misses; the second and the profiled one hit
+    if memory != dict(hits=GRAPH_CALLS, misses=1):
+        raise AssertionError(f"in-memory layer {memory}")
+    # a float lr that changes every call (a scheduler's) captures every
+    # call; the step keeps one graph, so what the card reserves stays
+    del captured, prof
+    reserved, losses = [], []
+    for _ in range(GRAPH_SCHEDULED):
+        for g in opt.param_groups:
+            g["lr"] *= 0.5
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+    stats2 = hvd.cache_stats()
+    scheduled = dict(losses=losses, reserved_gib=[b / 2**30 for b in
+                                                  reserved],
+                     misses=stats2["misses"] - stats1["misses"],
+                     graphs=len(step.graphs))
+    log(f"graph (a) [{CARD}]: {GRAPH_SCHEDULED} calls, the lr halved "
+        f"before each: {scheduled}")
+    if scheduled["misses"] != GRAPH_SCHEDULED or scheduled["graphs"] != 1 \
+            or not all(math.isfinite(x) for x in losses) or \
+            max(reserved) - reserved[0] > GRAPH_SLACK:
+        raise AssertionError(f"a float lr schedule under steps_per_call="
+                             f"{GRAPH_K}: {scheduled}")
+    graph_summary["scheduled"] = scheduled
+    # the launches that ran since the recipe's start: each replay counted
+    # its graph's record, the bare ones too
+    add(K.launch_counts())
+    del r, step, model, opt, batch, loss
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    graph_summary.update(replayed_launches=replayed, memory_layer=memory)
+
+    # (b) the warm start: phase 12 (a)'s fresh process against phase 1
+    store = launch["store"]
+    log(f"graph (b) [{CARD}]: phase 1 built {build.library_path().name} in "
+        f"{build.build_seconds:.1f} s ({'hit' if build.library_hit else 'miss'}"
+        f"); phase 12 (a)'s launched worker: {store}, launch to first step "
+        f"{launch['launch_to_first_step_s']:.2f} s")
+    if not store["library_hit"] or store["build_seconds"] != 0 or \
+            store["library"] != build.library_path().name or \
+            store["cache_stats"]["aot_disk_hits"] != 1:
+        raise AssertionError(f"the launched worker did not load the kernel "
+                             f"library from the store: {store}")
+    warm = dict(phase1_build_s=build.build_seconds,
+                phase1_hit=build.library_hit,
+                worker_build_s=store["build_seconds"],
+                worker_hit=store["library_hit"],
+                worker_launch_to_first_step_s=launch[
+                    "launch_to_first_step_s"])
+
+    # (c) graph executors against the eager forward
+    hvd.init()
+    dev = hvd.device()
+    cfg = full_config(torch, "flash")
+    lm = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    served = _last_logits(torch, lm)
+    cache = ExecutableCache.from_module(
+        served, lambda sig, n: torch.zeros((n,) + tuple(sig[0]),
+                                           dtype=torch.long),
+        bucket_sizes=SERVE["buckets"])
+    gen = torch.Generator().manual_seed(SEED + 19)
+    reqs = [torch.randint(0, cfg.vocab_size, (SERVE["lens"][i % 2],),
+                          generator=gen)
+            for i in range(SERVE["requests"])]
+    width = max(SERVE["buckets"])
+    batches = [reqs[i::2][j:j + width] for i in range(2)
+               for j in range(0, SERVE["requests"] // 2, width)]
+    stats0 = hvd.cache_stats()
+    start = K.launch_counts()["flash_fwd"]
+    t0 = time.perf_counter()
+    for n in SERVE["lens"]:
+        cache.get(((n,), "torch.int64"), width)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+
+    def graph_pass():
+        return [cache.run(b) for b in batches]
+
+    def eager_pass():
+        with torch.inference_mode():
+            return [list(served(torch.stack(b).to(dev)).unbind(0))
+                    for b in batches]
+
+    passes = {"eager": [], "graph": []}
+    outs = {}
+    for how in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[how] = (graph_pass if how == "graph" else eager_pass)()
+        torch.cuda.synchronize()
+        passes[how].append(time.perf_counter() - t0)
+    ran = K.launch_counts()["flash_fwd"] - start
+    stats1 = hvd.cache_stats()
+    same = all(torch.equal(torch.stack(g), torch.stack(e))
+               for g, e in zip(outs["graph"], outs["eager"]))
+    rps = {how: len(reqs) / statistics.mean(t) for how, t in passes.items()}
+    serve_summary = dict(
+        batches=len(batches), requests_per_s=rps, capture_s=capture_s,
+        captures=cache.graphs.misses, replays=cache.graphs.hits,
+        hits=stats1["hits"] - stats0["hits"],
+        misses=stats1["misses"] - stats0["misses"], launches=ran,
+        bit_exact=same)
+    log(f"graph (c) [{CARD}]: {len(reqs)} requests in {len(batches)} batches"
+        f" of {width}: requests/s graph {rps['graph']:.1f}, eager "
+        f"{rps['eager']:.1f} (two passes each, in turns); {serve_summary['captures']} "
+        f"captures in {capture_s:.2f} s, {serve_summary['hits']} hits, "
+        f"{serve_summary['misses']} misses; flash forwards {ran}; bit for "
+        f"bit: {same}")
+    if not same:
+        raise AssertionError("graph executors and the eager forward differ")
+    # the captures' warm-ups, then two graph and two eager passes
+    if serve_summary["captures"] != 2 or serve_summary["misses"] != 2 or \
+            serve_summary["hits"] != 2 * len(batches) or \
+            ran != FULL["layers"] * (2 + 4 * len(batches)):
+        raise AssertionError(f"graph executors: {serve_summary}")
+    counts["flash_fwd"] += ran
+    del cache, served, lm, outs
+    hvd.shutdown()
+    log("graph: phase 20 runs at full width and cut nothing (phase 4's 16 "
+        "layers, batch 6 x 1024; phase 19 (d)'s 48 requests)")
+    return dict(step=dict(graph=graph_summary, eager=eager_summary),
+                warm_start=warm, serve=serve_summary), counts
 
 
 def main() -> int:
@@ -4975,7 +5323,9 @@ def main() -> int:
         counts[name] += n
     guard, guard_counts = timed("19a guard", phase_guard, torch, train)
     serve, serve_counts = timed("19b serve", phase_serve, torch)
-    for name, n in list(guard_counts.items()) + list(serve_counts.items()):
+    graph, graph_counts = timed("20 graph", phase_graph, torch, launch)
+    for name, n in list(guard_counts.items()) + list(serve_counts.items()) \
+            + list(graph_counts.items()):
         counts[name] += n
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
@@ -5026,6 +5376,7 @@ def main() -> int:
     log(f"memory summary [{CARD}]: {json.dumps(memory)}")
     log(f"guard summary [{CARD}]: {json.dumps(guard)}")
     log(f"serve summary [{CARD}]: {json.dumps(serve)}")
+    log(f"graph summary [{CARD}]: {json.dumps(graph)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -235,10 +235,15 @@ def current_operations() -> str:
 
 
 def cache_stats() -> dict:
-    """Hits and misses of the eager negotiation cache (reference
-    response-cache statistics), bounded by ``HOROVOD_CACHE_CAPACITY``."""
+    """Hits and misses of the in-memory caches (the eager negotiation
+    cache, reference response-cache statistics, and the captured graphs of
+    ``runtime/compile_cache.py``), bounded by ``HOROVOD_CACHE_CAPACITY``,
+    and the compile cache's disk store: ``aot_disk_hits`` (a library
+    loaded without compiling) and ``aot_disk_misses`` (one built)."""
     if not _state.is_initialized():
-        return {"hits": 0, "misses": 0}
+        from horovod_tpu_torch.runtime import compile_cache
+
+        return {"hits": 0, "misses": 0, **compile_cache.stats()}
     return dict(_state.global_state().cache_stats)
 
 

@@ -1,6 +1,7 @@
 """Elastic launch path of the port's launcher (a copy of
-``horovod_tpu/elastic/launch.py``; the JAX package's warm-start compile
-cache has no counterpart here yet).  Under ``HOROVOD_DEGRADE=1`` the
+``horovod_tpu/elastic/launch.py``; every generation's workers share the
+compile cache's store, ``runtime/compile_cache.py``).  Under
+``HOROVOD_DEGRADE=1`` the
 launcher attaches a :class:`~horovod_tpu_torch.elastic.degrade.
 DegradeController` to its driver, which the JAX launcher leaves to its
 caller.
@@ -80,6 +81,14 @@ def run_elastic(args) -> int:
             "HOROVOD_ELASTIC_NOTIFY_ADDR": "1",
             "HOROVOD_ELASTIC_GENERATION": str(generation),
         })
+        # pin the compile cache's store for every generation's workers: a
+        # respawned worker then loads the kernel and native libraries that
+        # an earlier generation built instead of running the compilers
+        # (runtime/compile_cache.py; HOROVOD_COMPILE_CACHE=0 opts out)
+        from horovod_tpu_torch.runtime import compile_cache
+
+        env.setdefault("HOROVOD_COMPILE_CACHE_DIR",
+                       compile_cache.default_dir())
         cmd = build_worker_command(slot, args.command, args.ssh_port,
                                    getattr(args, "ssh_identity_file", None))
         stdout = stderr = None

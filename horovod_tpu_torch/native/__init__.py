@@ -7,20 +7,24 @@ native code earns its keep: the lock-free timeline writer
 (``gloo/http_store.{h,cc}`` + ``runner/http/http_server.py``).  The source
 is the port's own copy, ``hvd_native.cc``.
 
-The shared library is built with ``g++`` at first use into ``<repo>/build/``
-(not beside the source), under a name that carries a hash of the flags and
-the source, as ``ops/build.py`` names the CUDA library: an edited source
-builds anew, an unchanged one loads without compiling.  With no ``g++`` the
-consumers fall back to pure Python, as the JAX package's do; a build or a
-load that fails falls back too, with a warning that names the failure
-(:func:`native_error` returns it).  Nothing here runs at import time.
+The shared library is built with ``g++`` at first use into the compile
+cache's store (``runtime/compile_cache.py``: ``HOROVOD_COMPILE_CACHE_DIR``,
+else ``<repo>/build/``, not beside the source), under a name that carries a
+hash of the flags, the source and the environment (torch, ``g++
+--version``), as ``ops/build.py`` names the CUDA library: an edited source
+builds anew, an unchanged one loads without compiling.  The build writes a
+temporary file and renames it, so concurrent processes never load half a
+library; one that does not load is removed and rebuilt once.  With no
+``g++`` the consumers fall back to pure Python, as the JAX package's do; a
+build or a load that fails falls back too, with a warning that names the
+failure (:func:`native_error` returns it).  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
 import shutil
 import subprocess
 import threading
@@ -28,9 +32,11 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from horovod_tpu_torch.runtime import compile_cache
 from horovod_tpu_torch.utils import logging as hvd_logging
 
 SRC = Path(__file__).resolve().parent / "hvd_native.cc"
+#: the store's default root (``compile_cache.default_dir()``)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
@@ -40,28 +46,33 @@ _error: Optional[str] = None
 _tried = False
 
 
-def library_path(build_dir: Path = BUILD_DIR) -> Path:
-    """Where the library for this source and these flags lives."""
+def library_path(build_dir: Optional[Path] = None) -> Path:
+    """The store's entry for this source, these flags and this toolchain
+    (``build_dir``: the store's root, default the resolved one)."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     h.update(SRC.read_bytes())
-    return build_dir / f"libhvd_torch_native_{h.hexdigest()[:16]}.so"
+    return compile_cache.entry_path("libhvd_torch_native", h.hexdigest(),
+                                    toolchain="g++", root=build_dir)
 
 
-def _build(lib_path: Path) -> None:
-    """Compile the source into ``lib_path``; raises with the compiler's
-    output when it fails."""
+def _compile(lib_path: Path) -> None:
+    global build_seconds
     cxx = shutil.which("g++")
     if cxx is None:
         raise FileNotFoundError("g++ not found")
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f".tmp.{lib_path.name}.{os.getpid()}")
-    proc = subprocess.run([cxx, *CXX_FLAGS, str(SRC), "-o", str(tmp)],
+    t0 = time.perf_counter()
+    proc = subprocess.run([cxx, *CXX_FLAGS, str(SRC), "-o", str(lib_path)],
                           capture_output=True, text=True, timeout=120)
     if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed ({proc.returncode}): "
                            f"{proc.stderr.strip()[-2000:]}")
-    os.replace(tmp, lib_path)
+    build_seconds += time.perf_counter() - t0
+
+
+def _build(lib_path: Path) -> None:
+    """Compile the source into the entry ``lib_path`` (a temporary file,
+    renamed); raises with the compiler's output when it fails."""
+    compile_cache.store_executable(lib_path, _compile, toolchain="g++")
 
 
 #: seconds this process spent compiling the library (0 when it was built)
@@ -71,18 +82,15 @@ build_seconds = 0.0
 def load() -> Optional[ctypes.CDLL]:
     """The shared library, built on the first call; None when it is not
     available (then :func:`native_error` says why)."""
-    global _lib, _error, _tried, build_seconds
+    global _lib, _error, _tried
     with _lib_lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
         lib_path = library_path()
         try:
-            if not lib_path.exists():
-                t0 = time.perf_counter()
-                _build(lib_path)
-                build_seconds += time.perf_counter() - t0
-            lib = ctypes.CDLL(str(lib_path))
+            lib, _ = compile_cache.load_library(
+                lib_path, lambda: _build(lib_path))
         except FileNotFoundError as e:
             # no toolchain: the Python fallbacks serve, as in the JAX
             # package

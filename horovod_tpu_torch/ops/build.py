@@ -4,11 +4,15 @@ Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
 started together, into an object file; one link step then makes a single
 shared library with a plain C interface (the TMA kernels look the CUDA
 driver's ``cuTensorMapEncodeTiled`` up at run time, so nothing beyond the
-CUDA runtime is linked).  The library's name carries a hash of the flags
-and of every source and header in ``csrc/`` (``*.cu`` and ``*.cuh``), so an
-edited source or header builds anew and an unchanged tree is loaded from
-``<repo>/build/`` without compiling.  Nothing here runs at import time: the
-CPU tests import every module of the port.
+CUDA runtime is linked).  The library is an entry of the compile cache's
+disk layer (``runtime/compile_cache.py``): its name carries a hash of the
+flags, of every source and header in ``csrc/`` (``*.cu`` and ``*.cuh``) and
+of the environment (torch, the CUDA runtime, ``nvcc --version``, the card),
+so an edited source or header builds anew and an unchanged tree is loaded
+from the store (``HOROVOD_COMPILE_CACHE_DIR``, else ``<repo>/build/``,
+resolved at each call) without compiling.  A library that does not load is
+rebuilt once; a second failure raises.  Nothing here runs at import time:
+the CPU tests import every module of the port.
 """
 
 from __future__ import annotations
@@ -23,7 +27,10 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from horovod_tpu_torch.runtime import compile_cache
+
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: the store's default root (``compile_cache.default_dir()``)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # -Xptxas -v: registers, shared memory and spills of every kernel, kept
 # beside the library as <library>.log
@@ -34,6 +41,9 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: seconds this process spent compiling (0 when the library was built)
 build_seconds = 0.0
+#: whether this process loaded the library from the store without
+#: compiling it (None before the load)
+library_hit: Optional[bool] = None
 
 _c_void_p, _c_int, _c_float, _c_int64 = (ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_float, ctypes.c_int64)
@@ -76,15 +86,21 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build(build_dir: Path = BUILD_DIR) -> Path:
-    """Compile the sources (in parallel) and link the library; returns its
-    path.  Raises with the compiler's output when a build fails."""
+def library_path(build_dir: Optional[Path] = None) -> Path:
+    """The store's entry for these sources, flags, toolchain and card
+    (``build_dir``: the store's root, default the resolved one)."""
+    return compile_cache.entry_path("libhvd_torch_kernels", _digest(),
+                                    toolchain=_nvcc(), card=True,
+                                    root=build_dir)
+
+
+def _compile(lib_path: Path) -> str:
+    """Compile the sources (in parallel) and link them into ``lib_path``;
+    returns the compiler's report (kept beside the entry as its ``.log``),
+    raises with it when a build fails."""
     global build_seconds
+    build_dir = lib_path.parent
     sources = _sources()
-    lib_path = build_dir / f"libhvd_torch_kernels_{_digest()}.so"
-    if lib_path.exists():
-        return lib_path
-    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     tag = f"{os.getpid()}"
@@ -101,9 +117,10 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
         if proc.returncode != 0:
             failures.append(log[-1])
     if failures:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    tmp = build_dir / f".tmp.{lib_path.name}.{tag}"
-    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+    link = subprocess.run([nvcc, "-shared", "-o", str(lib_path),
                            *map(str, objs)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
@@ -111,18 +128,27 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
         obj.unlink(missing_ok=True)
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)
-    lib_path.with_suffix(".log").write_text("\n".join(log))
-    os.replace(tmp, lib_path)
     build_seconds += time.perf_counter() - t0
+    return "\n".join(log)
+
+
+def build(build_dir: Optional[Path] = None) -> Path:
+    """Compile the library into the store unless its entry is there;
+    returns the entry's path."""
+    lib_path = library_path(build_dir)
+    if not lib_path.exists():
+        compile_cache.store_executable(lib_path, _compile,
+                                       toolchain=_nvcc(), card=True)
     return lib_path
 
 
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
-    global _lib
+    global _lib, library_hit
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib, library_hit = compile_cache.load_library(library_path(),
+                                                          build)
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -726,6 +726,15 @@ def launch_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in WRAPPERS.items()}
 
 
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` ({name: n}) to the counts: a CUDA graph's replay runs
+    the kernels its capture recorded, with no Python, and a capture
+    launches none (``runtime/compile_cache.capture``)."""
+    for name, n in delta.items():
+        fn, attr = WRAPPERS[name]
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
 # ---------------------------------------------------------------------------
 # flash attention: dispatch and autograd
 # ---------------------------------------------------------------------------

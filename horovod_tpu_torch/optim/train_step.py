@@ -47,14 +47,16 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from horovod_tpu_torch import functions as F
+from horovod_tpu_torch import telemetry
 from horovod_tpu_torch.memory.remat import remat_fn, resolve_remat_policy
 from horovod_tpu_torch.ops import collectives as C
 from horovod_tpu_torch.ops.collectives import Average, ReduceOp, Sum
@@ -72,7 +74,7 @@ from horovod_tpu_torch.parallel.tensor_parallel import (
     ColumnParallelDense,
     tp_modules,
 )
-from horovod_tpu_torch.runtime import config, state
+from horovod_tpu_torch.runtime import compile_cache, config, state
 from horovod_tpu_torch.runtime.distributed import raise_internal
 
 #: the step's modes (JAX's ``mode``)
@@ -176,9 +178,56 @@ class DistributedTrainStep:
     once; under the sharded exchange and ``op=None`` the root of the
     world's sum of each rank's sum of squares before the reduction.  A
     call that only accumulates (``backward_passes_per_step``) observes
-    nothing.  Every rank reaches the same verdict.  ``steps_per_call`` must
-    be 1 (JAX's scanned multi-step call has no eager counterpart here), and
-    a guard refuses an ep plan, whose experts differ by rank.
+    nothing.  Every rank reaches the same verdict.  A guard requires
+    ``steps_per_call=1`` (JAX's rule) and refuses an ep plan, whose experts
+    differ by rank.
+
+    ``steps_per_call=k`` is JAX's scanned call: one call makes ``k``
+    optimizer steps on the same batch and returns the last step's loss;
+    the parameters and the optimizer's state then equal those after ``k``
+    calls of ``steps_per_call=1``, and ``hvd_steps_total`` and the run
+    context advance by ``k``.  On the CPU (the caller asked for it) the
+    call runs the eager step ``k`` times.  On a card one whole step
+    (``zero_grad``, ``loss_fn``, backward with the hook-fired exchange on
+    its side stream, ``optimizer.step()`` and the loss's all-reduce) is
+    captured as a ``torch.cuda.CUDAGraph`` and replayed: the first call of
+    a key runs one step eagerly (the warm-up of the optimizer's state,
+    NCCL's communicators and the kernels' first-use host calls, and step 1
+    of the ``k``), captures the next and replays it ``k - 1`` times; a later
+    call copies the batch into the graph's static inputs and replays it
+    ``k`` times.  One host dispatch then makes ``k`` updates.  A capture
+    that fails raises; nothing falls back to the eager loop.  The graph
+    lives in the compile cache's in-memory layer
+    (:class:`~horovod_tpu_torch.runtime.compile_cache.ExecutableLRU`),
+    keyed by
+    :func:`~horovod_tpu_torch.runtime.compile_cache.executable_key`: a new
+    float lr, shape, plan or ``k`` captures anew.  The step keeps one graph:
+    its memory pool holds a copy of the gradients and the step's
+    activations, so a new key's capture replaces the old graph, never adds
+    one.  A learning-rate schedule is replayed without a capture when the
+    optimizer's lr is a tensor on the card (``lr=torch.tensor(3e-4,
+    device="cuda")``: the graph reads it at each replay, and torch's
+    schedulers ``fill_`` it); a float lr that changes every call captures
+    every call.  A graph is also bound to the tensors it was captured on
+    (the model's parameters and buffers, the optimizer's parameters,
+    tensor hyperparameters and state, all of which the graph holds): a
+    call that finds one of them replaced (``load_state_dict``,
+    ``broadcast_optimizer_state``, another model of the same shapes)
+    captures anew, as a miss.  A random draw
+    from the default CUDA generator (dropout) gets fresh numbers at each
+    replay, since the capture registers that generator; a draw from a
+    generator of the caller's is replayed with the captured offsets unless
+    the caller registers it with the graph.  On a card the
+    torch optimizer must be built with ``capturable=True`` where it has
+    that flag (AdamW keeps its step count on the host otherwise, which a
+    graph cannot advance); it is not flipped here.  ``k > 1`` refuses what
+    cannot be captured: the row-sparse exchange (``sparse_params``) and
+    Adasum (each reads values on the host), the sharded exchange's error
+    feedback (each step replaces the residual tensors, which a replay
+    would not see), ``backward_passes_per_step > 1`` (the hook path counts
+    the passes on the host), and, on a card, an elastic world of several
+    ranks (the exchange's host wait polls a CUDA event, which a capturing
+    stream forbids).
 
     ``moe_fused`` and ``moe_capacity_factor`` are the MoE schedule (unset:
     ``HOROVOD_MOE_FUSED_DISPATCH`` and ``HOROVOD_MOE_CAPACITY_FACTOR``;
@@ -216,10 +265,7 @@ class DistributedTrainStep:
                 "observe (and be able to suppress) every optimizer step "
                 "individually — a scanned multi-step program would apply "
                 "k-1 updates before the host sees the first norm")
-        if steps_per_call != 1:
-            raise ValueError(
-                f"steps_per_call={steps_per_call}: the eager step runs one "
-                f"optimizer step a call")
+        self._steps_per_call = int(steps_per_call)
         self._guard = guard
         self._world = state.world_id()
         self.plan, self.mesh = _resolve_plan(plan, mesh)
@@ -427,11 +473,79 @@ class DistributedTrainStep:
         self.optimizer = optimizer
         self._hierarchy = optimizer.exchange_hierarchy if isinstance(
             optimizer, _ShardedDistributedOptimizer) else hierarchy
+        self._fused_collectives = "on" if shard_optimizer_states and \
+            resolve_fused_collectives(str(fused_collectives).lower()) \
+            else "off"
+        if self._steps_per_call > 1:
+            _check_capturable(self._steps_per_call, optimizer, op,
+                              sparse_params, reduction)
+        #: the captured steps (created at the first graph call) and the
+        #: stream they are captured on
+        self._graphs = None
+        self._capture_stream = None
+        self._last_cache_hit: Optional[bool] = None
+        #: graph replays this step has run (each one optimizer step)
+        self.replays = 0
+        self._tel_steps = telemetry.counter(
+            "hvd_steps_total", "optimizer steps executed")
+        self._tel_step_seconds = telemetry.histogram(
+            "hvd_step_seconds",
+            "host wall time per train-step dispatch call")
 
     @property
     def mode(self) -> str:
         """``"pjit"`` or ``"shard_map"``, as resolved (class docstring)."""
         return self._mode
+
+    @property
+    def steps_per_call(self) -> int:
+        """Optimizer steps a call makes (class docstring)."""
+        return self._steps_per_call
+
+    @property
+    def compile_cache_hit(self) -> Optional[bool]:
+        """Whether the kernel library this step's kernels ran from was
+        loaded from the compile cache's store (``True``) or compiled by this
+        process (``False``); ``None`` before a call on a card, on the CPU,
+        and with the store disabled (JAX's property of that name reads the
+        AOT store's verdict on the step's executable, which the port does
+        not keep on disk: a captured graph cannot be written)."""
+        return self._last_cache_hit
+
+    @property
+    def graphs(self):
+        """The captured steps, the compile cache's in-memory layer (None
+        before the first call that captures)."""
+        return self._graphs
+
+    def _aot_extras(self) -> dict:
+        """The step's knobs in an executable's key (JAX's field names):
+        the captured graph of one plan, exchange or ``steps_per_call`` is
+        never replayed for another."""
+        opt = self.optimizer
+        sharded = isinstance(opt, _ShardedDistributedOptimizer)
+        plan = self.plan
+        return {
+            "mesh_shape": None if self.mesh is None
+            else tuple(sorted(self.mesh.shape.items())),
+            "mode": self._mode,
+            "hierarchy": self._hierarchy,
+            "fused_collectives": self._fused_collectives,
+            "shard_optimizer_states": sharded,
+            "data_axes": None if plan is None else plan.data_axes,
+            "fsdp_axis": self._fsdp_axis,
+            "steps_per_call": self._steps_per_call,
+            "donate_batch": False,
+            "guard": self._guard is not None,
+            "plan": None if plan is None else plan.to_string(),
+            "error_feedback": sharded and
+            opt.sharded_state.residuals is not None,
+            "reduction": opt.reduction if sharded else None,
+            "remat": self._remat_policy,
+            "moe_fused": self._moe_fused,
+            "moe_capacity_factor": self._moe_capacity_factor,
+            "sp": 1 if plan is None else plan.sp,
+        }
 
     @property
     def exchange_scope(self):
@@ -624,6 +738,29 @@ class DistributedTrainStep:
                                "first and step with the optimizer it "
                                "returns")
         self._apply_moe_schedule(model)
+        tel_on = telemetry.enabled()
+        t0 = time.perf_counter() if tel_on else 0.0
+        first = next(iter(model.parameters()), None)
+        on_card = first is not None and first.is_cuda
+        if on_card:
+            from horovod_tpu_torch.ops import build
+
+            self._last_cache_hit = build.library_hit \
+                if compile_cache.resolve_dir() is not None else None
+        if on_card and self._steps_per_call > 1:
+            loss = self._graph_call(model, optimizer, batch)
+        else:
+            for _ in range(self._steps_per_call):
+                loss = self._one_step(model, optimizer, batch)
+        if tel_on:
+            self._tel_step_seconds.observe(time.perf_counter() - t0)
+            self._tel_steps.inc(self._steps_per_call)
+            telemetry.run_context().advance_step(self._steps_per_call)
+        return model, optimizer, loss
+
+    def _one_step(self, model: torch.nn.Module, optimizer, batch):
+        """One optimizer step (the eager step, and what a graph captures):
+        the averaged loss."""
         optimizer.zero_grad(set_to_none=True)
         loss = self._loss_fn(model, batch)
         loss.backward()
@@ -642,7 +779,52 @@ class DistributedTrainStep:
             # the state is known unchanged on a failed verdict: the policy
             # may raise now
             self._guard.observe(gnorm, limit=limit)
-        return model, optimizer, loss
+        return loss
+
+    def _graph_call(self, model: torch.nn.Module, optimizer, batch):
+        """``steps_per_call`` steps through the captured graph of this
+        call's key (class docstring); the last step's loss."""
+        if self._graphs is None:
+            self._graphs = compile_cache.ExecutableLRU(capacity=1)
+        key = compile_cache.executable_key(
+            self._aot_extras(), model=model, optimizer=optimizer,
+            batch=batch)
+        bound = _bound_tensors(model, optimizer)
+        captured = self._graphs.get(key, valid=lambda c: c.binds(bound))
+        if captured is None:
+            # the old graph and its memory pool go before the new capture
+            self._graphs.clear()
+            # step 1 of k, eagerly: the optimizer's state, NCCL's
+            # communicators and the kernels' first-use host calls exist
+            # before the capture
+            self._one_step(model, optimizer, batch)
+            captured = self._capture(model, optimizer, batch)
+            self._graphs.put(key, captured)
+            replays = self._steps_per_call - 1
+        else:
+            captured.feed(batch)
+            replays = self._steps_per_call
+        for _ in range(replays):
+            captured.graph.replay()
+        self.replays += replays
+        captured.restore_grads()
+        return captured.graph.result.clone()
+
+    def _capture(self, model: torch.nn.Module, optimizer,
+                 batch) -> "CapturedStep":
+        """One whole step captured on the step's capture stream, reading a
+        static copy of ``batch``."""
+        device = next(model.parameters()).device
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(device)
+        static = tree_map(lambda t: t.clone() if isinstance(
+            t, torch.Tensor) else t, batch)
+        graph = compile_cache.capture(
+            lambda: self._one_step(model, optimizer, static),
+            self._capture_stream)
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        return CapturedStep(graph, static, params, [p.grad for p in params],
+                            _bound_tensors(model, optimizer))
 
     def _plan_sumsq(self, model: torch.nn.Module):
         """The guarded norm's sum of squares over the trainable parameters
@@ -730,6 +912,119 @@ class DistributedTrainStep:
                 "exchange (analysis/cost_model.py)").set(
                     CM.adasum_extra_wire_bytes(payload, n_dcn=st.cross_size,
                                                n_ici=st.local_size))
+
+
+class CapturedStep:
+    """One captured step of :class:`DistributedTrainStep`: the graph
+    (:class:`~horovod_tpu_torch.runtime.compile_cache.CapturedGraph`, whose
+    result is the loss it writes), the static batch it reads, the
+    gradients it leaves (installed again after a replay, for an eager call
+    may have replaced them), and the tensors it was captured on
+    (:func:`_bound_tensors`), held so that none is freed while the graph
+    can still write it."""
+
+    def __init__(self, graph, batch, params, grads, bound):
+        self.graph = graph
+        self.batch = batch
+        self._params = params
+        self._grads = grads
+        self._bound = bound
+
+    def binds(self, bound: list) -> bool:
+        """Whether ``bound`` (this call's :func:`_bound_tensors`) are the
+        very tensors the graph was captured on."""
+        return len(bound) == len(self._bound) and all(
+            a is b for a, b in zip(bound, self._bound))
+
+    def feed(self, batch) -> None:
+        """Copy this call's batch into the static inputs."""
+        for s, b in zip(tree_flatten(self.batch)[0], tree_flatten(batch)[0]):
+            if isinstance(s, torch.Tensor):
+                s.copy_(b, non_blocking=True)
+
+    def restore_grads(self) -> None:
+        for p, g in zip(self._params, self._grads):
+            p.grad = g
+
+
+def _bound_tensors(model: torch.nn.Module, optimizer) -> list:
+    """The tensors a captured step reads or updates in place, in a fixed
+    order: the model's parameters and buffers, the user's param groups'
+    tensor hyperparameters, and the optimizer that updates (the innermost
+    torch optimizer, or the sharded exchange's over its flat shards): its
+    groups' tensor hyperparameters, parameters and state.  Their addresses
+    are in the graph."""
+    out = [*model.parameters(), *model.buffers()]
+    groups = list(optimizer.param_groups)
+    sharded = getattr(optimizer, "sharded_state", None)
+    if sharded is not None:
+        inner = sharded.inner
+    else:
+        inner = optimizer
+        while isinstance(inner, _DistributedOptimizer):
+            inner = inner.optimizer
+    for g in groups + list(inner.param_groups):
+        out += [v for k, v in sorted(g.items(), key=lambda kv: kv[0])
+                if k != "params" and isinstance(v, torch.Tensor)]
+    for g in inner.param_groups:
+        for p in g["params"]:
+            out.append(p)
+            st = inner.state.get(p, {})
+            out += [st[k] for k in sorted(st)
+                    if isinstance(st[k], torch.Tensor)]
+    return out
+
+
+def _check_capturable(k: int, optimizer, op, sparse_params,
+                      reduction) -> None:
+    """``steps_per_call > 1``'s refusals (class docstring), made when the
+    step is built."""
+    from horovod_tpu_torch.runtime import distributed as hvd_dist
+
+    if sparse_params or getattr(optimizer, "_sparse", None):
+        raise ValueError(
+            f"steps_per_call={k} captures the step as a CUDA graph, and "
+            f"the row-sparse exchange (sparse_params) reads each "
+            f"gradient's row count on the host, which a graph cannot "
+            f"replay: use steps_per_call=1")
+    if op == ReduceOp.ADASUM or reduction == "adasum" or isinstance(
+            optimizer, _DistributedAdasumOptimizer) or getattr(
+            optimizer, "reduction", None) == "adasum":
+        raise ValueError(
+            f"steps_per_call={k} captures the step as a CUDA graph, and "
+            f"Adasum's combine reads its coefficients on the host, which "
+            f"a graph cannot replay: use steps_per_call=1")
+    sharded = getattr(optimizer, "sharded_state", None)
+    if sharded is not None and sharded.residuals is not None:
+        raise ValueError(
+            f"steps_per_call={k} captures the step as a CUDA graph, and "
+            f"the sharded exchange's error feedback replaces its residual "
+            f"tensors at every step, which a replay would not see: use "
+            f"steps_per_call=1")
+    if getattr(optimizer, "backward_passes_per_step", 1) > 1:
+        raise ValueError(
+            f"steps_per_call={k} with backward_passes_per_step="
+            f"{optimizer.backward_passes_per_step}: the optimizer counts "
+            f"its backward passes on the host, and a replayed step would "
+            f"not advance the count; accumulate in loss_fn instead, or use "
+            f"steps_per_call=1")
+    if hvd_dist.collective_deadline_s() is not None:
+        raise ValueError(
+            f"steps_per_call={k} in an elastic world on a card: the "
+            f"exchange's host waits for it on a CUDA event (so that a dead "
+            f"peer raises within the world's timeout), which a capturing "
+            f"stream forbids; use steps_per_call=1")
+    inner = optimizer
+    while isinstance(inner, _DistributedOptimizer):
+        inner = inner.optimizer
+    if state.global_state().device.type == "cuda" and any(
+            g.get("capturable") is False for g in inner.param_groups):
+        raise ValueError(
+            f"steps_per_call={k} captures the step as a CUDA graph on the "
+            f"card, and {type(inner).__name__} keeps its step count on the "
+            f"host unless it is built with capturable=True (e.g. "
+            f"torch.optim.AdamW(params, lr, capturable=True)); the step "
+            f"does not change the flag for you")
 
 
 def _broadcast_model(model: torch.nn.Module,

@@ -198,8 +198,17 @@ class Config:
     cycle_time_ms: float = 5.0
     # bounds the eager negotiation caches (reference response-cache
     # capacity, response_cache.h); both clear together past this many
-    # validated collectives, at the same cycle on every rank
+    # validated collectives, at the same cycle on every rank.  The same
+    # value bounds the captured graphs of the in-memory executable layer
+    # and the entries of the disk store (runtime/compile_cache.py)
     cache_capacity: int = 1024
+
+    # -- warm-start compile cache (runtime/compile_cache.py): the store of
+    # the compiled kernel and native libraries, shared across process
+    # restarts and elastic generations; disabled, a process builds into a
+    # directory of its own, removed at exit
+    compile_cache_enabled: bool = True
+    compile_cache_dir: Optional[str] = None   # None → <repo>/build
 
     # -- the sharded exchange (shard_optimizer_states=True): bucket byte
     # cap (None: one bucket) and topology ("auto" resolves against the
@@ -316,6 +325,8 @@ class Config:
                 "HOROVOD_FUSION_THRESHOLD", 64 * 1024 * 1024),
             cycle_time_ms=_env_float("HOROVOD_CYCLE_TIME", 5.0),
             cache_capacity=_env_int("HOROVOD_CACHE_CAPACITY", 1024),
+            compile_cache_enabled=_env_bool("HOROVOD_COMPILE_CACHE", True),
+            compile_cache_dir=os.environ.get("HOROVOD_COMPILE_CACHE_DIR"),
             exchange_bucket_bytes=opt_int("HOROVOD_EXCHANGE_BUCKET_BYTES"),
             exchange_hierarchy=os.environ.get(
                 "HOROVOD_EXCHANGE_HIERARCHY", "auto").lower(),

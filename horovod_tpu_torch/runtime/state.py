@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.runtime.config import Config
+from horovod_tpu_torch.utils import logging as hvd_logging
 
 
 #: the layout's levels, innermost first (JAX ``AXIS_ICI``, ``AXIS_DCN``)
@@ -73,9 +74,14 @@ class GlobalState:
         self.owns_group = False
         # the host plane's gloo group: the world itself when it is gloo
         self.host_group = None
-        # hits and misses of the eager negotiation cache (reference
-        # response-cache statistics)
-        self.cache_stats = {"hits": 0, "misses": 0}
+        # hits and misses of the in-memory caches: the eager negotiation
+        # cache (reference response-cache statistics) and the captured
+        # graphs (runtime/compile_cache.py ExecutableLRU); the disk store's
+        # loads against builds, this process's so far, beside them
+        self.cache_stats = {"hits": 0, "misses": 0,
+                            "aot_disk_hits": 0, "aot_disk_misses": 0}
+        # the store's root resolved at initialize() (None = disabled)
+        self.compile_cache_dir = None
         # the eager plane's per-world state (ops/eager.py): its handles,
         # negotiation caches and cycle counter, and its Bucketer
         self.eager = None
@@ -152,10 +158,22 @@ class GlobalState:
         self._start_tools()
 
     def _start_tools(self) -> None:
-        """The telemetry plane first (the timeline renders its gauges and
-        the stall inspector counts through it), then the timeline, the
-        stall inspector and the parameter manager, as the config asks."""
+        """The compile cache's store, then the telemetry plane (the
+        timeline renders its gauges and the stall inspector counts through
+        it), then the timeline, the stall inspector and the parameter
+        manager, as the config asks."""
         cfg = self.config
+        from horovod_tpu_torch.runtime import compile_cache
+
+        self.cache_stats.update(compile_cache.stats())
+        if cfg.compile_cache_enabled:
+            self.compile_cache_dir = \
+                compile_cache.enable_persistent_cache(config=cfg)
+            if self.compile_cache_dir:
+                n = compile_cache.entry_count(self.compile_cache_dir)
+                hvd_logging.info(
+                    "compile cache: %s (%d entr%s)", self.compile_cache_dir,
+                    n, "y" if n == 1 else "ies")
         from horovod_tpu_torch import telemetry
 
         self.telemetry = telemetry.start_from_config(cfg,

@@ -14,8 +14,11 @@ deterministic on a logical clock) or as a background feeder thread
 so a handful of padded executables cover every occupancy, each bucket
 built once.  :meth:`ExecutableCache.from_module` builds them over a
 ``torch.nn.Module``: a bucket's first build runs the forward once at the
-padded size (the JAX package compiles there, through its AOT store; the
-port has no compiled executable or disk warm start yet).
+padded size (the JAX package compiles there, through its AOT store).  On
+a card each bucket's executor is a CUDA graph of the forward, kept in the
+compile cache's in-memory layer (``runtime/compile_cache.py``); a graph
+cannot be written to disk, so the port's warm start stops at the kernel
+library's store.
 
 Fault site ``serve.feed`` fires at the top of every step; a ``hang``
 there models a wedged queue feeder (docs/faults.md).
@@ -70,6 +73,15 @@ class ExecutableCache:
         self._lock = threading.Lock()
         self._cache: Dict[Tuple[Optional[str], Tuple, int],
                           Callable] = {}
+        #: the captured graphs of :meth:`from_module`'s executors on a
+        #: card (None otherwise), the weights they were captured with, and
+        #: the one stream they are all captured on (torch keeps a cuBLAS
+        #: workspace, 32 MiB on Hopper, for every stream that ever ran a
+        #: matmul)
+        self.graphs = None
+        self._graph_weights = None
+        self._capture_stream = None
+        self._graph_lock = threading.Lock()
 
     @classmethod
     def from_module(cls, model, example_batch: Callable[[Tuple, int], Any],
@@ -79,30 +91,87 @@ class ExecutableCache:
         ``(signature, padded_size)`` to an input batch of that size; each
         bucket's build runs the forward on it once under
         ``torch.inference_mode()`` on the model's device (the counterpart
-        of the JAX package's compile of the bucket) and returns an
-        executor that stacks the payloads on that device, runs the forward
-        — ``torch.func.functional_call(model, weights, ...)`` when given
+        of the JAX package's compile of the bucket).  An executor stacks
+        the payloads, runs the forward —
+        ``torch.func.functional_call(model, weights, ...)`` when given
         ``weights`` (a name → tensor dict of the model's parameters and
-        buffers) — and returns one result per payload: the output's rows."""
+        buffers) — and returns one result per payload: the output's rows.
+
+        On the CPU the executor runs the forward eagerly.  On a card it
+        replays a CUDA graph of the forward under
+        ``torch.inference_mode()``, captured when the bucket is built
+        (the model's own weights) or at the first call with a weights
+        dict: the payloads are copied into the graph's static input of
+        the padded size and the output's rows are cloned out before the
+        next replay.  The graphs live in the compile cache's in-memory
+        layer (:attr:`graphs`, an :class:`~horovod_tpu_torch.runtime.
+        compile_cache.ExecutableLRU` bounded by ``cache_capacity``),
+        counted, one a ``(signature, padded)``, all of one set of weights:
+        a call with other weights (a flip, ``serve/refresh.py``) drops
+        every graph of the old weights, which frees them and the graphs'
+        memory pools, and captures anew (a miss).  On a card an executor
+        returns once the device has computed its results, so the pool
+        stamps a response's latency at the result, not at its dispatch."""
         import torch
 
         device = next(iter(model.parameters()), torch.empty(0)).device
+        on_card = device.type == "cuda"
+
+        def forward(x, weights):
+            return model(x) if weights is None else \
+                torch.func.functional_call(model, weights, (x,))
+
+        def stacked(payloads):
+            x = torch.stack([torch.as_tensor(p) for p in payloads])
+            return x.to(device, non_blocking=True)
 
         def build(signature: Tuple, padded: int) -> Callable:
-            with torch.inference_mode():
-                model(example_batch(signature, padded).to(device))
-
-            def executor(payloads: Sequence[Any], weights=None) -> List[Any]:
-                x = torch.stack([torch.as_tensor(p) for p in payloads])
-                x = x.to(device, non_blocking=True)
+            example = example_batch(signature, padded).to(device)
+            if not on_card:
                 with torch.inference_mode():
-                    out = model(x) if weights is None else \
-                        torch.func.functional_call(model, weights, (x,))
-                return list(out.unbind(0))
+                    model(example)
+                return executor
+            # the bucket's graph with the model's own weights, captured
+            # now (its warm-up forward is the build's)
+            cache._graph(signature, padded, forward, example, None)
 
-            return executor
+            def graph_executor(payloads: Sequence[Any],
+                               weights=None) -> List[Any]:
+                captured = cache._graph(signature, padded, forward, example,
+                                        weights)
+                return captured(stacked(payloads))
 
-        return cls(build, bucket_sizes=bucket_sizes)
+            return graph_executor
+
+        def executor(payloads: Sequence[Any], weights=None) -> List[Any]:
+            x = stacked(payloads)
+            with torch.inference_mode():
+                out = forward(x, weights)
+            return _computed(out)
+
+        cache = cls(build, bucket_sizes=bucket_sizes)
+        if on_card:
+            from horovod_tpu_torch.runtime import compile_cache
+
+            cache.graphs = compile_cache.ExecutableLRU()
+            cache._capture_stream = torch.cuda.Stream(device)
+        return cache
+
+    def _graph(self, signature: Tuple, padded: int, forward, example,
+               weights) -> "_CapturedForward":
+        """The bucket's graph for these weights, captured on a miss; a
+        call with other weights than the graphs' drops them all first
+        (:meth:`from_module`)."""
+        with self._graph_lock:
+            if weights is not self._graph_weights:
+                self.graphs.clear()
+                self._graph_weights = weights
+            captured = self.graphs.get((signature, padded))
+            if captured is None:
+                captured = _CapturedForward(forward, example, weights,
+                                            self._capture_stream)
+                self.graphs.put((signature, padded), captured)
+        return captured
 
     def padded_size(self, n: int) -> int:
         for b in self.bucket_sizes:
@@ -151,6 +220,51 @@ class ExecutableCache:
     def __len__(self) -> int:
         with self._lock:
             return len(self._cache)
+
+
+def _computed(out) -> List[Any]:
+    """``out``'s rows once the device has computed them (an event on the
+    current stream, so other threads' work is not waited for)."""
+    import torch
+
+    if out.is_cuda:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(out.device))
+        done.synchronize()
+    return list(out.unbind(0))
+
+
+class _CapturedForward:
+    """One bucket's forward captured as a CUDA graph with one set of
+    weights (held here while the graph may read them): a static input of
+    the padded size, the graph
+    (:class:`~horovod_tpu_torch.runtime.compile_cache.CapturedGraph`, whose
+    result is the output it writes), and a lock, since a replay and the
+    copies around it must not interleave with another thread's.  The
+    forward runs once eagerly on the capture's ``stream`` first (the
+    stream's first-use work, which a capture forbids)."""
+
+    def __init__(self, forward, example, weights, stream):
+        import torch
+
+        from horovod_tpu_torch.runtime import compile_cache
+
+        self.weights = weights
+        self.static = example.clone()
+        stream.wait_stream(torch.cuda.current_stream(example.device))
+        with torch.inference_mode():
+            with torch.cuda.stream(stream):
+                forward(self.static, weights)
+            self.graph = compile_cache.capture(
+                lambda: forward(self.static, weights), stream)
+        torch.cuda.current_stream(example.device).wait_stream(stream)
+        self._lock = threading.Lock()
+
+    def __call__(self, x) -> List[Any]:
+        with self._lock:
+            self.static.copy_(x)
+            self.graph.replay()
+            return _computed(self.graph.result.clone())
 
 
 class ContinuousBatcher:

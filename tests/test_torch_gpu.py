@@ -804,6 +804,141 @@ class TestOnCard:
         assert out["copy"] != out["consumer"]
         assert out["pinned"] and out["events"]
 
+    def test_steps_per_call_graph_on_card(self, cuda):
+        """``steps_per_call=4`` on one card through the captured graph: two
+        calls against eight eager calls of the same small LM, bit for bit
+        (losses, parameters, AdamW's state), on the hook path and the flat
+        sharded exchange; the first call replays 3 times, the second and a
+        third, profiled, call 4 each; the profiled call's kernels are 4 x
+        the capture's record; an eager call after it and a call after that
+        (4 replays of the same graph) go on training."""
+        from torch_port_workers import check_steps_per_call
+
+        res = spawn_world("run_steps_per_call", world=1, device="cuda",
+                          args=(4, 2), timeout=300)[0]
+        check_steps_per_call(res, 4, 2)
+        for case, r in res.items():
+            g = r["graph"]
+            print(f"{case}: capture record {g['launches']}, profiled "
+                  f"replayed call {g['profiled']}, store hit "
+                  f"{g['cache_hit']}")
+            assert g["replays"] == 3 + 4 + 4 + 4 and g["graphs"] == 1, case
+            assert g["launches"]["flash_fwd"] > 0, case
+            assert g["profiled"] == {
+                name: 4 * g["launches"].get(name, 0)
+                for name in g["profiled"]}, case
+            assert r["eager"]["replays"] == 0, case
+            # an eager call after the graph's, then a replay: both train on
+            assert all(math.isfinite(x) for x in g["after"]), case
+            assert g["after"][1] < g["losses"][0], case
+
+    def test_graph_step_follows_restore_and_lr(self, cuda):
+        """``steps_per_call=2`` on one card where what the graph was
+        captured with changes between calls (``run_graph_rebind``): a
+        restore by ``load_state_dict`` captures anew and trains on the
+        restored state; a tensor lr under a per-call scheduler replays one
+        graph with each new lr; a float lr under it captures every call,
+        and each replaced graph is freed, so the card's reserved memory
+        does not grow.  Each bit for bit the eager step."""
+        from torch_port_workers import run_graph_rebind
+
+        res = spawn_world("run_graph_rebind", world=1, device="cuda",
+                          args=(2, 3), timeout=300)[0]
+        for case, r in res.items():
+            g, e = r["graph"], r["eager"]
+            print(f"{case}: losses {g['losses']}, hits {g['hits']}, misses "
+                  f"{g['misses']}, reserved {g['reserved']}, freed "
+                  f"{g['freed']}")
+            assert g["losses"] == e["losses"], case
+            for n, v in e["params"].items():
+                np.testing.assert_array_equal(g["params"][n], v,
+                                              err_msg=f"{case} {n}")
+            for i, (sg, se) in enumerate(zip(g["state"], e["state"])):
+                for key in se:
+                    np.testing.assert_array_equal(
+                        sg[key], se[key], err_msg=f"{case} {i} {key}")
+            assert g["graphs"] == 1, case
+        assert (res["restore"]["graph"]["hits"],
+                res["restore"]["graph"]["misses"]) == (1, 2)
+        assert res["tensor_lr"]["graph"]["lr_is_tensor"]
+        assert (res["tensor_lr"]["graph"]["hits"],
+                res["tensor_lr"]["graph"]["misses"]) == (2, 1)
+        fl = res["float_lr"]["graph"]
+        assert (fl["hits"], fl["misses"]) == (0, 3)
+        assert fl["freed"] == [True, True]
+        assert max(fl["reserved"]) == fl["reserved"][0]
+
+    def test_graph_executors_on_card(self, cuda):
+        """``ExecutableCache.from_module`` on a card serves from CUDA
+        graphs: bit for bit the eager forward, with the model's weights
+        and with a weights dict.  A new weights dict captures anew (a
+        miss) and drops the graph of the old weights: over eight flips the
+        cache holds one graph, every replaced graph and its weights are
+        freed, and the card's reserved memory does not grow.  An executor
+        returns once its results are computed (its stream is idle)."""
+        import gc
+        import weakref
+
+        from horovod_tpu_torch.models.transformer import (
+            TransformerConfig,
+            TransformerLM,
+        )
+        from horovod_tpu_torch.serve import ExecutableCache
+
+        cfg = TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                vocab_size=128, num_layers=2, num_heads=2,
+                                d_model=128, d_ff=256, max_seq_len=64)
+        lm = TransformerLM(cfg, device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))
+        cache = ExecutableCache.from_module(
+            lm, lambda sig, n: torch.zeros((n,) + tuple(sig[0]),
+                                           dtype=torch.long),
+            bucket_sizes=(4,))
+        gen = torch.Generator().manual_seed(1)
+        payloads = [torch.randint(0, 128, (64,), generator=gen)
+                    for _ in range(3)]
+        padded = payloads + payloads[-1:]
+        with torch.inference_mode():
+            want = lm(torch.stack(padded).to(cuda))[:3]
+        got = torch.stack(cache.run(payloads))
+        assert torch.cuda.current_stream().query()
+        assert torch.equal(got, want)
+        assert cache.graphs.misses == 1
+        flipped = {k: (v + 0.01 if v.is_floating_point() else v.clone())
+                   for k, v in lm.state_dict().items()}
+        with torch.inference_mode():
+            want2 = torch.func.functional_call(
+                lm, flipped, (torch.stack(padded).to(cuda),))[:3]
+        got2 = torch.stack(cache.run(payloads, weights=flipped))
+        assert torch.equal(got2, want2) and not torch.equal(got2, got)
+        assert cache.graphs.misses == 2 and len(cache.graphs) == 1
+        assert torch.equal(torch.stack(cache.run(payloads,
+                                                 weights=flipped)), want2)
+        assert cache.graphs.misses == 2
+        del flipped
+        reserved, weights_refs, graph_refs = [], [], []
+        name = next(k for k, v in lm.state_dict().items()
+                    if v.is_floating_point())
+        for i in range(8):
+            w = {k: (v + 1e-3 * (i + 1) if v.is_floating_point()
+                     else v.clone()) for k, v in lm.state_dict().items()}
+            weights_refs.append(weakref.ref(w[name]))
+            cache.run(payloads, weights=w)
+            graph_refs.append(weakref.ref(cache.graphs.values()[0]))
+            del w
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved.append(torch.cuda.memory_reserved())
+        print(f"reserved after each flip: {reserved}")
+        assert cache.graphs.misses == 10 and len(cache.graphs) == 1
+        assert all(r() is None for r in weights_refs[:-1])
+        assert all(r() is None for r in graph_refs[:-1])
+        assert weights_refs[-1]() is not None
+        assert max(reserved) == reserved[0]
+        # the model's own weights again: captured anew, still right
+        assert torch.equal(torch.stack(cache.run(payloads)), want)
+        assert cache.graphs.misses == 11
+
     def test_sync_bn_equals_batchnorm(self, cuda):
         """SyncBatchNorm at a world of one against BatchNorm(train=True),
         bf16 channels-last: the forward bit for bit, the gradients within
@@ -1496,6 +1631,35 @@ class TestNcclWorld:
               f"model {hw}")
         assert hw.ici_bytes_per_s > 0 and hw.hbm_capacity_bytes == \
             CM.H100.hbm_capacity_bytes
+
+    def test_steps_per_call_over_nccl(self, cards):
+        """``steps_per_call=4`` at dp = 4 over NCCL: the step (its hook-fired
+        exchange and the flat sharded exchange, each NCCL collective inside
+        the graph) captured on every rank and replayed, against four eager
+        calls, bit for bit on every rank, and the ranks identical.  A
+        collective inside a captured graph exists only across cards: run
+        alone on four cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        from torch_port_workers import SPC_CASES, check_steps_per_call
+
+        outs = spawn_world("run_steps_per_call", world=4, device="cuda",
+                           args=(4, 1), timeout=600)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
+        for rank, out in enumerate(outs):
+            check_steps_per_call(out, 4, 1)
+            print(f"rank {rank} [{smi[rank]}]: " + ", ".join(
+                f"{case} losses {out[case]['graph']['losses']}, profiled "
+                f"{out[case]['graph']['profiled']}" for case in SPC_CASES))
+        for case in SPC_CASES:
+            first = outs[0][case]["graph"]
+            for out in outs[1:]:
+                assert out[case]["graph"]["losses"] == first["losses"]
+                for n, v in first["params"].items():
+                    np.testing.assert_array_equal(
+                        out[case]["graph"]["params"][n], v, err_msg=n)
 
     def test_guard_over_nccl(self, cards):
         """The training-state guard on four cards (``run_guard_nccl``):

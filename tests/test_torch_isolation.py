@@ -232,6 +232,16 @@ def test_port_files_cover_the_guard_and_serve_slice():
                             "chip_smoke.py"} <= names
 
 
+def test_port_files_cover_the_executable_plane():
+    """The import and string checks below cover the compile cache and the
+    modules that build, capture and serve through it."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"horovod_tpu_torch/{m}.py" for m in (
+        "runtime/compile_cache", "runtime/state", "runtime/config",
+        "ops/build", "native/__init__", "optim/train_step", "serve/batcher",
+        "elastic/launch", "__init__")} | {"chip_smoke.py"} <= names
+
+
 def test_native_source_is_the_ports_own():
     """The native library builds from the port's own ``hvd_native.cc``
     into ``<repo>/build/``: no path of the JAX package's ``native``

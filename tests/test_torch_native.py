@@ -9,22 +9,27 @@ from pathlib import Path
 
 import pytest
 
-from horovod_tpu import native as JN
 from horovod_tpu_torch import native as TN
+from horovod_tpu_torch.runtime import compile_cache
 from horovod_tpu_torch.utils import timeline as TT
+from torch_port_workers import jax_native
 
 ROOT = Path(__file__).resolve().parents[1]
 
 
 class TestBuild:
     def test_library_is_built_into_build(self):
-        """The library loads from ``<repo>/build/``, named after a hash of
-        the flags and the port's own source, which is not the JAX
-        package's file."""
+        """The library loads from the compile cache's store, named after a
+        hash of the flags, the port's own source and the toolchain, which
+        is not the JAX package's file.  The store is ``<repo>/build/``
+        unless ``HOROVOD_COMPILE_CACHE_DIR`` moves it, as the suite's
+        conftest does."""
         assert TN.native_built() and TN.native_error() is None
         path = TN.library_path()
-        assert path.parent == ROOT / "build" and path.exists()
+        assert path.parent == compile_cache.store_dir() and path.exists()
         assert path.name.startswith("libhvd_torch_native_")
+        assert compile_cache.default_dir() == str(ROOT / "build")
+        assert TN.library_path(ROOT / "build") == ROOT / "build" / path.name
         assert TN.SRC == ROOT / "horovod_tpu_torch" / "native" / \
             "hvd_native.cc"
         assert not any(p.name.startswith("libhvd_torch_native")
@@ -77,6 +82,7 @@ class TestBuild:
 @pytest.fixture(params=["port_server", "jax_server"])
 def kv(request):
     """A running KV server of either package, with a client of each."""
+    JN = jax_native()
     if not JN.native_built():
         pytest.fail("the JAX package's native library did not build")
     server = (TN.KvStoreServer if request.param == "port_server"
@@ -143,7 +149,7 @@ class TestDroppedEvents:
         """After close every event is dropped silently (a span opened
         before ``stop_timeline`` may close after it), as in the JAX
         package's writer; the file stays whole."""
-        for mod in (TN, JN):
+        for mod in (TN, jax_native()):
             path = tmp_path / f"{mod.__name__}.json"
             tl = mod.NativeTimeline(str(path))
             tl.start_activity("t", "QUEUE")

@@ -70,8 +70,9 @@ def fresh_run_contexts(monkeypatch):
 
 @pytest.fixture
 def jax_native():
-    from horovod_tpu import native as JN
+    from torch_port_workers import jax_native as private_jax_native
 
+    JN = private_jax_native()
     if not JN.native_built():
         pytest.fail("the JAX package's native library did not build")
     return JN

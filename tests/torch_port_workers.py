@@ -20,6 +20,56 @@ import traceback
 import numpy as np
 
 
+#: the JAX package's own g++ flags (``horovod_tpu/native/__init__.py``
+#: ``_build``)
+JAX_NATIVE_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+_jax_native_dir = None
+
+
+def jax_native():
+    """The JAX package's native module with its library built for this
+    process alone.
+
+    The JAX package builds ``libhvd_tpu_native.so`` beside its source, in
+    place, and takes any file there that is newer than the source; a
+    failed load is remembered for the rest of the process.  Under xdist
+    every worker imports ``tests/test_native.py``, whose ``skipif`` builds
+    the library, so six compilers write one file at once and a worker can
+    load it half written ("file too short") and lose the library for the
+    rest of its run.  Here the source is compiled with the JAX package's
+    flags into a directory of this process, through a temporary file and
+    a rename; the module is pointed at that file, its remembered result
+    reset, and loaded.  Without ``g++`` the module stays unbuilt, and a
+    caller that needs it fails as before."""
+    import atexit
+    import shutil
+    import subprocess
+    import tempfile
+
+    from horovod_tpu import native as JN
+
+    global _jax_native_dir
+    if _jax_native_dir is not None:
+        return JN
+    private = tempfile.mkdtemp(prefix=f"hvd_jax_native_{os.getpid()}_")
+    atexit.register(shutil.rmtree, private, True)
+    _jax_native_dir = private
+    lib = os.path.join(private, "libhvd_tpu_native.so")
+    tmp = lib + ".tmp"
+    cxx = shutil.which("g++")
+    built = cxx is not None and subprocess.run(
+        [cxx, *JAX_NATIVE_FLAGS, JN._SRC, "-o", tmp],
+        capture_output=True, timeout=300).returncode == 0
+    if built:
+        os.replace(tmp, lib)
+    with JN._lib_lock:
+        JN._LIB = lib
+        JN._lib = None
+        JN._build_failed = not built
+    JN.load()
+    return JN
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("localhost", 0))
@@ -5088,3 +5138,236 @@ def check_guard_world(outs: list) -> None:
         assert sharded["verdict"] == ["ok", "nonfinite", "ok"], rank
         np.testing.assert_array_equal(sharded["gnorm"],
                                       first["sharded"]["gnorm"])
+
+
+# ---------------------------------------------------------------------------
+# steps_per_call: the step as a captured graph
+# ---------------------------------------------------------------------------
+
+#: the cases of the graph step: the data plan's hook path and the flat
+#: sharded exchange
+SPC_CASES = ("hook", "sharded")
+
+
+def _spc_state(opt) -> list:
+    """The optimizer's state, in parameter order, as numpy: the wrapped
+    torch optimizer's on the hook path, the shard optimizer's under the
+    sharded exchange."""
+    inner = opt.sharded_state.inner if hasattr(opt, "sharded_state") \
+        else opt.optimizer
+    return [{k: v.detach().cpu().float().numpy().copy()
+             for k, v in inner.state[p].items()}
+            for g in inner.param_groups for p in g["params"]]
+
+
+def spc_train(hvd, case: str, k: int, calls: int, params0=None,
+              tokens=None, sizes=None, profile: bool = False) -> dict:
+    """``calls`` calls of ``DistributedTrainStep(steps_per_call=k)`` with
+    AdamW(3e-4, weight_decay=1e-4) (``capturable=True`` on a card) on the
+    transformer LM of ``sizes`` (default :data:`TRAIN_SIZES`; fp32 on the
+    CPU, bf16 on a card), from ``params0`` (a state dict of numpy arrays)
+    or seed 0, on the global batch ``tokens`` (default
+    :func:`train_tokens`); ``case`` is the hook path or the flat sharded
+    exchange.  Returns each call's loss, the parameters, the optimizer's
+    state, the telemetry's step count and the step's counters; with
+    ``profile`` (a card) one more call runs under torch.profiler after
+    the results are taken, and its kernel 1-4 device launches are
+    returned too."""
+    import torch
+
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+
+    dev = hvd.device()
+    cfg = TransformerConfig(
+        dtype=torch.float32 if dev.type == "cpu" else torch.bfloat16,
+        attention_impl="flash", **(sizes or TRAIN_SIZES))
+    model = TransformerLM(cfg, generator=torch.Generator().manual_seed(0))
+    if params0 is not None:
+        model.load_state_dict({n: torch.from_numpy(np.asarray(v))
+                               for n, v in params0.items()})
+    model = model.to(dev)
+    kw = {"capturable": True} if dev.type == "cuda" else {}
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4,
+                          **kw),
+        shard_optimizer_states=case == "sharded")
+    step = hvd.DistributedTrainStep(lambda m, b: lm_loss(m, b), opt,
+                                    steps_per_call=k)
+    model, opt = step.init(model)
+    batch = step.shard_batch(train_tokens() if tokens is None else tokens)
+    was_on = telemetry.enabled()
+    telemetry.enable()
+    before = telemetry.value("hvd_steps_total")
+    ctx = telemetry.run_context().step
+    losses = []
+    try:
+        for _ in range(calls):
+            model, opt, loss = step(model, opt, batch)
+            losses.append(float(loss))
+        steps_total = telemetry.value("hvd_steps_total") - before
+    finally:
+        if not was_on:
+            telemetry.disable()
+    out = dict(
+        losses=losses,
+        params={n: v.detach().cpu().float().numpy().copy()
+                for n, v in model.state_dict().items()},
+        names=[n for n, _ in model.named_parameters()],
+        state=_spc_state(opt), steps_total=steps_total,
+        context_steps=telemetry.run_context().step - ctx,
+        cache_hit=step.compile_cache_hit, profiled=None)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        from chip_smoke import profiled_launches
+
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            model, opt, loss = step(model, opt, batch)
+            float(loss)
+        out["profiled"] = profiled_launches(prof)
+        # an eager call after the graph's (the hook path's round flags,
+        # the gradients and the shards' .grad are the eager step's then),
+        # and a replay after it
+        eager_step = hvd.DistributedTrainStep(lambda m, b: lm_loss(m, b),
+                                              opt)
+        model, opt, loss = eager_step(model, opt, batch)
+        out["after"] = [float(loss)]
+        model, opt, loss = step(model, opt, batch)
+        out["after"].append(float(loss))
+    out.update(
+        replays=step.replays,
+        graphs=0 if step.graphs is None else len(step.graphs),
+        launches={} if step.graphs is None else dict(
+            step.graphs.values()[0].graph.launches))
+    return out
+
+
+def run_graph_rebind(hvd, k: int = 2, calls: int = 3) -> dict:
+    """On a card: ``DistributedTrainStep(steps_per_call=k)`` against
+    ``k`` eager steps a call, where what the graph was captured with
+    changes between calls.  ``restore``: after the second call the
+    parameters and AdamW's state are restored (``load_state_dict``, new
+    state tensors) to a snapshot taken after the first.  ``tensor_lr``: an
+    lr on the card under a ``LambdaLR`` stepped each call (``fill_`` in
+    place: one capture).  ``float_lr``: a float lr under the same schedule
+    (a new key each call); after each call the card's cache is emptied and
+    its reserved bytes read, and the graph of the call before must be
+    freed.  Returns, for each case and way, the losses (the last step's of
+    each call), the parameters and the state, and for the graph the
+    in-memory layer's hits and misses, the reserved bytes and whether
+    every replaced graph was freed."""
+    import copy
+    import gc
+    import weakref
+
+    import torch
+
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+
+    dev = hvd.device()
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                            **TRAIN_SIZES)
+
+    def run(case: str, kk: int) -> dict:
+        model = TransformerLM(cfg, generator=torch.Generator().manual_seed(
+            0)).to(dev)
+        lr = torch.tensor(3e-4, device=dev) if case == "tensor_lr" \
+            else 3e-4
+        inner = torch.optim.AdamW(model.parameters(), lr=lr,
+                                  weight_decay=1e-4, capturable=True)
+        step = hvd.DistributedTrainStep(lambda m, b: lm_loss(m, b),
+                                        hvd.DistributedOptimizer(inner),
+                                        steps_per_call=kk)
+        model, opt = step.init(model)
+        batch = step.shard_batch(train_tokens())
+        scheduler = None if case == "restore" else \
+            torch.optim.lr_scheduler.LambdaLR(inner, lambda c: 0.5 ** c)
+        losses, reserved, freed, snap = [], [], [], None
+        last = None
+        for c in range(calls):
+            if case == "restore" and c == 2:
+                model.load_state_dict(snap[0])
+                opt.load_state_dict(snap[1])
+            for _ in range(k // kk):
+                model, opt, loss = step(model, opt, batch)
+            losses.append(float(loss))
+            if case == "restore" and c == 0:
+                snap = (copy.deepcopy(model.state_dict()),
+                        copy.deepcopy(opt.state_dict()))
+            if scheduler is not None:
+                scheduler.step()
+            if kk > 1 and case == "float_lr":
+                gc.collect()
+                torch.cuda.empty_cache()
+                reserved.append(torch.cuda.memory_reserved())
+                if last is not None:
+                    freed.append(last() is None)
+                last = weakref.ref(step.graphs.values()[0])
+        out = dict(losses=losses, lr_is_tensor=isinstance(
+            inner.param_groups[0]["lr"], torch.Tensor),
+            params={n: v.detach().cpu().float().numpy().copy()
+                    for n, v in model.state_dict().items()},
+            state=_spc_state(opt))
+        if kk > 1:
+            out.update(hits=step.graphs.hits, misses=step.graphs.misses,
+                       graphs=len(step.graphs), reserved=reserved,
+                       freed=freed)
+        return out
+
+    return {case: {"graph": run(case, k), "eager": run(case, 1)}
+            for case in ("restore", "tensor_lr", "float_lr")}
+
+
+def run_steps_per_call(hvd, k: int = 3, calls: int = 1, params0=None,
+                       tokens=None, sizes=None,
+                       cases=SPC_CASES) -> dict:
+    """For each case of :data:`SPC_CASES`: ``calls`` calls of
+    ``steps_per_call=k`` and ``k * calls`` calls of ``steps_per_call=1``
+    from the same weights (:func:`spc_train`).  On a card the first runs
+    through the captured graph (and one more call under the profiler,
+    after the compared ones) and the second eagerly."""
+    import torch
+
+    torch.set_num_threads(1)
+    card = hvd.device().type == "cuda"
+    out = {}
+    for case in cases:
+        out[case] = {
+            "graph": spc_train(hvd, case, k, calls, params0, tokens, sizes,
+                               profile=card),
+            "eager": spc_train(hvd, case, 1, k * calls, params0, tokens,
+                               sizes)}
+    return out
+
+
+def check_steps_per_call(res: dict, k: int, calls: int) -> None:
+    """``steps_per_call=k`` equals ``k`` calls of 1 bit for bit: each
+    call's loss is the last of its ``k`` eager steps', and the parameters
+    and the optimizer's state are the same bits; the telemetry counted
+    ``k`` steps a call."""
+    for case, r in res.items():
+        g, e = r["graph"], r["eager"]
+        assert g["losses"] == e["losses"][k - 1::k], (case, g["losses"],
+                                                      e["losses"])
+        for n, v in e["params"].items():
+            np.testing.assert_array_equal(g["params"][n], v,
+                                          err_msg=f"{case} {n}")
+        assert len(g["state"]) == len(e["state"])
+        for i, (sg, se) in enumerate(zip(g["state"], e["state"])):
+            assert sg.keys() == se.keys(), (case, i)
+            for key in se:
+                np.testing.assert_array_equal(sg[key], se[key],
+                                              err_msg=f"{case} {i} {key}")
+        assert g["steps_total"] == e["steps_total"] == k * calls, case
+        assert g["context_steps"] == e["context_steps"] == k * calls, case
