@@ -254,7 +254,21 @@ Phases, in order; any failure exits non-zero:
    built into the store (a hit, 0 s of compiling); (c) phase 19 (d)'s 48
    requests in six batches through ``ExecutableCache.from_module``'s graph
    executors and the eager forward, bit for bit, requests/s both ways;
-21. print the card's name and power limit, the kernels' JSON line, and last
+21. the overlap probe and the affinity knob (``phase_probe``): (a)
+   ``measure_overlap`` on phase 4's recipe at full width (the 870.9M LM,
+   batch 6 x 1024, bf16, flat at a world of one, where the exchange moves
+   no bytes across cards): the three medians, the fraction, the exposed
+   tail, the payload, the bench fields as one JSON line, the kernels'
+   launches over one call of each program from the profiler, and the fused
+   program's fingerprint against that of backward followed by the
+   exchange run on its own, bit for bit, each median taken without the
+   fingerprint pass the program ends in; (b) one worker launched through
+   ``python -m horovod_tpu_torch.runner -np 1`` with
+   ``HOROVOD_THREAD_AFFINITY`` set to the first half of this process's
+   cores: after ``hvd.init()`` every thread it holds, those made before
+   (torch's intra-op pool) and since (the CUDA driver's, NCCL's), is
+   pinned to that set, and it takes one step of a small LM;
+22. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -3470,12 +3484,13 @@ def card_identity() -> dict:
         hvd.shutdown()
 
 
-def _hvdrun(args, timeout: float) -> subprocess.CompletedProcess:
-    """``python -m horovod_tpu_torch.runner ARGS``; past ``timeout`` the
-    launcher gets SIGTERM, which ends its workers too, and this raises."""
+def _hvdrun(args, timeout: float, env=None) -> subprocess.CompletedProcess:
+    """``python -m horovod_tpu_torch.runner ARGS`` (under ``env``, else
+    this process's environment); past ``timeout`` the launcher gets
+    SIGTERM, which ends its workers too, and this raises."""
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", *args]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+                            stderr=subprocess.PIPE, text=True, env=env)
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -5259,6 +5274,199 @@ def phase_graph(torch, launch: dict) -> tuple:
                 warm_start=warm, serve=serve_summary), counts
 
 
+# phase 21 (a): the probe's calls after its warm-up calls, each program
+PROBE = dict(iters=5, warmup=2)
+# phase 21 (b): the launched worker's small LM (flash at head dim 64) and
+# its time limit
+AFFINITY_LM = dict(vocab=1024, layers=2, heads=4, d_model=256, seq=256,
+                   batch=2)
+AFFINITY_TIMEOUT_S = 300
+
+
+def affinity_worker(torch, out_path: str) -> int:
+    """``chip_smoke.py --affinity OUT``: phase 21 (b)'s worker, started by
+    ``python -m horovod_tpu_torch.runner -np 1`` with
+    ``HOROVOD_THREAD_AFFINITY`` set.  Calls ``hvd.init()`` on the card,
+    reads its own core set, takes one step of the small LM of
+    :data:`AFFINITY_LM` through ``DistributedTrainStep``, reads the core
+    set of every thread it then holds, those made before ``init()`` (the
+    intra-op pool that importing torch starts, which ``init()`` pins one
+    by one) apart from those made after (the CUDA driver's and NCCL's
+    among them, which inherit the mask), and writes them with the knob,
+    the loss and the launches to ``OUT`` as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+    from horovod_tpu_torch.ops import kernels as K
+
+    def masks() -> dict:
+        out = {}
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                out[tid] = sorted(os.sched_getaffinity(int(tid)))
+            except OSError:         # the thread ended meanwhile
+                pass
+        return out
+
+    before = masks()
+    hvd.init()
+    pinned = sorted(os.sched_getaffinity(0))
+    a = AFFINITY_LM
+    dev = hvd.device()
+    cfg = TransformerConfig(vocab_size=a["vocab"], num_layers=a["layers"],
+                            num_heads=a["heads"], d_model=a["d_model"],
+                            d_ff=4 * a["d_model"], max_seq_len=a["seq"],
+                            dtype=torch.bfloat16, attention_impl="flash")
+    model = TransformerLM(cfg, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(SEED))
+    step = hvd.DistributedTrainStep(lm_loss, hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4)))
+    K.reset_launch_counts()
+    model, opt = step.init(model)
+    tokens = torch.randint(0, a["vocab"], (a["batch"], a["seq"] + 1),
+                           generator=torch.Generator().manual_seed(SEED))
+    model, opt, loss = step(model, opt, step.shard_batch(tokens))
+    loss = float(loss)
+    after = masks()
+    out = dict(knob=os.environ.get("HOROVOD_THREAD_AFFINITY"),
+               pinned=pinned, loss=loss, launches=K.launch_counts(),
+               device=str(dev), main=str(os.getpid()),
+               older={t: m for t, m in after.items() if t in before},
+               newer={t: m for t, m in after.items() if t not in before})
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_probe(torch) -> tuple:
+    """Phase 21: (a) the overlap probe on phase 4's recipe at full width,
+    (b) ``HOROVOD_THREAD_AFFINITY`` in a launched worker.  Returns the
+    summary and the wrappers' launch counts over (a)'s programs."""
+    import horovod_tpu_torch as hvd
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.models.transformer import lm_loss
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.utils import overlap_probe as OP
+
+    hvd.init()
+    out = {}
+    try:
+        r = recipe(torch, hvd, steps=0)
+        model, batch = r["model"], r["batch"]
+        del r
+        K.reset_launch_counts()
+        rep = OP.measure_overlap(lm_loss, model, batch, **PROBE)
+        counts = K.launch_counts()
+        fields = rep.as_bench_fields()
+        log(f"probe (a) [{CARD}]: backward {rep.backward_s * 1e3:.2f} ms, "
+            f"exchange {rep.exchange_s * 1e3:.2f} ms, fused "
+            f"{rep.fused_s * 1e3:.2f} ms (medians of {PROBE['iters']} calls "
+            f"after {PROBE['warmup']}, host clock fenced by a host read, "
+            f"each without the fingerprint pass and read it ends in, "
+            f"{rep.fingerprint_s * 1e3:.2f} ms alone); overlap fraction {rep.overlap_fraction:.4f}, exposed tail "
+            f"{rep.tail_exchange_s * 1e3:.2f} ms, payload "
+            f"{rep.payload_bytes} B, {rep.hierarchy} at a world of "
+            f"{rep.world}: the exchange moves no bytes across cards, its "
+            f"time is the buckets' packing and the one-rank collectives")
+        log(f"probe (a) bench fields [{CARD}]: {json.dumps(fields)}")
+        pr = OP.overlap_programs(lm_loss, model, batch)
+        per_program = {}
+        for name in ("backward_only", "exchange_only", "fused"):
+            fn = getattr(pr, name)
+            float(fn())
+            K.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                float(fn())
+            per_program[name] = dict(profiler=profiled_launches(prof),
+                                     wrappers=K.launch_counts())
+        log(f"probe (a) launches over one call of each program [{CARD}]: "
+            f"{json.dumps(per_program)}")
+        # the fused program against backward, then the exchange on its own
+        fused = float(pr.fused())
+        trainable = [p for p in model.parameters() if p.requires_grad]
+        grads = torch.autograd.grad(lm_loss(model, batch), trainable)
+        shards, spec = C.grouped_reducescatter(list(grads), op=C.Average,
+                                               spec=pr.spec)
+        apart = float(OP.fingerprint(C.grouped_allgather(shards, spec)))
+        del grads, shards, pr
+        log(f"probe (a) [{CARD}]: fused fingerprint {fused!r}, backward "
+            f"then the exchange {apart!r}, equal: {fused == apart}")
+        out["a"] = dict(fields, payload_bytes=rep.payload_bytes,
+                        fingerprint_s=rep.fingerprint_s,
+                        launches=per_program, fused_fingerprint=fused,
+                        apart_fingerprint=apart)
+        del model, batch
+    finally:
+        hvd.shutdown()
+    torch.cuda.empty_cache()
+    if fused != apart:
+        raise AssertionError("the fused program's fingerprint is not that "
+                             "of backward followed by the exchange")
+    for name in ("backward_only", "fused"):
+        for kernel in FLASH_KERNELS:
+            got = per_program[name]["profiler"][kernel]
+            if got != FULL["layers"] or \
+                    per_program[name]["wrappers"][kernel] != got:
+                raise AssertionError(f"probe {name}: {kernel} launched "
+                                     f"{per_program[name]}, want "
+                                     f"{FULL['layers']} a call")
+    if any(per_program["exchange_only"]["profiler"][k]
+           for k in FLASH_KERNELS):
+        raise AssertionError("the exchange-only program ran attention")
+    if rep.hierarchy != "flat" or rep.rs_scopes != (1,) or \
+            rep.wire_bytes_ici or rep.wire_bytes_dcn or \
+            not 0.0 <= rep.overlap_fraction <= 1.0:
+        raise AssertionError(f"probe report {rep}")
+
+    cores = sorted(os.sched_getaffinity(0))
+    given = cores[:max(1, len(cores) // 2)]
+    out_dir = tempfile.mkdtemp(prefix="hvd_torch_affinity_")
+    try:
+        out_json = os.path.join(out_dir, "affinity.json")
+        proc = _hvdrun(["-np", "1", sys.executable, os.path.abspath(__file__),
+                        "--affinity", out_json], AFFINITY_TIMEOUT_S,
+                       env=dict(os.environ, HOROVOD_THREAD_AFFINITY=",".join(
+                           str(c) for c in given)))
+        if proc.returncode != 0 or not os.path.exists(out_json):
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"affinity worker: launcher rc "
+                                 f"{proc.returncode}")
+        with open(out_json) as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    newer = {tuple(m) for m in res["newer"].values()}
+    older = {t: m for t, m in res["older"].items() if t != res["main"]}
+    log(f"probe (b) [{CARD}]: this process's cores {cores}; the worker was "
+        f"given HOROVOD_THREAD_AFFINITY={res['knob']} and after init() "
+        f"holds {res['pinned']}; after a step its {len(res['newer'])} "
+        f"threads made since init() hold {sorted(newer)}, its "
+        f"{len(older)} other threads made before it (torch's import) "
+        f"hold {sorted({tuple(m) for m in older.values()})}; the small "
+        f"LM's "
+        f"loss {res['loss']}, launches {res['launches']} on "
+        f"{res['device']}")
+    out["b"] = dict(cores=len(cores), given=given, pinned=res["pinned"],
+                    newer=len(res["newer"]), older=len(older),
+                    loss=res["loss"])
+    every = newer | {tuple(m) for m in res["older"].values()}
+    if res["pinned"] != given or every != {tuple(given)}:
+        raise AssertionError(f"the worker holds {res['pinned']} and its "
+                             f"threads {sorted(every)}, given {given}")
+    if not math.isfinite(res["loss"]) or not all(
+            res["launches"][k] for k in FLASH_KERNELS):
+        raise AssertionError(f"affinity worker step: {res}")
+    return out, counts
+
+
 def main() -> int:
     global CARD
     import torch
@@ -5270,6 +5478,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--launched"]:
         return launched_worker(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--affinity"]:
+        return affinity_worker(torch, sys.argv[2])
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5324,8 +5534,9 @@ def main() -> int:
     guard, guard_counts = timed("19a guard", phase_guard, torch, train)
     serve, serve_counts = timed("19b serve", phase_serve, torch)
     graph, graph_counts = timed("20 graph", phase_graph, torch, launch)
+    probe, probe_counts = timed("21 probe", phase_probe, torch)
     for name, n in list(guard_counts.items()) + list(serve_counts.items()) \
-            + list(graph_counts.items()):
+            + list(graph_counts.items()) + list(probe_counts.items()):
         counts[name] += n
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
@@ -5377,6 +5588,7 @@ def main() -> int:
     log(f"guard summary [{CARD}]: {json.dumps(guard)}")
     log(f"serve summary [{CARD}]: {json.dumps(serve)}")
     log(f"graph summary [{CARD}]: {json.dumps(graph)}")
+    log(f"probe summary [{CARD}]: {json.dumps(probe)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -192,9 +192,12 @@ class HealthMonitor:
 
     def stop(self) -> None:
         self._stop.set()
-        if self._thread is not None:
+        # a verdict of the monitor's own thread can stop the driver (every
+        # host lost), and a thread cannot join itself: it ends on _stop
+        if self._thread is not None and \
+                self._thread is not threading.current_thread():
             self._thread.join(timeout=2)
-            self._thread = None
+        self._thread = None
 
     def _watch(self) -> None:
         poll = max(self.interval_s / 2.0, 0.05)

@@ -391,15 +391,31 @@ def active_plan() -> Optional[FaultPlan]:
     return _plan
 
 
-def load_env_plan(force: bool = False) -> Optional[FaultPlan]:
+def _plan_text(config=None) -> Optional[str]:
+    """``HOROVOD_FAULT_PLAN``, resolved as the compile cache resolves its
+    knobs: an explicit ``config``'s ``fault_plan``, else the initialized
+    runtime's, else the environment's (before ``init()``)."""
+    if config is None:
+        from horovod_tpu_torch.runtime import state as rt_state
+
+        if rt_state.is_initialized():
+            config = rt_state.global_state().config
+    if config is not None:
+        return config.fault_plan
+    return os.environ.get("HOROVOD_FAULT_PLAN")
+
+
+def load_env_plan(force: bool = False, config=None) -> Optional[FaultPlan]:
     """Parse ``HOROVOD_FAULT_PLAN`` into the active plan (once; pass
-    ``force=True`` to re-read after changing the env)."""
+    ``force=True`` to re-read after changing the env or the runtime's
+    config); ``config`` is the runtime's ``Config`` while ``init()``
+    runs."""
     global _plan, _env_checked
     with _state_lock:
         if _env_checked and not force:
             return _plan
         _env_checked = True
-        text = os.environ.get("HOROVOD_FAULT_PLAN")
+        text = _plan_text(config)
         if text:
             _plan = FaultPlan.parse(text)
             hvd_logging.warning(

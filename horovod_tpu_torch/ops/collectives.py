@@ -916,23 +916,28 @@ class ExchangeLevel:
         return _ALONE if self.group is None else self.group
 
 
-def exchange_levels_from_topology(tree) -> Tuple[ExchangeLevel, ...]:
+def exchange_levels_from_topology(tree, layout=None
+                                  ) -> Tuple[ExchangeLevel, ...]:
     """The :class:`ExchangeLevel` of each level of a resolved
-    ``runtime/topology.TopologyTree``, over the world's layout groups
-    (``GlobalState.layout_group``), each at its ``wire_bits``: a ``local``
-    or ``cross`` level over that group, the flat tree's one level over the
-    world.  Every rank must call it together: the first call makes the
-    layout's groups."""
+    ``runtime/topology.TopologyTree``, each at its ``wire_bits``: a level
+    over its axis's group, the flat tree's one level over the world.  The
+    axes are the world's layout levels (``GlobalState.layout_group``), or
+    those of ``layout``, a ``runtime/topology.TreeLayout``
+    (:meth:`~horovod_tpu_torch.runtime.topology.TreeLayout.groups`).
+    Every rank must call it together: the first call makes the groups."""
     st = state.global_state()
+    names = state.LAYOUT_LEVELS if layout is None else layout.names
     out = []
     for lv in tree.levels:
         if lv.axes is not None or lv.extent == st.size:
             group = dist.group.WORLD if lv.extent > 1 else None
-        elif lv.name in state.LAYOUT_LEVELS:
+        elif lv.name not in names:
+            raise ValueError(f"level {lv.name!r} is not a layout level of "
+                             f"this world {tuple(names)}")
+        elif layout is None:
             group = st.layout_group(lv.name)
         else:
-            raise ValueError(f"level {lv.name!r} is not a layout level of "
-                             f"this world {state.LAYOUT_LEVELS}")
+            group = layout.groups()[lv.name]
         level = ExchangeLevel.over(group, lv.wire_bits)
         if level.extent != lv.extent:
             raise ValueError(f"level {lv.name!r} has extent {lv.extent}, "

@@ -56,6 +56,7 @@ from horovod_tpu_torch.ops import op_manager
 from horovod_tpu_torch.ops.adasum import adasum_tree
 from horovod_tpu_torch.ops.collectives import Average, ReduceOp, Sum
 from horovod_tpu_torch.ops.kernels import fused_scale
+from horovod_tpu_torch.runtime import distributed as hvd_dist
 from horovod_tpu_torch.runtime import state
 from horovod_tpu_torch.runtime.distributed import raise_internal
 from horovod_tpu_torch.utils import timeline as tl
@@ -605,7 +606,14 @@ def synchronize(handle: Handle) -> torch.Tensor:
     if handle._error is not None:
         raise handle._error
     if handle._event is not None:
-        handle._event.synchronize()
+        deadline = hvd_dist.collective_deadline_s()
+        if deadline is None:
+            handle._event.synchronize()
+        else:
+            # an elastic world on a card: a dead peer raises here within
+            # the deadline, not after NCCL's watchdog
+            hvd_dist.await_event(handle._event, "an eager collective",
+                                 deadline)
     result = handle._result
     compression, ctx = handle._decompress
     if compression is not None:

@@ -40,6 +40,7 @@ import torch
 from torch.profiler import record_function
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from horovod_tpu_torch.exceptions import HorovodInternalError
 from horovod_tpu_torch.ops import collectives as C
 from horovod_tpu_torch.ops.bucketing import plan_buckets
 from horovod_tpu_torch.ops.collectives import Adasum, Average, ReduceOp, Sum
@@ -48,7 +49,7 @@ from horovod_tpu_torch.runtime import distributed as hvd_dist
 from horovod_tpu_torch.runtime import state
 from horovod_tpu_torch.runtime.distributed import raise_internal
 from horovod_tpu_torch.runtime.topology import LAYOUT_AXES, \
-    TOPOLOGY_MODES, parse_level_codecs, resolve_topology
+    TOPOLOGY_MODES, TreeLayout, parse_level_codecs, resolve_topology
 
 
 _log = logging.getLogger(__name__)
@@ -566,6 +567,48 @@ def _rebuild(optimizer: torch.optim.Optimizer,
                                  params=params)], **kwargs)
 
 
+def sharded_exchange_levels(hierarchy: str = "auto",
+                            layout: Optional[TreeLayout] = None,
+                            quantized_bits: Optional[int] = None,
+                            level_codecs: Optional[
+                                Dict[str, Optional[int]]] = None,
+                            error_feedback: bool = False
+                            ) -> Tuple[str, Optional[Tuple]]:
+    """The sharded exchange's topology, resolved as JAX's ``update_fn``
+    resolves it over its mesh axes: ``(mode, levels)``, the mode
+    ``"flat"``, ``"two_level"`` or ``"tree"`` and the
+    :class:`~horovod_tpu_torch.ops.collectives.ExchangeLevel` s innermost
+    first (None when flat).  The axes are the world's ``(cross, local)``
+    layout, or ``layout``'s.  Two levels take JAX's two-level branch (the
+    codec on the outer hop, and under error feedback on the inner one);
+    a tree its levels of extent > 1 with their codecs (``level_codecs``
+    by level name, ``quantized_bits`` on the outermost), error feedback
+    turning on the innermost one.  The levels' groups are made here, so
+    every rank must call it together."""
+    st = state.global_state()
+    if layout is None:
+        sizes, names = (st.cross_size, st.local_size), LAYOUT_AXES
+    else:
+        layout.check_world(st.size)
+        sizes, names = layout.shape, layout.names
+    tree = resolve_topology(hierarchy, sizes, axis_names=names,
+                            wire_bits=quantized_bits,
+                            level_codecs=level_codecs)
+    if tree.mode == "flat":
+        return tree.mode, None
+    if tree.mode == "two_level":
+        inner, outer = C.exchange_levels_from_topology(tree, layout)
+        return tree.mode, (
+            C.ExchangeLevel(inner.group, inner.extent,
+                            quantized_bits if error_feedback else None),
+            C.ExchangeLevel(outer.group, outer.extent, quantized_bits))
+    levels = list(C.exchange_levels_from_topology(tree.effective(), layout))
+    if error_feedback and levels[0].quantized_bits is None:
+        levels[0] = C.ExchangeLevel(levels[0].group, levels[0].extent,
+                                    quantized_bits)
+    return tree.mode, tuple(levels)
+
+
 class _ShardedDistributedOptimizer(_DistributedOptimizer):
     """``step()`` = the sharded exchange with the update in the middle
     (JAX ``sharded_distributed_update``):
@@ -574,7 +617,8 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
        flat (:func:`~horovod_tpu_torch.ops.collectives.grouped_reducescatter`)
        or, on a world of several nodes of several ranks, two-level
        (:func:`~horovod_tpu_torch.ops.collectives.tree_reducescatter`
-       within the node, then across the nodes); ``Compression.int8``
+       within the node, then across the nodes), or level by level over a
+       ``TreeLayout``'s axes; ``Compression.int8``
        quantizes the wire, error feedback keeps its residual;
     2. copy this rank's slice of the parameters (the block it owns,
        :attr:`shard_index`) into its shard tensors
@@ -586,17 +630,24 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
     4. all-gather the new shards and copy them into the parameters.
 
     The topology is resolved once, here, from the world's ``(cross,
-    local)`` extents (``runtime/topology.resolve_topology``), as JAX's
-    ``update_fn`` resolves it at trace time: ``"flat"`` or ``"two_level"``
-    (:attr:`exchange_hierarchy`; a ``"tree"`` over the layout's two axes
-    is the two-level one, as in JAX).  The two-level exchange puts the
-    codec on the cross hop, and under error feedback on the local hop too,
-    where the residual pins it (JAX's ``quantize_inner``); as in JAX,
-    ``level_codecs`` is checked against the levels' names and places
-    codecs only on a tree of three or more levels, which the two-axis
-    layout does not give.  ``reduction="adasum"`` combines across the
-    nodes with Adasum and is the plain sum on a flat topology.  The
-    layout's process groups are made here, on every rank alike.
+    local)`` extents, or from the extents and names of a ``layout``
+    (``runtime/topology.TreeLayout``), with
+    ``runtime/topology.resolve_topology``, as JAX's ``update_fn`` resolves
+    it at trace time over its mesh axes: ``"flat"``, ``"two_level"`` or,
+    over three or more axes, ``"tree"`` (:attr:`exchange_hierarchy`; a
+    ``"tree"`` over two axes is the two-level one, as in JAX).  The
+    two-level exchange puts the codec on the outer hop, and under error
+    feedback on the inner hop too, where the residual pins it (JAX's
+    ``quantize_inner``); as in JAX, ``level_codecs`` is checked against
+    the levels' names and places codecs only on a tree of three or more
+    levels.  The tree runs its levels of extent > 1, innermost first, the
+    codec on the outermost hop and on any level ``level_codecs`` names,
+    and error feedback turns on the innermost one; the rank owns block
+    :func:`~horovod_tpu_torch.ops.collectives.tree_shard_index` of each
+    buffer (:attr:`shard_index`).  ``reduction="adasum"`` combines over
+    the outermost level with Adasum and is the plain sum on a flat
+    topology.  The levels' process groups are made here, on every rank
+    alike.
 
     Equal to allreduce-then-update for elementwise optimizers (SGD,
     momentum, Adam/AdamW, RMSProp): element i's update reads only element
@@ -613,26 +664,20 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
                  prescale_factor, postscale_factor, bucket_bytes,
                  error_feedback: bool, hierarchy: str = "auto",
                  level_codecs: Optional[Dict[str, Optional[int]]] = None,
-                 reduction: str = "sum"):
+                 reduction: str = "sum",
+                 layout: Optional[TreeLayout] = None):
         super().__init__(optimizer, op, compression,
                          backward_passes_per_step, prescale_factor,
                          postscale_factor, overlap=False)
         self.quantized_bits = getattr(compression, "wire_reduce_bits", None)
         self.reduction = reduction
-        st = state.global_state()
-        tree = resolve_topology(hierarchy, (st.cross_size, st.local_size),
-                                axis_names=LAYOUT_AXES,
-                                wire_bits=self.quantized_bits,
-                                level_codecs=level_codecs)
-        #: the exchange this wrapper runs: "flat" or "two_level"
-        self.exchange_hierarchy = tree.mode
-        #: the two-level exchange's (local, cross) levels; None when flat
-        self.levels = None
-        self.shard_index = st.rank
-        if tree.mode == "two_level":
-            self.levels = C.layout_levels(self.quantized_bits,
-                                          quantize_inner=error_feedback)
-            self.shard_index = C.tree_shard_index(self.levels)
+        #: the exchange this wrapper runs ("flat", "two_level" or "tree")
+        #: and its levels, innermost first (None when flat)
+        self.exchange_hierarchy, self.levels = sharded_exchange_levels(
+            hierarchy, layout, self.quantized_bits, level_codecs,
+            error_feedback)
+        self.shard_index = state.global_state().rank \
+            if self.levels is None else C.tree_shard_index(self.levels)
         if not self._trainable:
             raise ValueError("shard_optimizer_states needs a parameter "
                              "that requires a gradient")
@@ -785,6 +830,10 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
                 prescale_factor=self.prescale_factor,
                 postscale_factor=self.postscale_factor, spec=self.spec,
                 residuals=st.residuals, reduction=self.reduction)
+        # an elastic world on a card: a dead peer raises here, before the
+        # update reads a shard the reduce-scatter never wrote
+        hvd_dist.await_stream(grads[0].device,
+                              "the sharded exchange's reduce-scatter")
         if st.residuals is not None:
             st.residuals = out[2]
         del grads
@@ -802,6 +851,8 @@ class _ShardedDistributedOptimizer(_DistributedOptimizer):
         full = C.grouped_allgather(st.shards, self.spec) \
             if self.levels is None else \
             C.tree_allgather(st.shards, self.spec, self.levels)
+        hvd_dist.await_stream(full[0].device,
+                              "the sharded exchange's all-gather")
         for p, leaf in zip(self._trainable, full):
             p.copy_(leaf)
 
@@ -837,7 +888,12 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     and Average and the pre/postscale passes divide by its size.  The
     sharded, Adasum, quantized and row-sparse forms take the world only
     (JAX runs them under ``shard_map``, whose scope is the data axes of a
-    plan without tp) and raise otherwise.
+    plan without tp) and raise otherwise.  With
+    ``shard_optimizer_states=True``, ``axis`` may also be a
+    :class:`~horovod_tpu_torch.runtime.topology.TreeLayout`, the world
+    laid out over named axes (JAX's N-axis mesh as the sharded exchange's
+    ``axis``): ``hierarchy`` then resolves over its axes, so a layout of
+    three or more axes of extent > 1 runs the N-level tree.
 
     ``gradient_predivide_factor`` splits the averaging around the sum:
     gradients scale by ``1/f`` before it and ``f/size`` after (reference
@@ -910,7 +966,12 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             "reduction selects the sharded exchange's combine operator; "
             "pass shard_optimizer_states=True to enable it")
     qbits = getattr(compression, "wire_reduce_bits", None)
-    if not C.is_world(axis):
+    layout = axis if isinstance(axis, TreeLayout) else None
+    if layout is not None and not shard_optimizer_states:
+        raise ValueError(
+            "a TreeLayout axis lays out the sharded exchange's tree; pass "
+            "shard_optimizer_states=True to enable it")
+    if layout is None and not C.is_world(axis):
         scoped = [name for name, on in (
             ("shard_optimizer_states", shard_optimizer_states),
             ("op=Adasum", op == Adasum), ("a quantized wire", qbits),
@@ -964,7 +1025,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             optimizer, op, compression, backward_passes_per_step,
             prescale_factor, postscale_factor, exchange_bucket_bytes,
             error_feedback, hierarchy, level_codecs,
-            C._resolve_reduction(reduction))
+            C._resolve_reduction(reduction), layout)
     _check_sparse(sparse_params, op)
     return _DistributedOptimizer(
         optimizer, op, compression, backward_passes_per_step,
@@ -1114,6 +1175,12 @@ class _DistributedAdasumOptimizer:
         torch._foreach_sub_(params, self._start)
         adasum_updates(params, compression=self.compression,
                        bucket_bytes=self._bucket_bytes)
+        try:
+            hvd_dist.await_stream(params[0].device, "the Adasum exchange")
+        except HorovodInternalError:
+            # the parameters hold their deltas: put the step's start back
+            torch._foreach_copy_(params, self._start)
+            raise
         torch._foreach_add_(params, self._start)
 
 

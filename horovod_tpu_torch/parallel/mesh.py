@@ -45,29 +45,60 @@ GROUPED_AXES = ((AXIS_DP, AXIS_FSDP), (AXIS_DP, AXIS_FSDP, AXIS_EP),
 Axes = Union[str, Sequence[str]]
 
 
-def _axes(axes: Axes) -> Tuple[str, ...]:
-    """``axes`` as a tuple in :data:`AXIS_ORDER` order; unknown names
-    raise."""
+def _axes(axes: Axes, order: Sequence[str] = AXIS_ORDER
+          ) -> Tuple[str, ...]:
+    """``axes`` as a tuple in ``order`` (:data:`AXIS_ORDER` by default);
+    unknown names raise."""
     names = (axes,) if isinstance(axes, str) else tuple(axes)
     for a in names:
-        if a not in AXIS_ORDER:
+        if a not in order:
             raise ValueError(f"unknown mesh axis {a!r}: expected one of "
-                             f"{', '.join(AXIS_ORDER)}")
-    return tuple(a for a in AXIS_ORDER if a in names)
+                             f"{', '.join(order)}")
+    return tuple(a for a in order if a in names)
 
 
-def axis_ranks(shape: Dict[str, int], axis: Axes) -> List[List[int]]:
+def axis_ranks(shape: Dict[str, int], axis: Axes,
+               order: Sequence[str] = AXIS_ORDER) -> List[List[int]]:
     """The ranks of every group along ``axis`` (one axis name or several)
-    of a mesh of ``shape`` (extents by axis name): each list holds the
-    ranks that differ only in their coordinates on those axes, ordered
-    row-major over them in :data:`AXIS_ORDER`."""
-    names = _axes(axis)
-    extents = [shape[a] for a in AXIS_ORDER]
+    of a mesh of ``shape`` (extents by axis name) whose axes go outermost
+    first in ``order`` (:data:`AXIS_ORDER` by default; a named tree
+    layout passes its own names): each list holds the ranks that differ
+    only in their coordinates on those axes, ordered row-major over them
+    in ``order``."""
+    order = tuple(order)
+    names = _axes(axis, order)
+    extents = [shape[a] for a in order]
     grid = np.arange(int(np.prod(extents))).reshape(extents)
-    idx = [AXIS_ORDER.index(a) for a in names]
+    idx = [order.index(a) for a in names]
     size = int(np.prod([extents[i] for i in idx]))
     moved = np.moveaxis(grid, idx, list(range(-len(idx), 0)))
     return moved.reshape(-1, size).tolist()
+
+
+def line_groups(shape: Dict[str, int], keys: Sequence[Axes], rank: int,
+                timeout=None, order: Sequence[str] = AXIS_ORDER
+                ) -> Dict[Axes, Optional[dist.ProcessGroup]]:
+    """This rank's process group along each of ``keys`` (one axis name or
+    several) of a mesh of ``shape`` whose axes go outermost first in
+    ``order``: ``None`` at extent 1, ``dist.group.WORLD`` when the line
+    spans the mesh, else the group of ``rank``'s line.  Every line of
+    every key is made in turn (:func:`axis_ranks`), so every rank must
+    call it together, with the same arguments."""
+    size = int(np.prod([shape[a] for a in order]))
+    groups: Dict[Axes, Optional[dist.ProcessGroup]] = {}
+    for key in keys:
+        lines = axis_ranks(shape, key, order)
+        extent = len(lines[0])
+        if extent == 1:
+            groups[key] = None
+        elif extent == size:
+            groups[key] = dist.group.WORLD
+        else:
+            for ranks in lines:
+                group = dist.new_group(ranks, timeout=timeout)
+                if rank in ranks:
+                    groups[key] = group
+    return groups
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,24 +176,13 @@ def make_parallel_mesh(dp: Optional[int] = None, pp: int = 1, fsdp: int = 1,
     shape = dict(zip(AXIS_ORDER, (dp, pp, fsdp, ep, sp, tp)))
     coords = dict(zip(AXIS_ORDER, (int(c) for c in np.unravel_index(
         st.rank, tuple(shape.values())))))
-    groups: Dict = {}
     keys = list(AXIS_ORDER)
     for axes in GROUPED_AXES:
         live = tuple(a for a in axes if shape[a] > 1)
         if len(live) > 1 and live not in keys:
             keys.append(live)
-    for key in keys:
-        extent = int(np.prod([shape[a] for a in _axes(key)]))
-        if extent == 1:
-            groups[key] = None
-        elif extent == n:
-            groups[key] = dist.group.WORLD
-        else:
-            for ranks in axis_ranks(shape, key):
-                group = dist.new_group(ranks, timeout=st.group_timeout())
-                if st.rank in ranks:
-                    groups[key] = group
-    return ParallelMesh(shape, coords, groups)
+    return ParallelMesh(shape, coords, line_groups(
+        shape, keys, st.rank, st.group_timeout()))
 
 
 #: the tensors that hold a shard: weak references to them, by id

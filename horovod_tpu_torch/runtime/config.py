@@ -9,8 +9,9 @@ the parallelism plan, the MoE dispatch knobs, the input pipeline's
 prefetch depth and thread count, the runtime tools (the timeline, the
 stall inspector, the parameter manager and the metrics exporters, with the
 set of knobs the user fixed), the memory plane, the hardware model and
-the training-state guard (the serving plane's knobs are read where they
-are used),
+the training-state guard and the chaos layer's fault plan (the serving
+plane's knobs and the core sets of ``HOROVOD_THREAD_AFFINITY`` are read
+where they are used),
 under the same ``HOROVOD_*`` names and with the same defaults, so one
 environment drives both packages (the degrade knobs are read where they
 are used, as in the JAX package).  A knob
@@ -36,6 +37,12 @@ KNOWN_KNOBS = frozenset({
     "HOROVOD_COORDINATOR_ADDR",
     # -- fusion
     "HOROVOD_FUSION_THRESHOLD",
+    # -- the compile cache's store (runtime/compile_cache.py)
+    "HOROVOD_COMPILE_CACHE", "HOROVOD_COMPILE_CACHE_DIR",
+    # -- the chaos layer's plan (faults/plan.py)
+    "HOROVOD_FAULT_PLAN",
+    # -- this worker's core set, applied by init() (utils/affinity.py)
+    "HOROVOD_THREAD_AFFINITY",
     # -- the eager plane (ops/eager.py, ops/bucketing.py, ops/op_manager.py)
     "HOROVOD_CYCLE_TIME", "HOROVOD_CACHE_CAPACITY", "HOROVOD_TPU_OPERATIONS",
     # -- the sharded exchange (optim/optimizer.py, ops/collectives.py)
@@ -291,6 +298,10 @@ class Config:
     guard_ema: float = 0.99              # EMA decay for the norm baseline
     guard_preempt: bool = True           # SIGTERM graceful-departure handler
 
+    # -- the chaos layer (faults/plan.py): the HOROVOD_FAULT_PLAN text,
+    # loaded by init() (None = no plan)
+    fault_plan: Optional[str] = None
+
     # knobs the user set explicitly, which autotune must not touch
     fixed_knobs: frozenset = frozenset()
 
@@ -385,6 +396,7 @@ class Config:
             guard_warmup_steps=_env_int("HOROVOD_GUARD_WARMUP_STEPS", 10),
             guard_ema=_env_float("HOROVOD_GUARD_EMA", 0.99),
             guard_preempt=_env_bool("HOROVOD_GUARD_PREEMPT", True),
+            fault_plan=os.environ.get("HOROVOD_FAULT_PLAN"),
             fixed_knobs=frozenset(
                 knob for name, knob in _FIXABLE
                 if os.environ.get(name) not in (None, "")),

@@ -219,6 +219,22 @@ def await_event(event, what: str, timeout_s: float,
         time.sleep(poll_s)
 
 
+def await_stream(device, what: str) -> None:
+    """In an elastic world on a card (:func:`collective_deadline_s` not
+    None), block the host until the work queued so far on ``device``'s
+    current stream, the collectives just issued among it, has completed,
+    or raise ``HorovodInternalError`` at the deadline
+    (:func:`await_event`); elsewhere return at once."""
+    deadline = collective_deadline_s()
+    if deadline is None:
+        return
+    import torch
+
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    await_event(done, what, deadline)
+
+
 def collective_deadline_s():
     """The host's deadline for a collective of the current world: the
     elastic timeout in an elastic world of more than one rank on a card,

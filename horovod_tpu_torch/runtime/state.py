@@ -33,7 +33,7 @@ import atexit
 import os
 import socket
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -87,6 +87,10 @@ class GlobalState:
         self.eager = None
         # this rank's group of each layout level, made at first use
         self._layout: Optional[Dict[str, Optional[dist.ProcessGroup]]] = None
+        # this rank's group along each axis of every named layout made in
+        # this world, by (extents, names): the layout levels' among them
+        self._trees: Dict[Tuple[Tuple[int, ...], Tuple[str, ...]],
+                          Dict[str, Optional[dist.ProcessGroup]]] = {}
         # the process groups' timeout: torch's default, or an elastic
         # world's short one (runtime/distributed.py); device_timeout is
         # that of the groups on the world's backend (an elastic NCCL
@@ -104,12 +108,19 @@ class GlobalState:
 
     def initialize(self) -> None:
         cfg = self.config
+        if cfg.fault_plan:
+            # the chaos layer first, live before any instrumented
+            # subsystem starts (JAX runtime/state.py)
+            from horovod_tpu_torch import faults
+
+            faults.load_env_plan(config=cfg)
         if dist.is_initialized():
             # a process group the caller made: its identity first, then
             # the local extent, and only then the card
             self.rank, self.size = dist.get_rank(), dist.get_world_size()
             self._make_host_group()
             self._identity_from_group(self._gather(self._local_env()))
+            _apply_affinity(self.local_rank)
             self._set_device()
         else:
             self.rank = cfg.rank or 0
@@ -124,6 +135,9 @@ class GlobalState:
             if not 0 <= self.rank < self.size:
                 raise ValueError(f"HOROVOD_RANK {self.rank} is outside a "
                                  f"world of {self.size}")
+            # before the card and the process group: the mask is
+            # inherited only by the threads made after it
+            _apply_affinity(self.local_rank)
             self._set_device()
             if self.size > 1 and not cfg.coordinator_addr:
                 raise ValueError("HOROVOD_SIZE > 1 needs "
@@ -285,10 +299,10 @@ class GlobalState:
         ``local_rank``, ordered by ``cross_rank``).  ``None`` at extent 1,
         ``dist.group.WORLD`` when the level spans the world.
 
-        The first call makes every group of both levels, local ones node
-        by node and then cross ones index by index, so every rank must
-        make it, at the same point of its program (the collectives that
-        need a level do).  It gathers each rank's ``(cross_rank,
+        The first call makes every group of both levels, as
+        :meth:`tree_groups` makes those of the layout ``(cross, local)``,
+        so every rank must make it, at the same point of its program (the
+        collectives that need a level do).  It gathers each rank's ``(cross_rank,
         local_rank)`` and raises ``ValueError`` on every rank alike unless
         the world is the row-major grid ``rank = cross_rank *
         local_size + local_rank``, the order of the JAX package's mesh."""
@@ -310,24 +324,28 @@ class GlobalState:
                 f"nodes of {n_local} ranks in rank order (rank = "
                 f"cross_rank * local_size + local_rank); (cross_rank, "
                 f"local_rank) by rank: {ids}")
-        levels = {LOCAL: [[c * n_local + l for l in range(n_local)]
-                          for c in range(n_cross)],
-                  CROSS: [[c * n_local + l for c in range(n_cross)]
-                          for l in range(n_local)]}
-        out: Dict[str, Optional[dist.ProcessGroup]] = {}
-        for level, lines in levels.items():
-            extent = len(lines[0])
-            if extent == 1:
-                out[level] = None
-            elif extent == self.size:
-                out[level] = dist.group.WORLD
-            else:
-                for ranks in lines:
-                    group = dist.new_group(ranks,
-                                           timeout=self.group_timeout())
-                    if self.rank in ranks:
-                        out[level] = group
-        return out
+        return self.tree_groups((n_cross, n_local), (CROSS, LOCAL))
+
+    def tree_groups(self, shape: Tuple[int, ...], names: Tuple[str, ...]
+                    ) -> Dict[str, Optional[dist.ProcessGroup]]:
+        """This rank's process group along each axis of the world laid out
+        over ``names`` with extents ``shape``, outermost first, in rank
+        order (``runtime/topology.TreeLayout``; the layout levels are
+        ``(cross, local)``'s): ``None`` at extent 1, ``dist.group.WORLD``
+        when the axis spans the world.  The first call for a layout in
+        this world makes its groups (``parallel/mesh.line_groups``), the
+        innermost axis first as the exchange runs its levels (the layout
+        levels local, then cross), so every rank must make it together;
+        later calls, and equal layouts, share them, and :meth:`shutdown`
+        releases them."""
+        from horovod_tpu_torch.parallel.mesh import line_groups
+
+        key = (tuple(shape), tuple(names))
+        if key not in self._trees:
+            self._trees[key] = line_groups(
+                dict(zip(names, shape)), names[::-1], self.rank,
+                self.group_timeout(), order=names)
+        return self._trees[key]
 
     def group_timeout(self):
         """The timeout of a group made on the world's backend (None:
@@ -376,13 +394,24 @@ class GlobalState:
             elif self.owns_group:
                 dist.destroy_process_group()
             else:
-                made = [self.host_group] + list((self._layout or {}).values())
+                made = [self.host_group] + [
+                    g for groups in self._trees.values()
+                    for g in groups.values()]
                 for group in made:
                     if group not in (None, dist.group.WORLD):
                         dist.destroy_process_group(group)
         self.owns_group = False
         self.host_group = None
         self._layout = None
+        self._trees = {}
+
+
+def _apply_affinity(local_rank: int) -> None:
+    """``HOROVOD_THREAD_AFFINITY``'s set of ``local_rank``, applied to this
+    process (``utils/affinity.py``; JAX ``runtime/state.py``)."""
+    from horovod_tpu_torch.utils import affinity
+
+    affinity.set_affinity_from_env(local_rank)
 
 
 def _abort_or_destroy() -> None:

@@ -10,12 +10,18 @@ extents and returns the :class:`TopologyTree` the exchange runs: one level
 (flat), two (``local`` inside ``cross``: the two-level exchange) or more
 (the tree).  The port names its two layout levels as its process groups
 are named, where the JAX package says ``ici`` and ``dcn``.
+
+A tree of three or more levels comes, as in JAX, from a layout the caller
+names: JAX passes an N-axis ``Mesh(devs.reshape(2, 2, 2), ("pod",
+"slice", "chip"))`` as the sharded exchange's ``axis``, the port a
+:class:`TreeLayout` over the ``hvd.init()`` world, with one process group
+for each line of ranks along each axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 #: Valid values of the exchange ``hierarchy`` knob (JAX
 #: ``HIERARCHY_MODES``).
@@ -201,3 +207,66 @@ def resolve_hierarchy(hierarchy: str, axis_sizes: Sequence[int]) -> str:
                          f"{hierarchy!r}")
     mode = resolve_topology(hierarchy, axis_sizes).mode
     return "flat" if mode == "tree" else mode
+
+
+@dataclasses.dataclass
+class TreeLayout:
+    """The ``hvd.init()`` world laid out over named axes, the port's
+    counterpart of the N-axis JAX ``Mesh`` that ``sharded_distributed_update``
+    takes as its ``axis``: extents and names outermost first, and rank
+    ``r`` at the C-order coordinates of ``r`` over ``shape``, as JAX's mesh
+    orders ``devices.reshape(shape)``::
+
+        layout = TreeLayout(shape=(2, 2, 2), names=("pod", "slice", "chip"))
+        opt = hvd.DistributedOptimizer(inner, shard_optimizer_states=True,
+                                       axis=layout, hierarchy="tree")
+
+    Each axis is a level of the exchange tree, named as the layout names
+    it (``level_codecs`` are placed by those names).  :meth:`groups` makes
+    the process groups at its first call in a world."""
+
+    shape: Tuple[int, ...]
+    names: Tuple[str, ...]
+
+    def __post_init__(self):
+        self.shape = tuple(int(n) for n in self.shape)
+        self.names = tuple(str(n) for n in self.names)
+        if not self.shape or len(self.shape) != len(self.names):
+            raise ValueError(f"a TreeLayout needs one name for each of its "
+                             f">= 1 extents, got shape {self.shape} and "
+                             f"names {self.names}")
+        if len(set(self.names)) != len(self.names):
+            raise ValueError(f"TreeLayout axis names must differ, got "
+                             f"{self.names}")
+        if any(n < 1 for n in self.shape):
+            raise ValueError(f"TreeLayout extents must be >= 1, got "
+                             f"{self.shape}")
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for e in self.shape:
+            n *= e
+        return n
+
+    def check_world(self, world: int) -> None:
+        """Raise unless the layout covers a world of ``world`` ranks."""
+        if self.size != world:
+            raise ValueError(
+                f"the layout {dict(zip(self.names, self.shape))} covers "
+                f"{self.size} ranks, and the world has {world}: the "
+                f"product of the extents must be the world's size")
+
+    def groups(self) -> Dict[str, Optional[Any]]:
+        """This rank's process group along each axis: ``None`` at extent
+        1, the world's group when the axis spans the world.  The first
+        call in a world makes every group of every axis
+        (``GlobalState.tree_groups``), so every rank must make it
+        together, at the same point of its program; later calls in that
+        world, and equal layouts, return the same groups, and
+        ``hvd.shutdown()`` releases them."""
+        from horovod_tpu_torch.runtime import state
+
+        st = state.global_state()
+        self.check_world(st.size)
+        return st.tree_groups(self.shape, self.names)

@@ -22,6 +22,7 @@
    batch.
 """
 
+import threading
 import types
 from pathlib import Path
 
@@ -173,6 +174,32 @@ def test_health_verdicts_match_jax(monkeypatch):
         got.append(dead)
     assert got[0] == got[1]
     assert got[0], "the schedule declares someone"
+
+
+def test_health_verdict_that_stops_the_monitor():
+    """A death declared on the monitor's own thread whose callback stops
+    the monitor (the driver's stop once every host is lost): the thread
+    ends, and the callback returns rather than raising on a join of its
+    own thread."""
+    clk = Clock()
+    stopped, errors = threading.Event(), []
+
+    def on_dead(host, lr, detect, reason):
+        try:
+            mon.stop()
+        except RuntimeError as e:      # "cannot join current thread"
+            errors.append(e)
+        stopped.set()
+
+    mon = TH.HealthMonitor(on_dead, interval_s=0.1, suspect_misses=3,
+                           dead_s=0.5, clock=clk)
+    mon.record_heartbeat("a", 0)
+    mon.start()
+    thread = mon._thread
+    clk.t = 10.0
+    assert stopped.wait(10.0)
+    thread.join(timeout=10.0)
+    assert not errors and not thread.is_alive() and mon._thread is None
 
 
 # -- the state ----------------------------------------------------------------

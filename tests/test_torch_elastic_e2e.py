@@ -61,16 +61,18 @@ def write_discovery_script(path, logfile, schedule):
 def run_elastic(tmp_path, discovery_schedule, np=1, min_np=1, max_np=2,
                 exit_schedule=None, exit_mode="exception", epochs=3,
                 timeout=SCENARIO_TIMEOUT_S, extra_args=(), extra_env=None,
-                worker_args=()):
+                worker_args=(), root=REPO):
     """One launch: its return code (or how it timed out), output, rank
-    0's epoch records, every rank's records and the workers' logs."""
+    0's epoch records, every rank's records and the workers' logs.  The
+    launcher and the workers import the package of the checkout at
+    ``root`` (this one by default) and run this checkout's worker."""
     logfile = tmp_path / "log.jsonl"
     disc = tmp_path / "discover.sh"
     write_discovery_script(disc, logfile, discovery_schedule)
     out_dir = tmp_path / "out"
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_", "XLA_", "JAX_"))}
-    env["PYTHONPATH"] = REPO + ":" + os.path.join(REPO, "tests")
+    env["PYTHONPATH"] = root + ":" + os.path.join(REPO, "tests")
     env["HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT"] = "5"
     env["HOROVOD_ELASTIC_START_TIMEOUT"] = "60"
     env["OMP_NUM_THREADS"] = "1"
@@ -89,7 +91,7 @@ def run_elastic(tmp_path, discovery_schedule, np=1, min_np=1, max_np=2,
            "--exit-mode", exit_mode, *worker_args]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env,
-                            start_new_session=True)
+                            start_new_session=True, cwd=root)
     try:
         out, err = proc.communicate(timeout=timeout)
         rc = proc.returncode

@@ -57,6 +57,13 @@ class TestConfig:
            "HOROVOD_CROSS_RANK": "1", "HOROVOD_CROSS_SIZE": "4",
            "HOROVOD_COORDINATOR_ADDR": "localhost:1234",
            "HOROVOD_FUSION_THRESHOLD": "4096",
+           # the compile cache's store and the chaos layer's plan: Config
+           # fields; the core sets are read where they are used (init()
+           # applies them), as in the JAX package
+           "HOROVOD_COMPILE_CACHE": "0",
+           "HOROVOD_COMPILE_CACHE_DIR": "/tmp/hvd_cc",
+           "HOROVOD_FAULT_PLAN": "seed=3;mode=sim",
+           "HOROVOD_THREAD_AFFINITY": "0-1;2-3",
            "HOROVOD_CYCLE_TIME": "2.5", "HOROVOD_CACHE_CAPACITY": "64",
            "HOROVOD_TPU_OPERATIONS": "host",
            "HOROVOD_EXCHANGE_BUCKET_BYTES": "1048576",

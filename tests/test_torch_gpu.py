@@ -23,7 +23,11 @@ the row-sparse exchange at a world of 4; run them alone on four cards:
 ``-k "test_adasum_over_nccl or test_sparse_over_nccl"``.
 ``test_hierarchy_over_nccl`` runs the two-level exchange on four cards
 laid out 2 x 2, the 870.9M LM among it: ``-s -k
-test_hierarchy_over_nccl`` alone on four cards.  ``test_guard_over_nccl``
+test_hierarchy_over_nccl`` alone on four cards.  ``test_tree_over_nccl``
+runs the sharded exchange over named layouts and the overlap probe, and
+``test_sharded_kill_over_nccl`` kills a worker under the sharded exchange
+in an elastic world: ``-s -k "test_tree_over_nccl or
+test_sharded_kill_over_nccl"`` alone on four cards.  ``test_guard_over_nccl``
 corrupts one replica of four and rolls the world back: ``-s -k
 test_guard_over_nccl`` alone on four cards.
 Imports torch, numpy, the port and ``chip_smoke``'s inputs and tolerances
@@ -1434,6 +1438,137 @@ class TestNcclWorld:
                 assert r["state_bytes"] * 4 == 2 * 4 * r["padded"]
         assert all(out["full"]["two_level"]["losses"] ==
                    card[0]["full"]["two_level"]["losses"] for out in card)
+
+    def test_tree_over_nccl(self, cards):
+        """The tree over a named layout on four cards: the small fp32 LM
+        through the sharded optimizer with ``axis=TreeLayout(...)``:
+        ``"tree"`` on a ``(2, 2)`` layout is ``"two_level"`` bit for bit,
+        and a ``(2, 1, 2)`` tree (its extent-1 level dropped) too;
+        ``level_codecs={"pod": 8}`` on that tree stays within the codec's
+        envelope of the exact run (JAX's rtol 0.05, atol 4e-3); each case
+        against the same world on gloo (losses 1e-5, parameters as
+        assert_adam_close states); then the overlap probe on the 870.9M
+        LM at 6 x 1024 tokens a rank over the ``(2, 2)`` layout and flat,
+        every reading printed beside the card's name and power limit
+        before any is checked.  (A tree of three levels of extent > 1
+        needs eight ranks: it is held on the gloo world of 8 only.)  Run
+        alone on four cards."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        card = spawn_world("run_tree_nccl", world=4, args=(True,),
+                           device="cuda", timeout=900)
+        gloo = spawn_world("run_tree_nccl", world=4, device="cpu",
+                           timeout=300)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
+        for rank, out in enumerate(card):
+            for case, r in out["lm"].items():
+                print(f"rank {rank} [{smi[rank]}] small LM {case}: "
+                      f"{r['mode']}, block {r['index']}, losses "
+                      f"{r['losses']} (gloo "
+                      f"{gloo[rank]['lm'][case]['losses']})")
+            for how, rep in out["probe"].items():
+                print(f"rank {rank} [{smi[rank]}] 870.9M probe {how}: "
+                      f"{json.dumps(rep['fields'])}; payload "
+                      f"{rep['payload_bytes']} B; launches "
+                      f"{json.dumps(rep['launches'])}")
+        for rank, out in enumerate(card):
+            lm = out["lm"]
+            assert [lm[c]["mode"] for c in lm] == \
+                ["two_level", "two_level", "tree", "tree", "flat"]
+            assert lm["two_level"]["index"] == [0, 2, 1, 3][rank]
+            for case in ("tree", "tree_212"):
+                assert lm[case]["losses"] == lm["two_level"]["losses"]
+                assert lm[case]["index"] == lm["two_level"]["index"]
+                for k, v in lm["two_level"]["params"].items():
+                    np.testing.assert_array_equal(lm[case]["params"][k], v,
+                                                  err_msg=f"{case} {k}")
+            for k, v in lm["two_level"]["params"].items():
+                np.testing.assert_allclose(lm["pod_codec"]["params"][k], v,
+                                           rtol=0.05, atol=4e-3)
+            np.testing.assert_allclose(lm["flat"]["losses"],
+                                       lm["two_level"]["losses"], rtol=1e-5)
+            for case, r in lm.items():
+                twin = gloo[rank]["lm"][case]
+                np.testing.assert_allclose(r["losses"], twin["losses"],
+                                           rtol=1e-5)
+                for k, v in r["params"].items():
+                    assert_adam_close(v, twin["params"][k], k,
+                                      steps=ADASUM_LM_STEPS)
+                    np.testing.assert_array_equal(
+                        v, card[0]["lm"][case]["params"][k], err_msg=k)
+            two, flat = out["probe"]["two_level"], out["probe"]["flat"]
+            assert (two["hierarchy"], two["rs_scopes"]) == ("two_level",
+                                                            (2,))
+            assert (flat["hierarchy"], flat["rs_scopes"]) == ("flat", (4,))
+            assert two["exchange_intra_s"] is not None
+            assert two["exchange_cross_s"] is not None
+            assert two["wire_bytes_ici"] > 0 and two["wire_bytes_dcn"] > 0
+            for rep in (two, flat):
+                assert 0.0 <= rep["overlap_fraction"] <= 1.0
+                assert rep["device"] == f"cuda:{rank}"
+                assert rep["grad_sized_allreduces"] == 0
+                assert all(rep["launches"][k] > 0 for k in (
+                    "fused_scale", "flash_fwd", "flash_bwd_dq",
+                    "flash_bwd_dkv")), rep["launches"]
+
+    def test_sharded_kill_over_nccl(self, cards, tmp_path):
+        """ROADMAP C 15 on four cards: the elastic launcher with two host
+        names of two slots each, the 870.9M LM's width at 4 layers under
+        ``TorchState`` through the sharded exchange
+        (``DistributedOptimizer(shard_optimizer_states=True)``, rebuilt at
+        each reset).  Start rank 3 is killed at epoch 1's first batch, so
+        the survivors' next collective is the sharded step's
+        reduce-scatter: each must detect the loss within the 10 s elastic
+        timeout and a 10 s margin (before the host deadline it waited for
+        NCCL's watchdog, 60 s, and then for an abort that never
+        returned), restore on the host left, and every process must end
+        with the launcher's 0.  The seconds to detection and to the
+        launcher's return are printed."""
+        if cards < 4:
+            pytest.skip("needs four CUDA cards")
+        from test_torch_elastic_e2e import run_elastic
+
+        both = ["localhost:2", "127.0.0.1:2"]
+        run = run_elastic(
+            tmp_path, [(None, both)], np=4, min_np=2, max_np=4,
+            exit_schedule={"1,0": [3]}, exit_mode="kill", epochs=3,
+            timeout=300,
+            extra_env={"HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT": "10",
+                       "HOROVOD_ELASTIC_START_TIMEOUT": "300",
+                       "HOROVOD_QUARANTINE_DISABLE": "1"},
+            worker_args=("--model", "lm", "--sharded", "--hosts",
+                         "localhost,127.0.0.1", "--slots", "2"))
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
+        t0 = min((r["t"] for r in run["ranks"]), default=0.0)
+        for rec in run["ranks"]:
+            if rec.get("event") in ("rendezvous", "step", "kill", "done"):
+                print(f"{rec['t'] - t0:8.2f} s [{smi[0]}]: {json.dumps(rec)}")
+        assert run["rc"] == 0, (run["stderr"][-3000:] + run["logs"])
+        steps = [r for r in run["ranks"] if r.get("event") == "step"]
+        assert steps and all(math.isfinite(r["loss"]) for r in steps)
+        kill_t = next(r["t"] for r in run["ranks"]
+                      if r.get("event") == "kill")
+        killed = [r for r in run["ranks"] if r.get("event") == "rendezvous"
+                  and r["rendezvous"] > 1]
+        detect = {r["start_rank"]: r["failure_t"] - kill_t for r in killed}
+        done = {r["start_rank"]: r["t"] - kill_t for r in run["ranks"]
+                if r.get("event") == "done"}
+        print(f"[{smi[0]}] sharded exchange: seconds from the kill to "
+              f"detection by start rank: {json.dumps(detect)}; to each "
+              f"survivor's end of training: {json.dumps(done)}; to the "
+              f"launcher's return: {run['t_return'] - kill_t:.2f}")
+        assert detect and all(0 < s <= 20 for s in detect.values()), detect
+        assert set(done) == set(detect), (done, detect)
+        commits: dict = {}
+        for r in run["ranks"]:
+            if r.get("event") == "commit":
+                commits.setdefault((r["gstep"], r["rendezvous"]),
+                                   set()).add(r["check"])
+        assert all(len(v) == 1 for v in commits.values()), commits
 
     def test_model_parallel_over_nccl(self, cards):
         """tp and fsdp in the step's plan on four cards: the 870.9M

@@ -4,8 +4,12 @@ exchange over the world's ``(cross, local)`` layout (round trip, each
 rank's shard and the block it owns, Average and buckets, the codec on the
 cross hop, on both hops with error feedback and by level name, Adasum on
 the cross hop); the three-level tree from caller-made groups; the sharded
-optimizer and step trained two_level, tree, auto and flat; and the sharded
-checkpoint saved under the two-level ownership.
+optimizer and step trained two_level, tree, auto and flat; the sharded
+checkpoint saved under the two-level ownership; and the sharded optimizer
+over ``TreeLayout((2, 2, 2), ("pod", "slice", "chip"))`` on a world of 8
+(tree, auto, flat, level codecs on ``pod`` and ``chip``, error feedback,
+a checkpoint round trip) against JAX's ``sharded_distributed_update`` on
+the same mesh (``run_tree_layout``).
 
 Gloo worlds laid out as 2 x 4 and 3 x 2 nodes (``HIER_LAYOUTS``) are
 spawned once for the module, two at a time (``run_hierarchy`` in
@@ -48,12 +52,17 @@ from torch_port_workers import (
     HIER_LAYOUTS,
     HIER_MLP_3X2,
     HIER_MLP_CASES,
+    TREE_NAMES,
+    TREE_OPT_CASES,
+    TREE_OPT_STEPS,
+    TREE_SHAPE,
     WIRES,
     assert_adam_close,
     hier_leaves,
     mlp_batch,
     mlp_params,
     spawn_world,
+    tree_opt_grads,
 )
 
 from test_torch_train_step import SIZES, _tokens
@@ -842,3 +851,252 @@ class TestFourCardTwin:
             assert out["lm"]["losses"] == ref["losses"]
             for k, v in out["lm"]["params"].items():
                 np.testing.assert_array_equal(v, ref["params"][k])
+
+
+# ---------------------------------------------------------------------------
+# the N-level tree over a named layout (DistributedOptimizer(axis=TreeLayout))
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tree_world(tmp_path_factory):
+    """``run_tree_layout`` on a gloo world of 8 laid out 2 x 4."""
+    directory = str(tmp_path_factory.mktemp("tree_ckpt"))
+    return spawn_world("run_tree_layout", world=8, args=(directory,),
+                       layout=(2, 4), timeout=WORLD_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def jax_tree_opt():
+    """JAX's ``sharded_distributed_update(optax.adam(0.1), axis=("pod",
+    "slice", "chip"), world=8, ...)`` on the 2 x 2 x 2 mesh (JAX
+    TestTreeExchange._sharded_update), ``TREE_OPT_STEPS`` steps of
+    ``tree_opt_grads``, for every case: the parameters, stacked over
+    ranks."""
+    from horovod_tpu.optim.optimizer import sharded_distributed_update
+
+    mesh, axes = _tree_mesh()
+    grads = jnp.asarray(tree_opt_grads())
+    out = {}
+    for name, kw in TREE_OPT_CASES.items():
+        def body(g, kw=kw):
+            tx = sharded_distributed_update(
+                optax.adam(0.1), axis=axes, world=8,
+                hierarchy=kw["hierarchy"],
+                quantized_bits=8 if "compression" in kw else None,
+                level_codecs=kw.get("level_codecs"),
+                error_feedback=kw.get("error_feedback", False))
+            params = {"a": jnp.ones((8,)), "b": jnp.zeros((4,))}
+            state = tx.init(params)
+            for t in range(TREE_OPT_STEPS):
+                u, state = tx.update({"a": g[t, 0, :8], "b": g[t, 0, 8:]},
+                                     state, params)
+                params = optax.apply_updates(params, u)
+            return params["a"][None], params["b"][None]
+
+        a, b = jax.jit(jax.shard_map(
+            body, mesh=mesh, in_specs=(P(None, axes),),
+            out_specs=(P(axes), P(axes)), check_vma=False))(grads)
+        out[name] = (np.asarray(a), np.asarray(b))
+    return out
+
+
+class TestTreeLayout:
+    """The sharded optimizer over ``TreeLayout((2, 2, 2), ("pod",
+    "slice", "chip"))`` on a gloo world of 8 against JAX's
+    ``sharded_distributed_update`` on the same mesh
+    (tests/test_hierarchy_smoke.py TestTreeExchange)."""
+
+    @pytest.mark.parametrize("name", list(TREE_OPT_CASES))
+    def test_against_jax(self, tree_world, jax_tree_opt, name):
+        """Each rank's parameters after the steps, the codec cases too:
+        JAX's at rtol 1e-5, atol 1e-6 (tests/test_hierarchy_smoke.py's
+        limits against flat); the mode the wrapper runs."""
+        want_a, want_b = jax_tree_opt[name]
+        for r, out in enumerate(tree_world):
+            got = out["opt"][name]
+            assert got["mode"] == ("flat" if name == "flat" else "tree")
+            np.testing.assert_allclose(got["a"], want_a[r], rtol=1e-5,
+                                       atol=1e-6, err_msg=f"rank {r} a")
+            np.testing.assert_allclose(got["b"], want_b[r], rtol=1e-5,
+                                       atol=1e-6, err_msg=f"rank {r} b")
+
+    def test_auto_is_tree_bit_for_bit(self, tree_world):
+        for out in tree_world:
+            for k in "ab":
+                np.testing.assert_array_equal(out["opt"]["auto"][k],
+                                              out["opt"]["tree"][k])
+
+    def test_tree_matches_flat(self, tree_world):
+        """JAX's test_optimizer_tree_matches_flat: rtol 1e-5, atol
+        1e-6."""
+        for out in tree_world:
+            for k in "ab":
+                np.testing.assert_allclose(out["opt"]["tree"][k],
+                                           out["opt"]["flat"][k],
+                                           rtol=1e-5, atol=1e-6)
+
+    def test_level_codec_places_the_wire_codec(self, tree_world):
+        """``level_codecs={"pod": 8}`` equals ``Compression.int8``'s
+        placement bit for bit, and stays within the codec's envelope of
+        the full-precision tree (JAX's rtol 0.05, atol 4e-3)."""
+        for out in tree_world:
+            opt = out["opt"]
+            for k in "ab":
+                np.testing.assert_array_equal(opt["pod_codec"][k],
+                                              opt["int8"][k])
+                for name in ("pod_codec", "chip_codec", "int8_ef"):
+                    np.testing.assert_allclose(opt[name][k], opt["tree"][k],
+                                               rtol=0.05, atol=4e-3)
+
+    def test_ownership_and_replicas(self, tree_world):
+        """Rank pod·4 + slice·2 + chip owns block chip·4 + slice·2 + pod
+        under the tree, its rank under the flat exchange; every rank holds
+        the same parameters."""
+        for r, out in enumerate(tree_world):
+            want = (r & 1) * 4 + (r >> 1 & 1) * 2 + (r >> 2)
+            for name, got in out["opt"].items():
+                assert got["index"] == (r if name == "flat" else want)
+                for k in "ab":
+                    np.testing.assert_array_equal(
+                        got[k], tree_world[0]["opt"][name][k])
+
+    def test_checkpoint_round_trip(self, tree_world):
+        """The sharded state saved under the tree at the block each rank
+        owns restores into a fresh wrapper bit for bit, and the restored
+        run's next step is the saving run's, bit for bit."""
+        for out in tree_world:
+            ck = out["ckpt"]
+            saved, restored = ck["saved"], ck["restored"]
+            assert saved.keys() == restored.keys()
+            for part in saved:
+                for key, v in saved[part].items():
+                    if isinstance(v, dict):
+                        for n, x in v.items():
+                            np.testing.assert_array_equal(
+                                restored[part][key][n], x)
+                    else:
+                        np.testing.assert_array_equal(restored[part][key], v)
+            for a, b in zip(ck["continued"], ck["resumed"]):
+                np.testing.assert_array_equal(a, b)
+
+    @pytest.mark.parametrize("how", ["named", "with_one"])
+    @pytest.mark.parametrize("name", ["auto", "flat", "int8_ef"])
+    def test_default_axis_unchanged(self, tree_world, how, name):
+        """``axis=None`` (the world's 2 x 4 layout) runs what a layout
+        naming the same axes runs, bit for bit, and a ``(2, 1, 4)``
+        layout drops its extent-1 level to the same exchange."""
+        for out in tree_world:
+            none, other = out["default"]["none"][name], \
+                out["default"][how][name]
+            assert none["mode"] == ("flat" if name == "flat" else
+                                    "two_level")
+            assert other["mode"] == ("flat" if name == "flat" else
+                                     "two_level" if how == "named" else
+                                     "tree")
+            assert other["index"] == none["index"]
+            for k in "ab":
+                np.testing.assert_array_equal(other[k], none[k])
+
+    def test_uncovered_layout_raises(self, tree_world):
+        for out in tree_world:
+            assert "covers 4 ranks, and the world has 8" in out["uncovered"]
+
+
+class TestTreeGroups:
+    def test_layouts_share_groups_and_shutdown_releases_them(self):
+        """On a caller-made world of 4 laid out 2 x 2, the world's layout
+        levels make one group each; a layout naming the same axes, and a
+        second layout equal to another, make none and hold the same
+        groups; ``hvd.shutdown()`` releases every group it made and
+        leaves the caller's world."""
+        for o in spawn_world("run_tree_groups", world=4,
+                             launch={"hosts": ["a", "a", "b", "b"]},
+                             timeout=WORLD_TIMEOUT_S):
+            held = o["held"]
+            assert held["levels"] == held["start"] + 2
+            assert held["named"] == held["levels"]
+            assert held["other"] == held["named"] + 2
+            assert held["again"] == held["other"]
+            assert held["shutdown"] == 1
+            assert o["named_shares_levels"] and o["equal_layouts_share"]
+            assert o["other_differs"] and o["world_left"]
+
+
+class TestTreeLayoutSpec:
+    @pytest.mark.parametrize("shape,names,match", [
+        ((2, 2), ("a",), "one name"), ((), (), "one name"),
+        ((2, 2), ("a", "a"), "must differ"), ((2, 0), ("a", "b"), ">= 1")])
+    def test_rejects(self, shape, names, match):
+        with pytest.raises(ValueError, match=match):
+            TTopo.TreeLayout(shape, names)
+
+    def test_lines_are_jax_mesh_lines(self):
+        """Each axis's lines are the device ids that JAX's
+        ``Mesh(devices.reshape(shape), names)`` puts along that axis."""
+        from horovod_tpu_torch.parallel.mesh import axis_ranks
+
+        grid = np.arange(8).reshape(TREE_SHAPE)
+        shape = dict(zip(TREE_NAMES, TREE_SHAPE))
+        for i, name in enumerate(TREE_NAMES):
+            want = sorted(np.moveaxis(grid, i, -1).reshape(-1, 2).tolist())
+            assert sorted(axis_ranks(shape, name, order=TREE_NAMES)) == want
+
+    def test_needs_the_sharded_exchange(self):
+        with pytest.raises(ValueError, match="shard_optimizer_states"):
+            import horovod_tpu_torch as hvd
+
+            hvd.DistributedOptimizer(
+                torch.optim.SGD([torch.nn.Parameter(torch.ones(2))],
+                                lr=0.1),
+                axis=TTopo.TreeLayout(TREE_SHAPE, TREE_NAMES))
+
+
+@pytest.fixture(scope="module")
+def tree_card_twin():
+    """``run_tree_nccl`` (tests/test_torch_gpu.py's test_tree_over_nccl)
+    on gloo, without the 870.9M LM: the probe takes the small LM."""
+    return spawn_world("run_tree_nccl", world=4, timeout=WORLD_TIMEOUT_S)
+
+
+class TestTreeFourCardTwin:
+    def test_layouts_are_the_two_level_exchange(self, tree_card_twin):
+        """"tree" on a (2, 2) layout and on (2, 1, 2) run the two-level
+        exchange's bits; flat within 1e-5; every rank the same bits."""
+        for rank, out in enumerate(tree_card_twin):
+            lm = out["lm"]
+            assert [lm[c]["mode"] for c in lm] == \
+                ["two_level", "two_level", "tree", "tree", "flat"]
+            assert lm["two_level"]["index"] == [0, 2, 1, 3][rank]
+            for case in ("tree", "tree_212"):
+                assert lm[case]["losses"] == lm["two_level"]["losses"]
+                for k, v in lm["two_level"]["params"].items():
+                    np.testing.assert_array_equal(lm[case]["params"][k], v)
+            np.testing.assert_allclose(lm["flat"]["losses"],
+                                       lm["two_level"]["losses"], rtol=1e-5)
+            for case, r in lm.items():
+                for k, v in r["params"].items():
+                    np.testing.assert_array_equal(
+                        v, tree_card_twin[0]["lm"][case]["params"][k])
+
+    def test_pod_codec_within_the_envelope(self, tree_card_twin):
+        """``level_codecs={"pod": 8}`` moves the result, within JAX's
+        envelope of the exact tree (rtol 0.05, atol 4e-3)."""
+        for out in tree_card_twin:
+            lm = out["lm"]
+            assert lm["pod_codec"]["losses"] != lm["tree_212"]["losses"]
+            for k, v in lm["tree_212"]["params"].items():
+                np.testing.assert_allclose(lm["pod_codec"]["params"][k], v,
+                                           rtol=0.05, atol=4e-3)
+
+    def test_probe_over_the_layout(self, tree_card_twin):
+        for rank, out in enumerate(tree_card_twin):
+            two, flat = out["probe"]["two_level"], out["probe"]["flat"]
+            assert (two["hierarchy"], two["rs_scopes"]) == ("two_level",
+                                                            (2,))
+            assert (flat["hierarchy"], flat["rs_scopes"]) == ("flat", (4,))
+            assert two["exchange_intra_s"] is not None
+            assert two["wire_bytes_ici"] > 0 and two["wire_bytes_dcn"] > 0
+            assert flat["wire_bytes_dcn"] == 0
+            # the same payload crosses the wire either way
+            assert two["wire_bytes_ici"] + two["wire_bytes_dcn"] == \
+                flat["wire_bytes_ici"]

@@ -242,6 +242,89 @@ def test_port_files_cover_the_executable_plane():
         "elastic/launch", "__init__")} | {"chip_smoke.py"} <= names
 
 
+def test_port_files_cover_the_tree_affinity_and_probe_slice():
+    """The import checks below cover the named tree layout, the affinity
+    knob and the overlap probe."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"horovod_tpu_torch/{m}.py" for m in (
+        "runtime/topology", "parallel/mesh", "utils/affinity",
+        "utils/overlap_probe", "faults/plan", "runtime/distributed")} <= names
+
+
+#: the calls that read an environment variable named by their first
+#: argument: ``os.environ.get``, ``os.getenv`` and the config's helpers
+_ENV_READERS = ("_env_int", "_env_float", "_env_bool", "opt_int", "getenv")
+
+
+def _env_reads(tree: ast.AST) -> set:
+    """The string constants a module reads as environment variables:
+    the first argument of ``os.environ.get``, ``os.getenv`` and the
+    config's ``_env_*`` helpers, and the key of an ``os.environ[...]`` that
+    is read (not assigned or deleted); a module-level name bound to a
+    string stands for that string."""
+    consts = {t.id: node.value.value for node in ast.walk(tree)
+              if isinstance(node, ast.Assign)
+              and isinstance(node.value, ast.Constant)
+              and isinstance(node.value.value, str)
+              for t in node.targets if isinstance(t, ast.Name)}
+
+    def text(n):
+        if isinstance(n, ast.Constant) and isinstance(n.value, str):
+            return n.value
+        return consts.get(n.id) if isinstance(n, ast.Name) else None
+
+    def environ(n):
+        return (isinstance(n, ast.Attribute) and n.attr == "environ") or \
+            (isinstance(n, ast.Name) and n.id == "environ")
+
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and node.args:
+            f = node.func
+            if (isinstance(f, ast.Attribute) and (
+                    (f.attr == "get" and environ(f.value)) or
+                    f.attr == "getenv")) or \
+                    (isinstance(f, ast.Name) and f.id in _ENV_READERS):
+                out.add(text(node.args[0]))
+        elif isinstance(node, ast.Subscript) and \
+                isinstance(node.ctx, ast.Load) and environ(node.value):
+            out.add(text(node.slice))
+    return {n for n in out if n and n.startswith("HOROVOD_")}
+
+
+def test_every_knob_the_port_reads_is_registered():
+    """Every ``HOROVOD_*`` variable a module of the port reads is in
+    ``KNOWN_KNOBS`` (ROADMAP C 14: the compile cache's and the fault
+    plan's knobs were read and not registered).  A name the port only
+    writes, such as the launcher's ``HOROVOD_TPU_MESH_SHAPE``, is not a
+    read."""
+    from horovod_tpu_torch.runtime.config import KNOWN_KNOBS
+
+    reads = {}
+    for path in sorted((ROOT / "horovod_tpu_torch").rglob("*.py")):
+        for name in _env_reads(ast.parse(path.read_text())):
+            reads.setdefault(name, []).append(
+                str(path.relative_to(ROOT)))
+    missing = {n: f for n, f in reads.items() if n not in KNOWN_KNOBS}
+    assert not missing, f"read and not in KNOWN_KNOBS: {missing}"
+    # the scan sees the reads of C 14 and of HOROVOD_THREAD_AFFINITY
+    assert {"HOROVOD_COMPILE_CACHE", "HOROVOD_COMPILE_CACHE_DIR",
+            "HOROVOD_FAULT_PLAN", "HOROVOD_THREAD_AFFINITY"} <= set(reads)
+    assert "HOROVOD_TPU_MESH_SHAPE" not in reads
+
+
+@pytest.mark.parametrize("src,want", [
+    ("import os\nos.environ.get('HOROVOD_A')", {"HOROVOD_A"}),
+    ("import os\nos.getenv('HOROVOD_A', '1')", {"HOROVOD_A"}),
+    ("import os\nx = os.environ['HOROVOD_A']", {"HOROVOD_A"}),
+    ("import os\nos.environ['HOROVOD_A'] = '1'", set()),
+    ("import os\ndel os.environ['HOROVOD_A']", set()),
+    ("K = 'HOROVOD_A'\n_env_int(K, 3)", {"HOROVOD_A"}),
+    ("import os\nos.environ.get('OTHER')", set())])
+def test_knob_scan_reads_and_writes(src, want):
+    assert _env_reads(ast.parse(src)) == want
+
+
 def test_native_source_is_the_ports_own():
     """The native library builds from the port's own ``hvd_native.cc``
     into ``<repo>/build/``: no path of the JAX package's ``native``

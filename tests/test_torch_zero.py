@@ -743,6 +743,25 @@ OPTIMIZER_GUARDS = [
 ]
 
 
+def _two_by_four(hvd_torch, monkeypatch) -> None:
+    """The world of one made to look like 2 nodes x 4 cards: each layout
+    level's group a stand-in of the level's extent, at whose index 0 this
+    rank sits (``dist.get_world_size`` and ``dist.get_rank`` answer for
+    the stand-ins)."""
+    import torch.distributed as dist
+
+    st = hvd_torch._state.global_state()
+    extents = {"local": 4, "cross": 2}
+    real_size, real_rank = dist.get_world_size, dist.get_rank
+    monkeypatch.setattr(st, "cross_size", 2)
+    monkeypatch.setattr(st, "local_size", 4)
+    monkeypatch.setattr(st, "layout_group", lambda level: level)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: (
+        extents[group] if group in extents else real_size(group)))
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: (
+        0 if group in extents else real_rank(group)))
+
+
 class TestGuards:
     @pytest.mark.parametrize("case", range(len(OPTIMIZER_GUARDS)))
     def test_distributed_optimizer(self, hvd_torch, case):
@@ -783,12 +802,8 @@ class TestGuards:
     def test_auto_on_a_two_level_world_is_two_level(self, hvd_torch,
                                                     monkeypatch):
         """A world of 2 nodes x 4 cards: "auto" is two-level in JAX, and
-        in the port (the identity monkeypatched, each layout level one
-        rank here)."""
-        st = hvd_torch._state.global_state()
-        monkeypatch.setattr(st, "cross_size", 2)
-        monkeypatch.setattr(st, "local_size", 4)
-        monkeypatch.setattr(st, "layout_group", lambda level: None)
+        in the port (the identity monkeypatched, :func:`_two_by_four`)."""
+        _two_by_four(hvd_torch, monkeypatch)
         assert JTopo.resolve_topology("auto", (2, 4)).mode == "two_level"
         opt = hvd_torch.DistributedOptimizer(_opt(),
                                              shard_optimizer_states=True)
@@ -869,11 +884,8 @@ class TestGuards:
         step = hvd_torch.DistributedTrainStep(lambda m, b: 0, _opt(),
                                               shard_optimizer_states=True)
         assert step.exchange_hierarchy == "two_level"
-        st = hvd_torch._state.global_state()
         monkeypatch.setattr(cfg, "exchange_hierarchy", "auto")
-        monkeypatch.setattr(st, "cross_size", 2)
-        monkeypatch.setattr(st, "local_size", 4)
-        monkeypatch.setattr(st, "layout_group", lambda level: None)
+        _two_by_four(hvd_torch, monkeypatch)
         step = hvd_torch.DistributedTrainStep(lambda m, b: 0, _opt(),
                                               shard_optimizer_states=True)
         assert step.exchange_hierarchy == "two_level"

@@ -6,9 +6,12 @@ Epochs of batches; rank 0 appends one JSON line per epoch (the line
 count drives the discovery script); the state commits every batch; a
 scheduled exit raises or kills itself on a chosen (epoch, batch,
 start_rank).  ``--model lm`` trains a ``TransformerLM`` under
-``TorchState`` on the card (the four-card test) instead of the one
-``ObjectState`` vector; every rank then appends its loss and reset
-seconds to ``--rank-logfile``.  ``--model zero`` trains the degrade
+``TorchState`` on the card (the four-card tests; ``--device cpu``: a
+narrow twin on gloo) instead of the one ``ObjectState`` vector, through
+the hook path or, with ``--sharded``, the sharded exchange; every rank
+then appends its loss, its step's seconds (the batch, forward, backward
+and ``step()``, up to the card's last kernel) and its reset seconds to
+``--rank-logfile``.  ``--model zero`` trains the degrade
 scenario of ``torch_port_workers.DEGRADE`` (sharded momentum and
 error-feedback residual, a checkpoint every step in ``--ckpt-dir``) at
 the plan ``HOROVOD_PLAN`` names: each entry of ``train`` re-slices the
@@ -36,7 +39,11 @@ p.add_argument("--model", default="vector", choices=("vector", "lm", "zero"))
 p.add_argument("--ckpt-dir", default="",
                help="--model zero: the sharded checkpoints' directory")
 p.add_argument("--device", default="",
-               help="--model zero: cpu (default) or cuda")
+               help="--model zero: cpu (default) or cuda; --model lm: cuda "
+                    "(default) or cpu, where the LM is a narrow twin")
+p.add_argument("--sharded", action="store_true",
+               help="--model lm: the sharded exchange "
+                    "(shard_optimizer_states=True) in place of the hook path")
 p.add_argument("--hosts", default="",
                help="comma-separated host names, in the order that maps "
                     "each host's slots to its block of cards")
@@ -45,7 +52,8 @@ args = p.parse_args()
 
 hostname = os.environ.get("HOROVOD_HOSTNAME")
 start_rank = int(os.environ.get("HOROVOD_RANK", 0))
-on_card = args.model == "lm" or args.device == "cuda"
+on_card = (args.model == "lm" and args.device != "cpu") or \
+    args.device == "cuda"
 if on_card:
     # two host names on one machine: both hosts' slots have local ranks
     # 0..slots-1, and init() takes cuda:<local_rank>; list this host's
@@ -116,16 +124,24 @@ def rank_log(record):
 
 def lm_parts():
     """The 870.9M LM's width (d 2048, 16 heads, vocab 32000) at 4 layers,
-    seeded; AdamW; the hook-path exchange built anew each generation."""
+    seeded, on the card (a narrow fp32 twin on the CPU); AdamW; the
+    exchange (the hook path, or with ``--sharded`` the sharded one) built
+    anew each generation."""
     from horovod_tpu_torch.models.transformer import (
         TransformerConfig,
         TransformerLM,
         lm_loss,
     )
 
-    cfg = TransformerConfig(vocab_size=32000, num_layers=4, num_heads=16,
-                            d_model=2048, d_ff=8192, max_seq_len=1024,
-                            dtype=torch.bfloat16, attention_impl="flash")
+    if on_card:
+        cfg = TransformerConfig(vocab_size=32000, num_layers=4,
+                                num_heads=16, d_model=2048, d_ff=8192,
+                                max_seq_len=1024, dtype=torch.bfloat16,
+                                attention_impl="flash")
+    else:
+        cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=2,
+                                d_model=64, d_ff=128, max_seq_len=32,
+                                dtype=torch.float32, attention_impl="flash")
     dev = hvd.device()
     model = TransformerLM(cfg, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(0))
@@ -139,7 +155,8 @@ if args.model == "lm":
 
     def rebuild():
         box["opt"] = hvd.DistributedOptimizer(
-            inner, named_parameters=model.named_parameters())
+            inner, named_parameters=model.named_parameters(),
+            shard_optimizer_states=args.sharded)
 
     rebuild()
     state = hvd.elastic.TorchState(model, inner, epoch=0, batch=0,
@@ -193,9 +210,12 @@ def zero_step(state):
 
 def lm_batch(state):
     """Each rank's rows of one seeded global batch of 8 sequences of 256
-    tokens, by (epoch, batch)."""
+    tokens (16 on the CPU), by (epoch, batch)."""
     g = torch.Generator().manual_seed(1000 * state.epoch + state.batch)
-    tokens = torch.randint(0, 32000, (8, 257), generator=g)
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (8, min(256, cfg.max_seq_len // 2) + 1),
+                           generator=g)
     rows = tokens.shape[0] // hvd.size()
     return tokens[hvd.rank() * rows:(hvd.rank() + 1) * rows].to(
         hvd.device())
@@ -209,6 +229,7 @@ def train(state):
     rank_log({"event": "rendezvous", "start_rank": start_rank,
               "rank": hvd.process_rank(), "size": hvd.process_count(),
               "rendezvous": state.rendezvous,
+              "package": os.path.dirname(hvd.__file__),
               "reset_s": elastic_state.last_reset_s,
               "failure_t": elastic_state.last_failure_t,
               "commit_s": getattr(state, "last_commit_s", None)})
@@ -218,16 +239,20 @@ def train(state):
         while state.batch < args.batches_per_epoch:
             check_exit(state.epoch, state.batch)
             if args.model == "lm":
+                t0 = time.perf_counter()
                 opt = box["opt"]
                 opt.zero_grad()
                 loss = lm_loss(model, lm_batch(state))
                 loss.backward()
                 opt.step()
+                if on_card:
+                    torch.cuda.synchronize()
                 rank_log({"event": "step", "epoch": state.epoch,
                           "batch": state.batch, "start_rank": start_rank,
                           "rank": hvd.process_rank(),
                           "size": hvd.process_count(),
-                          "loss": float(loss.detach())})
+                          "loss": float(loss.detach()),
+                          "step_s": time.perf_counter() - t0})
             elif args.model == "zero":
                 zero_step(state)
             else:

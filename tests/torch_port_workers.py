@@ -188,7 +188,7 @@ def _worker(fn_name, rank, world, port, results, args, device, launch,
 
 def spawn_world(fn_name: str, world: int = 2, args=(),
                 timeout: float = 120.0, device: str = "cpu",
-                launch=None, layout=None) -> list:
+                launch=None, layout=None, dies=()) -> list:
     """Run ``fn_name(hvd, *args)`` on every rank of a world on ``device``
     (``"cpu"``: gloo; ``"cuda"``: NCCL, card ``rank`` for rank ``rank``);
     returns the results ordered by rank, or raises with a failing rank's
@@ -201,7 +201,8 @@ def spawn_world(fn_name: str, world: int = 2, args=(),
     rank (:func:`_mpirun_env`).  Through the ``HOROVOD_*`` contract the
     world is one node of ``world`` ranks unless ``layout=(cross, local)``
     lays it out as ``cross`` nodes of ``local`` ranks
-    (:func:`_layout_env`)."""
+    (:func:`_layout_env`).  The ranks in ``dies`` may exit without a
+    result (a dead peer's drill): theirs is None."""
     if layout is not None and layout[0] * layout[1] != world:
         raise ValueError(f"layout {layout} does not cover {world} ranks")
     ctx = mp.get_context("spawn")
@@ -216,12 +217,13 @@ def spawn_world(fn_name: str, world: int = 2, args=(),
     got = {}
     deadline = time.monotonic() + timeout
     try:
-        while len(got) < world:       # drain before joining
+        while len(got) < world - len(dies):     # drain before joining
             try:
                 rank, ok, value = results.get(timeout=1.0)
             except queue_mod.Empty:
                 dead = [r for r, p in enumerate(procs)
-                        if r not in got and p.exitcode is not None]
+                        if r not in got and r not in dies and
+                        p.exitcode is not None]
                 if dead:
                     raise RuntimeError(f"rank(s) {dead} exited without a "
                                        f"result")
@@ -238,7 +240,7 @@ def spawn_world(fn_name: str, world: int = 2, args=(),
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
-    return [got[r] for r in range(world)]
+    return [got.get(r) for r in range(world)]
 
 
 def port_test_module(name: str, subs=()) -> "types.ModuleType":
@@ -5371,3 +5373,378 @@ def check_steps_per_call(res: dict, k: int, calls: int) -> None:
                                               err_msg=f"{case} {i} {key}")
         assert g["steps_total"] == e["steps_total"] == k * calls, case
         assert g["context_steps"] == e["context_steps"] == k * calls, case
+
+
+# ---------------------------------------------------------------------------
+# the N-level tree over a named layout, the overlap probe, dead-peer drills
+# ---------------------------------------------------------------------------
+
+#: JAX TestTreeExchange's mesh: extents and names, outermost first
+TREE_SHAPE, TREE_NAMES = (2, 2, 2), ("pod", "slice", "chip")
+#: the sharded optimizer over the tree layout: name -> options (JAX
+#: TestTreeExchange._sharded_update's cases, and error feedback)
+TREE_OPT_CASES = {
+    "tree": {"hierarchy": "tree"},
+    "auto": {"hierarchy": "auto"},
+    "flat": {"hierarchy": "flat"},
+    "pod_codec": {"hierarchy": "tree", "level_codecs": {"pod": 8}},
+    "chip_codec": {"hierarchy": "tree", "level_codecs": {"chip": 8}},
+    "int8": {"hierarchy": "tree", "compression": "int8"},
+    "int8_ef": {"hierarchy": "tree", "compression": "int8",
+                "error_feedback": True},
+}
+TREE_OPT_STEPS = 3
+
+
+def tree_opt_grads(world: int = 8) -> np.ndarray:
+    """(steps, world, 12) seeded gradients: rank r's leaves ``a`` (8
+    values) and ``b`` (4) at each step."""
+    rng = np.random.RandomState(11)
+    return rng.randn(TREE_OPT_STEPS, world, 12).astype(np.float32)
+
+
+def _tree_opt(hvd, axis, name: str, steps: int = TREE_OPT_STEPS,
+              start=None):
+    """Adam(0.1) over ``a = ones(8)``, ``b = zeros(4)`` (or ``start``)
+    through ``DistributedOptimizer(shard_optimizer_states=True,
+    axis=axis, **TREE_OPT_CASES[name])``, ``steps`` steps of
+    :func:`tree_opt_grads`; (params, optimizer)."""
+    import torch
+
+    kw = dict(TREE_OPT_CASES[name])
+    if "compression" in kw:
+        kw["compression"] = getattr(hvd.Compression, kw["compression"])
+    init = start or (np.ones(8, np.float32), np.zeros(4, np.float32))
+    params = [torch.nn.Parameter(torch.from_numpy(v.copy())) for v in init]
+    opt = hvd.DistributedOptimizer(torch.optim.Adam(params, lr=0.1),
+                                   shard_optimizer_states=True, axis=axis,
+                                   **kw)
+    grads = tree_opt_grads(hvd.size())
+    for t in range(steps):
+        g = grads[t, hvd.rank()]
+        params[0].grad = torch.from_numpy(g[:8].copy())
+        params[1].grad = torch.from_numpy(g[8:].copy())
+        opt.step()
+    return params, opt
+
+
+def _tree_opt_out(params, opt) -> dict:
+    return {"a": params[0].detach().numpy().copy(),
+            "b": params[1].detach().numpy().copy(),
+            "mode": opt.exchange_hierarchy, "index": opt.shard_index}
+
+
+def run_tree_layout(hvd, directory: str) -> dict:
+    """On a gloo world of 8 laid out 2 x 4: the sharded optimizer over
+    ``TreeLayout((2, 2, 2), ("pod", "slice", "chip"))`` for every
+    :data:`TREE_OPT_CASES` case; a sharded checkpoint saved under the
+    tree at the block each rank owns and restored into a fresh wrapper;
+    the world's default layout (``axis=None``) against the same axes
+    named by a layout, and a ``(2, 1, 4)`` layout (its extent-1 level
+    dropped) against ``(2, 4)``; a layout that does not cover the
+    world."""
+    import torch
+
+    from horovod_tpu_torch.checkpoint import Checkpointer
+    from horovod_tpu_torch.runtime.topology import TreeLayout
+
+    torch.set_num_threads(1)
+    world = hvd.size()
+    tree = TreeLayout(TREE_SHAPE, TREE_NAMES)
+    out = {"opt": {name: _tree_opt_out(*_tree_opt(hvd, tree, name))
+                   for name in TREE_OPT_CASES}}
+    # the checkpoint round trip under the tree (error feedback: the
+    # residuals travel too)
+    params, opt = _tree_opt(hvd, tree, "int8_ef", steps=2)
+    start = tuple(p.detach().numpy().copy() for p in params)
+    ckpt = Checkpointer(os.path.join(directory, "tree"), async_save=False)
+    ckpt.save_sharded(2, opt.sharded_state_dict(), opt.shard_index, world,
+                      plan=f"dp={world}")
+    saved = _np_tree(opt.sharded_state_dict())
+    _step_once(hvd, params, opt, 2)
+    hvd.barrier()
+    fresh, opt2 = _tree_opt(hvd, tree, "int8_ef", steps=0, start=start)
+    opt2.load_sharded_state_dict(ckpt.restore_sharded(
+        opt2.sharded_state_template(), opt2.shard_index, world,
+        plan=f"dp={world}"))
+    restored = _np_tree(opt2.sharded_state_dict())
+    _step_once(hvd, fresh, opt2, 2)
+    out["ckpt"] = {"saved": saved, "restored": restored,
+                   "index": opt.shard_index,
+                   "continued": [p.detach().numpy().copy() for p in params],
+                   "resumed": [p.detach().numpy().copy() for p in fresh]}
+    # axis=None against its own axes named by a layout, and extent 1
+    named = TreeLayout((2, 4), ("cross", "local"))
+    with_one = TreeLayout((2, 1, 4), ("pod", "slice", "chip"))
+    out["default"] = {
+        how: {name: _tree_opt_out(*_tree_opt(hvd, axis, name))
+              for name in ("auto", "flat", "int8_ef")}
+        for how, axis in (("none", None), ("named", named),
+                          ("with_one", with_one))}
+    try:
+        hvd.DistributedOptimizer(
+            torch.optim.SGD([torch.nn.Parameter(torch.ones(4))], lr=0.1),
+            shard_optimizer_states=True, axis=TreeLayout((2, 2), ("a", "b")))
+        out["uncovered"] = None
+    except ValueError as e:
+        out["uncovered"] = str(e)
+    return out
+
+
+def run_tree_groups(hvd) -> dict:
+    """On a caller-made world of 4 over two hosts (laid out 2 x 2): how
+    many process groups this rank holds (``c10d``'s map) after the
+    world's layout levels, a layout naming the same axes, a layout of
+    other names, an equal layout again, and ``hvd.shutdown()``; and
+    whether the layouts that should share groups hold the same
+    objects."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+
+    from horovod_tpu_torch.runtime import state
+    from horovod_tpu_torch.runtime.topology import TreeLayout
+
+    st = state.global_state()
+    held = {"start": len(c10d._world.pg_map)}
+    levels = {name: st.layout_group(name) for name in ("local", "cross")}
+    held["levels"] = len(c10d._world.pg_map)
+    named = TreeLayout((2, 2), ("cross", "local")).groups()
+    held["named"] = len(c10d._world.pg_map)
+    other = TreeLayout((2, 2), ("x", "y")).groups()
+    held["other"] = len(c10d._world.pg_map)
+    again = TreeLayout((2, 2), ("x", "y")).groups()
+    held["again"] = len(c10d._world.pg_map)
+    dist.barrier(group=st.host_group)
+    hvd.shutdown()
+    held["shutdown"] = len(c10d._world.pg_map)
+    return {"held": held,
+            "named_shares_levels": all(named[k] is levels[k]
+                                       for k in levels),
+            "equal_layouts_share": all(again[k] is other[k] for k in other),
+            "other_differs": other["x"] is not levels["cross"],
+            "world_left": dist.is_initialized()}
+
+
+def _step_once(hvd, params, opt, t: int) -> None:
+    """One more step of :func:`_tree_opt` with step ``t``'s gradients."""
+    import torch
+
+    g = tree_opt_grads(hvd.size())[t, hvd.rank()]
+    params[0].grad = torch.from_numpy(g[:8].copy())
+    params[1].grad = torch.from_numpy(g[8:].copy())
+    opt.step()
+
+
+def _probe_mlp(hvd):
+    """The test MLP as a module, and this rank's rows of
+    :func:`mlp_batch`'s global batch of 8 rows a rank."""
+    import torch
+
+    model = torch.nn.ParameterDict({
+        k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+        for k, v in mlp_params().items()})
+    x, y = mlp_batch(8 * hvd.size())
+    rows = slice(8 * hvd.rank(), 8 * (hvd.rank() + 1))
+    return model, {"x": torch.from_numpy(x[rows]),
+                   "y": torch.from_numpy(y[rows])}
+
+
+def run_overlap_probe(hvd) -> dict:
+    """``measure_overlap`` on a gloo world of 8 laid out 2 x 4 over the
+    test MLP: ``"auto"`` (two-level) and ``"flat"`` over the world's
+    layout, the ``(2, 2, 2)`` tree over a ``TreeLayout``, and the auto
+    case again with telemetry on (the gauges' values by label); each
+    report as a dict with its bench fields."""
+    import dataclasses
+
+    import torch
+
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.runtime.topology import TreeLayout
+    from horovod_tpu_torch.utils.overlap_probe import measure_overlap
+
+    torch.set_num_threads(1)
+    model, batch = _probe_mlp(hvd)
+
+    def probe(**kw):
+        rep = measure_overlap(mlp_loss, model, batch, iters=1, warmup=0,
+                              **kw)
+        return dict(dataclasses.asdict(rep), fields=rep.as_bench_fields())
+
+    out = {"auto": probe(), "flat": probe(hierarchy="flat"),
+           "tree": probe(axis=TreeLayout(TREE_SHAPE, TREE_NAMES),
+                         hierarchy="tree")}
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        out["gauged"] = probe()
+        out["gauges"] = {
+            (name, tuple(sorted(labels.items()))): telemetry.value(
+                name, **labels)
+            for name, labels in (
+                ("hvd_exchange_time_seconds", {"level": "total"}),
+                ("hvd_exchange_time_seconds", {"level": "local"}),
+                ("hvd_exchange_time_seconds", {"level": "cross"}),
+                ("hvd_overlap_fraction", {}),
+                ("hvd_tail_exchange_seconds", {"fused": "off"}),
+                ("hvd_exchange_measured_wire_bytes", {"level": "local"}),
+                ("hvd_exchange_measured_wire_bytes", {"level": "cross"}))}
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    return out
+
+
+def run_kill(hvd, path: str, victim: int) -> dict:
+    """A dead peer on the gloo world (ROADMAP C 15's rehearsal): the
+    world's groups take an elastic world's timeouts (``shorten_timeouts``,
+    ``HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT`` seconds), one step completes,
+    then rank ``victim`` exits and the others enter the sharded
+    optimizer's step (``path="sharded"``) or an eager allreduce's
+    ``synchronize`` (``"eager"``).  A survivor returns what it raised,
+    the seconds until it did, and whether its parameters stayed as they
+    were."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.runtime import distributed as hvd_dist
+
+    torch.set_num_threads(1)
+    st = hvd._state.global_state()
+    st.timeout, st.device_timeout = hvd_dist.shorten_timeouts(
+        dist.group.WORLD, st.host_group)
+    params = [torch.nn.Parameter(torch.ones(64))]
+    if path == "sharded":
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(params, lr=0.1),
+                                       shard_optimizer_states=True)
+
+        def act():
+            params[0].grad = torch.full((64,), float(hvd.rank() + 1))
+            opt.step()
+    else:
+        def act():
+            hvd.synchronize(hvd.allreduce_async(torch.ones(64),
+                                                name="kill"))
+    act()
+    dist.barrier(group=st.host_group)
+    if hvd.rank() == victim:
+        os._exit(0)
+    before = params[0].detach().clone()
+    t0 = time.monotonic()
+    err = None
+    try:
+        act()
+    except Exception as e:  # noqa: BLE001 - reported to the test
+        err = e
+    seconds = time.monotonic() - t0
+    hvd._state.shutdown(abort=True)
+    return {"error": None if err is None else type(err).__name__,
+            "message": str(err)[:500], "seconds": seconds,
+            "unchanged": torch.equal(before, params[0].detach())}
+
+
+#: the four-card tree cases of :func:`run_tree_nccl`: name -> (layout as
+#: (shape, names) or None, hierarchy, level codecs)
+TREE_NCCL_CASES = {
+    "two_level": (((2, 2), ("cross", "local")), "two_level", None),
+    "tree": (((2, 2), ("cross", "local")), "tree", None),
+    "tree_212": (((2, 1, 2), TREE_NAMES), "tree", None),
+    "pod_codec": (((2, 1, 2), TREE_NAMES), "tree", {"pod": 8}),
+    "flat": (None, "flat", None),
+}
+
+
+def _tree_lm(hvd, case: str) -> dict:
+    """The fp32 TransformerLM of :data:`ADASUM_LM` (seed 0) through
+    ``DistributedTrainStep`` over ``DistributedOptimizer(AdamW(3e-4,
+    weight_decay=1e-4), shard_optimizer_states=True, axis=..., hierarchy=
+    ..., level_codecs=...)`` of ``TREE_NCCL_CASES[case]``,
+    ``ADASUM_LM_STEPS`` steps on 8 sequences of
+    :func:`adasum_lm_tokens`."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+    from horovod_tpu_torch.runtime.topology import TreeLayout
+
+    layout, hierarchy, codecs = TREE_NCCL_CASES[case]
+    cfg = TransformerConfig(dtype=torch.float32, attention_impl="flash",
+                            **ADASUM_LM)
+    model = TransformerLM(cfg, generator=torch.Generator().manual_seed(0))
+    model.to(hvd.device())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        shard_optimizer_states=True, hierarchy=hierarchy,
+        level_codecs=codecs,
+        axis=None if layout is None else TreeLayout(*layout))
+    step = hvd.DistributedTrainStep(lambda m, b: lm_loss(m, b), opt)
+    model, opt = step.init(model)
+    batch = step.shard_batch(adasum_lm_tokens(8))
+    losses = [float(step(model, opt, batch)[2])
+              for _ in range(ADASUM_LM_STEPS)]
+    return {"losses": losses, "mode": opt.exchange_hierarchy,
+            "index": opt.shard_index,
+            "params": {k: v.cpu().numpy().copy()
+                       for k, v in model.state_dict().items()}}
+
+
+def _probe_report(hvd, model, batch, axis, hierarchy: str, **kw) -> dict:
+    """``measure_overlap`` as a dict with its bench fields and the
+    kernels' launches over the probe's calls."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.transformer import lm_loss
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.utils.overlap_probe import measure_overlap
+
+    K.reset_launch_counts()
+    rep = measure_overlap(lm_loss, model, batch, axis=axis,
+                          hierarchy=hierarchy, **kw)
+    return dict(dataclasses.asdict(rep), fields=rep.as_bench_fields(),
+                launches=K.launch_counts())
+
+
+def run_tree_nccl(hvd, full: bool = False) -> dict:
+    """On a world of 4 (four cards over NCCL, or its gloo twin): the small
+    LM of :func:`_tree_lm` for every :data:`TREE_NCCL_CASES` case, and the
+    overlap probe over the ``(2, 2)`` layout, two-level, and over the
+    world, flat: on the small LM, or with ``full`` on chip_smoke's 870.9M
+    LM at 6 sequences of 1024 a rank (``PROBE``'s calls)."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import TransformerConfig, \
+        TransformerLM
+    from horovod_tpu_torch.runtime.topology import TreeLayout
+
+    torch.set_num_threads(1)   # or the ranks oversubscribe the cores
+    out = {"lm": {case: _tree_lm(hvd, case) for case in TREE_NCCL_CASES}}
+    dev, rank = hvd.device(), hvd.rank()
+    if full:
+        from chip_smoke import FULL, PROBE, SEED, full_config
+
+        cfg = full_config(torch, "flash")
+        model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        rows = FULL["batch"]
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (rows * hvd.size(), FULL["seq"] + 1),
+                               generator=torch.Generator().manual_seed(SEED))
+        kw = dict(PROBE)
+    else:
+        cfg = TransformerConfig(dtype=torch.float32, attention_impl="flash",
+                                **ADASUM_LM)
+        model = TransformerLM(cfg, generator=torch.Generator().manual_seed(0))
+        model.to(dev)
+        rows = 2
+        tokens = torch.from_numpy(adasum_lm_tokens(rows * hvd.size()))
+        kw = dict(iters=2, warmup=1)
+    batch = tokens[rank * rows:(rank + 1) * rows].to(dev)
+    out["probe"] = {
+        "two_level": _probe_report(hvd, model, batch,
+                                   TreeLayout((2, 2), ("cross", "local")),
+                                   "auto", **kw),
+        "flat": _probe_report(hvd, model, batch, None, "flat", **kw)}
+    return out
