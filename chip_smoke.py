@@ -268,7 +268,22 @@ Phases, in order; any failure exits non-zero:
    cores: after ``hvd.init()`` every thread it holds, those made before
    (torch's intra-op pool) and since (the CUDA driver's, NCCL's), is
    pinned to that set, and it takes one step of a small LM;
-22. print the card's name and power limit, the kernels' JSON line, and last
+22. the kernels as dispatcher ops and the AOT executable store
+   (``phase_aot``): (a) each ``torch.ops.hvd_torch`` op called directly
+   equals its wrapper bit for bit at the main path's shapes (a 64 MiB
+   bucket, b6 h16 t1024 d128 with and without positions, kernel 5's 28x28
+   segment, the qkv projection), one launch a call; phase 4's step ms and
+   launches a step through the ops, phase 18's flash forwards a tiered
+   step; (b) the 870.9M LM at t 1024, buckets 4 and 8, exported and
+   compiled by AOTInductor through ``ExecutableCache.from_exported`` into a
+   fresh ``HOROVOD_COMPILE_CACHE_DIR`` (compile seconds), 16
+   ``hvd_torch::flash_fwd`` launches a batch, each batch within the served
+   limits of the plain path; a fresh process (``--aot-load``) loads both
+   executables from the store (hits, nothing compiled: load seconds) and
+   serves the same batches; (c) a weight flip runs on the same executables
+   and rebuilds them as hits; (d) requests/s of the AOT executors beside
+   ``from_module``'s graph executors and the eager forward;
+23. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -277,6 +292,7 @@ Imports nothing of JAX or of the JAX package.  Needs one card.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import json
 import math
 import os
@@ -5467,6 +5483,474 @@ def phase_probe(torch) -> tuple:
     return out, counts
 
 
+#: phase 22: the kernels as ``hvd_torch`` ops at the main path's shapes,
+#: and the served LM's AOT executables: one signature of 1024 tokens, two
+#: buckets, the requests served through each set of executors (half in
+#: batches of each bucket), the layers exported (the full 16: a cut for
+#: the compile's time would be listed here), the fresh process's limit
+AOT = dict(len=1024, buckets=(4, 8), requests=32, layers=FULL["layers"])
+AOT_LOAD_TIMEOUT_S = 600
+#: the weight flip of 22 (c): each weight plus this much noise
+AOT_FLIP = 1e-2
+
+
+def op_parity(torch) -> dict:
+    """Phase 22 (a): each ``torch.ops.hvd_torch`` op called directly
+    against its wrapper on the same inputs at the main path's shapes, bit
+    for bit, and one launch counted a call of either (the op's CUDA kernel
+    counts it).  These comparison launches are not the main path's: the
+    counts are restored after."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    ops = torch.ops.hvd_torch
+    saved = K.launch_counts()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    out = {}
+
+    def same(name, got, want, counter, calls=2):
+        before = K.launch_counts()[counter]
+        got, want = got(), want()
+        launched = K.launch_counts()[counter] - before
+        pairs = list(zip(got, want)) if isinstance(got, tuple) \
+            else [(got, want)]
+        equal = all(torch.equal(g, w) for g, w in pairs)
+        out[name] = dict(bit_exact=equal, launches=launched)
+        if not equal or launched != calls:
+            raise AssertionError(f"op {name}: equal {equal}, launches "
+                                 f"{launched} for {calls} calls")
+
+    bucket = torch.randn(16 * 2**20, device="cuda", generator=gen)
+    for cast in (torch.float32, torch.bfloat16):
+        def by_op(cast=cast):
+            y = torch.empty(bucket.shape, dtype=cast, device="cuda")
+            ops.fused_scale(y, bucket, 0.5)
+            return y
+
+        same(f"fused_scale->{str(cast)[6:]}", by_op,
+             lambda cast=cast: K.fused_scale(bucket, 0.5, cast),
+             "fused_scale")
+
+    def inplace_op():
+        y = bucket.clone()
+        ops.fused_scale(y, None, 0.5)
+        return y
+
+    def inplace_wrapper():
+        y = bucket.clone()
+        return K.fused_scale(y, 0.5, out=y)
+
+    same("fused_scale in place", inplace_op, inplace_wrapper, "fused_scale")
+    b, t, h, d = FULL["batch"], FULL["seq"], FULL["heads"], FULL["head_dim"]
+    q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    pos = pos_pairs(torch, t)
+    for tag, (qpos, kpos) in (("", (None, None)),
+                              ("_pos", pos["b"])):
+        o, lse = K.flash_fwd(q, k, v, True, scale, qpos, kpos)
+        same("flash_fwd" + tag,
+             lambda: ops.flash_fwd(q, k, v, True, scale, qpos, kpos),
+             lambda: K.flash_fwd(q, k, v, True, scale, qpos, kpos),
+             "flash_fwd" + tag)
+        same("flash_bwd_dq" + tag,
+             lambda: ops.flash_bwd_dq(q, k, v, do, lse, None, True, scale,
+                                      qpos, kpos, o),
+             lambda: K.flash_bwd_dq(q, k, v, do, lse, None, True, scale,
+                                    qpos, kpos, out=o),
+             "flash_bwd_dq" + tag)
+        _, delta = K.flash_bwd_dq(q, k, v, do, lse, None, True, scale, qpos,
+                                  kpos, out=o)
+        same("flash_bwd_dkv" + tag,
+             lambda: ops.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale,
+                                       qpos, kpos),
+             lambda: K.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale,
+                                     qpos, kpos),
+             "flash_bwd_dkv" + tag)
+    del q, k, v, do, o, lse, delta
+    shape = next(iter(CBR_MAIN))
+    cbr = cbr_inputs(torch, shape, SEED + 22)
+    same("cbr_bwd", lambda: ops.cbr_bwd(*cbr),
+         lambda: K.fused_conv_bn_relu_bwd(*cbr), "fused_conv_bn_relu_bwd")
+    del cbr
+    m, kk, n = MM_MAIN["qkv"]
+    x, w = mm_operands(torch, (m, kk, n), "fwd", SEED + 22)
+    for dt in (torch.bfloat16, torch.float32):
+        same(f"pallas_matmul->{str(dt)[6:]}",
+             lambda dt=dt: ops.pallas_matmul(x, w, dt),
+             lambda dt=dt: K.pallas_matmul(x, w, dt), "pallas_matmul")
+
+    def into_out():
+        y = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        ops.pallas_matmul_out(x, w, y)
+        return y
+
+    same("pallas_matmul_out", into_out,
+         lambda: K.pallas_matmul(x, w, torch.bfloat16), "pallas_matmul")
+    out["dispatch_host_us"] = dispatch_cost(torch, gen)
+    K.reset_launch_counts()
+    K.add_launch_counts(saved)
+    log(f"aot (a) [{CARD}]: every op through torch.ops.hvd_torch equals its "
+        f"wrapper bit for bit at the main path's shapes, one launch a call: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def dispatch_cost(torch, gen, calls: int = 200) -> dict:
+    """Host µs a call of the wrapper (through the dispatcher's op) and of
+    the op's CUDA kernel called bare, on the host clock before a sync,
+    medians of four passes in turns (op, bare, bare, op): the flash
+    forward at b6 h16 t1024 d128 and ``fused_scale`` in place on a 1 MiB
+    bucket (its kernel takes ~5 µs: the loop is host-bound).  The
+    difference times phase 4's launches a step (48 flash, 132 scale) is
+    the host time the dispatcher adds to a step."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    b, t, h, d = FULL["batch"], FULL["seq"], FULL["heads"], FULL["head_dim"]
+    q = torch.randn(b, t, h, d, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    x = torch.randn(2**18, device="cuda", generator=gen)
+    cases = {"flash_fwd": (lambda: K.flash_fwd(q, q, q, True, 0.1),
+                           lambda: K._launch_flash_fwd(q, q, q, True, 0.1)),
+             "fused_scale": (lambda: K.fused_scale(x, 1.0, out=x),
+                             lambda: K._launch_fused_scale(x, 1.0, x.dtype,
+                                                           x))}
+    out = {}
+    for name, (op, bare) in cases.items():
+        runs = {"op": [], "bare": []}
+        for how in ("op", "bare", "bare", "op"):
+            fn = op if how == "op" else bare
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            runs[how].append(1e6 * (time.perf_counter() - t0) / calls)
+            torch.cuda.synchronize()
+        out[name] = {how: statistics.median(v) for how, v in runs.items()}
+    per_step = (48 * (out["flash_fwd"]["op"] - out["flash_fwd"]["bare"]) +
+                132 * (out["fused_scale"]["op"] -
+                       out["fused_scale"]["bare"])) / 1e3
+    out["added_host_ms_a_step"] = per_step
+    return out
+
+
+def aot_model(torch, dev):
+    """The served 870.9M LM of phase 19 (d) at AOT["layers"], seeded."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    cfg = dataclasses.replace(full_config(torch, "flash"),
+                              num_layers=AOT["layers"])
+    lm = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    return cfg, _last_logits(torch, lm)
+
+
+def aot_batches(torch, vocab: int) -> list:
+    """AOT["requests"] seeded requests of AOT["len"] tokens, half in
+    batches of each bucket."""
+    gen = torch.Generator().manual_seed(SEED + 22)
+    reqs = [torch.randint(0, vocab, (AOT["len"],), generator=gen)
+            for _ in range(AOT["requests"])]
+    half = len(reqs) // len(AOT["buckets"])
+    out = []
+    for i, bucket in enumerate(AOT["buckets"]):
+        part = reqs[i * half:(i + 1) * half]
+        out += [part[j:j + bucket] for j in range(0, len(part), bucket)]
+    return out
+
+
+def _tokens_example(torch):
+    return lambda sig, n: torch.zeros((n,) + tuple(sig[0]),
+                                      dtype=torch.long)
+
+
+def aot_serve(torch, cache, served, batches, dev, label: str,
+              weights=None) -> dict:
+    """Every batch through ``cache``'s executors (with ``weights`` when
+    given): 16 flash-forward launches a batch, each batch within the
+    served limits of the plain path's forward of its padded batch on the
+    same weights."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    records = []
+    start = K.launch_counts()["flash_fwd"]
+    for batch in batches:
+        kw = {} if weights is None else {"weights": weights}
+        records.append(dict(payloads=batch, results=cache.run(batch, **kw),
+                            padded=cache.padded_size(len(batch))))
+    launches = K.launch_counts()["flash_fwd"] - start
+
+    def plain(x, rec):
+        with _plain_flash():
+            if weights is None:
+                return served(x)
+            return torch.func.functional_call(served, weights, (x,))
+
+    readings = _check_batches(torch, records, plain, label, dev)
+    if launches != AOT["layers"] * len(batches):
+        raise AssertionError(f"{label}: {launches} flash forwards for "
+                             f"{len(batches)} batches")
+    return dict(readings, launches=launches, batches=len(batches))
+
+
+def aot_worker(torch, out_path: str) -> int:
+    """``chip_smoke.py --aot-load OUT``: phase 22 (b)'s fresh process.  Loads
+    the executables phase 22 stored (``HOROVOD_COMPILE_CACHE_DIR``) through
+    ``ExecutableCache.from_exported`` (each a hit: nothing compiles),
+    serves :func:`aot_batches` against the plain path, and writes the
+    seconds, the store's counters and the readings to ``OUT`` as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import build
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.runtime import compile_cache
+    from horovod_tpu_torch.serve import ExecutableCache
+
+    hvd.init()
+    dev = hvd.device()
+    cfg, served = aot_model(torch, dev)
+    cache = ExecutableCache.from_exported(served, _tokens_example(torch),
+                                          bucket_sizes=AOT["buckets"])
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for bucket in AOT["buckets"]:
+        cache.get(((AOT["len"],), "torch.int64"), bucket)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded = dict(load_s=load_s, store=compile_cache.stats(),
+                  stages=compile_cache.aot_seconds(),
+                  entries=compile_cache.executable_count(),
+                  kernel_build_s=build.build_seconds)
+    batches = aot_batches(torch, cfg.vocab_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served_out = aot_serve(torch, cache, served, batches, dev,
+                           "aot (b) fresh process")
+    out = dict(loaded, serve=served_out,
+               serve_s=time.perf_counter() - t0,
+               kernel_library_hit=build.library_hit,
+               launches=K.launch_counts())
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_aot(torch, train=None, phase4=None, memory=None) -> tuple:
+    """Phase 22: the kernels as dispatcher ops and the AOT executable
+    store.  (a) :func:`op_parity`; phase 4's step with the ops (its ms
+    beside the 145.9 ms of PERF.md's profiled step, its launches a step)
+    and phase 18's flash forwards a tiered step, read from their phases.
+    (b) The 870.9M LM at
+    t = AOT["len"], buckets AOT["buckets"], exported and compiled by
+    AOTInductor through ``ExecutableCache.from_exported`` into a fresh
+    ``HOROVOD_COMPILE_CACHE_DIR`` (holding phase 1's kernel library,
+    copied, so that no process there compiles kernels): the compile
+    seconds; each batch within the served limits of the plain path, 16
+    flash forwards a batch through ``hvd_torch::flash_fwd``; then a fresh
+    process (``--aot-load``) loads both executables (hits, nothing
+    compiled) and serves the same batches.  (c) A weight flip: the
+    executors run flipped weights against the plain path on them, and the
+    model holding them builds its executors as hits, no new entry.  (d)
+    requests/s of the AOT executors beside ``from_module``'s graph
+    executors and the eager forward, in turns.  Returns the summary and
+    the flash forwards the main path ran."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import build
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.runtime import compile_cache
+    from horovod_tpu_torch.serve import ExecutableCache
+
+    log(f"aot: torch {torch.__version__}, triton "
+        f"{compile_cache._triton_version()}, CUDA {torch.version.cuda}")
+    summary = dict(ops=op_parity(torch))
+    if train is not None:
+        steps = len(train["losses"])
+        a_step = {k: phase4[k] / steps for k in TRANSFORMER_KERNELS}
+        tiers = {tier: row["flash_launches_a_step"]["flash_fwd"]
+                 for tier, row in memory["tiers"].items()}
+        summary.update(phase4_step_ms=train["step_ms"],
+                       phase4_launches_a_step=a_step, remat_flash_fwd=tiers)
+        log(f"aot (a) [{CARD}]: phase 4's step through the ops "
+            f"{train['step_ms']:.1f} ms (PERF.md's profiled step: 145.9 ms), "
+            f"launches a step {a_step}; phase 18's flash forwards a step by "
+            f"tier {tiers}")
+        want = {"fused_scale": 132, "flash_fwd": FULL["layers"],
+                "flash_bwd_dq": FULL["layers"],
+                "flash_bwd_dkv": FULL["layers"]}
+        if a_step != want or any(
+                n != (FULL["layers"] if tier == "none" else
+                      2 * FULL["layers"]) for tier, n in tiers.items()):
+            raise AssertionError("phase 4's or phase 18's launches moved")
+
+    store = tempfile.mkdtemp(prefix="hvd_torch_aot_")
+    for f in compile_cache._entry_files(build.library_path()):
+        if f.exists():
+            shutil.copy2(f, store)
+    saved_env = os.environ.get("HOROVOD_COMPILE_CACHE_DIR")
+    os.environ["HOROVOD_COMPILE_CACHE_DIR"] = store
+    flash0 = K.launch_counts()["flash_fwd"]
+    hvd.init()
+    try:
+        dev = hvd.device()
+        cfg, served = aot_model(torch, dev)
+        batches = aot_batches(torch, cfg.vocab_size)
+        sig = ((AOT["len"],), "torch.int64")
+        stats0, stages0 = compile_cache.stats(), compile_cache.aot_seconds()
+        cache = ExecutableCache.from_exported(
+            served, _tokens_example(torch), bucket_sizes=AOT["buckets"])
+        compile_s = {}
+        for bucket in AOT["buckets"]:
+            t0 = time.perf_counter()
+            cache.get(sig, bucket)
+            torch.cuda.synchronize()
+            compile_s[bucket] = time.perf_counter() - t0
+        stats1 = compile_cache.stats()
+        stages = {k: v - stages0[k]
+                  for k, v in compile_cache.aot_seconds().items()}
+        entries = compile_cache.executable_count(store)
+        aot = aot_serve(torch, cache, served, batches, dev, "aot (b)")
+        log(f"aot (b) [{CARD}]: {AOT['layers']} layers, t {AOT['len']}, "
+            f"export + AOTInductor compile + load s by bucket {compile_s} "
+            f"(stages summed {stages}); "
+            f"store {stats0} -> {stats1}, {entries} entries; "
+            f"{json.dumps(aot)}")
+        if entries != len(AOT["buckets"]) or stats1 != dict(
+                stats0, aot_disk_misses=stats0["aot_disk_misses"] +
+                len(AOT["buckets"])):
+            raise AssertionError("aot (b): the compile did not miss and "
+                                 "store each bucket")
+        graph_text = str(torch.export.export(
+            compile_cache._as_module(
+                lambda x, w: torch.func.functional_call(served, w, (x,))), (
+                torch.zeros((AOT["buckets"][0], AOT["len"]),
+                            dtype=torch.long, device=dev),
+                _weights(served))).graph)
+        nodes = dict(flash=graph_text.count("hvd_torch.flash_fwd"),
+                     sdpa=graph_text.count("scaled_dot_product"))
+        if nodes != dict(flash=AOT["layers"], sdpa=0):
+            raise AssertionError(f"aot (b): the exported graph holds "
+                                 f"{nodes}")
+
+        out_dir = tempfile.mkdtemp(prefix="hvd_torch_aot_out_")
+        try:
+            out_json = os.path.join(out_dir, "aot.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--aot-load",
+                 out_json], capture_output=True, text=True,
+                timeout=AOT_LOAD_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0 or not os.path.exists(out_json):
+                print(proc.stdout[-4000:], proc.stderr[-4000:],
+                      file=sys.stderr)
+                raise AssertionError(f"aot (b): the fresh process exited "
+                                     f"{proc.returncode}")
+            with open(out_json) as f:
+                fresh = json.load(f)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        fresh["process_s"] = wall
+        log(f"aot (b) fresh process [{CARD}]: {wall:.1f} s in all; loaded "
+            f"{len(AOT['buckets'])} executables in {fresh['load_s']:.2f} s "
+            f"(stages {fresh['stages']}), store "
+            f"{fresh['store']}, kernel library hit "
+            f"{fresh['kernel_library_hit']} ({fresh['kernel_build_s']} s of "
+            f"nvcc); served {json.dumps(fresh['serve'])}")
+        # the kernel library loads at the first launch, after these reads
+        if fresh["store"] != {"aot_disk_hits": len(AOT["buckets"]),
+                              "aot_disk_misses": 0} or \
+                fresh["kernel_build_s"] or not fresh["kernel_library_hit"] or \
+                fresh["entries"] != len(AOT["buckets"]):
+            raise AssertionError(f"aot (b): the fresh process compiled: "
+                                 f"{fresh}")
+
+        # (d) AOT executors beside from_module's graph executors and eager
+        graph_cache = ExecutableCache.from_module(
+            served, _tokens_example(torch), bucket_sizes=AOT["buckets"])
+        for bucket in AOT["buckets"]:
+            graph_cache.get(sig, bucket)
+
+        def eager_pass():
+            with torch.inference_mode():
+                return [list(served(torch.stack(b).to(dev)).unbind(0))
+                        for b in batches]
+
+        runs = {"aot": lambda: [cache.run(b) for b in batches],
+                "graph": lambda: [graph_cache.run(b) for b in batches],
+                "eager": eager_pass}
+        passes = {how: [] for how in runs}
+        outs = {}
+        start = K.launch_counts()["flash_fwd"]
+        for how in ("aot", "graph", "eager", "eager", "graph", "aot"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[how] = runs[how]()
+            torch.cuda.synchronize()
+            passes[how].append(time.perf_counter() - t0)
+        rates = {how: AOT["requests"] / statistics.mean(t)
+                 for how, t in passes.items()}
+        ran = K.launch_counts()["flash_fwd"] - start
+        diff = max(max_err(torch, torch.stack(a), torch.stack(e))
+                   for a, e in zip(outs["aot"], outs["eager"]))
+        log(f"aot (d) [{CARD}]: requests/s AOT {rates['aot']:.1f}, graph "
+            f"{rates['graph']:.1f}, eager {rates['eager']:.1f} ("
+            f"{AOT['requests']} requests in {len(batches)} batches, two "
+            f"passes each in turns); AOT against eager max abs "
+            f"{diff:.3e}; flash forwards {ran}")
+        if ran != 6 * AOT["layers"] * len(batches):
+            raise AssertionError(f"aot (d): {ran} flash forwards")
+        del graph_cache, outs
+
+        # (c) a weight flip: the same executables, then a hit
+        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+        own = _weights(served)
+        flipped = {n: t + AOT_FLIP * torch.randn(t.shape, device=dev,
+                                                 generator=gen)
+                   if t.is_floating_point() else t for n, t in own.items()}
+        builds = len(cache)
+        flip = aot_serve(torch, cache, served, batches[-1:], dev,
+                         "aot (c) flipped weights", weights=flipped)
+        with torch.no_grad():
+            for n, t in own.items():
+                t.copy_(flipped[n])
+        del flipped
+        stats2 = compile_cache.stats()
+        again = ExecutableCache.from_exported(
+            served, _tokens_example(torch), bucket_sizes=AOT["buckets"])
+        for bucket in AOT["buckets"]:
+            again.get(sig, bucket)
+        stats3 = compile_cache.stats()
+        flip.update(builds_before=builds, builds_after=len(cache),
+                    entries=compile_cache.executable_count(store),
+                    hits=stats3["aot_disk_hits"] - stats2["aot_disk_hits"],
+                    misses=stats3["aot_disk_misses"] -
+                    stats2["aot_disk_misses"])
+        log(f"aot (c) [{CARD}]: flipped weights through the same "
+            f"executables {json.dumps(flip)}")
+        if flip["builds_after"] != builds or flip["hits"] != len(
+                AOT["buckets"]) or flip["misses"] or \
+                flip["entries"] != len(AOT["buckets"]):
+            raise AssertionError(f"aot (c): a flip compiled: {flip}")
+        launches = K.launch_counts()["flash_fwd"] - flash0
+        del cache, again, served
+    finally:
+        hvd.shutdown()
+        if saved_env is None:
+            os.environ.pop("HOROVOD_COMPILE_CACHE_DIR", None)
+        else:
+            os.environ["HOROVOD_COMPILE_CACHE_DIR"] = saved_env
+        shutil.rmtree(store, ignore_errors=True)
+    summary.update(compile_s=compile_s, stages=stages, serve=aot, fresh=fresh,
+                   requests_per_s=rates, aot_vs_eager_max_abs=diff,
+                   flip=flip, graph_nodes=nodes, layers=AOT["layers"])
+    return summary, {"flash_fwd": launches}
+
+
+def _weights(served) -> dict:
+    return {**dict(served.named_parameters()),
+            **dict(served.named_buffers())}
+
+
 def main() -> int:
     global CARD
     import torch
@@ -5480,6 +5964,8 @@ def main() -> int:
         return launched_worker(torch, sys.argv[2])
     if sys.argv[1:2] == ["--affinity"]:
         return affinity_worker(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--aot-load"]:
+        return aot_worker(torch, sys.argv[2])
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5504,6 +5990,7 @@ def main() -> int:
     timing = timed("3 time", phase_time, torch)
     counts, train, first, eager, step1_params = timed("4+9+17 train",
                                                       phase_train, torch)
+    phase4 = dict(counts)
     tools = eager.pop("tools")
     seconds["17 tools"] = tools["seconds"]
     resnet_counts, resnet = timed("5 resnet", phase_resnet, torch)
@@ -5535,8 +6022,11 @@ def main() -> int:
     serve, serve_counts = timed("19b serve", phase_serve, torch)
     graph, graph_counts = timed("20 graph", phase_graph, torch, launch)
     probe, probe_counts = timed("21 probe", phase_probe, torch)
+    aot, aot_counts = timed("22 aot", phase_aot, torch, train, phase4,
+                            memory)
     for name, n in list(guard_counts.items()) + list(serve_counts.items()) \
-            + list(graph_counts.items()) + list(probe_counts.items()):
+            + list(graph_counts.items()) + list(probe_counts.items()) \
+            + list(aot_counts.items()):
         counts[name] += n
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
@@ -5589,6 +6079,7 @@ def main() -> int:
     log(f"serve summary [{CARD}]: {json.dumps(serve)}")
     log(f"graph summary [{CARD}]: {json.dumps(graph)}")
     log(f"probe summary [{CARD}]: {json.dumps(probe)}")
+    log(f"aot summary [{CARD}]: {json.dumps(aot)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

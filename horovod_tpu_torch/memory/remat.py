@@ -24,11 +24,11 @@ Each tier is ``torch.utils.checkpoint.checkpoint(..., use_reentrant=
 False)`` around a block: ``dots`` with a selective-checkpoint policy,
 ``offload`` with two dispatch modes of its own (the forward's copies the
 matmul outputs to the host, the recompute's copies them back in their
-place).  The port's flash kernels and ``pallas_matmul`` launch from
-pybind entry points that no dispatch mode sees, so every tier recomputes
-them: under ``dots``, ``full`` and ``offload`` a block's flash forward
-runs twice a step (JAX's ``dots_saveable`` does not save a
-``pallas_call`` either).
+place).  The port's kernels are dispatcher ops (``hvd_torch::flash_fwd``,
+``hvd_torch::pallas_matmul``, ...; ``ops/kernels.py``), which both see;
+neither is among :data:`MATMUL_OPS`, so every tier recomputes them: under
+``dots``, ``full`` and ``offload`` a block's flash forward runs twice a
+step (JAX's ``dots_saveable`` does not save a ``pallas_call`` either).
 """
 
 from __future__ import annotations

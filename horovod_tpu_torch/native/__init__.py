@@ -72,7 +72,7 @@ def _compile(lib_path: Path) -> None:
 def _build(lib_path: Path) -> None:
     """Compile the source into the entry ``lib_path`` (a temporary file,
     renamed); raises with the compiler's output when it fails."""
-    compile_cache.store_executable(lib_path, _compile, toolchain="g++")
+    compile_cache.store_library(lib_path, _compile, toolchain="g++")
 
 
 #: seconds this process spent compiling the library (0 when it was built)

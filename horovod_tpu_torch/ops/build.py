@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels on first use and load them with ctypes.
 
-Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
-started together, into an object file; one link step then makes a single
-shared library with a plain C interface (the TMA kernels look the CUDA
-driver's ``cuTensorMapEncodeTiled`` up at run time, so nothing beyond the
-CUDA runtime is linked).  The library is an entry of the compile cache's
-disk layer (``runtime/compile_cache.py``): its name carries a hash of the
+The library is what the ``hvd_torch`` ops' CUDA kernels call
+(``ops/kernels.py``): every ``csrc/*.cu`` source is compiled by its own
+``nvcc`` process, all started together, into an object file; one link
+step then makes a single shared library with a plain C interface
+(:data:`_SIGNATURES`; the TMA kernels look the CUDA driver's
+``cuTensorMapEncodeTiled`` up at run time, so nothing beyond the CUDA
+runtime is linked).  The library is an entry of the compile cache's disk
+layer (``runtime/compile_cache.py``): its name carries a hash of the
 flags, of every source and header in ``csrc/`` (``*.cu`` and ``*.cuh``) and
 of the environment (torch, the CUDA runtime, ``nvcc --version``, the card),
 so an edited source or header builds anew and an unchanged tree is loaded
@@ -137,8 +139,8 @@ def build(build_dir: Optional[Path] = None) -> Path:
     returns the entry's path."""
     lib_path = library_path(build_dir)
     if not lib_path.exists():
-        compile_cache.store_executable(lib_path, _compile,
-                                       toolchain=_nvcc(), card=True)
+        compile_cache.store_library(lib_path, _compile,
+                                    toolchain=_nvcc(), card=True)
     return lib_path
 
 

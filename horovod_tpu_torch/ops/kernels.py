@@ -1,35 +1,49 @@
 """The port's hand-written Hopper kernels, their wrappers and plain versions.
 
-Counterpart of ``horovod_tpu/ops/pallas_kernels.py``.  Each kernel has:
+Counterpart of ``horovod_tpu/ops/pallas_kernels.py``.  Each kernel is an
+operator of the dispatcher, ``torch.ops.hvd_torch.<op>``
+(``torch.library.custom_op``): its CPU kernel is the plain PyTorch version
+with the Pallas kernel's exact semantics, its CUDA kernel the launch of
+``csrc/*.cu`` (built on first use by :mod:`.build`, called through
+ctypes), and its fake kernel gives tracing the output's shapes and dtypes.
+So ``torch.export`` and AOTInductor keep each op as one opaque call
+(``runtime/compile_cache.aot_compile``), and dispatch modes (the remat
+tiers, ``memory/remat.py``) see it.  A real meta tensor, like any tensor
+that is neither on the CPU nor on a card, raises; nothing falls back.
 
-* a wrapper that launches the CUDA kernel (``csrc/*.cu``, built on first
-  use by :mod:`.build`) for a CUDA tensor and counts its launches in a
-  plain integer attribute, ``<wrapper>.launches`` (the flash wrappers count
-  their global-positions variant apart, in ``<wrapper>.pos_launches``);
-* a plain PyTorch version with the Pallas kernel's exact semantics, which
-  the wrapper takes only for a tensor on the CPU.  For any other device
-  the wrapper launches the kernel or raises; nothing falls back.
+Each kernel also has a wrapper, the entry point the rest of the port
+calls, which keeps the dispatch rule (what the op computes and what takes
+the plain path on a card) and glues the ops into ``torch.autograd.Function``
+s.  A launch counts in a plain integer attribute of the wrapper,
+``<wrapper>.launches`` (the flash wrappers count their global-positions
+variant apart, in ``<wrapper>.pos_launches``), bumped in the op's CUDA
+kernel, so a launch from an AOT package counts too.
 
-Kernels (TPU source → CUDA source):
+Kernels (TPU source → op → CUDA source):
 
 * :func:`fused_scale` (``pallas_kernels.fused_scale``) →
-  ``csrc/fused_scale.cu``: the exchange's pre/postscale and wire cast.
+  ``hvd_torch::fused_scale`` (writes its ``out``; ``x`` None scales ``out``
+  in place) → ``csrc/fused_scale.cu``: the exchange's pre/postscale and
+  wire cast.
 * :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`
   (``pallas_kernels._flash_fwd`` / ``_flash_bwd``) →
+  ``hvd_torch::flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` →
   ``csrc/flash_attention.cu``, glued by :func:`flash_attention`'s
-  ``torch.autograd.Function``.  With ``qpos``/``kpos`` the same wrappers
+  ``torch.autograd.Function``.  With ``qpos``/``kpos`` the same ops
   launch the kernels' global-positions variant (the Pallas kernels'
   ``positions=True``), which the sp ring
   (:func:`~horovod_tpu_torch.ops.fused_collectives.ring_flash_attention`)
   launches per visiting block.
 * :func:`fused_conv_bn_relu_bwd` (``pallas_kernels.fused_conv_bn_relu_bwd``)
-  → ``csrc/conv_bn_relu_bwd.cu``, the backward of ResNet's stride-1 3x3
-  segment, glued by :func:`fused_conv_bn_relu`'s
+  → ``hvd_torch::cbr_bwd`` → ``csrc/conv_bn_relu_bwd.cu``, the backward of
+  ResNet's stride-1 3x3 segment, glued by :func:`fused_conv_bn_relu`'s
   ``torch.autograd.Function``.
 * :func:`pallas_matmul` (``pallas_kernels.pallas_matmul``) →
-  ``csrc/matmul.cu``: the blocked product with fp32 accumulation that the
-  tensor-parallel ring ops (:mod:`.fused_collectives`) compute per tile;
-  its own ``torch.autograd.Function`` runs dX and dW through it too.
+  ``hvd_torch::pallas_matmul`` (and ``pallas_matmul_out``, which writes a
+  row block of the tp ring's output in place) → ``csrc/matmul.cu``: the
+  blocked product with fp32 accumulation that the tensor-parallel ring ops
+  (:mod:`.fused_collectives`) compute per tile; its own
+  ``torch.autograd.Function`` runs dX and dW through it too.
 """
 
 from __future__ import annotations
@@ -61,6 +75,17 @@ def _cuda_library(x: torch.Tensor):
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _no_meta_launch(x: torch.Tensor) -> None:
+    """The ops' fake kernels serve tracing (fake tensors: ``torch.export``,
+    ``opcheck``); a real tensor on the meta device would reach a launch
+    there, which the kernels refuse as they refuse any non-CUDA tensor."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if not is_fake(x):
+        raise ValueError(
+            f"the CUDA kernels take CUDA tensors, got one on {x.device}")
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -98,25 +123,31 @@ def fused_scale(x: torch.Tensor, factor: float,
     shape (no padding).  ``out`` (contiguous, ``x``'s shape, ``out_dtype``)
     receives the result; it may be ``x`` itself when the dtype is
     unchanged, which the exchange uses to scale a bucket in place.  A CPU
-    tensor, or one the kernel does not take
-    (:func:`fused_scale_kernel_takes`), computes :func:`fused_scale_plain`;
-    any other launches the kernel."""
+    tensor, or a card's tensor the kernel takes
+    (:func:`fused_scale_kernel_takes`), runs ``hvd_torch::fused_scale``
+    into ``out`` (allocated when not given): its CPU kernel is
+    :func:`fused_scale_plain`, its CUDA kernel the launch.  A card's
+    tensor the kernel does not take computes :func:`fused_scale_plain`."""
     out_dtype = out_dtype or x.dtype
     if out is not None and (out.dtype != out_dtype or out.shape != x.shape
                             or not out.is_contiguous()):
         raise ValueError("out must be contiguous with x's shape and "
                          "out_dtype")
-    if not fused_scale_kernel_takes(x, out_dtype):
+    if x.device.type != "cpu" and not fused_scale_kernel_takes(x, out_dtype):
         y = fused_scale_plain(x, factor, out_dtype)
         return y if out is None else out.copy_(y)
-    return _launch_fused_scale(x, factor, out_dtype, out)
+    if out is None:
+        out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    torch.ops.hvd_torch.fused_scale(out, None if x is out else x,
+                                    float(factor))
+    return out
 
 
 def _launch_fused_scale(x: torch.Tensor, factor: float,
                         out_dtype: torch.dtype,
                         out: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launch ``csrc/fused_scale.cu`` on ``x`` (``out`` already checked);
-    raises on a dtype the kernel does not take."""
+    """Launch ``csrc/fused_scale.cu`` on ``x`` (``out`` already checked,
+    and may be ``x``); raises on a dtype the kernel does not take."""
     if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
         raise TypeError(f"the fused_scale kernel takes {list(_DTYPE_CODES)}"
                         f", got {x.dtype} -> {out_dtype}")
@@ -136,6 +167,26 @@ def _launch_fused_scale(x: torch.Tensor, factor: float,
     if out is None or out is dst:
         return dst
     return out.copy_(dst)
+
+
+@torch.library.custom_op(
+    "hvd_torch::fused_scale", mutates_args=("out",), device_types="cpu",
+    schema="(Tensor(a!) out, Tensor? x, float factor) -> ()")
+def _fused_scale_op(out: torch.Tensor, x: Optional[torch.Tensor],
+                    factor: float) -> None:
+    """``out = (x.f32 * factor).astype(out.dtype)``, ``x`` None for in
+    place; the CPU kernel is the plain version."""
+    out.copy_(fused_scale_plain(out if x is None else x, factor, out.dtype))
+
+
+@_fused_scale_op.register_kernel("cuda")
+def _fused_scale_cuda(out, x, factor):
+    _launch_fused_scale(out if x is None else x, factor, out.dtype, out)
+
+
+@_fused_scale_op.register_fake
+def _fused_scale_fake(out, x, factor):
+    _no_meta_launch(out)
 
 
 fused_scale.launches = 0
@@ -283,12 +334,17 @@ def _positions(qpos, kpos, t: int, device) -> Tuple:
 def flash_fwd(q, k, v, causal: bool, scale: float, qpos=None, kpos=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """O and lse ``(b*h, t)`` of causal or full attention over
-    ``(b, t, h, d)`` inputs (``_flash_fwd``); with ``qpos``/``kpos``
-    ((t,) integer global positions) the global-positions variant, which
-    masks by ``qpos[i] >= kpos[j]``, skips only the tiles those hide and
-    counts in ``flash_fwd.pos_launches``."""
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal, scale, qpos, kpos)
+    ``(b, t, h, d)`` inputs (``_flash_fwd``) through
+    ``hvd_torch::flash_fwd``; with ``qpos``/``kpos`` ((t,) integer global
+    positions) the global-positions variant, which masks by ``qpos[i] >=
+    kpos[j]``, skips only the tiles those hide and counts in
+    ``flash_fwd.pos_launches``."""
+    return torch.ops.hvd_torch.flash_fwd(q, k, v, bool(causal), float(scale),
+                                         qpos, kpos)
+
+
+def _launch_flash_fwd(q, k, v, causal, scale, qpos=None, kpos=None):
+    """``hvd_torch::flash_fwd``'s CUDA kernel: ``_flash_fwd`` on a card."""
     q, k, v = _flash_inputs(q, k, v)
     b, t, h, d = q.shape
     qpos, kpos, ptrs = _positions(qpos, kpos, t, q.device)
@@ -307,28 +363,36 @@ def flash_fwd(q, k, v, causal: bool, scale: float, qpos=None, kpos=None
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
                  qpos=None, kpos=None, out=None):
-    """dQ from the forward's lse and delta (``_flash_bwd_dq_kernel``);
-    with ``qpos``/``kpos`` the global-positions variant.  Returns ``(dq,
-    delta)``.  Pass ``delta=None`` and the forward's O as ``out`` to have
-    delta = rowsum(dO∘O) computed here (on a card in the kernel's
-    prologue, which writes it out for the dK/dV kernel), or a ``(b*h,
-    t)`` fp32 ``delta`` (the sp ring's later steps), not both."""
+    """dQ from the forward's lse and delta (``_flash_bwd_dq_kernel``)
+    through ``hvd_torch::flash_bwd_dq``; with ``qpos``/``kpos`` the
+    global-positions variant.  Returns ``(dq, delta)``.  Pass
+    ``delta=None`` and the forward's O as ``out`` to have delta =
+    rowsum(dO∘O) computed here (on a card in the kernel's prologue, which
+    writes it out for the dK/dV kernel), or a ``(b*h, t)`` fp32 ``delta``
+    (the sp ring's later steps), not both; a given delta comes back as it
+    is (the op returns a new one only when it computed it)."""
     if (delta is None) == (out is None):
         raise ValueError("pass delta, or out to compute it from, not both")
-    if q.device.type == "cpu":
-        if delta is None:
-            delta = flash_delta(out, do)
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
-                                  qpos, kpos), delta
+    dq, computed = torch.ops.hvd_torch.flash_bwd_dq(
+        q, k, v, do, lse, delta, bool(causal), float(scale), qpos, kpos, out)
+    return dq, computed if delta is None else delta
+
+
+def _launch_flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, qpos=None,
+                         kpos=None, out=None):
+    """``hvd_torch::flash_bwd_dq``'s CUDA kernel; the delta it returns is
+    the one it computed, or an empty tensor when ``delta`` was given."""
     q, k, v, do, *o = _flash_inputs(q, k, v, do, *([] if out is None
                                                     else [out]))
     b, t, h, d = q.shape
     lse = _rows(lse, b, h, t)
     if delta is None:
-        delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+        delta = computed = torch.empty((b * h, t), dtype=torch.float32,
+                                       device=q.device)
         o_ptr = o[0].data_ptr()
     else:
         delta, o_ptr = _rows(delta, b, h, t), None
+        computed = q.new_empty((0,), dtype=torch.float32)
     qpos, kpos, ptrs = _positions(qpos, kpos, t, q.device)
     lib, stream = _cuda_library(q)
     dq = torch.empty_like(q)
@@ -341,17 +405,22 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
         flash_bwd_dq.launches += 1
     else:
         flash_bwd_dq.pos_launches += 1
-    return dq, delta
+    return dq, computed
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
                   qpos=None, kpos=None):
     """dK and dV from the forward's lse and delta
-    (``_flash_bwd_dkv_kernel``), delta as :func:`flash_bwd_dq` returns it;
-    with ``qpos``/``kpos`` the global-positions variant."""
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale,
-                                   qpos, kpos)
+    (``_flash_bwd_dkv_kernel``) through ``hvd_torch::flash_bwd_dkv``,
+    delta as :func:`flash_bwd_dq` returns it; with ``qpos``/``kpos`` the
+    global-positions variant."""
+    return torch.ops.hvd_torch.flash_bwd_dkv(
+        q, k, v, do, lse, delta, bool(causal), float(scale), qpos, kpos)
+
+
+def _launch_flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, qpos=None,
+                          kpos=None):
+    """``hvd_torch::flash_bwd_dkv``'s CUDA kernel."""
     q, k, v, do = _flash_inputs(q, k, v, do)
     b, t, h, d = q.shape
     lse, delta = _rows(lse, b, h, t), _rows(delta, b, h, t)
@@ -374,6 +443,80 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
 flash_fwd.launches = flash_fwd.pos_launches = 0
 flash_bwd_dq.launches = flash_bwd_dq.pos_launches = 0
 flash_bwd_dkv.launches = flash_bwd_dkv.pos_launches = 0
+
+
+def _contiguous(*xs):
+    return tuple(x.contiguous() for x in xs)
+
+
+@torch.library.custom_op(
+    "hvd_torch::flash_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale, "
+           "Tensor? qpos=None, Tensor? kpos=None) -> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, causal, scale, qpos=None, kpos=None):
+    """The CPU kernel: :func:`flash_fwd_plain`."""
+    return _contiguous(*flash_fwd_plain(q, k, v, causal, scale, qpos, kpos))
+
+
+_flash_fwd_op.register_kernel("cuda")(_launch_flash_fwd)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, qpos=None, kpos=None):
+    _no_meta_launch(q)
+    b, t, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b * h, t), dtype=torch.float32)
+
+
+@torch.library.custom_op(
+    "hvd_torch::flash_bwd_dq", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, "
+           "Tensor? delta, bool causal, float scale, Tensor? qpos=None, "
+           "Tensor? kpos=None, Tensor? out=None) -> (Tensor, Tensor)")
+def _flash_bwd_dq_op(q, k, v, dout, lse, delta, causal, scale, qpos=None,
+                     kpos=None, out=None):
+    """The CPU kernel: :func:`flash_bwd_dq_plain`, delta from
+    :func:`flash_delta` when not given (else an empty second result)."""
+    computed = flash_delta(out, dout) if delta is None else \
+        lse.new_empty((0,))
+    dq = flash_bwd_dq_plain(q, k, v, dout, lse,
+                            computed if delta is None else delta, causal,
+                            scale, qpos, kpos)
+    return dq.contiguous(), computed
+
+
+_flash_bwd_dq_op.register_kernel("cuda")(_launch_flash_bwd_dq)
+
+
+@_flash_bwd_dq_op.register_fake
+def _flash_bwd_dq_fake(q, k, v, dout, lse, delta, causal, scale, qpos=None,
+                       kpos=None, out=None):
+    _no_meta_launch(q)
+    b, t, h, _ = q.shape
+    rows = (b * h, t) if delta is None else (0,)
+    return q.new_empty(q.shape), q.new_empty(rows, dtype=torch.float32)
+
+
+@torch.library.custom_op(
+    "hvd_torch::flash_bwd_dkv", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, "
+           "Tensor delta, bool causal, float scale, Tensor? qpos=None, "
+           "Tensor? kpos=None) -> (Tensor, Tensor)")
+def _flash_bwd_dkv_op(q, k, v, dout, lse, delta, causal, scale, qpos=None,
+                      kpos=None):
+    """The CPU kernel: :func:`flash_bwd_dkv_plain`."""
+    return _contiguous(*flash_bwd_dkv_plain(q, k, v, dout, lse, delta,
+                                            causal, scale, qpos, kpos))
+
+
+_flash_bwd_dkv_op.register_kernel("cuda")(_launch_flash_bwd_dkv)
+
+
+@_flash_bwd_dkv_op.register_fake
+def _flash_bwd_dkv_fake(q, k, v, dout, lse, delta, causal, scale, qpos=None,
+                        kpos=None):
+    _no_meta_launch(q)
+    return k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -486,19 +629,21 @@ def fused_conv_bn_relu_bwd(db, b, a, w, gamma, beta, scale_eff):
     :func:`fused_conv_bn_relu_bwd_plain` defines them.
 
     A shape outside :func:`cbr_fusable` computes :func:`cbr_bwd_unfused`
-    on any device, as the JAX package does.  Inside it, a CPU tensor, or
-    activations the kernel does not take (:func:`cbr_kernel_takes`: not
-    bf16), compute the plain version, and bf16 activations on a card
-    launch ``csrc/conv_bn_relu_bwd.cu`` (fp32 ``w`` and channel vectors).
+    on any device, as the JAX package does.  Inside it, a CPU tensor, and
+    bf16 activations on a card, run ``hvd_torch::cbr_bwd``: its CPU kernel
+    is the plain version, its CUDA kernel launches
+    ``csrc/conv_bn_relu_bwd.cu`` (fp32 ``w`` and channel vectors).
+    Activations on a card that the kernel does not take
+    (:func:`cbr_kernel_takes`: not bf16) compute the plain version.
     The plain version's fp32 convolution gradients on a card run through
     cuDNN under the process's ``torch.backends.cudnn.allow_tf32``, as any
     PyTorch convolution does (TF32 by default)."""
     if not cbr_fusable(db, b, a, w):
         return cbr_bwd_unfused(db, b, a, w, gamma, beta, scale_eff)
-    if not cbr_kernel_takes(db, b, a):
+    if a.device.type != "cpu" and not cbr_kernel_takes(db, b, a):
         return fused_conv_bn_relu_bwd_plain(db, b, a, w, gamma, beta,
                                             scale_eff)
-    return _launch_cbr_bwd(db, b, a, w, gamma, beta, scale_eff)
+    return torch.ops.hvd_torch.cbr_bwd(db, b, a, w, gamma, beta, scale_eff)
 
 
 def _launch_cbr_bwd(db, b, a, w, gamma, beta, scale_eff):
@@ -541,6 +686,29 @@ def _launch_cbr_bwd(db, b, a, w, gamma, beta, scale_eff):
 
 
 fused_conv_bn_relu_bwd.launches = 0
+
+
+@torch.library.custom_op(
+    "hvd_torch::cbr_bwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor db, Tensor b, Tensor a, Tensor w, Tensor gamma, "
+           "Tensor beta, Tensor scale_eff) -> (Tensor, Tensor, Tensor, "
+           "Tensor)")
+def _cbr_bwd_op(db, b, a, w, gamma, beta, scale_eff):
+    """The CPU kernel: :func:`fused_conv_bn_relu_bwd_plain`."""
+    return _contiguous(*fused_conv_bn_relu_bwd_plain(db, b, a, w, gamma,
+                                                     beta, scale_eff))
+
+
+_cbr_bwd_op.register_kernel("cuda")(_launch_cbr_bwd)
+
+
+@_cbr_bwd_op.register_fake
+def _cbr_bwd_fake(db, b, a, w, gamma, beta, scale_eff):
+    _no_meta_launch(a)
+    cin, c = a.shape[-1], w.shape[-1]
+    f32 = torch.float32
+    return (a.new_empty(a.shape), a.new_empty((3, 3, cin, c), dtype=f32),
+            a.new_empty((c,), dtype=f32), a.new_empty((c,), dtype=f32))
 
 
 class _FusedConvBnRelu(torch.autograd.Function):
@@ -629,15 +797,30 @@ def _mm_operand(t: torch.Tensor) -> Tuple[torch.Tensor, bool]:
 
 def _mm(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
         out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x @ w`` by the dispatch rule, without autograd; ``out`` (row-major,
-    ``(m, n)``, ``out_dtype``) receives the result when given."""
+    """``x @ w`` by the dispatch rule, without autograd, through
+    ``hvd_torch::pallas_matmul`` (or ``pallas_matmul_out``, which writes
+    ``out``: row-major, ``(m, n)``, ``out_dtype``, when given) on the CPU
+    and for operands the kernel takes on a card; the plain product
+    otherwise."""
     (m, k), n = x.shape, w.shape[1]
     if out is not None and (out.shape != (m, n) or out.dtype != out_dtype
                             or not out.is_contiguous()):
         raise ValueError("out must be row-major (m, n) of out_dtype")
-    if not mm_fits(m, k, n) or not mm_kernel_takes(x, w, out_dtype):
+    if not mm_fits(m, k, n) or (x.device.type != "cpu" and
+                                not mm_kernel_takes(x, w, out_dtype)):
         y = pallas_matmul_plain(x, w, out_dtype)
         return y if out is None else out.copy_(y)
+    if out is None:
+        return torch.ops.hvd_torch.pallas_matmul(x, w, out_dtype)
+    torch.ops.hvd_torch.pallas_matmul_out(x, w, out)
+    return out
+
+
+def _launch_mm(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``csrc/matmul.cu`` for ``x @ w`` (the CUDA kernel of both
+    matmul ops), into ``out`` when given."""
+    (m, k), n = x.shape, w.shape[1]
     a, a_t = _mm_operand(x)
     b, b_t = _mm_operand(w)
     dst = out if out is not None and out.data_ptr() % 16 == 0 else \
@@ -702,6 +885,54 @@ def pallas_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 pallas_matmul.launches = 0
+
+
+@torch.library.custom_op(
+    "hvd_torch::pallas_matmul", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w, ScalarType out_dtype) -> Tensor")
+def _pallas_matmul_op(x, w, out_dtype):
+    """The CPU kernel: :func:`pallas_matmul_plain`."""
+    return pallas_matmul_plain(x, w, out_dtype).contiguous()
+
+
+@_pallas_matmul_op.register_kernel("cuda")
+def _pallas_matmul_cuda(x, w, out_dtype):
+    return _launch_mm(x, w, out_dtype)
+
+
+@_pallas_matmul_op.register_fake
+def _pallas_matmul_fake(x, w, out_dtype):
+    _no_meta_launch(x)
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=out_dtype)
+
+
+@torch.library.custom_op(
+    "hvd_torch::pallas_matmul_out", mutates_args=("out",),
+    device_types="cpu", schema="(Tensor x, Tensor w, Tensor(a!) out) -> ()")
+def _pallas_matmul_out_op(x, w, out):
+    """``out = x @ w`` (a row block of the tp ring's gathered output);
+    the CPU kernel: :func:`pallas_matmul_plain`."""
+    out.copy_(pallas_matmul_plain(x, w, out.dtype))
+
+
+@_pallas_matmul_out_op.register_kernel("cuda")
+def _pallas_matmul_out_cuda(x, w, out):
+    _launch_mm(x, w, out.dtype, out)
+
+
+@_pallas_matmul_out_op.register_fake
+def _pallas_matmul_out_fake(x, w, out):
+    _no_meta_launch(x)
+
+
+#: each op's CUDA kernel (the launch) by the op's name in ``hvd_torch``
+CUDA_KERNELS = {"fused_scale": _fused_scale_cuda,
+                "flash_fwd": _launch_flash_fwd,
+                "flash_bwd_dq": _launch_flash_bwd_dq,
+                "flash_bwd_dkv": _launch_flash_bwd_dkv,
+                "cbr_bwd": _launch_cbr_bwd,
+                "pallas_matmul": _pallas_matmul_cuda,
+                "pallas_matmul_out": _pallas_matmul_out_cuda}
 
 
 #: every kernel's launch counter, by the name chip_smoke.py and PERF.md

@@ -507,9 +507,12 @@ class DistributedTrainStep:
         """Whether the kernel library this step's kernels ran from was
         loaded from the compile cache's store (``True``) or compiled by this
         process (``False``); ``None`` before a call on a card, on the CPU,
-        and with the store disabled (JAX's property of that name reads the
-        AOT store's verdict on the step's executable, which the port does
-        not keep on disk: a captured graph cannot be written)."""
+        and with the store disabled.  (JAX's property of that name reads
+        the AOT store's verdict on the step's executable.  The port's store
+        keeps executables of exported forwards, ``aot_compile``, but not
+        yet of the training step, whose exchange fires from autograd hooks
+        and whose update mutates the optimizer's state; the step's graph is
+        captured in memory.)"""
         return self._last_cache_hit
 
     @property

@@ -3,30 +3,41 @@
 
 The JAX package keeps two layers: XLA's persistent compilation cache and
 an AOT store of serialized executables, keyed by a hash of the lowered
-StableHLO text.  The port compiles nothing per program: what it compiles
-is its kernel library (``ops/build.py``, ``nvcc``) and its native library
-(``native/``, ``g++``), and what stands in for an XLA executable is a
-captured ``torch.cuda.CUDAGraph``, which cannot be written to disk.  So the
-port's two layers are:
+StableHLO text.  The port compiles its kernel library (``ops/build.py``,
+``nvcc``) and its native library (``native/``, ``g++``), and, ahead of
+time, exported programs (AOTInductor packages), which call the kernels
+as ``hvd_torch`` ops; a captured ``torch.cuda.CUDAGraph`` stands in for
+an executable within a process.  So the port's layers are:
 
-1. **The disk layer** — the store of the compiled libraries.  Its root is
-   :func:`resolve_dir`'s: ``HOROVOD_COMPILE_CACHE_DIR`` when set, else
-   ``<repo>/build/`` (:func:`default_dir`).  An entry is one library,
-   ``<stem>_<key>.so``, whose key hashes the flags, the sources and the
-   environment fields (:func:`_env_fields`: torch, the CUDA runtime, the
-   compiler's ``--version`` and, for the CUDA library, the card's name and
-   capability); a ``.json`` meta beside it records the same fields.  A
-   build writes a temporary file and renames it, so two processes that
-   build one entry at once both load a whole library.  A load touches the
-   entry (LRU recency), :func:`prune` evicts the least recently used
-   entries beyond a capacity it is given (an entry's ``.so``, ``.log`` and
-   ``.json`` together; nothing prunes on its own: the store holds one
-   entry a library build), and ``aot_disk_hits``/``aot_disk_misses``
-   count a process's load against its build.  A library that does not
-   load is removed and rebuilt once, with a warning (JAX's
-   ``load_executable``).  ``HOROVOD_COMPILE_CACHE=0`` builds into a
+1. **The disk layer** — one store, its root :func:`resolve_dir`'s:
+   ``HOROVOD_COMPILE_CACHE_DIR`` when set, else ``<repo>/build/``
+   (:func:`default_dir`).  ``HOROVOD_COMPILE_CACHE=0`` builds into a
    directory of the process, removed at exit: every start compiles, as a
-   disabled store does in JAX.
+   disabled store does in JAX.  ``aot_disk_hits``/``aot_disk_misses``
+   count a process's loads from the store against its builds, libraries
+   and executables alike.
+
+   * **Libraries**: an entry is ``<stem>_<key>.so``, whose key hashes the
+     flags, the sources and the environment fields (:func:`_env_fields`:
+     torch, the CUDA runtime, the compiler's ``--version`` and, for the
+     CUDA library, the card's name and capability); a ``.json`` meta
+     beside it records the same fields.  A build writes a temporary file
+     and renames it, so two processes that build one entry at once both
+     load a whole library (:func:`store_library`).  A load touches the
+     entry (LRU recency); :func:`prune` evicts the least recently used
+     beyond a capacity it is given (nothing prunes libraries on its own:
+     the store holds one entry a build).  A library that does not load is
+     removed and rebuilt once, with a warning (:func:`load_library`).
+   * **Executables** (JAX's AOT store): :func:`aot_compile` exports a
+     function with ``torch.export``, keys it by a hash of the graph's text
+     (:func:`export_key`), and loads ``<root>/aot/<key>.pt2`` or compiles
+     it with ``torch._inductor.aoti_compile_and_package`` and stores it
+     (:func:`store_executable`, a rename), pruning the entries by mtime
+     beyond ``cache_capacity`` after every store
+     (:func:`prune_executables`).  A package that does not load is
+     removed, compiled again and logged (:func:`load_executable`); an
+     export or compile that fails raises.  Weights are inputs of the
+     exported function, never packaged.
 2. **The in-memory layer** — :class:`ExecutableLRU`, the captured graphs
    (:func:`capture`, :class:`CapturedGraph`) of the training step's
    ``steps_per_call`` and of the serving executors (``serve/batcher.py``),
@@ -65,6 +76,8 @@ _lock = threading.Lock()
 # process-wide counters; mirrored into GlobalState.cache_stats when the
 # runtime is initialized so hvd.cache_stats() surfaces them
 _stats = {"aot_disk_hits": 0, "aot_disk_misses": 0}
+# seconds this process spent in aot_compile's stages
+_aot_seconds = {"export": 0.0, "compile": 0.0, "load": 0.0}
 # the disabled store's directory of this process (removed at exit)
 _private_dir: Optional[str] = None
 # the entries this process compiled: a load of one of them is a miss
@@ -98,19 +111,22 @@ def resolve_dir(config=None) -> Optional[str]:
     return os.environ.get("HOROVOD_COMPILE_CACHE_DIR") or default_dir()
 
 
-def store_dir() -> Path:
-    """Where a library is built and loaded from: the active root, or,
-    with the store disabled, a directory of this process that is removed
-    at exit."""
+def _private_store() -> Path:
+    """A directory of this process, removed at exit."""
     global _private_dir
-    root = resolve_dir()
-    if root is not None:
-        return Path(root)
     with _lock:
         if _private_dir is None:
             _private_dir = tempfile.mkdtemp(prefix="hvd_compile_")
             atexit.register(shutil.rmtree, _private_dir, True)
         return Path(_private_dir)
+
+
+def store_dir() -> Path:
+    """Where a library is built and loaded from: the active root, or,
+    with the store disabled, a directory of this process that is removed
+    at exit."""
+    root = resolve_dir()
+    return _private_store() if root is None else Path(root)
 
 
 def enable_persistent_cache(directory: Optional[str] = None,
@@ -134,6 +150,22 @@ def stats() -> dict:
     """Disk-store counters: ``{"aot_disk_hits": n, "aot_disk_misses": n}``."""
     with _lock:
         return dict(_stats)
+
+
+def aot_seconds() -> dict:
+    """Seconds this process spent exporting, compiling and loading AOT
+    executables (:func:`aot_compile`), each stage summed."""
+    with _lock:
+        return dict(_aot_seconds)
+
+
+def _timed(stage: str, fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        with _lock:
+            _aot_seconds[stage] += time.perf_counter() - t0
 
 
 def _bump(hit: bool) -> None:
@@ -324,7 +356,7 @@ def _touch(path: Path) -> None:
             pass
 
 
-def load_executable(path: Path) -> Optional[ctypes.CDLL]:
+def open_library(path: Path) -> Optional[ctypes.CDLL]:
     """The library stored at ``path``, or ``None`` on a miss.  A load
     touches the entry (LRU recency); a file that does not load is removed
     with its log and meta, with a warning, and ``None`` is returned."""
@@ -343,10 +375,10 @@ def load_executable(path: Path) -> Optional[ctypes.CDLL]:
     return lib
 
 
-def store_executable(path: Path,
-                     compile_into: Callable[[Path], Optional[str]],
-                     toolchain: Optional[str] = None,
-                     card: bool = False) -> None:
+def store_library(path: Path,
+                  compile_into: Callable[[Path], Optional[str]],
+                  toolchain: Optional[str] = None,
+                  card: bool = False) -> None:
     """Build the entry at ``path``: ``compile_into(tmp)`` writes the
     library to a temporary file of this process, which is renamed into
     place (so a concurrent loader never sees half a file); the compiler's
@@ -382,7 +414,7 @@ def load_library(path: Path,
     path = Path(path)
     if not path.exists():
         build()
-    lib = load_executable(path)
+    lib = open_library(path)
     if lib is None:
         build()
         lib = ctypes.CDLL(str(path))
@@ -403,9 +435,9 @@ def _entries(root: Path) -> list:
 
 
 def prune(root, capacity: int) -> int:
-    """LRU-evict entries beyond ``capacity``.  Returns the number evicted.
-    (JAX's defaults to ``cache_capacity``, which bounds its executables;
-    the port's store holds libraries, which that knob does not size.)"""
+    """LRU-evict library entries beyond ``capacity``.  Returns the number
+    evicted.  (``cache_capacity`` bounds the executables, as in JAX:
+    :func:`prune_executables`; it does not size the libraries.)"""
     entries = _entries(Path(root))
     if len(entries) <= capacity:
         return 0
@@ -429,7 +461,8 @@ def prune(root, capacity: int) -> int:
 
 
 def entry_count(root: Optional[str] = None) -> int:
-    """Number of entries on disk (0 when the store is disabled)."""
+    """Number of library entries on disk (0 when the store is
+    disabled)."""
     root = root or resolve_dir()
     if root is None:
         return 0
@@ -441,6 +474,237 @@ def _capacity() -> int:
 
     return rt_state.global_state().config.cache_capacity \
         if rt_state.is_initialized() else 1024
+
+
+# -- the AOT executable store -------------------------------------------------
+
+_AOT_SUFFIX = ".pt2"
+_UNSET = object()
+
+
+def _aot_dir(root) -> Path:
+    return Path(root) / "aot"
+
+
+def _aot_entry(root, key: str) -> Path:
+    return _aot_dir(root) / (key + _AOT_SUFFIX)
+
+
+def _executables(root) -> list:
+    """The store's AOT entries (not the temporary packages being compiled
+    beside them, whose names start with a dot)."""
+    try:
+        return [p for p in _aot_dir(root).glob("*" + _AOT_SUFFIX)
+                if not p.name.startswith(".")]
+    except OSError:
+        return []
+
+
+def _remove_aot_entry(path: Path) -> None:
+    path.unlink(missing_ok=True)
+    path.with_suffix(_META_SUFFIX).unlink(missing_ok=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _triton_version() -> Optional[str]:
+    try:
+        import triton
+    except ImportError:
+        return None
+    return triton.__version__
+
+
+def _args_device(args):
+    """The first CUDA device among ``args``' tensors, else None."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    for leaf in tree_leaves(list(args)):
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            return leaf.device
+    return None
+
+
+def export_key(graph_text: str, args=None, extras: Optional[dict] = None,
+               device=None) -> str:
+    """Content hash identifying one AOT executable (JAX's
+    ``executable_key`` over the lowered text): the exported graph's text,
+    the signature of the inputs it was exported for (the graph's text
+    names no shape), the kernel library's digest (the graph calls the
+    ``hvd_torch`` ops), the environment fields (torch, CUDA and, with
+    ``device``, the card and Triton, which Inductor generates code for)
+    and ``extras``.  Weight values are inputs, not part of the key."""
+    payload = {
+        "kernels": _kernel_digest(),
+        "env": _env_fields(_host_compiler(), card=device is not None,
+                           device=device),
+        "triton": _triton_version() if device is not None else None,
+        "extras": extras or {},
+        "inputs": None if args is None else _batch_sig(list(args)),
+        "module_sha": hashlib.sha256(
+            graph_text.encode("utf-8", "replace")).hexdigest(),
+    }
+    blob = json.dumps(payload, sort_keys=True, default=_stable_repr)
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def _host_compiler() -> Optional[str]:
+    """The C++ compiler AOTInductor builds and links a package's host code
+    with: the ``g++`` on ``PATH``, as ``native/`` builds its library (the
+    package links OpenMP, which a ``CXX`` pointing elsewhere may lack)."""
+    return shutil.which("g++")
+
+
+def _load_package(path):
+    from torch._inductor import aoti_load_package
+
+    return aoti_load_package(str(path))
+
+
+def load_executable(key: str, root):
+    """The AOTInductor package stored under ``key``, loaded, or ``None``
+    on a miss.  A load touches the entry (LRU recency); an entry that does
+    not load is removed with a warning, and ``None`` is returned (the
+    caller compiles it again)."""
+    path = _aot_entry(root, key)
+    if not path.exists():
+        return None
+    try:
+        compiled = _timed("load", _load_package, path)
+    except Exception as e:  # noqa: BLE001 — any failure = compile again
+        hvd_logging.warning(
+            "compile_cache: could not load AOT entry %s (%s); recompiling",
+            key[:12], e)
+        _remove_aot_entry(path)
+        return None
+    os.utime(path, None)
+    return compiled
+
+
+def store_executable(key: str, compiled, root,
+                     capacity: Optional[int] = None,
+                     meta: Optional[dict] = None) -> bool:
+    """Move ``compiled`` (the path of a package AOTInductor wrote in the
+    store's ``aot/`` directory) into place under ``key`` by a rename, so a
+    concurrent loader never sees half a file; write ``meta`` beside it the
+    same way; then prune the least recently used entries beyond
+    ``capacity``.  A failure is a warning and ``False``: the executable
+    already loaded still runs, and the next start compiles again."""
+    path = _aot_entry(root, key)
+    try:
+        os.replace(compiled, path)
+        tmp = path.with_name(f".tmp.{key}.{os.getpid()}{_META_SUFFIX}")
+        tmp.write_text(json.dumps({"entry": path.name, **(meta or {})},
+                                  sort_keys=True, indent=1,
+                                  default=_stable_repr))
+        os.replace(tmp, path.with_suffix(_META_SUFFIX))
+    except OSError as e:
+        hvd_logging.warning(
+            "compile_cache: could not store AOT entry %s (%s); the next "
+            "start compiles it again", key[:12], e)
+        Path(compiled).unlink(missing_ok=True)
+        return False
+    prune_executables(root, capacity)
+    return True
+
+
+def _mtime(p: Path) -> float:
+    try:
+        return p.stat().st_mtime
+    except OSError:
+        return 0.0
+
+
+def prune_executables(root, capacity: Optional[int] = None) -> int:
+    """LRU-evict AOT entries beyond ``capacity`` (default: the runtime
+    config's ``cache_capacity``, JAX's ``prune``).  Returns the number
+    evicted."""
+    capacity = _capacity() if capacity is None else capacity
+    entries = sorted(_executables(root), key=_mtime)
+    evicted = entries[:max(len(entries) - capacity, 0)]
+    for path in evicted:
+        _remove_aot_entry(path)
+    if evicted:
+        hvd_logging.info(
+            "compile_cache: evicted %d LRU AOT entr%s (capacity %d)",
+            len(evicted), "y" if len(evicted) == 1 else "ies", capacity)
+    return len(evicted)
+
+
+def executable_count(root: Optional[str] = None) -> int:
+    """Number of AOT entries on disk (0 when the store is disabled)."""
+    root = root or resolve_dir()
+    if root is None:
+        return 0
+    return len(_executables(root))
+
+
+def _as_module(fn):
+    """``fn`` as the module ``torch.export`` takes (a module as it is)."""
+    import torch
+
+    if isinstance(fn, torch.nn.Module):
+        return fn
+
+    class Fn(torch.nn.Module):
+        def forward(self, *args):
+            return fn(*args)
+
+    return Fn()
+
+
+def aot_compile(fn_or_module, args: Tuple[Any, ...],
+                extras: Optional[dict] = None, directory: Any = _UNSET,
+                capacity: Optional[int] = None):
+    """Export ``fn_or_module(*args)`` and compile it through the AOT store.
+
+    Returns ``(executable, cache_hit)``: a callable taking ``args``' shapes.
+    Export (tracing, with fake tensors) always runs — its graph is the
+    key (:func:`export_key`) — then the executable is loaded from
+    ``<root>/aot/<key>.pt2`` (``cache_hit=True``) or compiled by
+    ``torch._inductor.aoti_compile_and_package`` and stored for the next
+    start.  ``directory`` defaults to the configured root; with the store
+    disabled (or ``directory=None``) the package is compiled into this
+    process's private directory every time, uncounted.  An export or a
+    compile that fails raises: nothing runs eagerly instead.  Tensors the
+    function reads that are not among ``args`` would be packaged as
+    constants: pass weights as inputs (``torch.func.functional_call``)."""
+    import torch
+
+    root = resolve_dir() if directory is _UNSET else directory
+    device = _args_device(args)
+    with torch.no_grad():
+        ep = _timed("export", torch.export.export, _as_module(fn_or_module),
+                    tuple(args))
+    key = export_key(str(ep.graph), args, extras, device)
+    if root is not None:
+        compiled = load_executable(key, root)
+        if compiled is not None:
+            _bump(True)
+            return compiled, True
+    home = _aot_dir(_private_store() if root is None else root)
+    home.mkdir(parents=True, exist_ok=True)
+    tmp = home / f".tmp.{key}.{os.getpid()}.{threading.get_ident()}" \
+        f"{_AOT_SUFFIX}"
+    try:
+        cxx = _host_compiler()
+        _timed("compile", torch._inductor.aoti_compile_and_package, ep,
+               package_path=str(tmp),
+               inductor_configs={"cpp.cxx": (cxx,)} if cxx else None)
+        compiled = _timed("load", _load_package, tmp)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    if root is None:
+        tmp.unlink()
+        return compiled, False
+    store_executable(key, tmp, root, capacity=capacity,
+                     meta={"extras": extras or {},
+                           "env": _env_fields(_host_compiler(),
+                                              card=device is not None,
+                                              device=device)})
+    _bump(False)
+    return compiled, False
 
 
 # -- the in-memory layer -----------------------------------------------------

@@ -18,7 +18,8 @@ work:
 * :mod:`~horovod_tpu_torch.serve.batcher` — continuous batcher packing
   signature-compatible requests into bucketed executables
   (:class:`~horovod_tpu_torch.serve.batcher.ExecutableCache`, built over
-  a ``torch.nn.Module`` by ``from_module``);
+  a ``torch.nn.Module`` by ``from_module``, or ahead of time through the
+  compile cache's AOT store by ``from_exported``);
 * :mod:`~horovod_tpu_torch.serve.pool` — replica pool: leases, crash
   recovery, graceful drain via the planned-departure path, and
   hysteresis-damped queue-depth scale signals

@@ -12,13 +12,14 @@ deterministic on a logical clock) or as a background feeder thread
 
 :class:`ExecutableCache` is the hot-swap layer: batch sizes are bucketed
 so a handful of padded executables cover every occupancy, each bucket
-built once.  :meth:`ExecutableCache.from_module` builds them over a
-``torch.nn.Module``: a bucket's first build runs the forward once at the
-padded size (the JAX package compiles there, through its AOT store).  On
-a card each bucket's executor is a CUDA graph of the forward, kept in the
-compile cache's in-memory layer (``runtime/compile_cache.py``); a graph
-cannot be written to disk, so the port's warm start stops at the kernel
-library's store.
+built once.  :meth:`ExecutableCache.from_exported` (JAX's ``from_jitted``)
+compiles each bucket ahead of time through the compile cache's AOT store
+(``runtime/compile_cache.aot_compile``), so a replica's next start loads
+the executables instead of compiling them.  :meth:`ExecutableCache.
+from_module` builds them over a ``torch.nn.Module`` in the process: a
+bucket's first build runs the forward once at the padded size, and on a
+card each bucket's executor is a CUDA graph of the forward, kept in the
+compile cache's in-memory layer.
 
 Fault site ``serve.feed`` fires at the top of every step; a ``hang``
 there models a wedged queue feeder (docs/faults.md).
@@ -156,6 +157,56 @@ class ExecutableCache:
             cache.graphs = compile_cache.ExecutableLRU()
             cache._capture_stream = torch.cuda.Stream(device)
         return cache
+
+    @classmethod
+    def from_exported(cls, model, example_batch: Callable[[Tuple, int], Any],
+                      bucket_sizes: Sequence[int] = DEFAULT_BUCKET_SIZES,
+                      **aot_kwargs) -> "ExecutableCache":
+        """Executors compiled ahead of time through the compile cache's AOT
+        store (JAX's ``from_jitted``): each bucket's build exports
+        ``torch.func.functional_call(model, weights, (x,))`` at the padded
+        size of ``example_batch(signature, padded)`` and compiles it with
+        AOTInductor, or loads the package a former process stored
+        (``compile_cache.aot_compile``, ``extras`` naming the signature and
+        the bucket; ``aot_kwargs`` pass on).  The weights, a name → tensor
+        dict of the model's parameters and buffers, are inputs of the
+        executable, as JAX's jitted forward takes its params: an entry
+        holds no weights, and an executor called with ``weights=`` (a flip,
+        ``serve/refresh.py``) runs the same executable on them.  The
+        ``hvd_torch`` ops stay calls in the package (``flash_fwd`` on a
+        card launches its kernel); Inductor generates the code around them.
+        An executor stacks the payloads and returns one result per
+        payload, the output's rows, once the device has computed them."""
+        import torch
+
+        from horovod_tpu_torch.runtime import compile_cache
+
+        own = {**dict(model.named_parameters()),
+               **dict(model.named_buffers())}
+        device = next(iter(own.values()), torch.empty(0)).device
+
+        def forward(x, weights):
+            return torch.func.functional_call(model, weights, (x,))
+
+        def build(signature: Tuple, padded: int) -> Callable:
+            example = example_batch(signature, padded).to(device)
+            compiled, _ = compile_cache.aot_compile(
+                forward, (example, own),
+                extras={"serve_signature": repr(signature),
+                        "serve_batch": padded}, **aot_kwargs)
+
+            def executor(payloads: Sequence[Any],
+                         weights=None) -> List[Any]:
+                x = torch.stack([torch.as_tensor(p) for p in payloads])
+                given = own if weights is None else \
+                    {name: weights[name] for name in own}
+                with torch.inference_mode():
+                    out = compiled(x.to(device, non_blocking=True), given)
+                return _computed(out)
+
+            return executor
+
+        return cls(build, bucket_sizes=bucket_sizes)
 
     def _graph(self, signature: Tuple, padded: int, forward, example,
                weights) -> "_CapturedForward":

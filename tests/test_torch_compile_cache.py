@@ -303,14 +303,14 @@ class TestDiskLayer:
         from horovod_tpu_torch import native as TN
 
         first = TN.library_path(tmp_path)
-        compile_cache.store_executable(first, TN._compile)
+        compile_cache.store_library(first, TN._compile)
         src = tmp_path / "hvd_native.cc"
         src.write_text(TN.SRC.read_text() + "\n// edited\n")
         monkeypatch.setattr(TN, "SRC", src)
         second = TN.library_path(tmp_path)
         assert second != first
         time.sleep(0.01)
-        compile_cache.store_executable(second, TN._compile)
+        compile_cache.store_library(second, TN._compile)
         # a store does not prune: the library's entries stay until asked
         assert compile_cache.entry_count(str(tmp_path)) == 2
         assert compile_cache.prune(tmp_path, capacity=1) == 1

@@ -251,6 +251,15 @@ def test_port_files_cover_the_tree_affinity_and_probe_slice():
         "utils/overlap_probe", "faults/plan", "runtime/distributed")} <= names
 
 
+def test_port_files_cover_the_ops_and_aot_slice():
+    """The import checks below cover the kernels as ``hvd_torch`` ops, the
+    AOT executable store and the exported serving executors."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"horovod_tpu_torch/{m}.py" for m in (
+        "ops/kernels", "ops/build", "runtime/compile_cache",
+        "serve/batcher", "memory/remat")} | {"chip_smoke.py"} <= names
+
+
 #: the calls that read an environment variable named by their first
 #: argument: ``os.environ.get``, ``os.getenv`` and the config's helpers
 _ENV_READERS = ("_env_int", "_env_float", "_env_bool", "opt_int", "getenv")
@@ -479,9 +488,13 @@ class _FakeLib:
 @pytest.fixture
 def fake_card(monkeypatch):
     """Non-CPU (meta) tensors reach the launch path with a recording
-    library; every plain version raises if it is reached."""
+    library: each ``hvd_torch`` op's CUDA kernel stands as its meta
+    kernel for the test; every plain version raises if it is reached."""
     lib = _FakeLib()
     monkeypatch.setattr(K, "_cuda_library", lambda x: (lib, 0))
+    card = torch.library.Library("hvd_torch", "IMPL")
+    for name, launch in K.CUDA_KERNELS.items():
+        card.impl(name, launch, "Meta")
 
     def boom(*a, **k):
         raise AssertionError("a plain version ran for a device tensor")
@@ -492,6 +505,7 @@ def fake_card(monkeypatch):
         monkeypatch.setattr(K, name, boom)
     K.reset_launch_counts()
     yield lib
+    card._destroy()
     K.reset_launch_counts()
 
 
