@@ -283,7 +283,23 @@ Phases, in order; any failure exits non-zero:
    serves the same batches; (c) a weight flip runs on the same executables
    and rebuilds them as hits; (d) requests/s of the AOT executors beside
    ``from_module``'s graph executors and the eager forward;
-23. print the card's name and power limit, the kernels' JSON line, and last
+23. the step's own record (``phase_trace``): phase 4's recipe at full
+   width (the 870.9M LM, bf16, 6 x 1024 tokens, flash) after one warm step,
+   one step through ``DistributedTrainStep.trace``: its FLOPs by op against
+   the analytic count from the recipe's shapes (within
+   ``TRACE_FLOP_TOL``; the flash ops exactly 6·2·B·h·t²·d·L), TFLOP/s and
+   share of the H100 model's peak at the traced step's time and at one
+   untraced step's, the measured memory high-water (the allocation
+   events) above what was live at the step's start against
+   ``max_memory_allocated`` over the same step, ``module_cost``'s
+   predicted step time, the lint's findings (none at a world of one), the
+   kernels the trace saw (each flash kernel 16 launches), and each flop
+   formula against the dense computation it replaces (attention at the
+   recipe's shape, kernels 5 and 6 at ``FLOP_CHECK_SMALL``); one traced
+   step, no repeats, to keep the phase near its 30 s budget; (b) a small
+   LM's sharded step traced at a world of one (``TRACE_SMALL_LM``), its
+   collectives' device windows and serial tail reported;
+24. print the card's name and power limit, the kernels' JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -292,6 +308,7 @@ Imports nothing of JAX or of the JAX package.  Needs one card.
 from __future__ import annotations
 
 import bisect
+import collections
 import dataclasses
 import json
 import math
@@ -303,6 +320,16 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# the profiler helpers and the sharded exchange's ranges (ZERO_RANGES) live
+# in the port's trace module; they stay importable from here
+from horovod_tpu_torch.utils.trace import (  # noqa: F401
+    ZERO_RANGES,
+    is_annotation,
+    launched_kernels,
+    range_kernels,
+    split_ranges,
+)
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
@@ -319,12 +346,6 @@ RESNET_KERNELS = ("fused_conv_bn_relu_bwd",)
 TP_KERNELS = ("pallas_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SP_KERNELS = ("flash_fwd_pos", "flash_bwd_dq_pos", "flash_bwd_dkv_pos")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-# the sharded exchange's record_function ranges (ops/collectives.py,
-# optim/optimizer.py) and the parts of a step they name
-ZERO_RANGES = {"hvd.reduce_scatter": "reduce-scatter",
-               "hvd.wire_codec": "codec passes",
-               "hvd.allgather": "allgather",
-               "hvd.shard_update": "shard AdamW"}
 # Case (b)'s last loss may lie within this share of case (a)'s 5-step loss
 # drop from case (a)'s last loss.  The CPU parity test
 # (tests/test_torch_zero.py, test_int8_wire_with_error_feedback_stays_near_
@@ -491,97 +512,10 @@ def device_rows(prof) -> list:
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if us > 0 and not _annotation(e.key) and \
+        if us > 0 and not is_annotation(e.key) and \
                 str(getattr(e, "device_type", "")).endswith("CUDA"):
             rows.append((us / 1e3, e.count, e.key))
     return rows
-
-
-def _annotation(name: str) -> bool:
-    """Whether a device event is the device side of an annotation (a
-    ``record_function`` range, "Optimizer.step#AdamW.step"): it spans
-    kernels counted already."""
-    return name in ZERO_RANGES or bool(re.fullmatch(r"[\w.]+#[\w.]+", name))
-
-
-def launched_kernels(events) -> dict:
-    """{correlation id of the host operation that launched it: [(name,
-    start us, device us)]} of the device events among a profiler's
-    ``events()``; empty where this torch's events carry no
-    ``linked_correlation_id``."""
-    out: dict = {}
-    for e in events:
-        corr = getattr(e, "linked_correlation_id", 0) or 0
-        if corr > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            out.setdefault(corr, []).append(
-                (e.name, e.time_range.start, e.time_range.elapsed_us()))
-    return out
-
-
-def range_kernels(event, launched=None) -> list:
-    """(name, start us, device us) of the kernels that a host-side
-    profiler event and the events under it launched, each kernel once.
-    ``launched`` is :func:`launched_kernels`'s map: a kernel is then the
-    device event of a host operation's correlation id, with its start, so
-    one filed under both an event and its child counts once.  Without it
-    the events' own ``kernels`` lists are read, which carry no start: a
-    kernel is then known by (name, duration).  Annotations are left out
-    (``FunctionEvent.device_time_total`` keeps them and read more than
-    the step on the sharded phase)."""
-    seen, out = set(), []
-
-    def walk(e):
-        found = (launched or {}).get(getattr(e, "id", None))
-        if found is None:
-            found = [(k.name, None, k.duration) for k in e.kernels]
-        for name, start, us in found:
-            key = (name, start, us)
-            if not _annotation(name) and key not in seen:
-                seen.add(key)
-                out.append(key)
-        for c in e.cpu_children:
-            walk(c)
-
-    walk(event)
-    return out
-
-
-def split_ranges(events, ranges: dict, busy_ms: float) -> tuple:
-    """({part: device ms}, {part: {kernel: ms}}, {part: device-side span
-    ms}) of the ``record_function`` ranges in ``ranges`` ({range name:
-    part}) among a profiler's ``events()``: the kernels launched under
-    each range's host side, each kernel once, in the innermost range
-    that holds it; "rest" is the busy time outside every range.  Raises
-    when the ranges sum to more than ``busy_ms``, the step's busy device
-    time."""
-    launched = launched_kernels(events)
-    split = dict.fromkeys(ranges.values(), 0.0)
-    span = dict.fromkeys(ranges.values(), 0.0)
-    top: dict = {part: {} for part in ranges.values()}
-    hosts = []
-    for e in events:
-        if e.name not in ranges:
-            continue
-        if str(e.device_type).endswith("CPU"):
-            hosts.append(e)
-        else:
-            span[ranges[e.name]] += e.time_range.elapsed_us() / 1e3
-    claimed = set()
-    for e in sorted(hosts, key=lambda e: e.time_range.elapsed_us()):
-        part = ranges[e.name]
-        for key in range_kernels(e, launched):
-            if key[1] is not None and key in claimed:
-                continue
-            claimed.add(key)
-            split[part] += key[2] / 1e3
-            top[part][key[0]] = top[part].get(key[0], 0.0) + key[2] / 1e3
-    total = sum(split.values())
-    if total > busy_ms * (1 + 1e-9):
-        raise AssertionError(
-            f"the ranges' kernels read {total:.3f} ms of a step whose "
-            f"device was busy {busy_ms:.3f} ms: {split}")
-    split["rest"] = busy_ms - total
-    return split, top, span
 
 
 def device_split(torch, fn, iters: int = 20, warmup: int = 3,
@@ -5946,6 +5880,252 @@ def phase_aot(torch, train=None, phase4=None, memory=None) -> tuple:
     return summary, {"flash_fwd": launches}
 
 
+#: phase 23: the traced step's FLOPs against the analytic count from the
+#: recipe's shapes (relative), and the flop formulas' check at small shapes
+#: for the kernels off the transformer path (kernel 5 at one of its 28x28
+#: segments' channel counts, kernel 6 at one 256-cube)
+TRACE_FLOP_TOL = 1e-3
+FLOP_CHECK_SMALL = dict(attn=(2, 256, 4, 128), cbr=(2, 8, 8, 128, 128),
+                        mm=(256, 256, 256))
+
+
+def analytic_step_flops(b: int, t: int, layers: int, heads: int,
+                        head_dim: int, d_model: int, d_ff: int,
+                        vocab: int) -> dict:
+    """The matmul-class FLOPs of one forward and backward of the
+    TransformerLM from its shapes, backward twice the forward: the
+    projections (qkv, out, the MLP's two) and the tied head's
+    ``2·d·vocab`` a token, and attention's two products
+    ``2·b·heads·t²·head_dim`` each a layer (causal masking does not halve
+    them, torch's SDPA convention)."""
+    tokens = b * t
+    linear = 3 * tokens * layers * 2 * d_model * (4 * d_model + 2 * d_ff)
+    attention = 3 * layers * 2 * (2 * b * heads * t * t * head_dim)
+    head = 3 * tokens * 2 * d_model * vocab
+    return dict(linear=linear, attention=attention, head=head,
+                total=linear + attention + head)
+
+
+def flop_check(torch, dev, attn, cbr, mm) -> dict:
+    """Each kernel's FLOPs as its flop formula counts them
+    (``utils/trace.module_flops`` over a call of the wrapper on ``dev``,
+    which launches the kernel on a card) against the dense computation it
+    replaces: attention's forward and its backward through autograd of
+    ``reference_attention`` at ``attn`` = (b, t, h, d), causal, bf16;
+    kernel 5's plain backward (``convolution_backward``) at ``cbr`` = (n,
+    h, w, cin, c); kernel 6's plain product at ``mm`` = (m, k, n).
+    Returns {name: [kernel FLOPs, dense FLOPs]}."""
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel.ring_attention import \
+        reference_attention
+    from horovod_tpu_torch.utils import trace as T
+
+    b, t, h, d = attn
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = K.flash_fwd(q, k, v, True, scale)
+
+    def kernel_bwd():
+        _, delta = K.flash_bwd_dq(q, k, v, do, lse, None, True, scale,
+                                  out=out)
+        K.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+
+    qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    res = {"flash_fwd": [
+        T.module_flops(K.flash_fwd, q, k, v, True, scale),
+        T.module_flops(reference_attention, q, k, v, causal=True,
+                       scale=scale)]}
+    dense = reference_attention(qq, kk, vv, causal=True, scale=scale)
+    res["flash_bwd"] = [T.module_flops(kernel_bwd), T.module_flops(
+        torch.autograd.grad, dense, (qq, kk, vv), do)]
+    cbr_args = cbr_inputs(torch, cbr, SEED, device=str(dev))
+    res["cbr_bwd"] = [
+        T.module_flops(K.fused_conv_bn_relu_bwd, *cbr_args),
+        T.module_flops(K.fused_conv_bn_relu_bwd_plain, *cbr_args)]
+    x, w = mm_operands(torch, mm, "fwd", SEED, device=str(dev))
+    with torch.no_grad():
+        res["pallas_matmul"] = [
+            T.module_flops(K.pallas_matmul, x, w),
+            T.module_flops(K.pallas_matmul_plain, x, w, torch.bfloat16)]
+    return res
+
+
+#: phase 23 (b): a small LM (flash at head dim 128) whose sharded step is
+#: traced at a world of one, to read its collectives' device windows
+TRACE_SMALL_LM = dict(vocab=512, layers=2, heads=4, d_model=512, seq=256,
+                      batch=4)
+
+
+def traced_sharded_small(torch, hvd) -> dict:
+    """Phase 23 (b): one warm and one traced step of the sharded exchange
+    on :data:`TRACE_SMALL_LM`: its collectives with their device windows
+    (the NCCL kernels each op's range launched) and the serial tail (0:
+    at a world of one no group has more than one rank)."""
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        lm_loss,
+    )
+    from horovod_tpu_torch.utils import trace as T
+
+    c, dev = TRACE_SMALL_LM, hvd.device()
+    cfg = TransformerConfig(vocab_size=c["vocab"], num_layers=c["layers"],
+                            num_heads=c["heads"], d_model=c["d_model"],
+                            d_ff=4 * c["d_model"], max_seq_len=c["seq"],
+                            dtype=torch.bfloat16, attention_impl="flash")
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    step = hvd.DistributedTrainStep(
+        lm_loss, torch.optim.AdamW(model.parameters(), lr=3e-4),
+        shard_optimizer_states=True)
+    model, opt = step.init(model)
+    batch = step.shard_batch(torch.randint(
+        0, c["vocab"], (c["batch"], c["seq"] + 1),
+        generator=torch.Generator().manual_seed(SEED)))
+    step(model, opt, batch)
+    _, tr = step.trace(model, opt, batch)
+    return dict(ops=[(o.kind, o.bytes, o.stream, o.interval)
+                     for o in tr.ops],
+                placed=sum(o.interval is not None for o in tr.ops),
+                serial_tail=T.serial_tail_collectives(tr))
+
+
+def trace_launches(kernels) -> dict:
+    """{kernel: launches} of kernels 1-4 among a trace's device kernels
+    (the flash kernels' positions variant apart)."""
+    out = {name: 0 for name in GRAPH_SYMBOLS.values()}
+    for k in kernels:
+        name = kernel_name(k.name)
+        if ", pos>" in name:
+            continue
+        for symbol, kernel in GRAPH_SYMBOLS.items():
+            if name.startswith(symbol):
+                out[kernel] += 1
+    return out
+
+
+def phase_trace(torch) -> tuple:
+    """Phase 23: phase 4's recipe at full width (one warm step), then one
+    step through ``DistributedTrainStep.trace``: FLOPs by op against the
+    analytic count, TFLOP/s and share of the H100 model's peak at the
+    traced step's time (and at an untraced step's), the measured memory
+    high-water against ``max_memory_allocated``, ``module_cost``'s
+    predicted step time, the lint's findings, the kernels the trace saw,
+    and the flop formulas against their dense counts at the recipe's
+    attention shape and small shapes.  Returns the summary and the
+    wrappers' launches over the traced step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import cost_model as CM
+    from horovod_tpu_torch.analysis.trace_lint import lint_trace
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.utils import trace as T
+
+    hvd.init()
+    try:
+        r = recipe(torch, hvd, steps=1)
+        model, opt, step, batch = r["model"], r["opt"], r["step"], \
+            r["batch"]
+        del r
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        loss, tr = step.trace(model, opt, batch)
+        loss = float(loss)
+        counts = K.launch_counts()
+        max_alloc = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        model, opt, plain_loss = step(model, opt, batch)
+        float(plain_loss)
+        plain_s = time.perf_counter() - t0
+        grad_bytes = sum(p.numel() * p.element_size()
+                         for p in model.parameters())
+        findings = [f.format() for f in lint_trace(tr,
+                                                   grad_bytes=grad_bytes)]
+        cost = CM.module_cost(tr)
+        dev = hvd.device()
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+        sharded = traced_sharded_small(torch, hvd)
+        checks = {"main": flop_check(torch, dev, (FULL["batch"], FULL["seq"],
+                                                  FULL["heads"],
+                                                  FULL["head_dim"]),
+                                     FLOP_CHECK_SMALL["cbr"],
+                                     FLOP_CHECK_SMALL["mm"])}
+    finally:
+        hvd.shutdown()
+    want = analytic_step_flops(FULL["batch"], FULL["seq"], FULL["layers"],
+                               FULL["heads"], FULL["head_dim"],
+                               FULL["d_model"], 4 * FULL["d_model"],
+                               FULL["vocab"])
+    flash = sum(n for op, n in tr.flops_by_op.items() if "flash" in op)
+    flash_want = 6 * (2 * FULL["batch"] * FULL["heads"] * FULL["seq"] ** 2
+                      * FULL["head_dim"]) * FULL["layers"]
+    seen = trace_launches(tr.kernels)
+    peak = (tr.memory_base_bytes or 0) + tr.memory_high_water_bytes
+    summary = dict(
+        loss=loss, flops=tr.flops, flops_by_op=tr.flops_by_op,
+        analytic=want, flash_flops=flash, flash_want=flash_want,
+        traced_s=tr.seconds, untraced_s=plain_s,
+        tflops_traced=tr.flops / tr.seconds / 1e12,
+        tflops_untraced=tr.flops / plain_s / 1e12,
+        peak_share_traced=tr.flops / tr.seconds / CM.H100.peak_flops_per_s,
+        peak_share_untraced=tr.flops / plain_s / CM.H100.peak_flops_per_s,
+        memory_base=tr.memory_base_bytes,
+        memory_high_water=tr.memory_high_water_bytes, memory_peak=peak,
+        max_memory_allocated=max_alloc,
+        predicted_s=cost.predicted_step_time_s(CM.H100),
+        wire=cost.wire_bytes, findings=findings, ops=len(tr.ops),
+        placed=sum(o.interval is not None for o in tr.ops),
+        kernels=len(tr.kernels), seen=seen, wrappers=counts,
+        serial_tail=T.serial_tail_collectives(tr), flop_check=checks,
+        sharded_small=sharded)
+    log(f"trace (23) [{CARD}]: {tr.flops} FLOPs counted in one traced step "
+        f"against {want['total']} from the recipe's shapes "
+        f"({json.dumps(want)}); by op {json.dumps(tr.flops_by_op)}; flash "
+        f"ops {flash} (want 6·2·B·h·t²·d·L = {flash_want})")
+    log(f"trace (23) [{CARD}]: traced step {tr.seconds:.4f} s -> "
+        f"{summary['tflops_traced']:.1f} TFLOP/s, "
+        f"{100 * summary['peak_share_traced']:.2f} % of the H100 model's "
+        f"989 TFLOP/s; an untraced step {plain_s:.4f} s -> "
+        f"{summary['tflops_untraced']:.1f} TFLOP/s, "
+        f"{100 * summary['peak_share_untraced']:.2f} %; module_cost "
+        f"predicts {summary['predicted_s'] * 1e3:.2f} ms (compute at peak, "
+        f"wire {cost.wire_bytes})")
+    log(f"trace (23) [{CARD}]: memory {tr.memory_base_bytes} B live at the "
+        f"step's start + {tr.memory_high_water_bytes} B measured high-water "
+        f"(allocation events) = {peak} B, max_memory_allocated {max_alloc} "
+        f"B over the same step ({peak - max_alloc:+d} B)")
+    log(f"trace (23) [{CARD}]: {len(tr.ops)} collectives "
+        f"{json.dumps(dict(collections.Counter(o.kind for o in tr.ops)))} "
+        f"({summary['placed']} with a device window), "
+        f"{len(tr.kernels)} kernels, kernels 1-4 in the trace {seen}, "
+        f"wrappers {json.dumps(counts)}; lint findings {findings}; "
+        f"flop formulas against dense counts {json.dumps(checks)}")
+    log(f"trace (23) (b) [{CARD}]: the small LM's sharded step at a world "
+        f"of one: {json.dumps(sharded)}")
+    bad = []
+    if abs(tr.flops - want["total"]) > TRACE_FLOP_TOL * want["total"]:
+        bad.append(f"FLOPs {tr.flops} vs analytic {want['total']}")
+    if flash != flash_want:
+        bad.append(f"flash FLOPs {flash} vs {flash_want}")
+    for kernel in FLASH_KERNELS:
+        if seen[kernel] != FULL["layers"] or counts[kernel] != FULL["layers"]:
+            bad.append(f"{kernel}: trace {seen[kernel]}, wrapper "
+                       f"{counts[kernel]}, want {FULL['layers']}")
+    if findings:
+        bad.append(f"lint findings {findings}")
+    for name, (got, dense) in checks["main"].items():
+        if got != dense or got <= 0:
+            bad.append(f"flop formula {name}: {got} vs dense {dense}")
+    if not tr.memory_high_water_bytes > 0:
+        bad.append("no allocation measured")
+    if bad:
+        raise AssertionError(f"phase 23: {bad}")
+    return summary, counts
+
+
 def _weights(served) -> dict:
     return {**dict(served.named_parameters()),
             **dict(served.named_buffers())}
@@ -6024,9 +6204,10 @@ def main() -> int:
     probe, probe_counts = timed("21 probe", phase_probe, torch)
     aot, aot_counts = timed("22 aot", phase_aot, torch, train, phase4,
                             memory)
+    traced, trace_counts = timed("23 trace", phase_trace, torch)
     for name, n in list(guard_counts.items()) + list(serve_counts.items()) \
             + list(graph_counts.items()) + list(probe_counts.items()) \
-            + list(aot_counts.items()):
+            + list(aot_counts.items()) + list(trace_counts.items()):
         counts[name] += n
     # the kernels line's kernel-6 row stays the tp phase's: its ms and
     # bound are the tp shapes'; phase 10 (b)'s launches and readings are
@@ -6080,6 +6261,7 @@ def main() -> int:
     log(f"graph summary [{CARD}]: {json.dumps(graph)}")
     log(f"probe summary [{CARD}]: {json.dumps(probe)}")
     log(f"aot summary [{CARD}]: {json.dumps(aot)}")
+    log(f"trace summary [{CARD}]: {json.dumps(traced)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,11 +1,13 @@
 """Cost model of the port: the hardware model, the exchange's wire bytes
-per level, plan pricing, the plan's memory high-water and the schedule
-scorers (a copy of layer 2 and the plan, memory and scoring parts of
-``horovod_tpu/analysis/cost_model.py``), all without a device.
+per level, a traced step's cost, plan pricing, the plan's memory
+high-water and the schedule scorers (layers 1 and 2 and the plan, memory
+and scoring parts of ``horovod_tpu/analysis/cost_model.py``), all without
+a device.
 
-The JAX module has two more layers that the port leaves out: the HLO
-accounting (``module_cost``, which parses XLA's HLO text) and the
-roofline calibrated from the repo's TPU bench artifacts.
+Layer 1 (``module_cost``, ``collective_wire_by_level``) reads a step's
+record (``utils/trace.StepTrace``) where the JAX module parses XLA's HLO
+text.  The JAX module's layer 3, the roofline calibrated from the repo's
+TPU bench artifacts, is not ported.
 
 Hardware presets.  The port carries two: :data:`H100` and
 :data:`CPU_TWIN`; the JAX package's ``v5e``/``v5p``/``v4`` are TPU
@@ -21,7 +23,8 @@ inside a node (NVLink between the cards of one host: the layout's
 ``local`` level) and ``dcn`` the network between nodes (the ``cross``
 level).
 
-Stdlib only: nothing here imports torch.
+Stdlib only at import: nothing here imports torch; layer 1 reads the
+stride of a recorded group through ``utils/trace`` when it is called.
 """
 
 from __future__ import annotations
@@ -374,6 +377,124 @@ def exchange_wire_by_level(payload_bytes: float,
                      * (float(payload_bytes) / inner) * width)
         inner *= extent
     return out
+
+
+# -- a traced step's cost (layer 1) -----------------------------------------
+
+
+def _op_wire_bytes(op, world: int) -> float:
+    """Per-rank wire bytes of one recorded collective
+    (``utils/trace.CollectiveOp``) from its bytes, JAX's convention: a
+    reduce-scatter's are its result per shard (input = bytes·g), an
+    all-reduce's and an all-gather's the full payload."""
+    g = op.group_size or world
+    if g <= 1:
+        return 0.0
+    if op.kind == "all-reduce":
+        return 2.0 * _ring_factor(g) * op.bytes
+    if op.kind == "reduce-scatter":
+        return (g - 1) * op.bytes
+    if op.kind in ("all-gather", "all-to-all"):
+        return _ring_factor(g) * op.bytes
+    # permute / broadcast: the payload crosses once
+    return float(op.bytes)
+
+
+def group_stride(ranks: Optional[Sequence[int]]) -> Optional[int]:
+    """The global-rank step between consecutive members of a group, or
+    None when unknown (no ranks, a group of one, uneven spacing): JAX's
+    ``replica_group_stride``.  On a row-major layout (the world's
+    ``(cross, local)`` layout, a ``TreeLayout``) level ℓ's groups step by
+    the product of the extents inside it, so levels of equal extent are
+    told apart by it."""
+    if not ranks or len(ranks) < 2:
+        return None
+    stride = ranks[1] - ranks[0]
+    if any(b - a != stride for a, b in zip(ranks, ranks[1:])):
+        return None
+    return stride
+
+
+def collective_wire_by_level(ops: Sequence,
+                             n_dcn: int = 1,
+                             n_ici: int = 1,
+                             topology: Optional[LevelSpec] = None
+                             ) -> Dict[str, float]:
+    """Attribute each recorded collective's wire bytes to a level of the
+    topology tree (JAX ``collective_wire_by_level``).  ``topology`` is an
+    innermost-first :data:`LevelSpec`; the default is the world's
+    ``(ici, dcn)`` layout, JAX's keys.
+
+    Level ℓ's groups on a row-major layout (the ``(cross, local)`` layout,
+    a ``TreeLayout``) have ``extentℓ`` ranks stepping by the product of the
+    extents inside it; an op is booked on the level whose size matches its
+    group's, the stride (:func:`group_stride` of its global ranks)
+    deciding between levels of equal extent.  Ops matching no level (a
+    world-sized flat collective) ride the innermost fabric."""
+    if topology is None:
+        n_dcn, n_ici = max(1, int(n_dcn)), max(1, int(n_ici))
+        topology = (("ici", n_ici, None), ("dcn", n_dcn, None))
+    triples = _level_triples(topology)
+    level_sig: List[Tuple[str, int, int]] = []   # (name, size, stride)
+    world = 1
+    for name, extent, _ in triples:
+        level_sig.append((name, extent, world))
+        world *= extent
+    innermost = triples[0][0]
+    out: Dict[str, float] = {name: 0.0 for name, _, _ in triples}
+    for op in ops:
+        stride = group_stride(op.ranks)
+        candidates = [(name, sz, st) for name, sz, st in level_sig
+                      if sz > 1 and op.group_size == sz]
+        level = innermost
+        if len(candidates) == 1 and (
+                stride is None or candidates[0][2] == stride):
+            level = candidates[0][0]
+        elif len(candidates) > 1:
+            for name, _, st in candidates:
+                if stride == st:
+                    level = name
+                    break
+        out[level] += _op_wire_bytes(op, world)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ModuleCost:
+    """The cost of one traced step (JAX ``ModuleCost``): its counted
+    FLOPs, its wire bytes by level, and its measured memory high-water
+    (JAX's is a static estimate)."""
+
+    flops: int                        # countable matmul-class FLOPs
+    wire_bytes: Dict[str, float]      # per-level collective bytes
+    memory_high_water_bytes: int      # measured peak above the step's start
+
+    def predicted_step_time_s(self, hw: HardwareModel = H100,
+                              overlap_fraction: float = 0.0,
+                              efficiency: float = 1.0) -> float:
+        """Roofline step time: compute at ``efficiency × peak`` plus the
+        exposed share of the wire time, the innermost level at the node's
+        fabric rate and every outer level at the network's
+        (:func:`level_bandwidths`' rule)."""
+        compute = self.flops / (hw.peak_flops_per_s * max(efficiency,
+                                                          1e-9))
+        wire = sum(b / (hw.ici_bytes_per_s if i == 0 else
+                        hw.dcn_bytes_per_s)
+                   for i, b in enumerate(self.wire_bytes.values()))
+        return compute + wire * (1.0 - overlap_fraction)
+
+
+def module_cost(trace, n_dcn: int = 1, n_ici: int = 1,
+                topology: Optional[LevelSpec] = None) -> ModuleCost:
+    """The three quantities the roofline needs from one traced step
+    (``utils/trace.StepTrace``, JAX ``module_cost`` over HLO text): its
+    FLOPs, its wire bytes by level of ``topology`` (default: the ``(ici,
+    dcn)`` layout of ``n_ici`` × ``n_dcn``) and its memory high-water."""
+    return ModuleCost(
+        flops=int(trace.flops),
+        wire_bytes=collective_wire_by_level(trace.ops, n_dcn=n_dcn,
+                                            n_ici=n_ici, topology=topology),
+        memory_high_water_bytes=int(trace.memory_high_water_bytes))
 
 
 def level_bandwidths(levels: LevelSpec,

@@ -44,6 +44,10 @@ Kernels (TPU source → op → CUDA source):
   blocked product with fp32 accumulation that the tensor-parallel ring ops
   (:mod:`.fused_collectives`) compute per tile; its own
   ``torch.autograd.Function`` runs dX and dW through it too.
+
+Each op but ``fused_scale`` has a flop formula
+(``torch.utils.flop_counter``, read by :mod:`~horovod_tpu_torch.utils.trace`)
+that counts the dense work it replaces, whatever its launch computes.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 #: the Pallas kernels' finite masking sentinel (pallas_kernels.py _NEG_INF)
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -933,6 +938,50 @@ CUDA_KERNELS = {"fused_scale": _fused_scale_cuda,
                 "cbr_bwd": _launch_cbr_bwd,
                 "pallas_matmul": _pallas_matmul_cuda,
                 "pallas_matmul_out": _pallas_matmul_out_cuda}
+
+
+# ---------------------------------------------------------------------------
+# FLOP formulas (torch.utils.flop_counter, read by utils/trace.py)
+# ---------------------------------------------------------------------------
+#
+# Each op counts what the dense computation it replaces counts, whatever
+# its launch computes: a step then counts the same FLOPs on the dense
+# path, the flash path and the card.  Attention follows torch's SDPA
+# convention (causal masking does not halve the count; the positions
+# variant counts alike); fused_scale has no formula: elementwise work
+# counts 0, as in JAX's op_flops.
+
+def _attention_product(q, k) -> int:
+    """2·B·h·t_q·t_k·d: one of attention's dense products, from the
+    ``(batch, seq, heads, head_dim)`` shapes of q and k."""
+    b, tq, h, d = q
+    return 2 * b * h * tq * k[1] * d
+
+
+@register_flop_formula([torch.ops.hvd_torch.flash_fwd,
+                        torch.ops.hvd_torch.flash_bwd_dq,
+                        torch.ops.hvd_torch.flash_bwd_dkv])
+def _flash_flops(q, k, *args, out_shape=None, **kwargs) -> int:
+    """Two products each: the forward's QKᵀ and PV; the backward's four
+    split as dP = dO·Vᵀ and dQ = dS·K (dQ kernel), dV = Pᵀ·dO and dK =
+    dSᵀ·Q (dK/dV kernel)."""
+    return 2 * _attention_product(q, k)
+
+
+@register_flop_formula(torch.ops.hvd_torch.cbr_bwd)
+def _cbr_bwd_flops(db, b, a, w, *args, out_shape=None, **kwargs) -> int:
+    """dgrad and wgrad of the 3x3 stride-1 conv, 2·N·H·W·Cin·C·9 each
+    (``a`` NHWC, ``w`` HWIO)."""
+    n, h, wd, cin = a
+    kh, kw, _, c = w
+    return 2 * (2 * n * h * wd * cin * c * kh * kw)
+
+
+@register_flop_formula([torch.ops.hvd_torch.pallas_matmul,
+                        torch.ops.hvd_torch.pallas_matmul_out])
+def _pallas_matmul_flops(x, w, *args, out_shape=None, **kwargs) -> int:
+    """2·M·N·K."""
+    return 2 * x[0] * x[1] * w[1]
 
 
 #: every kernel's launch counter, by the name chip_smoke.py and PERF.md

@@ -730,8 +730,9 @@ class DistributedTrainStep:
             return {k: shard(v) for k, v in batch.items()}
         return shard(batch)
 
-    @raise_internal("the training step")
-    def __call__(self, model: torch.nn.Module, optimizer, batch):
+    def _ready(self, model: torch.nn.Module) -> None:
+        """Check the world and that :meth:`init` wrapped the optimizer,
+        then write the MoE schedule into the model."""
         self._world = state.check_world(self._world,
                                         "this DistributedTrainStep")
         if self._wrap is not None:
@@ -741,6 +742,10 @@ class DistributedTrainStep:
                                "first and step with the optimizer it "
                                "returns")
         self._apply_moe_schedule(model)
+
+    @raise_internal("the training step")
+    def __call__(self, model: torch.nn.Module, optimizer, batch):
+        self._ready(model)
         tel_on = telemetry.enabled()
         t0 = time.perf_counter() if tel_on else 0.0
         first = next(iter(model.parameters()), None)
@@ -760,6 +765,36 @@ class DistributedTrainStep:
             self._tel_steps.inc(self._steps_per_call)
             telemetry.run_context().advance_step(self._steps_per_call)
         return model, optimizer, loss
+
+    @raise_internal("the training step")
+    def trace(self, model: torch.nn.Module, optimizer, batch):
+        """One optimizer step, traced: the counterpart of JAX's
+        ``compiled_text``, whose HLO the collective guards and the cost
+        model read.  Returns ``(loss, StepTrace)``
+        (:mod:`~horovod_tpu_torch.utils.trace`): every collective the step
+        issued, whatever module issued it, with its group's global ranks;
+        the FLOPs of its matmul class by op (the kernels count the dense
+        work they replace, a remat tier's recomputed forward counts
+        again); its measured memory high-water; and on a card its kernels,
+        streams and device intervals.
+
+        Unlike JAX's, it takes a real step: the parameters and the
+        optimizer's state advance as under :meth:`__call__`.  It runs one
+        eager step whatever ``steps_per_call`` is (no graph is captured or
+        replayed)."""
+        from horovod_tpu_torch.utils.trace import trace_call
+
+        self._ready(model)
+        cfg = getattr(model, "cfg", None)
+        sp = self.plan.sp if self.plan is not None and \
+            getattr(cfg, "attention_impl", None) == "ring" else 1
+        loss, tr = trace_call(self._one_step, model, optimizer, batch, sp=sp)
+        if telemetry.enabled():
+            # the step counts; its seconds under the profiler stay out of
+            # the step-time histogram
+            self._tel_steps.inc(1)
+            telemetry.run_context().advance_step(1)
+        return loss, tr
 
     def _one_step(self, model: torch.nn.Module, optimizer, batch):
         """One optimizer step (the eager step, and what a graph captures):

@@ -39,18 +39,22 @@ packing and unpacking of the buckets, and the fraction means little.
 
 Where JAX reads the exchange's structure from the compiled HLO, the port
 records the collectives that one call of the exchange-only program makes
-(:class:`_Recorder`): the distinct group sizes of its reduce-scatters and
-all-gathers, its all-reduces of at least the gradient payload, and its
-wire bytes by level.  ``serial_tail_collectives`` stays None: its
-counterpart is a rule over profiler traces, not ported yet.
+(:func:`~horovod_tpu_torch.utils.trace.record_collectives`): the distinct
+group sizes of its reduce-scatters and all-gathers, its all-reduces of at
+least the gradient payload, and its wire bytes by level (the cost model's
+``collective_wire_by_level``: the innermost level under JAX's ``ici``,
+the outer levels summed under ``dcn``).  ``serial_tail_collectives`` is
+read from one call of the fused program under the record and the profiler
+(``utils/trace.trace_collectives``), as JAX reads it from the fused
+program's HLO: 0 where no collective ran on a device (gloo, the CPU);
+None on a card where a reduce-scatter or all-gather got no device window.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -60,6 +64,7 @@ from horovod_tpu_torch.ops.collectives import Average, ReduceOp
 from horovod_tpu_torch.ops.fused_collectives import resolve_fused_collectives
 from horovod_tpu_torch.runtime import state
 from horovod_tpu_torch.runtime.topology import TreeLayout
+from horovod_tpu_torch.utils import trace as T
 
 
 @dataclasses.dataclass
@@ -82,7 +87,8 @@ class OverlapReport:
     # the final bucket's schedule: the port's sharded exchange has no
     # tile-fused tail, so always "off"
     fused_collectives: str = "off"
-    # JAX's HLO scan of the fused program's last RS/AG pair; None here
+    # 1 when the fused program's last RS/AG ran on the device with no
+    # compute beside it (JAX's HLO scan of the same program), else 0
     serial_tail_collectives: Optional[int] = None
     # two-level and tree: the innermost level's share of the exchange
     # time and the outer remainder (clamped at 0) — measured, not modeled
@@ -133,71 +139,6 @@ class OverlapReport:
             fields[f"{prefix}exchange_wire_bytes_dcn"] = \
                 int(self.wire_bytes_dcn or 0)
         return fields
-
-
-#: torch.distributed's entry points the exchange reaches, by collective
-#: kind (the newer names first, as ``ops/collectives`` picks them)
-_KINDS = {"reduce_scatter_single": "reduce-scatter",
-          "reduce_scatter_tensor": "reduce-scatter",
-          "all_gather_single": "all-gather",
-          "all_gather_into_tensor": "all-gather",
-          "all_reduce": "all-reduce"}
-
-
-class _Recorder:
-    """``torch.distributed`` as ``ops/collectives`` sees it while one call
-    is recorded: every attribute is the module's, and the collectives of
-    :data:`_KINDS` append ``(kind, group, group size, bytes)`` before they
-    run (bytes: a reduce-scatter's input, an all-gather's output, an
-    all-reduce's buffer: the whole payload of the call)."""
-
-    def __init__(self, real):
-        self._real = real
-        self.calls: List[Tuple[str, object, int, int]] = []
-
-    def __getattr__(self, name):
-        fn = getattr(self._real, name)
-        kind = _KINDS.get(name)
-        if kind is None:
-            return fn
-
-        def record(*args, **kwargs):
-            group = kwargs.get("group")
-            if kind == "reduce-scatter":
-                t = args[1] if len(args) > 1 else kwargs["input"]
-            elif kind == "all-gather":
-                t = args[0] if args else kwargs["output_tensor"]
-            else:
-                t = args[0] if args else kwargs["tensor"]
-                if group is None and len(args) > 2:
-                    group = args[2]
-            size = self._real.get_world_size(group)
-            self.calls.append((kind, group, size,
-                               t.numel() * t.element_size()))
-            return fn(*args, **kwargs)
-
-        return record
-
-
-@contextlib.contextmanager
-def _recording():
-    """Record the collectives ``ops/collectives`` issues inside the
-    block."""
-    rec = _Recorder(C.dist)
-    C.dist = rec
-    try:
-        yield rec
-    finally:
-        C.dist = rec._real
-
-
-def _wire_bytes(kind: str, g: int, nbytes: int) -> float:
-    """Per-rank wire bytes of one collective over ``g`` ranks whose whole
-    payload is ``nbytes`` (JAX ``cost_model._op_wire_bytes``: a ring)."""
-    if g <= 1:
-        return 0.0
-    ring = (g - 1) / g
-    return 2.0 * ring * nbytes if kind == "all-reduce" else ring * nbytes
 
 
 def _median_time(fn: Callable[[], torch.Tensor], iters: int,
@@ -342,18 +283,20 @@ def measure_overlap(loss_fn: Callable,
     resolve_fused_collectives(fused_collectives)
     pr = overlap_programs(loss_fn, params, batch, axis=axis, op=op,
                           bucket_bytes=bucket_bytes, hierarchy=hierarchy)
-    with _recording() as rec:
+    from horovod_tpu_torch.analysis import cost_model as CM
+
+    with T.record_collectives() as rec:
         pr.exchange_only()
-    scopes: dict = {}
-    for kind, _, size, _ in rec.calls:
-        scopes.setdefault(kind, set()).add(size)
-    inner_group = None if pr.levels is None else pr.levels[0].group
-    wire = {"ici": 0.0, "dcn": 0.0}
-    for kind, group, size, nbytes in rec.calls:
-        outer = pr.levels is not None and group is not inner_group
-        wire["dcn" if outer else "ici"] += _wire_bytes(kind, size, nbytes)
-    grad_ars = sum(1 for kind, _, _, nbytes in rec.calls
-                   if kind == "all-reduce" and nbytes >= pr.payload_bytes)
+    scopes = T.scopes_by_kind(rec.ops)
+    levels = [(f"level{i}", lv.extent) for i, lv in enumerate(pr.levels)] \
+        if pr.levels is not None else [("flat", state.global_state().size)]
+    by_level = list(CM.collective_wire_by_level(
+        rec.ops, topology=levels).values())
+    wire = {"ici": by_level[0], "dcn": sum(by_level[1:])}
+    grad_ars = sum(1 for o in rec.ops
+                   if o.kind == "all-reduce" and o.bytes >= pr.payload_bytes)
+    serial_tail = T.serial_tail_collectives(
+        T.trace_collectives(pr.fused)[1])
 
     # each program's time without the fingerprint pass and host read it
     # ends in
@@ -376,9 +319,10 @@ def measure_overlap(loss_fn: Callable,
         overlap_fraction=frac, world=state.global_state().size,
         payload_bytes=int(pr.payload_bytes), hierarchy=pr.mode,
         tail_exchange_s=tail_s, fused_collectives="off",
+        serial_tail_collectives=serial_tail,
         exchange_intra_s=t_intra, exchange_cross_s=t_cross,
-        rs_scopes=tuple(sorted(scopes.get("reduce-scatter", ()))),
-        ag_scopes=tuple(sorted(scopes.get("all-gather", ()))),
+        rs_scopes=scopes.get("reduce-scatter", ()),
+        ag_scopes=scopes.get("all-gather", ()),
         grad_sized_allreduces=grad_ars,
         wire_bytes_ici=int(wire["ici"]), wire_bytes_dcn=int(wire["dcn"]),
         device=str(state.global_state().device), fingerprint_s=t_fp)

@@ -954,6 +954,23 @@ class TestOnCard:
         assert max(out["rel"].values()) <= chip_smoke.SYNC_BN_TOL
         assert (out["allreduce_fwd"], out["allreduce_bwd"]) == (1, 1)
 
+    def test_flop_formulas_on_card(self, cuda):
+        """Phase 23's flop-formula check at small shapes: each kernel,
+        launched on the card, counts through its flop formula exactly the
+        FLOPs of the dense computation it replaces (attention's forward
+        and backward, kernel 5's conv backward, kernel 6's product), and
+        each launch is counted once."""
+        before = K.launch_counts()
+        got = chip_smoke.flop_check(torch, cuda,
+                                    **chip_smoke.FLOP_CHECK_SMALL)
+        after = K.launch_counts()
+        print(json.dumps(got))
+        for name, (kernel, dense) in got.items():
+            assert kernel == dense > 0, name
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "fused_conv_bn_relu_bwd", "pallas_matmul"):
+            assert after[name] > before[name], name
+
 
 @pytest.fixture
 def cards():
@@ -1451,7 +1468,14 @@ class TestNcclWorld:
         LM at 6 x 1024 tokens a rank over the ``(2, 2)`` layout and flat,
         every reading printed beside the card's name and power limit
         before any is checked.  (A tree of three levels of extent > 1
-        needs eight ranks: it is held on the gloo world of 8 only.)  Run
+        needs eight ranks: it is held on the gloo world of 8 only.)  Then
+        one traced step of the sharded optimizer on the same LM, two-level
+        over the ``(2, 2)`` layout and flat (``utils/trace.trace_call``):
+        no HLO001 or HLO004, one reduce-scatter level scope flat and two
+        two-level, the wire bytes by level the cost model's
+        ``exchange_wire_by_level`` for the payload carried, every
+        reduce-scatter and all-gather placed on the device, and the serial
+        tail 1 (0 on gloo), in the trace and in the probe's fields.  Run
         alone on four cards."""
         if cards < 4:
             pytest.skip("needs four CUDA cards")
@@ -1463,6 +1487,18 @@ class TestNcclWorld:
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip().splitlines()
         for rank, out in enumerate(card):
+            for how, tr in out["trace"].items():
+                print(f"rank {rank} [{smi[rank]}] 870.9M traced sharded "
+                      f"step {how}: kinds {tr['kinds']}, rs level scopes "
+                      f"{tr['rs_level_scopes']}, wire by level "
+                      f"{tr['wire']} (cost model {tr['model_wire']} for "
+                      f"the {tr['payload']} B payload), lint {tr['rules']}, "
+                      f"serial tail {tr['serial_tail']} (ops placed on "
+                      f"the device {tr['placed']} of {len(tr['ops'])}, the "
+                      f"last RS/AG window {tr['tail']}), "
+                      f"{tr['flops']} FLOPs, peak {tr['peak']} B above "
+                      f"the step's start, {tr['kernels']} kernels, "
+                      f"{tr['seconds']:.3f} s traced")
             for case, r in out["lm"].items():
                 print(f"rank {rank} [{smi[rank]}] small LM {case}: "
                       f"{r['mode']}, block {r['index']}, losses "
@@ -1512,6 +1548,34 @@ class TestNcclWorld:
                 assert all(rep["launches"][k] > 0 for k in (
                     "fused_scale", "flash_fwd", "flash_bwd_dq",
                     "flash_bwd_dkv")), rep["launches"]
+        # the traced sharded step (utils/trace): no gradient-sized
+        # all-reduce, one reduce-scatter level scope flat and two at
+        # two-level, the wire bytes by level the cost model's for the same
+        # payload; on the cards and on gloo.  The serial tail: 1 on the
+        # cards (every reduce-scatter and all-gather placed by its NCCL
+        # kernels; the exchange runs exposed after backward), 0 on gloo
+        for i, out in enumerate(card + gloo):
+            on_card = i < len(card)
+            for how, tr in out["trace"].items():
+                assert "HLO001" not in tr["rules"], (how, tr["rules"])
+                assert "HLO004" not in tr["rules"], (how, tr["rules"])
+                assert len(tr["rs_level_scopes"]) == \
+                    (2 if how == "two_level" else 1), tr["rs_level_scopes"]
+                assert tr["wire"].keys() == tr["model_wire"].keys()
+                for level, b in tr["model_wire"].items():
+                    assert tr["wire"][level] == pytest.approx(b, rel=1e-12)
+                assert tr["payload"] >= tr["grad_bytes"]
+                rs_ag = [o for o in tr["ops"]
+                         if o["kind"] in ("reduce-scatter", "all-gather")]
+                if on_card:
+                    assert all(o["interval"] is not None for o in rs_ag), \
+                        (how, tr["placed"], len(tr["ops"]))
+                assert tr["serial_tail"] == (1 if on_card else 0), \
+                    (how, tr["serial_tail"], tr["tail"])
+        for rank, out in enumerate(card):
+            for how, rep in out["probe"].items():
+                assert rep["fields"].get(
+                    "exchange_serial_tail_collectives") == 1, (how, rep)
 
     def test_sharded_kill_over_nccl(self, cards, tmp_path):
         """ROADMAP C 15 on four cards: the elastic launcher with two host

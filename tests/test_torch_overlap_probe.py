@@ -9,7 +9,9 @@ the conftest's CPU devices as a ``("dcn", "ici")`` mesh of 2 x 4
 tests/test_hierarchy_smoke.py).  The structure fields are compared, not
 the times: those are host times of two programs on the CPU.  JAX reads
 its structure from the compiled HLO, the port from a record of the
-exchange's collectives; ``serial_tail_collectives`` is JAX's alone."""
+exchange's collectives; ``serial_tail_collectives`` comes from JAX's HLO
+scan and from the port's trace of the fused program, 0 on both here (a
+synchronous schedule: XLA's CPU collectives, gloo)."""
 
 import dataclasses
 import types
@@ -29,8 +31,6 @@ from horovod_tpu_torch.utils import scaling as TS
 from torch_port_workers import mlp_batch, mlp_params, spawn_world
 
 WORLD_TIMEOUT_S = 300
-#: JAX's bench field that the port does not produce (A 23's rule)
-JAX_ONLY = {"exchange_serial_tail_collectives"}
 
 
 @pytest.fixture(scope="module")
@@ -123,15 +123,16 @@ class TestStructure:
 
     @pytest.mark.parametrize("hierarchy", ["auto", "flat"])
     def test_bench_fields_are_jaxs(self, probed, jax_probe, hierarchy):
-        """as_bench_fields: JAX's keys for the same hierarchy, but
-        serial_tail_collectives; the same string and list values."""
+        """as_bench_fields: JAX's keys for the same hierarchy; the same
+        string and list values, and the same serial tail (0)."""
         want = jax_probe[hierarchy].as_bench_fields()
         for rep in probed:
             got = rep[hierarchy]["fields"]
-            assert set(got) == set(want) - JAX_ONLY
+            assert set(got) == set(want)
             for k in ("exchange_hierarchy", "fused_collectives",
                       "exchange_rs_scopes",
-                      "exchange_grad_sized_allreduces"):
+                      "exchange_grad_sized_allreduces",
+                      "exchange_serial_tail_collectives"):
                 assert got[k] == want[k], k
 
     def test_fraction_in_range_and_tail(self, probed):
@@ -216,7 +217,7 @@ class TestWorldOfOne:
         assert rep.payload_bytes == sum(
             p.numel() * p.element_size() for p in model.parameters())
         assert rep.world == 1 and rep.device == "cpu"
-        assert rep.serial_tail_collectives is None
+        assert rep.serial_tail_collectives == 0
 
     @pytest.mark.parametrize("times,want", [
         ((0.0, 1.0, 1.0, 0.5), 1.0), ((0.0, 1.0, 1.0, 3.0), 0.0),

@@ -5747,4 +5747,283 @@ def run_tree_nccl(hvd, full: bool = False) -> dict:
                                    TreeLayout((2, 2), ("cross", "local")),
                                    "auto", **kw),
         "flat": _probe_report(hvd, model, batch, None, "flat", **kw)}
+    out["trace"] = {
+        "two_level": _traced_sharded_step(
+            model, batch, TreeLayout((2, 2), ("cross", "local")),
+            "two_level"),
+        "flat": _traced_sharded_step(model, batch, None, "flat")}
+    return out
+
+
+def _traced_sharded_step(model, batch, axis, hierarchy: str) -> dict:
+    """One step of the sharded optimizer (AdamW, ``axis``, ``hierarchy``)
+    on ``model``'s LM loss, traced (``utils/trace.trace_call``): the
+    recorded collectives as JSON, the level scopes of the reduce-scatters,
+    the wire bytes by level over the ``(local, cross)`` tree of the
+    ``(2, 2)`` layout (two-level) or the world's one level (flat) beside
+    the cost model's for the payload the innermost reduce-scatters carried,
+    the lint's rules and the serial tail."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import cost_model as CM
+    from horovod_tpu_torch.analysis.trace_lint import lint_trace
+    from horovod_tpu_torch.models.transformer import lm_loss
+    from horovod_tpu_torch.utils import trace as T
+
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4),
+        shard_optimizer_states=True, axis=axis, hierarchy=hierarchy)
+
+    def one():
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(model, batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    loss, tr = T.trace_call(one)
+    levels = (("local", 2), ("cross", 2)) if hierarchy == "two_level" \
+        else (("flat", hvd.size()),)
+    inner = [o for o in tr.ops if o.kind == "reduce-scatter"
+             and o.group_size == levels[0][1]
+             and T.group_stride(o.ranks) == 1]
+    payload = sum(o.bytes * o.group_size for o in inner)
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+    rules = [f.rule for f in lint_trace(tr, expect_hierarchy=hierarchy,
+                                        grad_bytes=grad_bytes)]
+    placed = [o for o in tr.ops if o.interval is not None]
+    tail = max((o for o in placed if o.kind in ("reduce-scatter",
+                                                "all-gather")),
+               key=lambda o: o.interval[0], default=None)
+    return dict(loss=float(loss), ops=[o.as_json() for o in tr.ops],
+                kinds=T.count_by_kind(tr.ops), placed=len(placed),
+                tail=None if tail is None else (tail.kind, tail.stream,
+                                                tail.interval),
+                rs_level_scopes=T.level_scopes_by_kind(tr.ops).get(
+                    "reduce-scatter", ()),
+                wire=CM.collective_wire_by_level(tr.ops, topology=levels),
+                model_wire=CM.exchange_wire_by_level(payload, levels),
+                payload=payload, grad_bytes=grad_bytes, rules=rules,
+                serial_tail=T.serial_tail_collectives(tr),
+                flops=tr.flops, peak=tr.memory_high_water_bytes,
+                kernels=len(tr.kernels), seconds=tr.seconds)
+
+
+# ---------------------------------------------------------------------------
+# the structure guards over a step's record (tests/test_torch_trace_guards.py)
+# ---------------------------------------------------------------------------
+
+#: bucket caps of the guards: below the largest leaf (several buckets), and
+#: above the whole payload (one bucket)
+HLO_GUARD_BUCKET = 128 * 1024
+ONE_BUCKET = 1 << 30
+#: the traced steps of the exchange family: name -> step options
+TRACE_EXCHANGE_CASES = {
+    "dp": {},
+    "sharded_flat": dict(shard_optimizer_states=True, hierarchy="flat",
+                         exchange_bucket_bytes=ONE_BUCKET),
+    "sharded_bucketed": dict(shard_optimizer_states=True, hierarchy="flat",
+                             exchange_bucket_bytes=HLO_GUARD_BUCKET),
+    "two_level": dict(shard_optimizer_states=True, hierarchy="two_level",
+                      exchange_bucket_bytes=ONE_BUCKET),
+    "two_level_int8": dict(shard_optimizer_states=True,
+                           hierarchy="two_level",
+                           exchange_bucket_bytes=ONE_BUCKET,
+                           compression="int8"),
+    "two_level_bucketed": dict(shard_optimizer_states=True,
+                               hierarchy="two_level",
+                               exchange_bucket_bytes=HLO_GUARD_BUCKET),
+}
+
+
+def hlo_guard_net():
+    """``tests/test_hlo_guards.py``'s Net: Dense(256), relu, Dense(256),
+    Dense(10) over 64 features, seeded."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.ReLU(),
+                              torch.nn.Linear(256, 256),
+                              torch.nn.Linear(256, 10))
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    return net
+
+
+def hlo_guard_loss(m, batch):
+    import torch.nn.functional as F
+
+    return F.cross_entropy(m(batch["x"]), batch["y"])
+
+
+def hlo_guard_batch() -> dict:
+    """The guards' global batch: 16 rows of 64 features and their labels."""
+    import torch
+
+    rng = np.random.RandomState(0)
+    return {"x": torch.from_numpy(rng.randn(16, 64).astype(np.float32)),
+            "y": torch.from_numpy(rng.randint(0, 10, 16).astype(np.int64))}
+
+
+def _trace_record(tr, **lint) -> dict:
+    """A trace as data the test process reads: its ops as JSON, the
+    unwaited works and the lint's rules."""
+    from horovod_tpu_torch.analysis.trace_lint import lint_trace
+
+    return dict(ops=[o.as_json() for o in tr.ops], unwaited=tr.unwaited,
+                rules=[f.rule for f in lint_trace(tr, **lint)])
+
+
+def _traced_hlo_guard_step(hvd, expect=None, **kw) -> dict:
+    """One traced DistributedTrainStep of :func:`hlo_guard_net` with ``kw``."""
+    import torch
+
+    model = hlo_guard_net()
+    if kw.get("compression"):
+        kw["compression"] = getattr(hvd.Compression, kw["compression"])
+    step = hvd.DistributedTrainStep(
+        hlo_guard_loss, torch.optim.SGD(model.parameters(), lr=0.1), **kw)
+    model, opt = step.init(model)
+    _, tr = step.trace(model, opt, step.shard_batch(hlo_guard_batch()))
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+    return dict(_trace_record(tr, expect_hierarchy=expect,
+                              grad_bytes=grad_bytes), grad_bytes=grad_bytes)
+
+
+def run_trace_exchange(hvd) -> dict:
+    """On a gloo world of 4 laid out 2 x 2: one traced step of each
+    :data:`TRACE_EXCHANGE_CASES` case."""
+    import torch
+
+    torch.set_num_threads(1)
+    out = {}
+    for name, kw in TRACE_EXCHANGE_CASES.items():
+        expect = kw.get("hierarchy")
+        out[name] = _traced_hlo_guard_step(hvd, expect=expect, **kw)
+    return out
+
+
+def run_trace_model_parallel(hvd) -> dict:
+    """On a gloo world of 4: the recorded collectives of an fsdp step
+    (``plan="fsdp=4"``), a tp block's forward (ColumnParallelDense →
+    RowParallelDense over tp = 4), the sp ring attention's forward and
+    backward (sp = 4), an sp step of the ring LM (``plan="sp=4"``), and the
+    expert exchange fused and unfused (ep = 4)."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as TT
+    from horovod_tpu_torch.ops.fused_collectives import expert_alltoall_ffn
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention
+    from horovod_tpu_torch.utils import trace as T
+
+    torch.set_num_threads(1)
+    out = {}
+    w, batch = fsdp_setup()
+    model = _fsdp_mlp()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in w.items()})
+    step = hvd.DistributedTrainStep(
+        lambda m, b: torch.mean((m(b["x"]) - b["y"]) ** 2),
+        torch.optim.SGD(model.parameters(), lr=0.1), plan="fsdp=4",
+        fsdp_min_weight_size=1)
+    model, opt = step.init(model)
+    _, tr = step.trace(model, opt, step.shard_batch(
+        {k: torch.from_numpy(v) for k, v in batch.items()}))
+    out["fsdp"] = dict(_trace_record(tr), grad_bytes=sum(
+        v.nbytes for v in w.values()))
+
+    tp = tp_mlp(make_parallel_mesh(tp=4).group("tp"))
+    x = torch.from_numpy(mp_mlp_batch()["x"])
+    with T.record_collectives() as rec:
+        y = tp(x)
+    out["tp"] = dict(ops=[o.as_json() for o in rec.ops],
+                     out_bytes=y.numel() * y.element_size())
+
+    rng = np.random.RandomState(hvd.rank())
+    q, k, v = (torch.from_numpy(rng.randn(2, 16, 4, 16).astype(np.float32))
+               .requires_grad_() for _ in range(3))
+    with T.record_collectives() as rec:
+        o = ring_attention(q, k, v, dist.group.WORLD, causal=False)
+    with T.record_collectives() as bwd:
+        torch.autograd.grad(o.sum(), (q, k, v))
+    out["sp_ring"] = dict(ops=[o.as_json() for o in rec.ops],
+                          bwd=[o.as_json() for o in bwd.ops])
+
+    mesh = make_parallel_mesh(sp=4)
+    cfg = TT.TransformerConfig(dtype=torch.float32, attention_impl="ring",
+                               **SP_TRAIN_SIZES)
+    lm = TT.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                          sp_group=mesh.group("sp"))
+
+    def sp_loss(m, b):
+        t = b["inputs"].shape[1]
+        logits = m(b["inputs"], mesh.index("sp") * t + torch.arange(t))
+        return torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), b["labels"].reshape(-1))
+
+    step = hvd.DistributedTrainStep(
+        sp_loss, torch.optim.SGD(lm.parameters(), lr=0.1), plan="sp=4",
+        mesh=mesh)
+    lm, opt = step.init(lm)
+    rows = torch.from_numpy(sp_train_rows())
+    _, tr = step.trace(lm, opt, step.shard_batch(
+        {"inputs": rows[:, :-1], "labels": rows[:, 1:]}))
+    out["sp_step"] = dict(_trace_record(tr), sp=tr.sp)
+
+    disp, w1, w2 = (torch.from_numpy(a[hvd.rank()])
+                    for a in ring_expert_inputs(hvd.size()))
+
+    def expert_fn(t):
+        return torch.einsum("ecf,efd->ecd", torch.relu(
+            torch.einsum("ecd,edf->ecf", t, w1)), w2)
+
+    for fused in (True, False):
+        with torch.no_grad(), T.record_collectives() as rec:
+            expert_alltoall_ffn(disp, expert_fn, dist.group.WORLD,
+                                fused=fused, params=(w1, w2))
+        out["ep_fused" if fused else "ep_unfused"] = dict(
+            ops=[o.as_json() for o in rec.ops])
+    return out
+
+
+def run_trace_tree(hvd) -> dict:
+    """On a gloo world of 8 laid out 2 x 4: one traced sharded step of
+    :func:`hlo_guard_net` two-level (auto) and flat, and one traced step of the
+    sharded optimizer over ``TreeLayout((2, 2, 2))``, fp32 and with the
+    int8 wire on its outermost level, each in one bucket."""
+    import torch
+
+    from horovod_tpu_torch.runtime.topology import TreeLayout
+    from horovod_tpu_torch.utils import trace as T
+
+    torch.set_num_threads(1)
+    out = {"two_level": _traced_hlo_guard_step(
+               hvd, expect="two_level", shard_optimizer_states=True,
+               exchange_bucket_bytes=ONE_BUCKET),
+           "flat": _traced_hlo_guard_step(
+               hvd, expect="flat", shard_optimizer_states=True,
+               hierarchy="flat", exchange_bucket_bytes=ONE_BUCKET)}
+    for name, kw in (("tree", {}), ("tree_int8",
+                                     {"compression": hvd.Compression.int8})):
+        model = hlo_guard_net()
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            shard_optimizer_states=True,
+            axis=TreeLayout(TREE_SHAPE, TREE_NAMES), hierarchy="tree",
+            exchange_bucket_bytes=ONE_BUCKET, **kw)
+        batch = {k: v[hvd.rank() * 2:(hvd.rank() + 1) * 2]
+                 for k, v in hlo_guard_batch().items()}
+
+        def one():
+            opt.zero_grad(set_to_none=True)
+            hlo_guard_loss(model, batch).backward()
+            opt.step()
+
+        _, tr = T.trace_call(one)
+        out[name] = _trace_record(tr)
     return out
